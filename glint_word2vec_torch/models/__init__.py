@@ -1,0 +1,30 @@
+"""Model layer of the port: the fitted word2vec model and its loader."""
+
+import json
+import os
+
+from glint_word2vec_torch.device import DeviceLike
+
+
+def load_model(path: str, device: DeviceLike = None):
+    """Load a saved word2vec model directory (written by either package),
+    dispatching on its ``params.json``. A fastText model (its params carry
+    ``bucket``) is refused: the port serves word2vec only for now."""
+    params_path = os.path.join(path, "params.json")
+    try:
+        with open(params_path) as f:
+            meta = json.load(f)
+    except FileNotFoundError:
+        raise FileNotFoundError(f"no model at {path!r} (missing params.json)")
+    except OSError as e:
+        raise ValueError(f"cannot read model metadata at {params_path}: {e}")
+    except json.JSONDecodeError as e:
+        raise ValueError(f"corrupt model metadata at {params_path}: {e}")
+    if "bucket" in meta:
+        raise ValueError(
+            f"{path} holds a fastText model; the PyTorch port loads "
+            "word2vec models only (fastText is a later part of the port)"
+        )
+    from glint_word2vec_torch.models.word2vec import Word2VecModel
+
+    return Word2VecModel.load(path, device=device)

@@ -1,0 +1,537 @@
+"""The embedding engine of the port (counterpart of
+``glint_word2vec_tpu/parallel/engine.py``), single device, ``rows`` layout.
+
+It owns the two tables, ``syn0`` and ``syn1``, as ``[padded_vocab, dim]``
+tensors on one device in fp32 or bf16 storage, and answers the query
+surface the serving path needs: ``pull`` and ``pull_average`` through the
+hand-written row gather (``ops/rows.py``), ``norms``, ``multiply`` and the
+cosine top-k, whose matrix products and ``topk`` are plain torch calls, as
+the JAX package leaves them to XLA. Every computation is in fp32 whatever
+the storage dtype.
+
+Checkpoints use the JAX package's on-disk layout (``engine.json``,
+``counts.npy``, ``.npy`` table blocks, ``manifest.json`` and the per-shard
+sidecars), so either package loads what the other saved. Loading reads
+every form the JAX package writes: ``single`` files, ``sharded`` row blocks
+``r…`` and ``dims`` column blocks ``c…``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from glint_word2vec_torch.device import DeviceLike, resolve_device
+from glint_word2vec_torch.ops.rows import gather_rows
+from glint_word2vec_torch.utils import integrity, next_pow2
+
+#: Floor of the top-k k-bucket family (``engine.py:259`` of the JAX
+#: package): a request for k rows fetches ``max(next_pow2(k), 16)`` and
+#: truncates, so every small k runs the same shapes.
+TOPK_MIN_K_BUCKET = 16
+
+#: Floor of the batched top-k Q-bucket family for Q > 1 (``engine.py:267``):
+#: batches of 2..7 queries pad to 8 zero rows.
+TOPK_MIN_Q_BUCKET = 8
+
+#: Rows a table block moves between host and device at a time, so loading
+#: or saving a large table never holds more than one such slice in fp32 on
+#: the host besides the memory-mapped file.
+_IO_ROWS = 1 << 20
+
+#: Rows of a bf16 table upcast to fp32 at a time for the query products,
+#: so a query never materialises a whole fp32 copy of the table.
+_SCORE_ROWS = 1 << 20
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _fsync_dir(dirpath: str) -> None:
+    """Make renames inside ``dirpath`` durable; best-effort (some
+    filesystems refuse directory fsync)."""
+    try:
+        dfd = os.open(dirpath, os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+    except OSError:
+        pass
+
+
+class EmbeddingEngine:
+    """Owns ``syn0``/``syn1`` on one device and all queries against them.
+
+    Args:
+      vocab_size: unpadded vocabulary size.
+      dim: embedding dimension.
+      counts: per-word corpus counts, shape ``(vocab_size,)``; saved with
+        the tables (training's noise distribution is built from them).
+      num_negatives / unigram_power / unigram_table_size /
+        shared_negatives: noise geometry, carried into ``engine.json``.
+      seed: seed of the ``torch.Generator`` that draws the initial syn0.
+      dtype: table storage dtype, ``"float32"`` or ``"bfloat16"``.
+      extra_rows: non-vocabulary rows after the vocabulary (masked from
+        every similarity query unless assigned).
+      device: ``None`` for the CUDA card (raises without one), ``"cpu"``
+        or ``"cuda[:n]"``.
+    """
+
+    def __init__(
+        self,
+        vocab_size: int,
+        dim: int,
+        counts: np.ndarray,
+        *,
+        num_negatives: int = 5,
+        unigram_power: float = 0.75,
+        unigram_table_size: Optional[int] = None,
+        seed: int = 1,
+        dtype: str = "float32",
+        extra_rows: int = 0,
+        shared_negatives: int = 0,
+        device: DeviceLike = None,
+    ):
+        if vocab_size <= 0 or dim <= 0:
+            raise ValueError("vocab_size and dim must be > 0")
+        counts = np.asarray(counts)
+        if counts.shape != (vocab_size,):
+            raise ValueError("counts must have shape (vocab_size,)")
+        if extra_rows < 0:
+            raise ValueError("extra_rows must be >= 0")
+        if dtype not in _DTYPES:
+            raise ValueError("dtype must be float32|bfloat16")
+        self.device = resolve_device(device)
+        self.vocab_size = int(vocab_size)
+        self.num_rows = int(vocab_size) + int(extra_rows)
+        self.dim = int(dim)
+        self.num_negatives = int(num_negatives)
+        self.unigram_power = float(unigram_power)
+        self.unigram_table_size = unigram_table_size
+        self.shared_negatives = int(shared_negatives)
+        self.dtype = dtype
+        self._dtype = _DTYPES[dtype]
+        # One device holds every row: no model-axis padding.
+        self.padded_vocab = self.num_rows
+        self._counts = counts.astype(np.int64).copy()
+        #: Extra rows assigned to words (streaming growth); they are
+        #: queryable, the rest of the extra rows are not.
+        self.extra_rows_assigned = 0
+        self._norms_cache: Optional[torch.Tensor] = None
+        #: Ticks on every table mutation: the token the serving result
+        #: cache validates against.
+        self.table_version = 0
+        # word2vec's initial tables: syn0 ~ U[-0.5/d, 0.5/d), syn1 = 0.
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        syn0 = torch.rand(
+            (self.num_rows, self.dim), generator=gen, device=self.device
+        )
+        self.syn0 = ((syn0 - 0.5) / self.dim).to(self._dtype)
+        self.syn1 = torch.zeros(
+            (self.num_rows, self.dim), dtype=self._dtype, device=self.device
+        )
+
+    # ------------------------------------------------------------------
+    # Bookkeeping
+    # ------------------------------------------------------------------
+
+    @property
+    def cols(self) -> int:
+        """Column count == vector size."""
+        return self.dim
+
+    @property
+    def queryable_rows(self) -> int:
+        """Rows the similarity ops may surface: the vocabulary plus every
+        assigned extra row."""
+        return self.vocab_size + self.extra_rows_assigned
+
+    def _tick_tables(self) -> None:
+        """One table mutation: drop the norms cache and tick
+        ``table_version``."""
+        self._norms_cache = None
+        self.table_version += 1
+
+    def _k_bucket(self, k: int) -> int:
+        return min(max(next_pow2(k), TOPK_MIN_K_BUCKET), self.padded_vocab)
+
+    def _q_bucket(self, n: int) -> int:
+        return 1 if n <= 1 else max(next_pow2(n), TOPK_MIN_Q_BUCKET)
+
+    def _ids(self, indices) -> torch.Tensor:
+        return torch.as_tensor(
+            np.asarray(indices, dtype=np.int32)
+        ).to(self.device)
+
+    # ------------------------------------------------------------------
+    # Queries
+    # ------------------------------------------------------------------
+
+    def _pull_rows(self, idx: torch.Tensor) -> torch.Tensor:
+        """fp32 rows of syn0 for int32 ``idx`` on the engine's device: ids
+        outside the table are clipped for the gather and their rows
+        zeroed, as ``_pull_rows`` of the JAX engine does around its
+        kernel."""
+        own = (idx >= 0) & (idx < self.padded_vocab)
+        clipped = idx.clamp(0, self.padded_vocab - 1).contiguous()
+        rows = gather_rows(self.syn0, clipped)
+        return torch.where(own[:, None], rows, 0.0)
+
+    def pull(self, indices) -> torch.Tensor:
+        """syn0 rows by global index, ``(N, dim)`` fp32 on the device."""
+        return self._pull_rows(self._ids(indices).reshape(-1))
+
+    def pull_average(self, sentence_indices, mask) -> torch.Tensor:
+        """Masked mean of syn0 rows per row of a padded ``(S, L)`` index
+        block: ``(S, dim)`` fp32. All-masked rows give zero vectors."""
+        idx = self._ids(sentence_indices)
+        if idx.dim() != 2:
+            raise ValueError("sentence_indices must be (S, L)")
+        m = torch.as_tensor(np.asarray(mask, dtype=np.float32)).to(self.device)
+        S, L = idx.shape
+        rows = self._pull_rows(idx.reshape(-1)).reshape(S, L, self.dim)
+        rows = rows * m[..., None]
+        return rows.sum(dim=1) / m.sum(dim=1)[:, None].clamp(min=1.0)
+
+    def norms(self) -> torch.Tensor:
+        """Euclidean norm of every syn0 row, ``(padded_vocab,)`` fp32,
+        cached until the next table mutation."""
+        if self._norms_cache is None:
+            self._norms_cache = torch.cat([
+                self.syn0[s : s + _SCORE_ROWS].float().square().sum(dim=1)
+                for s in range(0, self.padded_vocab, _SCORE_ROWS)
+            ]).sqrt()
+        return self._norms_cache
+
+    def _scores(self, q: torch.Tensor) -> torch.Tensor:
+        """``syn0 @ q.T`` in fp32 for a ``(Q, d)`` fp32 query block,
+        ``(padded_vocab, Q)``. A bf16 table is upcast one row slice at a
+        time."""
+        if self._dtype == torch.float32:
+            return self.syn0 @ q.T
+        return torch.cat([
+            self.syn0[s : s + _SCORE_ROWS].float() @ q.T
+            for s in range(0, self.padded_vocab, _SCORE_ROWS)
+        ])
+
+    def multiply(self, vec) -> torch.Tensor:
+        """``syn0 @ vec``, ``(padded_vocab,)`` fp32."""
+        v = np.asarray(vec, dtype=np.float32)
+        if v.shape != (self.dim,):
+            raise ValueError(f"vec must have shape ({self.dim},)")
+        return self._scores(torch.from_numpy(v).to(self.device)[None, :])[:, 0]
+
+    def _mask_terms(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(inv, neg) over every row: the reciprocal norm (0 where
+        masked) and 0 or -inf, so a masked cosine is ``s * inv + neg``.
+        Zero-norm rows and rows at or past ``queryable_rows`` are masked:
+        only real words surface from similarity search."""
+        norms = self.norms()
+        ok = (norms > 0) & (
+            torch.arange(self.padded_vocab, device=self.device)
+            < self.queryable_rows
+        )
+        inv = torch.where(ok, 1.0 / torch.where(norms > 0, norms, 1.0), 0.0)
+        neg = torch.where(ok, 0.0, float("-inf"))
+        return inv, neg
+
+    def top_k_cosine(self, vec, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Top-k rows of syn0 by cosine similarity to ``vec``:
+        ``(similarities, indices)`` as host arrays of length k."""
+        if not 0 < k <= self.padded_vocab:
+            raise ValueError(f"k must be in [1, {self.padded_vocab}]")
+        v = np.asarray(vec, dtype=np.float32)
+        nrm = float(np.linalg.norm(v))
+        if nrm > 0:
+            v = v / nrm
+        k_b = self._k_bucket(k)
+        scores = self._scores(torch.from_numpy(v).to(self.device)[None, :])[:, 0]
+        inv, neg = self._mask_terms()
+        val, idx = torch.topk(scores * inv + neg, k_b)
+        return val[:k].cpu().numpy(), idx[:k].cpu().numpy()
+
+    def top_k_cosine_batch(self, vecs, k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Batched :meth:`top_k_cosine`: ``(Q, d)`` queries give ``(Q, k)``
+        similarities and indices, one matrix product and one ``topk``."""
+        if not 0 < k <= self.padded_vocab:
+            raise ValueError(f"k must be in [1, {self.padded_vocab}]")
+        q = np.asarray(vecs, dtype=np.float32)
+        if q.ndim != 2 or q.shape[1] != self.dim:
+            raise ValueError(f"vecs must have shape (Q, {self.dim})")
+        nrm = np.linalg.norm(q, axis=1, keepdims=True)
+        q = q / np.where(nrm > 0, nrm, 1.0)
+        n = q.shape[0]
+        if n == 0:
+            empty = np.zeros((0, k))
+            return empty.astype(np.float32), empty.astype(np.int64)
+        # Pad Q to its bucket with zero rows (each query ranks on its own,
+        # so padding never changes a real row's result).
+        q_b = self._q_bucket(n)
+        if q_b != n:
+            q = np.concatenate([q, np.zeros((q_b - n, self.dim), np.float32)])
+        scores = self._scores(torch.from_numpy(q).to(self.device)).T
+        inv, neg = self._mask_terms()
+        val, idx = torch.topk(scores * inv[None, :] + neg[None, :], self._k_bucket(k))
+        return val[:n, :k].cpu().numpy(), idx[:n, :k].cpu().numpy()
+
+    def warmup(
+        self,
+        q_buckets=(1, 2, 4, 8, 16, 32, 64),
+        k_buckets=(TOPK_MIN_K_BUCKET,),
+        *,
+        sentence_lens=(),
+        sentence_rows=(1,),
+    ) -> int:
+        """Run every query shape the serving path dispatches once, so the
+        first real request pays no kernel build, library load or library
+        handle set-up. Returns the number of dispatches made."""
+        n = 0
+        d = self.dim
+        ks = sorted({self._k_bucket(int(k)) for k in k_buckets})
+        for k in ks:
+            self.top_k_cosine(np.zeros(d, np.float32), k)
+            n += 1
+        for q in sorted({next_pow2(int(q)) for q in q_buckets}):
+            self.pull(np.zeros(q, np.int32))
+            n += 1
+        for q in sorted({self._q_bucket(int(q)) for q in q_buckets}):
+            for k in ks:
+                self.top_k_cosine_batch(np.zeros((q, d), np.float32), k)
+                n += 1
+        for s in sorted({next_pow2(int(s)) for s in sentence_rows}):
+            for L in sorted({next_pow2(int(L)) for L in sentence_lens}):
+                self.pull_average(
+                    np.zeros((s, L), np.int32), np.zeros((s, L), np.float32)
+                )
+                n += 1
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return n
+
+    # ------------------------------------------------------------------
+    # Persistence
+    # ------------------------------------------------------------------
+
+    def _save_meta(self, mode: str) -> dict:
+        return {
+            "format": mode,
+            "layout": "rows",
+            "vocab_size": self.vocab_size,
+            "dim": self.dim,
+            "num_negatives": self.num_negatives,
+            "unigram_power": self.unigram_power,
+            "unigram_table_size": self.unigram_table_size,
+            "extra_rows": self.num_rows - self.vocab_size,
+            "extra_rows_assigned": self.extra_rows_assigned,
+            "dtype": self.dtype,
+            "shared_negatives": self.shared_negatives,
+        }
+
+    def _host_table(self, table: torch.Tensor) -> np.ndarray:
+        """The first ``num_rows`` rows of a table as a host fp32 array."""
+        out = np.empty((self.num_rows, self.dim), np.float32)
+        for s in range(0, self.num_rows, _IO_ROWS):
+            e = min(s + _IO_ROWS, self.num_rows)
+            out[s:e] = table[s:e].float().cpu().numpy()
+        return out
+
+    def save(self, path: str, mode: str = "sharded") -> None:
+        """Write both tables, ``counts.npy``, ``engine.json`` and the
+        integrity manifests in the JAX package's layout.
+
+        ``mode="sharded"`` writes one row block per table (this engine
+        holds all rows on one device: ``syn0.r000000000000.npy``) with its
+        sidecar manifest; ``mode="single"`` writes ``syn0.npy`` and
+        ``syn1.npy``. A fresh ``path`` is written as a temp directory and
+        committed with one rename; an existing ``path`` is updated file by
+        file through temp + ``os.replace``, ``engine.json`` and
+        ``manifest.json`` last. ``GLINT_CKPT_NO_FSYNC=1`` skips the fsyncs,
+        as it does for the JAX package."""
+        if mode not in ("sharded", "single"):
+            raise ValueError("mode must be 'sharded' or 'single'")
+        fsync = os.environ.get("GLINT_CKPT_NO_FSYNC", "0") != "1"
+        meta = self._save_meta(mode)
+        shard_files = []
+        if mode == "sharded":
+            meta["shards"] = {}
+            for name in ("syn0", "syn1"):
+                fname = f"{name}.r{0:012d}.npy"
+                meta["shards"][name] = [{
+                    "file": fname, "start": 0, "stop": self.num_rows,
+                    "axis": "rows",
+                }]
+                shard_files.append(fname)
+            files = list(zip(shard_files, ("syn0", "syn1")))
+        else:
+            files = [("syn0.npy", "syn0"), ("syn1.npy", "syn1")]
+
+        def put(dirpath: str, fname: str, write) -> None:
+            tmp_f = os.path.join(dirpath, f"{fname}.tmp.{os.getpid()}")
+            with open(tmp_f, "wb") as f:
+                write(f)
+                if fsync:
+                    f.flush()
+                    os.fsync(f.fileno())
+            os.replace(tmp_f, os.path.join(dirpath, fname))
+
+        fresh = not os.path.exists(path)
+        target = f"{path}.tmp-{os.getpid()}" if fresh else path
+        if fresh:
+            shutil.rmtree(target, ignore_errors=True)
+            os.makedirs(target)
+        for fname, name in files:
+            arr = self._host_table(getattr(self, name))
+            put(target, fname, lambda f, a=arr: np.save(f, a))
+            del arr
+            if fname in shard_files:
+                integrity.write_shard_manifest(
+                    target, fname,
+                    integrity.build_shard_manifest(
+                        target, fname, self.table_version
+                    ),
+                    fsync=fsync,
+                )
+        put(target, "counts.npy",
+            lambda f: np.save(f, np.asarray(self._counts, np.int64)))
+        put(target, "engine.json", lambda f: f.write(json.dumps(meta).encode()))
+        manifest = integrity.build_manifest(
+            target,
+            [f for f, _ in files if f not in shard_files]
+            + ["counts.npy", "engine.json"],
+            self.table_version,
+            table_dtype=self.dtype,
+        )
+        if shard_files:
+            manifest.update(version=2, shard_files=sorted(shard_files))
+        integrity.write_manifest(target, manifest, fsync=fsync)
+        if fsync:
+            _fsync_dir(target)
+        if fresh:
+            os.rename(target, path)
+            if fsync:
+                _fsync_dir(os.path.dirname(os.path.abspath(path)))
+
+    @classmethod
+    def load(cls, path: str, device: DeviceLike = None) -> "EmbeddingEngine":
+        """Rebuild an engine from a saved directory of either package,
+        any format or layout, onto one device."""
+        with open(os.path.join(path, "engine.json")) as f:
+            meta = json.load(f)
+        counts = np.load(os.path.join(path, "counts.npy"))
+        eng = cls(
+            meta["vocab_size"],
+            meta["dim"],
+            counts,
+            num_negatives=meta["num_negatives"],
+            unigram_power=meta.get("unigram_power", 0.75),
+            unigram_table_size=meta.get("unigram_table_size"),
+            dtype=meta["dtype"],
+            extra_rows=meta.get("extra_rows", 0),
+            shared_negatives=meta.get("shared_negatives", 0),
+            device=device,
+        )
+        eng.load_tables(path)
+        return eng
+
+    def load_tables(self, path: str) -> None:
+        """Install the tables of a saved directory: :meth:`stage_tables`
+        then :meth:`adopt_tables`."""
+        self.adopt_tables(self.stage_tables(path))
+
+    def stage_tables(self, path: str) -> dict:
+        """Read a saved directory into new device tensors without touching
+        the live tables. ``manifest.json`` and the shard sidecars are
+        checked first: any mismatch or a partial directory raises
+        :class:`~glint_word2vec_torch.utils.integrity.CheckpointCorruptError`
+        (a directory with no manifest loads unverified). Raises
+        ``ValueError`` when the saved geometry differs from this
+        engine's."""
+        integrity.verify_snapshot_dir(path)
+        with open(os.path.join(path, "engine.json")) as f:
+            meta = json.load(f)
+        if (meta["vocab_size"], meta.get("extra_rows", 0), meta["dim"]) != (
+            self.vocab_size, self.num_rows - self.vocab_size, self.dim
+        ):
+            raise ValueError(
+                f"checkpoint at {path} has geometry "
+                f"(V={meta['vocab_size']}, extra={meta.get('extra_rows', 0)}, "
+                f"d={meta['dim']}), engine has (V={self.vocab_size}, "
+                f"extra={self.num_rows - self.vocab_size}, d={self.dim})"
+            )
+        fmt = meta.get("format", "single")
+        staged = {"meta": meta}
+        for name in ("syn0", "syn1"):
+            # Source blocks as (row range, col range, data): row blocks of
+            # the rows layout, column blocks of the dims layout, or one
+            # whole-table file.
+            if fmt == "sharded":
+                blocks = []
+                for b in meta["shards"][name]:
+                    data = np.load(os.path.join(path, b["file"]), mmap_mode="r")
+                    if b.get("axis", "rows") == "rows":
+                        blocks.append(
+                            ((b["start"], b["stop"]), (0, data.shape[1]), data)
+                        )
+                    else:
+                        blocks.append(
+                            ((0, data.shape[0]), (b["start"], b["stop"]), data)
+                        )
+            else:
+                arr = np.load(os.path.join(path, f"{name}.npy"), mmap_mode="r")
+                blocks = [((0, arr.shape[0]), (0, arr.shape[1]), arr)]
+            table = torch.zeros(
+                (self.padded_vocab, self.dim), dtype=self._dtype,
+                device=self.device,
+            )
+            for (r0, r1), (c0, c1), data in blocks:
+                r1, c1 = min(r1, self.num_rows), min(c1, self.dim)
+                for s in range(r0, r1, _IO_ROWS):
+                    e = min(s + _IO_ROWS, r1)
+                    part = np.array(data[s - r0 : e - r0, : c1 - c0], np.float32)
+                    # fp32 -> storage dtype on the device rounds to nearest
+                    # even, as the JAX package's astype does.
+                    table[s:e, c0:c1] = torch.from_numpy(part).to(
+                        self.device
+                    ).to(self._dtype)
+            staged[name] = table
+        return staged
+
+    def adopt_tables(self, staged: dict) -> None:
+        """Make a :meth:`stage_tables` result the live tables: two
+        attribute flips and one ``table_version`` tick."""
+        self.syn0 = staged["syn0"]
+        self.syn1 = staged["syn1"]
+        self.extra_rows_assigned = int(
+            staged["meta"].get("extra_rows_assigned", 0)
+        )
+        self._tick_tables()
+
+    def set_tables(self, syn0, syn1) -> None:
+        """Install a copy of the given table values (all ``num_rows``
+        rows), host arrays or tensors on any device, rounded through fp32
+        to the storage dtype."""
+        if tuple(syn0.shape) != (self.num_rows, self.dim):
+            raise ValueError("syn0 shape mismatch")
+        if tuple(syn1.shape) != (self.num_rows, self.dim):
+            raise ValueError("syn1 shape mismatch")
+        for name, arr in (("syn0", syn0), ("syn1", syn1)):
+            if not isinstance(arr, torch.Tensor):
+                arr = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
+            t = arr.to(self.device, torch.float32)
+            setattr(self, name, t.to(self._dtype, copy=True).contiguous())
+        self._tick_tables()
+
+    def release_tables(self) -> None:
+        """Free the tables' device memory; :meth:`load_tables` (or
+        :meth:`set_tables`) makes the engine answer again."""
+        self.syn0 = self.syn1 = None
+        self._tick_tables()
+
+    def destroy(self) -> None:
+        """Free every device buffer of the engine."""
+        self.release_tables()

@@ -1,0 +1,415 @@
+"""Serving a saved model over HTTP (counterpart of
+``glint_word2vec_tpu/serving.py``, single model).
+
+Endpoints (JSON in and out, stdlib server), with the JAX package's request
+and response shapes and status codes:
+
+  GET  /healthz            -> {"status": "ok", "vocab_size": V, "dim": d, ...}
+  POST /synonyms           {"word": w, "num": k}
+  POST /synonyms_vector    {"vector": [...], "num": k}
+  POST /analogy            {"positive": [...], "negative": [...], "num": k}
+  POST /vector             {"word": w}            (OOV -> 404)
+  POST /transform          {"sentences": [[w, ...], ...]}  (OOV dropped)
+  POST /shutdown           stops the server
+
+An out-of-vocabulary word answers 404 and a bad ``num`` 400. Device work
+is serialised by one lock. Concurrent ``/synonyms`` and
+``/synonyms_vector`` requests are coalesced: whichever waiting thread
+takes the lock next answers every pending request with one pull and one
+batched top-k per ``max_batch`` chunk. Results of word queries are cached
+by ``(word, num)`` until the engine's ``table_version`` moves. The server
+runs every query shape once (``warmup``) before it binds its port.
+
+Start from the CLI:  python -m glint_word2vec_torch.cli serve --model DIR
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+from urllib.parse import urlparse
+
+import numpy as np
+
+from glint_word2vec_torch.device import DeviceLike, device_name
+from glint_word2vec_torch.models.word2vec import MAX_QUERY_ROWS
+from glint_word2vec_torch.utils import atomic_write_json, next_pow2
+
+logger = logging.getLogger(__name__)
+
+#: Name of the one model a server holds (the JAX server's default model).
+DEFAULT_MODEL_ID = "default"
+
+#: The warmed serving shapes: k buckets 16 and 32 (num < 16 rounds into
+#: 16; num in [16, 31], fetching num+1, into 32) and the transform grid of
+#: sentence rows x lengths, all powers of two as the model pads them.
+WARM_KS = (16, 32)
+WARM_SENTENCE_LENS = (1, 2, 4, 8, 16, 32, 64)
+WARM_SENTENCE_ROWS = (1, 2, 4, 8, 16)
+
+#: Seconds a coalescing leader waits for more requests of a burst before
+#: it dispatches (only when it already drained two or more).
+_BATCH_GRACE_S = 0.002
+
+
+def _pull_coalesced(engine, idx: np.ndarray) -> np.ndarray:
+    """Word rows for a coalesced batch, ``MAX_QUERY_ROWS`` at a time, each
+    chunk padded with row 0 to its power-of-two bucket and sliced back."""
+    out = np.empty((idx.shape[0], engine.dim), np.float32)
+    for s in range(0, idx.shape[0], MAX_QUERY_ROWS):
+        sub = idx[s : s + MAX_QUERY_ROWS]
+        n = sub.shape[0]
+        n_b = next_pow2(n)
+        if n_b != n:
+            sub = np.concatenate([sub, np.zeros(n_b - n, np.int32)])
+        out[s : s + n] = engine.pull(sub).cpu().numpy()[:n]
+    return out
+
+
+class _SynonymCoalescer:
+    """Leader-elected micro-batching for the synonym endpoints.
+
+    Every request lands in a pending list; whichever thread next takes
+    the device lock becomes leader, drains the list, answers all of it
+    with one pull plus one batched top-k per ``max_batch`` chunk, and
+    wakes the waiters. Exclusion semantics match ``find_synonyms``
+    (fetch num+1, drop the query word, truncate)."""
+
+    def __init__(self, model, device_lock, max_batch: int = 64,
+                 cache_size: int = 65536):
+        self.model = model
+        self.device_lock = device_lock
+        #: Dispatch cap, a power of two so chunks fall on the Q buckets.
+        self.max_batch = next_pow2(max(1, int(max_batch)))
+        #: Bounded ``(word, num)`` -> result cache, emptied whenever the
+        #: engine's ``table_version`` moves; FIFO eviction, 0 disables.
+        self.cache_size = max(0, int(cache_size))
+        self._cache: dict = {}
+        self._cache_version = None
+        self._mu = threading.Lock()
+        self._pending: list = []
+        #: Dispatch counts for ``/healthz``: batched dispatches, requests
+        #: they answered, the largest batch, and cache hits.
+        self.stats = {"dispatches": 0, "requests": 0, "largest_batch": 0,
+                      "cache_hits": 0}
+
+    def query(self, word=None, vector=None, num: int = 10):
+        if num <= 0:
+            # find_synonyms(w, num) looks the word up first (OOV -> 404),
+            # then fetches num+1: num=0 with a known word is [], num<0 a
+            # 400. The vector endpoint always refuses num <= 0.
+            if word is not None:
+                if word not in self.model.vocab.word_index:
+                    raise KeyError(f"word {word!r} not in vocabulary")
+                if num == 0:
+                    return []
+            raise ValueError("num must be > 0")
+        if word is not None and self.cache_size:
+            with self._mu:
+                self._cache_sync_locked()
+                hit = self._cache.get((word, num))
+                if hit is not None:
+                    self.stats["cache_hits"] += 1
+                    return hit
+        req = {"word": word, "vector": vector, "num": int(num),
+               "event": threading.Event(), "result": None, "error": None}
+        with self._mu:
+            self._pending.append(req)
+        # A leader sets every event of its batch before it releases the
+        # lock, so a request already answered does not queue behind the
+        # next leader's dispatch.
+        if not req["event"].is_set():
+            with self.device_lock:
+                if not req["event"].is_set():
+                    with self._mu:
+                        batch, self._pending = self._pending, []
+                    if len(batch) > 1:
+                        # Concurrency seen: absorb stragglers of the same
+                        # burst until one quiet grace window or a full
+                        # chunk, so they ride this dispatch.
+                        for _ in range(8):
+                            n0 = len(batch)
+                            time.sleep(_BATCH_GRACE_S)
+                            with self._mu:
+                                batch += self._pending
+                                self._pending = []
+                            if len(batch) == n0 or len(batch) >= self.max_batch:
+                                break
+                    if batch:
+                        self._process(batch)
+        req["event"].wait()
+        if req["error"] is not None:
+            raise req["error"]
+        return req["result"]
+
+    def _cache_sync_locked(self) -> int:
+        """Empty the cache if the tables moved since it was filled; the
+        version it is now valid for. Caller holds ``self._mu``."""
+        ver = self.model.engine.table_version
+        if ver != self._cache_version:
+            self._cache.clear()
+            self._cache_version = ver
+        return ver
+
+    def _process(self, batch) -> None:
+        m = self.model
+        live = []
+        for r in batch:
+            # A bad request fails alone: an exception escaping here would
+            # strand every co-batched waiter.
+            try:
+                if r["word"] is not None:
+                    i = m.vocab.word_index.get(r["word"])
+                    if i is None:
+                        raise KeyError(f"word {r['word']!r} not in vocabulary")
+                    r["idx"] = i
+                else:
+                    v = np.asarray(r["vector"], dtype=np.float32)
+                    if v.shape != (m.vector_size,):
+                        raise ValueError(
+                            f"vector must have shape ({m.vector_size},), "
+                            f"got {v.shape}"
+                        )
+                    r["vec"] = v
+            except KeyError as e:
+                r["error"] = e
+                r["event"].set()
+                continue
+            except (TypeError, ValueError) as e:
+                r["error"] = ValueError(f"bad vector: {e}")
+                r["event"].set()
+                continue
+            live.append(r)
+        try:
+            for s in range(0, len(live), self.max_batch):
+                self._dispatch(live[s : s + self.max_batch])
+        except Exception as e:
+            logger.exception("synonym dispatch failed")
+            for r in live:
+                if r["error"] is None and r["result"] is None:
+                    r["error"] = e
+        finally:
+            for r in live:
+                r["event"].set()
+
+    def _dispatch(self, chunk) -> None:
+        """Answer one <= max_batch slice with one pull and one batched
+        top-k."""
+        m = self.model
+        # Version before the reads: results of a dispatch that a table
+        # mutation overtook must not enter the cache.
+        ver = m.engine.table_version
+        word_rows = [r for r in chunk if "idx" in r]
+        if word_rows:
+            pulled = _pull_coalesced(
+                m.engine, np.asarray([r["idx"] for r in word_rows], np.int32)
+            )
+            for r, v in zip(word_rows, pulled):
+                r["vec"] = v
+        k = max(r["num"] + (1 if r["word"] is not None else 0) for r in chunk)
+        hits = m.find_synonyms_batch(
+            np.stack([r["vec"] for r in chunk]), min(k, m.vocab.size)
+        )
+        for r, hs in zip(chunk, hits):
+            if r["word"] is not None:
+                hs = [(w, s) for w, s in hs if w != r["word"]]
+            r["result"] = hs[: r["num"]]
+        with self._mu:
+            self.stats["dispatches"] += 1
+            self.stats["requests"] += len(chunk)
+            self.stats["largest_batch"] = max(
+                self.stats["largest_batch"], len(chunk)
+            )
+            if not self.cache_size or self._cache_sync_locked() != ver:
+                return
+            for r in chunk:
+                if r["word"] is not None:
+                    while len(self._cache) >= self.cache_size:
+                        self._cache.pop(next(iter(self._cache)))
+                    self._cache[(r["word"], r["num"])] = r["result"]
+
+
+class ModelServer:
+    """Holds one loaded model and serves its query surface over HTTP.
+
+    ``max_batch`` caps the coalesced dispatch (rounded up to a power of
+    two). ``warmup=True`` runs every query shape of the serving family
+    (Q buckets up to ``max_batch``, the ``WARM_KS`` k buckets, the
+    ``WARM_SENTENCE_ROWS`` x ``WARM_SENTENCE_LENS`` transform grid) before
+    the port binds, so the first request pays no kernel build or library
+    set-up. ``port=0`` binds an ephemeral port; ``self.port`` says which.
+    """
+
+    def __init__(
+        self,
+        model,
+        host: str = "127.0.0.1",
+        port: int = 8801,
+        *,
+        max_batch: int = 64,
+        warmup: bool = True,
+        cache_size: int = 65536,
+    ):
+        self.model = model
+        self._lock = threading.Lock()
+        self._coalescer = _SynonymCoalescer(
+            model, self._lock, max_batch=max_batch, cache_size=cache_size
+        )
+        self.max_batch = self._coalescer.max_batch
+        if warmup:
+            t0 = time.time()
+            n = model.engine.warmup(
+                [1 << i for i in range(self.max_batch.bit_length())],
+                WARM_KS,
+                sentence_lens=WARM_SENTENCE_LENS,
+                sentence_rows=WARM_SENTENCE_ROWS,
+            )
+            logger.info("serving warmup: %d dispatches in %.1fs",
+                        n, time.time() - t0)
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            # Keep-alive, and no Nagle delay between the header and body
+            # writes of a response.
+            protocol_version = "HTTP/1.1"
+            disable_nagle_algorithm = True
+
+            def log_message(self, fmt, *args):
+                logger.debug("serve: " + fmt, *args)
+
+            def _send(self, code: int, obj) -> None:
+                body = json.dumps(obj).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                path = urlparse(self.path).path
+                if path == "/healthz":
+                    self._send(200, server.health())
+                else:
+                    self._send(404, {"error": f"no route {path}"})
+
+            def do_POST(self):
+                path = urlparse(self.path).path
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                    req = json.loads(self.rfile.read(n) or b"{}")
+                except ValueError as e:
+                    return self._send(400, {"error": f"bad request: {e}"})
+                if not isinstance(req, dict):
+                    return self._send(400, {"error": "bad request: not an object"})
+                if path == "/shutdown":
+                    with server._lock:  # let in-flight device work finish
+                        self._send(200, {"status": "shutting down"})
+                    threading.Thread(target=server.stop, daemon=True).start()
+                    return
+                try:
+                    out = server._dispatch(path, req)
+                except KeyError as e:
+                    return self._send(404, {"error": e.args[0] if e.args else str(e)})
+                except (TypeError, ValueError) as e:
+                    return self._send(400, {"error": str(e)})
+                except Exception as e:
+                    logger.exception("request to %s failed", path)
+                    return self._send(500, {"error": f"internal error: {e}"})
+                if out is None:
+                    return self._send(404, {"error": f"no route {path}"})
+                self._send(200, out)
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self.host, self.port = self._httpd.server_address[:2]
+        self._thread: Optional[threading.Thread] = None
+
+    def health(self) -> dict:
+        m = self.model
+        with self._coalescer._mu:
+            stats = dict(self._coalescer.stats)
+        return {
+            "status": "ok",
+            "model": DEFAULT_MODEL_ID,
+            "family": type(m).__name__,
+            "vocab_size": m.vocab.size,
+            "dim": m.vector_size,
+            "max_batch": self.max_batch,
+            "device": device_name(m.engine.device),
+            "coalescer": stats,
+        }
+
+    def _dispatch(self, path: str, req: dict):
+        """The JSON answer of one POST endpoint, or None for no route."""
+        m = self.model
+        if path in ("/synonyms", "/synonyms_vector"):
+            key = "word" if path == "/synonyms" else "vector"
+            query = {key: req[key]}
+            hits = self._coalescer.query(num=int(req.get("num", 10)), **query)
+            return [[w, float(s)] for w, s in hits]
+        with self._lock:
+            if path == "/analogy":
+                return [
+                    [w, float(s)]
+                    for w, s in m.analogy(
+                        req.get("positive", []),
+                        req.get("negative", []),
+                        int(req.get("num", 10)),
+                    )
+                ]
+            if path == "/vector":
+                return [float(x) for x in m.transform(req["word"])]
+            if path == "/transform":
+                vecs = m.transform_sentences(req["sentences"])
+                return [[float(x) for x in v] for v in vecs]
+        return None
+
+    def serve_forever(self) -> None:
+        logger.info("serving model on %s:%d", self.host, self.port)
+        self._httpd.serve_forever()
+
+    def start_background(self) -> None:
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, daemon=True
+        )
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+
+
+def serve_model_dir(
+    model_dir: str,
+    host: str = "127.0.0.1",
+    port: int = 8801,
+    *,
+    max_batch: int = 64,
+    warmup: bool = True,
+    cache_size: int = 65536,
+    port_file: Optional[str] = None,
+    device: DeviceLike = None,
+) -> None:
+    """Load a saved model directory onto ``device`` and serve it until
+    ``/shutdown`` or an interrupt, then free its tables. ``port_file``
+    receives ``{"host", "port"}`` (atomically) once the server is warmed
+    and listening: the readiness signal for ``port=0``."""
+    from glint_word2vec_torch.models import load_model
+
+    model = load_model(model_dir, device=device)
+    try:
+        server = ModelServer(
+            model, host=host, port=port, max_batch=max_batch,
+            warmup=warmup, cache_size=cache_size,
+        )
+        if port_file:
+            atomic_write_json(port_file, {"host": server.host, "port": server.port})
+        try:
+            server.serve_forever()
+        except KeyboardInterrupt:
+            server.stop()
+    finally:
+        model.stop()

@@ -1,0 +1,85 @@
+"""The port's row gather (glint_word2vec_torch/ops/rows.py) against the JAX
+package's Pallas ``gather_rows`` run in interpret mode: same tables, same
+ids, bitwise equal fp32 rows.
+
+The ``cuda`` tests hold the CUDA kernel against its plain version on a
+card. They import no JAX, so they also run where JAX is not installed:
+
+    python -m pytest tests/test_torch_rows.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from glint_word2vec_torch.ops.rows import gather_rows, gather_rows_reference
+
+V, D = 203, 24
+
+
+def _ids(n, seed):
+    """n ids (n not a multiple of 16) with duplicates and ids 0 and V-1."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, V, n).astype(np.int32)
+    ids[0], ids[1], ids[2] = 0, V - 1, V - 1
+    ids[3:9] = ids[9]
+    return ids
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 37])
+def test_cpu_gather_bitwise_equals_jax_interpret(dtype, n):
+    import jax.numpy as jnp
+
+    from glint_word2vec_tpu.ops.pallas_rows import gather_rows as jax_gather_rows
+
+    rng = np.random.default_rng(7)
+    jt = jnp.asarray(rng.normal(size=(V, D)).astype(np.float32)).astype(dtype)
+    ids = _ids(n, 11) if n > 9 else np.array([V - 1], np.int32)
+    want = np.asarray(
+        jax_gather_rows(jt, jnp.asarray(ids), interpret=True).astype(jnp.float32)
+    )
+    # The port's table holds the same bits: the bf16 values are exact fp32.
+    tt = torch.from_numpy(np.array(jt.astype(jnp.float32))).to(
+        getattr(torch, dtype)
+    )
+    before = gather_rows.launches
+    got = gather_rows(tt, torch.from_numpy(ids))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n, D)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # A CPU tensor takes the plain version: no kernel launch is counted.
+    assert gather_rows.launches == before
+
+
+def test_wrapper_rejects_bad_inputs():
+    table = torch.zeros((V, D))
+    ids = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_rows(torch.zeros((D, V)).T, ids)
+    with pytest.raises(TypeError, match="dtype"):
+        gather_rows(table.double(), ids)
+    with pytest.raises(TypeError, match="int32"):
+        gather_rows(table, ids.long())
+    with pytest.raises(ValueError, match="2-D"):
+        gather_rows(torch.zeros(V), ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_rows(table, torch.zeros(8, dtype=torch.int32)[::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [300, 301, 7])
+def test_cuda_kernel_bitwise_equals_plain(dtype, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU form")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    table = torch.randn((V, d), generator=gen, device="cuda").to(
+        getattr(torch, dtype)
+    )
+    ids = torch.from_numpy(_ids(37, 5)).cuda()
+    before = gather_rows.launches
+    got = gather_rows(table, ids)
+    torch.cuda.synchronize()
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got, gather_rows_reference(table, ids))
