@@ -23,6 +23,29 @@ nothing of JAX. Phases, each of which fails the run on any error:
    with 1 and 16 clients (host clock), and the card's busy share under
    16 clients (``torch.profiler``).
 
+5. Training kernels against plain, at full width (V = 1,000,000,
+   d = 300, P = 3,277 pair slots, n = 5; fp32 and bf16), on Zipf-like ids
+   that include 0 and V-1 and give long runs: ``pair_forward`` within
+   rtol 1e-5 (its ``h`` rows bitwise, the loss within rel 1e-5), the
+   scatters ``scatter_add_rank1_hbm`` and ``scatter_add_rows_f32`` bitwise
+   against their plain versions run on a CPU copy of the touched rows,
+   plus one fp32 scatter on a 10,000,000 x 300 table with id V-1. Each
+   kernel's median time beside its plain version's, ``index_add_``'s
+   where one call computes the same function, the bound, and the run
+   count R. The counter-based draws of ``ops/random.py`` must come out
+   bitwise the same on the card as on the CPU.
+6. Train: (a) ``Word2Vec().fit_file`` on a seeded synthetic corpus of
+   10,000,000 tokens over 1,000,000 words (each at least 5 times, the rest
+   Zipf(1.0), sentences of 20 words) at d = 300, W = 5, B = 1024, n = 5,
+   fp32, one epoch, with every launch counter zeroed just before; words/s,
+   and the card's busy share and top kernels in a profiled window of 48
+   steps; (b) the ``tiny_corpus`` quality gates of
+   ``tests/test_model_e2e.py`` on the card, with fp32 and with bf16
+   tables; (c) two epochs straight equal,
+   bitwise, one epoch plus a resume from its checkpoint plus one epoch;
+   (d) ``find_synonyms`` on the trained 1,000,000 x 300 model, which runs
+   ``gather_rows``.
+
 It prints one JSON ``kernels`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device it
 exits non-zero before printing any result.
@@ -31,6 +54,7 @@ exits non-zero before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import multiprocessing
 import os
 import shutil
@@ -50,6 +74,16 @@ GATHER_NS = (1, 64, 10_000)
 TIMED_TRIALS = 25
 #: Requests per latency sample: p95 of 200 has 10 samples beyond it.
 SEQ_REQUESTS = 200
+#: H100 SXM fp32 rate outside the tensor cores (NVIDIA data sheet), flop/s.
+FP32_FLOPS = 67e12
+#: Full width of the training slice: BASELINE.json configs[1]
+#: (en-Wikipedia, 1M vocab, 300-dim, 5 negatives), one card.
+V_TRAIN, N_NEG, B_TRAIN, W_TRAIN = 1_000_000, 5, 1024, 5
+CORPUS_TOKENS, MIN_PER_WORD, SENTENCE_LEN = 10_000_000, 5, 20
+#: Packed groups (of steps_per_call = 16 steps) in the profiled window.
+PROFILE_GROUPS = 3
+#: The card the script runs on; the port's entry points default to it.
+DEV = "cuda"
 
 
 def log(msg: str) -> None:
@@ -462,6 +496,493 @@ def serve_end_to_end(torch, np, rows_mod) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 5: training kernels against their plain versions, full width
+# ----------------------------------------------------------------------
+
+
+def zipf_ids(torch, gen, shape, v: int):
+    """Zipf(1)-like int32 ids in [0, v) on the card: ``floor((v+1)^u) - 1``
+    for ``u ~ U[0, 1)``, so id k comes with probability ~1/((k+1) ln v)."""
+    u = torch.rand(shape, generator=gen, device=DEV, dtype=torch.float64)
+    ids = torch.exp(u * math.log(v + 1)).floor() - 1
+    return ids.clamp(0, v - 1).to(torch.int32)
+
+
+def step_inputs(torch, np, gen):
+    """One full-width dense pair batch: Zipf centers and contexts (ids 0
+    and V-1 among them), negatives drawn by the port's alias sampler over
+    Zipf counts (so frequent words repeat into long runs), 13 padded slots
+    at the end, and the negative mask."""
+    from glint_word2vec_torch.corpus.alias import build_unigram_alias
+    from glint_word2vec_torch.corpus.batching import packed_pair_batch
+    from glint_word2vec_torch.ops import random as rnd
+    from glint_word2vec_torch.ops.sampling import sample_negatives_per_row
+    from glint_word2vec_torch.ops.sgns import negative_mask
+
+    P = packed_pair_batch(B_TRAIN, W_TRAIN)
+    counts = (1e9 / np.arange(1, V_TRAIN + 1)).astype(np.int64) + MIN_PER_WORD
+    t = build_unigram_alias(counts)
+    prob = torch.from_numpy(t.prob).to(DEV)
+    alias = torch.from_numpy(t.alias).to(DEV)
+    centers = zipf_ids(torch, gen, (P,), V_TRAIN)
+    contexts = zipf_ids(torch, gen, (P,), V_TRAIN)
+    centers[:3] = torch.tensor([V_TRAIN - 1, 0, V_TRAIN - 1], dtype=torch.int32)
+    contexts[3] = V_TRAIN - 1
+    rows = torch.arange(P, device=DEV)
+    negs = sample_negatives_per_row(
+        rnd.fold_in(rnd.seed_key(1), 7), prob, alias, rows, (N_NEG,)
+    )
+    negs[4, 0] = V_TRAIN - 1
+    mask = (rows < P - 13).to(torch.float32)
+    centers = torch.where(mask > 0, centers, 0)
+    contexts = torch.where(mask > 0, contexts, 0)
+    nmask = negative_mask(negs, contexts, mask)
+    return (centers, contexts, mask, negs, nmask), (prob, alias)
+
+
+def check_draws(torch, prob, alias) -> None:
+    """The counter-based draws on the card equal the same draws on the
+    CPU, bitwise: negatives, window shrinks, subsample keep masks."""
+    from glint_word2vec_torch.ops import device_batching as dbat
+    from glint_word2vec_torch.ops import random as rnd
+    from glint_word2vec_torch.ops.sampling import sample_negatives_per_row
+
+    key = rnd.fold_in(rnd.seed_key(11), 5)
+    rows = torch.arange(100_000, device=DEV)
+    pos = torch.arange(10**9, 10**9 + 100_000, device=DEV)
+    kp = torch.rand(V_TRAIN, device=DEV)
+    ids = (rows * 7919) % V_TRAIN
+    pairs = [
+        (sample_negatives_per_row(key, prob, alias, rows, (N_NEG,)),
+         sample_negatives_per_row(key, prob.cpu(), alias.cpu(), rows.cpu(), (N_NEG,))),
+        (dbat.grid_window_shrink(key, pos, B_TRAIN, 77, W_TRAIN),
+         dbat.grid_window_shrink(key, pos.cpu(), B_TRAIN, 77, W_TRAIN)),
+        (dbat.subsample_keep_mask(ids, kp, key),
+         dbat.subsample_keep_mask(ids.cpu(), kp.cpu(), key)),
+    ]
+    for what, (on_card, on_cpu) in zip(("negatives", "shrinks", "keep masks"), pairs):
+        expect(torch.equal(on_card.cpu(), on_cpu),
+               f"ops/random.py {what} differ between the card and the CPU")
+    log("ops/random.py draws: negatives, shrinks and keep masks bitwise "
+        "equal on the card and on the CPU")
+
+
+def touched_rows_check(torch, table, before_rows, ids, reference, what):
+    """Hold a scatter on the card bitwise against its plain version run on
+    a CPU copy of the rows it touches: ``reference(rows, local_ids)``
+    updates that copy, the ids remapped to its rows (a monotone map, so
+    runs and their order are unchanged). Returns the run count R."""
+    uniq = torch.unique(ids.long())
+    local = torch.searchsorted(uniq, ids.long()).to(torch.int32)
+    want = reference(before_rows, local.cpu())
+    got = table[uniq].cpu()
+    expect(torch.equal(got, want),
+           f"{what} differs from its plain version: max |diff| "
+           f"{(got.float() - want.float()).abs().max().item()}")
+    return int(uniq.numel())
+
+
+def pair_forward_bound(P, n, d, s, uniq0, uniq1):
+    """Least time of pair_forward on the card, ms: the distinct rows read
+    once in storage dtype, ids and masks read, fp32 h and d_center and the
+    coefficients and losses written, against 2 * (1 + n) * d multiply-adds
+    for the dots and as many for d_center per pair."""
+    nbytes = (uniq0 + uniq1) * d * s + P * (12 + 8 * n) + 2 * P * d * 4 + P * (8 + 4 * n)
+    flops = 4 * (1 + n) * d * P
+    return max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3, nbytes
+
+
+def scatter_bound(P, N, R, d, s, bytes_per_update, flops_per_value):
+    """Least time of a run-summing scatter, ms: the P x d fp32 payload
+    rows read, each of the R distinct table rows read and written once,
+    and ``bytes_per_update`` of index data read per update (8 for the
+    rows scatter: sorted id and permutation entry; 16 for the rank-1
+    scatter: those, the coefficient and the h row index); against
+    ``flops_per_value`` fp32 operations per update and column."""
+    nbytes = P * d * 4 + 2 * R * d * s + N * bytes_per_update
+    flops = flops_per_value * N * d
+    return max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3, nbytes
+
+
+def check_training_kernels(torch, np, fs) -> dict:
+    """Phase 5. Returns per-kernel results of the fp32 full-width case,
+    with the worst error over every case."""
+    gen = torch.Generator(device=DEV).manual_seed(20261017)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
+    (centers, contexts, mask, negs, nmask), (prob, alias) = step_inputs(torch, np, gen)
+    check_draws(torch, prob, alias)
+    P, n = negs.shape
+    alpha = torch.tensor(0.025, device=DEV)
+    rows = torch.arange(P, dtype=torch.int32, device=DEV)
+    ids1 = torch.cat([contexts, negs.reshape(-1)])
+    hidx = torch.cat([rows, rows.repeat_interleave(n)])
+    out = {}
+    err = {"pair_forward": 0.0, "scatter_add_rank1_hbm": 0.0, "scatter_add_rows_f32": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        s = 4 if dtype == torch.float32 else 2
+        syn0 = (0.3 * torch.randn((V_TRAIN, D), generator=gen, device=DEV)).to(dtype)
+        syn1 = (0.3 * torch.randn((V_TRAIN, D), generator=gen, device=DEV)).to(dtype)
+        args = (syn0, syn1, centers, contexts, mask, negs, nmask, alpha)
+
+        # pair_forward against its plain version on the CPU.
+        fw = fs.pair_forward(*args)
+        torch.cuda.synchronize()
+        ref = fs.pair_forward_reference(*(t.cpu() for t in args))
+        expect(torch.equal(fw.h.cpu(), ref.h), f"pair_forward {name}: h differs")
+        e = 0.0
+        for field in ("c_pos", "c_neg", "d_center"):
+            g, w = getattr(fw, field).cpu(), getattr(ref, field)
+            diff = (g - w).abs()
+            tol = 1e-5 * w.abs() + 1e-6 * float(w.abs().max())
+            expect(bool((diff <= tol).all()),
+                   f"pair_forward {name}: {field} off by {diff.max().item()} "
+                   "(rtol 1e-5, atol 1e-6 x max)")
+            e = max(e, float(diff.max()))
+        rel = abs(float(fw.loss_sum) - float(ref.loss_sum)) / abs(float(ref.loss_sum))
+        expect(rel <= 1e-5, f"pair_forward {name}: loss off by rel {rel}")
+        err["pair_forward"] = max(err["pair_forward"], e)
+        uniq0 = int(torch.unique(centers).numel())
+        uniq1 = int(torch.unique(ids1).numel())
+        bound, nbytes = pair_forward_bound(P, n, D, s, uniq0, uniq1)
+        ms = median_ms(torch, lambda: fs.pair_forward(*args), flush)
+        plain = median_ms(torch, lambda: fs.pair_forward_reference(*args), flush)
+        out[("pair_forward", name)] = dict(
+            ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, runs=None)
+        log(f"pair_forward {name} V={V_TRAIN} d={D} P={P} n={n}: within "
+            f"rtol 1e-5 (max |diff| {e:.3g}), h bitwise, loss rel {rel:.2g}; "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms "
+            f"({nbytes} bytes, {uniq0}+{uniq1} distinct rows)")
+
+        # scatter_add_rank1_hbm: syn1 += coef * h[hidx], from the kernel's
+        # own forward outputs, as the training step runs it.
+        coefs = torch.cat([fw.c_pos, fw.c_neg.reshape(-1)])
+        h = fw.h
+        uniq = torch.unique(ids1.long())
+        before = syn1[uniq].cpu()
+        fs.scatter_add_rank1_hbm(syn1, ids1, coefs, h, hidx)
+        torch.cuda.synchronize()
+        R = touched_rows_check(
+            torch, syn1, before, ids1,
+            lambda t, local: fs.scatter_add_rank1_hbm_reference(
+                t, local, coefs.cpu(), h.cpu(), hidx.cpu()),
+            f"scatter_add_rank1_hbm {name}")
+        sid, order = fs.sorted_runs(ids1)
+        ms = median_ms(torch, lambda: fs.scatter_add_rank1_hbm_sorted(
+            syn1, sid, order, coefs, h, hidx), flush)
+        plain = median_ms(torch, lambda: fs.scatter_add_rank1_hbm_reference(
+            syn1, ids1, coefs, h, hidx), flush)
+        bound, nbytes = scatter_bound(P, ids1.numel(), R, D, s, 16, 2)
+        longest = int(torch.unique(ids1, return_counts=True)[1].max())
+        out[("scatter_add_rank1_hbm", name)] = dict(
+            ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, runs=R)
+        log(f"scatter_add_rank1_hbm {name} N={ids1.numel()}: bitwise equal "
+            f"(R={R} runs, longest {longest}); kernel {ms:.4f} ms (sort "
+            f"excluded), plain {plain:.4f} ms, bound {bound:.5f} ms "
+            f"({nbytes} bytes)")
+
+        # scatter_add_rows_f32: syn0 += d_center.
+        upd = fw.d_center
+        uniq = torch.unique(centers.long())
+        before = syn0[uniq].cpu()
+        fs.scatter_add_rows_f32(syn0, centers, upd)
+        torch.cuda.synchronize()
+        R = touched_rows_check(
+            torch, syn0, before, centers,
+            lambda t, local: fs.scatter_add_rows_f32_reference(t, local, upd.cpu()),
+            f"scatter_add_rows_f32 {name}")
+        sid, order = fs.sorted_runs(centers)
+        ms = median_ms(torch, lambda: fs.scatter_add_rows_f32_sorted(
+            syn0, sid, order, upd), flush)
+        plain = median_ms(torch, lambda: fs.scatter_add_rows_f32_reference(
+            syn0, centers, upd), flush)
+        library = None
+        if dtype == torch.float32:
+            library = median_ms(
+                torch, lambda: syn0.index_add_(0, centers.long(), upd), flush)
+        bound, nbytes = scatter_bound(P, P, R, D, s, 8, 1)
+        longest = int(torch.unique(centers, return_counts=True)[1].max())
+        out[("scatter_add_rows_f32", name)] = dict(
+            ms=ms, plain_ms=plain, library_ms=library, bound_ms=bound, runs=R)
+        lib_txt = f", index_add_ {library:.4f} ms" if library is not None else ""
+        log(f"scatter_add_rows_f32 {name} N={P}: bitwise equal (R={R} runs, "
+            f"longest {longest}); kernel {ms:.4f} ms (sort excluded), plain "
+            f"{plain:.4f} ms{lib_txt}, bound {bound:.5f} ms ({nbytes} bytes)")
+        del syn0, syn1, args, fw
+        torch.cuda.empty_cache()
+
+    # One fp32 scatter on a 10,000,000 x 300 table (12 GB): row offsets
+    # past 2^31 elements, id V-1 included.
+    table = torch.randn((V_BIG, D), generator=gen, device=DEV)
+    ids = zipf_ids(torch, gen, (P,), V_BIG)
+    ids[:2] = torch.tensor([V_BIG - 1, V_BIG - 1], dtype=torch.int32)
+    upd = torch.randn((P, D), generator=gen, device=DEV)
+    uniq = torch.unique(ids.long())
+    before = table[uniq].cpu()
+    fs.scatter_add_rows_f32(table, ids, upd)
+    torch.cuda.synchronize()
+    R = touched_rows_check(
+        torch, table, before, ids,
+        lambda t, local: fs.scatter_add_rows_f32_reference(t, local, upd.cpu()),
+        "scatter_add_rows_f32 on the 10M-row table")
+    log(f"scatter_add_rows_f32 f32 V={V_BIG} d={D} N={P}, id V-1: bitwise "
+        f"equal (R={R} runs)")
+    del table
+    torch.cuda.empty_cache()
+    for (kernel, name), r in out.items():
+        r["max_abs_err"] = err[kernel]
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 6: train
+# ----------------------------------------------------------------------
+
+
+def write_synthetic_corpus(np, path: str, seed: int = 1) -> int:
+    """A seeded corpus of CORPUS_TOKENS tokens over V_TRAIN words
+    ``w0 .. w{V-1}``: every word MIN_PER_WORD times, the rest drawn
+    Zipf(1.0) over the same words, shuffled into sentences of
+    SENTENCE_LEN words. Returns the token count."""
+    rng = np.random.default_rng(seed)
+    base = np.repeat(np.arange(V_TRAIN), MIN_PER_WORD)
+    u = rng.random(CORPUS_TOKENS - base.size)
+    extra = np.minimum(np.floor(np.exp(u * math.log(V_TRAIN + 1))) - 1, V_TRAIN - 1)
+    toks = np.concatenate([base, extra.astype(np.int64)])
+    rng.shuffle(toks)
+    words = np.array([f"w{i}" for i in range(V_TRAIN)])
+    with open(path, "w") as f:
+        for s in range(0, toks.size, 100_000):
+            block = words[toks[s : s + 100_000]].reshape(-1, SENTENCE_LEN)
+            f.write("\n".join(" ".join(line) for line in block) + "\n")
+    return int(toks.size)
+
+
+def make_tiny_corpus(np):
+    """The country/capital corpus of ``tests/conftest.py:50-93`` (a copy:
+    that module imports JAX)."""
+    rng = np.random.default_rng(12345)
+    pairs = [
+        ("germany", "berlin"), ("france", "paris"), ("austria", "vienna"),
+        ("spain", "madrid"), ("italy", "rome"), ("poland", "warsaw"),
+    ]
+    theme = {c: [f"{c}_t{j}" for j in range(4)] for c, _ in pairs}
+    filler = [f"w{i}" for i in range(40)]
+    sentences = []
+    for _ in range(4000):
+        country, capital = pairs[rng.integers(len(pairs))]
+        th = list(rng.choice(theme[country], size=2))
+        noise = list(rng.choice(filler, size=2))
+        style = rng.integers(4)
+        if style == 0:
+            s = [capital, "is", "the", "capital", "of", country] + th
+        elif style == 1:
+            s = [th[0], country, "capital", "city", capital, th[1]] + noise
+        elif style == 2:
+            s = [country, "has", "capital", capital] + th + noise
+        else:
+            x = country if rng.random() < 0.5 else capital
+            s = [x, "famous", "for"] + th + noise
+        sentences.append(s)
+    for _ in range(600):
+        sentences.append(list(rng.choice(filler, size=8)))
+    rng.shuffle(sentences)
+    return [[str(w) for w in s] for s in sentences]
+
+
+def tiny_w2v(Word2Vec, **kw):
+    """The settings of tests/test_model_e2e.py, on the card."""
+    return (Word2Vec(**kw).set_vector_size(48).set_window_size(5)
+            .set_step_size(0.025).set_batch_size(256).set_num_negatives(5)
+            .set_min_count(5).set_num_iterations(6).set_seed(1))
+
+
+def profile_training(torch, engine, groups: int) -> None:
+    """Steps/s of ``groups`` packed groups at full width without the
+    profiler, then the card's busy share and the kernels with the most
+    device time in a ``torch.profiler`` window of as many groups. The
+    corpus is still on the card after the fit; the window trains on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from glint_word2vec_torch.corpus.batching import packed_pair_batch
+    from glint_word2vec_torch.ops import random as rnd
+
+    P = packed_pair_batch(B_TRAIN, W_TRAIN)
+    key = rnd.seed_key(2)
+    pos, step = [0], [0]
+
+    def run():
+        for _ in range(groups):
+            out = engine.train_steps_corpus_packed(
+                pos[0], P, W_TRAIN, B_TRAIN, key, 16, step0=step[0],
+                step_size=0.025, total_words=CORPUS_TOKENS + 1,
+            )
+            pos[0], step[0] = int(out[2][-1]), step[0] + 16
+        torch.cuda.synchronize()
+
+    run()  # warm
+    t = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t
+    log(f"packed steps at full width, unprofiled: {groups * 16} steps in "
+        f"{wall:.3f} s, {groups * 16 / wall:.1f} steps/s")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t
+    spans = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events() if e.device_type == DeviceType.CUDA
+    )
+    if not spans:
+        log("device busy share while training: not measured (the profiler "
+            "saw no device activity)")
+        return
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    log(f"device busy share while training (profiled, {groups * 16} steps "
+        f"in {wall:.3f} s): {busy_us / (wall * 1e6):.4f}; "
+        f"{len(spans) / (groups * 16):.1f} device activities a step, "
+        f"{busy_us / (groups * 16) / 1e3:.4f} ms of device time a step")
+    top = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
+    for a in top[:8]:
+        log(f"  {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<6d} "
+            f"{a.key[:90]}")
+
+
+def check_compaction_memory(torch, model, n_words: int) -> None:
+    """The peak device bytes a word of one subsample-and-compact pass
+    over the trained model's 10M-token corpus, against the estimate that
+    bounds the resident fit (``SUBSAMPLED_CORPUS_BYTES_PER_WORD``)."""
+    from glint_word2vec_torch.models import word2vec as w2v
+
+    engine = model.engine
+    engine.set_keep_probs(model.vocab.device_keep_probabilities(1e-3))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    n_kept = engine.compact_corpus(1)
+    peak = torch.cuda.max_memory_allocated() - base
+    per_word = w2v.CORPUS_BYTES_PER_WORD + peak / n_words
+    log(f"subsample-and-compact of {n_words} words ({n_kept} kept): peak "
+        f"{peak} bytes above the uploaded corpus, {per_word:.2f} bytes a "
+        f"word with its id (estimate "
+        f"{w2v.SUBSAMPLED_CORPUS_BYTES_PER_WORD})")
+    expect(per_word <= w2v.SUBSAMPLED_CORPUS_BYTES_PER_WORD,
+           f"compaction took {per_word:.2f} bytes a word, more than the "
+           "fit's estimate")
+    # What the budget admits at this width on this card, for a fit in a
+    # fresh process: the free memory plus all this process holds.
+    free = w2v._free_device_bytes(engine.device) + torch.cuda.memory_allocated()
+    for ratio in (0.0, 1e-3):
+        est = w2v.Word2Vec(model.params.replace(subsample_ratio=ratio))
+        fixed = est._device_bytes_needed(V_TRAIN, 0, 0)
+        per = (w2v.SUBSAMPLED_CORPUS_BYTES_PER_WORD if ratio
+               else w2v.CORPUS_BYTES_PER_WORD)
+        words = int((w2v.DEVICE_MEMORY_FRACTION * free - fixed) / per)
+        log(f"device corpus budget at {V_TRAIN} x {D}, subsample_ratio "
+            f"{ratio}: {free} bytes free, tables and step {fixed} bytes, "
+            f"at most about {words} words")
+
+
+def train_end_to_end(torch, np, fs, rows_mod) -> dict:
+    """Phase 6. Returns the training kernels' launch counts from (a) and
+    the gather's from (d)."""
+    from glint_word2vec_torch import Word2Vec
+
+    tmp = tempfile.mkdtemp(prefix="glint_chip_train_")
+    try:
+        path = os.path.join(tmp, "corpus.txt")
+        t0 = time.perf_counter()
+        n_tok = write_synthetic_corpus(np, path)
+        log(f"synthetic corpus: {n_tok} tokens, {V_TRAIN} words, written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        # (a) The main path: every counter zeroed just before, read just
+        # after.
+        counters = (fs.pair_forward, fs.scatter_add_rank1_hbm,
+                    fs.scatter_add_rows_f32, rows_mod.gather_rows)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        model = Word2Vec(
+            vector_size=D, window=W_TRAIN, batch_size=B_TRAIN,
+            num_negatives=N_NEG, min_count=MIN_PER_WORD, num_iterations=1,
+            step_size=0.025, seed=1,
+        ).fit_file(path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters[:3]}
+        tm = model.training_metrics
+        log(f"fit_file 1M x 300: {wall:.1f} s in all (vocabulary scan, "
+            f"encode, upload, training); training {tm['wall_seconds']} s, "
+            f"{tm['steps']} steps, {tm['words_per_sec']} words/s, final loss "
+            f"{tm['final_loss']}, packed mask density "
+            f"{tm['packed_mask_density']}; launches {launches}")
+        expect(model.vocab.size == V_TRAIN, f"vocabulary {model.vocab.size}")
+        expect(tm["words_done"] == n_tok, tm)
+        expect(math.isfinite(tm["final_loss"]), tm)
+        for name, k in launches.items():
+            if k <= 0:
+                raise AssertionError(f"the training path never launched {name}")
+        expect(launches["pair_forward"] == tm["steps"] + (-tm["steps"]) % 16,
+               f"one pair_forward per step: {launches} for {tm['steps']} steps")
+        for t in (model.engine.syn0, model.engine.syn1):
+            expect(bool(torch.isfinite(t).all()), "non-finite table entries")
+        profile_training(torch, model.engine, PROFILE_GROUPS)
+        check_compaction_memory(torch, model, n_tok)
+
+        # (d) Queries on the trained model run the gather.
+        rows_mod.gather_rows.launches = 0
+        hits = model.find_synonyms("w0", 10)
+        expect(len(hits) == 10 and all(math.isfinite(s) for _, s in hits), hits)
+        gathers = rows_mod.gather_rows.launches
+        expect(gathers > 0, "find_synonyms never launched gather_rows")
+        log(f"find_synonyms('w0') on the trained model: {hits[:3]} ...; "
+            f"gather_rows launched {gathers} time(s)")
+        model.stop()
+        del model
+        torch.cuda.empty_cache()
+
+        # (b) Quality gates on the card, fp32 and bf16 tables.
+        corpus = make_tiny_corpus(np)
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            m = tiny_w2v(Word2Vec, dtype=dtype).fit(corpus)
+            syns = m.find_synonyms("austria", 10)
+            ana = m.analogy(positive=["vienna", "germany"], negative=["austria"],
+                            num=10)
+            log(f"tiny_corpus {dtype} fit on the card in "
+                f"{time.perf_counter() - t0:.1f} s: austria -> {syns[:6]}; "
+                f"vienna - austria + germany -> {ana[:3]}")
+            expect("vienna" in dict(syns) and dict(syns)["vienna"] > 0.5,
+                   f"{dtype} vienna gate failed: {syns}")
+            expect("berlin" in [w for w, _ in ana],
+                   f"{dtype} berlin gate failed: {ana}")
+            m.stop()
+
+        # (c) Resume on the card equals an uninterrupted run, bitwise.
+        ck = os.path.join(tmp, "ck")
+        tiny_w2v(Word2Vec, num_iterations=2).fit(
+            corpus, checkpoint_dir=ck, stop_after_epochs=1).stop()
+        resumed = tiny_w2v(Word2Vec, num_iterations=2).fit(corpus, checkpoint_dir=ck)
+        full = tiny_w2v(Word2Vec, num_iterations=2).fit(corpus)
+        for name in ("syn0", "syn1"):
+            expect(torch.equal(getattr(resumed.engine, name), getattr(full.engine, name)),
+                   f"resumed {name} differs from the uninterrupted run")
+        log("resume on the card: 1 epoch + resume + 1 epoch == 2 epochs, bitwise")
+        resumed.stop()
+        full.stop()
+        return {"launches": launches, "gathers": gathers}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -471,7 +992,9 @@ def main() -> int:
         return 2
     import numpy as np
 
+    from glint_word2vec_torch.corpus.batching import packed_pair_batch
     from glint_word2vec_torch.kernels import build
+    from glint_word2vec_torch.ops import fused_sgns as fs
     from glint_word2vec_torch.ops import rows as rows_mod
 
     smi = nvidia_smi_line()
@@ -488,9 +1011,11 @@ def main() -> int:
 
     gathered = check_gather(torch, rows_mod)
     served = serve_end_to_end(torch, np, rows_mod)
+    timed = check_training_kernels(torch, np, fs)
+    trained = train_end_to_end(torch, np, fs, rows_mod)
 
     main_case = gathered[("f32", V_SERVE, 10_000)]
-    kernels = {"kernels": [{
+    kernels = [{
         "name": "gather_rows",
         "route": "cuda",
         "source": "glint_word2vec_torch/csrc/gather_rows.cu",
@@ -504,8 +1029,35 @@ def main() -> int:
         "library_ms": main_case["library_ms"],
         "checked": True,
         "shape": f"fp32 table {V_SERVE}x{D}, N=10000",
-    }]}
-    print(json.dumps(kernels))
+        "launches_training_queries": trained["gathers"],
+    }]
+    train_shape = (f"fp32 tables {V_TRAIN}x{D}, P={packed_pair_batch(B_TRAIN, W_TRAIN)}, "
+                   f"n={N_NEG}")
+    for name, source, line in (
+        ("pair_forward", "pair_forward.cu", 201),
+        ("scatter_add_rank1_hbm", "scatter_runs.cu", 676),
+        ("scatter_add_rows_f32", "scatter_runs.cu", 601),
+    ):
+        r = timed[(name, "f32")]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"glint_word2vec_torch/csrc/{source}",
+            "replaces": f"glint_word2vec_tpu/ops/pallas_sgns.py:{line}",
+            "launches": trained["launches"][name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": r["library_ms"],
+            "checked": True,
+            "shape": train_shape,
+            "runs": r["runs"],
+            "bf16_ms": timed[(name, "bf16")]["ms"],
+            "bf16_bound_ms": timed[(name, "bf16")]["bound_ms"],
+        })
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

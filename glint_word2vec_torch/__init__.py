@@ -1,21 +1,24 @@
-"""PyTorch/CUDA port of ``glint_word2vec_tpu``: load a saved word2vec model
-and serve it on an NVIDIA GPU.
+"""PyTorch/CUDA port of ``glint_word2vec_tpu``: train a word2vec model,
+save it, load it and serve it on an NVIDIA GPU.
 
 The JAX package stays the reference; this package imports none of it.
 Module names mirror the JAX package's, so each module's counterpart is
 found by name. Entry points run on the CUDA card unless ``device="cpu"``
-is asked for; the one TPU kernel on the serving path (the row gather)
-is a hand-written CUDA kernel here (``csrc/gather_rows.cu``).
+is asked for. The TPU kernels on these paths are hand-written CUDA
+kernels here: the row gather of serving (``csrc/gather_rows.cu``) and
+the fused pair step of training (``csrc/pair_forward.cu``,
+``csrc/scatter_runs.cu``).
 """
 
 from glint_word2vec_torch.models import load_model
-from glint_word2vec_torch.models.word2vec import Word2VecModel
+from glint_word2vec_torch.models.word2vec import Word2Vec, Word2VecModel
 from glint_word2vec_torch.parallel.engine import EmbeddingEngine
 from glint_word2vec_torch.serving import ModelServer
 
 __all__ = [
     "EmbeddingEngine",
     "ModelServer",
+    "Word2Vec",
     "Word2VecModel",
     "load_model",
 ]

@@ -1,5 +1,6 @@
-"""Command line of the port: query and serve a saved model.
+"""Command line of the port: train, query and serve a model.
 
+  python -m glint_word2vec_torch.cli train     --corpus c.txt --output m/ [...]
   python -m glint_word2vec_torch.cli serve     --model m/ --port 8801
   python -m glint_word2vec_torch.cli synonyms  --model m/ --word w [-n 10]
   python -m glint_word2vec_torch.cli analogy   --model m/ --positive a b --negative c
@@ -7,7 +8,8 @@
   python -m glint_word2vec_torch.cli info      --model m/
 
 The model directory may come from either package. Every command runs on
-the CUDA card unless ``--device cpu`` is given.
+the CUDA card unless ``--device cpu`` is given. ``train`` takes the JAX
+package's training arguments except the mesh and replica-exchange ones.
 """
 
 from __future__ import annotations
@@ -18,9 +20,83 @@ import logging
 import sys
 
 
+def _add_train(sub) -> None:
+    p = sub.add_parser("train", help="train a model from a text corpus")
+    p.add_argument("--corpus", required=True, help="text file, one sentence per line")
+    p.add_argument("--output", required=True, help="model output directory")
+    p.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
+    p.add_argument("--lowercase", action="store_true")
+    p.add_argument("--vector-size", type=int, default=100)
+    p.add_argument("--window", type=int, default=5)
+    p.add_argument("--step-size", type=float, default=0.01875)
+    p.add_argument("--batch-size", type=int, default=1024)
+    p.add_argument("--negatives", type=int, default=5)
+    p.add_argument("--subsample-ratio", type=float, default=0.0)
+    p.add_argument("--min-count", type=int, default=5)
+    p.add_argument("--iterations", type=int, default=1)
+    p.add_argument("--max-sentence-length", type=int, default=1000)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
+    p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
+                   default=None,
+                   help="kept for the JAX package's arguments; the fused "
+                        "step computes in fp32 either way")
+    p.add_argument("--steps-per-call", type=int, default=16,
+                   help="packed steps between two readbacks to the host")
+    p.add_argument("--shared-negatives", type=int, default=0,
+                   help="shared noise-pool size per step (only 0, per-pair "
+                        "draws, trains in the port so far)")
+    p.add_argument("--packing", choices=["dense", "grid"], default="dense",
+                   help="dispatch shape (only dense trains in the port so far)")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="enable epoch-granular checkpoint/resume")
+    p.add_argument("--checkpoint-every", type=int, default=1,
+                   help="epochs between checkpoints (default 1)")
+    p.add_argument("--metrics-out", default=None,
+                   help="write the training metrics JSON here (atomic write)")
+
+
+def _train(args) -> int:
+    from glint_word2vec_torch.models.word2vec import Word2Vec
+    from glint_word2vec_torch.utils import atomic_write_json
+
+    w2v = Word2Vec(
+        device=args.device,
+        vector_size=args.vector_size,
+        window=args.window,
+        step_size=args.step_size,
+        batch_size=args.batch_size,
+        num_negatives=args.negatives,
+        subsample_ratio=args.subsample_ratio,
+        min_count=args.min_count,
+        num_iterations=args.iterations,
+        max_sentence_length=args.max_sentence_length,
+        seed=args.seed,
+        dtype=args.dtype,
+        compute_dtype=args.compute_dtype,
+        steps_per_call=args.steps_per_call,
+        shared_negatives=args.shared_negatives,
+        batch_packing=args.packing,
+    )
+    model = w2v.fit_file(
+        args.corpus, lowercase=args.lowercase,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every_epochs=args.checkpoint_every,
+    )
+    try:
+        model.save(args.output)
+        if args.metrics_out:
+            atomic_write_json(args.metrics_out, model.training_metrics)
+        print(json.dumps({"saved": args.output, **model.training_metrics}))
+    finally:
+        model.stop()
+    return 0
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="glint_word2vec_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    _add_train(sub)
 
     def add(name: str, help: str) -> argparse.ArgumentParser:
         p = sub.add_parser(name, help=help)
@@ -59,6 +135,8 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
+    if args.cmd == "train":
+        return _train(args)
     if args.cmd == "serve":
         from glint_word2vec_torch.serving import serve_model_dir
 

@@ -1,31 +1,504 @@
-"""The fitted word2vec model of the port (counterpart of
-``glint_word2vec_tpu/models/word2vec.py:1651-2013``): the query surface
-over an :class:`~glint_word2vec_torch.parallel.engine.EmbeddingEngine`,
-plus the host-only :class:`LocalWord2VecModel`. Training arrives with a
-later slice of the port.
+"""The word2vec estimator and fitted model of the port (counterpart of
+``glint_word2vec_tpu/models/word2vec.py``).
+
+:class:`Word2Vec` trains on one device through the corpus-resident dense
+packed path: build the vocabulary and the flat corpus on the host, upload
+the corpus once, then per epoch subsample and compact it on the device
+and run groups of packed steps (``EmbeddingEngine.
+train_steps_corpus_packed``) with the linear learning-rate anneal, and
+checkpoint at epoch ends. What the JAX package trains by other routes
+(grid packing and the host batcher, the shared negative pool, meshes and
+replica exchange, the ``dims`` layout) raises ``ValueError``: those are
+later slices of the port.
+
+:class:`Word2VecModel` is the query surface over an
+:class:`~glint_word2vec_torch.parallel.engine.EmbeddingEngine`, and
+:class:`LocalWord2VecModel` the host-only numpy model.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
-from typing import Dict, Iterable, Iterator, List, Sequence, Tuple
+import shutil
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-from glint_word2vec_torch.corpus.vocab import Vocabulary, saved_model_vocabulary
-from glint_word2vec_torch.device import DeviceLike
+from glint_word2vec_torch.corpus.batching import (
+    chunk_sentences,
+    encode_sentences,
+    packed_pair_batch,
+)
+from glint_word2vec_torch.corpus.vocab import (
+    Vocabulary,
+    build_vocab,
+    saved_model_vocabulary,
+    scan_and_encode_file,
+    scan_and_encode_stream,
+)
+from glint_word2vec_torch.device import DeviceLike, resolve_device
+from glint_word2vec_torch.ops import random as rnd
+from glint_word2vec_torch.ops.device_batching import (
+    corpus_words_done,
+    corpus_words_done_compacted,
+)
 from glint_word2vec_torch.utils import (
     atomic_write_json,
     atomic_write_npy,
     atomic_write_text,
     next_pow2,
 )
+from glint_word2vec_torch.utils.integrity import resolve_train_state
+from glint_word2vec_torch.utils.metrics import TrainingMetrics
 from glint_word2vec_torch.utils.params import Word2VecParams
+
+logger = logging.getLogger(__name__)
 
 #: Rows one query dispatch may pull (the JAX package's bound on a
 #: request's device-memory spike).
 MAX_QUERY_ROWS = 10_000
+
+#: Device bytes a corpus word takes at its peak: its int32 id alone, or,
+#: with subsampling, the id and the epoch's compaction pass (the int64
+#: keep draws and prefix sums, the compacted copy). ``chip_smoke.py``
+#: measures the compaction's peak on the card against the second.
+CORPUS_BYTES_PER_WORD = 4
+SUBSAMPLED_CORPUS_BYTES_PER_WORD = 64
+
+#: Share of the device's free memory that the tables, the step's working
+#: set and the corpus may take together.
+DEVICE_MEMORY_FRACTION = 0.9
+
+
+def _free_device_bytes(device: torch.device) -> int:
+    """Memory a fit can still allocate on ``device``: the card's free
+    memory plus what PyTorch's allocator holds unused, or the host's
+    available memory for the CPU."""
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+        idle = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+        return int(free + idle)
+    return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _flip_checkpoint_state(
+    checkpoint_dir: str, state_path: str, ck_name: str, *,
+    epochs_completed: int, step: int, words_done: int,
+    extra: Optional[dict] = None,
+) -> None:
+    """Atomically point ``train_state.json`` at a finished table snapshot
+    and prune older snapshot directories. The tables are on disk before
+    the flip, so a crash never leaves a state that names partial tables.
+    The previous committed record rides along under ``"prev"`` and its
+    directory survives the prune (keep-last-2), as a fallback for a
+    snapshot that later fails verification. Same keys as the JAX
+    package's (``models/word2vec.py:59-115``)."""
+    prev = None
+    if os.path.exists(state_path):
+        try:
+            with open(state_path) as f:
+                prev = json.load(f)
+            prev.pop("prev", None)  # keep exactly two, not a chain
+        except (OSError, ValueError):
+            prev = None
+    if prev is not None and ("ckpt" not in prev or prev["ckpt"] == ck_name):
+        prev = None
+    atomic_write_json(state_path, {
+        "epochs_completed": epochs_completed,
+        "step": step,
+        "words_done": words_done,
+        "ckpt": ck_name,
+        **(extra or {}),
+        **({"prev": prev} if prev else {}),
+    })
+    keep = {ck_name}
+    if prev:
+        keep.add(prev["ckpt"])
+    for entry in os.listdir(checkpoint_dir):
+        if entry.startswith("ckpt-") and entry not in keep:
+            shutil.rmtree(os.path.join(checkpoint_dir, entry), ignore_errors=True)
+
+
+class Word2Vec:
+    """Skip-gram negative-sampling estimator on one device.
+
+    Construct with a :class:`Word2VecParams`, keyword overrides, or the
+    fluent setters::
+
+        model = (Word2Vec(device="cpu")
+                 .set_vector_size(100)
+                 .set_window_size(5)
+                 .set_seed(1)
+                 .fit(sentences))
+
+    ``device=None`` trains on the CUDA card and raises without one;
+    ``"cpu"`` runs the kernels' plain versions.
+    """
+
+    def __init__(self, params: Optional[Word2VecParams] = None,
+                 device: DeviceLike = None, **overrides):
+        self.params = (params or Word2VecParams()).replace(**overrides)
+        self.device = device
+
+    def _set(self, **kw) -> "Word2Vec":
+        self.params = self.params.replace(**kw)
+        return self
+
+    def set_vector_size(self, v: int) -> "Word2Vec":
+        return self._set(vector_size=v)
+
+    def set_window_size(self, v: int) -> "Word2Vec":
+        return self._set(window=v)
+
+    def set_step_size(self, v: float) -> "Word2Vec":
+        return self._set(step_size=v)
+
+    def set_batch_size(self, v: int) -> "Word2Vec":
+        return self._set(batch_size=v)
+
+    def set_num_negatives(self, v: int) -> "Word2Vec":
+        """Negative samples per positive pair (the reference's ``n``)."""
+        return self._set(num_negatives=v)
+
+    def set_subsample_ratio(self, v: float) -> "Word2Vec":
+        return self._set(subsample_ratio=v)
+
+    def set_min_count(self, v: int) -> "Word2Vec":
+        return self._set(min_count=v)
+
+    def set_num_iterations(self, v: int) -> "Word2Vec":
+        return self._set(num_iterations=v)
+
+    def set_max_sentence_length(self, v: int) -> "Word2Vec":
+        return self._set(max_sentence_length=v)
+
+    def set_seed(self, v: int) -> "Word2Vec":
+        return self._set(seed=v)
+
+    def set_num_partitions(self, v: int) -> "Word2Vec":
+        """Data-parallel axis size (only 1 trains in the port so far)."""
+        return self._set(num_partitions=v)
+
+    def set_num_shards(self, v: int) -> "Word2Vec":
+        """Model-parallel axis size (only 1 trains in the port so far)."""
+        return self._set(num_shards=v)
+
+    def set_dtype(self, v: str) -> "Word2Vec":
+        return self._set(dtype=v)
+
+    def set_compute_dtype(self, v: str) -> "Word2Vec":
+        """Kept for the JAX package's parameter set. It has no effect on
+        this path: the fused step's forward pass is always fp32."""
+        return self._set(compute_dtype=v)
+
+    def set_layout(self, v: str) -> "Word2Vec":
+        return self._set(layout=v)
+
+    def set_steps_per_call(self, v: int) -> "Word2Vec":
+        """Packed steps between two readbacks to the host."""
+        return self._set(steps_per_call=v)
+
+    def set_shared_negatives(self, v: int) -> "Word2Vec":
+        return self._set(shared_negatives=v)
+
+    def set_batch_packing(self, v: str) -> "Word2Vec":
+        return self._set(batch_packing=v)
+
+    # ------------------------------------------------------------------
+
+    def _check_supported(self) -> None:
+        """Raise ``ValueError`` for settings this slice does not train,
+        naming the later slice of the port that brings them."""
+        p = self.params
+        later = []
+        if p.batch_packing != "dense":
+            later.append("batch_packing='grid' (grid packing and the host "
+                         "batcher)")
+        if p.shared_negatives > 0:
+            later.append("shared_negatives > 0 (the shared negative pool)")
+        if p.num_partitions > 1 or p.num_shards > 1:
+            later.append("num_partitions/num_shards > 1 (multi-device "
+                         "training)")
+        if p.exchange != "none":
+            later.append(f"exchange={p.exchange!r} (replica exchange, with "
+                         "multi-device training)")
+        if p.layout != "rows":
+            later.append(f"layout={p.layout!r} (the dims layout, with "
+                         "multi-device training)")
+        if later:
+            raise ValueError(
+                "not ported yet, a later slice of the PyTorch port: "
+                + "; ".join(later)
+            )
+
+    def fit(
+        self,
+        sentences: Iterable[Sequence[str]],
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every_epochs: int = 1,
+        stop_after_epochs: Optional[int] = None,
+    ) -> "Word2VecModel":
+        """Train on tokenized sentences: vocabulary scan, encode and chunk,
+        then the device-resident packed path.
+
+        A list is scanned twice (:func:`build_vocab`, then the encode); any
+        other iterable is read once (``scan_and_encode_stream``), with the
+        same vocabulary and encoding. ``checkpoint_dir`` enables
+        epoch-granular checkpoints every ``checkpoint_every_epochs``
+        epochs, and a rerun with the same directory resumes after the last
+        one; ``stop_after_epochs`` ends this invocation early (the learning
+        rate follows global progress, so it is unaffected)."""
+        p = self.params
+        self._check_supported()
+        if isinstance(sentences, list):
+            vocab = build_vocab(sentences, min_count=p.min_count)
+            encoded = chunk_sentences(
+                encode_sentences(sentences, vocab), p.max_sentence_length
+            )
+            lens = np.array([s.size for s in encoded], dtype=np.int64)
+            ids = (
+                np.concatenate(encoded).astype(np.int32, copy=False)
+                if encoded else np.zeros(0, np.int32)
+            )
+            offsets = np.zeros(len(lens) + 1, np.int64)
+            np.cumsum(lens, out=offsets[1:])
+        else:
+            vocab, ids, offsets = scan_and_encode_stream(
+                sentences, min_count=p.min_count,
+                max_sentence_length=p.max_sentence_length,
+            )
+        return self._fit_flat(
+            vocab, ids, offsets, checkpoint_dir, checkpoint_every_epochs,
+            stop_after_epochs,
+        )
+
+    def fit_file(
+        self,
+        path: str,
+        lowercase: bool = False,
+        checkpoint_dir: Optional[str] = None,
+        checkpoint_every_epochs: int = 1,
+        stop_after_epochs: Optional[int] = None,
+    ) -> "Word2VecModel":
+        """Train from a text file, one sentence per line: a vocabulary pass
+        and a flat int32 encode pass over the file, never a list of
+        Python sentences."""
+        p = self.params
+        self._check_supported()
+        vocab, ids, offsets = scan_and_encode_file(
+            path, min_count=p.min_count,
+            max_sentence_length=p.max_sentence_length, lowercase=lowercase,
+        )
+        return self._fit_flat(
+            vocab, ids, offsets, checkpoint_dir, checkpoint_every_epochs,
+            stop_after_epochs,
+        )
+
+    def _fit_flat(self, vocab: Vocabulary, ids: np.ndarray,
+                  offsets: np.ndarray, checkpoint_dir: Optional[str],
+                  checkpoint_every_epochs: int,
+                  stop_after_epochs: Optional[int]) -> "Word2VecModel":
+        """Train from the flat encoded corpus: the device-resident path
+        when the corpus fits on the device. A larger corpus needs the host
+        batcher, which the port does not have yet."""
+        need = self._device_bytes_needed(vocab.size, int(ids.size), offsets.size)
+        free = _free_device_bytes(resolve_device(self.device))
+        if int(ids.size) >= 2**31 or need > DEVICE_MEMORY_FRACTION * free:
+            raise ValueError(
+                f"a corpus of {int(ids.size)} words needs about {need} bytes "
+                f"of device memory with the tables, and {free} are free; the "
+                "host batcher that streams it is a later slice of the "
+                "PyTorch port"
+            )
+        return self._fit_corpus_resident(
+            vocab, ids, offsets, checkpoint_dir, checkpoint_every_epochs,
+            stop_after_epochs,
+        )
+
+    def _device_bytes_needed(self, vocab_size: int, n_words: int,
+                             n_offsets: int) -> int:
+        """Device memory the resident fit takes at its peak: syn0 and
+        syn1 in storage dtype with the noise and keep tables, a step's
+        working set (the fp32 ``h`` and ``d_center`` rows, and the
+        packing, draw and sort buffers with room to spare), and the
+        corpus at its peak bytes a word, with its offsets (three copies
+        with subsampling: uploaded, compacted, and the pass's prefix
+        sums)."""
+        p = self.params
+        s = 2 if p.dtype == "bfloat16" else 4
+        P = packed_pair_batch(p.batch_size, p.window)
+        tables = vocab_size * (2 * p.vector_size * s + 16)
+        step = 2 * P * p.vector_size * 4 + 1024 * P * (1 + p.num_negatives)
+        if p.subsample_ratio > 0:
+            corpus = n_words * SUBSAMPLED_CORPUS_BYTES_PER_WORD + 24 * n_offsets
+        else:
+            corpus = n_words * CORPUS_BYTES_PER_WORD + 8 * n_offsets
+        return tables + step + corpus
+
+    def _make_engine(self, vocab: Vocabulary):
+        from glint_word2vec_torch.parallel.engine import EmbeddingEngine
+
+        p = self.params
+        return EmbeddingEngine(
+            vocab.size, p.vector_size, vocab.counts,
+            num_negatives=p.num_negatives,
+            unigram_power=p.unigram_power,
+            unigram_table_size=p.unigram_table_size,
+            seed=p.seed,
+            dtype=p.dtype,
+            shared_negatives=p.shared_negatives,
+            device=self.device,
+        )
+
+    def _fit_corpus_resident(
+        self,
+        vocab: Vocabulary,
+        ids: np.ndarray,
+        offsets: np.ndarray,
+        checkpoint_dir: Optional[str],
+        checkpoint_every_epochs: int,
+        stop_after_epochs: Optional[int],
+    ) -> "Word2VecModel":
+        """The device-resident training loop, dense packing, one device
+        (the JAX package's ``_fit_corpus_resident``, :628-1240, trimmed).
+
+        Key schedule, kept exactly so that a resumed run equals an
+        uninterrupted one: step ``s`` draws its negatives under
+        ``fold_in(seed_key, s)``, and the step counter advances by
+        ``steps_per_call`` per group, tail no-ops included; the shrink
+        draws follow the grid-equivalent counter ``gstep``, which advances
+        by ``groups * steps_per_call`` per epoch; the subsample draws are
+        keyed by the epoch alone. Each group is one call of the engine and
+        one readback."""
+        p = self.params
+        subsampling = p.subsample_ratio > 0
+        logger.info(
+            "vocab: %d words, %d train words (device-resident corpus%s)",
+            vocab.size, vocab.train_words_count,
+            ", on-device subsampling" if subsampling else "",
+        )
+        engine = self._make_engine(vocab)
+        twc = vocab.train_words_count
+        engine.upload_corpus(ids, offsets)
+        if subsampling:
+            engine.set_keep_probs(vocab.device_keep_probabilities(p.subsample_ratio))
+        N = int(ids.shape[0])
+        B, spc = p.batch_size, p.steps_per_call
+        total_words = p.num_iterations * twc + 1
+        base_key = rnd.seed_key(p.seed)
+        pair_batch = packed_pair_batch(B, p.window)
+        step = gstep = start_epoch = 0
+        packed_pairs = packed_slots = 0
+
+        state_path = (
+            os.path.join(checkpoint_dir, "train_state.json")
+            if checkpoint_dir else None
+        )
+        resume_words = None
+        state = resolve_train_state(checkpoint_dir) if state_path else None
+        if state is not None:
+            if int(state.get("position", 0)) > 0:
+                raise ValueError(
+                    f"the checkpoint at {checkpoint_dir} is mid-epoch "
+                    f"(position {state['position']}); mid-epoch resume is a "
+                    "later slice of the PyTorch port"
+                )
+            engine.load_tables(os.path.join(checkpoint_dir, state["ckpt"]))
+            start_epoch = int(state["epochs_completed"])
+            step = int(state["step"])
+            gstep = int(state.get("gstep", step))
+            resume_words = int(state.get("words_done", start_epoch * twc))
+            logger.info("resuming after epoch %d (step %d)", start_epoch, step)
+        metrics = TrainingMetrics(
+            base_words=resume_words if resume_words is not None
+            else start_epoch * twc
+        )
+
+        for epoch in range(start_epoch, p.num_iterations):
+            if subsampling:
+                with metrics.timing("step"), metrics.stall_timing():
+                    n_pos = engine.compact_corpus(rnd.fold_in(base_key, epoch))
+                offsets_c = engine.compacted_offsets()
+            else:
+                n_pos, offsets_c = N, None
+            steps_per_epoch = max(1, -(-n_pos // B))
+            groups = max(1, -(-steps_per_epoch // spc))
+            pos = 0
+            while pos < n_pos:
+                with metrics.timing("step"):
+                    losses, pair_counts, pos_ends, alphas = (
+                        engine.train_steps_corpus_packed(
+                            pos, pair_batch, p.window, B, base_key, spc,
+                            step0=step, grid_step0=gstep,
+                            step_size=p.step_size, total_words=total_words,
+                            words_base=epoch * twc,
+                        )
+                    )
+                # Live steps form a prefix: the first start past the
+                # stream's end makes every later step a no-op.
+                starts = np.concatenate(([pos], pos_ends[:-1]))
+                n_real = int((starts < n_pos).sum())
+                with metrics.timing("host"):
+                    for i in range(n_real):
+                        step += 1
+                        end_pos = int(min(pos_ends[i], n_pos))
+                        if subsampling:
+                            done = corpus_words_done_compacted(
+                                offsets, offsets_c, end_pos, n_pos
+                            )
+                        else:
+                            done = corpus_words_done(offsets, end_pos)
+                        metrics.record_step(
+                            epoch * twc + done, loss=losses[i], alpha=alphas[i]
+                        )
+                step += spc - n_real  # tail no-ops consumed keys
+                packed_pairs += int(pair_counts[:n_real].sum())
+                packed_slots += n_real * pair_batch
+                pos = int(pos_ends[-1])
+            gstep += groups * spc
+            stopping = (
+                stop_after_epochs is not None
+                and (epoch + 1 - start_epoch) >= stop_after_epochs
+            )
+            if state_path and (
+                stopping or (epoch + 1) % max(checkpoint_every_epochs, 1) == 0
+            ):
+                ck_name = f"ckpt-{epoch + 1}"
+                with metrics.stall_timing():
+                    engine.save(os.path.join(checkpoint_dir, ck_name))
+                    _flip_checkpoint_state(
+                        checkpoint_dir, state_path, ck_name,
+                        epochs_completed=epoch + 1, step=step,
+                        words_done=(epoch + 1) * twc,
+                        extra={
+                            "position": 0, "gstep": gstep,
+                            "batch_packing": p.batch_packing,
+                            "exchange_wire": p.exchange_wire,
+                            "exchange_every": p.exchange_every,
+                        },
+                    )
+            if stopping:
+                logger.info("stopping early after epoch %d", epoch + 1)
+                break
+
+        model = Word2VecModel(vocab, engine, p)
+        model.training_metrics = {
+            **metrics.summary(),
+            "pipeline": "device_corpus",
+            "batch_packing": p.batch_packing,
+        }
+        if packed_slots:
+            # Live pairs over dispatched pair slots: the packed steps'
+            # effective mask density.
+            model.training_metrics.update(
+                packed_pairs=packed_pairs,
+                packed_mask_density=round(packed_pairs / packed_slots, 4),
+            )
+        logger.info("training done: %s", model.training_metrics)
+        return model
 
 
 class Word2VecModel:
@@ -35,6 +508,8 @@ class Word2VecModel:
         self.vocab = vocab
         self.engine = engine
         self.params = params
+        #: What the fit measured (``Word2Vec`` fills it; None when loaded).
+        self.training_metrics: Optional[dict] = None
 
     @property
     def vector_size(self) -> int:

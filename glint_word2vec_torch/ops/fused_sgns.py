@@ -1,0 +1,344 @@
+"""The fused SGNS pair step: the port of ``glint_word2vec_tpu/ops/pallas_sgns.py``
+(per-pair negatives).
+
+Three hand-written CUDA kernels carry it, each beside its plain PyTorch
+version and with a ``launches`` counter on its wrapper:
+
+- :func:`pair_forward` (``csrc/pair_forward.cu``): gathers, dot products,
+  sigmoids and coefficients, the fp32 center rows ``h`` and the center
+  gradient ``d_center``, and the summed loss.
+- :func:`scatter_add_rank1_hbm` (``csrc/scatter_runs.cu``): ``table[ids] +=
+  coef * h[hidx]``, never materialising the ``(N, d)`` payload.
+- :func:`scatter_add_rows_f32` (``csrc/scatter_runs.cu``): ``table[ids] +=
+  upd``.
+
+The scatters sum each run of equal ids in fp32, in input order, and round
+to the storage dtype once per run. Unlike the JAX functions, which return
+new tables (``input_output_aliases`` lets XLA reuse the buffers), the
+scatters here update the table in place and return it.
+
+For a CPU tensor each wrapper runs its ``*_reference`` plain version; for
+a CUDA tensor it launches the kernel on the current stream or raises.
+Sorting the ids and building the concatenated syn1 update lists are
+PyTorch glue, as the JAX package does them outside Pallas
+(``_sorted_scatter_args``, ``pallas_sgns.py:585-597``; :762-765).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+_DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
+_libs: dict = {}
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int32
+
+
+def _lib(name: str):
+    """The loaded library of ``csrc/<name>.cu``, built and bound on first
+    use."""
+    lib = _libs.get(name)
+    if lib is None:
+        from glint_word2vec_torch.kernels import build
+
+        lib = build.library(name)
+        if name == "pair_forward":
+            lib.glint_pair_forward.argtypes = [
+                _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64,
+                _P, _P, _P, _P, _P, _P,
+            ]
+            lib.glint_pair_forward.restype = ctypes.c_int
+        else:
+            lib.glint_scatter_add_rows_f32.argtypes = [
+                _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P,
+            ]
+            lib.glint_scatter_add_rows_f32.restype = ctypes.c_int
+            lib.glint_scatter_add_rank1.argtypes = [
+                _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P, _P, _I64, _P,
+            ]
+            lib.glint_scatter_add_rank1.restype = ctypes.c_int
+        lib.glint_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.glint_cuda_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return lib
+
+
+def _check(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        msg = lib.glint_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} (cudaError {rc})")
+
+
+def _check_table(table: torch.Tensor, name: str) -> None:
+    if table.dim() != 2:
+        raise ValueError(f"{name} must be 2-D, got shape {tuple(table.shape)}")
+    if table.dtype not in _DTYPE_TAGS:
+        raise TypeError(f"{name} dtype must be float32 or bfloat16, got {table.dtype}")
+    if not table.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_vec(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise TypeError(
+            f"{name} must be {dtype} of shape {tuple(shape)}, got "
+            f"{t.dtype} {tuple(t.shape)}"
+        )
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, table on {device}")
+
+
+def _route(device: torch.device) -> bool:
+    """True for the kernel (CUDA), False for the plain version (CPU)."""
+    if device.type == "cpu":
+        return False
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    return True
+
+
+# ----------------------------------------------------------------------
+# Forward
+# ----------------------------------------------------------------------
+
+
+class PairForward(NamedTuple):
+    """Forward outputs of one dense pair batch."""
+
+    c_pos: torch.Tensor  # (P,)   alpha * (1 - sigmoid(f_pos)) * mask
+    c_neg: torch.Tensor  # (P, n) -alpha * sigmoid(f_neg) * nmask
+    h: torch.Tensor  # (P, d) fp32 pre-update syn0 rows of the centers
+    d_center: torch.Tensor  # (P, d) fp32 learning-rate-folded center gradient
+    loss_sum: torch.Tensor  # () masked loss sum (divide by mask.sum())
+
+
+def pair_forward_reference(syn0, syn1, centers, contexts, mask, negs, nmask,
+                           alpha) -> PairForward:
+    """Plain version of :func:`pair_forward`."""
+    h = syn0[centers.long()].float()
+    u = syn1[contexts.long()].float()
+    un = syn1[negs.long()].float()
+    f_pos = (h * u).sum(dim=-1)
+    f_neg = (h[:, None, :] * un).sum(dim=-1)
+    c_pos = alpha * (1.0 - torch.sigmoid(f_pos)) * mask
+    c_neg = -alpha * torch.sigmoid(f_neg) * nmask
+    d_center = c_pos[:, None] * u + (c_neg[..., None] * un).sum(dim=1)
+    pair_loss = (
+        -F.logsigmoid(f_pos) - (F.logsigmoid(-f_neg) * nmask).sum(dim=-1)
+    ) * mask
+    return PairForward(c_pos, c_neg, h, d_center, pair_loss.sum())
+
+
+def pair_forward(syn0: torch.Tensor, syn1: torch.Tensor,
+                 centers: torch.Tensor, contexts: torch.Tensor,
+                 mask: torch.Tensor, negs: torch.Tensor, nmask: torch.Tensor,
+                 alpha: torch.Tensor) -> PairForward:
+    """Forward half of the fused pair step (per-pair negatives).
+
+    ``syn0``/``syn1`` are contiguous ``(V, d)`` tables of one dtype (fp32
+    or bf16); ``centers``/``contexts`` ``(P,)`` int32 in ``[0, V)``;
+    ``mask`` ``(P,)`` fp32; ``negs`` ``(P, n)`` int32; ``nmask`` ``(P, n)``
+    fp32; ``alpha`` a 0-d fp32 tensor, all on one device. The per-pair
+    losses are summed in a fixed order (``torch.sum``), never with float
+    atomics. Each kernel launch adds one to ``pair_forward.launches``."""
+    _check_table(syn0, "syn0")
+    _check_table(syn1, "syn1")
+    if syn0.dtype != syn1.dtype or syn0.shape[1] != syn1.shape[1]:
+        raise ValueError("syn0 and syn1 must share dtype and width")
+    dev = syn0.device
+    if syn1.device != dev:
+        raise ValueError(f"syn1 on {syn1.device}, syn0 on {dev}")
+    P = centers.shape[0]
+    n = negs.shape[1] if negs.dim() == 2 else -1
+    if n < 1:
+        raise ValueError("negs must be (P, n) with n >= 1")
+    _check_vec(centers, "centers", torch.int32, (P,), dev)
+    _check_vec(contexts, "contexts", torch.int32, (P,), dev)
+    _check_vec(mask, "mask", torch.float32, (P,), dev)
+    _check_vec(negs, "negs", torch.int32, (P, n), dev)
+    _check_vec(nmask, "nmask", torch.float32, (P, n), dev)
+    _check_vec(alpha, "alpha", torch.float32, (), dev)
+    if not _route(dev):
+        return pair_forward_reference(
+            syn0, syn1, centers, contexts, mask, negs, nmask, alpha
+        )
+    d = syn0.shape[1]
+    f32 = dict(dtype=torch.float32, device=dev)
+    c_pos = torch.empty(P, **f32)
+    c_neg = torch.empty((P, n), **f32)
+    h = torch.empty((P, d), **f32)
+    d_center = torch.empty((P, d), **f32)
+    loss = torch.empty(P, **f32)
+    if P:
+        lib = _lib("pair_forward")
+        rc = lib.glint_pair_forward(
+            syn0.data_ptr(), syn1.data_ptr(), syn0.stride(0),
+            _DTYPE_TAGS[syn0.dtype], centers.data_ptr(), contexts.data_ptr(),
+            mask.data_ptr(), negs.data_ptr(), nmask.data_ptr(),
+            alpha.data_ptr(), P, n, d, c_pos.data_ptr(), c_neg.data_ptr(),
+            h.data_ptr(), d_center.data_ptr(), loss.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _check(lib, rc, "pair_forward")
+        pair_forward.launches += 1
+    return PairForward(c_pos, c_neg, h, d_center, loss.sum())
+
+
+#: Kernel launches since the last reset (``chip_smoke.py`` zeroes it
+#: before driving the training path and reads it after).
+pair_forward.launches = 0
+
+
+# ----------------------------------------------------------------------
+# Run-summing scatters
+# ----------------------------------------------------------------------
+
+
+def sorted_runs(ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(sorted_ids, order)``, both int32: a stable sort of the ids, so
+    equal ids form runs in input order."""
+    sid, order = torch.sort(ids, stable=True)
+    return sid.contiguous(), order.to(torch.int32)
+
+
+def _run_sum_reference(table, sid, order, payload) -> torch.Tensor:
+    """``table[sid] += payload[order]``, each run summed in fp32 in
+    sorted order onto the fp32 table row and rounded once. On the CPU
+    ``index_add_`` adds in index order, which is the kernels' order."""
+    uniq, inverse = torch.unique_consecutive(sid.long(), return_inverse=True)
+    acc = table[uniq].float()
+    acc.index_add_(0, inverse, payload[order.long()])
+    table[uniq] = acc.to(table.dtype)
+    return table
+
+
+def scatter_add_rows_f32_reference(table, ids, upd) -> torch.Tensor:
+    """Plain version of :func:`scatter_add_rows_f32` (in place)."""
+    sid, order = sorted_runs(ids)
+    return _run_sum_reference(table, sid, order, upd.float())
+
+
+def scatter_add_rank1_hbm_reference(table, ids, coef, h, hidx) -> torch.Tensor:
+    """Plain version of :func:`scatter_add_rank1_hbm` (in place): the
+    payload ``coef * h[hidx]`` is formed in fp32, then run-summed."""
+    sid, order = sorted_runs(ids)
+    payload = coef.float()[:, None] * h.float()[hidx.long()]
+    return _run_sum_reference(table, sid, order, payload)
+
+
+def scatter_add_rows_f32(table: torch.Tensor, ids: torch.Tensor,
+                         upd: torch.Tensor) -> torch.Tensor:
+    """``table[ids] += upd`` in place, duplicate ids summed in fp32 and
+    rounded to the table's dtype once per run. ``table`` ``(V, d)`` fp32
+    or bf16; ``ids`` ``(N,)`` int32 in ``[0, V)``; ``upd`` ``(N, d)``
+    fp32. Each kernel launch adds one to ``scatter_add_rows_f32.launches``."""
+    _check_table(table, "table")
+    dev = table.device
+    N, d = ids.shape[0], table.shape[1]
+    _check_vec(ids, "ids", torch.int32, (N,), dev)
+    _check_vec(upd, "upd", torch.float32, (N, d), dev)
+    if not _route(dev):
+        return scatter_add_rows_f32_reference(table, ids, upd)
+    if N:
+        scatter_add_rows_f32_sorted(table, *sorted_runs(ids), upd)
+    return table
+
+
+def scatter_add_rows_f32_sorted(table: torch.Tensor, sorted_ids: torch.Tensor,
+                                order: torch.Tensor,
+                                upd: torch.Tensor) -> None:
+    """The kernel launch of :func:`scatter_add_rows_f32` for CUDA tensors
+    already validated and sorted by :func:`sorted_runs` (what
+    ``chip_smoke.py`` times on its own)."""
+    lib = _lib("scatter_runs")
+    rc = lib.glint_scatter_add_rows_f32(
+        table.data_ptr(), table.stride(0), table.shape[1],
+        _DTYPE_TAGS[table.dtype], sorted_ids.data_ptr(), order.data_ptr(),
+        sorted_ids.shape[0], upd.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    _check(lib, rc, "scatter_add_rows_f32")
+    scatter_add_rows_f32.launches += 1
+
+
+#: Kernel launches since the last reset.
+scatter_add_rows_f32.launches = 0
+
+
+def scatter_add_rank1_hbm(table: torch.Tensor, ids: torch.Tensor,
+                          coef: torch.Tensor, h: torch.Tensor,
+                          hidx: torch.Tensor) -> torch.Tensor:
+    """``table[ids] += coef[:, None] * h[hidx]`` in place, without the
+    ``(N, d)`` payload: runs of equal ids summed in fp32, one rounding per
+    run. ``ids``/``hidx`` ``(N,)`` int32, ``coef`` ``(N,)`` fp32, ``h``
+    ``(B, d)`` fp32 contiguous. Each kernel launch adds one to
+    ``scatter_add_rank1_hbm.launches``."""
+    _check_table(table, "table")
+    dev = table.device
+    N, d = ids.shape[0], table.shape[1]
+    _check_vec(ids, "ids", torch.int32, (N,), dev)
+    _check_vec(coef, "coef", torch.float32, (N,), dev)
+    _check_vec(hidx, "hidx", torch.int32, (N,), dev)
+    if h.dim() != 2 or h.shape[1] != d:
+        raise ValueError(f"h must be (B, {d}), got {tuple(h.shape)}")
+    _check_vec(h, "h", torch.float32, tuple(h.shape), dev)
+    if not _route(dev):
+        return scatter_add_rank1_hbm_reference(table, ids, coef, h, hidx)
+    if N:
+        scatter_add_rank1_hbm_sorted(table, *sorted_runs(ids), coef, h, hidx)
+    return table
+
+
+def scatter_add_rank1_hbm_sorted(table: torch.Tensor, sorted_ids: torch.Tensor,
+                                 order: torch.Tensor, coef: torch.Tensor,
+                                 h: torch.Tensor, hidx: torch.Tensor) -> None:
+    """The kernel launch of :func:`scatter_add_rank1_hbm` for CUDA tensors
+    already validated and sorted by :func:`sorted_runs`."""
+    lib = _lib("scatter_runs")
+    rc = lib.glint_scatter_add_rank1(
+        table.data_ptr(), table.stride(0), table.shape[1],
+        _DTYPE_TAGS[table.dtype], sorted_ids.data_ptr(), order.data_ptr(),
+        sorted_ids.shape[0], coef.data_ptr(), h.data_ptr(), hidx.data_ptr(),
+        h.stride(0), torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    _check(lib, rc, "scatter_add_rank1_hbm")
+    scatter_add_rank1_hbm.launches += 1
+
+
+#: Kernel launches since the last reset.
+scatter_add_rank1_hbm.launches = 0
+
+
+# ----------------------------------------------------------------------
+# The fused pair step
+# ----------------------------------------------------------------------
+
+
+def fused_pair_step(syn0: torch.Tensor, syn1: torch.Tensor,
+                    centers: torch.Tensor, contexts: torch.Tensor,
+                    pair_mask: torch.Tensor, negs: torch.Tensor,
+                    nmask: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """One fused dense-pair SGNS update (per-pair negatives), applied to
+    ``syn0`` and ``syn1`` in place. Returns the un-normalised loss sum
+    (divide by ``pair_mask.sum()``).
+
+    Order, as in the JAX package (``pallas_sgns.py:749-754``): syn1 first,
+    from the materialised pre-update ``h``, then syn0 from ``d_center``.
+    Neither scatter reads a table the other has changed, so every value
+    the update consumes is the pre-step one."""
+    P, n = negs.shape
+    fw = pair_forward(syn0, syn1, centers, contexts, pair_mask, negs, nmask, alpha)
+    rows = torch.arange(P, dtype=torch.int32, device=centers.device)
+    ids1 = torch.cat([contexts, negs.reshape(-1)])
+    coefs = torch.cat([fw.c_pos, fw.c_neg.reshape(-1)])
+    hidx = torch.cat([rows, rows.repeat_interleave(n)])
+    scatter_add_rank1_hbm(syn1, ids1, coefs, fw.h, hidx)
+    scatter_add_rows_f32(syn0, centers, fw.d_center)
+    return fw.loss_sum

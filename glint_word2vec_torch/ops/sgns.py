@@ -1,0 +1,96 @@
+"""Skip-gram negative-sampling step math (counterpart of
+``glint_word2vec_tpu/ops/sgns.py``): ``init_tables`` (:139),
+``negative_mask`` (:149), ``sgns_coefs`` (:47) and the composed pair step
+``train_step_pairs`` (:349) as plain PyTorch.
+
+The composed step is the reference the fused step of
+``ops/fused_sgns.py`` is held against: gather, dot, sigmoid, rank-1
+outer products, scatter-add, every value consumed being the pre-step
+one. It takes its negatives as an argument; the training path draws them
+with ``ops/sampling.py``.
+
+Padding convention: padded pair slots carry index 0 and mask 0.0, and
+every coefficient is multiplied by its mask, so they add exact zeros.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+
+class SgnsCoefs(NamedTuple):
+    """The scalar SGD coefficients (the reference's gPlus/gMinus) and the
+    masked-mean loss."""
+
+    c_pos: torch.Tensor  # (...,)   alpha * (1 - sigmoid(f_pos)) * mask
+    c_neg: torch.Tensor  # (..., n) -alpha * sigmoid(f_neg) * neg_mask
+    loss: torch.Tensor  # ()
+
+
+def sgns_coefs(f_pos: torch.Tensor, f_neg: torch.Tensor, mask: torch.Tensor,
+               neg_mask: torch.Tensor, alpha) -> SgnsCoefs:
+    """Coefficients and loss from reduced logits: ``f_pos`` (...,),
+    ``f_neg`` (..., n), masks of the same shapes, ``alpha`` a scalar."""
+    c_pos = alpha * (1.0 - torch.sigmoid(f_pos)) * mask
+    c_neg = -alpha * torch.sigmoid(f_neg) * neg_mask
+    pair_loss = -F.logsigmoid(f_pos) * mask - (
+        F.logsigmoid(-f_neg) * neg_mask
+    ).sum(dim=-1) * mask
+    loss = pair_loss.sum() / mask.sum().clamp(min=1.0)
+    return SgnsCoefs(c_pos=c_pos, c_neg=c_neg, loss=loss)
+
+
+def init_tables(generator: torch.Generator, vocab_size: int, dim: int,
+                dtype=torch.float32, device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """word2vec's initial tables: syn0 ~ U[-0.5/d, 0.5/d), syn1 = 0. The
+    draws come from ``generator`` (not the JAX package's threefry words:
+    tests that compare the packages install equal tables instead)."""
+    syn0 = torch.rand((vocab_size, dim), generator=generator, device=device)
+    syn0 = ((syn0 - 0.5) / dim).to(dtype)
+    return syn0, torch.zeros((vocab_size, dim), dtype=dtype, device=device)
+
+
+def negative_mask(negs: torch.Tensor, contexts: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """1.0 for a kept negative draw: a draw equal to its positive context
+    word is dropped (word2vec's "target == word" skip), and draws of
+    padded slots are zeroed. ``negs`` (..., n), ``contexts`` and
+    ``mask`` (...,)."""
+    keep = (negs != contexts[..., None]).to(torch.float32)
+    return keep * mask[..., None]
+
+
+def train_step_pairs(
+    syn0: torch.Tensor, syn1: torch.Tensor,
+    centers: torch.Tensor, contexts: torch.Tensor, pair_mask: torch.Tensor,
+    negs: torch.Tensor, alpha,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One composed SGNS update over a dense pair list: ``centers``,
+    ``contexts`` and ``pair_mask`` (P,), ``negs`` (P, n). Returns new
+    ``(syn0, syn1, loss)``; the inputs are not modified. Duplicate rows
+    sum their updates (``index_add``), each update cast to the table's
+    dtype first, as the JAX step's ``.at[].add`` does."""
+    c = centers.long()
+    x = contexts.long()
+    ng = negs.long()
+    h = syn0[c].float()
+    u_pos = syn1[x].float()
+    u_neg = syn1[ng].float()
+    nmask = negative_mask(negs, contexts, pair_mask)
+    f_pos = (h * u_pos).sum(dim=-1)
+    f_neg = (h[:, None, :] * u_neg).sum(dim=-1)
+    co = sgns_coefs(f_pos, f_neg, pair_mask, nmask, alpha)
+    d_center = co.c_pos[:, None] * u_pos + (co.c_neg[..., None] * u_neg).sum(dim=1)
+    n = negs.shape[1]
+    syn0 = syn0.clone().index_add_(0, c, d_center.to(syn0.dtype))
+    syn1 = syn1.clone().index_add_(
+        0, x, (co.c_pos[:, None] * h).to(syn1.dtype)
+    )
+    syn1.index_add_(
+        0, ng.reshape(-1),
+        (co.c_neg.reshape(-1)[:, None] * h.repeat_interleave(n, dim=0)).to(syn1.dtype),
+    )
+    return syn0, syn1, co.loss

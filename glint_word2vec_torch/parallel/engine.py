@@ -9,6 +9,14 @@ cosine top-k, whose matrix products and ``topk`` are plain torch calls, as
 the JAX package leaves them to XLA. Every computation is in fp32 whatever
 the storage dtype.
 
+Training is the corpus-resident packed path: the flat corpus is uploaded
+once (:meth:`EmbeddingEngine.upload_corpus`), subsampled and compacted on
+the device once per epoch (:meth:`EmbeddingEngine.compact_corpus`), and
+:meth:`EmbeddingEngine.train_steps_corpus_packed` runs K steps of pair
+packing, negative draws and the fused pair step of ``ops/fused_sgns.py``
+as a Python loop of launches, with one readback per K steps. The tables
+are updated in place.
+
 Checkpoints use the JAX package's on-disk layout (``engine.json``,
 ``counts.npy``, ``.npy`` table blocks, ``manifest.json`` and the per-shard
 sidecars), so either package loads what the other saved. Loading reads
@@ -26,8 +34,15 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from glint_word2vec_torch.corpus.alias import build_unigram_alias
+from glint_word2vec_torch.corpus.batching import context_width
 from glint_word2vec_torch.device import DeviceLike, resolve_device
+from glint_word2vec_torch.ops import device_batching as dbat
+from glint_word2vec_torch.ops import random as rnd
+from glint_word2vec_torch.ops.fused_sgns import fused_pair_step
 from glint_word2vec_torch.ops.rows import gather_rows
+from glint_word2vec_torch.ops.sampling import sample_negatives_per_row
+from glint_word2vec_torch.ops.sgns import init_tables, negative_mask
 from glint_word2vec_torch.utils import integrity, next_pow2
 
 #: Floor of the top-k k-bucket family (``engine.py:259`` of the JAX
@@ -126,15 +141,18 @@ class EmbeddingEngine:
         #: Ticks on every table mutation: the token the serving result
         #: cache validates against.
         self.table_version = 0
-        # word2vec's initial tables: syn0 ~ U[-0.5/d, 0.5/d), syn1 = 0.
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
-        syn0 = torch.rand(
-            (self.num_rows, self.dim), generator=gen, device=self.device
+        self.syn0, self.syn1 = init_tables(
+            gen, self.num_rows, self.dim, self._dtype, self.device
         )
-        self.syn0 = ((syn0 - 0.5) / self.dim).to(self._dtype)
-        self.syn1 = torch.zeros(
-            (self.num_rows, self.dim), dtype=self._dtype, device=self.device
-        )
+        # Training state: the noise tables are built on first use (serving
+        # never needs them), the corpus by upload_corpus.
+        self._noise = None
+        self._corpus = None
+        self._corpus_compacted = None
+        self._n_kept = None
+        self._compacted_offsets_host = None
+        self._keep_prob = None
 
     # ------------------------------------------------------------------
     # Bookkeeping
@@ -312,6 +330,167 @@ class EmbeddingEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return n
+
+    # ------------------------------------------------------------------
+    # Corpus-resident training
+    # ------------------------------------------------------------------
+
+    def noise_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The unigram^power alias table on the device, ``(prob float32,
+        alias int32)`` over the unpadded vocabulary, built on first use."""
+        if self._noise is None:
+            t = build_unigram_alias(
+                self._counts, power=self.unigram_power,
+                table_size=self.unigram_table_size,
+            )
+            self._noise = (
+                torch.from_numpy(t.prob).to(self.device),
+                torch.from_numpy(t.alias).to(self.device),
+            )
+        return self._noise
+
+    def upload_corpus(self, ids: np.ndarray, offsets: np.ndarray) -> None:
+        """Upload the flat encoded corpus (``corpus/vocab.encode_file``'s
+        ``(ids, offsets)``) to the device once; the packed steps assemble
+        every batch there."""
+        n = int(np.asarray(ids).shape[0])
+        if n < 1 or n >= 2**31 or int(np.asarray(offsets)[-1]) != n:
+            raise ValueError(
+                "corpus must be non-empty with offsets[-1] == len(ids) "
+                f"< 2**31 (got len(ids)={n})"
+            )
+        self._corpus = dbat.to_device_corpus(ids, offsets, self.device)
+        self._corpus_compacted = None
+        self._n_kept = None
+        self._compacted_offsets_host = None
+
+    def _require_corpus(self):
+        if self._corpus is None:
+            raise ValueError("no corpus uploaded (call upload_corpus first)")
+        return self._corpus
+
+    def set_keep_probs(self, keep_prob: np.ndarray) -> None:
+        """Install the per-word keep probabilities of frequency
+        subsampling (``Vocabulary.device_keep_probabilities``); required
+        before :meth:`compact_corpus`."""
+        kp = np.asarray(keep_prob, dtype=np.float32)
+        if kp.shape != (self.vocab_size,):
+            raise ValueError(
+                f"keep_prob must have shape ({self.vocab_size},), got {kp.shape}"
+            )
+        self._keep_prob = torch.from_numpy(kp).to(self.device)
+
+    def compact_corpus(self, epoch_key: int,
+                       keep: Optional[torch.Tensor] = None) -> int:
+        """Run one epoch's subsample-and-compact pass over the uploaded
+        corpus and make the compacted view the active corpus of the next
+        packed steps. The keep mask is drawn from ``epoch_key``
+        (``subsample_keep_mask``) unless given. Returns ``n_kept``, the
+        one scalar read back per epoch."""
+        ids, offsets = self._require_corpus()
+        if self._keep_prob is None:
+            raise ValueError(
+                "no keep probabilities installed (call set_keep_probs first)"
+            )
+        self._corpus_compacted = None
+        if keep is None:
+            keep = dbat.subsample_keep_mask(ids, self._keep_prob, epoch_key)
+        ids_c, offsets_c, n_kept = dbat.subsample_compact(ids, offsets, keep)
+        self._corpus_compacted = (ids_c, offsets_c)
+        self._compacted_offsets_host = None
+        self._n_kept = int(n_kept)
+        return self._n_kept
+
+    def compacted_offsets(self) -> np.ndarray:
+        """Host copy of the active epoch's compacted sentence offsets (one
+        readback per epoch, for the host's words_done accounting)."""
+        if self._corpus_compacted is None:
+            raise ValueError("no compacted corpus (call compact_corpus)")
+        if self._compacted_offsets_host is None:
+            self._compacted_offsets_host = self._corpus_compacted[1].cpu().numpy()
+        return self._compacted_offsets_host
+
+    def train_steps_corpus_packed(
+        self, start_position: int, pair_batch: int, window: int,
+        grid_batch: int, base_key: int, n_steps: int, step0: int = 0,
+        grid_step0: int = 0, *, step_size: float = 0.025,
+        total_words: int = 1, words_base: int = 0, draws=None,
+    ):
+        """K = ``n_steps`` packed SGNS steps over the active corpus view
+        (the epoch's compacted buffers after :meth:`compact_corpus`, else
+        the uploaded corpus).
+
+        Step ``i`` packs the next valid pairs of the position stream into
+        ``pair_batch`` slots (``pack_window_pairs`` over ``packed_span``
+        candidate positions), draws ``num_negatives`` per pair row, masks
+        them, and applies
+        :func:`~glint_word2vec_torch.ops.fused_sgns.fused_pair_step`
+        to the tables in place. The learning rate follows the consumed
+        position on the device: ``max(step_size * (1 - wd / total_words),
+        step_size * 1e-4)`` with ``wd = words_base + device_words_done``.
+        The position, the consumed count and alpha stay 0-d device tensors
+        through the loop; nothing is read back until its end.
+
+        ``draws`` supplies the shrink and negative draws
+        (:class:`TrainingDraws` over ``base_key`` by default): step ``i``
+        draws its negatives under the key ``fold_in(base_key, step0 + i)``
+        and position ``p`` its shrink under the grid key schedule of
+        ``grid_batch``/``grid_step0``.
+
+        Returns host arrays ``(losses (K,), pair_counts (K,), pos_ends
+        (K,), alphas (K,))``: per-step loss, live pairs packed, consumed
+        position after the step, and alpha."""
+        ids_full, offsets = self._require_corpus()
+        P, W, B = int(pair_batch), int(window), int(grid_batch)
+        C = context_width(W)
+        if P < C:
+            raise ValueError(f"pair_batch ({P}) must be >= context lanes ({C})")
+        S = dbat.packed_span(P, C)
+        K = int(n_steps)
+        if self._corpus_compacted is not None:
+            ids, soffs = self._corpus_compacted
+            n_valid = self._n_kept
+        else:
+            ids, soffs = ids_full, offsets
+            n_valid = ids_full.shape[0]
+        if draws is None:
+            draws = TrainingDraws(
+                base_key, *self.noise_tables(), W, B, self.num_negatives
+            )
+        dev = self.device
+        f32 = dict(dtype=torch.float32, device=dev)
+        step_size_t = torch.tensor(step_size, **f32)
+        floor = step_size_t * 1e-4
+        inv_total = torch.tensor(1.0 / float(total_words), **f32)
+        base_words = torch.tensor(float(words_base), **f32)
+        arange_s = torch.arange(S, dtype=torch.int64, device=dev)
+        pos = torch.tensor(int(start_position), dtype=torch.int64, device=dev)
+        out = torch.empty((4, K), dtype=torch.float64, device=dev)
+        for i in range(K):
+            shrink = draws.shrink(pos + arange_s, grid_step0)
+            pc, px, pm, n_cons, n_pairs = dbat.pack_window_pairs(
+                ids, soffs, pos, shrink, window=W, pair_batch=P,
+                n_valid=n_valid,
+            )
+            pos = pos + n_cons
+            done = dbat.device_words_done(offsets, soffs, pos, n_valid)
+            wd = base_words + done.to(torch.float32)
+            alpha = torch.maximum(step_size_t * (1.0 - wd * inv_total), floor)
+            negs = draws.negatives(step0 + i, P)
+            nmask = negative_mask(negs, px, pm)
+            loss_sum = fused_pair_step(
+                self.syn0, self.syn1, pc, px, pm, negs, nmask, alpha
+            )
+            out[0, i] = loss_sum / pm.sum().clamp(min=1.0)
+            out[1, i] = n_pairs
+            out[2, i] = pos
+            out[3, i] = alpha
+        self._tick_tables()
+        host = out.cpu().numpy()
+        return (
+            host[0].astype(np.float32), host[1].astype(np.int64),
+            host[2].astype(np.int64), host[3].astype(np.float32),
+        )
 
     # ------------------------------------------------------------------
     # Persistence
@@ -535,3 +714,36 @@ class EmbeddingEngine:
     def destroy(self) -> None:
         """Free every device buffer of the engine."""
         self.release_tables()
+        self._noise = self._corpus = self._corpus_compacted = None
+        self._keep_prob = None
+
+
+class TrainingDraws:
+    """The draws of the packed training steps, from ``ops/random.py``
+    words under one base key.
+
+    :meth:`shrink` gives the window-shrink draw of each position under the
+    grid key schedule (``device_batching.grid_window_shrink``), and
+    :meth:`negatives` the per-pair-row negatives of one step under
+    ``fold_in(base_key, step)`` (``sampling.sample_negatives_per_row``).
+    Tests hand the engine another object with these two methods to replay
+    the JAX package's draws."""
+
+    def __init__(self, base_key: int, prob: torch.Tensor, alias: torch.Tensor,
+                 window: int, grid_batch: int, num_negatives: int):
+        self.base_key = int(base_key)
+        self.prob, self.alias = prob, alias
+        self.window, self.grid_batch = int(window), int(grid_batch)
+        self.num_negatives = int(num_negatives)
+
+    def shrink(self, positions: torch.Tensor, grid_step0: int) -> torch.Tensor:
+        return dbat.grid_window_shrink(
+            self.base_key, positions, self.grid_batch, grid_step0, self.window
+        )
+
+    def negatives(self, step: int, n_rows: int) -> torch.Tensor:
+        rows = torch.arange(n_rows, dtype=torch.int64, device=self.prob.device)
+        key = rnd.fold_in(self.base_key, int(step) & 0xFFFFFFFF)
+        return sample_negatives_per_row(
+            key, self.prob, self.alias, rows, (self.num_negatives,)
+        )

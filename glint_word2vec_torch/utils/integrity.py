@@ -1,5 +1,6 @@
 """Checkpoint integrity manifests (own copy of ``glint_word2vec_tpu/utils/integrity.py``,
-trimmed to what saving and loading a model directory needs).
+trimmed to what saving and loading a model directory and resuming a
+training run need).
 
 A snapshot directory carries ``manifest.json``: sha256 and byte size of
 every small file, plus (version 2) the names of the table shard files,
@@ -11,11 +12,14 @@ from __future__ import annotations
 
 import hashlib
 import json
+import logging
 import os
 from typing import Dict, List, Optional
 
 MANIFEST_NAME = "manifest.json"
 SHARD_MANIFEST_SUFFIX = ".manifest.json"
+
+logger = logging.getLogger(__name__)
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -146,3 +150,49 @@ def verify_snapshot_dir(path: str) -> bool:
     for fname, ent in entries.items():
         _check_entry(path, fname, ent, "file")
     return True
+
+
+def resolve_train_state(checkpoint_dir: str) -> Optional[dict]:
+    """The newest committed training state whose snapshot verifies.
+
+    Reads ``train_state.json`` and tries the current record, then the
+    previous committed one it carries under ``"prev"`` (keep-last-2
+    retention). Returns the first record (without ``"prev"``) whose
+    snapshot directory passes :func:`verify_snapshot_dir`, logging one
+    line per rejected candidate; ``None`` when there is no state file.
+    Raises :class:`CheckpointCorruptError` when a state file exists but
+    no candidate verifies: a silent restart from scratch would train
+    over committed progress."""
+    state_path = os.path.join(checkpoint_dir, "train_state.json")
+    if not os.path.exists(state_path):
+        return None
+    with open(state_path) as f:
+        state = json.load(f)
+    candidates = [state]
+    prev = state.get("prev")
+    if prev and prev.get("ckpt"):
+        candidates.append(prev)
+    reasons = []
+    for i, rec in enumerate(candidates):
+        try:
+            verify_snapshot_dir(os.path.join(checkpoint_dir, rec["ckpt"]))
+        except (CheckpointCorruptError, KeyError) as e:
+            reasons.append(str(e))
+            logger.error(
+                "checkpoint %s failed integrity verification (%s)%s",
+                rec.get("ckpt"), e,
+                "; falling back to the previous committed snapshot"
+                if i + 1 < len(candidates) else "",
+            )
+            continue
+        if i > 0:
+            logger.warning(
+                "resuming from fallback checkpoint %s (epoch %s): the "
+                "newest committed snapshot did not verify",
+                rec["ckpt"], rec.get("epochs_completed"),
+            )
+        return {k: v for k, v in rec.items() if k != "prev"}
+    raise CheckpointCorruptError(
+        f"no verifiable committed checkpoint in {checkpoint_dir}: "
+        + " | ".join(reasons)
+    )

@@ -1,9 +1,9 @@
 """Hyperparameters of a model (own copy of ``glint_word2vec_tpu/utils/params.py``).
 
-The serving slice only reads and writes ``params.json``, but the field set
-is the JAX package's in full, so a ``params.json`` written by either
-package round-trips through the other. See the JAX module for what each
-field means to training.
+The field set is the JAX package's in full, so a ``params.json`` written
+by either package round-trips through the other. See the JAX module for
+what each field means to training; ``Word2Vec.fit`` of the port refuses
+the settings it does not train yet.
 """
 
 from __future__ import annotations
@@ -99,6 +99,10 @@ class Word2VecParams:
             self.exchange_shard in ("roundrobin", "locality"),
             "exchange_shard must be roundrobin|locality",
         )
+
+    def replace(self, **kwargs) -> "Word2VecParams":
+        """A validated copy with the given fields changed."""
+        return dataclasses.replace(self, **kwargs)
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), sort_keys=True)

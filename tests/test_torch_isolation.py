@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import glint_word2vec_torch
+from glint_word2vec_torch import Word2Vec
 from glint_word2vec_torch.models import load_model
 from glint_word2vec_torch.ops.rows import gather_rows
 from glint_word2vec_torch.parallel.engine import EmbeddingEngine
@@ -90,6 +91,10 @@ def test_no_cuda_raises_unless_cpu_is_asked(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_model(str(tmp_path / "m"))
     assert load_model(str(tmp_path / "m"), device="cpu").vocab.size == 4
+    sents = [["a", "b", "c", "d"]] * 8
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Word2Vec(min_count=1, vector_size=3).fit(sents)
+    assert Word2Vec(device="cpu", min_count=1, vector_size=3).fit(sents).vocab.size == 4
 
 
 def test_gather_refuses_other_devices():
@@ -123,3 +128,25 @@ def test_cli_info_and_synonyms_on_cpu(tmp_path, capsys):
     assert cli.main(["synonyms", "--model", str(tmp_path / "m"), "--word", "w1",
                      "-n", "3", "--device", "cpu"]) == 0
     assert len(capsys.readouterr().out.splitlines()) == 3
+    # train, in a child process with JAX poisoned, at a tiny size.
+    corpus = tmp_path / "c.txt"
+    corpus.write_text("".join(
+        " ".join(f"w{(7 * i + j) % 12}" for j in range(9)) + "\n" for i in range(40)
+    ))
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'glint_word2vec_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "from glint_word2vec_torch import cli\n"
+        "sys.exit(cli.main(sys.argv[1:]))\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code, "train", "--corpus", str(corpus),
+         "--output", str(tmp_path / "t"), "--device", "cpu", "--vector-size", "4",
+         "--batch-size", "16", "--min-count", "1", "--window", "2"],
+        cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
+        text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout.strip().splitlines()[-1])["pipeline"] == "device_corpus"
+    assert load_model(str(tmp_path / "t"), device="cpu").vocab.size == 12
