@@ -45,6 +45,28 @@ nothing of JAX. Phases, each of which fails the run on any error:
    bitwise, one epoch plus a resume from its checkpoint plus one epoch;
    (d) ``find_synonyms`` on the trained 1,000,000 x 300 model, which runs
    ``gather_rows``.
+7. The composed step's kernels against plain, at full fastText width
+   (3,000,000 x 300 tables: 1,000,000 words and 2,000,000 n-gram
+   buckets; fp32 and bf16): ``scatter_add_rows`` on the B·S = 32,768 syn0
+   ids of 1,024 subword groups of 32 (padded slots at row 0) and
+   ``scatter_add_rank1`` on the B·C·(1+n) syn1 ids of a grid step (C = 7
+   at W = 5, and C = 10: N = 43,008 and 61,440; padded context slots at
+   row 0 with zero coefficients), each bitwise against its plain version
+   on a CPU copy of the touched rows; median times, the plain version's,
+   ``index_add_``'s for ``scatter_add_rows`` in fp32, the bound, the run
+   count R and the longest run.
+8. fastText and the host batcher: (a) ``FastTextWord2Vec().fit_file`` on
+   phase 6's corpus at that width, fp32, one epoch, with every launch
+   counter zeroed just before (``scatter_add_rows`` and
+   ``scatter_add_rank1`` once a step, ``gather_rows`` on every pull); its
+   words/s, and steps/s, busy share and top kernels of 48 composed steps;
+   (b) the ``tiny_corpus`` gates of ``tests/test_fasttext.py`` in fp32 and
+   bf16 (OOV cosine, no bucket row in a top-k, save and ``load_model``
+   keep the vectors); (c) word2vec through the host batcher (the script
+   reports no free device memory): the vienna/berlin gates in fp32 and
+   bf16, and bitwise resume; (d) the fp32 model of (b) served by
+   ``serve_model_dir``: ``/vector`` of an OOV word equals ``transform``
+   and ``/synonyms`` equals ``find_synonyms``.
 
 It prints one JSON ``kernels`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -82,6 +104,10 @@ V_TRAIN, N_NEG, B_TRAIN, W_TRAIN = 1_000_000, 5, 1024, 5
 CORPUS_TOKENS, MIN_PER_WORD, SENTENCE_LEN = 10_000_000, 5, 20
 #: Packed groups (of steps_per_call = 16 steps) in the profiled window.
 PROFILE_GROUPS = 3
+#: fastText at the geometry of its published English vectors: fastText's
+#: own defaults -bucket 2000000 -minn 3 -maxn 6, max_subwords 32, over the
+#: same 1M-word vocabulary and d = 300.
+FT_BUCKET, FT_SUBWORDS = 2_000_000, 32
 #: The card the script runs on; the port's entry points default to it.
 DEV = "cuda"
 
@@ -595,7 +621,9 @@ def pair_forward_bound(P, n, d, s, uniq0, uniq1):
 
 def scatter_bound(P, N, R, d, s, bytes_per_update, flops_per_value):
     """Least time of a run-summing scatter, ms: the P x d fp32 payload
-    rows read, each of the R distinct table rows read and written once,
+    rows read (the update rows, or ``h`` for the rank-1 scatters, which
+    form each update from a row of it), each of the R distinct table rows
+    (s bytes a value) read and written once,
     and ``bytes_per_update`` of index data read per update (8 for the
     rows scatter: sorted id and permutation entry; 16 for the rank-1
     scatter: those, the coefficient and the h row index); against
@@ -983,6 +1011,398 @@ def train_end_to_end(torch, np, fs, rows_mod) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 7: the composed step's kernels against their plain versions,
+# full fastText width
+# ----------------------------------------------------------------------
+
+
+def composed_step_ids(torch, np, gen, C: int):
+    """One full-width fastText step's update ids on the card, as the
+    composed step sends them: syn0 ids of B subword groups (word row,
+    22 n-gram bucket rows, 9 padded slots at row 0 with zero updates, as
+    a 7-letter word such as ``w123456`` has), the last 24 batch rows the
+    epoch's padding (word 0's group, zero updates); syn1 ids of the
+    contexts (Zipf, about 57 % of the slots padded to row 0 with zero
+    coefficients) and of their negatives (alias draws over Zipf counts,
+    zero coefficients under padded contexts). Ids 0, V-1 and the last
+    bucket row are among them."""
+    from glint_word2vec_torch.corpus.alias import build_unigram_alias
+    from glint_word2vec_torch.ops import random as rnd
+    from glint_word2vec_torch.ops.sampling import sample_negatives_per_row
+
+    B, S, n, V = B_TRAIN, FT_SUBWORDS, N_NEG, V_TRAIN
+    words = zipf_ids(torch, gen, (B,), V)
+    groups = torch.zeros((B, S), dtype=torch.int32, device=DEV)
+    groups[:, 0] = words
+    groups[:, 1:23] = V + torch.randint(
+        0, FT_BUCKET, (B, 22), generator=gen, device=DEV, dtype=torch.int32)
+    groups[0, 0], groups[1, 1] = V - 1, V + FT_BUCKET - 1
+    cmask = (torch.arange(S, device=DEV) < 23).float().expand(B, S).clone()
+    groups[-24:] = groups[0].clone()
+    ctx = zipf_ids(torch, gen, (B, C), V)
+    mask = (torch.rand((B, C), generator=gen, device=DEV) < 0.43).float()
+    mask[-24:] = 0.0
+    ctx = torch.where(mask > 0, ctx, 0)
+    ctx[2, 0], mask[2, 0] = V - 1, 1.0
+    counts = (1e9 / np.arange(1, V + 1)).astype(np.int64) + MIN_PER_WORD
+    t = build_unigram_alias(counts)
+    negs = sample_negatives_per_row(
+        rnd.fold_in(rnd.seed_key(3), 9), torch.from_numpy(t.prob).to(DEV),
+        torch.from_numpy(t.alias).to(DEV), torch.arange(B, device=DEV), (C, n),
+    )
+    ids1 = torch.cat([ctx.reshape(-1), negs.reshape(-1)])
+    coef = torch.randn(ids1.shape[0], generator=gen, device=DEV) * 0.02
+    coef *= torch.cat([mask.reshape(-1), mask[..., None].expand(B, C, n).reshape(-1)])
+    r = torch.arange(B, dtype=torch.int32, device=DEV)
+    hidx = torch.cat([r.repeat_interleave(C), r.repeat_interleave(C * n)])
+    return groups.reshape(-1), cmask.reshape(-1), ids1, coef.contiguous(), hidx
+
+
+def check_composed_kernels(torch, np, rows_mod, fs) -> dict:
+    """Phase 7. Returns per-kernel results of the fp32 full-width case,
+    with the worst error over every case."""
+    from glint_word2vec_torch.corpus.batching import context_width
+
+    gen = torch.Generator(device=DEV).manual_seed(20261018)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
+    C = context_width(W_TRAIN)
+    rows_v = V_TRAIN + FT_BUCKET
+    out = {}
+    # The main path's shapes (C = 7 context lanes at W = 5), then B2 at
+    # C = 10 as well (N = 61,440).
+    ids0, cmask, ids1, coef, hidx = composed_step_ids(torch, np, gen, C)
+    _, _, ids1_w, coef_w, hidx_w = composed_step_ids(torch, np, gen, 10)
+    h = torch.randn((B_TRAIN, D), generator=gen, device=DEV)
+    upd0 = torch.randn((ids0.shape[0], D), generator=gen, device=DEV) * 0.01
+    upd0 *= cmask[:, None]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "f32" if dtype == torch.float32 else "bf16"
+        s = 4 if dtype == torch.float32 else 2
+        table = (0.3 * torch.randn((rows_v, D), generator=gen, device=DEV)).to(dtype)
+
+        # scatter_add_rank1: syn1 += (coef * h[hidx]) in the table's dtype.
+        for ids, cf, hx in ((ids1, coef, hidx), (ids1_w, coef_w, hidx_w)):
+            uniq = torch.unique(ids.long())
+            before = table[uniq].cpu()
+            rows_mod.scatter_add_rank1(table, ids, cf, h, hx)
+            torch.cuda.synchronize()
+            R = touched_rows_check(
+                torch, table, before, ids,
+                lambda t, local: rows_mod.scatter_add_rank1_reference(
+                    t, local, cf.cpu(), h.cpu(), hx.cpu()),
+                f"scatter_add_rank1 {name} N={ids.numel()}")
+            longest = int(torch.unique(ids, return_counts=True)[1].max())
+            log(f"scatter_add_rank1 {name} V={rows_v} d={D} N={ids.numel()}: "
+                f"bitwise equal (R={R} runs, longest {longest})")
+        R = int(torch.unique(ids1).numel())
+        longest = int(torch.unique(ids1, return_counts=True)[1].max())
+        sid, order = fs.sorted_runs(ids1)
+        ms = median_ms(torch, lambda: rows_mod.scatter_add_rank1_sorted(
+            table, sid, order, coef, h, hidx), flush)
+        plain = median_ms(torch, lambda: rows_mod.scatter_add_rank1_reference(
+            table, ids1, coef, h, hidx), flush)
+        bound, nbytes = scatter_bound(B_TRAIN, ids1.numel(), R, D, s, 16, 2)
+        out[("scatter_add_rank1", name)] = dict(
+            ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, runs=R,
+            longest=longest, n=ids1.numel())
+        log(f"scatter_add_rank1 {name} N={ids1.numel()}: kernel {ms:.4f} ms "
+            f"(sort excluded), plain {plain:.4f} ms, bound {bound:.5f} ms "
+            f"({nbytes} bytes; R={R}, longest run {longest})")
+
+        # scatter_add_rows: syn0 += upd, cast to the table's dtype.
+        uniq = torch.unique(ids0.long())
+        before = table[uniq].cpu()
+        rows_mod.scatter_add_rows(table, ids0, upd0)
+        torch.cuda.synchronize()
+        R = touched_rows_check(
+            torch, table, before, ids0,
+            lambda t, local: rows_mod.scatter_add_rows_reference(
+                t, local, upd0.cpu()),
+            f"scatter_add_rows {name}")
+        longest = int(torch.unique(ids0, return_counts=True)[1].max())
+        sid, order = fs.sorted_runs(ids0)
+        ms = median_ms(torch, lambda: rows_mod.scatter_add_rows_sorted(
+            table, sid, order, upd0), flush)
+        plain = median_ms(torch, lambda: rows_mod.scatter_add_rows_reference(
+            table, ids0, upd0), flush)
+        library = None
+        if dtype == torch.float32:
+            library = median_ms(
+                torch, lambda: table.index_add_(0, ids0.long(), upd0), flush)
+        bound, nbytes = scatter_bound(ids0.numel(), ids0.numel(), R, D, s, 8, 1)
+        out[("scatter_add_rows", name)] = dict(
+            ms=ms, plain_ms=plain, library_ms=library, bound_ms=bound, runs=R,
+            longest=longest, n=ids0.numel())
+        lib_txt = f", index_add_ {library:.4f} ms" if library is not None else ""
+        log(f"scatter_add_rows {name} V={rows_v} d={D} N={ids0.numel()}: "
+            f"bitwise equal (R={R} runs, longest {longest}); kernel "
+            f"{ms:.4f} ms (sort excluded), plain {plain:.4f} ms{lib_txt}, "
+            f"bound {bound:.5f} ms ({nbytes} bytes)")
+        del table
+        torch.cuda.empty_cache()
+    for r in out.values():
+        r["max_abs_err"] = 0.0  # every case above is bitwise
+    return out
+
+
+# ----------------------------------------------------------------------
+# Phase 8: fastText and the host batcher, trained on the card
+# ----------------------------------------------------------------------
+
+
+def profile_composed(torch, np, model, path: str, groups: int) -> None:
+    """Steps/s of ``groups`` groups of 16 composed fastText steps at full
+    width without the profiler, then the card's busy share and the
+    kernels with the most device time in a ``torch.profiler`` window of
+    as many groups. The batches come from the host batcher over the
+    corpus's first sentences, expanded to subword groups; the trained
+    tables train on."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from glint_word2vec_torch.corpus.batching import (
+        SkipGramBatcher,
+        group_batches,
+    )
+    from glint_word2vec_torch.ops import random as rnd
+
+    sents = []
+    with open(path) as f:
+        for _ in range((2 * groups + 1) * 16 * B_TRAIN // SENTENCE_LEN + 64):
+            sents.append(model.vocab.encode(f.readline().split()))
+    batcher = SkipGramBatcher(sents, model.vocab, B_TRAIN, W_TRAIN, seed=2)
+    it = group_batches(batcher.epoch(0), 16)
+    grps = [next(it) for _ in range(2 * groups + 1)]
+    eng, key = model.engine, rnd.seed_key(2)
+    step = [0]
+
+    def run(gs):
+        for g in gs:
+            eng.train_steps_grouped(
+                model._sub_ids[g.centers], model._sub_mask[g.centers],
+                g.contexts, g.mask, key, [0.001] * 16, step[0])
+            step[0] += 16
+        torch.cuda.synchronize()
+
+    run(grps[:1])  # warm
+    t = time.perf_counter()
+    run(grps[1 : 1 + groups])
+    wall = time.perf_counter() - t
+    log(f"composed fastText steps at full width, unprofiled: {groups * 16} "
+        f"steps in {wall:.3f} s, {groups * 16 / wall:.1f} steps/s")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run(grps[1 + groups :])
+        wall = time.perf_counter() - t
+    spans = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events() if e.device_type == DeviceType.CUDA
+    )
+    if not spans:
+        log("device busy share of the composed steps: not measured (the "
+            "profiler saw no device activity)")
+        return
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    log(f"device busy share of the composed steps (profiled, {groups * 16} "
+        f"steps in {wall:.3f} s): {busy_us / (wall * 1e6):.4f}; "
+        f"{len(spans) / (groups * 16):.1f} device activities a step, "
+        f"{busy_us / (groups * 16) / 1e3:.4f} ms of device time a step")
+    top = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
+    for a in top[:8]:
+        log(f"  {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<6d} "
+            f"{a.key[:90]}")
+
+
+def tiny_fasttext(FastTextWord2Vec, **kw):
+    """The settings of tests/test_fasttext.py:53-58, on the card."""
+    return FastTextWord2Vec(
+        vector_size=32, min_count=5, batch_size=256, num_iterations=4,
+        step_size=0.025, seed=1, bucket=5000, min_n=3, max_n=5, **kw,
+    )
+
+
+def cosine(np, a, b) -> float:
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def serve_fasttext(torch, np, rows_mod, model, tmp: str) -> None:
+    """(d): the saved fastText model served by ``serve_model_dir``; an
+    OOV ``/vector`` equals ``transform`` and ``/synonyms`` equals
+    ``find_synonyms``, and the gather runs on that path."""
+    from glint_word2vec_torch.serving import serve_model_dir
+
+    model_dir = os.path.join(tmp, "ft_served")
+    model.save(model_dir)
+    want_vec = model.transform("austriaa")
+    want_syn = model.find_synonyms("austria", 5)
+    port_file = os.path.join(tmp, "ft_port.json")
+    failure = []
+
+    def run():
+        try:
+            serve_model_dir(model_dir, port=0, port_file=port_file, device=DEV)
+        except BaseException as e:  # reported by the main thread
+            failure.append(e)
+
+    rows_mod.gather_rows.launches = 0
+    th = threading.Thread(target=run, name="serve_fasttext", daemon=True)
+    th.start()
+    t0 = time.perf_counter()
+    while not os.path.exists(port_file):
+        if failure or not th.is_alive():
+            raise RuntimeError(f"serve_model_dir failed: {failure}")
+        if time.perf_counter() - t0 > 300:
+            raise RuntimeError("fastText server not listening after 300 s")
+        time.sleep(0.2)
+    with open(port_file) as f:
+        port = json.load(f)["port"]
+    before = rows_mod.gather_rows.launches
+    vec = np.asarray(post(port, "/vector", {"word": "austriaa"}), np.float32)
+    grew = rows_mod.gather_rows.launches - before
+    err = float(np.abs(vec - want_vec).max())
+    expect(err <= 1e-6, f"served OOV /vector differs from transform by {err}")
+    expect(grew > 0, "the served OOV /vector never launched gather_rows")
+    hits = post(port, "/synonyms", {"word": "austria", "num": 5})
+    expect([w for w, _ in hits] == [w for w, _ in want_syn]
+           and all(abs(s - t) <= 1e-5 for (_, s), (_, t) in zip(hits, want_syn)),
+           f"served /synonyms {hits} differ from find_synonyms {want_syn}")
+    expect(post_status(port, "/vector", {"word": "q"}) == 404,
+           "an OOV word with no n-gram did not answer 404")
+    expect(post(port, "/shutdown", {}) == {"status": "shutting down"},
+           "/shutdown was not acknowledged")
+    th.join(timeout=120)
+    if th.is_alive() or failure:
+        raise RuntimeError(f"fastText server did not stop cleanly: {failure}")
+    log(f"served fastText model: OOV /vector equals transform (max |diff| "
+        f"{err:.3g}), gather_rows launched {grew} time(s) for it; /synonyms "
+        f"equals find_synonyms: {hits[:3]} ...")
+
+
+def train_fasttext_end_to_end(torch, np, rows_mod) -> dict:
+    """Phase 8. Returns the composed step's launch counts from (a)."""
+    from glint_word2vec_torch import FastTextWord2Vec, Word2Vec
+    from glint_word2vec_torch.models import load_model
+    from glint_word2vec_torch.models import word2vec as w2v_mod
+
+    tmp = tempfile.mkdtemp(prefix="glint_chip_fasttext_")
+    try:
+        path = os.path.join(tmp, "corpus.txt")
+        n_tok = write_synthetic_corpus(np, path)
+
+        # (a) The main path: every counter zeroed just before, read just
+        # after.
+        counters = (rows_mod.scatter_add_rows, rows_mod.scatter_add_rank1,
+                    rows_mod.gather_rows)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        model = FastTextWord2Vec(
+            vector_size=D, window=W_TRAIN, batch_size=B_TRAIN,
+            num_negatives=N_NEG, min_count=MIN_PER_WORD, num_iterations=1,
+            step_size=0.025, seed=1, bucket=FT_BUCKET, min_n=3, max_n=6,
+            max_subwords=FT_SUBWORDS,
+        ).fit_file(path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        tm = model.training_metrics
+        log(f"fastText fit_file {V_TRAIN} words + {FT_BUCKET} buckets x {D}: "
+            f"{wall:.1f} s in all (vocabulary scan, encode, subword table, "
+            f"training); training {tm['wall_seconds']} s, {tm['steps']} steps, "
+            f"{tm['words_per_sec']} words/s, host {tm['host_time']} s, step "
+            f"{tm['step_time']} s, final loss {tm['final_loss']}; launches "
+            f"{launches}")
+        expect(tm["pipeline"] == "host", tm)
+        expect(model.engine.num_rows == V_TRAIN + FT_BUCKET,
+               f"table rows {model.engine.num_rows}")
+        expect(tm["words_done"] == n_tok, tm)
+        expect(math.isfinite(tm["final_loss"]), tm)
+        groups = tm["steps"] + (-tm["steps"]) % 16
+        for name in ("scatter_add_rows", "scatter_add_rank1", "gather_rows"):
+            if launches[name] <= 0:
+                raise AssertionError(f"the fastText fit never launched {name}")
+        for name in ("scatter_add_rows", "scatter_add_rank1"):
+            expect(launches[name] == groups,
+                   f"one {name} per step: {launches} for {tm['steps']} steps")
+        for t in (model.engine.syn0, model.engine.syn1):
+            expect(bool(torch.isfinite(t).all()), "non-finite table entries")
+        profile_composed(torch, np, model, path, PROFILE_GROUPS)
+        model.stop()
+        del model
+        torch.cuda.empty_cache()
+
+        # (b) The fastText gates of tests/test_fasttext.py on the card.
+        corpus = make_tiny_corpus(np)
+        for dtype in ("float32", "bfloat16"):
+            t0 = time.perf_counter()
+            m = tiny_fasttext(FastTextWord2Vec, dtype=dtype).fit(corpus)
+            v, v_oov = m.transform("austria"), m.transform("austriaa")
+            cos = cosine(np, v, v_oov)
+            _, idx = m.engine.top_k_cosine(v, 20)
+            syns = m.find_synonyms("austria", 5)
+            expect(cos > 0.5, f"{dtype}: OOV cosine {cos}")
+            expect(bool((idx < m.vocab.size).all()), "a bucket row surfaced")
+            expect(len(syns) == 5 and "austria" not in dict(syns), syns)
+            saved = os.path.join(tmp, f"ft_{dtype}")
+            m.save(saved)
+            loaded = load_model(saved, device=DEV)
+            for w in ("austria", "austriaa"):
+                a, b = loaded.transform(w), m.transform(w)
+                expect(np.allclose(a, b, rtol=1e-5, atol=1e-6),
+                       f"{dtype}: {w} changed across save/load_model")
+            loaded.stop()
+            log(f"tiny_corpus fastText {dtype} on the card in "
+                f"{time.perf_counter() - t0:.1f} s: cos(austria, austriaa) "
+                f"{cos:.4f}; austria -> {syns[:3]}; save/load_model kept the "
+                "vectors")
+            if dtype == "float32":
+                serve_fasttext(torch, np, rows_mod, m, tmp)
+            m.stop()
+
+        # (c) Word2vec through the host batcher: a card with no free
+        # memory sends every corpus there.
+        real_free = w2v_mod._free_device_bytes
+        w2v_mod._free_device_bytes = lambda device: 0
+        try:
+            for dtype in ("float32", "bfloat16"):
+                m = tiny_w2v(Word2Vec, dtype=dtype).fit(corpus)
+                expect(m.training_metrics["pipeline"] == "host", m.training_metrics)
+                syns = m.find_synonyms("austria", 10)
+                ana = m.analogy(positive=["vienna", "germany"],
+                                negative=["austria"], num=10)
+                log(f"tiny_corpus word2vec {dtype}, host batcher: austria -> "
+                    f"{syns[:4]}; vienna - austria + germany -> {ana[:3]}")
+                expect("vienna" in dict(syns) and dict(syns)["vienna"] > 0.5,
+                       f"{dtype} host-route vienna gate failed: {syns}")
+                expect("berlin" in [w for w, _ in ana],
+                       f"{dtype} host-route berlin gate failed: {ana}")
+                m.stop()
+            ck = os.path.join(tmp, "ck_host")
+            tiny_w2v(Word2Vec, num_iterations=2).fit(
+                corpus, checkpoint_dir=ck, stop_after_epochs=1).stop()
+            resumed = tiny_w2v(Word2Vec, num_iterations=2).fit(
+                corpus, checkpoint_dir=ck)
+            full = tiny_w2v(Word2Vec, num_iterations=2).fit(corpus)
+            for name in ("syn0", "syn1"):
+                expect(torch.equal(getattr(resumed.engine, name),
+                                   getattr(full.engine, name)),
+                       f"host route: resumed {name} differs")
+            log("host-batcher resume on the card: 1 epoch + resume + 1 "
+                "epoch == 2 epochs, bitwise")
+            resumed.stop()
+            full.stop()
+        finally:
+            w2v_mod._free_device_bytes = real_free
+        return {"launches": launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1013,6 +1433,8 @@ def main() -> int:
     served = serve_end_to_end(torch, np, rows_mod)
     timed = check_training_kernels(torch, np, fs)
     trained = train_end_to_end(torch, np, fs, rows_mod)
+    composed = check_composed_kernels(torch, np, rows_mod, fs)
+    ft = train_fasttext_end_to_end(torch, np, rows_mod)
 
     main_case = gathered[("f32", V_SERVE, 10_000)]
     kernels = [{
@@ -1056,6 +1478,27 @@ def main() -> int:
             "runs": r["runs"],
             "bf16_ms": timed[(name, "bf16")]["ms"],
             "bf16_bound_ms": timed[(name, "bf16")]["bound_ms"],
+        })
+    for name, line in (("scatter_add_rank1", 218), ("scatter_add_rows", 276)):
+        r = composed[(name, "f32")]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "glint_word2vec_torch/csrc/scatter_runs.cu",
+            "replaces": f"glint_word2vec_tpu/ops/pallas_rows.py:{line}",
+            "launches": ft["launches"][name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": r["library_ms"],
+            "checked": True,
+            "shape": (f"fp32 table {V_TRAIN + FT_BUCKET}x{D}, N={r['n']}"),
+            "runs": r["runs"],
+            "longest_run": r["longest"],
+            "bf16_ms": composed[(name, "bf16")]["ms"],
+            "bf16_bound_ms": composed[(name, "bf16")]["bound_ms"],
         })
     print(json.dumps({"kernels": kernels}))
     print(smi)

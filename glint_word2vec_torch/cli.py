@@ -1,6 +1,6 @@
 """Command line of the port: train, query and serve a model.
 
-  python -m glint_word2vec_torch.cli train     --corpus c.txt --output m/ [...]
+  python -m glint_word2vec_torch.cli train     --corpus c.txt --output m/ [--fasttext] [...]
   python -m glint_word2vec_torch.cli serve     --model m/ --port 8801
   python -m glint_word2vec_torch.cli synonyms  --model m/ --word w [-n 10]
   python -m glint_word2vec_torch.cli analogy   --model m/ --positive a b --negative c
@@ -39,28 +39,41 @@ def _add_train(sub) -> None:
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
                    default=None,
-                   help="kept for the JAX package's arguments; the fused "
-                        "step computes in fp32 either way")
+                   help="operand dtype of the composed step's products (the "
+                        "host batcher); the fused step computes in fp32")
     p.add_argument("--steps-per-call", type=int, default=16,
                    help="packed steps between two readbacks to the host")
     p.add_argument("--shared-negatives", type=int, default=0,
                    help="shared noise-pool size per step (only 0, per-pair "
                         "draws, trains in the port so far)")
     p.add_argument("--packing", choices=["dense", "grid"], default="dense",
-                   help="dispatch shape (only dense trains in the port so far)")
+                   help="dispatch shape on the device corpus (only dense "
+                        "trains there in the port so far; the host batcher "
+                        "always trains grid batches)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="enable epoch-granular checkpoint/resume")
     p.add_argument("--checkpoint-every", type=int, default=1,
                    help="epochs between checkpoints (default 1)")
     p.add_argument("--metrics-out", default=None,
                    help="write the training metrics JSON here (atomic write)")
+    p.add_argument("--fasttext", action="store_true",
+                   help="train the subword (fastText-style) family")
+    p.add_argument("--min-n", type=int, default=3,
+                   help="min char-ngram length (fastText family)")
+    p.add_argument("--max-n", type=int, default=6,
+                   help="max char-ngram length (fastText family)")
+    p.add_argument("--bucket", type=int, default=2_000_000,
+                   help="subword hash-bucket rows (fastText family)")
+    p.add_argument("--max-subwords", type=int, default=32,
+                   help="max subword rows per word (fastText family)")
 
 
 def _train(args) -> int:
+    from glint_word2vec_torch.models.fasttext import FastTextWord2Vec
     from glint_word2vec_torch.models.word2vec import Word2Vec
     from glint_word2vec_torch.utils import atomic_write_json
 
-    w2v = Word2Vec(
+    kw = dict(
         device=args.device,
         vector_size=args.vector_size,
         window=args.window,
@@ -78,6 +91,13 @@ def _train(args) -> int:
         shared_negatives=args.shared_negatives,
         batch_packing=args.packing,
     )
+    if args.fasttext:
+        w2v = FastTextWord2Vec(
+            **kw, min_n=args.min_n, max_n=args.max_n, bucket=args.bucket,
+            max_subwords=args.max_subwords,
+        )
+    else:
+        w2v = Word2Vec(**kw)
     model = w2v.fit_file(
         args.corpus, lowercase=args.lowercase,
         checkpoint_dir=args.checkpoint_dir,

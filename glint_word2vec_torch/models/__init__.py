@@ -1,4 +1,5 @@
-"""Model layer of the port: the fitted word2vec model and its loader."""
+"""Model layer of the port: the fitted word2vec and fastText models and
+their loader."""
 
 import json
 import os
@@ -7,9 +8,10 @@ from glint_word2vec_torch.device import DeviceLike
 
 
 def load_model(path: str, device: DeviceLike = None):
-    """Load a saved word2vec model directory (written by either package),
-    dispatching on its ``params.json``. A fastText model (its params carry
-    ``bucket``) is refused: the port serves word2vec only for now."""
+    """Load a saved model directory (written by either package),
+    dispatching on its ``params.json``: a fastText model (its params carry
+    ``bucket``) loads as a ``FastTextModel``, any other as a
+    ``Word2VecModel``."""
     params_path = os.path.join(path, "params.json")
     try:
         with open(params_path) as f:
@@ -21,10 +23,9 @@ def load_model(path: str, device: DeviceLike = None):
     except json.JSONDecodeError as e:
         raise ValueError(f"corrupt model metadata at {params_path}: {e}")
     if "bucket" in meta:
-        raise ValueError(
-            f"{path} holds a fastText model; the PyTorch port loads "
-            "word2vec models only (fastText is a later part of the port)"
-        )
+        from glint_word2vec_torch.models.fasttext import FastTextModel
+
+        return FastTextModel.load(path, device=device)
     from glint_word2vec_torch.models.word2vec import Word2VecModel
 
     return Word2VecModel.load(path, device=device)

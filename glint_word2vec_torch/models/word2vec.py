@@ -1,15 +1,26 @@
 """The word2vec estimator and fitted model of the port (counterpart of
 ``glint_word2vec_tpu/models/word2vec.py``).
 
-:class:`Word2Vec` trains on one device through the corpus-resident dense
-packed path: build the vocabulary and the flat corpus on the host, upload
-the corpus once, then per epoch subsample and compact it on the device
-and run groups of packed steps (``EmbeddingEngine.
-train_steps_corpus_packed``) with the linear learning-rate anneal, and
-checkpoint at epoch ends. What the JAX package trains by other routes
-(grid packing and the host batcher, the shared negative pool, meshes and
-replica exchange, the ``dims`` layout) raises ``ValueError``: those are
-later slices of the port.
+:class:`Word2Vec` trains on one device by one of two routes, chosen as
+the JAX package chooses them (``models/word2vec.py:422-559``):
+
+- the corpus-resident dense packed path, when the model family allows it
+  and the corpus fits the device budget: build the vocabulary and the
+  flat corpus on the host, upload the corpus once, then per epoch
+  subsample and compact it on the device and run groups of packed steps
+  (``EmbeddingEngine.train_steps_corpus_packed``);
+- the host batcher otherwise (a corpus past the budget, or a family such
+  as fastText whose centers need host-side expansion): the host windows
+  the corpus into grid batches on a producer thread
+  (``corpus/batching.SkipGramBatcher``, ``utils/prefetch.py``) and the
+  engine runs groups of composed steps
+  (``EmbeddingEngine.train_steps_grouped``).
+
+Both anneal the learning rate linearly and checkpoint at epoch ends.
+What the JAX package trains by other routes (grid packing on the device
+corpus, the shared negative pool, meshes and replica exchange, the
+``dims`` layout) raises ``ValueError``: those are later slices of the
+port.
 
 :class:`Word2VecModel` is the query surface over an
 :class:`~glint_word2vec_torch.parallel.engine.EmbeddingEngine`, and
@@ -28,8 +39,11 @@ import numpy as np
 import torch
 
 from glint_word2vec_torch.corpus.batching import (
+    BatchGroup,
+    SkipGramBatcher,
     chunk_sentences,
     encode_sentences,
+    group_batches,
     packed_pair_batch,
 )
 from glint_word2vec_torch.corpus.vocab import (
@@ -54,6 +68,7 @@ from glint_word2vec_torch.utils import (
 from glint_word2vec_torch.utils.integrity import resolve_train_state
 from glint_word2vec_torch.utils.metrics import TrainingMetrics
 from glint_word2vec_torch.utils.params import Word2VecParams
+from glint_word2vec_torch.utils.prefetch import prefetch
 
 logger = logging.getLogger(__name__)
 
@@ -190,8 +205,9 @@ class Word2Vec:
         return self._set(dtype=v)
 
     def set_compute_dtype(self, v: str) -> "Word2Vec":
-        """Kept for the JAX package's parameter set. It has no effect on
-        this path: the fused step's forward pass is always fp32."""
+        """Operand dtype of the composed step's contractions (the host
+        batcher route). The fused step of the resident route computes in
+        fp32 whatever this says, as in the JAX package."""
         return self._set(compute_dtype=v)
 
     def set_layout(self, v: str) -> "Word2Vec":
@@ -214,9 +230,6 @@ class Word2Vec:
         naming the later slice of the port that brings them."""
         p = self.params
         later = []
-        if p.batch_packing != "dense":
-            later.append("batch_packing='grid' (grid packing and the host "
-                         "batcher)")
         if p.shared_negatives > 0:
             later.append("shared_negatives > 0 (the shared negative pool)")
         if p.num_partitions > 1 or p.num_shards > 1:
@@ -242,11 +255,13 @@ class Word2Vec:
         stop_after_epochs: Optional[int] = None,
     ) -> "Word2VecModel":
         """Train on tokenized sentences: vocabulary scan, encode and chunk,
-        then the device-resident packed path.
+        then the route :meth:`_fit_flat` chooses.
 
         A list is scanned twice (:func:`build_vocab`, then the encode); any
         other iterable is read once (``scan_and_encode_stream``), with the
-        same vocabulary and encoding. ``checkpoint_dir`` enables
+        same vocabulary and encoding. The host batcher's batches of the
+        flat corpus equal those the JAX package's list route draws from
+        the sentence list. ``checkpoint_dir`` enables
         epoch-granular checkpoints every ``checkpoint_every_epochs``
         epochs, and a rerun with the same directory resumes after the last
         one; ``stop_after_epochs`` ends this invocation early (the learning
@@ -302,21 +317,47 @@ class Word2Vec:
                   checkpoint_every_epochs: int,
                   stop_after_epochs: Optional[int]) -> "Word2VecModel":
         """Train from the flat encoded corpus: the device-resident path
-        when the corpus fits on the device. A larger corpus needs the host
-        batcher, which the port does not have yet."""
-        need = self._device_bytes_needed(vocab.size, int(ids.size), offsets.size)
-        free = _free_device_bytes(resolve_device(self.device))
-        if int(ids.size) >= 2**31 or need > DEVICE_MEMORY_FRACTION * free:
-            raise ValueError(
-                f"a corpus of {int(ids.size)} words needs about {need} bytes "
-                f"of device memory with the tables, and {free} are free; the "
-                "host batcher that streams it is a later slice of the "
-                "PyTorch port"
+        when the family allows it and the corpus fits on the device (the
+        tables, a step's working set and the corpus within
+        ``DEVICE_MEMORY_FRACTION`` of the free memory), else the host
+        batcher."""
+        p = self.params
+        if self._device_corpus_eligible() and int(ids.size) < 2**31:
+            need = self._device_bytes_needed(
+                vocab.size, int(ids.size), offsets.size
             )
-        return self._fit_corpus_resident(
-            vocab, ids, offsets, checkpoint_dir, checkpoint_every_epochs,
+            free = _free_device_bytes(resolve_device(self.device))
+            if need <= DEVICE_MEMORY_FRACTION * free:
+                if p.batch_packing != "dense":
+                    raise ValueError(
+                        "not ported yet, a later slice of the PyTorch port: "
+                        "batch_packing='grid' (grid packing on the device "
+                        "corpus); a corpus past the device budget trains "
+                        "grid batches through the host batcher"
+                    )
+                return self._fit_corpus_resident(
+                    vocab, ids, offsets, checkpoint_dir,
+                    checkpoint_every_epochs, stop_after_epochs,
+                )
+            logger.info(
+                "a corpus of %d words needs about %d bytes of device memory "
+                "with the tables and %d are free: host batcher",
+                int(ids.size), need, free,
+            )
+        batcher = SkipGramBatcher.from_flat(
+            ids, offsets, vocab, batch_size=p.batch_size, window=p.window,
+            subsample_ratio=p.subsample_ratio, seed=p.seed,
+        )
+        return self._fit_with_batcher(
+            vocab, batcher, checkpoint_dir, checkpoint_every_epochs,
             stop_after_epochs,
         )
+
+    def _device_corpus_eligible(self) -> bool:
+        """Whether the family's centers are words, which the packed path
+        assembles on the device (the fastText family says no: its centers
+        are subword groups built on the host)."""
+        return True
 
     def _device_bytes_needed(self, vocab_size: int, n_words: int,
                              n_offsets: int) -> int:
@@ -350,8 +391,127 @@ class Word2Vec:
             seed=p.seed,
             dtype=p.dtype,
             shared_negatives=p.shared_negatives,
+            compute_dtype=p.compute_dtype,
             device=self.device,
         )
+
+    def _train_batches(self, engine, group: BatchGroup, base_key: int,
+                       step0: int, alphas: np.ndarray):
+        """Dispatch one :class:`BatchGroup` as ``len(group)`` composed
+        steps; returns the ``(K,)`` losses as a device tensor (the family
+        hook of ``models/word2vec.py:1636`` of the JAX package)."""
+        return engine.train_steps(
+            group.centers, group.contexts, group.mask, base_key, alphas,
+            step0,
+        )
+
+    def _make_model(self, vocab: Vocabulary, engine) -> "Word2VecModel":
+        return Word2VecModel(vocab, engine, self.params)
+
+    def _fit_with_batcher(
+        self,
+        vocab: Vocabulary,
+        batcher: SkipGramBatcher,
+        checkpoint_dir: Optional[str],
+        checkpoint_every_epochs: int,
+        stop_after_epochs: Optional[int],
+    ) -> "Word2VecModel":
+        """The host-batcher training loop, one device (the JAX package's
+        ``_fit_with_batcher``, ``models/word2vec.py:1291-1613``, trimmed).
+
+        Per epoch a producer thread windows the corpus and stacks groups
+        of ``steps_per_call`` grid batches (``group_batches`` under
+        ``prefetch``, depth 2); each group is one call of
+        :meth:`_train_batches`. Alpha follows the batcher's
+        pre-subsampling ``words_done``: ``max(step_size * (1 - wd /
+        total_words), step_size * 1e-4)``. Step ``s`` draws its negatives
+        under ``fold_in(seed_key, s)``, and the step counter advances by
+        ``steps_per_call`` a group, pad steps included, so a resumed run
+        equals an uninterrupted one. A group's losses are read back after
+        the next group is dispatched. Checkpoints keep the JAX package's
+        ``train_state.json`` keys (no ``position`` or ``gstep`` on this
+        route)."""
+        p = self.params
+        if p.batch_packing == "dense":
+            logger.info(
+                "host-batcher route: training with grid-shaped batches "
+                "(dense pair packing applies to the device-resident corpus "
+                "path only)"
+            )
+        logger.info("vocab: %d words, %d train words", vocab.size,
+                    vocab.train_words_count)
+        engine = self._make_engine(vocab)
+        twc = vocab.train_words_count
+        total_words = p.num_iterations * twc + 1
+        base_key = rnd.seed_key(p.seed)
+        spc = p.steps_per_call
+        step = start_epoch = 0
+        state_path = (
+            os.path.join(checkpoint_dir, "train_state.json")
+            if checkpoint_dir else None
+        )
+        state = resolve_train_state(checkpoint_dir) if state_path else None
+        if state is not None:
+            engine.load_tables(os.path.join(checkpoint_dir, state["ckpt"]))
+            start_epoch = int(state["epochs_completed"])
+            step = int(state["step"])
+            batcher.words_done = int(state["words_done"])
+            logger.info("resuming after epoch %d (step %d)", start_epoch, step)
+        metrics = TrainingMetrics(base_words=batcher.words_done)
+
+        def harvest(pend) -> None:
+            losses, wds, alphas, n_real = pend
+            with metrics.timing("step"):
+                host = losses.cpu().numpy()
+            for i in range(n_real):
+                metrics.record_step(wds[i], loss=host[i], alpha=alphas[i])
+
+        for epoch in range(start_epoch, p.num_iterations):
+            it = prefetch(group_batches(batcher.epoch(epoch), spc), depth=2)
+            pending = None
+            while True:
+                with metrics.timing("host"), metrics.stall_timing():
+                    grp = next(it, None)
+                if grp is None:
+                    break
+                wds = list(grp.words_done)
+                alphas = [
+                    max(p.step_size * (1 - wd / total_words), p.step_size * 1e-4)
+                    for wd in wds
+                ]
+                with metrics.timing("step"):
+                    losses = self._train_batches(
+                        engine, grp, base_key, step,
+                        np.asarray(alphas, np.float32),
+                    )
+                step += spc  # pad steps consumed keys too
+                if pending is not None:
+                    harvest(pending)
+                pending = (losses, wds, alphas, grp.n_real)
+            if pending is not None:
+                harvest(pending)
+            stopping = (
+                stop_after_epochs is not None
+                and (epoch + 1 - start_epoch) >= stop_after_epochs
+            )
+            if state_path and (
+                stopping or (epoch + 1) % max(checkpoint_every_epochs, 1) == 0
+            ):
+                ck_name = f"ckpt-{epoch + 1}"
+                with metrics.stall_timing():
+                    engine.save(os.path.join(checkpoint_dir, ck_name))
+                    _flip_checkpoint_state(
+                        checkpoint_dir, state_path, ck_name,
+                        epochs_completed=epoch + 1, step=step,
+                        words_done=batcher.words_done,
+                    )
+            if stopping:
+                logger.info("stopping early after epoch %d", epoch + 1)
+                break
+        model = self._make_model(vocab, engine)
+        model.training_metrics = {**metrics.summary(), "pipeline": "host"}
+        logger.info("training done: %s", model.training_metrics)
+        return model
 
     def _fit_corpus_resident(
         self,
@@ -484,7 +644,7 @@ class Word2Vec:
                 logger.info("stopping early after epoch %d", epoch + 1)
                 break
 
-        model = Word2VecModel(vocab, engine, p)
+        model = self._make_model(vocab, engine)
         model.training_metrics = {
             **metrics.summary(),
             "pipeline": "device_corpus",
@@ -574,6 +734,12 @@ class Word2VecModel:
         results = self.find_synonyms_vector(vec, num + 1)
         return [(w, s) for w, s in results if w != word][:num]
 
+    def _query_engine(self):
+        """The engine whose syn0 answers similarity queries: the training
+        table here; the fastText family composes its word vectors into a
+        second engine."""
+        return self.engine
+
     def _decode_hits(self, sims, idx) -> List[Tuple[str, float]]:
         # Masked rows score -inf and are filler, never results.
         return [
@@ -589,7 +755,9 @@ class Word2VecModel:
         if num <= 0:
             raise ValueError("num must be > 0")
         num = min(num, self.vocab.size)
-        sims, idx = self.engine.top_k_cosine(np.asarray(vector, np.float32), num)
+        sims, idx = self._query_engine().top_k_cosine(
+            np.asarray(vector, np.float32), num
+        )
         return self._decode_hits(sims, idx)
 
     def find_synonyms_batch(
@@ -600,7 +768,7 @@ class Word2VecModel:
         if num <= 0:
             raise ValueError("num must be > 0")
         num = min(num, self.vocab.size)
-        sims, idx = self.engine.top_k_cosine_batch(
+        sims, idx = self._query_engine().top_k_cosine_batch(
             np.asarray(vectors, np.float32), num
         )
         return [self._decode_hits(s, i) for s, i in zip(sims, idx)]
@@ -665,24 +833,32 @@ class Word2VecModel:
             json.loads(self.params.to_json()),
         )
 
+    #: Params class :meth:`load` reads; model families override it.
+    _PARAMS_CLS = Word2VecParams
+
     @classmethod
     def load(cls, path: str, device: DeviceLike = None) -> "Word2VecModel":
-        """Rebuild from a model directory saved by either package."""
+        """Rebuild from a model directory saved by either package; the
+        family's own tail is :meth:`_from_loaded`."""
         from glint_word2vec_torch.parallel.engine import EmbeddingEngine
 
         with open(os.path.join(path, "params.json")) as f:
             try:
-                params = Word2VecParams.from_json(f.read())
+                params = cls._PARAMS_CLS.from_json(f.read())
             except TypeError as e:
                 raise ValueError(
                     f"params.json at {path} does not describe a "
-                    f"Word2VecParams model: {e}"
+                    f"{cls._PARAMS_CLS.__name__} model: {e}"
                 )
         engine = EmbeddingEngine.load(os.path.join(path, "matrix"), device)
         vocab = saved_model_vocabulary(
             path, engine._counts,
             engine.vocab_size + engine.extra_rows_assigned,
         )
+        return cls._from_loaded(vocab, engine, params)
+
+    @classmethod
+    def _from_loaded(cls, vocab, engine, params) -> "Word2VecModel":
         return cls(vocab, engine, params)
 
     def stop(self) -> None:

@@ -1,11 +1,25 @@
-"""Row gather: the port of ``glint_word2vec_tpu/ops/pallas_rows.py::gather_rows``.
+"""Row kernels of the composed step: the port of
+``glint_word2vec_tpu/ops/pallas_rows.py``.
 
-:func:`gather_rows` returns ``table[ids]`` upcast to fp32, which is what
-the JAX engine's ``_pull_rows`` consumes (``gather_rows(...).astype(f32)``).
-For a CUDA tensor it launches the hand-written kernel of
-``csrc/gather_rows.cu`` on the current stream, or raises; for a CPU tensor
-it runs :func:`gather_rows_reference`, the plain PyTorch version the tests
-and ``chip_smoke.py`` hold the kernel against.
+- :func:`gather_rows` (``csrc/gather_rows.cu``) returns ``table[ids]``
+  upcast to fp32, which is what the JAX engine's ``_pull_rows`` consumes
+  (``gather_rows(...).astype(f32)``).
+- :func:`scatter_add_rows` and :func:`scatter_add_rank1`
+  (``csrc/scatter_runs.cu``, the table-dtype policy) add update rows into
+  a table in place: runs of equal ids summed in the table's dtype, each
+  run starting from the table row and every add rounded to the table's
+  dtype, as the TPU kernels' table-dtype accumulator does
+  (``pallas_rows.py:109-214``). For fp32 tables that is the same sum as
+  the fused step's scatters of ``ops/fused_sgns.py``; under bf16 those
+  round once per run instead.
+
+For a CUDA tensor each wrapper launches its kernel on the current stream,
+or raises; for a CPU tensor it runs its ``*_reference``, the plain
+PyTorch version the tests and ``chip_smoke.py`` hold the kernel against.
+The id sort is PyTorch glue, as the JAX package does it outside Pallas
+(``pallas_rows.py:240-244, 288``); the cast of the update rows to the
+table's dtype (``:291``) happens inside the kernel, which reads fp32
+update rows.
 """
 
 from __future__ import annotations
@@ -14,8 +28,20 @@ import ctypes
 
 import torch
 
+from glint_word2vec_torch.ops.fused_sgns import (
+    _check,
+    _check_table,
+    _check_vec,
+    _route,
+    sorted_runs,
+)
+
 _DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
 _bound = None
+_scatter_bound = None
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int32
 
 
 def gather_rows_reference(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -86,3 +112,153 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 #: Kernel launches since the last reset (``chip_smoke.py`` zeroes it
 #: before driving the served path and reads it after).
 gather_rows.launches = 0
+
+
+# ----------------------------------------------------------------------
+# Scatter-adds in the table's dtype
+# ----------------------------------------------------------------------
+
+
+def _scatter_lib():
+    global _scatter_bound
+    if _scatter_bound is None:
+        from glint_word2vec_torch.kernels import build
+
+        lib = build.library("scatter_runs")
+        lib.glint_scatter_add_rows.argtypes = [
+            _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P,
+        ]
+        lib.glint_scatter_add_rows.restype = ctypes.c_int
+        lib.glint_scatter_add_rank1_table.argtypes = [
+            _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P, _P, _I64, _P,
+        ]
+        lib.glint_scatter_add_rank1_table.restype = ctypes.c_int
+        lib.glint_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.glint_cuda_error_string.restype = ctypes.c_char_p
+        _scatter_bound = lib
+    return _scatter_bound
+
+
+def _run_sum_table_reference(table, sid, order, payload) -> torch.Tensor:
+    """``table[sid] += payload[order]`` with each run summed in the
+    table's dtype: the run starts from the table row, and every add rounds
+    to the table's dtype. ``payload`` is in the table's dtype already.
+
+    On the CPU both calls below add serially in index order, which is the
+    kernel's order: ``index_add_`` on an fp32 tensor (it sums a bf16 run
+    in fp32, so not under bf16), and ``index_put_(accumulate=True)`` on a
+    bf16 one, one rounding per add (for fp32 it turns to parallel float
+    atomics from 32768 elements on)."""
+    uniq, inverse = torch.unique_consecutive(sid.long(), return_inverse=True)
+    acc = table[uniq]
+    if acc.dtype == torch.float32:
+        acc.index_add_(0, inverse, payload[order.long()])
+    else:
+        acc.index_put_((inverse,), payload[order.long()], accumulate=True)
+    table[uniq] = acc
+    return table
+
+
+def scatter_add_rows_reference(table, ids, upd) -> torch.Tensor:
+    """Plain version of :func:`scatter_add_rows` (in place)."""
+    sid, order = sorted_runs(ids)
+    return _run_sum_table_reference(table, sid, order, upd.to(table.dtype))
+
+
+def scatter_add_rank1_reference(table, ids, coef, h, hidx) -> torch.Tensor:
+    """Plain version of :func:`scatter_add_rank1` (in place): the update
+    row ``coef * h[hidx]`` is formed in fp32 and cast to the table's dtype,
+    then run-summed."""
+    sid, order = sorted_runs(ids)
+    payload = (coef.float()[:, None] * h.float()[hidx.long()]).to(table.dtype)
+    return _run_sum_table_reference(table, sid, order, payload)
+
+
+def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
+                     upd: torch.Tensor) -> torch.Tensor:
+    """``table[ids] += upd`` in place, ``upd`` cast to the table's dtype
+    first and duplicate ids summed in the table's dtype, one rounding per
+    add. ``table`` ``(V, d)`` fp32 or bf16; ``ids`` ``(N,)`` int32 in
+    ``[0, V)``; ``upd`` ``(N, d)`` fp32 or of the table's dtype. Each
+    kernel launch adds one to ``scatter_add_rows.launches``."""
+    _check_table(table, "table")
+    dev = table.device
+    N, d = ids.shape[0], table.shape[1]
+    _check_vec(ids, "ids", torch.int32, (N,), dev)
+    if upd.dtype not in (torch.float32, table.dtype):
+        raise TypeError(
+            f"upd must be float32 or {table.dtype}, got {upd.dtype}"
+        )
+    _check_vec(upd, "upd", upd.dtype, (N, d), dev)
+    if not _route(dev):
+        return scatter_add_rows_reference(table, ids, upd)
+    if N:
+        # fp32 rows; bf16 ones widen exactly and round back to themselves.
+        scatter_add_rows_sorted(table, *sorted_runs(ids), upd.float().contiguous())
+    return table
+
+
+def scatter_add_rows_sorted(table: torch.Tensor, sorted_ids: torch.Tensor,
+                            order: torch.Tensor, upd: torch.Tensor) -> None:
+    """The kernel launch of :func:`scatter_add_rows` for CUDA tensors
+    already validated and sorted by
+    :func:`~glint_word2vec_torch.ops.fused_sgns.sorted_runs`, with
+    contiguous fp32 ``upd`` (what ``chip_smoke.py`` times on its own)."""
+    lib = _scatter_lib()
+    rc = lib.glint_scatter_add_rows(
+        table.data_ptr(), table.stride(0), table.shape[1],
+        _DTYPE_TAGS[table.dtype], sorted_ids.data_ptr(), order.data_ptr(),
+        sorted_ids.shape[0], upd.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    _check(lib, rc, "scatter_add_rows")
+    scatter_add_rows.launches += 1
+
+
+#: Kernel launches since the last reset.
+scatter_add_rows.launches = 0
+
+
+def scatter_add_rank1(table: torch.Tensor, ids: torch.Tensor,
+                      coef: torch.Tensor, h: torch.Tensor,
+                      hidx: torch.Tensor) -> torch.Tensor:
+    """``table[ids] += (coef[:, None] * h[hidx])`` in place without the
+    ``(N, d)`` payload: each update row is formed in fp32, cast to the
+    table's dtype, and runs of equal ids are summed in the table's dtype.
+    ``ids``/``hidx`` ``(N,)`` int32, ``coef`` ``(N,)`` fp32, ``h``
+    ``(B, d)`` fp32 contiguous. Each kernel launch adds one to
+    ``scatter_add_rank1.launches``."""
+    _check_table(table, "table")
+    dev = table.device
+    N, d = ids.shape[0], table.shape[1]
+    _check_vec(ids, "ids", torch.int32, (N,), dev)
+    _check_vec(coef, "coef", torch.float32, (N,), dev)
+    _check_vec(hidx, "hidx", torch.int32, (N,), dev)
+    if h.dim() != 2 or h.shape[1] != d:
+        raise ValueError(f"h must be (B, {d}), got {tuple(h.shape)}")
+    _check_vec(h, "h", torch.float32, tuple(h.shape), dev)
+    if not _route(dev):
+        return scatter_add_rank1_reference(table, ids, coef, h, hidx)
+    if N:
+        scatter_add_rank1_sorted(table, *sorted_runs(ids), coef, h, hidx)
+    return table
+
+
+def scatter_add_rank1_sorted(table: torch.Tensor, sorted_ids: torch.Tensor,
+                             order: torch.Tensor, coef: torch.Tensor,
+                             h: torch.Tensor, hidx: torch.Tensor) -> None:
+    """The kernel launch of :func:`scatter_add_rank1` for CUDA tensors
+    already validated and sorted."""
+    lib = _scatter_lib()
+    rc = lib.glint_scatter_add_rank1_table(
+        table.data_ptr(), table.stride(0), table.shape[1],
+        _DTYPE_TAGS[table.dtype], sorted_ids.data_ptr(), order.data_ptr(),
+        sorted_ids.shape[0], coef.data_ptr(), h.data_ptr(), hidx.data_ptr(),
+        h.stride(0), torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    _check(lib, rc, "scatter_add_rank1")
+    scatter_add_rank1.launches += 1
+
+
+#: Kernel launches since the last reset.
+scatter_add_rank1.launches = 0

@@ -1,9 +1,18 @@
 """Skip-gram negative-sampling step math (counterpart of
 ``glint_word2vec_tpu/ops/sgns.py``): ``init_tables`` (:139),
-``negative_mask`` (:149), ``sgns_coefs`` (:47) and the composed pair step
-``train_step_pairs`` (:349) as plain PyTorch.
+``negative_mask`` (:149), ``sgns_coefs`` (:47), ``sgns_grads`` (:82),
+``sgns_d_center`` (:120) and the composed pair step ``train_step_pairs``
+(:349) as plain PyTorch.
 
-The composed step is the reference the fused step of
+``sgns_grads`` is the forward and backward of the composed step of the
+engine (``EmbeddingEngine.train_steps_grouped``) on gathered rows of the
+grid form: ``(B, C)`` contexts and ``(B, C, n)`` negatives. With
+``compute_dtype="bfloat16"`` the contractions take bf16 operands and
+accumulate in fp32 (``.to(bfloat16).float()`` before an fp32 product),
+as the JAX package's ``preferred_element_type=float32`` einsums do. The
+products never run in TF32 (``device.py`` keeps it off).
+
+The composed pair step is the reference the fused step of
 ``ops/fused_sgns.py`` is held against: gather, dot, sigmoid, rank-1
 outer products, scatter-add, every value consumed being the pre-step
 one. It takes its negatives as an argument; the training path draws them
@@ -41,6 +50,51 @@ def sgns_coefs(f_pos: torch.Tensor, f_neg: torch.Tensor, mask: torch.Tensor,
     ).sum(dim=-1) * mask
     loss = pair_loss.sum() / mask.sum().clamp(min=1.0)
     return SgnsCoefs(c_pos=c_pos, c_neg=c_neg, loss=loss)
+
+
+class SgnsGrads(NamedTuple):
+    """Scalar coefficients and the center gradient of one minibatch."""
+
+    c_pos: torch.Tensor  # (B, C)    alpha * (1 - sigmoid(f_pos)) * mask
+    c_neg: torch.Tensor  # (B, C, n) -alpha * sigmoid(f_neg) * neg_mask
+    d_center: torch.Tensor  # (B, d)  learning-rate-folded gradient of h
+    loss: torch.Tensor  # () masked-mean loss
+
+
+def _operand(x: torch.Tensor, compute_dtype: str) -> torch.Tensor:
+    """``x`` as a contraction operand: rounded to bf16 for
+    ``compute_dtype="bfloat16"`` and held in fp32 for the product."""
+    if compute_dtype == "bfloat16":
+        return x.to(torch.bfloat16).float()
+    return x
+
+
+def sgns_grads(h: torch.Tensor, u_pos: torch.Tensor, u_neg: torch.Tensor,
+               mask: torch.Tensor, neg_mask: torch.Tensor, alpha,
+               compute_dtype: str = "float32") -> SgnsGrads:
+    """Forward and backward of the SGNS objective on gathered fp32 rows:
+    ``h`` (B, d), ``u_pos`` (B, C, d), ``u_neg`` (B, C, n, d), ``mask``
+    (B, C), ``neg_mask`` (B, C, n), ``alpha`` a scalar."""
+    hc = _operand(h, compute_dtype)
+    f_pos = torch.einsum("bd,bcd->bc", hc, _operand(u_pos, compute_dtype))
+    f_neg = torch.einsum("bd,bcnd->bcn", hc, _operand(u_neg, compute_dtype))
+    co = sgns_coefs(f_pos, f_neg, mask, neg_mask, alpha)
+    d_center = sgns_d_center(co.c_pos, co.c_neg, u_pos, u_neg, compute_dtype)
+    return SgnsGrads(co.c_pos, co.c_neg, d_center, co.loss)
+
+
+def sgns_d_center(c_pos: torch.Tensor, c_neg: torch.Tensor,
+                  u_pos: torch.Tensor, u_neg: torch.Tensor,
+                  compute_dtype: str = "float32") -> torch.Tensor:
+    """``dL/dh`` with the learning rate folded in: ``c_pos @ u_pos +
+    c_neg @ u_neg`` per row, ``(B, d)`` fp32."""
+    return torch.einsum(
+        "bc,bcd->bd", _operand(c_pos, compute_dtype),
+        _operand(u_pos, compute_dtype),
+    ) + torch.einsum(
+        "bcn,bcnd->bd", _operand(c_neg, compute_dtype),
+        _operand(u_neg, compute_dtype),
+    )
 
 
 def init_tables(generator: torch.Generator, vocab_size: int, dim: int,

@@ -9,13 +9,22 @@ cosine top-k, whose matrix products and ``topk`` are plain torch calls, as
 the JAX package leaves them to XLA. Every computation is in fp32 whatever
 the storage dtype.
 
-Training is the corpus-resident packed path: the flat corpus is uploaded
-once (:meth:`EmbeddingEngine.upload_corpus`), subsampled and compacted on
-the device once per epoch (:meth:`EmbeddingEngine.compact_corpus`), and
-:meth:`EmbeddingEngine.train_steps_corpus_packed` runs K steps of pair
-packing, negative draws and the fused pair step of ``ops/fused_sgns.py``
-as a Python loop of launches, with one readback per K steps. The tables
-are updated in place.
+Training takes two routes, both updating the tables in place:
+
+- the corpus-resident packed path: the flat corpus is uploaded once
+  (:meth:`EmbeddingEngine.upload_corpus`), subsampled and compacted on
+  the device once per epoch (:meth:`EmbeddingEngine.compact_corpus`),
+  and :meth:`EmbeddingEngine.train_steps_corpus_packed` runs K steps of
+  pair packing, negative draws and the fused pair step of
+  ``ops/fused_sgns.py`` as a Python loop of launches, with one readback
+  per K steps;
+- the composed step of host batches (:meth:`EmbeddingEngine.
+  train_steps_grouped`, the JAX engine's ``step_body_rows``,
+  ``engine.py:643-758``): grid batches whose centers are groups of S rows
+  (fastText subwords; S = 1 for words), gathered with ``gather_rows``,
+  the SGNS gradients in PyTorch (``ops/sgns.sgns_grads``), and the
+  updates through the ``scatter_add_rank1`` and ``scatter_add_rows``
+  kernels of ``ops/rows.py``.
 
 Checkpoints use the JAX package's on-disk layout (``engine.json``,
 ``counts.npy``, ``.npy`` table blocks, ``manifest.json`` and the per-shard
@@ -40,9 +49,13 @@ from glint_word2vec_torch.device import DeviceLike, resolve_device
 from glint_word2vec_torch.ops import device_batching as dbat
 from glint_word2vec_torch.ops import random as rnd
 from glint_word2vec_torch.ops.fused_sgns import fused_pair_step
-from glint_word2vec_torch.ops.rows import gather_rows
+from glint_word2vec_torch.ops.rows import (
+    gather_rows,
+    scatter_add_rank1,
+    scatter_add_rows,
+)
 from glint_word2vec_torch.ops.sampling import sample_negatives_per_row
-from glint_word2vec_torch.ops.sgns import init_tables, negative_mask
+from glint_word2vec_torch.ops.sgns import init_tables, negative_mask, sgns_grads
 from glint_word2vec_torch.utils import integrity, next_pow2
 
 #: Floor of the top-k k-bucket family (``engine.py:259`` of the JAX
@@ -64,6 +77,78 @@ _IO_ROWS = 1 << 20
 _SCORE_ROWS = 1 << 20
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dup_sum_f32(idx: torch.Tensor, upd: torch.Tensor):
+    """Collapse duplicate target rows to one fp32-summed update per run
+    of equal ids, the other slots of the run carrying exact zeros
+    (``engine.py:118-148`` of the JAX package), so that a bf16 table
+    scatter rounds each row's batch total once. Sorted-run form: a stable
+    sort, an fp32 inclusive cumsum over the sorted updates, and each run's
+    total as the cumsum at its end minus the cumsum just before its start.
+    Returns ``(sorted ids, summed updates)``."""
+    sid, order = torch.sort(idx, stable=True)
+    su = upd[order].float()
+    cum = torch.cumsum(su, dim=0)
+    change = sid[1:] != sid[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=idx.device)
+    is_start = torch.cat([one, change])
+    is_end = torch.cat([change, one])
+    pos = torch.arange(idx.shape[0], dtype=torch.int64, device=idx.device)
+    run_start = torch.cummax(torch.where(is_start, pos, 0), dim=0).values
+    prev_cum = torch.where(
+        (run_start > 0)[:, None], cum[(run_start - 1).clamp(min=0)], 0.0
+    )
+    return sid.contiguous(), torch.where(is_end[:, None], cum - prev_cum, 0.0)
+
+
+def _scatter_rows(table: torch.Tensor, idx: torch.Tensor,
+                  upd: torch.Tensor) -> None:
+    """``table[idx] += upd`` in place through ``scatter_add_rows``, whose
+    runs sum in the table's dtype; under bf16 storage the duplicates are
+    pre-summed in fp32 first (:func:`_dup_sum_f32`), as the JAX engine's
+    ``_scatter_rows`` does (``engine.py:162-183``). Every id is a row of
+    the one device's table: no ownership masking."""
+    if table.dtype != torch.float32:
+        idx, upd = _dup_sum_f32(idx, upd)
+    scatter_add_rows(table, idx.contiguous(), upd.contiguous())
+
+
+def _rank1_payload(c_pos: torch.Tensor, c_neg: torch.Tensor, C: int, n: int):
+    """``(coefs, hidx)`` of the rank-1 syn1 updates, in the order of the
+    update ids ``[contexts.flat | negs.flat]`` (``engine.py:276-287``)."""
+    B = c_pos.shape[0]
+    rows = torch.arange(B, dtype=torch.int32, device=c_pos.device)
+    coefs = torch.cat([c_pos.reshape(-1), c_neg.reshape(-1)])
+    hidx = torch.cat([rows.repeat_interleave(C), rows.repeat_interleave(C * n)])
+    return coefs.contiguous(), hidx
+
+
+def _rank1_dense_payload(c_pos: torch.Tensor, c_neg: torch.Tensor,
+                         h: torch.Tensor) -> torch.Tensor:
+    """The ``(N, d)`` fp32 rows ``coef * h[hidx]`` of the rank-1 syn1
+    updates, in the order of :func:`_rank1_payload`."""
+    d = h.shape[-1]
+    d_upos = c_pos[..., None] * h[:, None, :]
+    d_uneg = c_neg[..., None] * h[:, None, None, :]
+    return torch.cat([d_upos.reshape(-1, d), d_uneg.reshape(-1, d)])
+
+
+def _apply_rank1_updates(syn1: torch.Tensor, ids1: torch.Tensor,
+                         c_pos: torch.Tensor, c_neg: torch.Tensor,
+                         h: torch.Tensor, C: int, n: int):
+    """The syn1 update of the composed step (``engine.py:290-331``). An
+    fp32 table takes ``scatter_add_rank1`` and returns None: the update is
+    applied. Under bf16 storage it returns the ``(N, d)`` fp32 payload for
+    :func:`_scatter_rows`, whose fp32 pre-sum rounds each row's total
+    once, as the JAX engine does. The JAX gate's other condition, that
+    ``h`` fit 10 MB of TPU VMEM, has no counterpart: the kernel reads
+    ``h`` from device memory."""
+    if syn1.dtype == torch.float32:
+        coefs, hidx = _rank1_payload(c_pos, c_neg, C, n)
+        scatter_add_rank1(syn1, ids1, coefs, h, hidx)
+        return None
+    return _rank1_dense_payload(c_pos, c_neg, h)
 
 
 def _fsync_dir(dirpath: str) -> None:
@@ -92,7 +177,11 @@ class EmbeddingEngine:
       seed: seed of the ``torch.Generator`` that draws the initial syn0.
       dtype: table storage dtype, ``"float32"`` or ``"bfloat16"``.
       extra_rows: non-vocabulary rows after the vocabulary (masked from
-        every similarity query unless assigned).
+        every similarity query unless assigned): fastText's n-gram
+        buckets.
+      compute_dtype: operand dtype of the composed step's contractions,
+        ``"float32"`` (None) or ``"bfloat16"`` (fp32 accumulation either
+        way); the fused pair step always computes in fp32.
       device: ``None`` for the CUDA card (raises without one), ``"cpu"``
         or ``"cuda[:n]"``.
     """
@@ -110,6 +199,7 @@ class EmbeddingEngine:
         dtype: str = "float32",
         extra_rows: int = 0,
         shared_negatives: int = 0,
+        compute_dtype: Optional[str] = None,
         device: DeviceLike = None,
     ):
         if vocab_size <= 0 or dim <= 0:
@@ -121,6 +211,9 @@ class EmbeddingEngine:
             raise ValueError("extra_rows must be >= 0")
         if dtype not in _DTYPES:
             raise ValueError("dtype must be float32|bfloat16")
+        if compute_dtype not in (None, "float32", "bfloat16"):
+            raise ValueError("compute_dtype must be float32|bfloat16")
+        self.compute_dtype = compute_dtype or "float32"
         self.device = resolve_device(device)
         self.vocab_size = int(vocab_size)
         self.num_rows = int(vocab_size) + int(extra_rows)
@@ -190,14 +283,16 @@ class EmbeddingEngine:
     # Queries
     # ------------------------------------------------------------------
 
-    def _pull_rows(self, idx: torch.Tensor) -> torch.Tensor:
-        """fp32 rows of syn0 for int32 ``idx`` on the engine's device: ids
-        outside the table are clipped for the gather and their rows
-        zeroed, as ``_pull_rows`` of the JAX engine does around its
-        kernel."""
+    def _pull_rows(self, idx: torch.Tensor,
+                   table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """fp32 rows of ``table`` (syn0 by default) for int32 ``idx`` on
+        the engine's device: ids outside the table are clipped for the
+        gather and their rows zeroed, as ``_pull_rows`` of the JAX engine
+        does around its kernel."""
+        table = self.syn0 if table is None else table
         own = (idx >= 0) & (idx < self.padded_vocab)
         clipped = idx.clamp(0, self.padded_vocab - 1).contiguous()
-        rows = gather_rows(self.syn0, clipped)
+        rows = gather_rows(table, clipped)
         return torch.where(own[:, None], rows, 0.0)
 
     def pull(self, indices) -> torch.Tensor:
@@ -491,6 +586,140 @@ class EmbeddingEngine:
             host[0].astype(np.float32), host[1].astype(np.int64),
             host[2].astype(np.int64), host[3].astype(np.float32),
         )
+
+    # ------------------------------------------------------------------
+    # Host batches: the composed step
+    # ------------------------------------------------------------------
+
+    def _on_device(self, a, dtype: torch.dtype) -> torch.Tensor:
+        """A batch array (host array or tensor) on the engine's device. A
+        host array goes to a card through pinned memory without blocking,
+        so the host does not wait for the steps already queued."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, dtype).contiguous()
+        np_dtype = np.int32 if dtype == torch.int32 else np.float32
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=np_dtype))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _composed_step(self, centers: torch.Tensor, cmask: torch.Tensor,
+                       contexts: torch.Tensor, mask: torch.Tensor,
+                       alpha: torch.Tensor, negs: torch.Tensor) -> torch.Tensor:
+        """One composed SGNS step on one grid batch, the tables updated in
+        place (``step_body_rows``, ``engine.py:661-758``, one device,
+        per-pair negatives). ``centers``/``cmask`` ``(B, S)``: each center
+        is the masked mean of its group's syn0 rows, and its gradient is
+        spread back over the group as ``d_center / count``.
+        ``contexts``/``mask`` ``(B, C)``, ``negs`` ``(B, C, n)``. Every
+        gather happens before any scatter. Returns the masked-mean loss
+        as a 0-d device tensor."""
+        B, S = centers.shape
+        C = contexts.shape[1]
+        n = negs.shape[2]
+        d = self.dim
+        h_rows = self._pull_rows(centers.reshape(-1), self.syn0).reshape(B, S, d)
+        cnt = cmask.sum(dim=1, keepdim=True).clamp(min=1.0)
+        h = (h_rows * cmask[..., None]).sum(dim=1) / cnt
+        u_pos = self._pull_rows(contexts.reshape(-1), self.syn1).reshape(B, C, d)
+        u_neg = self._pull_rows(negs.reshape(-1), self.syn1).reshape(B, C, n, d)
+        nmask = negative_mask(negs, contexts, mask)
+        g = sgns_grads(h, u_pos, u_neg, mask, nmask, alpha, self.compute_dtype)
+        ids1 = torch.cat([contexts.reshape(-1), negs.reshape(-1)])
+        upd1 = _apply_rank1_updates(self.syn1, ids1, g.c_pos, g.c_neg, h, C, n)
+        dcen = g.d_center / cnt
+        upd0 = (dcen[:, None, :] * cmask[..., None]).reshape(-1, d)
+        _scatter_rows(self.syn0, centers.reshape(-1), upd0)
+        if upd1 is not None:
+            _scatter_rows(self.syn1, ids1, upd1)
+        return g.loss
+
+    def train_steps(self, centers_k, contexts_k, mask_k, base_key: int,
+                    alphas, step0: int = 0, *, negs=None) -> torch.Tensor:
+        """K word-level steps: :meth:`train_steps_grouped` with groups of
+        one row. ``centers_k (K, B)``, ``contexts_k``/``mask_k (K, B,
+        C)``."""
+        centers = self._on_device(centers_k, torch.int32)
+        ones = torch.ones(centers.shape, dtype=torch.float32, device=self.device)
+        return self.train_steps_grouped(
+            centers[..., None], ones[..., None], contexts_k, mask_k,
+            base_key, alphas, step0, negs=negs,
+        )
+
+    def train_steps_grouped(self, center_groups_k, group_mask_k, contexts_k,
+                            mask_k, base_key: int, alphas, step0: int = 0,
+                            *, negs=None) -> torch.Tensor:
+        """K composed steps over a stacked group of grid batches, as a
+        Python loop of launches (the JAX engine's ``train_steps_grouped``,
+        ``engine.py:1524``). ``center_groups_k``/``group_mask_k (K, B,
+        S)``, ``contexts_k``/``mask_k (K, B, C)``, ``alphas (K,)``; host
+        arrays or tensors.
+
+        Step ``i`` draws its negatives per batch row with shape ``(C, n)``
+        under the key ``fold_in(base_key, step0 + i)``
+        (``engine.py:713-716``), unless ``negs`` ``(K, B, C, n)`` supplies
+        them (tests hand in the JAX package's draws). Returns the ``(K,)``
+        fp32 losses as a device tensor: the caller reads a group's losses
+        back once, when it needs them."""
+        if self.shared_negatives:
+            raise ValueError(
+                "shared_negatives > 0 (the shared negative pool and its "
+                "pair_forward_shared kernel) is a later slice of the "
+                "PyTorch port"
+            )
+        cg = self._on_device(center_groups_k, torch.int32)
+        gm = self._on_device(group_mask_k, torch.float32)
+        cx = self._on_device(contexts_k, torch.int32)
+        mk = self._on_device(mask_k, torch.float32)
+        K, B, S = cg.shape
+        C = cx.shape[2]
+        n = self.num_negatives
+        if gm.shape != cg.shape or mk.shape != cx.shape or cx.shape[:2] != (K, B):
+            raise ValueError(
+                f"batch shapes disagree: groups {tuple(cg.shape)}, group mask "
+                f"{tuple(gm.shape)}, contexts {tuple(cx.shape)}, mask "
+                f"{tuple(mk.shape)}"
+            )
+        alphas_t = self._on_device(np.asarray(alphas, np.float32), torch.float32)
+        if alphas_t.shape != (K,):
+            raise ValueError(f"alphas must have shape ({K},)")
+        if negs is not None:
+            negs = self._on_device(negs, torch.int32)
+            if negs.shape != (K, B, C, n):
+                raise ValueError(f"negs must have shape {(K, B, C, n)}")
+        else:
+            prob, alias = self.noise_tables()
+            rows = torch.arange(B, dtype=torch.int64, device=self.device)
+        losses = torch.empty(K, dtype=torch.float32, device=self.device)
+        for i in range(K):
+            if negs is None:
+                key = rnd.fold_in(int(base_key), (int(step0) + i) & 0xFFFFFFFF)
+                ng = sample_negatives_per_row(key, prob, alias, rows, (C, n))
+            else:
+                ng = negs[i]
+            losses[i] = self._composed_step(
+                cg[i], gm[i], cx[i], mk[i], alphas_t[i], ng
+            )
+        self._tick_tables()
+        return losses
+
+    def write_rows(self, start_row: int, rows) -> None:
+        """Overwrite ``rows.shape[0]`` consecutive syn0 rows from
+        ``start_row`` on (fp32 rows, rounded to the storage dtype), on the
+        device: how fastText assembles its table of composed word
+        vectors."""
+        if not isinstance(rows, torch.Tensor):
+            rows = torch.from_numpy(np.ascontiguousarray(rows, dtype=np.float32))
+        m = rows.shape[0]
+        if rows.dim() != 2 or rows.shape[1] != self.dim:
+            raise ValueError(f"rows must have shape (m, {self.dim})")
+        if not 0 <= start_row <= self.num_rows - m:
+            raise ValueError(
+                f"rows [{start_row}, {start_row + m}) outside the table's "
+                f"{self.num_rows} rows"
+            )
+        self.syn0[start_row : start_row + m] = rows.to(self.device, self._dtype)
+        self._tick_tables()
 
     # ------------------------------------------------------------------
     # Persistence

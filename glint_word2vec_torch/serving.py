@@ -14,11 +14,16 @@ and response shapes and status codes:
 
 An out-of-vocabulary word answers 404 and a bad ``num`` 400. Device work
 is serialised by one lock. Concurrent ``/synonyms`` and
-``/synonyms_vector`` requests are coalesced: whichever waiting thread
-takes the lock next answers every pending request with one pull and one
-batched top-k per ``max_batch`` chunk. Results of word queries are cached
-by ``(word, num)`` until the engine's ``table_version`` moves. The server
-runs every query shape once (``warmup``) before it binds its port.
+``/synonyms_vector`` requests of a word-level model are coalesced:
+whichever waiting thread takes the lock next answers every pending
+request with one pull and one batched top-k per ``max_batch`` chunk.
+Results of word queries are cached by ``(word, num)`` until the engine's
+``table_version`` moves. A model family that overrides ``transform``,
+``find_synonyms`` or ``find_synonyms_vector`` (fastText composes word
+vectors from subwords, out-of-vocabulary words included) answers through
+its own methods, one request at a time under the lock, as the JAX
+server's ``can_batch`` rule does. The server runs every query shape once
+(``warmup``) before it binds its port.
 
 Start from the CLI:  python -m glint_word2vec_torch.cli serve --model DIR
 """
@@ -81,8 +86,20 @@ class _SynonymCoalescer:
 
     def __init__(self, model, device_lock, max_batch: int = 64,
                  cache_size: int = 65536):
+        from glint_word2vec_torch.models.word2vec import Word2VecModel
+
         self.model = model
         self.device_lock = device_lock
+        #: Whether the batched word path (one pull of the word rows, one
+        #: batched top-k) gives the model's own answers: only for a family
+        #: that keeps the word-level ``transform`` and synonym methods.
+        cls = type(model)
+        self.can_batch = (
+            isinstance(model, Word2VecModel)
+            and cls.find_synonyms is Word2VecModel.find_synonyms
+            and cls.find_synonyms_vector is Word2VecModel.find_synonyms_vector
+            and cls.transform is Word2VecModel.transform
+        )
         #: Dispatch cap, a power of two so chunks fall on the Q buckets.
         self.max_batch = next_pow2(max(1, int(max_batch)))
         #: Bounded ``(word, num)`` -> result cache, emptied whenever the
@@ -98,6 +115,11 @@ class _SynonymCoalescer:
                       "cache_hits": 0}
 
     def query(self, word=None, vector=None, num: int = 10):
+        if not self.can_batch:
+            with self.device_lock:
+                if word is not None:
+                    return self.model.find_synonyms(word, num)
+                return self.model.find_synonyms_vector(vector, num)
         if num <= 0:
             # find_synonyms(w, num) looks the word up first (OOV -> 404),
             # then fetches num+1: num=0 with a known word is [], num<0 a
@@ -268,6 +290,11 @@ class ModelServer:
                 sentence_lens=WARM_SENTENCE_LENS,
                 sentence_rows=WARM_SENTENCE_ROWS,
             )
+            qeng = model._query_engine()
+            if qeng is not model.engine:
+                # A family that queries composed vectors builds them now,
+                # not on the first request.
+                n += qeng.warmup((), WARM_KS)
             logger.info("serving warmup: %d dispatches in %.1fs",
                         n, time.time() - t0)
         server = self

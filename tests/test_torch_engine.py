@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: pytest-xdist runs several workers on the same
+# cores, and PyTorch's spinning thread pools then slow small ops manyfold.
+torch.set_num_threads(1)
 
 from glint_word2vec_tpu.parallel.engine import EmbeddingEngine as JaxEngine
 from glint_word2vec_tpu.parallel.mesh import make_mesh

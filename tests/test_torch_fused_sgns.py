@@ -19,6 +19,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: pytest-xdist runs several workers on the same
+# cores, and PyTorch's spinning thread pools then slow small ops manyfold.
+torch.set_num_threads(1)
 
 from glint_word2vec_torch.ops import fused_sgns as fs
 from glint_word2vec_torch.ops.sgns import negative_mask, train_step_pairs
@@ -283,7 +286,7 @@ def _random_step(dtype, d, P=333, n=5, Vc=5000, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [300, 301, 7])
+@pytest.mark.parametrize("d", [300, 301, 7, 1100])
 def test_cuda_scatters_bitwise_equal_plain_on_cpu(dtype, d):
     _cuda_or_skip()
     syn0, syn1, pc, px, pm, negs, nmask = _random_step(getattr(torch, dtype), d)

@@ -12,6 +12,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: pytest-xdist runs several workers on the same
+# cores, and PyTorch's spinning thread pools then slow small ops manyfold.
+torch.set_num_threads(1)
 
 import glint_word2vec_torch
 from glint_word2vec_torch import Word2Vec
@@ -106,8 +109,10 @@ def test_gather_refuses_other_devices():
 
 
 def test_fasttext_model_dir_is_refused(tmp_path):
-    (tmp_path / "params.json").write_text(json.dumps({"bucket": 100}))
-    with pytest.raises(ValueError, match="fastText"):
+    # load_model reads a fastText directory (its params carry "bucket") as
+    # a FastTextModel, whose params refuse a geometry fastText cannot have.
+    (tmp_path / "params.json").write_text(json.dumps({"bucket": 0}))
+    with pytest.raises(ValueError, match="bucket must be > 0"):
         load_model(str(tmp_path), device="cpu")
 
 

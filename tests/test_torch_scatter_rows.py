@@ -1,0 +1,295 @@
+"""The table-dtype scatters of the port (``scatter_add_rows`` and
+``scatter_add_rank1`` in glint_word2vec_torch/ops/rows.py) against the
+JAX package's Pallas kernels of ``ops/pallas_rows.py`` run in interpret
+mode, as ``tests/test_pallas_rows.py`` runs them.
+
+Tolerance: none. The plain versions are bitwise equal to the JAX kernels
+in fp32 and bf16: a run starts from the table row and every add rounds to
+the table's dtype, in stable sorted order. ``scatter_add_rows`` is
+compared on random normal data. ``scatter_add_rank1`` is compared on
+dyadic data, where every product and partial sum is exact in fp32,
+because XLA on the CPU contracts the JAX kernel's ``coef * h + acc`` into
+one fused multiply-add, which the CUDA kernel and the plain version do
+not.
+
+The ``cuda`` tests hold each kernel against its plain version on a card.
+They import no JAX:
+
+    python -m pytest tests/test_torch_scatter_rows.py -m cuda --noconftest -q
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# One intra-op thread: pytest-xdist runs several workers on the same
+# cores, and PyTorch's spinning thread pools then slow small ops manyfold.
+torch.set_num_threads(1)
+
+from glint_word2vec_torch.ops import fused_sgns as fs
+from glint_word2vec_torch.ops import rows
+
+V, D = 64, 16
+DTYPES = ["float32", "bfloat16"]
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _jax_rows(table, ids, upd, dtype, block_rows=8):
+    import jax.numpy as jnp
+
+    from glint_word2vec_tpu.ops.pallas_rows import scatter_add_rows
+
+    out = scatter_add_rows(
+        jnp.asarray(table, dtype=getattr(jnp, dtype)), jnp.asarray(ids),
+        jnp.asarray(upd), interpret=True, block_rows=block_rows,
+    )
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _jax_rank1(table, ids, coef, h, hidx, dtype, block_rows=8):
+    import jax.numpy as jnp
+
+    from glint_word2vec_tpu.ops.pallas_rows import scatter_add_rank1
+
+    out = scatter_add_rank1(
+        jnp.asarray(table, dtype=getattr(jnp, dtype)), jnp.asarray(ids),
+        jnp.asarray(coef), jnp.asarray(h), jnp.asarray(hidx),
+        interpret=True, block_rows=block_rows,
+    )
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _port_rows(table, ids, upd, dtype):
+    t = _t(table).to(getattr(torch, dtype))
+    before = rows.scatter_add_rows.launches
+    out = rows.scatter_add_rows(t, _t(ids), _t(upd))
+    assert out is t  # in place
+    assert rows.scatter_add_rows.launches == before  # CPU: plain version
+    return t.float().numpy()
+
+
+def _port_rank1(table, ids, coef, h, hidx, dtype):
+    t = _t(table).to(getattr(torch, dtype))
+    rows.scatter_add_rank1(t, _t(ids), _t(coef), _t(h), _t(hidx))
+    return t.float().numpy()
+
+
+def _bits_equal(a, b):
+    return np.array_equal(a.view(np.uint32), b.view(np.uint32))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block_rows", [4, 8])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 31])
+def test_scatter_add_rows_block_boundary_runs_bitwise(dtype, block_rows, n):
+    # The cases of tests/test_pallas_rows.py:113: runs of equal ids across
+    # the JAX kernel's block boundaries and N not a multiple of its block.
+    rng = np.random.default_rng(n * 31 + block_rows)
+    table = rng.normal(size=(V, D)).astype(np.float32)
+    ids = np.sort(rng.integers(0, 3, n).astype(np.int32))
+    upd = (rng.normal(size=(n, D)) * 30).astype(np.float32)
+    want = _jax_rows(table, ids, upd, dtype, block_rows)
+    assert _bits_equal(_port_rows(table, ids, upd, dtype), want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scatter_add_rows_row0_duplicates_bitwise(dtype):
+    # Row 0 takes many updates (every padded slot of a grid batch targets
+    # it) beside unsorted real ids; magnitudes far apart make every bf16
+    # add round.
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(V, D)).astype(np.float32)
+    ids = np.zeros(45, np.int32)
+    ids[10:30] = rng.integers(0, V, 20)
+    upd = (rng.normal(size=(45, D))
+           * rng.choice([1e-3, 1.0, 100.0], size=(45, 1))).astype(np.float32)
+    want = _jax_rows(table, ids, upd, dtype)
+    assert _bits_equal(_port_rows(table, ids, upd, dtype), want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scatter_add_rows_single_id_whole_batch_bitwise(dtype):
+    rng = np.random.default_rng(9)
+    table = rng.normal(size=(V, D)).astype(np.float32)
+    ids = np.full(29, 5, np.int32)
+    upd = rng.normal(size=(29, D)).astype(np.float32)
+    want = _jax_rows(table, ids, upd, dtype)
+    assert _bits_equal(_port_rows(table, ids, upd, dtype), want)
+
+
+def _dyadic_rank1_case(seed, N, B=12, distinct=V):
+    rng = np.random.default_rng(seed)
+    table = (rng.integers(-64, 64, (V, D)) / 4.0).astype(np.float32)
+    ids = rng.integers(0, distinct, N).astype(np.int32)
+    coef = (rng.integers(-16, 16, N) / 8.0).astype(np.float32)
+    h = (rng.integers(-128, 128, (B, D)) / 4.0).astype(np.float32)
+    hidx = rng.integers(0, B, N).astype(np.int32)
+    return table, ids, coef, h, hidx
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("block_rows", [4, 8])
+@pytest.mark.parametrize("n", [1, 7, 8, 9, 31])
+def test_scatter_add_rank1_block_boundary_runs_bitwise(dtype, block_rows, n):
+    table, ids, coef, h, hidx = _dyadic_rank1_case(n * 7 + block_rows, n,
+                                                    distinct=3)
+    want = _jax_rank1(table, ids, coef, h, hidx, dtype, block_rows)
+    assert _bits_equal(_port_rank1(table, ids, coef, h, hidx, dtype), want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scatter_add_rank1_row0_and_single_id_bitwise(dtype):
+    table, ids, coef, h, hidx = _dyadic_rank1_case(5, 64)
+    ids[:40] = 0  # row 0 with zero coefficients, as padded slots have
+    coef[:25] = 0.0
+    want = _jax_rank1(table, ids, coef, h, hidx, dtype)
+    assert _bits_equal(_port_rank1(table, ids, coef, h, hidx, dtype), want)
+    ids[:] = 11  # one id for the whole batch
+    want = _jax_rank1(table, ids, coef, h, hidx, dtype)
+    assert _bits_equal(_port_rank1(table, ids, coef, h, hidx, dtype), want)
+
+
+def test_bf16_table_dtype_runs_round_every_add():
+    # Row value 256 (bf16 ulp 2.0) plus 8 x 0.5: rounded after every add
+    # each 0.5 is lost (256), where the fused step's scatters, which sum
+    # the run in fp32 and round once, give 260.
+    table = torch.zeros((V, D), dtype=torch.bfloat16)
+    table[5] = 256.0
+    ids = torch.full((8,), 5, dtype=torch.int32)
+    half = torch.full((8, D), 0.5)
+    rows.scatter_add_rows(table, ids, half)
+    assert torch.equal(table[5].float(), torch.full((D,), 256.0))
+    rows.scatter_add_rank1(table, ids, torch.full((8,), 0.25),
+                           torch.full((2, D), 2.0), torch.zeros(8, dtype=torch.int32))
+    assert torch.equal(table[5].float(), torch.full((D,), 256.0))
+    fs.scatter_add_rows_f32(table, ids, half)
+    assert torch.equal(table[5].float(), torch.full((D,), 260.0))
+
+
+def test_fp32_scatters_equal_the_fused_ones():
+    # For fp32 tables both contracts are ((row + u0) + u1) + ... in sorted
+    # order: the table-dtype scatters equal the fused step's, bitwise.
+    rng = np.random.default_rng(4)
+    table = rng.normal(size=(V, D)).astype(np.float32)
+    ids = rng.integers(0, 5, 50).astype(np.int32)
+    upd = rng.normal(size=(50, D)).astype(np.float32)
+    coef = rng.normal(size=50).astype(np.float32)
+    h = rng.normal(size=(6, D)).astype(np.float32)
+    hidx = rng.integers(0, 6, 50).astype(np.int32)
+    a, b = _t(table.copy()), _t(table.copy())
+    rows.scatter_add_rows(a, _t(ids), _t(upd))
+    fs.scatter_add_rows_f32(b, _t(ids), _t(upd))
+    assert torch.equal(a, b)
+    rows.scatter_add_rank1(a, _t(ids), _t(coef), _t(h), _t(hidx))
+    fs.scatter_add_rank1_hbm(b, _t(ids), _t(coef), _t(h), _t(hidx))
+    assert torch.equal(a, b)
+
+
+def test_fp32_plain_version_adds_in_order_at_large_n():
+    # Past 32768 elements PyTorch's CPU index_put_(accumulate=True) turns
+    # to parallel float atomics for fp32; the plain version must still add
+    # serially in input order, as np.add.at does.
+    rng = np.random.default_rng(8)
+    N, d = 20_000, 4
+    table = rng.normal(size=(V, d)).astype(np.float32)
+    ids = rng.integers(0, 3, N).astype(np.int32)
+    upd = (rng.normal(size=(N, d)) * rng.choice([1e-4, 1e4], (N, 1))).astype(np.float32)
+    want = table.copy()
+    np.add.at(want, ids, upd)
+    got = _t(table.copy())
+    rows.scatter_add_rows(got, _t(ids), _t(upd))
+    assert _bits_equal(got.numpy(), want)
+
+
+def test_wrappers_validate_inputs():
+    table = torch.zeros((V, D))
+    ids = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError, match="int32"):
+        rows.scatter_add_rows(table, ids.long(), torch.zeros((4, D)))
+    with pytest.raises(TypeError, match="upd must be"):
+        rows.scatter_add_rows(table, ids, torch.zeros((4, D), dtype=torch.float64))
+    with pytest.raises(TypeError, match="upd"):
+        rows.scatter_add_rows(table, ids, torch.zeros((5, D)))
+    with pytest.raises(ValueError, match="contiguous"):
+        rows.scatter_add_rows(torch.zeros((D, V)).T, ids, torch.zeros((4, V)))
+    with pytest.raises(ValueError, match="h must be"):
+        rows.scatter_add_rank1(table, ids, torch.zeros(4), torch.zeros((2, 3)), ids)
+    meta = torch.zeros((V, D), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        rows.scatter_add_rows(meta, ids.to("meta"), torch.zeros((4, D), device="meta"))
+
+
+# ----------------------------------------------------------------------
+# On the card: each kernel against its plain version
+# ----------------------------------------------------------------------
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+
+
+def _zipf_step(d, B=300, C=7, n=5, Vc=5000, seed=0):
+    """A grid step's update ids on the card: contexts and negatives with
+    Zipf-like ids (long runs, ids 0 and V-1), 40% of the context slots
+    padded to row 0 with zero coefficients, as the composed step sends
+    them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    z = torch.rand((B, C, 1 + n), generator=gen, device="cuda")
+    ids = ((Vc ** z) - 1).to(torch.int32).clamp(0, Vc - 1)
+    ids[0, 0, 0] = Vc - 1
+    mask = (torch.rand((B, C), generator=gen, device="cuda") < 0.6).float()
+    ids[..., 0] = torch.where(mask > 0, ids[..., 0], 0)
+    ids1 = torch.cat([ids[..., 0].reshape(-1), ids[..., 1:].reshape(-1)])
+    coef = torch.randn(ids1.shape[0], generator=gen, device="cuda")
+    coef[: B * C] *= mask.reshape(-1)
+    h = torch.randn((B, d), generator=gen, device="cuda")
+    r = torch.arange(B, dtype=torch.int32, device="cuda")
+    hidx = torch.cat([r.repeat_interleave(C), r.repeat_interleave(C * n)])
+    table = (0.3 * torch.randn((Vc, d), generator=gen, device="cuda"))
+    return table, ids1, coef, h, hidx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [300, 301, 7, 700, 1100])
+def test_cuda_scatter_add_rank1_bitwise_equals_plain(dtype, d):
+    _cuda_or_skip()
+    table, ids1, coef, h, hidx = _zipf_step(d)
+    table = table.to(getattr(torch, dtype))
+    want = rows.scatter_add_rank1_reference(
+        table.cpu(), ids1.cpu(), coef.cpu(), h.cpu(), hidx.cpu()
+    )
+    before = rows.scatter_add_rank1.launches
+    rows.scatter_add_rank1(table, ids1, coef, h, hidx)
+    torch.cuda.synchronize()
+    assert rows.scatter_add_rank1.launches == before + 1
+    assert torch.equal(table.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [300, 301, 7, 700, 1100])
+def test_cuda_scatter_add_rows_bitwise_equals_plain(dtype, d):
+    _cuda_or_skip()
+    table, ids1, coef, h, hidx = _zipf_step(d, seed=1)
+    table = table.to(getattr(torch, dtype))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    upd = torch.randn((ids1.shape[0], d), generator=gen, device="cuda")
+    upd[:500] = 0.0  # exact zeros, as the fp32 pre-sum leaves in a run
+    want = rows.scatter_add_rows_reference(table.cpu(), ids1.cpu(), upd.cpu())
+    before = rows.scatter_add_rows.launches
+    rows.scatter_add_rows(table, ids1, upd)
+    torch.cuda.synchronize()
+    assert rows.scatter_add_rows.launches == before + 1
+    assert torch.equal(table.cpu(), want)
+    # Update rows already in the table's dtype take the same path.
+    want = rows.scatter_add_rows_reference(
+        table.cpu(), ids1.cpu(), upd.cpu().to(table.dtype)
+    )
+    rows.scatter_add_rows(table, ids1, upd.to(table.dtype))
+    torch.cuda.synchronize()
+    assert torch.equal(table.cpu(), want)

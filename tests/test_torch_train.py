@@ -21,6 +21,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# One intra-op thread: pytest-xdist runs several workers on the same
+# cores, and PyTorch's spinning thread pools then slow small ops manyfold.
+torch.set_num_threads(1)
 
 import jax
 import jax.numpy as jnp
@@ -283,18 +286,22 @@ def test_unported_settings_raise(kw, what):
 
 
 def test_budget_overflow_raises(monkeypatch):
+    # A corpus past the device budget no longer raises: it trains through
+    # the host batcher, as in the JAX package.
     from glint_word2vec_torch.models import word2vec as w2v
 
     monkeypatch.setattr(w2v, "_free_device_bytes", lambda device: 16)
-    with pytest.raises(ValueError, match="host batcher"):
-        _small().fit(SMALL)
+    m = _small().fit(SMALL)
+    assert m.training_metrics["pipeline"] == "host"
+    assert m.training_metrics["words_done"] == 2 * m.vocab.train_words_count
 
 
 @pytest.mark.parametrize("subsample_ratio", [0.0, 0.03])
 def test_device_budget_follows_free_memory(monkeypatch, subsample_ratio):
     # The resident fit takes what its estimate says: it trains when
     # DEVICE_MEMORY_FRACTION of the free memory covers the estimate, and
-    # raises when one byte more would be needed.
+    # the host batcher takes the corpus when one byte more would be
+    # needed.
     from glint_word2vec_torch.models import word2vec as w2v
 
     est = _small(num_iterations=1, subsample_ratio=subsample_ratio)
@@ -312,7 +319,6 @@ def test_device_budget_follows_free_memory(monkeypatch, subsample_ratio):
     assert need > words * per_word
     fits = int(need / w2v.DEVICE_MEMORY_FRACTION) + 1
     monkeypatch.setattr(w2v, "_free_device_bytes", lambda device: fits)
-    est.fit(SMALL)
+    assert est.fit(SMALL).training_metrics["pipeline"] == "device_corpus"
     monkeypatch.setattr(w2v, "_free_device_bytes", lambda device: fits - 2)
-    with pytest.raises(ValueError, match="host batcher"):
-        est.fit(SMALL)
+    assert est.fit(SMALL).training_metrics["pipeline"] == "host"
