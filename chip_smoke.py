@@ -67,6 +67,26 @@ nothing of JAX. Phases, each of which fails the run on any error:
    bf16, and bitwise resume; (d) the fp32 model of (b) served by
    ``serve_model_dir``: ``/vector`` of an OOV word equals ``transform``
    and ``/synonyms`` equals ``find_synonyms``.
+9. The shared negative pool: (a) ``pair_forward_shared`` against its
+   plain version (whose three products run through cuBLAS in fp32) at
+   full width, P = 3,277, n = 5: 1,000,000 x 300 fp32 and bf16 tables at
+   S = 4,096, fp32 at S = 5 and 257, and an fp32 10,000,000 x 300 table;
+   Zipf ids with 0 and V-1, a pool with repeats and context collisions.
+   ``h`` bitwise, ``c_pos`` within rtol 1e-5 (atol 1e-6 x max),
+   ``d_center`` and ``d_pool`` within rtol 1e-4 and atol 1e-6 (sums of
+   4,096 and 3,277 fp32 terms in another order), the loss within rel
+   1e-5; median time, the plain version's and the bound (fp32 operations
+   over 67 TFLOP/s); (b) ``Word2Vec().set_shared_negatives(4096)
+   .fit_file`` on phase 6's corpus at 1M x 300, fp32, one epoch, with
+   every launch counter zeroed just before: ``pair_forward_shared`` once
+   a step, ``pair_forward`` never, ``scatter_add_rank1_hbm`` once and
+   ``scatter_add_rows_f32`` twice a step; words/s, busy share and top
+   kernels of 48 steps; (c) the ``tiny_corpus`` gates of
+   ``tests/test_shared_negatives.py`` (germany -> berlin, france ->
+   paris) with a pool of 256, in fp32 and bf16, on the resident route
+   and through the host batcher (where ``gather_rows`` pulls the pool
+   and ``scatter_add_rows`` lands both tables), and fastText's OOV gate
+   with the pool; (d) bitwise resume with the pool.
 
 It prints one JSON ``kernels`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -108,6 +128,9 @@ PROFILE_GROUPS = 3
 #: own defaults -bucket 2000000 -minn 3 -maxn 6, max_subwords 32, over the
 #: same 1M-word vocabulary and d = 300.
 FT_BUCKET, FT_SUBWORDS = 2_000_000, 32
+#: The shared negative pool of the JAX package's throughput and quality
+#: runs (``bench.py:105``, ``scripts/reference_quality.py:135``).
+S_POOL = 4096
 #: The card the script runs on; the port's entry points default to it.
 DEV = "cuda"
 
@@ -1403,6 +1426,224 @@ def train_fasttext_end_to_end(torch, np, rows_mod) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 9: the shared negative pool
+# ----------------------------------------------------------------------
+
+
+def shared_pool_inputs(torch, gen, v: int, S: int):
+    """One full-width dense pair batch against a shared pool of S: Zipf
+    centers and contexts (ids 0 and V-1 among them), 13 padded slots at
+    the end, and a Zipf pool (frequent ids repeat) holding ids 0 and V-1,
+    a repeat, and two pairs' contexts."""
+    from glint_word2vec_torch.corpus.batching import packed_pair_batch
+
+    P = packed_pair_batch(B_TRAIN, W_TRAIN)
+    centers = zipf_ids(torch, gen, (P,), v)
+    contexts = zipf_ids(torch, gen, (P,), v)
+    centers[:3] = torch.tensor([v - 1, 0, v - 1], dtype=torch.int32)
+    contexts[3] = v - 1
+    mask = (torch.arange(P, device=DEV) < P - 13).to(torch.float32)
+    centers = torch.where(mask > 0, centers, 0)
+    contexts = torch.where(mask > 0, contexts, 0)
+    pool = zipf_ids(torch, gen, (S,), v)
+    for i, x in enumerate([contexts[5], v - 1, 0, pool[0], contexts[3]][:S]):
+        pool[i] = x
+    return centers, contexts, mask, pool
+
+
+def pair_forward_shared_bound(P_live, S, d, s, uniq0, uniq1, P):
+    """Least time of pair_forward_shared on the card, ms: the three pool
+    products (2 * P * S * d flops each, over the live pairs), the dot
+    and the c_pos term of d_center against the distinct rows read once
+    in storage dtype, the ids, mask and pool read, and the fp32 h,
+    d_center and d_pool rows, c_pos and the loss written."""
+    flops = 6 * P_live * S * d + 4 * P_live * d
+    nbytes = (uniq0 + uniq1) * d * s + P * 12 + S * 4 + (2 * P + S) * d * 4 + P * 4 + 4
+    return max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3, nbytes, flops
+
+
+def check_shared_kernel(torch, fs) -> dict:
+    """Phase 9 (a). B5 against its plain version (which runs its three
+    products through cuBLAS in fp32: no TF32) at full width, fp32 and
+    bf16, S = 4,096, then S = 5 and 257, and an fp32 10,000,000 x 300
+    table. Returns the fp32 and bf16 S = 4,096 results with the worst
+    error over every case."""
+    import glint_word2vec_torch.device  # noqa: F401  (TF32 off)
+
+    expect(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    gen = torch.Generator(device=DEV).manual_seed(20261019)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
+    alpha = torch.tensor(0.025, device=DEV)
+    out, worst = {}, 0.0
+    cases = [(torch.float32, V_TRAIN, (S_POOL, 5, 257)),
+             (torch.bfloat16, V_TRAIN, (S_POOL,)),
+             (torch.float32, V_BIG, (S_POOL,))]
+    for dtype, v, pools in cases:
+        name = "f32" if dtype == torch.float32 else "bf16"
+        s = 4 if dtype == torch.float32 else 2
+        syn0 = (0.3 * torch.randn((v, D), generator=gen, device=DEV)).to(dtype)
+        syn1 = (0.3 * torch.randn((v, D), generator=gen, device=DEV)).to(dtype)
+        for S in pools:
+            centers, contexts, mask, pool = shared_pool_inputs(torch, gen, v, S)
+            args = (syn0, syn1, centers, contexts, mask, pool, alpha, N_NEG)
+            fw = fs.pair_forward_shared(*args)
+            torch.cuda.synchronize()
+            ref = fs.pair_forward_shared_reference(*args)
+            what = f"pair_forward_shared {name} V={v} S={S}"
+            expect(torch.equal(fw.h, ref.h), f"{what}: h differs")
+            e = 0.0
+            for field, rtol in (("c_pos", 1e-5), ("d_center", 1e-4), ("d_pool", 1e-4)):
+                g, w = getattr(fw, field), getattr(ref, field)
+                diff = (g - w).abs()
+                if field == "c_pos":
+                    tol = rtol * w.abs() + 1e-6 * float(w.abs().max())
+                else:
+                    tol = rtol * w.abs() + 1e-6
+                expect(bool((diff <= tol).all()),
+                       f"{what}: {field} off by {diff.max().item()}")
+                e = max(e, float(diff.max()))
+            rel = abs(float(fw.loss_sum) - float(ref.loss_sum)) / abs(float(ref.loss_sum))
+            expect(rel <= 1e-5, f"{what}: loss off by rel {rel}")
+            worst = max(worst, e)
+            P = centers.numel()
+            uniq0 = int(torch.unique(centers).numel())
+            uniq1 = int(torch.unique(torch.cat([contexts, pool])).numel())
+            bound, nbytes, flops = pair_forward_shared_bound(
+                int(mask.sum()), S, D, s, uniq0, uniq1, P)
+            timed = ""
+            if S == S_POOL and v == V_TRAIN:
+                ms = median_ms(torch, lambda: fs.pair_forward_shared(*args), flush)
+                plain = median_ms(
+                    torch, lambda: fs.pair_forward_shared_reference(*args), flush)
+                out[name] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                 bound_ms=bound)
+                timed = (f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+                         f"{bound:.5f} ms ({flops} flops at 67 TFLOP/s; "
+                         f"{nbytes} bytes), {flops / (ms * 1e-3) / 1e12:.2f} "
+                         "TFLOP/s")
+            log(f"{what} d={D} P={P} n={N_NEG}: h bitwise, c_pos within rtol "
+                f"1e-5, d_center and d_pool within rtol 1e-4 atol 1e-6 (max "
+                f"|diff| {e:.3g}), loss rel {rel:.2g}{timed}")
+            del fw, ref
+        del syn0, syn1
+        torch.cuda.empty_cache()
+    for r in out.values():
+        r["max_abs_err"] = worst
+    return out
+
+
+def train_shared_end_to_end(torch, np, fs, rows_mod) -> dict:
+    """Phase 9 (b) to (d). Returns B5's launch count from (b)."""
+    from glint_word2vec_torch import FastTextWord2Vec, Word2Vec
+    from glint_word2vec_torch.models import word2vec as w2v_mod
+
+    tmp = tempfile.mkdtemp(prefix="glint_chip_shared_")
+    try:
+        path = os.path.join(tmp, "corpus.txt")
+        n_tok = write_synthetic_corpus(np, path)
+
+        # (b) The main path: every counter zeroed just before, read just
+        # after.
+        counters = (fs.pair_forward_shared, fs.pair_forward,
+                    fs.scatter_add_rank1_hbm, fs.scatter_add_rows_f32)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        model = Word2Vec(
+            vector_size=D, window=W_TRAIN, batch_size=B_TRAIN,
+            num_negatives=N_NEG, min_count=MIN_PER_WORD, num_iterations=1,
+            step_size=0.025, seed=1,
+        ).set_shared_negatives(S_POOL).fit_file(path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {c.__name__: c.launches for c in counters}
+        tm = model.training_metrics
+        log(f"shared-pool fit_file {V_TRAIN} x {D}, S={S_POOL}: {wall:.1f} s in all; "
+            f"training {tm['wall_seconds']} s, {tm['steps']} steps, "
+            f"{tm['words_per_sec']} words/s, final loss {tm['final_loss']}; "
+            f"launches {launches}")
+        expect(tm["pipeline"] == "device_corpus", tm)
+        expect(tm["words_done"] == n_tok, tm)
+        expect(math.isfinite(tm["final_loss"]), tm)
+        steps = tm["steps"] + (-tm["steps"]) % 16
+        expect(launches["pair_forward_shared"] == steps,
+               f"one pair_forward_shared per step: {launches} for {tm['steps']} steps")
+        expect(launches["pair_forward"] == 0, f"pair_forward launched: {launches}")
+        expect(launches["scatter_add_rank1_hbm"] == steps
+               and launches["scatter_add_rows_f32"] == 2 * steps,
+               f"scatters per step: {launches}")
+        for t in (model.engine.syn0, model.engine.syn1):
+            expect(bool(torch.isfinite(t).all()), "non-finite table entries")
+        profile_training(torch, model.engine, PROFILE_GROUPS)
+        model.stop()
+        del model
+        torch.cuda.empty_cache()
+
+        # (c) The tiny_corpus gates of tests/test_shared_negatives.py with
+        # a pool of 256: the resident route and the host batcher, fp32 and
+        # bf16, then fastText.
+        corpus = make_tiny_corpus(np)
+        real_free = w2v_mod._free_device_bytes
+        try:
+            for route in ("device_corpus", "host"):
+                if route == "host":
+                    w2v_mod._free_device_bytes = lambda device: 0
+                for dtype in ("float32", "bfloat16"):
+                    before = (rows_mod.gather_rows.launches,
+                              rows_mod.scatter_add_rows.launches,
+                              rows_mod.scatter_add_rank1.launches)
+                    m = tiny_w2v(Word2Vec, dtype=dtype).set_shared_negatives(256).fit(corpus)
+                    grew = [a - b for a, b in zip(
+                        (rows_mod.gather_rows.launches,
+                         rows_mod.scatter_add_rows.launches,
+                         rows_mod.scatter_add_rank1.launches), before)]
+                    tm = m.training_metrics
+                    expect(tm["pipeline"] == route, tm)
+                    hits = {c: [w for w, _ in m.find_synonyms(c, 10)]
+                            for c in ("germany", "france")}
+                    log(f"tiny_corpus shared pool {dtype}, {route}: germany -> "
+                        f"{hits['germany'][:4]}; france -> {hits['france'][:4]}")
+                    expect("berlin" in hits["germany"] and "paris" in hits["france"],
+                           f"{dtype} {route} shared-pool gates failed: {hits}")
+                    if route == "host":
+                        # The composed shared step: the pool pulled by the
+                        # gather, both tables landed by scatter_add_rows
+                        # (twice a step, the groups' pad steps too).
+                        expect(grew[0] > 0 and grew[1] >= 2 * tm["steps"],
+                               f"host-route launches {grew}")
+                        expect(grew[2] == 0, f"scatter_add_rank1 launched {grew}")
+                    m.stop()
+        finally:
+            w2v_mod._free_device_bytes = real_free
+        m = tiny_fasttext(FastTextWord2Vec, shared_negatives=256).fit(corpus)
+        v, v_oov = m.transform("austria"), m.transform("austriaa")
+        cos = cosine(np, v, v_oov)
+        _, idx = m.engine.top_k_cosine(v, 20)
+        log(f"tiny_corpus fastText shared pool: cos(austria, austriaa) {cos:.4f}")
+        expect(cos > 0.5, f"fastText shared pool: OOV cosine {cos}")
+        expect(bool((idx < m.vocab.size).all()), "a bucket row surfaced")
+        m.stop()
+
+        # (d) Resume with the shared pool, bitwise.
+        ck = os.path.join(tmp, "ck_shared")
+        tiny_w2v(Word2Vec, num_iterations=2).set_shared_negatives(256).fit(
+            corpus, checkpoint_dir=ck, stop_after_epochs=1).stop()
+        resumed = tiny_w2v(Word2Vec, num_iterations=2).set_shared_negatives(
+            256).fit(corpus, checkpoint_dir=ck)
+        full = tiny_w2v(Word2Vec, num_iterations=2).set_shared_negatives(256).fit(corpus)
+        for name in ("syn0", "syn1"):
+            expect(torch.equal(getattr(resumed.engine, name), getattr(full.engine, name)),
+                   f"shared pool: resumed {name} differs")
+        log("shared-pool resume on the card: 1 epoch + resume + 1 epoch == 2 "
+            "epochs, bitwise")
+        resumed.stop()
+        full.stop()
+        return {"launches": launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1435,6 +1676,8 @@ def main() -> int:
     trained = train_end_to_end(torch, np, fs, rows_mod)
     composed = check_composed_kernels(torch, np, rows_mod, fs)
     ft = train_fasttext_end_to_end(torch, np, rows_mod)
+    shared_timed = check_shared_kernel(torch, fs)
+    shared = train_shared_end_to_end(torch, np, fs, rows_mod)
 
     main_case = gathered[("f32", V_SERVE, 10_000)]
     kernels = [{
@@ -1500,6 +1743,24 @@ def main() -> int:
             "bf16_ms": composed[(name, "bf16")]["ms"],
             "bf16_bound_ms": composed[(name, "bf16")]["bound_ms"],
         })
+    r = shared_timed["f32"]
+    kernels.append({
+        "name": "pair_forward_shared",
+        "route": "cuda",
+        "source": "glint_word2vec_torch/csrc/pair_forward_shared.cu",
+        "replaces": "glint_word2vec_tpu/ops/pallas_sgns.py:423",
+        "launches": shared["launches"]["pair_forward_shared"],
+        "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"],
+        "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": r["library_ms"],
+        "checked": True,
+        "shape": f"{train_shape}, S={S_POOL}",
+        "bf16_ms": shared_timed["bf16"]["ms"],
+        "bf16_bound_ms": shared_timed["bf16"]["bound_ms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

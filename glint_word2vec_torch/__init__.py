@@ -7,8 +7,9 @@ found by name. Entry points run on the CUDA card unless ``device="cpu"``
 is asked for. The TPU kernels on these paths are hand-written CUDA
 kernels here: the row gather (``csrc/gather_rows.cu``), the fused pair
 step of the resident training path (``csrc/pair_forward.cu``,
-``csrc/scatter_runs.cu``) and the table-dtype scatters of the composed
-step (``csrc/scatter_runs.cu``).
+``csrc/scatter_runs.cu``) with its shared-pool forward
+(``csrc/pair_forward_shared.cu``), and the table-dtype scatters of the
+composed step (``csrc/scatter_runs.cu``).
 """
 
 from glint_word2vec_torch.models import load_model

@@ -44,8 +44,9 @@ def _add_train(sub) -> None:
     p.add_argument("--steps-per-call", type=int, default=16,
                    help="packed steps between two readbacks to the host")
     p.add_argument("--shared-negatives", type=int, default=0,
-                   help="shared noise-pool size per step (only 0, per-pair "
-                        "draws, trains in the port so far)")
+                   help="negatives drawn once a step and shared by the "
+                        "whole batch, weighted n/S each (0: n per-pair "
+                        "draws)")
     p.add_argument("--packing", choices=["dense", "grid"], default="dense",
                    help="dispatch shape on the device corpus (only dense "
                         "trains there in the port so far; the host batcher "

@@ -16,9 +16,10 @@ the JAX package chooses them (``models/word2vec.py:422-559``):
   engine runs groups of composed steps
   (``EmbeddingEngine.train_steps_grouped``).
 
-Both anneal the learning rate linearly and checkpoint at epoch ends.
-What the JAX package trains by other routes (grid packing on the device
-corpus, the shared negative pool, meshes and replica exchange, the
+Both anneal the learning rate linearly and checkpoint at epoch ends, and
+both train per-pair negatives or the shared negative pool
+(``shared_negatives > 0``). What the JAX package trains by other routes
+(grid packing on the device corpus, meshes and replica exchange, the
 ``dims`` layout) raises ``ValueError``: those are later slices of the
 port.
 
@@ -218,6 +219,9 @@ class Word2Vec:
         return self._set(steps_per_call=v)
 
     def set_shared_negatives(self, v: int) -> "Word2Vec":
+        """Size S of the negative pool drawn once a step and shared by
+        the whole batch, each pool word weighted ``n / S``; 0 draws ``n``
+        negatives per pair."""
         return self._set(shared_negatives=v)
 
     def set_batch_packing(self, v: str) -> "Word2Vec":
@@ -230,8 +234,6 @@ class Word2Vec:
         naming the later slice of the port that brings them."""
         p = self.params
         later = []
-        if p.shared_negatives > 0:
-            later.append("shared_negatives > 0 (the shared negative pool)")
         if p.num_partitions > 1 or p.num_shards > 1:
             later.append("num_partitions/num_shards > 1 (multi-device "
                          "training)")
@@ -364,15 +366,21 @@ class Word2Vec:
         """Device memory the resident fit takes at its peak: syn0 and
         syn1 in storage dtype with the noise and keep tables, a step's
         working set (the fp32 ``h`` and ``d_center`` rows, and the
-        packing, draw and sort buffers with room to spare), and the
-        corpus at its peak bytes a word, with its offsets (three copies
-        with subsampling: uploaded, compacted, and the pass's prefix
-        sums)."""
+        packing, draw and sort buffers with room to spare; with a shared
+        pool of S, also the pool's fp32 rows and ``d_pool``, and the
+        forward kernel's ``(P, S)`` fp32 ``c_pool`` and partial losses),
+        and the corpus at its peak bytes a word, with its offsets (three
+        copies with subsampling: uploaded, compacted, and the pass's
+        prefix sums)."""
         p = self.params
         s = 2 if p.dtype == "bfloat16" else 4
         P = packed_pair_batch(p.batch_size, p.window)
+        S = p.shared_negatives
         tables = vocab_size * (2 * p.vector_size * s + 16)
         step = 2 * P * p.vector_size * 4 + 1024 * P * (1 + p.num_negatives)
+        if S:
+            step += (2 * S * p.vector_size * 4 + P * S * 4
+                     + P * (S // 128 + 1) * 4 + 1024 * S)
         if p.subsample_ratio > 0:
             corpus = n_words * SUBSAMPLED_CORPUS_BYTES_PER_WORD + 24 * n_offsets
         else:
@@ -526,8 +534,8 @@ class Word2Vec:
         (the JAX package's ``_fit_corpus_resident``, :628-1240, trimmed).
 
         Key schedule, kept exactly so that a resumed run equals an
-        uninterrupted one: step ``s`` draws its negatives under
-        ``fold_in(seed_key, s)``, and the step counter advances by
+        uninterrupted one: step ``s`` draws its negatives (or its shared
+        pool) under ``fold_in(seed_key, s)``, and the step counter advances by
         ``steps_per_call`` per group, tail no-ops included; the shrink
         draws follow the grid-equivalent counter ``gstep``, which advances
         by ``groups * steps_per_call`` per epoch; the subsample draws are

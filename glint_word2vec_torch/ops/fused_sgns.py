@@ -1,12 +1,17 @@
-"""The fused SGNS pair step: the port of ``glint_word2vec_tpu/ops/pallas_sgns.py``
-(per-pair negatives).
+"""The fused SGNS pair step: the port of ``glint_word2vec_tpu/ops/pallas_sgns.py``,
+with per-pair negatives (:func:`fused_pair_step`) or a shared negative
+pool (:func:`fused_pair_step_shared`).
 
-Three hand-written CUDA kernels carry it, each beside its plain PyTorch
+Four hand-written CUDA kernels carry it, each beside its plain PyTorch
 version and with a ``launches`` counter on its wrapper:
 
 - :func:`pair_forward` (``csrc/pair_forward.cu``): gathers, dot products,
   sigmoids and coefficients, the fp32 center rows ``h`` and the center
   gradient ``d_center``, and the summed loss.
+- :func:`pair_forward_shared` (``csrc/pair_forward_shared.cu``): the same
+  against one pool of S negatives shared by the batch, with the three
+  dense pool products (``f_pool``, the pool term of ``d_center``, and
+  ``d_pool``) written as tiled fp32 kernels.
 - :func:`scatter_add_rank1_hbm` (``csrc/scatter_runs.cu``): ``table[ids] +=
   coef * h[hidx]``, never materialising the ``(N, d)`` payload.
 - :func:`scatter_add_rows_f32` (``csrc/scatter_runs.cu``): ``table[ids] +=
@@ -53,6 +58,14 @@ def _lib(name: str):
                 _P, _P, _P, _P, _P, _P,
             ]
             lib.glint_pair_forward.restype = ctypes.c_int
+        elif name == "pair_forward_shared":
+            lib.glint_pair_forward_shared.argtypes = [
+                _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+            ]
+            lib.glint_pair_forward_shared.restype = ctypes.c_int
+            lib.glint_pair_forward_shared_loss_tiles.argtypes = [_I64]
+            lib.glint_pair_forward_shared_loss_tiles.restype = _I64
         else:
             lib.glint_scatter_add_rows_f32.argtypes = [
                 _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P,
@@ -194,6 +207,118 @@ def pair_forward(syn0: torch.Tensor, syn1: torch.Tensor,
 #: Kernel launches since the last reset (``chip_smoke.py`` zeroes it
 #: before driving the training path and reads it after).
 pair_forward.launches = 0
+
+
+class SharedPairForward(NamedTuple):
+    """Forward outputs of one dense pair batch under the shared-pool
+    estimator."""
+
+    c_pos: torch.Tensor  # (P,)
+    h: torch.Tensor  # (P, d) fp32
+    d_center: torch.Tensor  # (P, d) fp32
+    d_pool: torch.Tensor  # (S, d) fp32 dense update of the pool rows
+    loss_sum: torch.Tensor  # ()
+
+
+def _pool_weight(num_negatives: int, S: int) -> float:
+    """``n / S``, the weight of a pool word: taken in double precision
+    and used as an fp32 scalar, as the JAX kernel's Python float is."""
+    return float(num_negatives) / float(S)
+
+
+def pair_forward_shared_reference(syn0, syn1, centers, contexts, mask, pool,
+                                  alpha, num_negatives) -> SharedPairForward:
+    """Plain version of :func:`pair_forward_shared`: the collision rule
+    of the C = 1 form (a pool word equal to the pair's context is
+    dropped) and the weight ``mask * n / S`` (``pallas_sgns.py:374-382``)."""
+    h = syn0[centers.long()].float()
+    u = syn1[contexts.long()].float()
+    up = syn1[pool.long()].float()
+    f_pos = (h * u).sum(dim=-1)
+    f_pool = h @ up.T
+    keep = (pool[None, :] != contexts[:, None]).to(torch.float32)
+    w = (mask * _pool_weight(num_negatives, pool.shape[0]))[:, None] * keep
+    c_pos = alpha * (1.0 - torch.sigmoid(f_pos)) * mask
+    c_pool = -alpha * torch.sigmoid(f_pool) * w
+    d_center = c_pos[:, None] * u + c_pool @ up
+    d_pool = c_pool.T @ h
+    loss = (-F.logsigmoid(f_pos) * mask).sum() + (
+        -F.logsigmoid(-f_pool) * w
+    ).sum()
+    return SharedPairForward(c_pos, h, d_center, d_pool, loss)
+
+
+def pair_forward_shared(syn0: torch.Tensor, syn1: torch.Tensor,
+                        centers: torch.Tensor, contexts: torch.Tensor,
+                        mask: torch.Tensor, pool: torch.Tensor,
+                        alpha: torch.Tensor,
+                        num_negatives: int) -> SharedPairForward:
+    """Forward half of the fused pair step, shared-pool estimator.
+
+    Arguments as :func:`pair_forward`, with ``pool`` ``(S,)`` int32 in
+    ``[0, V)``, S >= 1 (ids may repeat and may equal a context), in place
+    of the per-pair negatives, and ``num_negatives`` the ``n`` the pool
+    stands for (each pool word weighs ``n / S``). The kernel computes in
+    fp32 with no TF32; its per-pair partial losses are summed here in a
+    fixed order (``torch.sum``). Each call that launches the kernels
+    adds one to ``pair_forward_shared.launches``."""
+    _check_table(syn0, "syn0")
+    _check_table(syn1, "syn1")
+    if syn0.dtype != syn1.dtype or syn0.shape[1] != syn1.shape[1]:
+        raise ValueError("syn0 and syn1 must share dtype and width")
+    dev = syn0.device
+    if syn1.device != dev:
+        raise ValueError(f"syn1 on {syn1.device}, syn0 on {dev}")
+    P = centers.shape[0]
+    S = pool.shape[0] if pool.dim() == 1 else 0
+    if S < 1:
+        raise ValueError("pool must be (S,) with S >= 1")
+    if int(num_negatives) < 1:
+        raise ValueError("num_negatives must be >= 1")
+    _check_vec(centers, "centers", torch.int32, (P,), dev)
+    _check_vec(contexts, "contexts", torch.int32, (P,), dev)
+    _check_vec(mask, "mask", torch.float32, (P,), dev)
+    _check_vec(pool, "pool", torch.int32, (S,), dev)
+    _check_vec(alpha, "alpha", torch.float32, (), dev)
+    if not _route(dev):
+        return pair_forward_shared_reference(
+            syn0, syn1, centers, contexts, mask, pool, alpha, num_negatives
+        )
+    d = syn0.shape[1]
+    f32 = dict(dtype=torch.float32, device=dev)
+    c_pos = torch.empty(P, **f32)
+    h = torch.empty((P, d), **f32)
+    d_center = torch.empty((P, d), **f32)
+    if not P:
+        return SharedPairForward(
+            c_pos, h, d_center, torch.zeros((S, d), **f32), torch.zeros((), **f32)
+        )
+    d_pool = torch.empty((S, d), **f32)
+    lib = _lib("pair_forward_shared")
+    loss_pos = torch.empty(P, **f32)
+    loss_part = torch.empty(
+        (P, lib.glint_pair_forward_shared_loss_tiles(S)), **f32
+    )
+    pool32 = torch.empty((S, d), **f32)
+    c_pool = torch.empty((P, S), **f32)
+    rc = lib.glint_pair_forward_shared(
+        syn0.data_ptr(), syn1.data_ptr(), syn0.stride(0),
+        _DTYPE_TAGS[syn0.dtype], centers.data_ptr(), contexts.data_ptr(),
+        mask.data_ptr(), pool.data_ptr(), alpha.data_ptr(), P, S, d,
+        _pool_weight(num_negatives, S), c_pos.data_ptr(), h.data_ptr(),
+        d_center.data_ptr(), d_pool.data_ptr(), loss_pos.data_ptr(),
+        loss_part.data_ptr(), pool32.data_ptr(), c_pool.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _check(lib, rc, "pair_forward_shared")
+    pair_forward_shared.launches += 1
+    return SharedPairForward(
+        c_pos, h, d_center, d_pool, loss_pos.sum() + loss_part.sum()
+    )
+
+
+#: Calls that launched the kernels since the last reset.
+pair_forward_shared.launches = 0
 
 
 # ----------------------------------------------------------------------
@@ -340,5 +465,27 @@ def fused_pair_step(syn0: torch.Tensor, syn1: torch.Tensor,
     coefs = torch.cat([fw.c_pos, fw.c_neg.reshape(-1)])
     hidx = torch.cat([rows, rows.repeat_interleave(n)])
     scatter_add_rank1_hbm(syn1, ids1, coefs, fw.h, hidx)
+    scatter_add_rows_f32(syn0, centers, fw.d_center)
+    return fw.loss_sum
+
+
+def fused_pair_step_shared(syn0: torch.Tensor, syn1: torch.Tensor,
+                           centers: torch.Tensor, contexts: torch.Tensor,
+                           pair_mask: torch.Tensor, pool: torch.Tensor,
+                           alpha: torch.Tensor,
+                           num_negatives: int) -> torch.Tensor:
+    """Shared-pool form of :func:`fused_pair_step`, in place; returns the
+    un-normalised loss sum. Order, as in the JAX package
+    (``pallas_sgns.py:796-812``): the contexts' rank-1 update of syn1
+    from ``h``, then the dense ``d_pool`` onto the pool's syn1 rows, then
+    ``d_center`` onto syn0. Under bf16 a row that is both a context and a
+    pool word is rounded once by each of the two syn1 scatters."""
+    P = centers.shape[0]
+    fw = pair_forward_shared(
+        syn0, syn1, centers, contexts, pair_mask, pool, alpha, num_negatives
+    )
+    rows = torch.arange(P, dtype=torch.int32, device=centers.device)
+    scatter_add_rank1_hbm(syn1, contexts, fw.c_pos, fw.h, rows)
+    scatter_add_rows_f32(syn1, pool, fw.d_pool)
     scatter_add_rows_f32(syn0, centers, fw.d_center)
     return fw.loss_sum

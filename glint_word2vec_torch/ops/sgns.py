@@ -1,12 +1,15 @@
 """Skip-gram negative-sampling step math (counterpart of
 ``glint_word2vec_tpu/ops/sgns.py``): ``init_tables`` (:139),
 ``negative_mask`` (:149), ``sgns_coefs`` (:47), ``sgns_grads`` (:82),
-``sgns_d_center`` (:120) and the composed pair step ``train_step_pairs``
-(:349) as plain PyTorch.
+``sgns_d_center`` (:120), the shared-pool estimator
+``shared_sgns_grads``, ``shared_sgns_coefs``, ``shared_sgns_updates`` and
+``pool_collision_mask`` (:161-302), and the composed pair step
+``train_step_pairs`` (:349) as plain PyTorch.
 
 ``sgns_grads`` is the forward and backward of the composed step of the
 engine (``EmbeddingEngine.train_steps_grouped``) on gathered rows of the
-grid form: ``(B, C)`` contexts and ``(B, C, n)`` negatives. With
+grid form: ``(B, C)`` contexts and ``(B, C, n)`` negatives;
+``shared_sgns_grads`` is its form for a shared pool of S negatives. With
 ``compute_dtype="bfloat16"`` the contractions take bf16 operands and
 accumulate in fp32 (``.to(bfloat16).float()`` before an fp32 product),
 as the JAX package's ``preferred_element_type=float32`` einsums do. The
@@ -95,6 +98,99 @@ def sgns_d_center(c_pos: torch.Tensor, c_neg: torch.Tensor,
         "bcn,bcnd->bd", _operand(c_neg, compute_dtype),
         _operand(u_neg, compute_dtype),
     )
+
+
+class SharedSgnsGrads(NamedTuple):
+    """Gradient pieces of the shared-negative-pool estimator."""
+
+    c_pos: torch.Tensor  # (B, C)  alpha * (1 - sigmoid(f_pos)) * mask
+    c_pool: torch.Tensor  # (B, S)  weighted pool coefficients per center
+    d_center: torch.Tensor  # (B, d)
+    d_pool: torch.Tensor  # (S, d)  dense update of the pool's syn1 rows
+    loss: torch.Tensor  # () masked-mean loss
+
+
+class SharedSgnsCoefs(NamedTuple):
+    """Logit-stage outputs of the shared-pool estimator."""
+
+    c_pos: torch.Tensor  # (B, C)
+    c_pool: torch.Tensor  # (B, S)
+    loss: torch.Tensor  # ()
+
+
+def shared_sgns_grads(h: torch.Tensor, u_pos: torch.Tensor,
+                      u_pool: torch.Tensor, mask: torch.Tensor,
+                      collide: torch.Tensor, alpha, num_negatives: int,
+                      compute_dtype: str = "float32") -> SharedSgnsGrads:
+    """SGNS gradients with one negative pool shared by the whole batch
+    (``ops/sgns.py:171`` of the JAX package): ``h`` (B, d), ``u_pos``
+    (B, C, d) and ``u_pool`` (S, d) fp32 rows, ``mask`` (B, C),
+    ``collide`` (B, S) from :func:`pool_collision_mask`. Every center's
+    pool term is weighted by ``m_i * n / S`` (``m_i`` its real context
+    count), an unbiased estimate of ``n`` negatives a pair. The three
+    pool products are dense:
+
+        f_pool = h @ u_pool.T, d_center += c_pool @ u_pool,
+        d_pool = c_pool.T @ h
+    """
+    hc = _operand(h, compute_dtype)
+    upool_c = _operand(u_pool, compute_dtype)
+    f_pos = torch.einsum("bd,bcd->bc", hc, _operand(u_pos, compute_dtype))
+    f_pool = hc @ upool_c.T
+    co = shared_sgns_coefs(f_pos, f_pool, mask, collide, alpha, num_negatives)
+    d_center, d_pool = shared_sgns_updates(
+        co.c_pos, co.c_pool, h, u_pos, u_pool, compute_dtype
+    )
+    return SharedSgnsGrads(co.c_pos, co.c_pool, d_center, d_pool, co.loss)
+
+
+def shared_sgns_coefs(f_pos: torch.Tensor, f_pool: torch.Tensor,
+                      mask: torch.Tensor, collide: torch.Tensor, alpha,
+                      num_negatives: int) -> SharedSgnsCoefs:
+    """Coefficients and masked-mean loss from reduced logits: ``f_pos``
+    (B, C), ``f_pool`` (B, S)."""
+    m_i = mask.sum(dim=1)
+    S = f_pool.shape[1]
+    weight = (m_i * (num_negatives / S))[:, None] * (1.0 - collide)
+    c_pos = alpha * (1.0 - torch.sigmoid(f_pos)) * mask
+    c_pool = -alpha * torch.sigmoid(f_pool) * weight
+    pos_loss = (-F.logsigmoid(f_pos) * mask).sum()
+    pool_loss = (-F.logsigmoid(-f_pool) * weight).sum()
+    loss = (pos_loss + pool_loss) / mask.sum().clamp(min=1.0)
+    return SharedSgnsCoefs(c_pos, c_pool, loss)
+
+
+def shared_sgns_updates(c_pos: torch.Tensor, c_pool: torch.Tensor,
+                        h: torch.Tensor, u_pos: torch.Tensor,
+                        u_pool: torch.Tensor,
+                        compute_dtype: str = "float32"):
+    """``(d_center (B, d), d_pool (S, d))`` from the coefficients."""
+    cpool_c = _operand(c_pool, compute_dtype)
+    upool_c = _operand(u_pool, compute_dtype)
+    d_center = torch.einsum(
+        "bc,bcd->bd", _operand(c_pos, compute_dtype),
+        _operand(u_pos, compute_dtype),
+    ) + cpool_c @ upool_c
+    d_pool = cpool_c.T @ _operand(h, compute_dtype)
+    return d_center, d_pool
+
+
+def pool_collision_mask(pool: torch.Tensor, contexts: torch.Tensor,
+                        mask: torch.Tensor) -> torch.Tensor:
+    """(B, S) fp32, 1.0 where a pool word equals one of that row's real
+    context words: the pool-wide form of the per-draw ``target == word``
+    skip. Each row's C contexts are sorted (padded lanes become the int32
+    maximum, which no pool id equals) and the pool is binary-searched
+    into them, so the peak intermediate is O(B·S), not the O(B·C·S) of a
+    broadcast compare (``ops/sgns.py:280-302`` of the JAX package)."""
+    sentinel = torch.iinfo(torch.int32).max
+    ctx = torch.where(mask > 0, contexts, sentinel).to(torch.int32)
+    ctx_sorted = torch.sort(ctx, dim=1).values.contiguous()
+    B, C = ctx_sorted.shape
+    pool_b = pool.to(torch.int32).expand(B, -1).contiguous()
+    idx = torch.searchsorted(ctx_sorted, pool_b, side="left").clamp(max=C - 1)
+    found = torch.gather(ctx_sorted, 1, idx) == pool_b
+    return found.to(torch.float32)
 
 
 def init_tables(generator: torch.Generator, vocab_size: int, dim: int,

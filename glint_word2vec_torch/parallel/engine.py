@@ -26,6 +26,11 @@ Training takes two routes, both updating the tables in place:
   updates through the ``scatter_add_rank1`` and ``scatter_add_rows``
   kernels of ``ops/rows.py``.
 
+Both routes also train the shared negative pool (``shared_negatives =
+S > 0``): one pool of S negatives a step for the whole batch, through
+``fused_pair_step_shared`` on the packed path and ``shared_sgns_grads``
+(dense ``torch`` products) on the composed one.
+
 Checkpoints use the JAX package's on-disk layout (``engine.json``,
 ``counts.npy``, ``.npy`` table blocks, ``manifest.json`` and the per-shard
 sidecars), so either package loads what the other saved. Loading reads
@@ -48,14 +53,26 @@ from glint_word2vec_torch.corpus.batching import context_width
 from glint_word2vec_torch.device import DeviceLike, resolve_device
 from glint_word2vec_torch.ops import device_batching as dbat
 from glint_word2vec_torch.ops import random as rnd
-from glint_word2vec_torch.ops.fused_sgns import fused_pair_step
+from glint_word2vec_torch.ops.fused_sgns import (
+    fused_pair_step,
+    fused_pair_step_shared,
+)
 from glint_word2vec_torch.ops.rows import (
     gather_rows,
     scatter_add_rank1,
     scatter_add_rows,
 )
-from glint_word2vec_torch.ops.sampling import sample_negatives_per_row
-from glint_word2vec_torch.ops.sgns import init_tables, negative_mask, sgns_grads
+from glint_word2vec_torch.ops.sampling import (
+    sample_negatives,
+    sample_negatives_per_row,
+)
+from glint_word2vec_torch.ops.sgns import (
+    init_tables,
+    negative_mask,
+    pool_collision_mask,
+    sgns_grads,
+    shared_sgns_grads,
+)
 from glint_word2vec_torch.utils import integrity, next_pow2
 
 #: Floor of the top-k k-bucket family (``engine.py:259`` of the JAX
@@ -526,11 +543,17 @@ class EmbeddingEngine:
         The position, the consumed count and alpha stay 0-d device tensors
         through the loop; nothing is read back until its end.
 
-        ``draws`` supplies the shrink and negative draws
+        With ``shared_negatives = S > 0`` step ``i`` draws one pool of S
+        negatives for the whole batch instead and applies
+        :func:`~glint_word2vec_torch.ops.fused_sgns.fused_pair_step_shared`
+        (the shared branch of the JAX engine's ``fused_pair_body``,
+        ``engine.py:574-599``).
+
+        ``draws`` supplies the shrink, negative and pool draws
         (:class:`TrainingDraws` over ``base_key`` by default): step ``i``
-        draws its negatives under the key ``fold_in(base_key, step0 + i)``
-        and position ``p`` its shrink under the grid key schedule of
-        ``grid_batch``/``grid_step0``.
+        draws its negatives or its pool under the key ``fold_in(base_key,
+        step0 + i)`` and position ``p`` its shrink under the grid key
+        schedule of ``grid_batch``/``grid_step0``.
 
         Returns host arrays ``(losses (K,), pair_counts (K,), pos_ends
         (K,), alphas (K,))``: per-step loss, live pairs packed, consumed
@@ -571,11 +594,18 @@ class EmbeddingEngine:
             done = dbat.device_words_done(offsets, soffs, pos, n_valid)
             wd = base_words + done.to(torch.float32)
             alpha = torch.maximum(step_size_t * (1.0 - wd * inv_total), floor)
-            negs = draws.negatives(step0 + i, P)
-            nmask = negative_mask(negs, px, pm)
-            loss_sum = fused_pair_step(
-                self.syn0, self.syn1, pc, px, pm, negs, nmask, alpha
-            )
+            if self.shared_negatives:
+                pool = draws.pool(step0 + i, self.shared_negatives)
+                loss_sum = fused_pair_step_shared(
+                    self.syn0, self.syn1, pc, px, pm, pool, alpha,
+                    self.num_negatives,
+                )
+            else:
+                negs = draws.negatives(step0 + i, P)
+                nmask = negative_mask(negs, px, pm)
+                loss_sum = fused_pair_step(
+                    self.syn0, self.syn1, pc, px, pm, negs, nmask, alpha
+                )
             out[0, i] = loss_sum / pm.sum().clamp(min=1.0)
             out[1, i] = n_pairs
             out[2, i] = pos
@@ -605,28 +635,43 @@ class EmbeddingEngine:
 
     def _composed_step(self, centers: torch.Tensor, cmask: torch.Tensor,
                        contexts: torch.Tensor, mask: torch.Tensor,
-                       alpha: torch.Tensor, negs: torch.Tensor) -> torch.Tensor:
+                       alpha: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
         """One composed SGNS step on one grid batch, the tables updated in
-        place (``step_body_rows``, ``engine.py:661-758``, one device,
-        per-pair negatives). ``centers``/``cmask`` ``(B, S)``: each center
-        is the masked mean of its group's syn0 rows, and its gradient is
-        spread back over the group as ``d_center / count``.
-        ``contexts``/``mask`` ``(B, C)``, ``negs`` ``(B, C, n)``. Every
-        gather happens before any scatter. Returns the masked-mean loss
-        as a 0-d device tensor."""
+        place (``step_body_rows``, ``engine.py:661-758``, one device).
+        ``centers``/``cmask`` ``(B, S)``: each center is the masked mean
+        of its group's syn0 rows, and its gradient is spread back over the
+        group as ``d_center / count``. ``contexts``/``mask`` ``(B, C)``.
+        ``noise`` is the ``(B, C, n)`` per-pair negatives or, with
+        ``shared_negatives > 0``, the step's pool ``(P,)``: its rows are
+        pulled once and scored densely (``shared_sgns_grads``), and the
+        syn1 update is the contexts' ``c_pos ⊗ h`` rows followed by
+        ``d_pool`` on the pool's rows, through ``scatter_add_rows``
+        (``engine.py:679-707``). Every gather happens before any scatter.
+        Returns the masked-mean loss as a 0-d device tensor."""
         B, S = centers.shape
         C = contexts.shape[1]
-        n = negs.shape[2]
         d = self.dim
         h_rows = self._pull_rows(centers.reshape(-1), self.syn0).reshape(B, S, d)
         cnt = cmask.sum(dim=1, keepdim=True).clamp(min=1.0)
         h = (h_rows * cmask[..., None]).sum(dim=1) / cnt
         u_pos = self._pull_rows(contexts.reshape(-1), self.syn1).reshape(B, C, d)
-        u_neg = self._pull_rows(negs.reshape(-1), self.syn1).reshape(B, C, n, d)
-        nmask = negative_mask(negs, contexts, mask)
-        g = sgns_grads(h, u_pos, u_neg, mask, nmask, alpha, self.compute_dtype)
-        ids1 = torch.cat([contexts.reshape(-1), negs.reshape(-1)])
-        upd1 = _apply_rank1_updates(self.syn1, ids1, g.c_pos, g.c_neg, h, C, n)
+        if self.shared_negatives:
+            pool = noise
+            u_pool = self._pull_rows(pool, self.syn1)
+            collide = pool_collision_mask(pool, contexts, mask)
+            g = shared_sgns_grads(h, u_pos, u_pool, mask, collide, alpha,
+                                  self.num_negatives, self.compute_dtype)
+            ids1 = torch.cat([contexts.reshape(-1), pool])
+            d_upos = g.c_pos[..., None] * h[:, None, :]
+            upd1 = torch.cat([d_upos.reshape(-1, d), g.d_pool])
+        else:
+            negs = noise
+            n = negs.shape[2]
+            u_neg = self._pull_rows(negs.reshape(-1), self.syn1).reshape(B, C, n, d)
+            nmask = negative_mask(negs, contexts, mask)
+            g = sgns_grads(h, u_pos, u_neg, mask, nmask, alpha, self.compute_dtype)
+            ids1 = torch.cat([contexts.reshape(-1), negs.reshape(-1)])
+            upd1 = _apply_rank1_updates(self.syn1, ids1, g.c_pos, g.c_neg, h, C, n)
         dcen = g.d_center / cnt
         upd0 = (dcen[:, None, :] * cmask[..., None]).reshape(-1, d)
         _scatter_rows(self.syn0, centers.reshape(-1), upd0)
@@ -635,7 +680,8 @@ class EmbeddingEngine:
         return g.loss
 
     def train_steps(self, centers_k, contexts_k, mask_k, base_key: int,
-                    alphas, step0: int = 0, *, negs=None) -> torch.Tensor:
+                    alphas, step0: int = 0, *, negs=None,
+                    pools=None) -> torch.Tensor:
         """K word-level steps: :meth:`train_steps_grouped` with groups of
         one row. ``centers_k (K, B)``, ``contexts_k``/``mask_k (K, B,
         C)``."""
@@ -643,12 +689,12 @@ class EmbeddingEngine:
         ones = torch.ones(centers.shape, dtype=torch.float32, device=self.device)
         return self.train_steps_grouped(
             centers[..., None], ones[..., None], contexts_k, mask_k,
-            base_key, alphas, step0, negs=negs,
+            base_key, alphas, step0, negs=negs, pools=pools,
         )
 
     def train_steps_grouped(self, center_groups_k, group_mask_k, contexts_k,
                             mask_k, base_key: int, alphas, step0: int = 0,
-                            *, negs=None) -> torch.Tensor:
+                            *, negs=None, pools=None) -> torch.Tensor:
         """K composed steps over a stacked group of grid batches, as a
         Python loop of launches (the JAX engine's ``train_steps_grouped``,
         ``engine.py:1524``). ``center_groups_k``/``group_mask_k (K, B,
@@ -658,15 +704,12 @@ class EmbeddingEngine:
         Step ``i`` draws its negatives per batch row with shape ``(C, n)``
         under the key ``fold_in(base_key, step0 + i)``
         (``engine.py:713-716``), unless ``negs`` ``(K, B, C, n)`` supplies
-        them (tests hand in the JAX package's draws). Returns the ``(K,)``
-        fp32 losses as a device tensor: the caller reads a group's losses
-        back once, when it needs them."""
-        if self.shared_negatives:
-            raise ValueError(
-                "shared_negatives > 0 (the shared negative pool and its "
-                "pair_forward_shared kernel) is a later slice of the "
-                "PyTorch port"
-            )
+        them (tests hand in the JAX package's draws). With
+        ``shared_negatives = P > 0`` it draws one pool of P under the same
+        key instead (``engine.py:685-687``), or takes step ``i``'s from
+        ``pools`` ``(K, P)``. Returns the ``(K,)`` fp32 losses as a device
+        tensor: the caller reads a group's losses back once, when it needs
+        them."""
         cg = self._on_device(center_groups_k, torch.int32)
         gm = self._on_device(group_mask_k, torch.float32)
         cx = self._on_device(contexts_k, torch.int32)
@@ -683,20 +726,27 @@ class EmbeddingEngine:
         alphas_t = self._on_device(np.asarray(alphas, np.float32), torch.float32)
         if alphas_t.shape != (K,):
             raise ValueError(f"alphas must have shape ({K},)")
-        if negs is not None:
-            negs = self._on_device(negs, torch.int32)
-            if negs.shape != (K, B, C, n):
-                raise ValueError(f"negs must have shape {(K, B, C, n)}")
+        # Step i's negatives (K, B, C, n) or pools (K, P): handed in, or
+        # drawn in the loop.
+        Ps = self.shared_negatives
+        given, name, shape = (
+            (pools, "pools", (K, Ps)) if Ps else (negs, "negs", (K, B, C, n))
+        )
+        if given is not None:
+            given = self._on_device(given, torch.int32)
+            if given.shape != shape:
+                raise ValueError(f"{name} must have shape {shape}")
         else:
             prob, alias = self.noise_tables()
             rows = torch.arange(B, dtype=torch.int64, device=self.device)
         losses = torch.empty(K, dtype=torch.float32, device=self.device)
         for i in range(K):
-            if negs is None:
-                key = rnd.fold_in(int(base_key), (int(step0) + i) & 0xFFFFFFFF)
-                ng = sample_negatives_per_row(key, prob, alias, rows, (C, n))
+            if given is not None:
+                ng = given[i]
             else:
-                ng = negs[i]
+                key = rnd.fold_in(int(base_key), (int(step0) + i) & 0xFFFFFFFF)
+                ng = (sample_negatives(key, prob, alias, (Ps,)) if Ps
+                      else sample_negatives_per_row(key, prob, alias, rows, (C, n)))
             losses[i] = self._composed_step(
                 cg[i], gm[i], cx[i], mk[i], alphas_t[i], ng
             )
@@ -952,11 +1002,13 @@ class TrainingDraws:
     words under one base key.
 
     :meth:`shrink` gives the window-shrink draw of each position under the
-    grid key schedule (``device_batching.grid_window_shrink``), and
+    grid key schedule (``device_batching.grid_window_shrink``),
     :meth:`negatives` the per-pair-row negatives of one step under
-    ``fold_in(base_key, step)`` (``sampling.sample_negatives_per_row``).
-    Tests hand the engine another object with these two methods to replay
-    the JAX package's draws."""
+    ``fold_in(base_key, step)`` (``sampling.sample_negatives_per_row``),
+    and :meth:`pool` the step's shared pool under the same key, with no
+    per-row fold (``sampling.sample_negatives``). Tests hand the engine
+    another object with these methods to replay the JAX package's
+    draws."""
 
     def __init__(self, base_key: int, prob: torch.Tensor, alias: torch.Tensor,
                  window: int, grid_batch: int, num_negatives: int):
@@ -976,3 +1028,7 @@ class TrainingDraws:
         return sample_negatives_per_row(
             key, self.prob, self.alias, rows, (self.num_negatives,)
         )
+
+    def pool(self, step: int, size: int) -> torch.Tensor:
+        key = rnd.fold_in(self.base_key, int(step) & 0xFFFFFFFF)
+        return sample_negatives(key, self.prob, self.alias, (int(size),))

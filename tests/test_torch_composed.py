@@ -125,13 +125,36 @@ def test_train_steps_is_the_one_row_group():
 
 
 def test_shared_negatives_raise_naming_the_next_slice():
-    eng = engine_from_arrays(np.zeros((V, D), np.float32),
-                             np.zeros((V, D), np.float32),
-                             np.ones(V, np.int64), device="cpu",
-                             shared_negatives=8)
-    cg, gm, cx, mk = _batches(1)
-    with pytest.raises(ValueError, match="pair_forward_shared"):
-        eng.train_steps_grouped(cg % V, gm, cx, mk, 1, [0.1] * K)
+    # The shared pool used to raise here; it now trains. Subword groups,
+    # bf16 tables and bf16 operands against the JAX engine's composed
+    # shared step, with its pools handed in (engine.py:685-687):
+    # tables within one bf16 ulp, losses within rtol 1e-5.
+    from glint_word2vec_tpu.ops.sampling import sample_negatives
+
+    rng = np.random.default_rng(8)
+    counts = np.arange(V, 0, -1).astype(np.int64) * 3
+    s0 = rng.normal(0, 0.3, (V + X, D)).astype(np.float32)
+    s1 = rng.normal(0, 0.3, (V + X, D)).astype(np.float32)
+    kw = dict(num_negatives=N_NEG, dtype="bfloat16", compute_dtype="bfloat16",
+              shared_negatives=8)
+    jeng = JaxEngine(make_mesh(1, 1), V, D, counts, seed=3, extra_rows=X,
+                     use_pallas=True, **kw)
+    jeng.set_tables(s0, s1)
+    peng = engine_from_arrays(s0, s1, counts, device="cpu", **kw)
+    cg, gm, cx, mk = _batches(4)
+    key, alphas = jax.random.PRNGKey(9), np.full(K, 0.05, np.float32)
+    jl = np.asarray(jeng.train_steps_grouped(cg, gm, cx, mk, key, alphas, 1))
+    pools = np.stack([np.asarray(sample_negatives(
+        jax.random.fold_in(key, jnp.uint32(1 + i)), jeng._prob, jeng._alias,
+        (8,))) for i in range(K)])
+    pl = peng.train_steps_grouped(cg, gm, cx, mk, 0, alphas, 1, pools=pools)
+    np.testing.assert_allclose(pl.numpy(), jl, rtol=1e-5)
+    for name in ("syn0", "syn1"):
+        got = getattr(peng, name).float().numpy()
+        want = np.asarray(getattr(jeng, name), np.float32)[: V + X]
+        start = torch.from_numpy(s0 if name == "syn0" else s1).bfloat16()
+        assert not np.array_equal(got, start.float().numpy())
+        assert (np.abs(got - want) <= _ulp_bf16(want)).all(), name
 
 
 def test_fp32_rank1_route_equals_payload_route_bitwise():

@@ -275,7 +275,7 @@ def test_cli_train_on_cpu(tmp_path, capsys):
 
 @pytest.mark.parametrize("kw,what", [
     ({"batch_packing": "grid"}, "grid packing"),
-    ({"shared_negatives": 8}, "shared negative pool"),
+    ({"num_shards": 2}, "multi-device"),
     ({"num_partitions": 2}, "multi-device"),
     ({"exchange": "sparse"}, "replica exchange"),
     ({"layout": "dims"}, "dims layout"),
