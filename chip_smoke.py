@@ -2,6 +2,11 @@
 """Smoke run of the PyTorch/CUDA port (``glint_word2vec_torch``) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only 7      # phases 1, 2 and 7 (or "5,7", ...)
+
+With ``--only`` it runs phases 1, 2 and the phases named, prints their
+lines, and exits with code 4 without the kernels line or the result line,
+so a partial run never passes for a whole one.
 
 Needs one CUDA card, ``nvcc`` and the repository's sources; imports
 nothing of JAX. Phases, each of which fails the run on any error:
@@ -54,7 +59,13 @@ nothing of JAX. Phases, each of which fails the run on any error:
    row 0 with zero coefficients), each bitwise against its plain version
    on a CPU copy of the touched rows; median times, the plain version's,
    ``index_add_``'s for ``scatter_add_rows`` in fp32, the bound, the run
-   count R and the longest run.
+   count R and the longest run. For ``scatter_add_rows`` also: the same
+   ids with every update non-zero (magnitudes 1e-3, 1 and 100, so row 0's
+   run of 9,262 adds rounds under bf16), bitwise; the time of the id sort
+   (``sorted_runs``, which ``index_add_`` does without); and, each bitwise
+   and timed, (a) the padded slots sent to distinct rows, (b) the longest
+   run alone and (c) the syn1 ids of the shared-pool composed step (the
+   context ids, then a pool of 4,096 draws: several long runs).
 8. fastText and the host batcher: (a) ``FastTextWord2Vec().fit_file`` on
    phase 6's corpus at that width, fp32, one epoch, with every launch
    counter zeroed just before (``scatter_add_rows`` and
@@ -118,6 +129,8 @@ TIMED_TRIALS = 25
 SEQ_REQUESTS = 200
 #: H100 SXM fp32 rate outside the tensor cores (NVIDIA data sheet), flop/s.
 FP32_FLOPS = 67e12
+#: Exit code of a partial run (``--only``): never that of a passing run.
+PARTIAL_EXIT = 4
 #: Full width of the training slice: BASELINE.json configs[1]
 #: (en-Wikipedia, 1M vocab, 300-dim, 5 negatives), one card.
 V_TRAIN, N_NEG, B_TRAIN, W_TRAIN = 1_000_000, 5, 1024, 5
@@ -1048,11 +1061,16 @@ def composed_step_ids(torch, np, gen, C: int):
     epoch's padding (word 0's group, zero updates); syn1 ids of the
     contexts (Zipf, about 57 % of the slots padded to row 0 with zero
     coefficients) and of their negatives (alias draws over Zipf counts,
-    zero coefficients under padded contexts). Ids 0, V-1 and the last
-    bucket row are among them."""
+    zero coefficients under padded contexts); and the syn1 ids of the
+    shared-pool composed step, the contexts then a pool of ``S_POOL``
+    draws from the same table. Ids 0, V-1 and the last bucket row are
+    among them."""
     from glint_word2vec_torch.corpus.alias import build_unigram_alias
     from glint_word2vec_torch.ops import random as rnd
-    from glint_word2vec_torch.ops.sampling import sample_negatives_per_row
+    from glint_word2vec_torch.ops.sampling import (
+        sample_negatives,
+        sample_negatives_per_row,
+    )
 
     B, S, n, V = B_TRAIN, FT_SUBWORDS, N_NEG, V_TRAIN
     words = zipf_ids(torch, gen, (B,), V)
@@ -1070,16 +1088,64 @@ def composed_step_ids(torch, np, gen, C: int):
     ctx[2, 0], mask[2, 0] = V - 1, 1.0
     counts = (1e9 / np.arange(1, V + 1)).astype(np.int64) + MIN_PER_WORD
     t = build_unigram_alias(counts)
+    prob, alias = torch.from_numpy(t.prob).to(DEV), torch.from_numpy(t.alias).to(DEV)
     negs = sample_negatives_per_row(
-        rnd.fold_in(rnd.seed_key(3), 9), torch.from_numpy(t.prob).to(DEV),
-        torch.from_numpy(t.alias).to(DEV), torch.arange(B, device=DEV), (C, n),
+        rnd.fold_in(rnd.seed_key(3), 9), prob, alias, torch.arange(B, device=DEV),
+        (C, n),
     )
+    pool = sample_negatives(rnd.fold_in(rnd.seed_key(3), 10), prob, alias, (S_POOL,))
+    ids_shared = torch.cat([ctx.reshape(-1), pool])
     ids1 = torch.cat([ctx.reshape(-1), negs.reshape(-1)])
     coef = torch.randn(ids1.shape[0], generator=gen, device=DEV) * 0.02
     coef *= torch.cat([mask.reshape(-1), mask[..., None].expand(B, C, n).reshape(-1)])
     r = torch.arange(B, dtype=torch.int32, device=DEV)
     hidx = torch.cat([r.repeat_interleave(C), r.repeat_interleave(C * n)])
-    return groups.reshape(-1), cmask.reshape(-1), ids1, coef.contiguous(), hidx
+    return (groups.reshape(-1), cmask.reshape(-1), ids1, coef.contiguous(), hidx,
+            ids_shared)
+
+
+def scatter_rows_parts(torch, table, ids0, cmask, ids_c, upd, longest, flush,
+                       rows_mod, fs, name) -> dict:
+    """``scatter_add_rows`` beyond the composed step's own case, on
+    ``table``, each case held bitwise against the plain version: the
+    composed step's ids with ``upd`` (every update non-zero, of magnitudes
+    1e-3, 1 and 100, so row 0's run of ``longest`` adds rounds at every add
+    under bf16); then, timed, where the time goes: (a) the padded slots
+    sent to distinct rows, so no run of thousands is left; (b) one run of
+    ``longest`` such updates alone; (c) ``ids_c``, the shared-pool composed
+    step's syn1 ids, whose many long runs all take long-run blocks."""
+    n = ids0.numel()
+    pads = (V_TRAIN // 2 + torch.arange(n, device=DEV)).to(torch.int32)
+    ids_a = torch.where(cmask > 0, ids0, pads)
+    ids_b = torch.zeros(longest, dtype=torch.int32, device=DEV)
+    upd_b = upd[:longest].contiguous()
+    upd_c = upd[:ids_c.numel()].contiguous()
+    cases = (("non-zero long run", ids0, upd), ("(a)", ids_a, upd),
+             ("(b)", ids_b, upd_b), ("(c)", ids_c, upd_c))
+    for what, ids, u in cases:
+        uniq = torch.unique(ids.long())
+        before = table[uniq].cpu()
+        rows_mod.scatter_add_rows(table, ids, u)
+        torch.cuda.synchronize()
+        R = touched_rows_check(
+            torch, table, before, ids,
+            lambda t, local: rows_mod.scatter_add_rows_reference(t, local, u.cpu()),
+            f"scatter_add_rows {name} {what}")
+        log(f"scatter_add_rows {name} {what} N={ids.numel()}: bitwise equal "
+            f"(R={R} runs, longest "
+            f"{int(torch.unique(ids, return_counts=True)[1].max())})")
+    counts_c = torch.unique(ids_c, return_counts=True)[1]
+    out = {"runs_a": int(torch.unique(ids_a).numel()),
+           "longest_a": int(torch.unique(ids_a, return_counts=True)[1].max()),
+           "n_c": ids_c.numel(), "runs_c": counts_c.numel(),
+           "long_runs_c": int((counts_c >= 32).sum()),
+           "long_updates_c": int(counts_c[counts_c >= 32].sum())}
+    for key, ids, u in (("a_ms", ids_a, upd), ("b_ms", ids_b, upd_b),
+                        ("c_ms", ids_c, upd_c)):
+        sid, order = fs.sorted_runs(ids)
+        out[key] = median_ms(torch, lambda: rows_mod.scatter_add_rows_sorted(
+            table, sid, order, u), flush)
+    return out
 
 
 def check_composed_kernels(torch, np, rows_mod, fs) -> dict:
@@ -1094,11 +1160,14 @@ def check_composed_kernels(torch, np, rows_mod, fs) -> dict:
     out = {}
     # The main path's shapes (C = 7 context lanes at W = 5), then B2 at
     # C = 10 as well (N = 61,440).
-    ids0, cmask, ids1, coef, hidx = composed_step_ids(torch, np, gen, C)
-    _, _, ids1_w, coef_w, hidx_w = composed_step_ids(torch, np, gen, 10)
+    ids0, cmask, ids1, coef, hidx, ids_shared = composed_step_ids(torch, np, gen, C)
+    _, _, ids1_w, coef_w, hidx_w, _ = composed_step_ids(torch, np, gen, 10)
     h = torch.randn((B_TRAIN, D), generator=gen, device=DEV)
     upd0 = torch.randn((ids0.shape[0], D), generator=gen, device=DEV) * 0.01
     upd0 *= cmask[:, None]
+    scale = torch.tensor([1e-3, 1.0, 100.0], device=DEV)[torch.randint(
+        0, 3, (ids0.shape[0], 1), generator=gen, device=DEV)]
+    upd_mixed = torch.randn((ids0.shape[0], D), generator=gen, device=DEV) * scale
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
         s = 4 if dtype == torch.float32 else 2
@@ -1154,14 +1223,25 @@ def check_composed_kernels(torch, np, rows_mod, fs) -> dict:
             library = median_ms(
                 torch, lambda: table.index_add_(0, ids0.long(), upd0), flush)
         bound, nbytes = scatter_bound(ids0.numel(), ids0.numel(), R, D, s, 8, 1)
+        sort_ms = median_ms(torch, lambda: fs.sorted_runs(ids0), flush)
+        parts = scatter_rows_parts(torch, table, ids0, cmask, ids_shared,
+                                   upd_mixed, longest, flush, rows_mod, fs, name)
         out[("scatter_add_rows", name)] = dict(
             ms=ms, plain_ms=plain, library_ms=library, bound_ms=bound, runs=R,
-            longest=longest, n=ids0.numel())
+            longest=longest, n=ids0.numel(), sort_ms=sort_ms, **parts)
         lib_txt = f", index_add_ {library:.4f} ms" if library is not None else ""
         log(f"scatter_add_rows {name} V={rows_v} d={D} N={ids0.numel()}: "
             f"bitwise equal (R={R} runs, longest {longest}); kernel "
             f"{ms:.4f} ms (sort excluded), plain {plain:.4f} ms{lib_txt}, "
-            f"bound {bound:.5f} ms ({nbytes} bytes)")
+            f"bound {bound:.5f} ms ({nbytes} bytes); sorted_runs "
+            f"{sort_ms:.4f} ms")
+        log(f"scatter_add_rows {name} parts: (a) padded slots to distinct "
+            f"rows (R={parts['runs_a']}, longest {parts['longest_a']}) "
+            f"{parts['a_ms']:.4f} ms; (b) one run of {longest} non-zero "
+            f"updates alone {parts['b_ms']:.4f} ms; (c) shared-pool syn1 ids "
+            f"N={parts['n_c']} (R={parts['runs_c']}, {parts['long_runs_c']} "
+            f"runs of 32+ holding {parts['long_updates_c']} updates) "
+            f"{parts['c_ms']:.4f} ms")
         del table
         torch.cuda.empty_cache()
     for r in out.values():
@@ -1644,7 +1724,26 @@ def train_shared_end_to_end(torch, np, fs, rows_mod) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def parse_only(argv) -> set | None:
+    """The phases ``--only`` names (3 to 9), or None to run them all."""
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument(
+        "--only", metavar="N[,N...]",
+        help="run phases 1, 2 and these (3 to 9) only, print their lines, "
+             f"and exit {PARTIAL_EXIT} without the kernels or result line")
+    only = ap.parse_args(argv).only
+    if only is None:
+        return None
+    phases = {int(p) for p in only.split(",") if p.strip()}
+    if not phases or not phases <= set(range(3, 10)):
+        ap.error(f"--only takes phases 3 to 9, got {only!r}")
+    return phases
+
+
 def main() -> int:
+    only = parse_only(sys.argv[1:])
     import torch
 
     if not torch.cuda.is_available():
@@ -1670,13 +1769,31 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    gathered = check_gather(torch, rows_mod)
-    served = serve_end_to_end(torch, np, rows_mod)
-    timed = check_training_kernels(torch, np, fs)
-    trained = train_end_to_end(torch, np, fs, rows_mod)
-    composed = check_composed_kernels(torch, np, rows_mod, fs)
-    ft = train_fasttext_end_to_end(torch, np, rows_mod)
-    shared_timed = check_shared_kernel(torch, fs)
+    phases = {
+        3: lambda: check_gather(torch, rows_mod),
+        4: lambda: serve_end_to_end(torch, np, rows_mod),
+        5: lambda: check_training_kernels(torch, np, fs),
+        6: lambda: train_end_to_end(torch, np, fs, rows_mod),
+        7: lambda: check_composed_kernels(torch, np, rows_mod, fs),
+        8: lambda: train_fasttext_end_to_end(torch, np, rows_mod),
+        9: lambda: check_shared_kernel(torch, fs),
+    }
+    if only is not None:
+        for p in sorted(only):
+            phases[p]()
+            if p == 9:
+                train_shared_end_to_end(torch, np, fs, rows_mod)
+        log(f"partial run: phases 1, 2 and {sorted(only)} passed; no kernels "
+            f"line and no result line (exit {PARTIAL_EXIT})")
+        return PARTIAL_EXIT
+
+    gathered = phases[3]()
+    served = phases[4]()
+    timed = phases[5]()
+    trained = phases[6]()
+    composed = phases[7]()
+    ft = phases[8]()
+    shared_timed = phases[9]()
     shared = train_shared_end_to_end(torch, np, fs, rows_mod)
 
     main_case = gathered[("f32", V_SERVE, 10_000)]
@@ -1743,6 +1860,13 @@ def main() -> int:
             "bf16_ms": composed[(name, "bf16")]["ms"],
             "bf16_bound_ms": composed[(name, "bf16")]["bound_ms"],
         })
+    b3, b3_bf16 = composed[("scatter_add_rows", "f32")], composed[("scatter_add_rows", "bf16")]
+    kernels[-1].update(
+        sort_ms=b3["sort_ms"],
+        no_long_run_ms=b3["a_ms"], long_run_alone_ms=b3["b_ms"],
+        shared_syn1_ms=b3["c_ms"],
+        bf16_no_long_run_ms=b3_bf16["a_ms"], bf16_long_run_alone_ms=b3_bf16["b_ms"],
+        bf16_shared_syn1_ms=b3_bf16["c_ms"])
     r = shared_timed["f32"]
     kernels.append({
         "name": "pair_forward_shared",

@@ -13,6 +13,20 @@
   the fused step's scatters of ``ops/fused_sgns.py``; under bf16 those
   round once per run instead.
 
+Because every add rounds, a column's sum over a run is a chain of
+dependent adds that may not be split, reassociated or done with float
+atomics: each column of a run is summed by one thread, in sorted order,
+which is what keeps the kernels bitwise equal to their plain versions
+and training resumable bit for bit. ``scatter_add_rows`` (B3) sums a
+short run (under 32 updates) in one warp and hands each long run (32 or
+more, such as row 0 of a grid batch, 9,262 updates at fastText width)
+to blocks of its own in the same launch, one per (run, 8-column slice),
+which stream the run's update rows through shared memory with
+``cp.async`` while one thread per column adds them: the run's loads
+spread over many SMs, the add chains run beside the short runs, and the
+longest chain is what remains. ``scatter_add_rank1`` (B2) still shares
+a long run among up to 32 warps, one 32-column slice each.
+
 For a CUDA tensor each wrapper launches its kernel on the current stream,
 or raises; for a CPU tensor it runs its ``*_reference``, the plain
 PyTorch version the tests and ``chip_smoke.py`` hold the kernel against.
@@ -126,9 +140,11 @@ def _scatter_lib():
 
         lib = build.library("scatter_runs")
         lib.glint_scatter_add_rows.argtypes = [
-            _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P,
+            _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P, _P,
         ]
         lib.glint_scatter_add_rows.restype = ctypes.c_int
+        lib.glint_scatter_add_rows_workspace.argtypes = [_I64]
+        lib.glint_scatter_add_rows_workspace.restype = _I64
         lib.glint_scatter_add_rank1_table.argtypes = [
             _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P, _P, _I64, _P,
         ]
@@ -180,7 +196,9 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
     first and duplicate ids summed in the table's dtype, one rounding per
     add. ``table`` ``(V, d)`` fp32 or bf16; ``ids`` ``(N,)`` int32 in
     ``[0, V)``; ``upd`` ``(N, d)`` fp32 or of the table's dtype. Each
-    kernel launch adds one to ``scatter_add_rows.launches``."""
+    call that reaches the card adds one to ``scatter_add_rows.launches``,
+    though it is a memset, the pre-pass and the scatter kernel (see
+    :func:`scatter_add_rows_sorted`)."""
     _check_table(table, "table")
     dev = table.device
     N, d = ids.shape[0], table.shape[1]
@@ -203,19 +221,28 @@ def scatter_add_rows_sorted(table: torch.Tensor, sorted_ids: torch.Tensor,
     """The kernel launch of :func:`scatter_add_rows` for CUDA tensors
     already validated and sorted by
     :func:`~glint_word2vec_torch.ops.fused_sgns.sorted_runs`, with
-    contiguous fp32 ``upd`` (what ``chip_smoke.py`` times on its own)."""
+    contiguous fp32 ``upd`` (what ``chip_smoke.py`` times on its own).
+
+    One call is the scatter kernel and, when ``N >= 32``, before it a
+    memset of the long-run count and a pre-pass that lists the long runs,
+    all on the current stream: no host sync. The int32 workspace that
+    carries the list comes from the caching allocator."""
     lib = _scatter_lib()
+    n = sorted_ids.shape[0]
+    work = torch.empty(lib.glint_scatter_add_rows_workspace(n),
+                       dtype=torch.int32, device=table.device)
     rc = lib.glint_scatter_add_rows(
         table.data_ptr(), table.stride(0), table.shape[1],
         _DTYPE_TAGS[table.dtype], sorted_ids.data_ptr(), order.data_ptr(),
-        sorted_ids.shape[0], upd.data_ptr(),
+        n, upd.data_ptr(), work.data_ptr(),
         torch.cuda.current_stream(table.device).cuda_stream,
     )
     _check(lib, rc, "scatter_add_rows")
     scatter_add_rows.launches += 1
 
 
-#: Kernel launches since the last reset.
+#: Calls that launched the kernels since the last reset: one a call,
+#: though a call is up to two kernel launches (pre-pass, scatter).
 scatter_add_rows.launches = 0
 
 

@@ -110,6 +110,29 @@ def test_scatter_add_rows_row0_duplicates_bitwise(dtype):
     assert _bits_equal(_port_rows(table, ids, upd, dtype), want)
 
 
+def _long_run_case(seed, run, d, others=40, distinct=V):
+    """``run`` updates to id 3 among ``others`` random ids, shuffled, with
+    update rows of magnitudes 1e-3, 1 and 100 (every bf16 add rounds)."""
+    rng = np.random.default_rng(seed)
+    ids = np.concatenate([np.full(run, 3), rng.integers(0, distinct, others)])
+    ids = rng.permutation(ids).astype(np.int32)
+    upd = (rng.normal(size=(ids.size, d))
+           * rng.choice([1e-3, 1.0, 100.0], size=(ids.size, 1))).astype(np.float32)
+    table = rng.normal(size=(distinct, d)).astype(np.float32)
+    return table, ids, upd
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("run", [33, 257])
+def test_scatter_add_rows_long_runs_bitwise(dtype, run):
+    # Runs past the CUDA kernel's long-run threshold (32), across the JAX
+    # kernel's blocks of 8: the order and the rounding (one per add, in
+    # stable sorted order) that the long-run path must reproduce.
+    table, ids, upd = _long_run_case(run, run, D)
+    want = _jax_rows(table, ids, upd, dtype, block_rows=8)
+    assert _bits_equal(_port_rows(table, ids, upd, dtype), want)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_scatter_add_rows_single_id_whole_batch_bitwise(dtype):
     rng = np.random.default_rng(9)
@@ -167,6 +190,41 @@ def test_bf16_table_dtype_runs_round_every_add():
     assert torch.equal(table[5].float(), torch.full((D,), 256.0))
     fs.scatter_add_rows_f32(table, ids, half)
     assert torch.equal(table[5].float(), torch.full((D,), 260.0))
+
+
+def _bf16_round_f32(x):
+    """fp32 -> bf16 bits as fp32, round to nearest even (finite x)."""
+    u = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _bf16_round_exact(x):
+    """A float64 value rounded once to bf16 (8 significant bits, nearest
+    even; subnormals keep bf16's 2^-133 spacing)."""
+    _, e = np.frexp(x)
+    step = np.maximum(e - 8, -133)
+    return np.ldexp(np.round(np.ldexp(x, -step)), step).astype(np.float32)
+
+
+def test_bf16_add_rounded_through_fp32_equals_rounded_once():
+    # The long-run path of scatter_add_rows (B3) adds a bf16 update to a
+    # bf16 sum with one fma.rn.bf16: the exact sum rounded once to bf16.
+    # The plain version adds in fp32, then rounds to bf16. The two agree
+    # because fp32 keeps 24 bits, more than 2 x 8 + 1 of bf16's: every
+    # finite bf16 value against 64 others, subnormals included.
+    rng = np.random.default_rng(6)
+    every = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    finite = every[np.isfinite(every)]
+    a = np.repeat(finite, 64)
+    b = rng.choice(finite, a.size)
+    exact = a.astype(np.float64) + b.astype(np.float64)  # exact for |exp diff| < 45
+    keep = np.abs(exact) < 3.3e38  # no overflow to infinity
+    with np.errstate(over="ignore"):
+        twice = _bf16_round_f32(a[keep] + b[keep])
+    once = _bf16_round_exact(exact[keep])
+    assert keep.sum() > 4_000_000
+    assert np.array_equal(twice.view(np.uint32), once.view(np.uint32))
 
 
 def test_fp32_scatters_equal_the_fused_ones():
@@ -272,7 +330,7 @@ def test_cuda_scatter_add_rank1_bitwise_equals_plain(dtype, d):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [300, 301, 7, 700, 1100])
+@pytest.mark.parametrize("d", [300, 301, 7, 700, 1100, 1, 31, 32, 33])
 def test_cuda_scatter_add_rows_bitwise_equals_plain(dtype, d):
     _cuda_or_skip()
     table, ids1, coef, h, hidx = _zipf_step(d, seed=1)
@@ -293,3 +351,35 @@ def test_cuda_scatter_add_rows_bitwise_equals_plain(dtype, d):
     rows.scatter_add_rows(table, ids1, upd.to(table.dtype))
     torch.cuda.synchronize()
     assert torch.equal(table.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 7, 31, 32, 33, 300, 301])
+@pytest.mark.parametrize("run", [31, 32, 33, 257, 9262, 32768])
+def test_cuda_scatter_add_rows_run_lengths_bitwise(dtype, d, run):
+    # Each side of the long-run threshold (32), a run of 257, row 0's run
+    # at fastText width (9,262), and a batch of 32,768 updates to one id;
+    # update rows of mixed magnitude, then the same payload 4 bytes off
+    # 16-byte alignment (the long-run path's 4-byte copies).
+    _cuda_or_skip()
+    if run == 32768:
+        rng = np.random.default_rng(d)
+        table = rng.normal(size=(V, d)).astype(np.float32)
+        ids = np.full(run, 3, np.int32)
+        upd = (rng.normal(size=(run, d))
+               * rng.choice([1e-3, 1.0, 100.0], size=(run, 1))).astype(np.float32)
+    else:
+        table, ids, upd = _long_run_case(run * 7 + d, run, d, others=300,
+                                         distinct=4096)
+    t = torch.from_numpy(table).to(getattr(torch, dtype)).cuda()
+    ids_c = torch.from_numpy(ids).cuda()
+    flat = torch.empty(upd.size + 1, device="cuda")
+    for upd_c in (torch.from_numpy(upd).cuda(), flat[1:].view(upd.shape)):
+        upd_c.copy_(torch.from_numpy(upd))
+        want = rows.scatter_add_rows_reference(t.cpu(), ids_c.cpu(), upd_c.cpu())
+        before = rows.scatter_add_rows.launches
+        rows.scatter_add_rows(t, ids_c, upd_c)
+        torch.cuda.synchronize()
+        assert rows.scatter_add_rows.launches == before + 1
+        assert torch.equal(t.cpu(), want)
