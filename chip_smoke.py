@@ -19,7 +19,10 @@ nothing of JAX. Phases, each of which fails the run on any error:
    of 10,000,000 x 300 (12 GB: row offsets past 2^31 elements), at
    N in {1, 64, 10,000} with duplicate ids and ids 0 and V-1; the
    kernel's, the plain version's and ``torch.index_select``'s median time
-   beside the bound (bytes moved over 3.35 TB/s).
+   beside the bound (bytes moved over 3.35 TB/s), and the launch's waves
+   (its blocks over the blocks the card holds at once); at N = 10,000 on
+   1,000,000 rows also the kernel and ``index_select`` after an L2 flush
+   that reads instead of writes (no dirty lines to write back).
 4. Serve: a planted 1,000,000 x 300 fp32 model (random rows, word pairs
    whose rows are near copies, one analogy quadruple), saved with the
    port, served by ``serve_model_dir`` on an ephemeral port and asked
@@ -37,8 +40,14 @@ nothing of JAX. Phases, each of which fails the run on any error:
    plus one fp32 scatter on a 10,000,000 x 300 table with id V-1. Each
    kernel's median time beside its plain version's, ``index_add_``'s
    where one call computes the same function, the bound, and the run
-   count R. The counter-based draws of ``ops/random.py`` must come out
-   bitwise the same on the card as on the CPU.
+   count R. For ``scatter_add_rows_f32`` also, each bitwise and timed
+   beside ``index_add_``: (a) the runs of 32 or more sent to distinct
+   rows, (b) those runs alone, (c) one update (the launch floor), (d)
+   the shared step's pool update (``d_pool`` of ``pair_forward_shared``
+   into syn1 at a Zipf pool of 4,096), (e) the centers of one packed
+   step of phase 6's corpus. The counter-based draws of
+   ``ops/random.py`` must come out bitwise the same on the card as on
+   the CPU.
 6. Train: (a) ``Word2Vec().fit_file`` on a seeded synthetic corpus of
    10,000,000 tokens over 1,000,000 words (each at least 5 times, the rest
    Zipf(1.0), sentences of 20 words) at d = 300, W = 5, B = 1024, n = 5,
@@ -178,17 +187,23 @@ def gather_ids(torch, n: int, v: int, gen):
     return ids
 
 
-def median_ms(torch, fn, flush) -> float:
+def median_ms(torch, fn, flush, clean=False) -> float:
     """Median device time of one ``fn()`` call over ``TIMED_TRIALS``
     calls, each after a write of ``flush`` that evicts the 50 MB L2, so
     the table rows come from device memory as a served query finds them.
     A ~1 ms device-side sleep ahead of the start event lets the host
     enqueue the whole call before the device reaches it, so the window
-    holds device time only, not the wrapper's host time."""
+    holds device time only, not the wrapper's host time. With ``clean``
+    the flush reads ``flush`` instead, which leaves the L2 holding clean
+    lines: nothing ``fn`` brings in then has to write an evicted line
+    back to device memory first."""
     fn()
     times = []
     for _ in range(TIMED_TRIALS):
-        flush.zero_()
+        if clean:
+            flush.view(torch.int32).amax()
+        else:
+            flush.zero_()
         torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -237,14 +252,30 @@ def check_gather(torch, rows_mod) -> dict:
             nbytes = uniq * D * table.element_size() + 4 * n + n * D * 4
             bound = nbytes / HBM_BYTES_PER_S * 1e3
             name = "f32" if dtype == torch.float32 else "bf16"
+            blocks, per_sm, sms = rows_mod.gather_rows_grid(n, dtype)
+            waves = blocks / (per_sm * sms)
             results[(name, v, n)] = {
                 "max_abs_err": err, "ms": ms, "plain_ms": plain,
                 "library_ms": library, "bound_ms": bound, "bytes": nbytes,
+                "waves": waves,
             }
             log(f"gather_rows {name} V={v} d={D} N={n}: bitwise equal; "
                 f"kernel {ms:.4f} ms, plain {plain:.4f} ms, "
                 f"index_select {library:.4f} ms, bound {bound:.5f} ms "
-                f"({nbytes} bytes at 3.35 TB/s)")
+                f"({nbytes} bytes at 3.35 TB/s); {blocks} blocks, "
+                f"{per_sm} an SM on {sms} SMs: {waves:.3f} waves")
+            if n == GATHER_NS[-1] and v == V_SERVE:
+                # The same calls after an L2 flush that leaves no dirty
+                # lines behind: what the write-flush costs them.
+                clean = median_ms(
+                    torch, lambda: rows_mod.gather_rows(table, ids), flush, True)
+                clean_lib = median_ms(
+                    torch, lambda: torch.index_select(table, 0, ids), flush, True)
+                results[(name, v, n)].update(clean_ms=clean,
+                                             clean_library_ms=clean_lib)
+                log(f"gather_rows {name} V={v} N={n} after a read-only "
+                    f"flush: kernel {clean:.4f} ms, index_select "
+                    f"{clean_lib:.4f} ms")
         del table
         torch.cuda.empty_cache()
     return results
@@ -669,6 +700,84 @@ def scatter_bound(P, N, R, d, s, bytes_per_update, flops_per_value):
     return max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3, nbytes
 
 
+def packed_step_centers(torch, np):
+    """The center ids of one packed step of phase 6's corpus, from the
+    port's own packing (``pack_window_pairs`` with the grid's window
+    shrinks) over the corpus's first 100,000 tokens. Word ``wk`` is id
+    ``k`` here; the fit's vocabulary numbers the words by count instead,
+    which changes which rows are touched but not one run's length."""
+    from glint_word2vec_torch.corpus.batching import context_width, packed_pair_batch
+    from glint_word2vec_torch.ops import device_batching as dbat
+    from glint_word2vec_torch.ops import random as rnd
+
+    toks = synthetic_tokens(np)[:100_000]
+    ids, offsets = dbat.to_device_corpus(
+        toks, np.arange(0, toks.size + 1, SENTENCE_LEN), DEV)
+    P = packed_pair_batch(B_TRAIN, W_TRAIN)
+    span = dbat.packed_span(P, context_width(W_TRAIN))
+    shrink = dbat.grid_window_shrink(
+        rnd.seed_key(1), torch.arange(span, device=DEV), B_TRAIN, 0, W_TRAIN)
+    centers, _, _, _, _ = dbat.pack_window_pairs(
+        ids, offsets, 0, shrink, window=W_TRAIN, pair_batch=P,
+        n_valid=toks.size)
+    return centers
+
+
+def run_stats(torch, ids) -> tuple:
+    """``(R, longest run)`` of a list of ids."""
+    counts = torch.unique(ids, return_counts=True)[1]
+    return int(counts.numel()), int(counts.max())
+
+
+def scatter_f32_parts(torch, fs, table, ids, upd, pool_case, packed, flush,
+                      name) -> dict:
+    """``scatter_add_rows_f32`` beyond phase 5's own case, each case held
+    bitwise against the plain version on ``table`` (syn0) and timed
+    beside ``index_add_`` (fp32 only: on a bf16 table it rounds at every
+    add, another function): (a) the runs of 32 or more sent to distinct
+    rows; (b) those runs alone; (c) one update, the launch floor inside
+    the timing window; (d) ``pool_case`` = (syn1, pool ids, d_pool), the
+    shared step's pool update; (e) ``packed``, the centers of one packed
+    step of phase 6's corpus, with ``upd`` as payload."""
+    counts = torch.unique(ids, return_counts=True)
+    inv = torch.searchsorted(counts[0], ids)
+    long_slot = counts[1][inv] >= 32
+    pads = (V_TRAIN // 2 + torch.arange(ids.numel(), device=DEV)).to(torch.int32)
+    syn1, pool, d_pool = pool_case
+    cases = {
+        "a": (table, torch.where(long_slot, pads, ids), upd),
+        "b": (table, ids[long_slot].contiguous(), upd[long_slot].contiguous()),
+        "c": (table, ids[:1].contiguous(), upd[:1].contiguous()),
+        "d": (syn1, pool, d_pool),
+        "e": (table, packed, upd),
+    }
+    out = {}
+    for key, (t, i, u) in cases.items():
+        uniq = torch.unique(i.long())
+        before = t[uniq].cpu()
+        fs.scatter_add_rows_f32(t, i, u)
+        torch.cuda.synchronize()
+        touched_rows_check(
+            torch, t, before, i,
+            lambda rows, local: fs.scatter_add_rows_f32_reference(rows, local, u.cpu()),
+            f"scatter_add_rows_f32 {name} ({key})")
+        R, longest = run_stats(torch, i)
+        sid, order = fs.sorted_runs(i)
+        ms = median_ms(torch, lambda: fs.scatter_add_rows_f32_sorted(
+            t, sid, order, u), flush)
+        library = None
+        if t.dtype == torch.float32:
+            il = i.long()
+            library = median_ms(torch, lambda: t.index_add_(0, il, u), flush)
+        out[key] = dict(n=i.numel(), runs=R, longest=longest, ms=ms,
+                        library_ms=library)
+        lib_txt = f", index_add_ {library:.4f} ms" if library is not None else ""
+        log(f"scatter_add_rows_f32 {name} ({key}) N={i.numel()}: bitwise "
+            f"equal (R={R} runs, longest {longest}); kernel {ms:.4f} ms"
+            f"{lib_txt}")
+    return out
+
+
 def check_training_kernels(torch, np, fs) -> dict:
     """Phase 5. Returns per-kernel results of the fp32 full-width case,
     with the worst error over every case."""
@@ -683,6 +792,8 @@ def check_training_kernels(torch, np, fs) -> dict:
     hidx = torch.cat([rows, rows.repeat_interleave(n)])
     out = {}
     err = {"pair_forward": 0.0, "scatter_add_rank1_hbm": 0.0, "scatter_add_rows_f32": 0.0}
+    packed = packed_step_centers(torch, np)
+    pool_in = shared_pool_inputs(torch, gen, V_TRAIN, S_POOL)
     for dtype in (torch.float32, torch.bfloat16):
         name = "f32" if dtype == torch.float32 else "bf16"
         s = 4 if dtype == torch.float32 else 2
@@ -773,7 +884,13 @@ def check_training_kernels(torch, np, fs) -> dict:
         log(f"scatter_add_rows_f32 {name} N={P}: bitwise equal (R={R} runs, "
             f"longest {longest}); kernel {ms:.4f} ms (sort excluded), plain "
             f"{plain:.4f} ms{lib_txt}, bound {bound:.5f} ms ({nbytes} bytes)")
-        del syn0, syn1, args, fw
+        pool_c, pool_x, pool_m, pool = pool_in
+        d_pool = fs.pair_forward_shared(
+            syn0, syn1, pool_c, pool_x, pool_m, pool, alpha, N_NEG).d_pool
+        out[("scatter_add_rows_f32", name)]["parts"] = scatter_f32_parts(
+            torch, fs, syn0, centers, upd, (syn1, pool, d_pool), packed,
+            flush, name)
+        del syn0, syn1, args, fw, d_pool
         torch.cuda.empty_cache()
 
     # One fp32 scatter on a 10,000,000 x 300 table (12 GB): row offsets
@@ -804,17 +921,23 @@ def check_training_kernels(torch, np, fs) -> dict:
 # ----------------------------------------------------------------------
 
 
-def write_synthetic_corpus(np, path: str, seed: int = 1) -> int:
-    """A seeded corpus of CORPUS_TOKENS tokens over V_TRAIN words
-    ``w0 .. w{V-1}``: every word MIN_PER_WORD times, the rest drawn
-    Zipf(1.0) over the same words, shuffled into sentences of
-    SENTENCE_LEN words. Returns the token count."""
+def synthetic_tokens(np, seed: int = 1):
+    """The CORPUS_TOKENS word numbers of the seeded corpus: every word of
+    ``w0 .. w{V-1}`` MIN_PER_WORD times, the rest drawn Zipf(1.0) over
+    the same words, shuffled."""
     rng = np.random.default_rng(seed)
     base = np.repeat(np.arange(V_TRAIN), MIN_PER_WORD)
     u = rng.random(CORPUS_TOKENS - base.size)
     extra = np.minimum(np.floor(np.exp(u * math.log(V_TRAIN + 1))) - 1, V_TRAIN - 1)
     toks = np.concatenate([base, extra.astype(np.int64)])
     rng.shuffle(toks)
+    return toks
+
+
+def write_synthetic_corpus(np, path: str, seed: int = 1) -> int:
+    """:func:`synthetic_tokens` as words ``w<k>``, in sentences of
+    SENTENCE_LEN words. Returns the token count."""
+    toks = synthetic_tokens(np, seed)
     words = np.array([f"w{i}" for i in range(V_TRAIN)])
     with open(path, "w") as f:
         for s in range(0, toks.size, 100_000):
@@ -1724,6 +1847,27 @@ def train_shared_end_to_end(torch, np, fs, rows_mod) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def ptxas_report(text: str) -> list:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
+    (demangled where ``c++filt`` is found), registers and spills."""
+    demangle = shutil.which("c++filt")
+    out, fn, spill = [], None, ""
+    for line in text.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for", 1)[1].strip()
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn:
+            if demangle:
+                fn = subprocess.run([demangle, fn], capture_output=True,
+                                    text=True, timeout=60).stdout.strip() or fn
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            out.append(f"{fn}: {regs}; {spill}")
+            fn = None
+    return out
+
+
 def parse_only(argv) -> set | None:
     """The phases ``--only`` names (3 to 9), or None to run them all."""
     import argparse
@@ -1765,9 +1909,8 @@ def main() -> int:
     secs = build.build()
     log(f"built {build.sources()} with nvcc in {secs:.1f} s")
     for name, text in sorted(build.build_logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for line in ptxas_report(text):
+            log(f"  {name}: {line}")
 
     phases = {
         3: lambda: check_gather(torch, rows_mod),
@@ -1812,6 +1955,13 @@ def main() -> int:
         "checked": True,
         "shape": f"fp32 table {V_SERVE}x{D}, N=10000",
         "launches_training_queries": trained["gathers"],
+        "waves": main_case["waves"],
+        "bf16_ms": gathered[("bf16", V_SERVE, 10_000)]["ms"],
+        "bf16_index_select_ms": gathered[("bf16", V_SERVE, 10_000)]["library_ms"],
+        "clean_flush_ms": main_case["clean_ms"],
+        "clean_flush_index_select_ms": main_case["clean_library_ms"],
+        "n1_ms": gathered[("f32", V_SERVE, 1)]["ms"],
+        "n64_ms": gathered[("f32", V_SERVE, 64)]["ms"],
     }]
     train_shape = (f"fp32 tables {V_TRAIN}x{D}, P={packed_pair_batch(B_TRAIN, W_TRAIN)}, "
                    f"n={N_NEG}")
@@ -1839,6 +1989,11 @@ def main() -> int:
             "bf16_ms": timed[(name, "bf16")]["ms"],
             "bf16_bound_ms": timed[(name, "bf16")]["bound_ms"],
         })
+    for dt in ("f32", "bf16"):
+        parts = timed[("scatter_add_rows_f32", dt)]["parts"]
+        kernels[-1].update({f"{dt}_{k}_ms": p["ms"] for k, p in parts.items()})
+        kernels[-1].update({f"{dt}_{k}_index_add_ms": p["library_ms"]
+                            for k, p in parts.items() if p["library_ms"] is not None})
     for name, line in (("scatter_add_rank1", 218), ("scatter_add_rows", 276)):
         r = composed[(name, "f32")]
         kernels.append({

@@ -1,5 +1,4 @@
-// Run-summing table scatters for Hopper (sm_90a). Four entry points over
-// one warp routine (scatter_run_warp):
+// Run-summing table scatters for Hopper (sm_90a). Four entry points:
 //   scatter_add_rows_f32   table[ids[k]] += upd[k]               (fp32 upd)
 //   scatter_add_rank1_hbm  table[ids[k]] += coef[k] * h[hidx[k]]
 //       fp32 run sums, one rounding to the storage dtype per run: the
@@ -20,7 +19,7 @@
 //
 // The wrapper sorts the ids stably and hands in the sorted ids and the
 // permutation (`order`); equal ids then form contiguous runs, and each
-// column of a run's table row belongs to exactly one lane (see Design),
+// column of a run's table row belongs to exactly one thread (see Design),
 // which reads it once, adds the run's updates to it in sorted (= input)
 // order and writes it once. The TPU kernels let a run
 // span sequential grid steps; on Hopper two blocks holding one run would
@@ -47,55 +46,74 @@
 // or the B x d fp32 h of the rank-1 forms), read and write
 // each of the R distinct table rows once in storage dtype, and read per
 // update its sorted id and permutation entry (8 bytes), plus its
-// coefficient and h row index for the rank-1 forms (16 bytes). The
-// table-dtype policy adds a second floor that no design removes: a run of
-// L updates is, in every column, a chain of L dependent adds (each add
-// rounds, so the chain cannot be reassociated or split), so a call takes
-// at least the longest run times one add's latency.
+// coefficient and h row index for the rank-1 forms (16 bytes). A second
+// floor no design removes: a run of L updates is, in every column, a
+// chain of L dependent adds (rounded, or summed in a fixed order: neither
+// may be reassociated or split and stay bitwise), so a call takes at
+// least the longest run times one add's latency. At the sizes of one
+// training step (N of a few thousand) neither floor is near: the time is
+// the launch and a few dependent round trips to device memory.
 //
-// Design: one warp per sorted position. Each lane loads one update's
-// permutation entry (and coefficient and h row index) and the warp
-// broadcasts them with shuffles, so the row loads of consecutive updates do
-// not wait on a chain of scalar index loads; the run's end comes from a
-// ballot over the next 32 ids, then a galloping search for longer runs.
-// - A short run (under kLongRun = 32 updates, almost every run) belongs to
-//   the warp at its first position, which keeps up to 10 columns per lane
-//   (320 per pass, so d = 300 is one pass) in registers; the other warps
-//   exit.
-// - A long run (row 0, which every padded slot of a grid batch targets, or
-//   a frequent word drawn as a negative many times in one step):
-//   * scatter_add_rows (B3) gives it blocks of its own. A pre-pass
-//     (find_long_runs_kernel), one warp every 32 sorted positions (a long
-//     run holds at least one multiple of 32), appends each
-//     long run's (first, end) to a device list through an integer atomic
-//     counter; the entries are independent, so their order changes no
-//     result. Then rows_kernel, on a grid fixed from N on the host (no
-//     readback), starts with up to 2 blocks an SM (of the 3 it keeps
-//     resident) that take the items (long run, 8-column slice) in turn,
-//     followed by the position warps, which now leave long runs alone:
-//     the long runs' add chains run beside the short runs, and however
-//     many long runs there are, every SM keeps a slot for the short
-//     runs. A long-run block of 256 threads stages the slice's
-//     update rows (32 bytes of each) through a ring of 4 shared-memory
-//     chunks of 256 rows with cp.async, 3 chunks in flight, each thread
-//     copying one row of a chunk (two 16-byte copies when d % 4 == 0 and
-//     the payload is 16-byte aligned, else 4-byte ones) from a
-//     permutation entry fetched a chunk ahead. Each of the slice's 8
-//     columns is summed by one thread in sorted order, which reads the
-//     next 16 staged values into registers while it adds the last 16;
-//     the row is written once. Under bf16 that thread keeps its sum as
-//     bf16 bits and adds with one fma.rn.bf16 (see Chain<uint16_t>: bit
-//     for bit the fp32 add rounded to bf16). At d = 300 a run has 38
-//     blocks on 38 SMs loading it, so its 11 MB of payload no longer sets
-//     its time; the add chain does.
-//   * The other three forms share the run among the warps at its first
-//     min(ceil(d / 32), 32) positions, each taking 32-column slices of the
-//     row; a lane loads its column of 32 updates before adding them in
-//     order, so 32 row loads are in flight. The run's length sets their
-//     time.
+// Design. A run of 32 (kLongRun) or more updates is long: row 0, which
+// every padded slot of a batch targets, or a frequent word.
+// - The two rows forms (scatter_add_rows_f32, B6; scatter_add_rows, B3)
+//   are two kernels. A pre-pass (find_long_runs_kernel), one warp every
+//   32 sorted positions (a long run holds at least one multiple of 32),
+//   writes a slot for each multiple p: (first, end) of the long run whose
+//   first multiple p is, else (-1, -1). Every slot is written, so the
+//   workspace needs no clearing; one round trip reads the ids around p
+//   and every 32nd id up to p + 1024, and a second one finds the end of a
+//   run past p + 32. Then rows_kernel, on a grid fixed from N on the host
+//   (no readback), starts with up to 2 blocks an SM that take the items
+//   (slot, 8-column slice) in turn, skipping empty slots, followed by one
+//   warp per sorted position, which leave long runs alone: the long runs'
+//   add chains run beside the short runs, and however many long runs
+//   there are, every SM keeps a slot for the short runs. Under the
+//   fp32-sum policy rows_kernel is a programmatic dependent launch: its
+//   short runs start while the pre-pass runs, and only its long-run
+//   blocks wait for the pre-pass's grid (griddepcontrol.wait).
+//   * A long-run block of 256 threads stages the slice's update rows (32
+//     bytes of each) through a ring of 4 shared-memory chunks of 256 rows
+//     with cp.async, 3 chunks in flight, each thread copying one row of a
+//     chunk (two 16-byte copies when d % 4 == 0 and the payload is 16-byte
+//     aligned, else 4-byte ones) from a permutation entry fetched a chunk
+//     ahead. Each of the slice's 8 columns is summed by one thread in
+//     sorted order, which reads the next 16 staged values into registers
+//     while it adds the last 16; the row is written once. The fp32-sum
+//     policy keeps the sum in fp32 from the row's fp32 value and rounds at
+//     the store; under the table-dtype policy on bf16 the thread keeps its
+//     sum as bf16 bits and adds with one fma.rn.bf16 (see Chain<uint16_t>:
+//     bit for bit the fp32 add rounded to bf16). At d = 300 a run has 38
+//     blocks on 38 SMs loading it, so its payload does not set its time.
+//   * A short run's warps (short_run_warp) load, in one round trip, the
+//     ids and permutation entries of the 32 positions each side of their
+//     own, so each knows its run and its offset k in it. A run of one
+//     update (most runs) is its warp's: 10 columns a lane, the table and
+//     payload values loaded together. A run of L in 2 .. 31 is shared by
+//     the warps at its first h = min(L, ceil(d / 32)) positions, warp k
+//     taking the 32-column slices k, k + h, ...; each lane loads, 32 at a
+//     time and before it adds any, the table value and the L updates of
+//     each of its columns, so the run takes one round trip for its loads
+//     instead of one per few updates.
+//   Under the fp32-sum policy the kernel keeps 4 blocks an SM (at most
+//   64 registers), under the table-dtype policy 3 (80): B6's runs are
+//   short and its time is round trips, while B3 at fastText width (a
+//   row-0 run of 9,262 beside 22,593 short runs) ran 9 % slower with a
+//   fourth block (PERF.md §6).
+// - The rank-1 forms (scatter_add_rank1_hbm, B7; scatter_add_rank1, B2)
+//   are one kernel (scatter_runs_kernel) of one warp per sorted position.
+//   Each lane loads one update's permutation entry, coefficient and h row
+//   index and the warp broadcasts them with shuffles; the run's end comes
+//   from a ballot over the next 32 ids, then a galloping search for longer
+//   runs. A short run belongs to the warp at its first position, which
+//   keeps up to 10 columns per lane (320 per pass, so d = 300 is one pass)
+//   in registers; a long run is shared by the warps at its first
+//   min(ceil(d / 32), 32) positions, each taking 32-column slices of the
+//   row; a lane loads its column of 32 updates before adding them in
+//   order, so 32 row loads are in flight. The run's length sets their
+//   time.
 // In every path each column of a run is one thread's serial sum in sorted
-// order, one rounding to the table's dtype per add, so every path gives
-// the same bits.
+// order, under its policy's rounding, so every path gives the same bits.
 // Row offsets are 64-bit: id * d passes 2^31 at V = 10,000,000. bf16 table
 // rows are read as 2-byte words, so any row alignment is fine.
 //
@@ -129,21 +147,19 @@ constexpr int kChunk = 256;
 constexpr int kStages = 4;
 constexpr int kGroup = 16;  // staged values an adder holds in registers
 static_assert(kChunk == kThreads, "a long-run block copies a row a thread");
-// rows_kernel keeps at least kRowsBlocksPerSm blocks an SM resident, and
-// gives at most kLongBlocksPerSm of them (per SM of the card) to long
-// runs, so that however many long runs a call has, every SM keeps a slot
-// for the short runs' warps.
+// rows_kernel keeps at least kRowsBlocksPerSm blocks an SM resident under
+// the table-dtype policy (scatter_add_rows, whose row-0 chain of thousands
+// of adds runs slower beside more warps) and kF32BlocksPerSm under the
+// fp32-sum policy (scatter_add_rows_f32, whose runs are short and whose
+// time is the short runs' round trips); at most kLongBlocksPerSm of them
+// (per SM of the card) take long runs, so that however many long runs a
+// call has, every SM keeps a slot for the short runs' warps.
 constexpr int kRowsBlocksPerSm = 3;
+constexpr int kF32BlocksPerSm = 4;
 constexpr int kLongBlocksPerSm = 2;
-static_assert(kLongBlocksPerSm < kRowsBlocksPerSm,
+static_assert(kLongBlocksPerSm < kRowsBlocksPerSm &&
+                  kLongBlocksPerSm < kF32BlocksPerSm,
               "long-run blocks must leave the short runs a slot an SM");
-
-// The long runs find_long_runs_kernel lists: the count (zeroed before it
-// runs), then each run's (first, end) positions.
-struct LongRuns {
-  int32_t* count;
-  int2* list;
-};
 
 __host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -194,20 +210,6 @@ __device__ __forceinline__ float round_to<uint16_t>(float v) {
 struct Meta {
   int32_t row;
   float coef;
-};
-
-// Update k is row order[k] of upd ([N, d] fp32, in input order).
-struct RowsPayload {
-  const float* upd;
-  int64_t d;
-  struct Row {
-    const float* p;
-    __device__ __forceinline__ float at(int64_t j) const { return __ldg(p + j); }
-  };
-  __device__ __forceinline__ Meta meta(int32_t src) const { return {src, 1.0f}; }
-  __device__ __forceinline__ Row row(Meta m) const {
-    return {upd + static_cast<int64_t>(m.row) * d};
-  }
 };
 
 // Update k is coef[order[k]] * h[hidx[order[k]]].
@@ -267,11 +269,10 @@ __device__ __forceinline__ int64_t run_end(const int32_t* __restrict__ ids,
   return hi;
 }
 
-// The run of sorted position w, for the warp at w (see Design). With
-// kDefer (scatter_add_rows) a long run belongs to the long-run blocks,
-// which find_long_runs_kernel listed, and only a short run's first warp
-// works; otherwise helper warps share a long run.
-template <typename T, typename Payload, bool kRoundEach, bool kDefer>
+// The run of sorted position w, for the warp at w, under the rank-1
+// forms (see Design): a short run's first warp sums it, helper warps
+// share a long run.
+template <typename T, typename Payload, bool kRoundEach>
 __device__ __forceinline__ void scatter_run_warp(
     T* __restrict__ table, int64_t stride, int64_t d,
     const int32_t* __restrict__ sorted_ids, const int32_t* __restrict__ order,
@@ -283,8 +284,7 @@ __device__ __forceinline__ void scatter_run_warp(
   // w's offset k in its run, if k < helpers: the ids before w equal to
   // `id` are a prefix of the lanes' probes.
   const int64_t slices = (d + 31) / 32;
-  const int helpers =
-      kDefer ? 1 : static_cast<int>(slices < kHelpers ? slices : kHelpers);
+  const int helpers = static_cast<int>(slices < kHelpers ? slices : kHelpers);
   const int64_t back = w - 1 - lane;
   const unsigned before = __ballot_sync(
       kFull, lane < helpers && back >= 0 && __ldg(sorted_ids + back) == id);
@@ -292,18 +292,15 @@ __device__ __forceinline__ void scatter_run_warp(
   const int k = __ffs(~before) - 1;
   if (k >= helpers) return;
   const int64_t s0 = w - k;  // the run's first position
-  if (kDefer || k > 0) {
+  if (k > 0) {  // a short run belongs to its first warp alone
     const int64_t q = s0 + kLongRun - 1;
-    const bool long_run = q < n && __ldg(sorted_ids + q) == id;
-    // Deferred, a long run is the long-run blocks'; a short run belongs
-    // to its first warp alone.
-    if (kDefer ? long_run : !long_run) return;
+    if (!(q < n && __ldg(sorted_ids + q) == id)) return;
   }
   const int64_t end = run_end(sorted_ids, n, s0, id, lane);
   const int64_t len = end - s0;
   T* trow = table + static_cast<int64_t>(id) * stride;
 
-  if (len < kLongRun) {  // always, when deferring
+  if (len < kLongRun) {
     // Short run, one warp: kCols columns a lane per pass, the updates in
     // order, each update's row loads issued together.
     Meta mine{0, 0.0f};
@@ -365,44 +362,165 @@ __device__ __forceinline__ void scatter_run_warp(
   }
 }
 
-// The three entry points that share long runs among helper warps.
+// The rank-1 forms, which share long runs among helper warps.
 template <typename T, typename Payload, bool kRoundEach>
 __global__ void __launch_bounds__(kThreads)
 scatter_runs_kernel(T* __restrict__ table, int64_t stride, int64_t d,
                     const int32_t* __restrict__ sorted_ids,
                     const int32_t* __restrict__ order, int64_t n,
                     Payload pay) {
-  scatter_run_warp<T, Payload, kRoundEach, false>(
+  scatter_run_warp<T, Payload, kRoundEach>(
       table, stride, d, sorted_ids, order, n, pay,
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5));
 }
 
-// scatter_add_rows's pre-pass: lists the runs of kLongRun or more updates.
-// Each such run holds a multiple of kLongRun (= 32) among its positions,
-// so one warp a multiple p suffices: the warp whose p is the run's first
-// multiple appends (first, end) to `runs`.
+// The run of sorted position w, for the warp at w, under the two rows
+// forms (see Design): a long run is the long-run blocks', and a short run
+// of L updates is shared by the warps at its first min(L, ceil(d / 32))
+// positions, warp k taking the 32-column slices k, k + h, ... Each lane
+// sums its column of each slice: the table value, then the run's updates
+// in sorted order.
+template <typename T, bool kRoundEach>
+__device__ __forceinline__ void short_run_warp(
+    T* __restrict__ table, int64_t stride, int64_t d,
+    const int32_t* __restrict__ sorted_ids, const int32_t* __restrict__ order,
+    int64_t n, const float* __restrict__ upd, int64_t w) {
+  if (w >= n) return;  // uniform across the warp
+  const int lane = threadIdx.x & 31;
+  // One round trip: the ids and permutation entries of positions
+  // w - 31 .. w (lo, w in lane 31) and w + 1 .. w + 32 (hi); -1 is no id.
+  const int64_t plo = w - 31 + lane, phi = w + 1 + lane;
+  const int32_t id_lo = plo >= 0 ? __ldg(sorted_ids + plo) : -1;
+  const int32_t id_hi = phi < n ? __ldg(sorted_ids + phi) : -1;
+  const int32_t src_lo = plo >= 0 ? __ldg(order + plo) : 0;
+  const int32_t src_hi = phi < n ? __ldg(order + phi) : 0;
+  const int32_t id = __shfl_sync(kFull, id_lo, 31);
+  // The run's positions around w are a suffix of lo and a prefix of hi.
+  const unsigned lo = __ballot_sync(kFull, id_lo == id);
+  const unsigned hi = __ballot_sync(kFull, id_hi == id);
+  if (lo == kFull || hi == kFull) return;  // a long run
+  const int k = __clz(~lo) - 1;            // w's offset in its run
+  const int len = k + __ffs(~hi);          // k + 1 + the ids after w
+  if (len >= kLongRun) return;
+  const int slices = static_cast<int>((d + 31) / 32);
+  const int h = len < slices ? len : slices;
+  if (k >= h) return;
+  T* trow = table + static_cast<int64_t>(id) * stride;
+  if (len == 1) {
+    // One update (most runs): kCols columns a lane per pass, its table
+    // and payload values loaded together.
+    const float* urow =
+        upd + static_cast<int64_t>(__shfl_sync(kFull, src_lo, 31)) * d;
+    for (int64_t c0 = 0; c0 < d; c0 += 32 * kCols) {
+      float a[kCols], b[kCols];
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int64_t j = c0 + lane + 32 * i;
+        a[i] = j < d ? load_f(trow, j) : 0.0f;
+        b[i] = j < d ? __ldg(urow + j) : 0.0f;
+      }
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int64_t j = c0 + lane + 32 * i;
+        if (j < d) store_f(trow, j, add<T, kRoundEach>(a[i], b[i]));
+      }
+    }
+    return;
+  }
+  // Lane t holds the payload row of the run's update t (t < len).
+  const int32_t from_lo = __shfl_sync(kFull, src_lo, (31 - k + lane) & 31);
+  const int32_t from_hi = __shfl_sync(kFull, src_hi, (lane - k - 1) & 31);
+  const int32_t run_src = lane <= k ? from_lo : from_hi;
+  // The lane's values in chain order: for each of the warp's slices the
+  // table value, then the len updates; loaded 32 at a time, all before
+  // any is added, then summed in order.
+  const int per = len + 1;
+  const int total = ((slices - 1 - k) / h + 1) * per;
+  float acc = 0.0f;
+  int li = 0, lt = 0, ci = 0, ct = 0;  // (slice, value) of load and sum
+  for (int u0 = 0; u0 < total; u0 += 32) {
+    float v[32];
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      const int64_t col = 32 * (k + static_cast<int64_t>(h) * li) + lane;
+      const int32_t src = __shfl_sync(kFull, run_src, (lt - 1) & 31);
+      v[u] = 0.0f;
+      if (u0 + u < total && col < d) {
+        v[u] = lt == 0 ? load_f(trow, col)
+                       : __ldg(upd + static_cast<int64_t>(src) * d + col);
+      }
+      if (++lt == per) {
+        lt = 0;
+        ++li;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 32; ++u) {
+      if (u0 + u < total) {
+        acc = ct == 0 ? v[u] : add<T, kRoundEach>(acc, v[u]);
+        if (ct == per - 1) {
+          const int64_t col = 32 * (k + static_cast<int64_t>(h) * ci) + lane;
+          if (col < d) store_f(trow, col, acc);
+        }
+        if (++ct == per) {
+          ct = 0;
+          ++ci;
+        }
+      }
+    }
+  }
+}
+
+// The rows forms' pre-pass: one warp a multiple p of kLongRun (= 32)
+// below n. Each run of kLongRun or more updates holds a multiple of
+// kLongRun among its positions, so slot p / kLongRun gets (first, end) of
+// the run whose first multiple p is, if that run is long, else (-1, -1).
+// Every slot is written: the workspace needs no clearing.
 __global__ void __launch_bounds__(kThreads)
 find_long_runs_kernel(const int32_t* __restrict__ sorted_ids, int64_t n,
-                      LongRuns runs) {
+                      int2* __restrict__ slots) {
+  // A rows_kernel launched as its dependant may start now: only its
+  // long-run blocks read the slots, and they wait for this grid to finish
+  // (griddepcontrol.wait, a no-op in a kernel launched without one).
+  asm volatile("griddepcontrol.launch_dependents;");
   const int64_t p = (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
                      (threadIdx.x >> 5)) * kLongRun;
   if (p >= n) return;  // uniform across the warp
   const int lane = threadIdx.x & 31;
+  // One round trip: the id at p, the 32 ids before it, the 32 after it,
+  // and every 32nd id after it up to p + 1024 (-1 outside [0, n)).
   const int32_t id = __ldg(sorted_ids + p);
+  const int64_t back = p - 1 - lane, near = p + 1 + lane,
+                far = p + kLongRun * (lane + 1);
+  const int32_t id_back = back >= 0 ? __ldg(sorted_ids + back) : -1;
+  const int32_t id_near = near < n ? __ldg(sorted_ids + near) : -1;
+  const int32_t id_far = far < n ? __ldg(sorted_ids + far) : -1;
+  // The ids equal to `id` are a prefix of each set of probes.
+  const unsigned before = __ballot_sync(kFull, id_back == id);
+  const unsigned after = __ballot_sync(kFull, id_near == id);
+  const unsigned ahead = __ballot_sync(kFull, id_far == id);
+  int2 run = make_int2(-1, -1);
   // p is the run's first multiple unless p - 32 is in the run too.
-  if (p >= kLongRun && __ldg(sorted_ids + p - kLongRun) == id) return;
-  // The run starts in (p - 32, p]: the ids before p equal to `id` are a
-  // prefix of the lanes' probes.
-  const int64_t back = p - 1 - lane;
-  const unsigned before =
-      __ballot_sync(kFull, back >= 0 && __ldg(sorted_ids + back) == id);
-  const int64_t first = p - (__ffs(~before) - 1);
-  const int64_t end = run_end(sorted_ids, n, p, id, lane);
-  if (end - first >= kLongRun && lane == 0) {
-    const int32_t i = atomicAdd(runs.count, 1);  // < n / kLongRun
-    runs.list[i] =
-        make_int2(static_cast<int32_t>(first), static_cast<int32_t>(end));
+  if (before != kFull) {
+    const int64_t first = p - (__ffs(~before) - 1);
+    int64_t end;
+    if (after != kFull) {
+      end = p + __ffs(~after);
+    } else if (ahead == kFull) {  // past p + 1024: search on
+      end = run_end(sorted_ids, n, p + kLongRun * 32, id, lane);
+    } else {
+      // The run holds p + 32c and ends by p + 32(c + 1): one more probe.
+      const int64_t base = p + kLongRun * (__ffs(~ahead) - 1);
+      const int64_t q = base + 1 + lane;
+      const unsigned m =
+          __ballot_sync(kFull, q < n && __ldg(sorted_ids + q) == id);
+      end = base + __ffs(~m);
+    }
+    if (end - first >= kLongRun) {
+      run = make_int2(static_cast<int32_t>(first), static_cast<int32_t>(end));
+    }
   }
+  if (lane == 0) slots[p / kLongRun] = run;
 }
 
 __device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
@@ -467,115 +585,161 @@ struct Chain<uint16_t> {
   }
 };
 
-// The long runs' items w = item0, item0 + step, ... of scatter_add_rows:
-// item w is run w / slices, 8-column slice w % slices (see Design). Each of
-// the block's threads copies one update row of a chunk into the ring; the
-// threads of the slice's columns (in warp 0) each sum one column.
-template <typename T>
+// The chain of policy kRoundEach over a table of T: every add rounded to
+// T, or an fp32 sum rounded once, at the store.
+template <typename T, bool kRoundEach>
+struct ChainOf {
+  using type = Chain<float>;
+};
+template <>
+struct ChainOf<uint16_t, true> {
+  using type = Chain<uint16_t>;
+};
+
+// One long-run item: columns [c0, c0 + kSlice) of the run at sorted
+// positions [run.x, run.y), by the whole block (see Design). Each thread
+// copies one update row of a chunk into the ring; the threads of the
+// slice's columns (in warp 0) each sum one column.
+template <typename T, bool kRoundEach>
+__device__ __forceinline__ void long_run_item(
+    T* __restrict__ table, int64_t stride, int64_t d,
+    const int32_t* __restrict__ sorted_ids, const int32_t* __restrict__ order,
+    const float* __restrict__ upd, float (*ring)[kChunk][kSlice], bool vec,
+    int2 run, int64_t c0) {
+  const int tid = threadIdx.x;
+  const int64_t first = run.x, end = run.y;
+  const int cols = static_cast<int>(min64(kSlice, d - c0));
+  const int chunks = static_cast<int>((end - first + kChunk - 1) / kChunk);
+  // The payload row of row `tid` of chunk c, or -1 past the run.
+  auto src_of = [&](int c) -> int32_t {
+    const int64_t k = first + static_cast<int64_t>(c) * kChunk + tid;
+    return k < end ? __ldg(order + k) : -1;
+  };
+  // Every thread commits one group a chunk, empty or not, so group c is
+  // chunk c in every thread.
+  auto issue = [&](int c, int32_t src) {
+    if (src >= 0) {
+      float* dst = &ring[c % kStages][tid][0];
+      const float* p = upd + static_cast<int64_t>(src) * d + c0;
+      if (vec) {
+        for (int u = 0; u < cols; u += 4) cp_async16(dst + u, p + u);
+      } else {
+        for (int u = 0; u < cols; ++u) cp_async4(dst + u, p + u);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int c = 0; c < kStages - 1; ++c) issue(c, src_of(c));
+  int32_t src = src_of(kStages - 1);
+  T* trow =
+      table + static_cast<int64_t>(__ldg(sorted_ids + first)) * stride + c0;
+  const bool adder = tid < cols;
+  typename ChainOf<T, kRoundEach>::type sum(adder ? load_f(trow, tid) : 0.0f);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<kStages - 2>();  // chunk c has landed (this thread's)
+    // Chunk c is visible to the adders, and every adder is done with
+    // chunk c - 1, whose stage the issue below refills.
+    __syncthreads();
+    issue(c + kStages - 1, src);
+    src = src_of(c + kStages);
+    if (adder) {
+      const float* col = &ring[c % kStages][0][tid];
+      const int64_t rows = min64(kChunk, end - first - int64_t{c} * kChunk);
+      if (rows == kChunk) {
+        // Each group of 16 staged values is read into registers while
+        // the group before it is added, so the shared-memory reads stay
+        // off the add chain.
+        float v[kGroup];
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) v[j] = col[j * kSlice];
+#pragma unroll
+        for (int i = kGroup; i < kChunk; i += kGroup) {
+          float next[kGroup];
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) next[j] = col[(i + j) * kSlice];
+#pragma unroll
+          for (int j = 0; j < kGroup; ++j) {
+            sum.push(v[j]);
+            v[j] = next[j];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kGroup; ++j) sum.push(v[j]);
+      } else {
+#pragma unroll 4
+        for (int i = 0; i < rows; ++i) sum.push(col[i * kSlice]);
+      }
+    }
+  }
+  if (adder) store_f(trow, tid, sum.value());
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free for the next item
+}
+
+// The long runs' items w = item0, item0 + step, ... of the rows forms:
+// item w is slot w / slices (see find_long_runs_kernel), 8-column slice
+// w % slices; the items whose slot holds a run go to long_run_item.
+template <typename T, bool kRoundEach>
 __device__ __forceinline__ void long_runs_block(
     T* __restrict__ table, int64_t stride, int64_t d,
     const int32_t* __restrict__ sorted_ids, const int32_t* __restrict__ order,
-    const float* __restrict__ upd, LongRuns runs, int64_t item0,
-    int64_t step) {
+    const float* __restrict__ upd, const int2* __restrict__ slots,
+    int64_t nslots, int64_t item0, int64_t step) {
   __shared__ __align__(16) float ring[kStages][kChunk][kSlice];
+  __shared__ int live[kThreads];  // the block's items that hold a run
+  __shared__ int nlive;
   const int tid = threadIdx.x;
   const int64_t slices = (d + kSlice - 1) / kSlice;
-  const int64_t items = static_cast<int64_t>(*runs.count) * slices;
+  const int64_t items = nslots * slices;
   // 16-byte copies need every slice of every payload row 16-byte aligned.
   const bool vec =
       d % 4 == 0 && (reinterpret_cast<uintptr_t>(upd) & 15) == 0;
-  for (int64_t w = item0; w < items; w += step) {
-    const int2 run = runs.list[w / slices];
-    const int64_t c0 = (w % slices) * kSlice;
-    const int cols = static_cast<int>(min64(kSlice, d - c0));
-    const int64_t first = run.x, end = run.y;
-    const int chunks = static_cast<int>((end - first + kChunk - 1) / kChunk);
-    // The payload row of row `tid` of chunk c, or -1 past the run.
-    auto src_of = [&](int c) -> int32_t {
-      const int64_t k = first + static_cast<int64_t>(c) * kChunk + tid;
-      return k < end ? __ldg(order + k) : -1;
-    };
-    // Every thread commits one group a chunk, empty or not, so group c is
-    // chunk c in every thread.
-    auto issue = [&](int c, int32_t src) {
-      if (src >= 0) {
-        float* dst = &ring[c % kStages][tid][0];
-        const float* p = upd + static_cast<int64_t>(src) * d + c0;
-        if (vec) {
-          for (int u = 0; u < cols; u += 4) cp_async16(dst + u, p + u);
-        } else {
-          for (int u = 0; u < cols; ++u) cp_async4(dst + u, p + u);
-        }
-      }
-      cp_async_commit();
-    };
-    for (int c = 0; c < kStages - 1; ++c) issue(c, src_of(c));
-    int32_t src = src_of(kStages - 1);
-    T* trow =
-        table + static_cast<int64_t>(__ldg(sorted_ids + first)) * stride + c0;
-    const bool adder = tid < cols;
-    Chain<T> sum(adder ? load_f(trow, tid) : 0.0f);
-    for (int c = 0; c < chunks; ++c) {
-      cp_async_wait<kStages - 2>();  // chunk c has landed (this thread's)
-      // Chunk c is visible to the adders, and every adder is done with
-      // chunk c - 1, whose stage the issue below refills.
-      __syncthreads();
-      issue(c + kStages - 1, src);
-      src = src_of(c + kStages);
-      if (adder) {
-        const float* col = &ring[c % kStages][0][tid];
-        const int64_t rows = min64(kChunk, end - first - int64_t{c} * kChunk);
-        if (rows == kChunk) {
-          // Each group of 16 staged values is read into registers while
-          // the group before it is added, so the shared-memory reads stay
-          // off the add chain.
-          float v[kGroup];
-#pragma unroll
-          for (int j = 0; j < kGroup; ++j) v[j] = col[j * kSlice];
-#pragma unroll
-          for (int i = kGroup; i < kChunk; i += kGroup) {
-            float next[kGroup];
-#pragma unroll
-            for (int j = 0; j < kGroup; ++j) next[j] = col[(i + j) * kSlice];
-#pragma unroll
-            for (int j = 0; j < kGroup; ++j) {
-              sum.push(v[j]);
-              v[j] = next[j];
-            }
-          }
-#pragma unroll
-          for (int j = 0; j < kGroup; ++j) sum.push(v[j]);
-        } else {
-#pragma unroll 4
-          for (int i = 0; i < rows; ++i) sum.push(col[i * kSlice]);
-        }
-      }
+  // The block's items come kThreads at a time: thread t reads the slot of
+  // item base + t * step, and the items whose slot holds a run are listed
+  // (in any order: no two items touch one column).
+  for (int64_t base = item0; base < items; base += step * kThreads) {
+    if (tid == 0) nlive = 0;
+    __syncthreads();
+    const int64_t mine = base + static_cast<int64_t>(tid) * step;
+    if (mine < items && __ldg(&slots[mine / slices].x) >= 0) {
+      live[atomicAdd(&nlive, 1)] = tid;
     }
-    if (adder) store_f(trow, tid, sum.value());
-    cp_async_wait<0>();
-    __syncthreads();  // the ring is free for the next item
+    __syncthreads();
+    const int count = nlive;
+    for (int f = 0; f < count; ++f) {
+      const int64_t w = base + static_cast<int64_t>(live[f]) * step;
+      long_run_item<T, kRoundEach>(table, stride, d, sorted_ids, order, upd,
+                                   ring, vec, __ldg(&slots[w / slices]),
+                                   (w % slices) * kSlice);
+    }
+    __syncthreads();  // every thread has read nlive before it is reset
   }
 }
 
-// scatter_add_rows after find_long_runs_kernel: blocks [0, long_blocks)
+// The rows forms after find_long_runs_kernel: blocks [0, long_blocks)
 // take the long runs' items, the others one sorted position a warp, so
-// the long runs' add chains run beside the short runs. Three blocks an SM
-// keep the short runs' warps in flight (at 94 registers the bf16 form
-// held two, and its short runs ran slower: PERF.md §6).
-template <typename T>
-__global__ void __launch_bounds__(kThreads, kRowsBlocksPerSm)
+// the long runs' add chains run beside the short runs. Three or four
+// blocks an SM keep the short runs' warps in flight (at 94 registers the
+// bf16 form held two, and its short runs ran slower: PERF.md §6).
+template <typename T, bool kRoundEach>
+__global__ void __launch_bounds__(kThreads,
+                                  kRoundEach ? kRowsBlocksPerSm
+                                             : kF32BlocksPerSm)
 rows_kernel(T* __restrict__ table, int64_t stride, int64_t d,
             const int32_t* __restrict__ sorted_ids,
             const int32_t* __restrict__ order, int64_t n,
-            const float* __restrict__ upd, LongRuns runs,
+            const float* __restrict__ upd, const int2* __restrict__ slots,
             int64_t long_blocks) {
   if (blockIdx.x < long_blocks) {
-    long_runs_block<T>(table, stride, d, sorted_ids, order, upd, runs,
-                       blockIdx.x, long_blocks);
+    // The slots are find_long_runs_kernel's, which may still be running.
+    asm volatile("griddepcontrol.wait;" ::: "memory");
+    long_runs_block<T, kRoundEach>(table, stride, d, sorted_ids, order, upd,
+                                   slots, (n + kLongRun - 1) / kLongRun,
+                                   blockIdx.x, long_blocks);
     return;
   }
-  scatter_run_warp<T, RowsPayload, true, true>(
-      table, stride, d, sorted_ids, order, n, RowsPayload{upd, d},
+  short_run_warp<T, kRoundEach>(
+      table, stride, d, sorted_ids, order, n, upd,
       (static_cast<int64_t>(blockIdx.x) - long_blocks) * kWarpsPerBlock +
           (threadIdx.x >> 5));
 }
@@ -614,46 +778,78 @@ int launch_dtype(void* table, int64_t stride, int64_t d, int32_t dtype,
   }
 }
 
-// int32 words of scatter_add_rows's workspace for n updates: the count,
-// one word of padding, then (first, end) of at most n / kLongRun runs.
-int64_t rows_workspace_words(int64_t n) { return 2 + 2 * (n / kLongRun); }
+// int32 words of the rows forms' workspace for n updates: a (first, end)
+// slot for each multiple of kLongRun below n.
+int64_t rows_workspace_words(int64_t n) {
+  return 2 * ((n + kLongRun - 1) / kLongRun);
+}
 
-// scatter_add_rows. Three stream operations when a long run can exist
-// (n >= kLongRun): the count's memset, find_long_runs_kernel and
-// rows_kernel; rows_kernel alone otherwise.
-template <typename T>
+// The rows forms. Two kernels when a long run can exist (n >= kLongRun):
+// find_long_runs_kernel, then rows_kernel; rows_kernel alone otherwise.
+template <typename T, bool kRoundEach>
 int launch_rows(void* table, int64_t stride, int64_t d,
                 const void* sorted_ids, const void* order, int64_t n,
                 const float* upd, void* work, cudaStream_t s) {
   if (n > 0x7fffffff) return cudaErrorInvalidValue;  // int32 positions
   const int32_t* ids = static_cast<const int32_t*>(sorted_ids);
-  int32_t* words = static_cast<int32_t*>(work);
-  const LongRuns runs{words, reinterpret_cast<int2*>(words + 2)};
+  int2* slots = static_cast<int2*>(work);
   const int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  const int64_t max_runs = n / kLongRun;
   int64_t long_blocks = 0;
-  if (max_runs > 0) {
-    cudaError_t e = cudaMemsetAsync(words, 0, sizeof(int32_t), s);
-    if (e != cudaSuccess) return static_cast<int>(e);
+  if (n >= kLongRun) {
     const int64_t probes = (n + kLongRun - 1) / kLongRun;  // one a warp
     find_long_runs_kernel<<<static_cast<unsigned>(
                                 (probes + kWarpsPerBlock - 1) / kWarpsPerBlock),
-                            kThreads, 0, s>>>(ids, n, runs);
-    e = cudaGetLastError();
+                            kThreads, 0, s>>>(ids, n, slots);
+    cudaError_t e = cudaGetLastError();
     int dev = 0, sms = 0;
     if (e == cudaSuccess) e = cudaGetDevice(&dev);
     if (e == cudaSuccess) {
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     }
     if (e != cudaSuccess) return static_cast<int>(e);
-    long_blocks = min64(max_runs * ((d + kSlice - 1) / kSlice),
+    // At most n / kLongRun long runs, each ceil(d / kSlice) items.
+    long_blocks = min64((n / kLongRun) * ((d + kSlice - 1) / kSlice),
                         int64_t{kLongBlocksPerSm} * sms);
   }
-  rows_kernel<T><<<static_cast<unsigned>(long_blocks + blocks), kThreads, 0,
-                   s>>>(static_cast<T*>(table), stride, d, ids,
-                        static_cast<const int32_t*>(order), n, upd, runs,
-                        long_blocks);
-  return static_cast<int>(cudaGetLastError());
+  // Under the fp32-sum policy, a programmatic dependent launch: the short
+  // runs' warps start while the pre-pass runs, and the long-run blocks
+  // wait for it. Not under the table-dtype policy, whose row-0 chain of
+  // thousands of adds is its longest path: there the short runs' loads
+  // delay the pre-pass, and with it the chain (PERF.md §6).
+  cudaLaunchAttribute early;
+  early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  early.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(long_blocks + blocks));
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = s;
+  cfg.attrs = &early;
+  cfg.numAttrs = !kRoundEach && long_blocks > 0 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, rows_kernel<T, kRoundEach>, static_cast<T*>(table), stride, d,
+      ids, static_cast<const int32_t*>(order), n, upd,
+      static_cast<const int2*>(slots), long_blocks));
+}
+
+// A rows form under policy kRoundEach, for the table's `dtype`.
+template <bool kRoundEach>
+int launch_rows_dtype(void* table, int64_t stride, int64_t d, int32_t dtype,
+                      const void* sorted_ids, const void* order, int64_t n,
+                      const void* upd, void* work, void* stream) {
+  if (n < 0 || d <= 0 || stride < d) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  const float* u = static_cast<const float*>(upd);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kDtypeF32:
+      return launch_rows<float, kRoundEach>(table, stride, d, sorted_ids,
+                                            order, n, u, work, s);
+    case kDtypeBF16:
+      return launch_rows<uint16_t, kRoundEach>(table, stride, d, sorted_ids,
+                                               order, n, u, work, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 Rank1Payload rank1_payload(const void* coef, const void* h, const void* hidx,
@@ -672,15 +868,14 @@ extern "C" {
 // updated in place; sorted_ids and order are [n] int32. None synchronises
 // or allocates.
 
-// fp32-sum policy. upd is [n, d] fp32, contiguous, in input order.
+// fp32-sum policy. upd is [n, d] fp32, contiguous, in input order; work
+// as glint_scatter_add_rows's.
 int glint_scatter_add_rows_f32(void* table, int64_t stride, int64_t d,
                                int32_t dtype, const void* sorted_ids,
                                const void* order, int64_t n, const void* upd,
-                               void* stream) {
-  const RowsPayload pay{static_cast<const float*>(upd), d};
-  return launch_dtype<RowsPayload, false>(
-      table, stride, d, dtype, sorted_ids, order, n, pay,
-      static_cast<cudaStream_t>(stream));
+                               void* work, void* stream) {
+  return launch_rows_dtype<false>(table, stride, d, dtype, sorted_ids, order,
+                                  n, upd, work, stream);
 }
 
 // fp32-sum policy. coef [n] fp32 and hidx [n] int32 in input order; h is
@@ -697,7 +892,7 @@ int glint_scatter_add_rank1(void* table, int64_t stride, int64_t d,
       static_cast<cudaStream_t>(stream));
 }
 
-// int32 words of the workspace glint_scatter_add_rows needs for n updates.
+// int32 words of the workspace the rows forms need for n updates.
 int64_t glint_scatter_add_rows_workspace(int64_t n) {
   return rows_workspace_words(n);
 }
@@ -710,20 +905,8 @@ int glint_scatter_add_rows(void* table, int64_t stride, int64_t d,
                            int32_t dtype, const void* sorted_ids,
                            const void* order, int64_t n, const void* upd,
                            void* work, void* stream) {
-  if (n < 0 || d <= 0 || stride < d) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  const float* u = static_cast<const float*>(upd);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kDtypeF32:
-      return launch_rows<float>(table, stride, d, sorted_ids, order, n, u,
-                                work, s);
-    case kDtypeBF16:
-      return launch_rows<uint16_t>(table, stride, d, sorted_ids, order, n, u,
-                                   work, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch_rows_dtype<true>(table, stride, d, dtype, sorted_ids, order,
+                                 n, upd, work, stream);
 }
 
 // Table-dtype policy, rank-1 payload; arguments as glint_scatter_add_rank1.

@@ -68,9 +68,11 @@ def _lib(name: str):
             lib.glint_pair_forward_shared_loss_tiles.restype = _I64
         else:
             lib.glint_scatter_add_rows_f32.argtypes = [
-                _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P,
+                _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P, _P,
             ]
             lib.glint_scatter_add_rows_f32.restype = ctypes.c_int
+            lib.glint_scatter_add_rows_workspace.argtypes = [_I64]
+            lib.glint_scatter_add_rows_workspace.restype = _I64
             lib.glint_scatter_add_rank1.argtypes = [
                 _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P, _P, _I64, _P,
             ]
@@ -363,7 +365,9 @@ def scatter_add_rows_f32(table: torch.Tensor, ids: torch.Tensor,
     """``table[ids] += upd`` in place, duplicate ids summed in fp32 and
     rounded to the table's dtype once per run. ``table`` ``(V, d)`` fp32
     or bf16; ``ids`` ``(N,)`` int32 in ``[0, V)``; ``upd`` ``(N, d)``
-    fp32. Each kernel launch adds one to ``scatter_add_rows_f32.launches``."""
+    fp32. Each call that reaches the card adds one to
+    ``scatter_add_rows_f32.launches``, though it is the pre-pass and the
+    scatter kernel (see :func:`scatter_add_rows_f32_sorted`)."""
     _check_table(table, "table")
     dev = table.device
     N, d = ids.shape[0], table.shape[1]
@@ -381,19 +385,38 @@ def scatter_add_rows_f32_sorted(table: torch.Tensor, sorted_ids: torch.Tensor,
                                 upd: torch.Tensor) -> None:
     """The kernel launch of :func:`scatter_add_rows_f32` for CUDA tensors
     already validated and sorted by :func:`sorted_runs` (what
-    ``chip_smoke.py`` times on its own)."""
+    ``chip_smoke.py`` times on its own).
+
+    One call is the scatter kernel and, when ``N >= 32``, before it a
+    pre-pass that finds the long runs, both on the current stream: no
+    host sync."""
     lib = _lib("scatter_runs")
-    rc = lib.glint_scatter_add_rows_f32(
-        table.data_ptr(), table.stride(0), table.shape[1],
-        _DTYPE_TAGS[table.dtype], sorted_ids.data_ptr(), order.data_ptr(),
-        sorted_ids.shape[0], upd.data_ptr(),
-        torch.cuda.current_stream(table.device).cuda_stream,
-    )
-    _check(lib, rc, "scatter_add_rows_f32")
+    launch_rows(lib, lib.glint_scatter_add_rows_f32, "scatter_add_rows_f32",
+                table, sorted_ids, order, upd)
     scatter_add_rows_f32.launches += 1
 
 
-#: Kernel launches since the last reset.
+def launch_rows(lib, entry, what: str, table: torch.Tensor,
+                sorted_ids: torch.Tensor, order: torch.Tensor,
+                upd: torch.Tensor) -> None:
+    """Launch ``entry``, one of the rows forms of ``csrc/scatter_runs.cu``
+    (``glint_scatter_add_rows_f32`` or ``glint_scatter_add_rows``), on
+    the current stream, with the int32 workspace its pre-pass writes
+    taken from the caching allocator."""
+    n = sorted_ids.shape[0]
+    work = torch.empty(lib.glint_scatter_add_rows_workspace(n),
+                       dtype=torch.int32, device=table.device)
+    rc = entry(
+        table.data_ptr(), table.stride(0), table.shape[1],
+        _DTYPE_TAGS[table.dtype], sorted_ids.data_ptr(), order.data_ptr(),
+        n, upd.data_ptr(), work.data_ptr(),
+        torch.cuda.current_stream(table.device).cuda_stream,
+    )
+    _check(lib, rc, what)
+
+
+#: Calls that launched the kernels since the last reset: one a call,
+#: though a call is up to two kernel launches (pre-pass, scatter).
 scatter_add_rows_f32.launches = 0
 
 

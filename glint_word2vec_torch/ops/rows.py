@@ -39,6 +39,7 @@ update rows.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -47,6 +48,7 @@ from glint_word2vec_torch.ops.fused_sgns import (
     _check_table,
     _check_vec,
     _route,
+    launch_rows,
     sorted_runs,
 )
 
@@ -75,6 +77,8 @@ def _lib():
             ctypes.c_int32, ctypes.c_void_p,
         ]
         lib.glint_gather_rows.restype = ctypes.c_int
+        lib.glint_gather_rows_grid.argtypes = [_I64, _I32, _P]
+        lib.glint_gather_rows_grid.restype = ctypes.c_int
         lib.glint_cuda_error_string.argtypes = [ctypes.c_int]
         lib.glint_cuda_error_string.restype = ctypes.c_char_p
         _bound = lib
@@ -126,6 +130,19 @@ def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 #: Kernel launches since the last reset (``chip_smoke.py`` zeroes it
 #: before driving the served path and reads it after).
 gather_rows.launches = 0
+
+
+def gather_rows_grid(n: int, dtype: torch.dtype) -> Tuple[int, int, int]:
+    """``(blocks, blocks an SM holds, SMs)`` of the launch
+    :func:`gather_rows` makes for ``n`` rows of a ``dtype`` table on the
+    current card: ``blocks / (per_sm * sms)`` is its number of waves."""
+    out = (ctypes.c_int64 * 3)()
+    lib = _lib()
+    rc = lib.glint_gather_rows_grid(n, _DTYPE_TAGS[dtype], out)
+    if rc != 0:
+        msg = lib.glint_cuda_error_string(rc).decode()
+        raise RuntimeError(f"gather_rows_grid failed: {msg} (cudaError {rc})")
+    return out[0], out[1], out[2]
 
 
 # ----------------------------------------------------------------------
@@ -197,7 +214,7 @@ def scatter_add_rows(table: torch.Tensor, ids: torch.Tensor,
     add. ``table`` ``(V, d)`` fp32 or bf16; ``ids`` ``(N,)`` int32 in
     ``[0, V)``; ``upd`` ``(N, d)`` fp32 or of the table's dtype. Each
     call that reaches the card adds one to ``scatter_add_rows.launches``,
-    though it is a memset, the pre-pass and the scatter kernel (see
+    though it is the pre-pass and the scatter kernel (see
     :func:`scatter_add_rows_sorted`)."""
     _check_table(table, "table")
     dev = table.device
@@ -224,20 +241,11 @@ def scatter_add_rows_sorted(table: torch.Tensor, sorted_ids: torch.Tensor,
     contiguous fp32 ``upd`` (what ``chip_smoke.py`` times on its own).
 
     One call is the scatter kernel and, when ``N >= 32``, before it a
-    memset of the long-run count and a pre-pass that lists the long runs,
-    all on the current stream: no host sync. The int32 workspace that
-    carries the list comes from the caching allocator."""
+    pre-pass that finds the long runs, both on the current stream: no
+    host sync."""
     lib = _scatter_lib()
-    n = sorted_ids.shape[0]
-    work = torch.empty(lib.glint_scatter_add_rows_workspace(n),
-                       dtype=torch.int32, device=table.device)
-    rc = lib.glint_scatter_add_rows(
-        table.data_ptr(), table.stride(0), table.shape[1],
-        _DTYPE_TAGS[table.dtype], sorted_ids.data_ptr(), order.data_ptr(),
-        n, upd.data_ptr(), work.data_ptr(),
-        torch.cuda.current_stream(table.device).cuda_stream,
-    )
-    _check(lib, rc, "scatter_add_rows")
+    launch_rows(lib, lib.glint_scatter_add_rows, "scatter_add_rows", table,
+                sorted_ids, order, upd)
     scatter_add_rows.launches += 1
 
 

@@ -30,16 +30,26 @@ def _ids(n, seed):
     return ids
 
 
+# (n, d, odd): odd keeps only odd ids, whose bf16 rows at d = 300 start 8
+# bytes off a 16-byte boundary (the kernel's 8-byte loads).
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("n", [1, 37])
-def test_cpu_gather_bitwise_equals_jax_interpret(dtype, n):
+@pytest.mark.parametrize(
+    "n,d,odd",
+    [(1, D, False), (37, D, False), (37, 1, False), (37, 7, False),
+     (37, 301, False), (37, 300, True)],
+    ids=["1", "37", "37-d1", "37-d7", "37-d301", "37-d300-odd"],
+)
+def test_cpu_gather_bitwise_equals_jax_interpret(dtype, n, d, odd):
     import jax.numpy as jnp
 
     from glint_word2vec_tpu.ops.pallas_rows import gather_rows as jax_gather_rows
 
     rng = np.random.default_rng(7)
-    jt = jnp.asarray(rng.normal(size=(V, D)).astype(np.float32)).astype(dtype)
+    jt = jnp.asarray(rng.normal(size=(V, d)).astype(np.float32)).astype(dtype)
     ids = _ids(n, 11) if n > 9 else np.array([V - 1], np.int32)
+    if odd:
+        ids = ids | 1  # V is odd, so V - 1 becomes V - 2
+        ids[ids >= V] = V - 2
     want = np.asarray(
         jax_gather_rows(jt, jnp.asarray(ids), interpret=True).astype(jnp.float32)
     )
@@ -49,7 +59,7 @@ def test_cpu_gather_bitwise_equals_jax_interpret(dtype, n):
     )
     before = gather_rows.launches
     got = gather_rows(tt, torch.from_numpy(ids))
-    assert got.dtype == torch.float32 and tuple(got.shape) == (n, D)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (n, d)
     np.testing.assert_array_equal(got.numpy(), want)
     # A CPU tensor takes the plain version: no kernel launch is counted.
     assert gather_rows.launches == before
@@ -74,15 +84,22 @@ def test_wrapper_rejects_bad_inputs():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d", [300, 301, 7])
 def test_cuda_kernel_bitwise_equals_plain(dtype, d):
+    # N = 1, N not a multiple of the rows a warp takes (37, 4,099), more
+    # rows than the card holds warps at once (70,001), and only odd ids
+    # (bf16 rows 8 bytes off 16-byte alignment at d = 300).
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU form")
     gen = torch.Generator(device="cuda").manual_seed(3)
     table = torch.randn((V, d), generator=gen, device="cuda").to(
         getattr(torch, dtype)
     )
-    ids = torch.from_numpy(_ids(37, 5)).cuda()
-    before = gather_rows.launches
-    got = gather_rows(table, ids)
-    torch.cuda.synchronize()
-    assert gather_rows.launches == before + 1
-    assert torch.equal(got, gather_rows_reference(table, ids))
+    odd = torch.from_numpy(_ids(37, 5) | 1).clamp(max=V - 2).cuda()
+    for ids in (torch.from_numpy(_ids(37, 5)).cuda(),
+                torch.tensor([V - 1], dtype=torch.int32, device="cuda"),
+                torch.from_numpy(_ids(4099, 6)).cuda(),
+                torch.from_numpy(_ids(70_001, 8)).cuda(), odd):
+        before = gather_rows.launches
+        got = gather_rows(table, ids)
+        torch.cuda.synchronize()
+        assert gather_rows.launches == before + 1
+        assert torch.equal(got, gather_rows_reference(table, ids))
