@@ -95,8 +95,13 @@ nothing of JAX. Phases, each of which fails the run on any error:
    ``h`` bitwise, ``c_pos`` within rtol 1e-5 (atol 1e-6 x max),
    ``d_center`` and ``d_pool`` within rtol 1e-4 and atol 1e-6 (sums of
    4,096 and 3,277 fp32 terms in another order), the loss within rel
-   1e-5; median time, the plain version's and the bound (fp32 operations
-   over 67 TFLOP/s); (b) ``Word2Vec().set_shared_negatives(4096)
+   1e-5; median time, the plain version's and the bound (the split-TF32
+   passes over 495 TFLOP/s, with the FFMA figure, fp32 operations over
+   67 TFLOP/s, beside it); at S = 4,096 on 1,000,000 rows also each
+   launch's device time, TFLOP/s (``torch.profiler``) and waves and
+   ``torch.matmul`` on each of the three products, and in fp32 and bf16
+   two calls bitwise equal and ``d_center`` and ``d_pool`` within 10
+   times the plain version's norm-wise error against float64 on the card; (b) ``Word2Vec().set_shared_negatives(4096)
    .fit_file`` on phase 6's corpus at 1M x 300, fp32, one epoch, with
    every launch counter zeroed just before: ``pair_forward_shared`` once
    a step, ``pair_forward`` never, ``scatter_add_rank1_hbm`` once and
@@ -138,6 +143,8 @@ TIMED_TRIALS = 25
 SEQ_REQUESTS = 200
 #: H100 SXM fp32 rate outside the tensor cores (NVIDIA data sheet), flop/s.
 FP32_FLOPS = 67e12
+#: H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet), flop/s.
+TF32_FLOPS = 495e12
 #: Exit code of a partial run (``--only``): never that of a passing run.
 PARTIAL_EXIT = 4
 #: Full width of the training slice: BASELINE.json configs[1]
@@ -1655,23 +1662,130 @@ def shared_pool_inputs(torch, gen, v: int, S: int):
     return centers, contexts, mask, pool
 
 
-def pair_forward_shared_bound(P_live, S, d, s, uniq0, uniq1, P):
-    """Least time of pair_forward_shared on the card, ms: the three pool
-    products (2 * P * S * d flops each, over the live pairs), the dot
-    and the c_pos term of d_center against the distinct rows read once
-    in storage dtype, the ids, mask and pool read, and the fp32 h,
-    d_center and d_pool rows, c_pos and the loss written."""
-    flops = 6 * P_live * S * d + 4 * P_live * d
+def pair_forward_shared_bound(P_live, S, d, s, uniq0, uniq1, P, passes):
+    """Least time of pair_forward_shared on the card, ms, with the figures
+    it comes from. The three pool products (2 * P * S * d flops each, over
+    the live pairs) run as split-TF32 passes on the tensor cores: 3 each
+    for fp32 tables, and 1 for the logits and 2 for each other product
+    for bf16 tables, whose h and pool rows are exact TF32 (``passes`` in
+    all). The dot and the c_pos term of d_center run outside them. Bytes:
+    the distinct rows read once in storage dtype, the ids, mask and pool
+    read, and the fp32 h, d_center and d_pool rows, c_pos and the loss
+    written. Returns (tensor-core bound, FFMA bound: all flops over
+    67 TFLOP/s, bytes, function flops)."""
+    product = 2 * P_live * S * d
+    small = 4 * P_live * d
+    flops = 3 * product + small
     nbytes = (uniq0 + uniq1) * d * s + P * 12 + S * 4 + (2 * P + S) * d * 4 + P * 4 + 4
-    return max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3, nbytes, flops
+    mem = nbytes / HBM_BYTES_PER_S
+    tensor = max(mem, passes * product / TF32_FLOPS + small / FP32_FLOPS)
+    ffma = max(mem, flops / FP32_FLOPS)
+    return tensor * 1e3, ffma * 1e3, nbytes, flops
+
+
+#: B5's launches, by the name of their kernel function, in launch order,
+#: with the pool products each runs (``grads_kernel`` runs d_center's and
+#: d_pool's, split into chunks of K; ``finish_kernel`` sums the chunks).
+#: ``d_center_kernel`` and ``d_pool_kernel`` are an older tree's, whose
+#: launches this script times to compare.
+B5_LAUNCHES = {"stage_kernel": 0, "pool_logits_kernel": 1, "grads_kernel": 2,
+               "finish_kernel": 0, "d_center_kernel": 1, "d_pool_kernel": 1}
+
+
+def b5_launch_times(torch, fn, calls: int = 10) -> dict:
+    """Mean device time, ms, of each of B5's launches over ``calls`` calls
+    of ``fn`` in one ``torch.profiler`` window (no L2 flush between)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = dict.fromkeys(B5_LAUNCHES, 0.0)
+    count = dict.fromkeys(B5_LAUNCHES, 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for k in B5_LAUNCHES:
+            if k in e.name:
+                total[k] += e.time_range.end - e.time_range.start
+                count[k] += 1
+                break
+    return {k: total[k] / count[k] / 1e3 if count[k] else None for k in B5_LAUNCHES}
+
+
+def b5_f64_errors(torch, fs, args, outs) -> dict:
+    """Norm-wise relative error ||x - x64|| / ||x64|| of ``d_center`` and
+    ``d_pool`` in each of ``outs`` against the estimator computed in
+    float64 on the card from the same tables and ids."""
+    syn0, syn1, centers, contexts, mask, pool, alpha, n = args
+    h = syn0[centers.long()].double()
+    u = syn1[contexts.long()].double()
+    up = syn1[pool.long()].double()
+    a, m = alpha.double(), mask.double()
+    keep = (pool[None, :] != contexts[:, None]).double()
+    w = (m * fs._pool_weight(n, pool.shape[0]))[:, None] * keep
+    c_pos = a * (1.0 - torch.sigmoid((h * u).sum(-1))) * m
+    c_pool = -a * torch.sigmoid(h @ up.T) * w
+    want = {"d_center": c_pos[:, None] * u + c_pool @ up, "d_pool": c_pool.T @ h}
+    return {
+        name: [float(torch.linalg.vector_norm(getattr(o, name).double() - x)
+                     / torch.linalg.vector_norm(x)) for o in outs]
+        for name, x in want.items()
+    }
+
+
+def b5_breakdown(torch, fs, args, P_live, S, flush) -> str:
+    """Phase 9 (a) at S = 4,096: the device time, TFLOP/s and waves of
+    each of B5's launches, and ``torch.matmul`` (fp32, TF32 off) on each
+    of the three products at the same shapes, a yardstick the port never
+    calls."""
+    syn0, syn1, centers, contexts, mask, pool = args[:6]
+    # An older tree run with this script to compare (one whose B5 has no
+    # grid query, and separate d_center and d_pool launches) gets no waves.
+    grid_of = getattr(fs, "pair_forward_shared_grid", None)
+    grid = grid_of(centers.numel(), S, D, syn0.dtype) if grid_of else None
+    waves = {k: grid[k][0] / (grid[k][1] * grid["sms"])
+             for k in ("logits", "grads")} if grid else {}
+    h = syn0[centers.long()].float()
+    up = syn1[pool.long()].float()
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    c_pool = 1e-4 * torch.randn((h.shape[0], S), generator=gen, device=DEV)
+    launch = b5_launch_times(torch, lambda: fs.pair_forward_shared(*args))
+    product = 2 * P_live * S * D
+    mm = {
+        "logits": median_ms(torch, lambda: h @ up.T, flush),
+        "d_center": median_ms(torch, lambda: c_pool @ up, flush),
+        "d_pool": median_ms(torch, lambda: c_pool.t() @ h, flush),
+    }
+    parts = []
+    for k, v in launch.items():
+        if v is None:
+            continue
+        n = B5_LAUNCHES[k]
+        rate = f" ({n * product / (v * 1e-3) / 1e12:.2f} TFLOP/s)" if n else ""
+        parts.append(f"{k} {v:.4f} ms{rate}")
+    mms = ", ".join(f"{k} {v:.4f} ms ({product / (v * 1e-3) / 1e12:.2f} TFLOP/s)"
+                    for k, v in mm.items())
+    shape = ", ".join(f"{k} {grid[k][0]} blocks, {grid[k][1]} an SM on "
+                      f"{grid['sms']} SMs: {waves[k]:.3f} waves"
+                      for k in waves) or "waves not measured"
+    return (f"launches (profiler, mean of 10 calls): {'; '.join(parts)}; "
+            f"{shape}; torch.matmul fp32 yardsticks: {mms}")
 
 
 def check_shared_kernel(torch, fs) -> dict:
     """Phase 9 (a). B5 against its plain version (which runs its three
     products through cuBLAS in fp32: no TF32) at full width, fp32 and
     bf16, S = 4,096, then S = 5 and 257, and an fp32 10,000,000 x 300
-    table. Returns the fp32 and bf16 S = 4,096 results with the worst
-    error over every case."""
+    table. At S = 4,096 on 1,000,000 rows also each launch's time and
+    waves, the matmul yardsticks and the two bounds; there, in fp32 and
+    bf16, two calls must be bitwise equal and the kernel's error against
+    float64 at most 10 times the plain version's. Returns the fp32 and bf16 S = 4,096 results with
+    the worst error over every case."""
     import glint_word2vec_torch.device  # noqa: F401  (TF32 off)
 
     expect(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
@@ -1710,21 +1824,37 @@ def check_shared_kernel(torch, fs) -> dict:
             expect(rel <= 1e-5, f"{what}: loss off by rel {rel}")
             worst = max(worst, e)
             P = centers.numel()
+            P_live = int(mask.sum())
             uniq0 = int(torch.unique(centers).numel())
             uniq1 = int(torch.unique(torch.cat([contexts, pool])).numel())
-            bound, nbytes, flops = pair_forward_shared_bound(
-                int(mask.sum()), S, D, s, uniq0, uniq1, P)
+            passes = 9 if dtype == torch.float32 else 5
+            bound, ffma, nbytes, flops = pair_forward_shared_bound(
+                P_live, S, D, s, uniq0, uniq1, P, passes)
             timed = ""
             if S == S_POOL and v == V_TRAIN:
+                again = fs.pair_forward_shared(*args)
+                for f in again._fields:
+                    expect(torch.equal(getattr(again, f), getattr(fw, f)),
+                           f"{what}: two calls differ in {f}")
+                err = b5_f64_errors(torch, fs, args, (fw, ref))
+                for f, (ek, ep) in err.items():
+                    expect(ek <= 10 * ep, f"{what}: {f} error against "
+                           f"float64 {ek:.3g}, over 10x the plain's {ep:.3g}")
+                log(f"{what}: two calls bitwise equal; norm-wise error "
+                    "against float64, kernel / plain: " + ", ".join(
+                        f"{f} {ek:.3g} / {ep:.3g}" for f, (ek, ep) in err.items()))
+                del again
                 ms = median_ms(torch, lambda: fs.pair_forward_shared(*args), flush)
                 plain = median_ms(
                     torch, lambda: fs.pair_forward_shared_reference(*args), flush)
                 out[name] = dict(ms=ms, plain_ms=plain, library_ms=None,
                                  bound_ms=bound)
                 timed = (f"; kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
-                         f"{bound:.5f} ms ({flops} flops at 67 TFLOP/s; "
-                         f"{nbytes} bytes), {flops / (ms * 1e-3) / 1e12:.2f} "
-                         "TFLOP/s")
+                         f"{bound:.5f} ms ({passes} split-TF32 passes of "
+                         f"{2 * P_live * S * D} flops at 495 TFLOP/s; {nbytes} "
+                         f"bytes), FFMA bound {ffma:.5f} ms ({flops} flops at "
+                         f"67 TFLOP/s), {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; "
+                         + b5_breakdown(torch, fs, args, P_live, S, flush))
             log(f"{what} d={D} P={P} n={N_NEG}: h bitwise, c_pos within rtol "
                 f"1e-5, d_center and d_pool within rtol 1e-4 atol 1e-6 (max "
                 f"|diff| {e:.3g}), loss rel {rel:.2g}{timed}")

@@ -368,7 +368,8 @@ class Word2Vec:
         working set (the fp32 ``h`` and ``d_center`` rows, and the
         packing, draw and sort buffers with room to spare; with a shared
         pool of S, also the pool's fp32 rows and ``d_pool``, and the
-        forward kernel's ``(P, S)`` fp32 ``c_pool`` and partial losses),
+        forward kernel's ``(P, S)`` fp32 ``c_pool``, partial losses and
+        second K chunk of ``d_center`` and ``d_pool``),
         and the corpus at its peak bytes a word, with its offsets (three
         copies with subsampling: uploaded, compacted, and the pass's
         prefix sums)."""
@@ -380,7 +381,8 @@ class Word2Vec:
         step = 2 * P * p.vector_size * 4 + 1024 * P * (1 + p.num_negatives)
         if S:
             step += (2 * S * p.vector_size * 4 + P * S * 4
-                     + P * (S // 128 + 1) * 4 + 1024 * S)
+                     + P * (S // 64 + 1) * 4 + (P + S) * p.vector_size * 4
+                     + 1024 * S)
         if p.subsample_ratio > 0:
             corpus = n_words * SUBSAMPLED_CORPUS_BYTES_PER_WORD + 24 * n_offsets
         else:

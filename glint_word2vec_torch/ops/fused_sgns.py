@@ -11,7 +11,7 @@ version and with a ``launches`` counter on its wrapper:
 - :func:`pair_forward_shared` (``csrc/pair_forward_shared.cu``): the same
   against one pool of S negatives shared by the batch, with the three
   dense pool products (``f_pool``, the pool term of ``d_center``, and
-  ``d_pool``) written as tiled fp32 kernels.
+  ``d_pool``) on the tensor cores in split TF32, to fp32 accuracy.
 - :func:`scatter_add_rank1_hbm` (``csrc/scatter_runs.cu``): ``table[ids] +=
   coef * h[hidx]``, never materialising the ``(N, d)`` payload.
 - :func:`scatter_add_rows_f32` (``csrc/scatter_runs.cu``): ``table[ids] +=
@@ -61,11 +61,15 @@ def _lib(name: str):
         elif name == "pair_forward_shared":
             lib.glint_pair_forward_shared.argtypes = [
                 _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                ctypes.c_float, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
             ]
             lib.glint_pair_forward_shared.restype = ctypes.c_int
             lib.glint_pair_forward_shared_loss_tiles.argtypes = [_I64]
             lib.glint_pair_forward_shared_loss_tiles.restype = _I64
+            lib.glint_pair_forward_shared_part_size.argtypes = [_I64] * 3
+            lib.glint_pair_forward_shared_part_size.restype = _I64
+            lib.glint_pair_forward_shared_grid.argtypes = [_I64] * 3 + [_I32, _P]
+            lib.glint_pair_forward_shared_grid.restype = ctypes.c_int
         else:
             lib.glint_scatter_add_rows_f32.argtypes = [
                 _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P, _P,
@@ -260,10 +264,15 @@ def pair_forward_shared(syn0: torch.Tensor, syn1: torch.Tensor,
     Arguments as :func:`pair_forward`, with ``pool`` ``(S,)`` int32 in
     ``[0, V)``, S >= 1 (ids may repeat and may equal a context), in place
     of the per-pair negatives, and ``num_negatives`` the ``n`` the pool
-    stands for (each pool word weighs ``n / S``). The kernel computes in
-    fp32 with no TF32; its per-pair partial losses are summed here in a
-    fixed order (``torch.sum``). Each call that launches the kernels
-    adds one to ``pair_forward_shared.launches``."""
+    stands for (each pool word weighs ``n / S``). The kernel runs its
+    three pool products on the tensor cores in split TF32: each fp32
+    operand is a TF32 ``hi`` plus a TF32 ``lo`` and each product the sum
+    of three TF32 products, about 2^-22 off, so the result keeps fp32
+    accuracy (bf16 rows are exact TF32 and need no ``lo``). Every output
+    is summed in a fixed order, so two calls on the same inputs agree
+    bitwise. Its per-pair partial losses are summed here in a fixed
+    order (``torch.sum``). Each call that launches the kernels adds one
+    to ``pair_forward_shared.launches``."""
     _check_table(syn0, "syn0")
     _check_table(syn1, "syn1")
     if syn0.dtype != syn1.dtype or syn0.shape[1] != syn1.shape[1]:
@@ -303,6 +312,7 @@ def pair_forward_shared(syn0: torch.Tensor, syn1: torch.Tensor,
     )
     pool32 = torch.empty((S, d), **f32)
     c_pool = torch.empty((P, S), **f32)
+    part = torch.empty(lib.glint_pair_forward_shared_part_size(P, S, d), **f32)
     rc = lib.glint_pair_forward_shared(
         syn0.data_ptr(), syn1.data_ptr(), syn0.stride(0),
         _DTYPE_TAGS[syn0.dtype], centers.data_ptr(), contexts.data_ptr(),
@@ -310,7 +320,7 @@ def pair_forward_shared(syn0: torch.Tensor, syn1: torch.Tensor,
         _pool_weight(num_negatives, S), c_pos.data_ptr(), h.data_ptr(),
         d_center.data_ptr(), d_pool.data_ptr(), loss_pos.data_ptr(),
         loss_part.data_ptr(), pool32.data_ptr(), c_pool.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
     _check(lib, rc, "pair_forward_shared")
     pair_forward_shared.launches += 1
@@ -321,6 +331,20 @@ def pair_forward_shared(syn0: torch.Tensor, syn1: torch.Tensor,
 
 #: Calls that launched the kernels since the last reset.
 pair_forward_shared.launches = 0
+
+
+def pair_forward_shared_grid(P: int, S: int, d: int,
+                             dtype: torch.dtype) -> dict:
+    """The product launches :func:`pair_forward_shared` makes for ``P``
+    pairs, a pool of ``S`` and width ``d`` on ``dtype`` tables, on the
+    current card: ``{"logits": (blocks, blocks an SM holds), "grads":
+    (...), "sms": SMs}``; ``blocks / (per_sm * sms)`` is a launch's number
+    of waves."""
+    out = (ctypes.c_int64 * 5)()
+    lib = _lib("pair_forward_shared")
+    _check(lib, lib.glint_pair_forward_shared_grid(P, S, d, _DTYPE_TAGS[dtype], out),
+           "pair_forward_shared_grid")
+    return {"logits": (out[0], out[2]), "grads": (out[1], out[3]), "sms": out[4]}
 
 
 # ----------------------------------------------------------------------

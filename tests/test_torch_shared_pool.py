@@ -28,7 +28,11 @@ against the JAX package, on the CPU.
   fastText fit its ``tiny_corpus`` gate, resume is bitwise, and ``cli
   train --shared-negatives`` trains and saves.
 
-The ``cuda`` test holds the kernel against its plain version on a card:
+``test_split_tf32_products_keep_fp32_accuracy`` emulates the B5 kernel's
+split-TF32 products on the CPU and holds their error against float64.
+
+The ``cuda`` tests hold the kernel against its plain version on a card,
+and two of its calls bitwise against each other:
 
     python -m pytest tests/test_torch_shared_pool.py -m cuda --noconftest -q
 """
@@ -144,6 +148,94 @@ def test_pair_forward_shared_reference_is_the_numpy_estimator():
     keep = pm > 0
     np.testing.assert_allclose(pfw.d_pool.numpy(),
                                c_pool[keep].T @ h[keep], rtol=2e-5, atol=1e-6)
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: round a float32 tensor to nearest on its 13
+    low fraction bits, ties away from zero (finite values)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tensor_core_product(a, b, split, chunks=1):
+    """``a @ b`` (float32) as the B5 kernel takes it: each stage of 32
+    k-values summed in steps of 8, each step a tensor-core product
+    (emulated as its 8 exact products added to the running value and
+    rounded to float32), the split terms small first (``a_lo.b_hi``,
+    ``a_hi.b_lo``, ``a_hi.b_hi``) or one TF32 pass; each stage's sum then
+    added to its chunk's fp32 sum, rounded to nearest. The stages are cut
+    evenly into ``chunks`` chunks, whose sums are added in chunk order."""
+    ah, bh = _tf32(a), _tf32(b)
+    terms = [(ah, bh)]
+    if split:
+        terms = [(_tf32(a - ah), bh), (ah, _tf32(b - bh)), (ah, bh)]
+    terms = [(x.double(), y.double()) for x, y in terms]
+    K = a.shape[1]
+    stages = (K + 31) // 32
+    out = None
+    for c in range(chunks):
+        acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+        for st in range(stages * c // chunks, stages * (c + 1) // chunks):
+            part = torch.zeros_like(acc)
+            for k in range(32 * st, min(32 * st + 32, K), 8):
+                for x, y in terms:
+                    part = (part.double() + x[:, k : k + 8] @ y[k : k + 8]).float()
+            acc = acc + part
+        out = acc if out is None else out + acc
+    return out
+
+
+def test_split_tf32_products_keep_fp32_accuracy():
+    # B5's three products at P = 333, S = 4,096, d = 300, emulated on the
+    # CPU in split TF32 and in one TF32 pass, against float64: the split
+    # form stays within 10 times the fp32 plain version's norm-wise error
+    # and one pass is at least 100 times worse than the split form.
+    # (B5's stated tolerances, rtol 1e-4 with atol 1e-6 on entries of
+    # about 1e-4, may pass one pass of TF32 too.)
+    P, S, d, Vs, alpha = 333, 4096, 300, 5000, 0.025
+    rng = np.random.default_rng(8)
+    s0 = (0.3 * rng.standard_normal((Vs, d))).astype(np.float32)
+    s1 = (0.3 * rng.standard_normal((Vs, d))).astype(np.float32)
+    pc, px = rng.integers(0, Vs, P).astype(np.int32), rng.integers(0, Vs, P).astype(np.int32)
+    pool = rng.integers(0, Vs, S).astype(np.int32)
+    pool[0] = px[0]
+    pm = np.ones(P, np.float32)
+    pm[-5:] = 0.0
+    args = [_t(a) for a in (s0, s1, pc, px, pm, pool)]
+    plain = fs.pair_forward_shared_reference(*args, torch.tensor(alpha), N_NEG)
+
+    h64, u64, up64 = (x.astype(np.float64) for x in (s0[pc], s1[px], s1[pool]))
+    sig = lambda v: 1.0 / (1.0 + np.exp(-v))  # noqa: E731
+    w = (pm * (N_NEG / S))[:, None] * (pool[None, :] != px[:, None])
+    f64 = h64 @ up64.T
+    c_pool64 = -alpha * sig(f64) * w
+    want = {"logits": f64,
+            "d_center": (alpha * (1 - sig((h64 * u64).sum(-1))) * pm)[:, None] * u64
+            + c_pool64 @ up64,
+            "d_pool": c_pool64.T @ h64}
+
+    def err(got):
+        return {k: np.linalg.norm(got[k].double().numpy() - x) / np.linalg.norm(x)
+                for k, x in want.items()}
+
+    h, up = plain.h, _t(s1[pool])
+    wt = torch.from_numpy(w.astype(np.float32))
+
+    def kernel(split):
+        f = _tensor_core_product(h, up.T.contiguous(), split)
+        c_pool = -alpha * torch.sigmoid(f) * wt
+        u = _t(s1[px])
+        return {"logits": f,
+                "d_center": plain.c_pos[:, None] * u
+                + _tensor_core_product(c_pool, up, split, chunks=2),
+                "d_pool": _tensor_core_product(c_pool.T.contiguous(), h, split, chunks=2)}
+
+    e_plain = err({"logits": h @ up.T, "d_center": plain.d_center,
+                   "d_pool": plain.d_pool})
+    e_split, e_one = err(kernel(True)), err(kernel(False))
+    for k in want:
+        assert e_split[k] <= 10 * e_plain[k], (k, e_split[k], e_plain[k])
+        assert e_one[k] >= 100 * e_split[k], (k, e_one[k], e_split[k])
 
 
 @pytest.mark.parametrize("dtype,S", [("float32", 5), ("float32", 32),
@@ -593,13 +685,9 @@ def test_pair_forward_shared_validates_inputs():
 # ----------------------------------------------------------------------
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("P,S,d", [(333, 5, 300), (333, 257, 301),
-                                   (129, 128, 7), (1, 1, 1)])
-def test_cuda_pair_forward_shared_matches_plain(dtype, P, S, d):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+def _cuda_case(dtype, P, S, d):
+    """Tables and one pair batch on the card: the pool's word 0 is the
+    first pair's context, a repeated pool id, a masked tail of 7."""
     gen = torch.Generator(device="cuda").manual_seed(P + S + d)
     Vc = 5000
     td = getattr(torch, dtype)
@@ -613,7 +701,40 @@ def test_cuda_pair_forward_shared_matches_plain(dtype, P, S, d):
         pool[2] = pool[1]
     pm = (torch.arange(P, device="cuda") < max(P - 7, 1)).to(torch.float32)
     alpha = torch.tensor(0.025, device="cuda")
-    args = (syn0, syn1, pc.contiguous(), px.contiguous(), pm, pool, alpha)
+    return (syn0, syn1, pc.contiguous(), px.contiguous(), pm, pool, alpha)
+
+
+def _f64_errors(args, got, want):
+    """Norm-wise relative error ``||x - x64|| / ||x64||`` of ``d_center``
+    and ``d_pool`` in ``got`` and in ``want``, against the estimator
+    computed in float64 on the card from the same inputs."""
+    syn0, syn1, centers, contexts, mask, pool, alpha = args
+    h = syn0[centers.long()].double()
+    u = syn1[contexts.long()].double()
+    up = syn1[pool.long()].double()
+    a, m = alpha.double(), mask.double()
+    keep = (pool[None, :] != contexts[:, None]).double()
+    w = (m * fs._pool_weight(N_NEG, pool.shape[0]))[:, None] * keep
+    c_pos = a * (1.0 - torch.sigmoid((h * u).sum(-1))) * m
+    c_pool = -a * torch.sigmoid(h @ up.T) * w
+    x64 = {"d_center": c_pos[:, None] * u + c_pool @ up, "d_pool": c_pool.T @ h}
+    return {name: [float(torch.linalg.vector_norm(getattr(o, name).cuda().double() - x)
+                         / torch.linalg.vector_norm(x)) for o in (got, want)]
+            for name, x in x64.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P,S,d", [(333, 5, 300), (333, 257, 301),
+                                   (129, 128, 7), (1, 1, 1),
+                                   (3277, 4096, 300), (70, 127, 8),
+                                   (70, 129, 9)])
+def test_cuda_pair_forward_shared_matches_plain(dtype, P, S, d):
+    # Shapes on and off the 64 x 64 block tiles, the depth-32 stages and
+    # the m16n8k8 tiles, rows 16-byte aligned (d = 8, 300) or not.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    args = _cuda_case(dtype, P, S, d)
     before = fs.pair_forward_shared.launches
     got = fs.pair_forward_shared(*args, N_NEG)
     torch.cuda.synchronize()
@@ -626,3 +747,24 @@ def test_cuda_pair_forward_shared_matches_plain(dtype, P, S, d):
         torch.testing.assert_close(getattr(got, name).cpu(), w, rtol=1e-4,
                                    atol=1e-6 * max(1.0, float(w.abs().max())))
     assert float(got.loss_sum) == pytest.approx(float(want.loss_sum), rel=1e-5)
+    if (P, S, d) == (3277, 4096, 300):
+        # At full width the kernel's norm-wise error against float64 stays
+        # within 10 times the fp32 plain version's: the split keeps fp32
+        # accuracy, where one TF32 pass would not.
+        for name, (e_kernel, e_plain) in _f64_errors(args, got, want).items():
+            assert e_kernel <= 10 * e_plain, (name, e_kernel, e_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_pair_forward_shared_is_deterministic(dtype):
+    # Every output has one owner that sums it in a fixed order: two calls
+    # on the same inputs agree bitwise, the loss too.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU form")
+    args = _cuda_case(dtype, 1000, 4096, 300)
+    a = fs.pair_forward_shared(*args, N_NEG)
+    b = fs.pair_forward_shared(*args, N_NEG)
+    torch.cuda.synchronize()
+    for name in a._fields:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
