@@ -74,7 +74,16 @@ nothing of JAX. Phases, each of which fails the run on any error:
    (``sorted_runs``, which ``index_add_`` does without); and, each bitwise
    and timed, (a) the padded slots sent to distinct rows, (b) the longest
    run alone and (c) the syn1 ids of the shared-pool composed step (the
-   context ids, then a pool of 4,096 draws: several long runs).
+   context ids, then a pool of 4,096 draws: several long runs). For
+   ``scatter_add_rank1`` also, each bitwise (signed zeros too), two calls
+   equal, and timed: (a) the padded context slots sent to distinct rows,
+   (b) one run of the longest run's length alone on row 0 (coefficients
+   of magnitudes 1e-3, 1 and 100), (c) the C = 10 ids, (d) the runs of 32
+   or more but row 0's, (e) the runs under 32, (f) the runs of 2 to 31;
+   ``index_add_`` of the payload made beforehand (fp32) and the longest
+   run's add chain at 4 cycles an add; and a run of zero and non-zero
+   coefficients onto rows of -0.0, where skipping a zero-coefficient
+   update would flip a sign.
 8. fastText and the host batcher: (a) ``FastTextWord2Vec().fit_file`` on
    phase 6's corpus at that width, fp32, one epoch, with every launch
    counter zeroed just before (``scatter_add_rows`` and
@@ -1278,6 +1287,130 @@ def scatter_rows_parts(torch, table, ids0, cmask, ids_c, upd, longest, flush,
     return out
 
 
+def bits(torch, t):
+    """``t``'s bits as integers: equal bits, not equal values (-0.0 is not
+    +0.0 here)."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def rank1_bitwise(torch, rows_mod, table, ids, coef, h, hidx, what) -> int:
+    """``scatter_add_rank1`` on ``table`` held against its plain version
+    on a CPU copy of the touched rows, bit for bit (signed zeros too), and
+    a second call from the same rows against the first. Returns R."""
+    uniq = torch.unique(ids.long())
+    before = table[uniq].cpu()
+    local = torch.searchsorted(uniq, ids.long()).to(torch.int32).cpu()
+    want = rows_mod.scatter_add_rank1_reference(
+        before.clone(), local, coef.cpu(), h.cpu(), hidx.cpu())
+    rows_mod.scatter_add_rank1(table, ids, coef, h, hidx)
+    torch.cuda.synchronize()
+    first = table[uniq].cpu()
+    expect(torch.equal(bits(torch, first), bits(torch, want)),
+           f"scatter_add_rank1 {what} differs from its plain version: max "
+           f"|diff| {(first.float() - want.float()).abs().max().item()}")
+    table[uniq] = before.to(DEV)
+    rows_mod.scatter_add_rank1(table, ids, coef, h, hidx)
+    torch.cuda.synchronize()
+    expect(torch.equal(bits(torch, table[uniq].cpu()), bits(torch, first)),
+           f"scatter_add_rank1 {what}: two calls differ")
+    return int(uniq.numel())
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, MHz (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def scatter_rank1_parts(torch, table, h, step, ctx, wide, longest, flush,
+                        rows_mod, fs, name) -> dict:
+    """``scatter_add_rank1`` beyond the composed step's own case ``step``
+    (ids, coefficients, h rows; its first ``ctx`` slots the contexts), on
+    ``table``: each case first held bitwise (and two calls equal) against
+    the plain version, then timed (sort excluded): (a) the padded context
+    slots (coefficient 0) sent to distinct rows, so no run of thousands is
+    left; (b) one run of ``longest`` updates alone on row 0, coefficients
+    of magnitudes 1e-3, 1 and 100 (every bf16 add rounds); (c) ``wide``,
+    the C = 10 step's ids; (d) the step's runs of 32 or more but row 0's,
+    alone; (e) its runs under 32 alone (every run of 32 or more sent to
+    distinct rows); (f) its runs of 2 to 31 alone. Then signed zeros,
+    bitwise (see ``signed_zero_case``). For an fp32 table also
+    ``index_add_`` of the payload made beforehand (a yardstick: the kernel
+    forms the payload itself)."""
+    gen = torch.Generator(device=DEV).manual_seed(20261019)
+    ids, coef, hidx = step
+    n = ids.numel()
+    pads = (V_TRAIN // 2 + torch.arange(n, device=DEV)).to(torch.int32)
+    padded = (torch.arange(n, device=DEV) < ctx) & (coef == 0)
+    ids_a = torch.where(padded, pads, ids)
+    ids_b = torch.zeros(longest, dtype=torch.int32, device=DEV)
+    scale = torch.tensor([1e-3, 1.0, 100.0], device=DEV)[torch.randint(
+        0, 3, (longest,), generator=gen, device=DEV)]
+    coef_b = torch.randn(longest, generator=gen, device=DEV) * scale
+    hidx_b = torch.randint(0, B_TRAIN, (longest,), generator=gen, device=DEV,
+                           dtype=torch.int32)
+    _, inv, counts = torch.unique(ids, return_inverse=True, return_counts=True)
+    run_len = counts[inv]  # each slot's run length
+    long_slot = run_len >= 32
+    mid = long_slot & (ids != 0)
+    cases = {"a": (ids_a, coef, hidx), "b": (ids_b, coef_b, hidx_b), "c": wide,
+             "d": tuple(x[mid].contiguous() for x in (ids, coef, hidx)),
+             "e": (torch.where(long_slot, pads, ids), coef, hidx),
+             "f": tuple(x[(run_len > 1) & ~long_slot].contiguous()
+                        for x in (ids, coef, hidx))}
+    out = {}
+    for key, (i, cf, hx) in cases.items():
+        R = rank1_bitwise(torch, rows_mod, table, i, cf, h, hx, f"{name} ({key})")
+        counts = torch.unique(i, return_counts=True)[1]
+        sid, order = fs.sorted_runs(i)
+        out[key] = dict(n=i.numel(), runs=R, longest=int(counts.max()),
+                        long_runs=int((counts >= 32).sum()),
+                        ms=median_ms(torch, lambda: rows_mod.scatter_add_rank1_sorted(
+                            table, sid, order, cf, h, hx), flush))
+    signed_zero_case(torch, rows_mod, table, gen, name)
+    if table.dtype == torch.float32:
+        il = ids.long()
+        payload = coef[:, None] * h[hidx.long()]
+        out["index_add_payload_ms"] = median_ms(
+            torch, lambda: table.index_add_(0, il, payload), flush)
+    return out
+
+
+def signed_zero_case(torch, rows_mod, table, gen, name) -> None:
+    """Rows 0, 5 and 9 of ``table`` at -0.0 take a long run of 600 (every
+    third coefficient 0, the others positive), a run of 7 and a run of 1
+    (coefficients 0). Every update's product is -0.0 in columns 0 to 31;
+    in columns 32 to 63 the zero coefficients' products are +0.0 and the
+    others' -0.0; the rest of ``h`` is negative. So a kernel that skipped a
+    zero-coefficient update would leave -0.0 where the plain version, which
+    adds every update, gives +0.0: held bit for bit."""
+    ids = torch.tensor([0] * 600 + [5] * 7 + [9], dtype=torch.int32, device=DEV)
+    zero = torch.zeros(ids.numel(), dtype=torch.bool, device=DEV)
+    zero[::3] = True
+    zero[600:] = True
+    coef = torch.where(zero, 0.0, torch.rand(ids.numel(), generator=gen,
+                                             device=DEV) + 0.1)
+    hz = -torch.rand((64, D), generator=gen, device=DEV) - 0.5
+    hz[:, :32] = -0.0
+    hz[0::2, 32:64] = 0.0  # even rows for the zero coefficients
+    hz[1::2, 32:64] = -0.0
+    pick = torch.randint(0, 32, (ids.numel(),), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    hidx = torch.where(zero, 2 * pick, 2 * pick + 1).to(torch.int32)
+    table[torch.tensor([0, 5, 9], device=DEV)] = -0.0
+    rank1_bitwise(torch, rows_mod, table, ids, coef, hz, hidx,
+                  f"{name} signed zeros")
+    got = table[torch.tensor([0, 5, 9], device=DEV)].float()
+    expect(bool((torch.signbit(got[:, :32]).all()
+                 & ~torch.signbit(got[:, 32:64]).any()).item()),
+           f"scatter_add_rank1 {name} signed zeros: not -0.0 / +0.0 as made")
+    log(f"scatter_add_rank1 {name} signed zeros: bitwise equal, -0.0 kept in "
+        f"columns 0-31 and +0.0 from the zero coefficients in 32-63")
+
+
 def check_composed_kernels(torch, np, rows_mod, fs) -> dict:
     """Phase 7. Returns per-kernel results of the fp32 full-width case,
     with the worst error over every case."""
@@ -1287,6 +1420,7 @@ def check_composed_kernels(torch, np, rows_mod, fs) -> dict:
     flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
     C = context_width(W_TRAIN)
     rows_v = V_TRAIN + FT_BUCKET
+    mhz = sm_clock_mhz()
     out = {}
     # The main path's shapes (C = 7 context lanes at W = 5), then B2 at
     # C = 10 as well (N = 61,440).
@@ -1303,34 +1437,53 @@ def check_composed_kernels(torch, np, rows_mod, fs) -> dict:
         s = 4 if dtype == torch.float32 else 2
         table = (0.3 * torch.randn((rows_v, D), generator=gen, device=DEV)).to(dtype)
 
-        # scatter_add_rank1: syn1 += (coef * h[hidx]) in the table's dtype.
+        # scatter_add_rank1: syn1 += (coef * h[hidx]) in the table's dtype;
+        # each case bitwise, and two calls equal.
         for ids, cf, hx in ((ids1, coef, hidx), (ids1_w, coef_w, hidx_w)):
-            uniq = torch.unique(ids.long())
-            before = table[uniq].cpu()
-            rows_mod.scatter_add_rank1(table, ids, cf, h, hx)
-            torch.cuda.synchronize()
-            R = touched_rows_check(
-                torch, table, before, ids,
-                lambda t, local: rows_mod.scatter_add_rank1_reference(
-                    t, local, cf.cpu(), h.cpu(), hx.cpu()),
-                f"scatter_add_rank1 {name} N={ids.numel()}")
+            R = rank1_bitwise(torch, rows_mod, table, ids, cf, h, hx,
+                              f"{name} N={ids.numel()}")
             longest = int(torch.unique(ids, return_counts=True)[1].max())
             log(f"scatter_add_rank1 {name} V={rows_v} d={D} N={ids.numel()}: "
-                f"bitwise equal (R={R} runs, longest {longest})")
+                f"bitwise equal, two calls equal (R={R} runs, longest {longest})")
         R = int(torch.unique(ids1).numel())
-        longest = int(torch.unique(ids1, return_counts=True)[1].max())
+        counts = torch.unique(ids1, return_counts=True)[1]
+        longest = int(counts.max())
         sid, order = fs.sorted_runs(ids1)
         ms = median_ms(torch, lambda: rows_mod.scatter_add_rank1_sorted(
             table, sid, order, coef, h, hidx), flush)
         plain = median_ms(torch, lambda: rows_mod.scatter_add_rank1_reference(
             table, ids1, coef, h, hidx), flush)
         bound, nbytes = scatter_bound(B_TRAIN, ids1.numel(), R, D, s, 16, 2)
+        parts = scatter_rank1_parts(
+            torch, table, h, (ids1, coef, hidx), B_TRAIN * C,
+            (ids1_w, coef_w, hidx_w), longest, flush, rows_mod, fs, name)
         out[("scatter_add_rank1", name)] = dict(
             ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, runs=R,
-            longest=longest, n=ids1.numel())
+            longest=longest, n=ids1.numel(), parts=parts)
         log(f"scatter_add_rank1 {name} N={ids1.numel()}: kernel {ms:.4f} ms "
             f"(sort excluded), plain {plain:.4f} ms, bound {bound:.5f} ms "
-            f"({nbytes} bytes; R={R}, longest run {longest})")
+            f"({nbytes} bytes; R={R}, longest run {longest}, "
+            f"{int((counts >= 32).sum())} runs of 32+ holding "
+            f"{int(counts[counts >= 32].sum())} updates)")
+        a, b, c = parts["a"], parts["b"], parts["c"]
+        yard = parts.get("index_add_payload_ms")
+        yard_txt = (f"; index_add_ of the payload made beforehand {yard:.4f} ms"
+                    if yard is not None else "")
+        log(f"scatter_add_rank1 {name} parts: (a) padded context slots to "
+            f"distinct rows (R={a['runs']}, longest {a['longest']}, "
+            f"{a['long_runs']} runs of 32+) {a['ms']:.4f} ms; (b) one run of "
+            f"{longest} non-zero updates alone {b['ms']:.4f} ms; (c) C = 10 "
+            f"N={c['n']} (R={c['runs']}, longest {c['longest']}, "
+            f"{c['long_runs']} runs of 32+) {c['ms']:.4f} ms; (d) the runs of "
+            f"32+ but row 0's alone (N={parts['d']['n']}, R={parts['d']['runs']}, "
+            f"longest {parts['d']['longest']}) {parts['d']['ms']:.4f} ms; (e) "
+            f"the runs under 32 alone (R={parts['e']['runs']}) "
+            f"{parts['e']['ms']:.4f} ms; (f) the runs of 2 to 31 alone "
+            f"(N={parts['f']['n']}, R={parts['f']['runs']}) "
+            f"{parts['f']['ms']:.4f} ms{yard_txt}; chain "
+            f"floor of the longest run {longest * 4 / (mhz * 1e3):.5f} ms "
+            f"({longest} adds x 4 cycles, an fp32 add's latency, at {mhz:.0f} "
+            f"MHz, nvidia-smi clocks.max.sm)")
 
         # scatter_add_rows: syn0 += upd, cast to the table's dtype.
         uniq = torch.unique(ids0.long())
@@ -2145,6 +2298,12 @@ def main() -> int:
             "bf16_ms": composed[(name, "bf16")]["ms"],
             "bf16_bound_ms": composed[(name, "bf16")]["bound_ms"],
         })
+    b2, b2_bf16 = (composed[("scatter_add_rank1", dt)]["parts"] for dt in ("f32", "bf16"))
+    kernels[-2].update(
+        no_long_run_ms=b2["a"]["ms"], long_run_alone_ms=b2["b"]["ms"],
+        wide_ms=b2["c"]["ms"], index_add_payload_ms=b2["index_add_payload_ms"],
+        bf16_no_long_run_ms=b2_bf16["a"]["ms"],
+        bf16_long_run_alone_ms=b2_bf16["b"]["ms"], bf16_wide_ms=b2_bf16["c"]["ms"])
     b3, b3_bf16 = composed[("scatter_add_rows", "f32")], composed[("scatter_add_rows", "bf16")]
     kernels[-1].update(
         sort_ms=b3["sort_ms"],

@@ -56,15 +56,17 @@
 //
 // Design. A run of 32 (kLongRun) or more updates is long: row 0, which
 // every padded slot of a batch targets, or a frequent word.
-// - The two rows forms (scatter_add_rows_f32, B6; scatter_add_rows, B3)
-//   are two kernels. A pre-pass (find_long_runs_kernel), one warp every
-//   32 sorted positions (a long run holds at least one multiple of 32),
-//   writes a slot for each multiple p: (first, end) of the long run whose
-//   first multiple p is, else (-1, -1). Every slot is written, so the
-//   workspace needs no clearing; one round trip reads the ids around p
-//   and every 32nd id up to p + 1024, and a second one finds the end of a
-//   run past p + 32. Then rows_kernel, on a grid fixed from N on the host
-//   (no readback), starts with up to 2 blocks an SM that take the items
+// - Three forms (scatter_add_rows_f32, B6; scatter_add_rows, B3;
+//   scatter_add_rank1, B2) are two kernels, with the payload (an update
+//   row of upd, or a rank-1 update coef * h[hidx]) a template parameter.
+//   A pre-pass (find_long_runs_kernel), one warp every 32 sorted
+//   positions (a long run holds at least one multiple of 32), writes a
+//   slot for each multiple p: (first, end) of the long run whose first
+//   multiple p is, else (-1, -1). Every slot is written, so the workspace
+//   needs no clearing; one round trip reads the ids around p and every
+//   32nd id up to p + 1024, and a second one finds the end of a run past
+//   p + 32. Then rows_kernel, on a grid fixed from N on the host (no
+//   readback), starts with up to 2 blocks an SM that take the items
 //   (slot, 8-column slice) in turn, skipping empty slots, followed by one
 //   warp per sorted position, which leave long runs alone: the long runs'
 //   add chains run beside the short runs, and however many long runs
@@ -72,42 +74,52 @@
 //   fp32-sum policy rows_kernel is a programmatic dependent launch: its
 //   short runs start while the pre-pass runs, and only its long-run
 //   blocks wait for the pre-pass's grid (griddepcontrol.wait).
-//   * A long-run block of 256 threads stages the slice's update rows (32
-//     bytes of each) through a ring of 4 shared-memory chunks of 256 rows
-//     with cp.async, 3 chunks in flight, each thread copying one row of a
-//     chunk (two 16-byte copies when d % 4 == 0 and the payload is 16-byte
-//     aligned, else 4-byte ones) from a permutation entry fetched a chunk
-//     ahead. Each of the slice's 8 columns is summed by one thread in
-//     sorted order, which reads the next 16 staged values into registers
-//     while it adds the last 16; the row is written once. The fp32-sum
-//     policy keeps the sum in fp32 from the row's fp32 value and rounds at
-//     the store; under the table-dtype policy on bf16 the thread keeps its
-//     sum as bf16 bits and adds with one fma.rn.bf16 (see Chain<uint16_t>:
-//     bit for bit the fp32 add rounded to bf16). At d = 300 a run has 38
-//     blocks on 38 SMs loading it, so its payload does not set its time.
+//   * A long-run block of 256 threads stages the slice's payload rows (32
+//     bytes of each update row, or of each update's h row) through a ring
+//     of 4 shared-memory chunks of 256 rows with cp.async, 3 chunks in
+//     flight, each thread copying one row of a chunk (two 16-byte copies
+//     when the rows' stride is a multiple of 4 and the payload 16-byte
+//     aligned, else 4-byte ones). Rows of upd come from a permutation
+//     entry fetched a chunk ahead; a rank-1 update's h row from its h row
+//     index, loaded with its coefficient a chunk ahead from an entry
+//     fetched two chunks ahead, and its coefficient goes into a second
+//     ring of 4 x 256 floats. Each of the slice's 8 columns is summed by
+//     one thread in sorted order, which reads the next 16 staged values
+//     into registers (for B2 forming each update there, the fp32 product
+//     of coefficient and h value, off the add chain) while it adds the
+//     last 16; the row is written once. The fp32-sum policy keeps the sum
+//     in fp32 from the row's fp32 value and rounds at the store; under the
+//     table-dtype policy on bf16 the thread keeps its sum as bf16 bits and
+//     adds with one fma.rn.bf16 (see Chain<uint16_t>: bit for bit the fp32
+//     add rounded to bf16). At d = 300 a run has 38 blocks on 38 SMs
+//     loading it, so its payload does not set its time.
 //   * A short run's warps (short_run_warp) load, in one round trip, the
 //     ids and permutation entries of the 32 positions each side of their
-//     own, so each knows its run and its offset k in it. A run of one
-//     update (most runs) is its warp's: 10 columns a lane, the table and
-//     payload values loaded together. A run of L in 2 .. 31 is shared by
-//     the warps at its first h = min(L, ceil(d / 32)) positions, warp k
-//     taking the 32-column slices k, k + h, ...; each lane loads, 32 at a
-//     time and before it adds any, the table value and the L updates of
-//     each of its columns, so the run takes one round trip for its loads
-//     instead of one per few updates.
+//     own, so each knows its run and its offset k in it. Rows forms: a
+//     run of one update (most runs) is its warp's: 10 columns a lane, the
+//     table and payload values loaded together. A run of L in 2 .. 31 is
+//     shared by the warps at its first h = min(L, ceil(d / 32)) positions,
+//     warp k taking the 32-column slices k, k + h, ...; each lane loads,
+//     32 at a time and before it adds any, the table value and the L
+//     updates of each of its columns, so the run takes one round trip for
+//     its loads instead of one per few updates. B2: a short run is the
+//     warp's at its first position (rank1_warp_run); lane t loads update
+//     t's h row index and coefficient while the warp loads the table row,
+//     then the updates follow in order, four h rows in flight, 10 columns
+//     a lane.
 //   Under the fp32-sum policy the kernel keeps 4 blocks an SM (at most
 //   64 registers), under the table-dtype policy 3 (80): B6's runs are
 //   short and its time is round trips, while B3 at fastText width (a
 //   row-0 run of 9,262 beside 22,593 short runs) ran 9 % slower with a
 //   fourth block (PERF.md §6).
-// - The rank-1 forms (scatter_add_rank1_hbm, B7; scatter_add_rank1, B2)
-//   are one kernel (scatter_runs_kernel) of one warp per sorted position.
-//   Each lane loads one update's permutation entry, coefficient and h row
-//   index and the warp broadcasts them with shuffles; the run's end comes
-//   from a ballot over the next 32 ids, then a galloping search for longer
-//   runs. A short run belongs to the warp at its first position, which
-//   keeps up to 10 columns per lane (320 per pass, so d = 300 is one pass)
-//   in registers; a long run is shared by the warps at its first
+// - scatter_add_rank1_hbm (B7) is one kernel (scatter_runs_kernel) of one
+//   warp per sorted position, the last user of helper warps. Each lane
+//   loads one update's permutation entry, coefficient and h row index and
+//   the warp broadcasts them with shuffles; the run's end comes from a
+//   ballot over the next 32 ids, then a galloping search for longer runs.
+//   A short run belongs to the warp at its first position, which keeps up
+//   to 10 columns per lane (320 per pass, so d = 300 is one pass) in
+//   registers; a long run is shared by the warps at its first
 //   min(ceil(d / 32), 32) positions, each taking 32-column slices of the
 //   row; a lane loads its column of 32 updates before adding them in
 //   order, so 32 row loads are in flight. The run's length sets their
@@ -140,16 +152,17 @@ constexpr int kCols = 10;  // columns per lane per pass of a short run
 constexpr int kLongRun = 32;  // runs this long or longer are long runs
 constexpr int kHelpers = 32;  // at most this many warps share one run
 constexpr unsigned kFull = 0xffffffffu;
-// scatter_add_rows's long-run blocks: kSlice columns an item (32 B of
-// fp32), chunks of kChunk update rows (one a thread), a ring of kStages.
+// rows_kernel's long-run blocks: kSlice columns an item (32 B of fp32),
+// chunks of kChunk update rows (one a thread), a ring of kStages.
 constexpr int kSlice = 8;
 constexpr int kChunk = 256;
 constexpr int kStages = 4;
 constexpr int kGroup = 16;  // staged values an adder holds in registers
 static_assert(kChunk == kThreads, "a long-run block copies a row a thread");
 // rows_kernel keeps at least kRowsBlocksPerSm blocks an SM resident under
-// the table-dtype policy (scatter_add_rows, whose row-0 chain of thousands
-// of adds runs slower beside more warps) and kF32BlocksPerSm under the
+// the table-dtype policy (scatter_add_rows and scatter_add_rank1, whose
+// row-0 chains of thousands of adds run slower beside more warps) and
+// kF32BlocksPerSm under the
 // fp32-sum policy (scatter_add_rows_f32, whose runs are short and whose
 // time is the short runs' round trips); at most kLongBlocksPerSm of them
 // (per SM of the card) take long runs, so that however many long runs a
@@ -205,31 +218,82 @@ __device__ __forceinline__ float round_to<uint16_t>(float v) {
       << 16);
 }
 
-// Per-update data a lane prefetches for the warp: the source row index and
-// a coefficient.
-struct Meta {
-  int32_t row;
-  float coef;
+// The payload of an update: where its row comes from. A payload names the
+// row of update k by a Ref made from src = order[k], and gives the row's
+// value in column j. Ref is what a lane holds for the warp and shuffles;
+// Staged is what a long-run block keeps in shared memory beside each
+// staged row (see long_run_item).
+
+// The rows forms: update k is upd[order[k]], a contiguous row of d fp32.
+struct RowsPayload {
+  const float* upd;  // [N, d]
+  using Ref = int32_t;  // the row of upd, or -1 for none
+  struct Staged {};
+  static constexpr bool kIndirect = false;  // Ref is src itself
+  __device__ __forceinline__ Ref ref(int32_t src) const { return src; }
+  static __device__ __forceinline__ bool valid(Ref r) { return r >= 0; }
+  static __device__ __forceinline__ Ref shfl(Ref r, int lane) {
+    return __shfl_sync(kFull, r, lane);
+  }
+  __device__ __forceinline__ const float* row(Ref r, int64_t d) const {
+    return upd + static_cast<int64_t>(r) * d;
+  }
+  __device__ __forceinline__ float at(Ref r, int64_t d, int64_t j) const {
+    return __ldg(row(r, d) + j);
+  }
+  // 16-byte copies need every 8-column slice of every row 16-byte aligned.
+  __device__ __forceinline__ bool aligned16(int64_t d) const {
+    return d % 4 == 0 && (reinterpret_cast<uintptr_t>(upd) & 15) == 0;
+  }
+  __device__ __forceinline__ void stage(Staged&, int, int, Ref) const {}
+  __device__ __forceinline__ float staged(const Staged&, int, int,
+                                          float x) const {
+    return x;
+  }
 };
 
-// Update k is coef[order[k]] * h[hidx[order[k]]].
+// The rank-1 forms: update k is coef[order[k]] * h[hidx[order[k]]], the
+// product rounded to fp32 (__fmul_rn: never fused into the add).
 struct Rank1Payload {
   const float* coef;    // [N]
   const float* h;       // [B, h_stride] fp32
   const int32_t* hidx;  // [N]
   int64_t h_stride;
-  struct Row {
-    const float* p;
-    float c;
-    __device__ __forceinline__ float at(int64_t j) const {
-      return __fmul_rn(c, __ldg(p + j));
-    }
+  struct Ref {
+    int32_t row;  // the row of h, or -1 for none
+    float coef;
   };
-  __device__ __forceinline__ Meta meta(int32_t src) const {
+  // The coefficients of a long-run block's staged rows.
+  struct Staged {
+    float coef[kStages][kChunk];
+  };
+  static constexpr bool kIndirect = true;  // Ref is loaded through src
+  __device__ __forceinline__ Ref ref(int32_t src) const {
     return {__ldg(hidx + src), __ldg(coef + src)};
   }
-  __device__ __forceinline__ Row row(Meta m) const {
-    return {h + static_cast<int64_t>(m.row) * h_stride, m.coef};
+  __device__ __forceinline__ Ref ref_or_none(int32_t src) const {
+    return src >= 0 ? ref(src) : Ref{-1, 0.0f};
+  }
+  static __device__ __forceinline__ bool valid(Ref r) { return r.row >= 0; }
+  static __device__ __forceinline__ Ref shfl(Ref r, int lane) {
+    return {__shfl_sync(kFull, r.row, lane), __shfl_sync(kFull, r.coef, lane)};
+  }
+  __device__ __forceinline__ const float* row(Ref r, int64_t) const {
+    return h + static_cast<int64_t>(r.row) * h_stride;
+  }
+  __device__ __forceinline__ float at(Ref r, int64_t d, int64_t j) const {
+    return __fmul_rn(r.coef, __ldg(row(r, d) + j));
+  }
+  __device__ __forceinline__ bool aligned16(int64_t) const {
+    return h_stride % 4 == 0 && (reinterpret_cast<uintptr_t>(h) & 15) == 0;
+  }
+  __device__ __forceinline__ void stage(Staged& st, int stage, int i,
+                                        Ref r) const {
+    st.coef[stage][i] = r.coef;
+  }
+  __device__ __forceinline__ float staged(const Staged& st, int stage, int i,
+                                          float x) const {
+    return __fmul_rn(st.coef[stage][i], x);
   }
 };
 
@@ -269,14 +333,72 @@ __device__ __forceinline__ int64_t run_end(const int32_t* __restrict__ ids,
   return hi;
 }
 
-// The run of sorted position w, for the warp at w, under the rank-1
-// forms (see Design): a short run's first warp sums it, helper warps
-// share a long run.
-template <typename T, typename Payload, bool kRoundEach>
+// A short run of rank-1 updates (scatter_add_rank1) by one warp: the table
+// row's values, then the run's len updates in sorted order, kCols columns
+// a lane per pass (one pass for d <= 320). Lane t < len holds update t's
+// reference (`mine`), broadcast with shuffles. The h values of each full
+// group of kInFlight updates are loaded before the first of them is
+// added, so that four rows are in flight whatever the compiler unrolls;
+// the last len % kInFlight updates follow one at a time. (Left to
+// `#pragma unroll 4`, the bf16 form compiled to 63 registers and its runs
+// of 2 to 31 took 4.8 times as long as fp32's; groups predicated update by
+// update took 3.7 times as long in fp32: PERF.md §6.)
+constexpr int kInFlight = 4;
+template <typename T>
+__device__ __forceinline__ void rank1_warp_run(T* __restrict__ trow,
+                                               int64_t d, int len,
+                                               const Rank1Payload& pay,
+                                               Rank1Payload::Ref mine) {
+  const int lane = threadIdx.x & 31;
+  for (int64_t c0 = 0; c0 < d; c0 += 32 * kCols) {
+    float acc[kCols];
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int64_t j = c0 + lane + 32 * i;
+      acc[i] = j < d ? load_f(trow, j) : 0.0f;
+    }
+    int t = 0;
+    for (; t + kInFlight <= len; t += kInFlight) {
+      float v[kInFlight][kCols];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+        const Rank1Payload::Ref m = Rank1Payload::shfl(mine, t + u);
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) {
+          const int64_t j = c0 + lane + 32 * i;
+          v[u][i] = j < d ? pay.at(m, d, j) : 0.0f;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) {
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) acc[i] = add<T, true>(acc[i], v[u][i]);
+      }
+    }
+    for (; t < len; ++t) {
+      const Rank1Payload::Ref m = Rank1Payload::shfl(mine, t);
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int64_t j = c0 + lane + 32 * i;
+        if (j < d) acc[i] = add<T, true>(acc[i], pay.at(m, d, j));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int64_t j = c0 + lane + 32 * i;
+      if (j < d) store_f(trow, j, acc[i]);
+    }
+  }
+}
+
+// The run of sorted position w, for the warp at w, under
+// scatter_add_rank1_hbm (see Design): a short run's first warp sums it,
+// helper warps share a long run. Sums in fp32, rounded once at the store.
+template <typename T>
 __device__ __forceinline__ void scatter_run_warp(
     T* __restrict__ table, int64_t stride, int64_t d,
     const int32_t* __restrict__ sorted_ids, const int32_t* __restrict__ order,
-    int64_t n, const Payload& pay, int64_t w) {
+    int64_t n, const Rank1Payload& pay, int64_t w) {
   if (w >= n) return;  // uniform across the warp
   const int lane = threadIdx.x & 31;
   const int32_t id = __ldg(sorted_ids + w);
@@ -303,8 +425,8 @@ __device__ __forceinline__ void scatter_run_warp(
   if (len < kLongRun) {
     // Short run, one warp: kCols columns a lane per pass, the updates in
     // order, each update's row loads issued together.
-    Meta mine{0, 0.0f};
-    if (lane < len) mine = pay.meta(__ldg(order + s0 + lane));
+    Rank1Payload::Ref mine{0, 0.0f};
+    if (lane < len) mine = pay.ref(__ldg(order + s0 + lane));
     const int cnt = static_cast<int>(len);
     for (int64_t c0 = 0; c0 < d; c0 += 32 * kCols) {
       float acc[kCols];
@@ -315,13 +437,11 @@ __device__ __forceinline__ void scatter_run_warp(
       }
 #pragma unroll 4
       for (int t = 0; t < cnt; ++t) {
-        const Meta m{__shfl_sync(kFull, mine.row, t),
-                     __shfl_sync(kFull, mine.coef, t)};
-        const typename Payload::Row row = pay.row(m);
+        const Rank1Payload::Ref m = Rank1Payload::shfl(mine, t);
 #pragma unroll
         for (int i = 0; i < kCols; ++i) {
           const int64_t j = c0 + lane + 32 * i;
-          if (j < d) acc[i] = add<T, kRoundEach>(acc[i], row.at(j));
+          if (j < d) acc[i] = add<T, false>(acc[i], pay.at(m, d, j));
         }
       }
 #pragma unroll
@@ -342,49 +462,49 @@ __device__ __forceinline__ void scatter_run_warp(
     const int64_t j = 32 * s + lane;
     const bool col = j < d;
     float acc = col ? load_f(trow, j) : 0.0f;
-    Meta mine = pay.meta(__ldg(order + s0 + lane));  // len >= 32
+    Rank1Payload::Ref mine = pay.ref(__ldg(order + s0 + lane));  // len >= 32
     for (int64_t b = s0; b < end; b += 32) {
       const int cnt = static_cast<int>(end - b < 32 ? end - b : 32);
       float v[32];
 #pragma unroll
       for (int t = 0; t < 32; ++t) {
-        const Meta m{__shfl_sync(kFull, mine.row, t),
-                     __shfl_sync(kFull, mine.coef, t)};
-        v[t] = (t < cnt && col) ? pay.row(m).at(j) : 0.0f;
+        const Rank1Payload::Ref m = Rank1Payload::shfl(mine, t);
+        v[t] = (t < cnt && col) ? pay.at(m, d, j) : 0.0f;
       }
-      if (b + 32 + lane < end) mine = pay.meta(__ldg(order + b + 32 + lane));
+      if (b + 32 + lane < end) mine = pay.ref(__ldg(order + b + 32 + lane));
 #pragma unroll
       for (int t = 0; t < 32; ++t) {
-        if (t < cnt) acc = add<T, kRoundEach>(acc, v[t]);
+        if (t < cnt) acc = add<T, false>(acc, v[t]);
       }
     }
     if (col) store_f(trow, j, acc);
   }
 }
 
-// The rank-1 forms, which share long runs among helper warps.
-template <typename T, typename Payload, bool kRoundEach>
+// scatter_add_rank1_hbm, which shares long runs among helper warps.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 scatter_runs_kernel(T* __restrict__ table, int64_t stride, int64_t d,
                     const int32_t* __restrict__ sorted_ids,
                     const int32_t* __restrict__ order, int64_t n,
-                    Payload pay) {
-  scatter_run_warp<T, Payload, kRoundEach>(
+                    Rank1Payload pay) {
+  scatter_run_warp<T>(
       table, stride, d, sorted_ids, order, n, pay,
       static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5));
 }
 
-// The run of sorted position w, for the warp at w, under the two rows
-// forms (see Design): a long run is the long-run blocks', and a short run
-// of L updates is shared by the warps at its first min(L, ceil(d / 32))
-// positions, warp k taking the 32-column slices k, k + h, ... Each lane
-// sums its column of each slice: the table value, then the run's updates
-// in sorted order.
-template <typename T, bool kRoundEach>
+// The run of sorted position w, for the warp at w, under the forms that
+// run on rows_kernel (see Design): a long run is the long-run blocks'. A
+// short run of L updates of a rows form is shared by the warps at its
+// first min(L, ceil(d / 32)) positions, warp k taking the 32-column slices
+// k, k + h, ...; each lane sums its column of each slice: the table value,
+// then the run's updates in sorted order. A rank-1 short run is the warp's
+// at its first position.
+template <typename T, bool kRoundEach, typename Payload>
 __device__ __forceinline__ void short_run_warp(
     T* __restrict__ table, int64_t stride, int64_t d,
     const int32_t* __restrict__ sorted_ids, const int32_t* __restrict__ order,
-    int64_t n, const float* __restrict__ upd, int64_t w) {
+    int64_t n, const Payload& pay, int64_t w) {
   if (w >= n) return;  // uniform across the warp
   const int lane = threadIdx.x & 31;
   // One round trip: the ids and permutation entries of positions
@@ -402,6 +522,21 @@ __device__ __forceinline__ void short_run_warp(
   const int k = __clz(~lo) - 1;            // w's offset in its run
   const int len = k + __ffs(~hi);          // k + 1 + the ids after w
   if (len >= kLongRun) return;
+  if constexpr (Payload::kIndirect) {
+    // A rank-1 payload: the run is the warp's at its first position
+    // (rank1_warp_run). Split among warps by slices, as below, each value
+    // took two shuffles, a multiply and the bookkeeping of a 32-value
+    // batch, and B2's runs of 2 to 31 took more than twice as long
+    // (PERF.md §6). Lane t asks for update t's h row index and coefficient
+    // before the warp asks for the table row, so the two round trips
+    // overlap.
+    if (k > 0) return;
+    const int32_t first = __shfl_sync(kFull, src_lo, 31);
+    const int32_t later = __shfl_sync(kFull, src_hi, (lane - 1) & 31);
+    rank1_warp_run<T>(table + static_cast<int64_t>(id) * stride, d, len,
+                      pay, pay.ref(lane == 0 ? first : later));
+    return;
+  }
   const int slices = static_cast<int>((d + 31) / 32);
   const int h = len < slices ? len : slices;
   if (k >= h) return;
@@ -409,15 +544,14 @@ __device__ __forceinline__ void short_run_warp(
   if (len == 1) {
     // One update (most runs): kCols columns a lane per pass, its table
     // and payload values loaded together.
-    const float* urow =
-        upd + static_cast<int64_t>(__shfl_sync(kFull, src_lo, 31)) * d;
+    const typename Payload::Ref r = pay.ref(__shfl_sync(kFull, src_lo, 31));
     for (int64_t c0 = 0; c0 < d; c0 += 32 * kCols) {
       float a[kCols], b[kCols];
 #pragma unroll
       for (int i = 0; i < kCols; ++i) {
         const int64_t j = c0 + lane + 32 * i;
         a[i] = j < d ? load_f(trow, j) : 0.0f;
-        b[i] = j < d ? __ldg(urow + j) : 0.0f;
+        b[i] = j < d ? pay.at(r, d, j) : 0.0f;
       }
 #pragma unroll
       for (int i = 0; i < kCols; ++i) {
@@ -430,7 +564,8 @@ __device__ __forceinline__ void short_run_warp(
   // Lane t holds the payload row of the run's update t (t < len).
   const int32_t from_lo = __shfl_sync(kFull, src_lo, (31 - k + lane) & 31);
   const int32_t from_hi = __shfl_sync(kFull, src_hi, (lane - k - 1) & 31);
-  const int32_t run_src = lane <= k ? from_lo : from_hi;
+  const typename Payload::Ref run_ref =
+      pay.ref(lane <= k ? from_lo : from_hi);
   // The lane's values in chain order: for each of the warp's slices the
   // table value, then the len updates; loaded 32 at a time, all before
   // any is added, then summed in order.
@@ -443,11 +578,10 @@ __device__ __forceinline__ void short_run_warp(
 #pragma unroll
     for (int u = 0; u < 32; ++u) {
       const int64_t col = 32 * (k + static_cast<int64_t>(h) * li) + lane;
-      const int32_t src = __shfl_sync(kFull, run_src, (lt - 1) & 31);
+      const typename Payload::Ref r = Payload::shfl(run_ref, (lt - 1) & 31);
       v[u] = 0.0f;
       if (u0 + u < total && col < d) {
-        v[u] = lt == 0 ? load_f(trow, col)
-                       : __ldg(upd + static_cast<int64_t>(src) * d + col);
+        v[u] = lt == 0 ? load_f(trow, col) : pay.at(r, d, col);
       }
       if (++lt == per) {
         lt = 0;
@@ -598,39 +732,61 @@ struct ChainOf<uint16_t, true> {
 
 // One long-run item: columns [c0, c0 + kSlice) of the run at sorted
 // positions [run.x, run.y), by the whole block (see Design). Each thread
-// copies one update row of a chunk into the ring; the threads of the
-// slice's columns (in warp 0) each sum one column.
-template <typename T, bool kRoundEach>
+// copies one update row of a chunk into the ring (and stages what the
+// payload keeps beside it: a rank-1 update's coefficient); the threads of
+// the slice's columns (in warp 0) each sum one column.
+template <typename T, bool kRoundEach, typename Payload>
 __device__ __forceinline__ void long_run_item(
     T* __restrict__ table, int64_t stride, int64_t d,
     const int32_t* __restrict__ sorted_ids, const int32_t* __restrict__ order,
-    const float* __restrict__ upd, float (*ring)[kChunk][kSlice], bool vec,
-    int2 run, int64_t c0) {
+    const Payload& pay, float (*ring)[kChunk][kSlice],
+    typename Payload::Staged& staged, bool vec, int2 run, int64_t c0) {
+  using Ref = typename Payload::Ref;
   const int tid = threadIdx.x;
   const int64_t first = run.x, end = run.y;
   const int cols = static_cast<int>(min64(kSlice, d - c0));
   const int chunks = static_cast<int>((end - first + kChunk - 1) / kChunk);
-  // The payload row of row `tid` of chunk c, or -1 past the run.
+  // The permutation entry of row `tid` of chunk c, or -1 past the run.
   auto src_of = [&](int c) -> int32_t {
     const int64_t k = first + static_cast<int64_t>(c) * kChunk + tid;
     return k < end ? __ldg(order + k) : -1;
   };
   // Every thread commits one group a chunk, empty or not, so group c is
   // chunk c in every thread.
-  auto issue = [&](int c, int32_t src) {
-    if (src >= 0) {
+  auto issue = [&](int c, Ref r) {
+    if (Payload::valid(r)) {
       float* dst = &ring[c % kStages][tid][0];
-      const float* p = upd + static_cast<int64_t>(src) * d + c0;
+      const float* p = pay.row(r, d) + c0;
       if (vec) {
         for (int u = 0; u < cols; u += 4) cp_async16(dst + u, p + u);
       } else {
         for (int u = 0; u < cols; ++u) cp_async4(dst + u, p + u);
       }
+      pay.stage(staged, c % kStages, tid, r);
     }
     cp_async_commit();
   };
-  for (int c = 0; c < kStages - 1; ++c) issue(c, src_of(c));
-  int32_t src = src_of(kStages - 1);
+  // The payload reference of the row the next issue copies, and for a
+  // kIndirect payload (a rank-1 h row index and coefficient) the entry a
+  // chunk further: the index chain is order, then hidx and coef, then the
+  // h row, each fetched a chunk before the next link needs it.
+  Ref next;
+  int32_t src = -1;
+  if constexpr (Payload::kIndirect) {
+    int32_t s[kStages + 1];
+#pragma unroll
+    for (int c = 0; c <= kStages; ++c) s[c] = src_of(c);
+    Ref r[kStages];
+#pragma unroll
+    for (int c = 0; c < kStages; ++c) r[c] = pay.ref_or_none(s[c]);
+#pragma unroll
+    for (int c = 0; c < kStages - 1; ++c) issue(c, r[c]);
+    next = r[kStages - 1];
+    src = s[kStages];
+  } else {
+    for (int c = 0; c < kStages - 1; ++c) issue(c, src_of(c));
+    next = src_of(kStages - 1);
+  }
   T* trow =
       table + static_cast<int64_t>(__ldg(sorted_ids + first)) * stride + c0;
   const bool adder = tid < cols;
@@ -640,34 +796,47 @@ __device__ __forceinline__ void long_run_item(
     // Chunk c is visible to the adders, and every adder is done with
     // chunk c - 1, whose stage the issue below refills.
     __syncthreads();
-    issue(c + kStages - 1, src);
-    src = src_of(c + kStages);
+    issue(c + kStages - 1, next);
+    if constexpr (Payload::kIndirect) {
+      next = pay.ref_or_none(src);
+      src = src_of(c + kStages + 1);
+    } else {
+      next = src_of(c + kStages);
+    }
     if (adder) {
-      const float* col = &ring[c % kStages][0][tid];
+      const int st = c % kStages;
+      const float* col = &ring[st][0][tid];
       const int64_t rows = min64(kChunk, end - first - int64_t{c} * kChunk);
       if (rows == kChunk) {
-        // Each group of 16 staged values is read into registers while
-        // the group before it is added, so the shared-memory reads stay
-        // off the add chain.
+        // Each group of 16 staged values is read into registers (a rank-1
+        // update formed there, the product off the add chain) while the
+        // group before it is added, so the shared-memory reads stay off
+        // the add chain.
         float v[kGroup];
 #pragma unroll
-        for (int j = 0; j < kGroup; ++j) v[j] = col[j * kSlice];
+        for (int j = 0; j < kGroup; ++j) {
+          v[j] = pay.staged(staged, st, j, col[j * kSlice]);
+        }
 #pragma unroll
         for (int i = kGroup; i < kChunk; i += kGroup) {
-          float next[kGroup];
+          float next_v[kGroup];
 #pragma unroll
-          for (int j = 0; j < kGroup; ++j) next[j] = col[(i + j) * kSlice];
+          for (int j = 0; j < kGroup; ++j) {
+            next_v[j] = pay.staged(staged, st, i + j, col[(i + j) * kSlice]);
+          }
 #pragma unroll
           for (int j = 0; j < kGroup; ++j) {
             sum.push(v[j]);
-            v[j] = next[j];
+            v[j] = next_v[j];
           }
         }
 #pragma unroll
         for (int j = 0; j < kGroup; ++j) sum.push(v[j]);
       } else {
 #pragma unroll 4
-        for (int i = 0; i < rows; ++i) sum.push(col[i * kSlice]);
+        for (int i = 0; i < rows; ++i) {
+          sum.push(pay.staged(staged, st, i, col[i * kSlice]));
+        }
       }
     }
   }
@@ -676,24 +845,23 @@ __device__ __forceinline__ void long_run_item(
   __syncthreads();  // the ring is free for the next item
 }
 
-// The long runs' items w = item0, item0 + step, ... of the rows forms:
-// item w is slot w / slices (see find_long_runs_kernel), 8-column slice
+// The long runs' items w = item0, item0 + step, ... of rows_kernel: item
+// w is slot w / slices (see find_long_runs_kernel), 8-column slice
 // w % slices; the items whose slot holds a run go to long_run_item.
-template <typename T, bool kRoundEach>
+template <typename T, bool kRoundEach, typename Payload>
 __device__ __forceinline__ void long_runs_block(
     T* __restrict__ table, int64_t stride, int64_t d,
     const int32_t* __restrict__ sorted_ids, const int32_t* __restrict__ order,
-    const float* __restrict__ upd, const int2* __restrict__ slots,
-    int64_t nslots, int64_t item0, int64_t step) {
+    const Payload& pay, const int2* __restrict__ slots, int64_t nslots,
+    int64_t item0, int64_t step) {
   __shared__ __align__(16) float ring[kStages][kChunk][kSlice];
+  __shared__ __align__(16) typename Payload::Staged staged;
   __shared__ int live[kThreads];  // the block's items that hold a run
   __shared__ int nlive;
   const int tid = threadIdx.x;
   const int64_t slices = (d + kSlice - 1) / kSlice;
   const int64_t items = nslots * slices;
-  // 16-byte copies need every slice of every payload row 16-byte aligned.
-  const bool vec =
-      d % 4 == 0 && (reinterpret_cast<uintptr_t>(upd) & 15) == 0;
+  const bool vec = pay.aligned16(d);
   // The block's items come kThreads at a time: thread t reads the slot of
   // item base + t * step, and the items whose slot holds a run are listed
   // (in any order: no two items touch one column).
@@ -708,88 +876,72 @@ __device__ __forceinline__ void long_runs_block(
     const int count = nlive;
     for (int f = 0; f < count; ++f) {
       const int64_t w = base + static_cast<int64_t>(live[f]) * step;
-      long_run_item<T, kRoundEach>(table, stride, d, sorted_ids, order, upd,
-                                   ring, vec, __ldg(&slots[w / slices]),
+      long_run_item<T, kRoundEach>(table, stride, d, sorted_ids, order, pay,
+                                   ring, staged, vec,
+                                   __ldg(&slots[w / slices]),
                                    (w % slices) * kSlice);
     }
     __syncthreads();  // every thread has read nlive before it is reset
   }
 }
 
-// The rows forms after find_long_runs_kernel: blocks [0, long_blocks)
-// take the long runs' items, the others one sorted position a warp, so
-// the long runs' add chains run beside the short runs. Three or four
-// blocks an SM keep the short runs' warps in flight (at 94 registers the
-// bf16 form held two, and its short runs ran slower: PERF.md §6).
-template <typename T, bool kRoundEach>
+// The forms after find_long_runs_kernel (scatter_add_rows_f32,
+// scatter_add_rows, scatter_add_rank1): blocks [0, long_blocks) take the
+// long runs' items, the others one sorted position a warp, so the long
+// runs' add chains run beside the short runs. Three or four blocks an SM
+// keep the short runs' warps in flight (at 94 registers the bf16 rows
+// form held two, and its short runs ran slower: PERF.md §6).
+template <typename T, bool kRoundEach, typename Payload>
 __global__ void __launch_bounds__(kThreads,
                                   kRoundEach ? kRowsBlocksPerSm
                                              : kF32BlocksPerSm)
 rows_kernel(T* __restrict__ table, int64_t stride, int64_t d,
             const int32_t* __restrict__ sorted_ids,
-            const int32_t* __restrict__ order, int64_t n,
-            const float* __restrict__ upd, const int2* __restrict__ slots,
-            int64_t long_blocks) {
+            const int32_t* __restrict__ order, int64_t n, Payload pay,
+            const int2* __restrict__ slots, int64_t long_blocks) {
   if (blockIdx.x < long_blocks) {
     // The slots are find_long_runs_kernel's, which may still be running.
     asm volatile("griddepcontrol.wait;" ::: "memory");
-    long_runs_block<T, kRoundEach>(table, stride, d, sorted_ids, order, upd,
+    long_runs_block<T, kRoundEach>(table, stride, d, sorted_ids, order, pay,
                                    slots, (n + kLongRun - 1) / kLongRun,
                                    blockIdx.x, long_blocks);
     return;
   }
   short_run_warp<T, kRoundEach>(
-      table, stride, d, sorted_ids, order, n, upd,
+      table, stride, d, sorted_ids, order, n, pay,
       (static_cast<int64_t>(blockIdx.x) - long_blocks) * kWarpsPerBlock +
           (threadIdx.x >> 5));
 }
 
-template <typename T, typename Payload, bool kRoundEach>
-int launch(void* table, int64_t stride, int64_t d, const void* sorted_ids,
-           const void* order, int64_t n, const Payload& pay, cudaStream_t s) {
+// scatter_add_rank1_hbm: one warp per sorted position.
+template <typename T>
+int launch_rank1_hbm(void* table, int64_t stride, int64_t d,
+                     const void* sorted_ids, const void* order, int64_t n,
+                     const Rank1Payload& pay, cudaStream_t s) {
   if (n < 0 || d <= 0 || stride < d) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   const int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  scatter_runs_kernel<T, Payload, kRoundEach>
-      <<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-          static_cast<T*>(table), stride, d,
-          static_cast<const int32_t*>(sorted_ids),
-          static_cast<const int32_t*>(order), n, pay);
+  scatter_runs_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<T*>(table), stride, d,
+      static_cast<const int32_t*>(sorted_ids),
+      static_cast<const int32_t*>(order), n, pay);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The table's storage type for `dtype`, with the launch of `Payload` under
-// policy kRoundEach.
-template <typename Payload, bool kRoundEach>
-int launch_dtype(void* table, int64_t stride, int64_t d, int32_t dtype,
-                 const void* sorted_ids, const void* order, int64_t n,
-                 const Payload& pay, cudaStream_t s) {
-  switch (dtype) {
-    case kDtypeF32:
-      return launch<float, Payload, kRoundEach>(table, stride, d, sorted_ids,
-                                                order, n, pay, s);
-    case kDtypeBF16:
-      return launch<uint16_t, Payload, kRoundEach>(table, stride, d,
-                                                   sorted_ids, order, n, pay,
-                                                   s);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// int32 words of the rows forms' workspace for n updates: a (first, end)
-// slot for each multiple of kLongRun below n.
+// int32 words of the rows_kernel forms' workspace for n updates: a
+// (first, end) slot for each multiple of kLongRun below n.
 int64_t rows_workspace_words(int64_t n) {
   return 2 * ((n + kLongRun - 1) / kLongRun);
 }
 
-// The rows forms. Two kernels when a long run can exist (n >= kLongRun):
-// find_long_runs_kernel, then rows_kernel; rows_kernel alone otherwise.
-template <typename T, bool kRoundEach>
+// A form on rows_kernel. Two kernels when a long run can exist
+// (n >= kLongRun): find_long_runs_kernel, then rows_kernel; rows_kernel
+// alone otherwise.
+template <typename T, bool kRoundEach, typename Payload>
 int launch_rows(void* table, int64_t stride, int64_t d,
                 const void* sorted_ids, const void* order, int64_t n,
-                const float* upd, void* work, cudaStream_t s) {
+                const Payload& pay, void* work, cudaStream_t s) {
   if (n > 0x7fffffff) return cudaErrorInvalidValue;  // int32 positions
   const int32_t* ids = static_cast<const int32_t*>(sorted_ids);
   int2* slots = static_cast<int2*>(work);
@@ -811,10 +963,11 @@ int launch_rows(void* table, int64_t stride, int64_t d,
     long_blocks = min64((n / kLongRun) * ((d + kSlice - 1) / kSlice),
                         int64_t{kLongBlocksPerSm} * sms);
   }
-  // Under the fp32-sum policy, a programmatic dependent launch: the short
-  // runs' warps start while the pre-pass runs, and the long-run blocks
-  // wait for it. Not under the table-dtype policy, whose row-0 chain of
-  // thousands of adds is its longest path: there the short runs' loads
+  // A programmatic dependent launch where the short runs set the time
+  // (the fp32-sum policy's rows form, B6, and the rank-1 payload, B2): the
+  // short runs' warps start while the pre-pass runs, and the long-run
+  // blocks wait for it. Not for scatter_add_rows (B3), whose row-0 chain
+  // of thousands of adds is its longest path: there the short runs' loads
   // delay the pre-pass, and with it the chain (PERF.md §6).
   cudaLaunchAttribute early;
   early.id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -824,32 +977,35 @@ int launch_rows(void* table, int64_t stride, int64_t d,
   cfg.blockDim = dim3(kThreads);
   cfg.stream = s;
   cfg.attrs = &early;
-  cfg.numAttrs = !kRoundEach && long_blocks > 0 ? 1 : 0;
+  cfg.numAttrs = (!kRoundEach || Payload::kIndirect) && long_blocks > 0 ? 1 : 0;
   return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, rows_kernel<T, kRoundEach>, static_cast<T*>(table), stride, d,
-      ids, static_cast<const int32_t*>(order), n, upd,
+      &cfg, rows_kernel<T, kRoundEach, Payload>, static_cast<T*>(table),
+      stride, d, ids, static_cast<const int32_t*>(order), n, pay,
       static_cast<const int2*>(slots), long_blocks));
 }
 
-// A rows form under policy kRoundEach, for the table's `dtype`.
-template <bool kRoundEach>
+// A form on rows_kernel under policy kRoundEach, for the table's `dtype`.
+template <bool kRoundEach, typename Payload>
 int launch_rows_dtype(void* table, int64_t stride, int64_t d, int32_t dtype,
                       const void* sorted_ids, const void* order, int64_t n,
-                      const void* upd, void* work, void* stream) {
+                      const Payload& pay, void* work, void* stream) {
   if (n < 0 || d <= 0 || stride < d) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  const float* u = static_cast<const float*>(upd);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kDtypeF32:
       return launch_rows<float, kRoundEach>(table, stride, d, sorted_ids,
-                                            order, n, u, work, s);
+                                            order, n, pay, work, s);
     case kDtypeBF16:
       return launch_rows<uint16_t, kRoundEach>(table, stride, d, sorted_ids,
-                                               order, n, u, work, s);
+                                               order, n, pay, work, s);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+RowsPayload rows_payload(const void* upd) {
+  return RowsPayload{static_cast<const float*>(upd)};
 }
 
 Rank1Payload rank1_payload(const void* coef, const void* h, const void* hidx,
@@ -866,16 +1022,17 @@ extern "C" {
 // Every entry launches on `stream` and returns cudaGetLastError() as an int
 // (0 = launched). `table` is [V, stride] of `dtype` (0 = f32, 1 = bf16),
 // updated in place; sorted_ids and order are [n] int32. None synchronises
-// or allocates.
+// or allocates. `work`, where an entry takes one, is int32
+// [glint_scatter_add_rows_workspace(n)], 8-byte aligned, contents ignored;
+// the call overwrites it.
 
-// fp32-sum policy. upd is [n, d] fp32, contiguous, in input order; work
-// as glint_scatter_add_rows's.
+// fp32-sum policy. upd is [n, d] fp32, contiguous, in input order.
 int glint_scatter_add_rows_f32(void* table, int64_t stride, int64_t d,
                                int32_t dtype, const void* sorted_ids,
                                const void* order, int64_t n, const void* upd,
                                void* work, void* stream) {
   return launch_rows_dtype<false>(table, stride, d, dtype, sorted_ids, order,
-                                  n, upd, work, stream);
+                                  n, rows_payload(upd), work, stream);
 }
 
 // fp32-sum policy. coef [n] fp32 and hidx [n] int32 in input order; h is
@@ -886,41 +1043,47 @@ int glint_scatter_add_rank1(void* table, int64_t stride, int64_t d,
                             const void* h, const void* hidx, int64_t h_stride,
                             void* stream) {
   if (h_stride < d) return cudaErrorInvalidValue;
-  return launch_dtype<Rank1Payload, false>(
-      table, stride, d, dtype, sorted_ids, order, n,
-      rank1_payload(coef, h, hidx, h_stride),
-      static_cast<cudaStream_t>(stream));
+  const Rank1Payload pay = rank1_payload(coef, h, hidx, h_stride);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kDtypeF32:
+      return launch_rank1_hbm<float>(table, stride, d, sorted_ids, order, n,
+                                     pay, s);
+    case kDtypeBF16:
+      return launch_rank1_hbm<uint16_t>(table, stride, d, sorted_ids, order,
+                                        n, pay, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
-// int32 words of the workspace the rows forms need for n updates.
+// int32 words of the workspace the rows_kernel forms need for n updates.
 int64_t glint_scatter_add_rows_workspace(int64_t n) {
   return rows_workspace_words(n);
 }
 
 // Table-dtype policy. upd is [n, d] fp32, contiguous, in input order; each
-// update row is rounded to the table's dtype before it is added. work is
-// int32 [glint_scatter_add_rows_workspace(n)], 8-byte aligned, contents
-// ignored; the call overwrites it.
+// update row is rounded to the table's dtype before it is added.
 int glint_scatter_add_rows(void* table, int64_t stride, int64_t d,
                            int32_t dtype, const void* sorted_ids,
                            const void* order, int64_t n, const void* upd,
                            void* work, void* stream) {
   return launch_rows_dtype<true>(table, stride, d, dtype, sorted_ids, order,
-                                 n, upd, work, stream);
+                                 n, rows_payload(upd), work, stream);
 }
 
-// Table-dtype policy, rank-1 payload; arguments as glint_scatter_add_rank1.
+// Table-dtype policy, rank-1 payload; coef, h, hidx and h_stride as
+// glint_scatter_add_rank1's, work as glint_scatter_add_rows's.
 int glint_scatter_add_rank1_table(void* table, int64_t stride, int64_t d,
                                   int32_t dtype, const void* sorted_ids,
                                   const void* order, int64_t n,
                                   const void* coef, const void* h,
                                   const void* hidx, int64_t h_stride,
-                                  void* stream) {
+                                  void* work, void* stream) {
   if (h_stride < d) return cudaErrorInvalidValue;
-  return launch_dtype<Rank1Payload, true>(
-      table, stride, d, dtype, sorted_ids, order, n,
-      rank1_payload(coef, h, hidx, h_stride),
-      static_cast<cudaStream_t>(stream));
+  return launch_rows_dtype<true>(table, stride, d, dtype, sorted_ids, order,
+                                 n, rank1_payload(coef, h, hidx, h_stride),
+                                 work, stream);
 }
 
 const char* glint_cuda_error_string(int code) {

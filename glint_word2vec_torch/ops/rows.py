@@ -18,14 +18,18 @@ dependent adds that may not be split, reassociated or done with float
 atomics: each column of a run is summed by one thread, in sorted order,
 which is what keeps the kernels bitwise equal to their plain versions
 and training resumable bit for bit. ``scatter_add_rows`` (B3) sums a
-short run (under 32 updates) in one warp and hands each long run (32 or
-more, such as row 0 of a grid batch, 9,262 updates at fastText width)
-to blocks of its own in the same launch, one per (run, 8-column slice),
-which stream the run's update rows through shared memory with
-``cp.async`` while one thread per column adds them: the run's loads
-spread over many SMs, the add chains run beside the short runs, and the
-longest chain is what remains. ``scatter_add_rank1`` (B2) still shares
-a long run among up to 32 warps, one 32-column slice each.
+short run (under 32 updates) in the warps at its first positions, and
+``scatter_add_rank1`` (B2) in the warp at its first position; both hand
+each long run (32 or more, such as row 0 of a grid batch: 9,262 updates
+in B3, 4,616 in B2 at fastText width) to blocks of their own in the same
+launch, one per (run, 8-column slice), which stream the run's payload
+rows through shared memory with ``cp.async`` while one thread per column
+adds them: the run's loads spread over many SMs, the add chains run
+beside the short runs, and the longest chain is what remains. B2 runs
+B3's kernels with a rank-1 payload: each update ``coef * h[hidx]`` is
+formed in fp32 where it is added, and a zero coefficient's update is
+added like any other (skipping it could leave -0.0 where the sum is
++0.0).
 
 For a CUDA tensor each wrapper launches its kernel on the current stream,
 or raises; for a CPU tensor it runs its ``*_reference``, the plain
@@ -163,7 +167,7 @@ def _scatter_lib():
         lib.glint_scatter_add_rows_workspace.argtypes = [_I64]
         lib.glint_scatter_add_rows_workspace.restype = _I64
         lib.glint_scatter_add_rank1_table.argtypes = [
-            _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P, _P, _I64, _P,
+            _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P, _P, _I64, _P, _P,
         ]
         lib.glint_scatter_add_rank1_table.restype = ctypes.c_int
         lib.glint_cuda_error_string.argtypes = [ctypes.c_int]
@@ -261,8 +265,9 @@ def scatter_add_rank1(table: torch.Tensor, ids: torch.Tensor,
     ``(N, d)`` payload: each update row is formed in fp32, cast to the
     table's dtype, and runs of equal ids are summed in the table's dtype.
     ``ids``/``hidx`` ``(N,)`` int32, ``coef`` ``(N,)`` fp32, ``h``
-    ``(B, d)`` fp32 contiguous. Each kernel launch adds one to
-    ``scatter_add_rank1.launches``."""
+    ``(B, d)`` fp32 contiguous. Each call that reaches the card adds one
+    to ``scatter_add_rank1.launches``, though it is the pre-pass and the
+    scatter kernel (see :func:`scatter_add_rank1_sorted`)."""
     _check_table(table, "table")
     dev = table.device
     N, d = ids.shape[0], table.shape[1]
@@ -283,17 +288,23 @@ def scatter_add_rank1_sorted(table: torch.Tensor, sorted_ids: torch.Tensor,
                              order: torch.Tensor, coef: torch.Tensor,
                              h: torch.Tensor, hidx: torch.Tensor) -> None:
     """The kernel launch of :func:`scatter_add_rank1` for CUDA tensors
-    already validated and sorted."""
+    already validated and sorted (what ``chip_smoke.py`` times on its
+    own): the kernels of :func:`scatter_add_rows_sorted` with the rank-1
+    payload, and their workspace taken from the caching allocator."""
     lib = _scatter_lib()
+    n = sorted_ids.shape[0]
+    work = torch.empty(lib.glint_scatter_add_rows_workspace(n),
+                       dtype=torch.int32, device=table.device)
     rc = lib.glint_scatter_add_rank1_table(
         table.data_ptr(), table.stride(0), table.shape[1],
         _DTYPE_TAGS[table.dtype], sorted_ids.data_ptr(), order.data_ptr(),
-        sorted_ids.shape[0], coef.data_ptr(), h.data_ptr(), hidx.data_ptr(),
-        h.stride(0), torch.cuda.current_stream(table.device).cuda_stream,
+        n, coef.data_ptr(), h.data_ptr(), hidx.data_ptr(), h.stride(0),
+        work.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream,
     )
     _check(lib, rc, "scatter_add_rank1")
     scatter_add_rank1.launches += 1
 
 
-#: Kernel launches since the last reset.
+#: Calls that launched the kernels since the last reset: one a call,
+#: though a call is up to two kernel launches (pre-pass, scatter).
 scatter_add_rank1.launches = 0

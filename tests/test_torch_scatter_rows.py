@@ -175,6 +175,78 @@ def test_scatter_add_rank1_row0_and_single_id_bitwise(dtype):
     assert _bits_equal(_port_rank1(table, ids, coef, h, hidx, dtype), want)
 
 
+def _dyadic_rank1_long_run(seed, run, d, others=40, distinct=V, B=12):
+    """``run`` updates to id 3 among ``others`` random ids, shuffled, on
+    dyadic data (every product and fp32 partial sum exact) whose products
+    span 1/32 to 512, so that under bf16 every add rounds."""
+    rng = np.random.default_rng(seed)
+    ids = np.concatenate([np.full(run, 3), rng.integers(0, distinct, others)])
+    ids = rng.permutation(ids).astype(np.int32)
+    table = (rng.integers(-64, 64, (distinct, d)) / 4.0).astype(np.float32)
+    coef = (rng.integers(-16, 16, ids.size) / 8.0).astype(np.float32)
+    h = (rng.integers(-128, 128, (B, d)) / 4.0).astype(np.float32)
+    hidx = rng.integers(0, B, ids.size).astype(np.int32)
+    return table, ids, coef, h, hidx
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("run", [33, 257])
+def test_scatter_add_rank1_long_runs_bitwise(dtype, run):
+    # Runs past the CUDA kernel's long-run threshold (32), across the JAX
+    # kernel's blocks of 8: the order and the rounding (one per add, in
+    # stable sorted order) that the long-run path must reproduce.
+    table, ids, coef, h, hidx = _dyadic_rank1_long_run(run, run, D)
+    want = _jax_rank1(table, ids, coef, h, hidx, dtype, block_rows=8)
+    assert _bits_equal(_port_rank1(table, ids, coef, h, hidx, dtype), want)
+
+
+def _signed_zero_case(seed, d, B=12, distinct=V):
+    """Rows 0, 5 and 9 at -0.0 take a run of 40 (every third coefficient
+    0, the others positive), a run of 7 and a run of 1 (coefficients 0),
+    beside 16 updates to other rows, shuffled. Every product is -0.0 in
+    columns 0-3 of ``h``; in columns 4-7 the zero coefficients' products
+    are +0.0 (even h rows) and the others' -0.0 (odd rows); the rest of
+    ``h`` is negative. Adding every update, as the JAX kernel does, gives
+    -0.0 in columns 0-3 and +0.0 in 4-7 of those rows; skipping the zero
+    coefficients would leave -0.0 in 4-7. Dyadic values: every product
+    and fp32 sum is exact."""
+    rng = np.random.default_rng(seed)
+    table = (rng.integers(-64, 64, (distinct, d)) / 4.0).astype(np.float32)
+    table[[0, 5, 9]] = -0.0
+    h = (-rng.integers(1, 128, (B, d)) / 4.0).astype(np.float32)
+    h[:, :4] = -0.0
+    h[0::2, 4:8] = 0.0
+    h[1::2, 4:8] = -0.0
+    ids = np.concatenate([np.zeros(40), np.full(7, 5), [9],
+                          rng.integers(10, distinct, 16)]).astype(np.int32)
+    zero = np.zeros(ids.size, bool)
+    zero[:40:3] = True
+    zero[40:48] = True
+    coef = np.where(zero, 0.0, rng.integers(1, 16, ids.size) / 8.0).astype(np.float32)
+    pick = rng.integers(0, B // 2, ids.size)
+    hidx = np.where(zero, 2 * pick, 2 * pick + 1).astype(np.int32)
+    perm = rng.permutation(ids.size)
+    return table, ids[perm], coef[perm], h, hidx[perm]
+
+
+def _check_signed_zero_rows(out):
+    rows = out[[0, 5, 9]]
+    assert np.all(np.signbit(rows[:, :4])) and np.all(rows[:, :4] == 0)
+    assert not np.any(np.signbit(rows[:, 4:8])) and np.all(rows[:, 4:8] == 0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_scatter_add_rank1_zero_coefficients_keep_signed_zeros(dtype):
+    # Most of row 0's run is padding with coefficient 0; the kernels must
+    # add those updates, not skip them: -0.0 + (+0.0) is +0.0. One JAX
+    # block (block_rows = N), so no padded update joins the last run.
+    table, ids, coef, h, hidx = _signed_zero_case(12, D)
+    want = _jax_rank1(table, ids, coef, h, hidx, dtype, block_rows=ids.size)
+    got = _port_rank1(table, ids, coef, h, hidx, dtype)
+    assert _bits_equal(got, want)
+    _check_signed_zero_rows(got)
+
+
 def test_bf16_table_dtype_runs_round_every_add():
     # Row value 256 (bf16 ulp 2.0) plus 8 x 0.5: rounded after every add
     # each 0.5 is lost (256), where the fused step's scatters, which sum
@@ -383,3 +455,71 @@ def test_cuda_scatter_add_rows_run_lengths_bitwise(dtype, d, run):
         torch.cuda.synchronize()
         assert rows.scatter_add_rows.launches == before + 1
         assert torch.equal(t.cpu(), want)
+
+
+def _equal_bits(a, b):
+    """Equal bits, so -0.0 differs from +0.0 (``torch.equal`` compares
+    values)."""
+    as_int = torch.int32 if a.dtype == torch.float32 else torch.int16
+    return a.dtype == b.dtype and torch.equal(a.view(as_int), b.view(as_int))
+
+
+def _cuda_rank1_twice(t, ids, coef, h, hidx):
+    """The kernel on ``t`` against the plain version, then a second call
+    from the same table against the first, bit for bit."""
+    start = t.clone()
+    want = rows.scatter_add_rank1_reference(
+        t.cpu(), ids.cpu(), coef.cpu(), h.cpu(), hidx.cpu())
+    before = rows.scatter_add_rank1.launches
+    rows.scatter_add_rank1(t, ids, coef, h, hidx)
+    torch.cuda.synchronize()
+    assert rows.scatter_add_rank1.launches == before + 1
+    first = t.cpu()
+    assert _equal_bits(first, want)
+    t.copy_(start)
+    rows.scatter_add_rank1(t, ids, coef, h, hidx)
+    torch.cuda.synchronize()
+    assert _equal_bits(t.cpu(), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 7, 31, 32, 33, 300, 301])
+@pytest.mark.parametrize("run", [31, 32, 33, 257, 4616, 43008])
+def test_cuda_scatter_add_rank1_run_lengths_bitwise(dtype, d, run):
+    # Each side of the long-run threshold (32), a run of 257, row 0's run
+    # at fastText width (4,616), and a batch of 43,008 updates to one id;
+    # coefficients of mixed magnitude with zeros among them, then the same
+    # h 4 bytes off 16-byte alignment (the long-run path's 4-byte copies).
+    _cuda_or_skip()
+    rng = np.random.default_rng(run * 7 + d)
+    if run == 43008:
+        ids = np.full(run, 3, np.int32)
+        distinct = V
+    else:
+        distinct = 4096
+        ids = np.concatenate([np.full(run, 3), rng.integers(0, distinct, 300)])
+        ids = rng.permutation(ids).astype(np.int32)
+    table = rng.normal(size=(distinct, d)).astype(np.float32)
+    coef = (rng.normal(size=ids.size)
+            * rng.choice([0.0, 1e-3, 1.0, 100.0], size=ids.size)).astype(np.float32)
+    B = 64
+    h = rng.normal(size=(B, d)).astype(np.float32)
+    hidx = rng.integers(0, B, ids.size).astype(np.int32)
+    t = torch.from_numpy(table).to(getattr(torch, dtype)).cuda()
+    ids_c, coef_c, hidx_c = (torch.from_numpy(a).cuda() for a in (ids, coef, hidx))
+    flat = torch.empty(h.size + 1, device="cuda")
+    for h_c in (torch.from_numpy(h).cuda(), flat[1:].view(h.shape)):
+        h_c.copy_(torch.from_numpy(h))
+        _cuda_rank1_twice(t, ids_c, coef_c, h_c, hidx_c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [16, 300])
+def test_cuda_scatter_add_rank1_zero_coefficients_keep_signed_zeros(dtype, d):
+    _cuda_or_skip()
+    table, ids, coef, h, hidx = _signed_zero_case(12, d)
+    t = torch.from_numpy(table).to(getattr(torch, dtype)).cuda()
+    _cuda_rank1_twice(t, *(torch.from_numpy(a).cuda() for a in (ids, coef, h, hidx)))
+    _check_signed_zero_rows(t.float().cpu().numpy())
