@@ -34,13 +34,20 @@ nothing of JAX. Phases, each of which fails the run on any error:
 5. Training kernels against plain, at full width (V = 1,000,000,
    d = 300, P = 3,277 pair slots, n = 5; fp32 and bf16), on Zipf-like ids
    that include 0 and V-1 and give long runs: ``pair_forward`` within
-   rtol 1e-5 (its ``h`` rows bitwise, the loss within rel 1e-5), the
-   scatters ``scatter_add_rank1_hbm`` and ``scatter_add_rows_f32`` bitwise
-   against their plain versions run on a CPU copy of the touched rows,
-   plus one fp32 scatter on a 10,000,000 x 300 table with id V-1. Each
+   rtol 1e-5 (its ``h`` rows bitwise, the loss within rel 1e-5, two calls
+   bitwise equal), the scatters ``scatter_add_rank1_hbm`` and
+   ``scatter_add_rows_f32`` bitwise against their plain versions run on a
+   CPU copy of the touched rows, plus one fp32 scatter and one
+   ``pair_forward`` (reading row V-1) on a 10,000,000 x 300 table. Each
    kernel's median time beside its plain version's, ``index_add_``'s
    where one call computes the same function, the bound, and the run
-   count R. For ``scatter_add_rows_f32`` also, each bitwise and timed
+   count R; ``pair_forward``'s launch shape and waves, and
+   ``scatter_add_rank1_hbm``'s longest run and its runs of 32 or more.
+   For ``pair_forward`` also, each held and timed: (b) 4 x P pairs, (c)
+   every id one row (reads from L2). For ``scatter_add_rank1_hbm`` also,
+   each bitwise, two calls equal, and timed: (a) the runs of 32 or more
+   sent to distinct rows, (b) those runs alone, (e) the runs under 32
+   alone. For ``scatter_add_rows_f32`` also, each bitwise and timed
    beside ``index_add_``: (a) the runs of 32 or more sent to distinct
    rows, (b) those runs alone, (c) one update (the launch floor), (d)
    the shared step's pool update (``d_pool`` of ``pair_forward_shared``
@@ -618,22 +625,27 @@ def zipf_ids(torch, gen, shape, v: int):
     return ids.clamp(0, v - 1).to(torch.int32)
 
 
-def step_inputs(torch, np, gen):
-    """One full-width dense pair batch: Zipf centers and contexts (ids 0
+def step_inputs(torch, np, gen, P=None, alias_table=None):
+    """One full-width dense pair batch of ``P`` pair slots (by default the
+    packed batch of B_TRAIN and W_TRAIN): Zipf centers and contexts (ids 0
     and V-1 among them), negatives drawn by the port's alias sampler over
     Zipf counts (so frequent words repeat into long runs), 13 padded slots
-    at the end, and the negative mask."""
+    at the end, and the negative mask. ``alias_table`` = (prob, alias)
+    reuses a table this function returned."""
     from glint_word2vec_torch.corpus.alias import build_unigram_alias
     from glint_word2vec_torch.corpus.batching import packed_pair_batch
     from glint_word2vec_torch.ops import random as rnd
     from glint_word2vec_torch.ops.sampling import sample_negatives_per_row
     from glint_word2vec_torch.ops.sgns import negative_mask
 
-    P = packed_pair_batch(B_TRAIN, W_TRAIN)
-    counts = (1e9 / np.arange(1, V_TRAIN + 1)).astype(np.int64) + MIN_PER_WORD
-    t = build_unigram_alias(counts)
-    prob = torch.from_numpy(t.prob).to(DEV)
-    alias = torch.from_numpy(t.alias).to(DEV)
+    if P is None:
+        P = packed_pair_batch(B_TRAIN, W_TRAIN)
+    if alias_table is None:
+        counts = (1e9 / np.arange(1, V_TRAIN + 1)).astype(np.int64) + MIN_PER_WORD
+        t = build_unigram_alias(counts)
+        alias_table = (torch.from_numpy(t.prob).to(DEV),
+                       torch.from_numpy(t.alias).to(DEV))
+    prob, alias = alias_table
     centers = zipf_ids(torch, gen, (P,), V_TRAIN)
     contexts = zipf_ids(torch, gen, (P,), V_TRAIN)
     centers[:3] = torch.tensor([V_TRAIN - 1, 0, V_TRAIN - 1], dtype=torch.int32)
@@ -794,6 +806,108 @@ def scatter_f32_parts(torch, fs, table, ids, upd, pool_case, packed, flush,
     return out
 
 
+def pair_forward_held(torch, fs, args, what) -> tuple:
+    """``pair_forward`` on ``args`` called twice, the two results bitwise
+    equal, and held against its plain version run on a CPU copy of the
+    rows it reads (the ids remapped to those rows): ``h`` bitwise,
+    ``c_pos``, ``c_neg`` and ``d_center`` within rtol 1e-5 and atol
+    1e-6 x max, the loss within rel 1e-5. Returns (the first result, the
+    largest abs difference, the loss's relative difference)."""
+    syn0, syn1, centers, contexts, mask, negs, nmask, alpha = args
+    fw = fs.pair_forward(*args)
+    again = fs.pair_forward(*args)
+    torch.cuda.synchronize()
+    for field in fw._fields:
+        expect(torch.equal(bits(torch, getattr(fw, field)),
+                           bits(torch, getattr(again, field))),
+               f"pair_forward {what}: two calls differ in {field}")
+    u0 = torch.unique(centers.long())
+    u1 = torch.unique(torch.cat([contexts, negs.reshape(-1)]).long())
+    local = lambda uniq, ids: torch.searchsorted(uniq, ids.long()).to(torch.int32).cpu()  # noqa: E731
+    ref = fs.pair_forward_reference(
+        syn0[u0].cpu(), syn1[u1].cpu(), local(u0, centers), local(u1, contexts),
+        mask.cpu(), local(u1, negs), nmask.cpu(), alpha.cpu())
+    expect(torch.equal(fw.h.cpu(), ref.h), f"pair_forward {what}: h differs")
+    e = 0.0
+    for field in ("c_pos", "c_neg", "d_center"):
+        g, w = getattr(fw, field).cpu(), getattr(ref, field)
+        diff = (g - w).abs()
+        tol = 1e-5 * w.abs() + 1e-6 * float(w.abs().max())
+        expect(bool((diff <= tol).all()),
+               f"pair_forward {what}: {field} off by {diff.max().item()} "
+               "(rtol 1e-5, atol 1e-6 x max)")
+        e = max(e, float(diff.max()))
+    rel = abs(float(fw.loss_sum) - float(ref.loss_sum)) / max(
+        abs(float(ref.loss_sum)), 1e-30)
+    expect(rel <= 1e-5, f"pair_forward {what}: loss off by rel {rel}")
+    return fw, e, rel
+
+
+def pair_forward_parts(torch, np, fs, syn0, syn1, alpha, alias_table, flush,
+                       gen, name) -> dict:
+    """``pair_forward`` beyond phase 5's own case, each held as
+    :func:`pair_forward_held` does and timed: (b) 4 x P pairs of fresh
+    draws (time growing well under 4 times means occupancy and latency
+    set it), (c) every id one row (every read after the first hits L2:
+    the dependent trips without the DRAM traffic)."""
+    from glint_word2vec_torch.corpus.batching import packed_pair_batch
+
+    P = packed_pair_batch(B_TRAIN, W_TRAIN)
+    big = step_inputs(torch, np, gen, 4 * P, alias_table)[0]
+    one = tuple(torch.full_like(x, 12345) if x.dtype == torch.int32 else x
+                for x in step_inputs(torch, np, gen, P, alias_table)[0])
+    out = {}
+    for key, (centers, contexts, mask, negs, nmask) in (("b", big), ("c", one)):
+        args = (syn0, syn1, centers, contexts, mask, negs, nmask, alpha)
+        _, e, rel = pair_forward_held(torch, fs, args, f"{name} ({key})")
+        ms = median_ms(torch, lambda: fs.pair_forward(*args), flush)
+        out[key] = dict(pairs=centers.numel(), ms=ms, max_abs_err=e)
+        log(f"pair_forward {name} ({key}) P={centers.numel()}: within rtol "
+            f"1e-5 (max |diff| {e:.3g}), h bitwise, loss rel {rel:.2g}, two "
+            f"calls bitwise; kernel {ms:.4f} ms")
+    return out
+
+
+def pair_forward_waves(fs, P, n, syn0, syn1) -> str:
+    """The launch's shape and waves (``fs.pair_forward_grid``)."""
+    g = fs.pair_forward_grid(P, n, syn0, syn1)
+    waves = g["blocks"] / (g["per_sm"] * g["sms"])
+    return (f"{g['blocks']} blocks of {g['pairs_per_block']} pairs, "
+            f"{g['per_sm']} a SM, {waves:.3f} waves")
+
+
+def rank1_hbm_parts(torch, fs, table, ids, coef, h, hidx, flush, name) -> dict:
+    """``scatter_add_rank1_hbm`` beyond phase 5's own case, on ``table``
+    (syn1), each case held bit for bit against the plain version, two
+    calls equal, then timed (sort excluded): (a) the runs of 32 or more
+    sent to distinct rows, (b) those runs alone, (e) the runs under 32
+    alone."""
+    n = ids.numel()
+    _, inv, counts = torch.unique(ids, return_inverse=True, return_counts=True)
+    long_slot = counts[inv] >= 32
+    pads = (V_TRAIN // 2 + torch.arange(n, device=DEV)).to(torch.int32)
+    cases = {
+        "a": (torch.where(long_slot, pads, ids), coef, hidx),
+        "b": tuple(x[long_slot].contiguous() for x in (ids, coef, hidx)),
+        "e": tuple(x[~long_slot].contiguous() for x in (ids, coef, hidx)),
+    }
+    kernel = (fs.scatter_add_rank1_hbm, fs.scatter_add_rank1_hbm_reference)
+    out = {}
+    for key, (i, cf, hx) in cases.items():
+        R = rank1_bitwise(torch, kernel, table, i, cf, h, hx,
+                          f"scatter_add_rank1_hbm {name} ({key})")
+        c = torch.unique(i, return_counts=True)[1]
+        sid, order = fs.sorted_runs(i)
+        ms = median_ms(torch, lambda: fs.scatter_add_rank1_hbm_sorted(
+            table, sid, order, cf, h, hx), flush)
+        out[key] = dict(n=i.numel(), runs=R, longest=int(c.max()),
+                        long_runs=int((c >= 32).sum()), ms=ms)
+        log(f"scatter_add_rank1_hbm {name} ({key}) N={i.numel()}: bitwise "
+            f"equal, two calls equal (R={R} runs, longest {int(c.max())}, "
+            f"{int((c >= 32).sum())} runs of 32+); kernel {ms:.4f} ms")
+    return out
+
+
 def check_training_kernels(torch, np, fs) -> dict:
     """Phase 5. Returns per-kernel results of the fp32 full-width case,
     with the worst error over every case."""
@@ -817,34 +931,29 @@ def check_training_kernels(torch, np, fs) -> dict:
         syn1 = (0.3 * torch.randn((V_TRAIN, D), generator=gen, device=DEV)).to(dtype)
         args = (syn0, syn1, centers, contexts, mask, negs, nmask, alpha)
 
-        # pair_forward against its plain version on the CPU.
-        fw = fs.pair_forward(*args)
-        torch.cuda.synchronize()
-        ref = fs.pair_forward_reference(*(t.cpu() for t in args))
-        expect(torch.equal(fw.h.cpu(), ref.h), f"pair_forward {name}: h differs")
-        e = 0.0
-        for field in ("c_pos", "c_neg", "d_center"):
-            g, w = getattr(fw, field).cpu(), getattr(ref, field)
-            diff = (g - w).abs()
-            tol = 1e-5 * w.abs() + 1e-6 * float(w.abs().max())
-            expect(bool((diff <= tol).all()),
-                   f"pair_forward {name}: {field} off by {diff.max().item()} "
-                   "(rtol 1e-5, atol 1e-6 x max)")
-            e = max(e, float(diff.max()))
-        rel = abs(float(fw.loss_sum) - float(ref.loss_sum)) / abs(float(ref.loss_sum))
-        expect(rel <= 1e-5, f"pair_forward {name}: loss off by rel {rel}")
+        # pair_forward against its plain version on the CPU, two calls
+        # bitwise equal.
+        fw, e, rel = pair_forward_held(torch, fs, args, name)
         err["pair_forward"] = max(err["pair_forward"], e)
         uniq0 = int(torch.unique(centers).numel())
         uniq1 = int(torch.unique(ids1).numel())
         bound, nbytes = pair_forward_bound(P, n, D, s, uniq0, uniq1)
         ms = median_ms(torch, lambda: fs.pair_forward(*args), flush)
         plain = median_ms(torch, lambda: fs.pair_forward_reference(*args), flush)
+        # The wrapper's other launch: the fixed-order sum of P losses.
+        losses = torch.rand(P, generator=gen, device=DEV)
+        loss_sum = median_ms(torch, lambda: losses.sum(), flush)
         out[("pair_forward", name)] = dict(
-            ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, runs=None)
+            ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, runs=None,
+            loss_sum_ms=loss_sum)
         log(f"pair_forward {name} V={V_TRAIN} d={D} P={P} n={n}: within "
-            f"rtol 1e-5 (max |diff| {e:.3g}), h bitwise, loss rel {rel:.2g}; "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, bound {bound:.5f} ms "
-            f"({nbytes} bytes, {uniq0}+{uniq1} distinct rows)")
+            f"rtol 1e-5 (max |diff| {e:.3g}), h bitwise, loss rel {rel:.2g}, "
+            f"two calls bitwise; kernel {ms:.4f} ms (the loss sum alone "
+            f"{loss_sum:.4f} ms), plain {plain:.4f} ms, bound {bound:.5f} ms "
+            f"({nbytes} bytes, {uniq0}+{uniq1} distinct rows); "
+            f"{pair_forward_waves(fs, P, n, syn0, syn1)}")
+        out[("pair_forward", name)]["parts"] = pair_forward_parts(
+            torch, np, fs, syn0, syn1, alpha, (prob, alias), flush, gen, name)
 
         # scatter_add_rank1_hbm: syn1 += coef * h[hidx], from the kernel's
         # own forward outputs, as the training step runs it.
@@ -865,13 +974,20 @@ def check_training_kernels(torch, np, fs) -> dict:
         plain = median_ms(torch, lambda: fs.scatter_add_rank1_hbm_reference(
             syn1, ids1, coefs, h, hidx), flush)
         bound, nbytes = scatter_bound(P, ids1.numel(), R, D, s, 16, 2)
-        longest = int(torch.unique(ids1, return_counts=True)[1].max())
+        counts = torch.unique(ids1, return_counts=True)[1]
+        longest = int(counts.max())
+        long_runs = int((counts >= 32).sum())
+        long_updates = int(counts[counts >= 32].sum())
         out[("scatter_add_rank1_hbm", name)] = dict(
-            ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, runs=R)
+            ms=ms, plain_ms=plain, library_ms=None, bound_ms=bound, runs=R,
+            longest=longest, long_runs=long_runs, long_updates=long_updates)
         log(f"scatter_add_rank1_hbm {name} N={ids1.numel()}: bitwise equal "
-            f"(R={R} runs, longest {longest}); kernel {ms:.4f} ms (sort "
+            f"(R={R} runs, longest {longest}, {long_runs} runs of 32 or more "
+            f"holding {long_updates} updates); kernel {ms:.4f} ms (sort "
             f"excluded), plain {plain:.4f} ms, bound {bound:.5f} ms "
             f"({nbytes} bytes)")
+        out[("scatter_add_rank1_hbm", name)]["parts"] = rank1_hbm_parts(
+            torch, fs, syn1, ids1, coefs, h, hidx, flush, name)
 
         # scatter_add_rows_f32: syn0 += d_center.
         upd = fw.d_center
@@ -925,6 +1041,20 @@ def check_training_kernels(torch, np, fs) -> dict:
         "scatter_add_rows_f32 on the 10M-row table")
     log(f"scatter_add_rows_f32 f32 V={V_BIG} d={D} N={P}, id V-1: bitwise "
         f"equal (R={R} runs)")
+    # pair_forward with that table, at the 0.3 scale of the 1M-row tables,
+    # as syn0 and syn1, reading row V-1 as a center, a context and a
+    # negative.
+    table.mul_(0.3)
+    c, x, m, ng, nm = step_inputs(torch, np, gen, P, (prob, alias))[0]
+    c = zipf_ids(torch, gen, (P,), V_BIG)
+    c[0] = V_BIG - 1
+    x[1] = V_BIG - 1
+    ng[2, 0] = V_BIG - 1
+    _, e, _ = pair_forward_held(torch, fs, (table, table, c, x, m, ng, nm, alpha),
+                                "f32 on the 10M-row table")
+    err["pair_forward"] = max(err["pair_forward"], e)
+    log(f"pair_forward f32 V={V_BIG} d={D} P={P}, row V-1 read: within rtol "
+        f"1e-5 (max |diff| {e:.3g}), h bitwise, two calls bitwise")
     del table
     torch.cuda.empty_cache()
     for (kernel, name), r in out.items():
@@ -1293,27 +1423,34 @@ def bits(torch, t):
     return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
 
 
-def rank1_bitwise(torch, rows_mod, table, ids, coef, h, hidx, what) -> int:
-    """``scatter_add_rank1`` on ``table`` held against its plain version
-    on a CPU copy of the touched rows, bit for bit (signed zeros too), and
-    a second call from the same rows against the first. Returns R."""
+def rank1_bitwise(torch, kernel, table, ids, coef, h, hidx, what) -> int:
+    """A rank-1 scatter, ``kernel`` = (wrapper, plain version), on
+    ``table`` held against its plain version on a CPU copy of the touched
+    rows, bit for bit (signed zeros too), and a second call from the same
+    rows against the first. Returns R."""
+    fn, reference = kernel
     uniq = torch.unique(ids.long())
     before = table[uniq].cpu()
     local = torch.searchsorted(uniq, ids.long()).to(torch.int32).cpu()
-    want = rows_mod.scatter_add_rank1_reference(
-        before.clone(), local, coef.cpu(), h.cpu(), hidx.cpu())
-    rows_mod.scatter_add_rank1(table, ids, coef, h, hidx)
+    want = reference(before.clone(), local, coef.cpu(), h.cpu(), hidx.cpu())
+    fn(table, ids, coef, h, hidx)
     torch.cuda.synchronize()
     first = table[uniq].cpu()
     expect(torch.equal(bits(torch, first), bits(torch, want)),
-           f"scatter_add_rank1 {what} differs from its plain version: max "
+           f"{what} differs from its plain version: max "
            f"|diff| {(first.float() - want.float()).abs().max().item()}")
     table[uniq] = before.to(DEV)
-    rows_mod.scatter_add_rank1(table, ids, coef, h, hidx)
+    fn(table, ids, coef, h, hidx)
     torch.cuda.synchronize()
     expect(torch.equal(bits(torch, table[uniq].cpu()), bits(torch, first)),
-           f"scatter_add_rank1 {what}: two calls differ")
+           f"{what}: two calls differ")
     return int(uniq.numel())
+
+
+def b2_kernel(rows_mod) -> tuple:
+    """``scatter_add_rank1`` and its plain version, for
+    :func:`rank1_bitwise`."""
+    return rows_mod.scatter_add_rank1, rows_mod.scatter_add_rank1_reference
 
 
 def sm_clock_mhz() -> float:
@@ -1363,7 +1500,8 @@ def scatter_rank1_parts(torch, table, h, step, ctx, wide, longest, flush,
                         for x in (ids, coef, hidx))}
     out = {}
     for key, (i, cf, hx) in cases.items():
-        R = rank1_bitwise(torch, rows_mod, table, i, cf, h, hx, f"{name} ({key})")
+        R = rank1_bitwise(torch, b2_kernel(rows_mod), table, i, cf, h, hx,
+                          f"scatter_add_rank1 {name} ({key})")
         counts = torch.unique(i, return_counts=True)[1]
         sid, order = fs.sorted_runs(i)
         out[key] = dict(n=i.numel(), runs=R, longest=int(counts.max()),
@@ -1401,8 +1539,8 @@ def signed_zero_case(torch, rows_mod, table, gen, name) -> None:
                          dtype=torch.int32)
     hidx = torch.where(zero, 2 * pick, 2 * pick + 1).to(torch.int32)
     table[torch.tensor([0, 5, 9], device=DEV)] = -0.0
-    rank1_bitwise(torch, rows_mod, table, ids, coef, hz, hidx,
-                  f"{name} signed zeros")
+    rank1_bitwise(torch, b2_kernel(rows_mod), table, ids, coef, hz, hidx,
+                  f"scatter_add_rank1 {name} signed zeros")
     got = table[torch.tensor([0, 5, 9], device=DEV)].float()
     expect(bool((torch.signbit(got[:, :32]).all()
                  & ~torch.signbit(got[:, 32:64]).any()).item()),
@@ -1440,8 +1578,8 @@ def check_composed_kernels(torch, np, rows_mod, fs) -> dict:
         # scatter_add_rank1: syn1 += (coef * h[hidx]) in the table's dtype;
         # each case bitwise, and two calls equal.
         for ids, cf, hx in ((ids1, coef, hidx), (ids1_w, coef_w, hidx_w)):
-            R = rank1_bitwise(torch, rows_mod, table, ids, cf, h, hx,
-                              f"{name} N={ids.numel()}")
+            R = rank1_bitwise(torch, b2_kernel(rows_mod), table, ids, cf, h, hx,
+                              f"scatter_add_rank1 {name} N={ids.numel()}")
             longest = int(torch.unique(ids, return_counts=True)[1].max())
             log(f"scatter_add_rank1 {name} V={rows_v} d={D} N={ids.numel()}: "
                 f"bitwise equal, two calls equal (R={R} runs, longest {longest})")
@@ -2272,7 +2410,16 @@ def main() -> int:
             "bf16_ms": timed[(name, "bf16")]["ms"],
             "bf16_bound_ms": timed[(name, "bf16")]["bound_ms"],
         })
+    b4, b7 = kernels[-3], kernels[-2]
     for dt in ("f32", "bf16"):
+        parts = timed[("pair_forward", dt)]["parts"]
+        b4.update({f"{dt}_pairs_x4_ms": parts["b"]["ms"],
+                   f"{dt}_one_row_ms": parts["c"]["ms"],
+                   f"{dt}_loss_sum_ms": timed[("pair_forward", dt)]["loss_sum_ms"]})
+        r7 = timed[("scatter_add_rank1_hbm", dt)]
+        b7.update({f"{dt}_longest_run": r7["longest"],
+                   f"{dt}_long_runs": r7["long_runs"]})
+        b7.update({f"{dt}_{k}_ms": p["ms"] for k, p in r7["parts"].items()})
         parts = timed[("scatter_add_rows_f32", dt)]["parts"]
         kernels[-1].update({f"{dt}_{k}_ms": p["ms"] for k, p in parts.items()})
         kernels[-1].update({f"{dt}_{k}_index_add_ms": p["library_ms"]

@@ -1,33 +1,57 @@
 // Forward half of the fused SGNS pair step for Hopper (sm_90a).
 //
-// Replaces glint_word2vec_tpu/ops/pallas_sgns.py::pair_forward (kernel body
-// _pair_forward_kernel, :113-197), the first phase of fused_pair_step. For
-// each pair p of a dense pair batch it gathers h = syn0[centers[p]],
+// Replaces glint_word2vec_tpu/ops/pallas_sgns.py::pair_forward (:201; kernel
+// body _pair_forward_kernel, :113-197), the first phase of fused_pair_step.
+// For each pair p of a dense pair batch it gathers h = syn0[centers[p]],
 // u = syn1[contexts[p]] and the n rows syn1[negs[p, k]] in storage dtype,
 // upcasts them to fp32 and writes
 //   c_pos[p]    = alpha * (1 - sigmoid(h.u)) * mask[p]
 //   c_neg[p, k] = -alpha * sigmoid(h.neg_k) * nmask[p, k]
-//   h_out[p]    = h (fp32)
+//   h_out[p]    = h (fp32, an exact upcast)
 //   d_center[p] = c_pos[p] * u + sum_k c_neg[p, k] * neg_k
 //   loss[p]     = (-log sigmoid(h.u) - sum_k log sigmoid(-h.neg_k) * nmask[p, k])
 //                 * mask[p]
 // The TPU kernel carries the loss sum across its sequential grid steps
 // (:193-197). Hopper blocks run in no order, so this kernel writes one loss
-// per pair and the wrapper reduces them in a fixed order: no float atomics.
+// per pair and the wrapper reduces them in a fixed order: no float atomics,
+// and two calls on the same inputs give the same bits.
 //
-// Bound: memory bandwidth. A call must read (2 + n) rows of d storage-dtype
-// values per pair and write two fp32 rows (h and d_center) per pair, about
-// ((2 + n) * P * d * s + 2 * P * d * 4) bytes; the arithmetic, 2 * (1 + 2n)
-// * d flops per pair, is far below the card's rate for those bytes.
+// Bound: memory bandwidth, and before it latency. A call must read the
+// (2 + n) rows of d storage-dtype values of each pair and write two fp32
+// rows (h and d_center) a pair, about ((2 + n) * s + 8) * P * d bytes
+// (s = 4 or 2); the arithmetic, 4 * (1 + n) * d flops a pair, is far below
+// the card's rate for those bytes. At a training step's size (P = 3,277,
+// n = 5, d = 300: 35 MB, about 0.010 ms at 3.35 TB/s) the time is the
+// launch plus the dependent trips to device memory that each pair makes.
 //
-// Design: one warp per pair, eight pairs per block. The warp stages h in
-// fp32 in shared memory, takes every dot product as per-lane fused
-// multiply-adds over columns lane, lane + 32, ... and a butterfly of
-// shuffles, and keeps the pair's c_neg in shared memory for the d_center
-// pass. The u and negative rows are read a second time for d_center; that
-// second read mostly hits L1/L2. Staging the rows with TMA or cp.async, and
-// vector loads, are later work. Row offsets are 64-bit: id * d passes 2^31
-// at V = 10,000,000.
+// Design: one warp a pair, two dependent trips. The TPU kernel starts all
+// block_rows x (2 + n) row copies before it waits on any (:113-197); here
+// - trip 1: lane t < 2 + n loads id t of the pair (center, context, the n
+//   negatives) and, for a negative, its mask, and puts them in the warp's
+//   slice of shared memory;
+// - trip 2: the warp asks for all 2 + n rows with cp.async before it waits
+//   on any, staging them in storage dtype in its slice (16-byte copies
+//   when the row stride and the tables' bases allow it: fp32 rows with
+//   stride % 4 == 0; 8-byte copies of 4 bf16 values when stride % 4 == 0
+//   but not % 8, as at d = 300; 4-byte copies otherwise; bf16 rows of an
+//   odd stride, which are only 2-byte aligned, by plain 2-byte loads);
+// - then everything else comes from shared memory: each lane takes
+//   groups of 4 columns, the 1 + n dot products are formed in one pass
+//   over the columns (negatives in chunks of kChunkNegs, one register sum
+//   each) and their warp reductions are interleaved; every lane then
+//   holds every sum, and d_center is formed from the staged rows with no
+//   second read of u or the negative rows, each column in one fixed order:
+//   c_pos * u first, then the negatives k = 0 .. n - 1. h and d_center
+//   are written with 16-byte stores when d % 4 == 0.
+// The registers are sized for n <= kChunkNegs = 8 in one pass; a larger n
+// (users run 5 to 25) takes ceil(n / 8) passes over the staged h, and any
+// n >= 1 works while a pair's rows fit in shared memory:
+// (2 + n) * round_up(d * s, 16) bytes plus its ids and masks, at most
+// 227 KB (n = 5: d <= 8,300 in fp32; n = 25: d <= 2,150). The host picks
+// the warps a block so that the most pairs are resident on an SM at once
+// (at d = 300, n = 5, fp32: 27 of 8.5 KB each, one wave for P = 3,277;
+// times in PERF.md §6).
+// Row offsets are 64-bit: id * stride passes 2^31 at V = 10,000,000.
 //
 // Preconditions: the tables share one row stride and n >= 1 (the wrapper
 // checks both); every id lies in [0, V) (the caller keeps this, as the
@@ -39,31 +63,31 @@
 // and bound with ctypes by glint_word2vec_torch/ops/fused_sgns.py.
 
 #include <cstdint>
+#include <mutex>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kThreads = kWarpsPerBlock * 32;
-constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kMaxWarpsPerBlock = 16;
+constexpr int kMaxThreads = kMaxWarpsPerBlock * 32;
+// Negatives whose dot products one pass over the columns forms.
+constexpr int kChunkNegs = 8;
+constexpr unsigned kFull = 0xffffffffu;
 
 constexpr int32_t kDtypeF32 = 0;
 constexpr int32_t kDtypeBF16 = 1;
 
-__device__ __forceinline__ float load_f(const float* p, int64_t i) {
-  return __ldg(p + i);
+__host__ __device__ __forceinline__ int64_t round_up16(int64_t x) {
+  return (x + 15) & ~int64_t{15};
 }
 
-// bf16 -> fp32 is exact: the bf16 bits are the high half of the fp32 bits.
-__device__ __forceinline__ float load_f(const uint16_t* p, int64_t i) {
-  return __uint_as_float(static_cast<uint32_t>(__ldg(p + i)) << 16);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// Bytes of a warp's slice of shared memory: the 2 + n staged rows, each
+// padded to 16 bytes, then the 2 + n ids, the n negative masks and the n
+// coefficients c_neg.
+__host__ __device__ __forceinline__ int64_t slice_bytes(int n, int64_t d,
+                                                        int s) {
+  return (2 + n) * round_up16(d * s) + round_up16(4 * (2 + 3 * int64_t{n}));
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
@@ -75,8 +99,75 @@ __device__ __forceinline__ float log_sigmoid(float x) {
   return -(fmaxf(-x, 0.0f) + log1pf(expf(-fabsf(x))));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// Columns 4g .. 4g + 3 of a staged row as fp32; the columns at or past d
+// read as 0 (the staged row's padding holds anything).
+__device__ __forceinline__ float4 group4(const float* row, int64_t g,
+                                         int64_t d) {
+  float4 v = reinterpret_cast<const float4*>(row)[g];
+  const int64_t j = 4 * g;
+  if (j + 4 > d) {
+    if (j + 1 >= d) v.y = 0.0f;
+    if (j + 2 >= d) v.z = 0.0f;
+    v.w = 0.0f;
+  }
+  return v;
+}
+
+// bf16 -> fp32 is exact: the bf16 bits are the high half of the fp32 bits.
+__device__ __forceinline__ float4 group4(const uint16_t* row, int64_t g,
+                                         int64_t d) {
+  const uint2 w = reinterpret_cast<const uint2*>(row)[g];
+  float4 v = make_float4(__uint_as_float(w.x << 16),
+                         __uint_as_float(w.x & 0xffff0000u),
+                         __uint_as_float(w.y << 16),
+                         __uint_as_float(w.y & 0xffff0000u));
+  const int64_t j = 4 * g;
+  if (j + 4 > d) {
+    if (j + 1 >= d) v.y = 0.0f;
+    if (j + 2 >= d) v.z = 0.0f;
+    v.w = 0.0f;
+  }
+  return v;
+}
+
+__device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
+  acc = fmaf(a.x, b.x, acc);
+  acc = fmaf(a.y, b.y, acc);
+  acc = fmaf(a.z, b.z, acc);
+  return fmaf(a.w, b.w, acc);
+}
+
+// Columns 4g .. of an fp32 output row: one 16-byte store when d % 4 == 0
+// (the wrapper's outputs are 16-byte aligned), else the columns below d.
+__device__ __forceinline__ void store4(float* row, int64_t g, int64_t d,
+                                       float4 v) {
+  const int64_t j = 4 * g;
+  if ((d & 3) == 0) {
+    reinterpret_cast<float4*>(row)[g] = v;
+    return;
+  }
+  row[j] = v.x;
+  if (j + 1 < d) row[j + 1] = v.y;
+  if (j + 2 < d) row[j + 2] = v.z;
+  if (j + 3 < d) row[j + 3] = v.w;
+}
+
+// A copy of kBytes into shared memory that also keeps the line in L1
+// (.ca): a row many pairs of a block's SM read (row 0 of the padded
+// slots, a frequent negative) is then read from L2 once, not once a pair
+// (PERF.md §6).
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(gmem), "n"(kBytes)
+               : "memory");
+}
+
+// One pair per warp; kVec is the bytes a copy of trip 2 moves (16, 8 or 4
+// with cp.async, 2 with plain loads).
+template <typename T, int kVec>
+__global__ void __launch_bounds__(kMaxThreads, 2)
 pair_forward_kernel(const T* __restrict__ syn0, const T* __restrict__ syn1,
                     int64_t stride, const int32_t* __restrict__ centers,
                     const int32_t* __restrict__ contexts,
@@ -88,55 +179,134 @@ pair_forward_kernel(const T* __restrict__ syn0, const T* __restrict__ syn1,
                     float* __restrict__ c_neg_out, float* __restrict__ h_out,
                     float* __restrict__ dcen_out,
                     float* __restrict__ loss_out) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t p = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + warp;
-  if (p >= P) return;
-  // This warp's slice: d floats of h, then n floats of c_neg.
-  float* hs = smem + static_cast<int64_t>(warp) * (d + n);
-  float* cn = hs + d;
-  const float alpha = __ldg(alpha_p);
-  const T* hrow = syn0 + static_cast<int64_t>(__ldg(centers + p)) * stride;
-  const T* urow = syn1 + static_cast<int64_t>(__ldg(contexts + p)) * stride;
+  const int64_t p = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) + warp;
+  if (p >= P) return;  // uniform across the warp
+  const int nrows = 2 + n;
+  const int64_t rb = round_up16(d * static_cast<int64_t>(sizeof(T)));
+  unsigned char* slice = smem + warp * slice_bytes(n, d, sizeof(T));
+  int32_t* ids = reinterpret_cast<int32_t*>(slice + nrows * rb);
+  float* nms = reinterpret_cast<float*>(ids + nrows);
+  float* cn = nms + n;
+
+  // Trip 1: the pair's ids and negative masks, one lane each.
   const int32_t* pneg = negs + p * n;
-  float* hdst = h_out + p * d;
-
-  float acc = 0.0f;
-  for (int64_t j = lane; j < d; j += 32) {
-    const float hv = load_f(hrow, j);
-    hs[j] = hv;
-    hdst[j] = hv;
-    acc = fmaf(hv, load_f(urow, j), acc);
+  const float* pnm = nmask + p * n;
+  for (int t = lane; t < nrows; t += 32) {
+    ids[t] = t == 0 ? __ldg(centers + p)
+                    : t == 1 ? __ldg(contexts + p) : __ldg(pneg + (t - 2));
+    if (t >= 2) nms[t - 2] = __ldg(pnm + (t - 2));
   }
-  const float f_pos = warp_sum(acc);
   const float m = __ldg(mask + p);
-  const float c_pos = alpha * (1.0f - sigmoid(f_pos)) * m;
-  float loss = -log_sigmoid(f_pos);
-
-  for (int k = 0; k < n; ++k) {
-    const T* nrow = syn1 + static_cast<int64_t>(__ldg(pneg + k)) * stride;
-    float a = 0.0f;
-    for (int64_t j = lane; j < d; j += 32) a = fmaf(hs[j], load_f(nrow, j), a);
-    const float f_neg = warp_sum(a);
-    const float nm = __ldg(nmask + p * n + k);
-    const float c = -alpha * sigmoid(f_neg) * nm;
-    if (lane == 0) {
-      cn[k] = c;
-      c_neg_out[p * n + k] = c;
-    }
-    loss -= log_sigmoid(-f_neg) * nm;
-  }
+  const float alpha = __ldg(alpha_p);
   __syncwarp();
 
-  float* ddst = dcen_out + p * d;
-  for (int64_t j = lane; j < d; j += 32) {
-    float v = c_pos * load_f(urow, j);
-    for (int k = 0; k < n; ++k) {
-      const T* nrow = syn1 + static_cast<int64_t>(__ldg(pneg + k)) * stride;
-      v = fmaf(cn[k], load_f(nrow, j), v);
+  // Trip 2: every row of the pair requested before any is waited on.
+  const int64_t nvec = (d * static_cast<int64_t>(sizeof(T)) + kVec - 1) / kVec;
+  for (int r = 0; r < nrows; ++r) {
+    const unsigned char* src = reinterpret_cast<const unsigned char*>(
+        (r == 0 ? syn0 : syn1) + static_cast<int64_t>(ids[r]) * stride);
+    unsigned char* dst = slice + r * rb;
+    if constexpr (kVec >= 4) {
+      for (int64_t v = lane; v < nvec; v += 32) {
+        cp_async<kVec>(dst + v * kVec, src + v * kVec);
+      }
+    } else {
+      // bf16 rows of an odd stride: plain loads, four in flight a lane.
+      const uint16_t* s16 = reinterpret_cast<const uint16_t*>(src);
+      uint16_t* d16 = reinterpret_cast<uint16_t*>(dst);
+      for (int64_t v0 = lane; v0 < nvec; v0 += 128) {
+        uint16_t x[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          x[u] = v0 + 32 * u < nvec ? __ldg(s16 + v0 + 32 * u) : 0;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (v0 + 32 * u < nvec) d16[v0 + 32 * u] = x[u];
+        }
+      }
     }
-    ddst[j] = v;
+  }
+  if constexpr (kVec >= 4) {
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+  __syncwarp();  // every lane's copies are visible to the warp
+
+  const T* h = reinterpret_cast<const T*>(slice);
+  auto row = [&](int r) {
+    return reinterpret_cast<const T*>(slice + r * rb);
+  };
+  const int64_t groups = (d + 3) / 4;
+  float* hdst = h_out + p * d;
+  float f_pos = 0.0f;
+  float loss = 0.0f;
+  // The dot products, kChunkNegs negatives a pass (the first pass also
+  // h.u and the h row's store), their warp sums interleaved.
+  for (int k0 = 0; k0 < n; k0 += kChunkNegs) {
+    const int cnt = min(kChunkNegs, n - k0);
+    float acc[kChunkNegs + 1];
+#pragma unroll
+    for (int k = 0; k <= kChunkNegs; ++k) acc[k] = 0.0f;
+    for (int64_t g = lane; g < groups; g += 32) {
+      const float4 hv = group4(h, g, d);
+      if (k0 == 0) {
+        acc[kChunkNegs] = dot4(hv, group4(row(1), g, d), acc[kChunkNegs]);
+        store4(hdst, g, d, hv);
+      }
+#pragma unroll
+      for (int k = 0; k < kChunkNegs; ++k) {
+        if (k < cnt) acc[k] = dot4(hv, group4(row(2 + k0 + k), g, d), acc[k]);
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int k = 0; k <= kChunkNegs; ++k) {
+        if (k < cnt || (k == kChunkNegs && k0 == 0)) {
+          acc[k] += __shfl_xor_sync(kFull, acc[k], o);
+        }
+      }
+    }
+    if (k0 == 0) {
+      f_pos = acc[kChunkNegs];
+      loss = -log_sigmoid(f_pos);
+    }
+#pragma unroll
+    for (int k = 0; k < kChunkNegs; ++k) {
+      if (k < cnt) {
+        const float nm = nms[k0 + k];
+        const float c = -alpha * sigmoid(acc[k]) * nm;
+        if (lane == 0) {
+          cn[k0 + k] = c;
+          c_neg_out[p * n + k0 + k] = c;
+        }
+        loss -= log_sigmoid(-acc[k]) * nm;
+      }
+    }
+  }
+  const float c_pos = alpha * (1.0f - sigmoid(f_pos)) * m;
+  __syncwarp();  // lane 0's coefficients are visible to the warp
+
+  // d_center from the staged rows: c_pos * u, then each negative in order.
+  float* ddst = dcen_out + p * d;
+  for (int64_t g = lane; g < groups; g += 32) {
+    const float4 uv = group4(row(1), g, d);
+    float4 v = make_float4(c_pos * uv.x, c_pos * uv.y, c_pos * uv.z,
+                           c_pos * uv.w);
+#pragma unroll 4
+    for (int k = 0; k < n; ++k) {
+      const float c = cn[k];
+      const float4 nv = group4(row(2 + k), g, d);
+      v.x = fmaf(c, nv.x, v.x);
+      v.y = fmaf(c, nv.y, v.y);
+      v.z = fmaf(c, nv.z, v.z);
+      v.w = fmaf(c, nv.w, v.w);
+    }
+    store4(ddst, g, d, v);
   }
   if (lane == 0) {
     c_pos_out[p] = c_pos;
@@ -144,30 +314,109 @@ pair_forward_kernel(const T* __restrict__ syn0, const T* __restrict__ syn1,
   }
 }
 
-template <typename T>
-int launch(const void* syn0, const void* syn1, int64_t stride,
-           const void* centers, const void* contexts, const void* mask,
-           const void* negs, const void* nmask, const void* alpha, int64_t P,
-           int n, int64_t d, void* c_pos, void* c_neg, void* h, void* dcen,
-           void* loss, cudaStream_t s) {
-  const size_t smem = sizeof(float) * kWarpsPerBlock * static_cast<size_t>(d + n);
-  if (smem > kDefaultSmem) {
-    cudaError_t e = cudaFuncSetAttribute(
-        pair_forward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+// A launch's shape: warps (pairs) a block, the blocks an SM holds at once.
+struct Plan {
+  int warps = 0;
+  int per_sm = 0;
+  int sms = 0;
+};
+
+// The shape that keeps the most pairs resident on an SM for a kernel and a
+// slice size, found once with the occupancy calculator and kept.
+int plan_for(const void* fn, int64_t slice, Plan* out) {
+  struct Entry {
+    const void* fn;
+    int64_t slice;
+    Plan plan;
+  };
+  static std::mutex mu;
+  static Entry cache[64];
+  static int cached = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < cached; ++i) {
+    if (cache[i].fn == fn && cache[i].slice == slice) {
+      *out = cache[i].plan;
+      return cudaSuccess;
+    }
   }
-  const int64_t blocks = (P + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  pair_forward_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
-      static_cast<const T*>(syn0), static_cast<const T*>(syn1), stride,
-      static_cast<const int32_t*>(centers), static_cast<const int32_t*>(contexts),
-      static_cast<const float*>(mask), static_cast<const int32_t*>(negs),
-      static_cast<const float*>(nmask), static_cast<const float*>(alpha), P, n,
-      d, static_cast<float*>(c_pos), static_cast<float*>(c_neg),
-      static_cast<float*>(h), static_cast<float*>(dcen),
-      static_cast<float*>(loss));
-  return static_cast<int>(cudaGetLastError());
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             optin);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Plan best;
+  best.sms = sms;
+  for (int w = 1; w <= kMaxWarpsPerBlock; ++w) {
+    if (w * slice > optin) break;
+    int blocks = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fn, 32 * w, static_cast<size_t>(w * slice));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (blocks * w > best.per_sm * best.warps ||
+        (blocks * w == best.per_sm * best.warps && blocks > 0 &&
+         w <= 8)) {
+      best.warps = w;
+      best.per_sm = blocks;
+    }
+  }
+  // A pair's rows do not fit in a block's shared memory.
+  if (best.warps == 0) return cudaErrorInvalidValue;
+  if (cached < 64) cache[cached++] = {fn, slice, best};
+  *out = best;
+  return cudaSuccess;
+}
+
+// The largest copy (16, 8, 4 bytes; 2 for bf16 only) that every row of
+// both tables allows: the row stride in bytes and both bases divisible.
+int vec_bytes(const void* syn0, const void* syn1, int64_t stride, int s) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(syn0) |
+                          reinterpret_cast<uintptr_t>(syn1) |
+                          static_cast<uintptr_t>(stride * s);
+  for (int v = 16; v > 2; v >>= 1) {
+    if ((bases & (v - 1)) == 0) return v;
+  }
+  return 2;
+}
+
+template <typename T, int kVec>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(pair_forward_kernel<T, kVec>);
+}
+
+template <typename T>
+const void* pick(int vec) {
+  switch (vec) {
+    case 16:
+      return kernel_of<T, 16>();
+    case 8:
+      return kernel_of<T, 8>();
+    case 4:
+      return kernel_of<T, 4>();
+    default:
+      if constexpr (sizeof(T) == 2) return kernel_of<T, 2>();
+      return nullptr;  // an fp32 row is always 4-byte aligned
+  }
+}
+
+const void* kernel_for(int32_t dtype, const void* syn0, const void* syn1,
+                       int64_t stride) {
+  switch (dtype) {
+    case kDtypeF32:
+      return pick<float>(vec_bytes(syn0, syn1, stride, 4));
+    case kDtypeBF16:
+      return pick<uint16_t>(vec_bytes(syn0, syn1, stride, 2));
+    default:
+      return nullptr;
+  }
 }
 
 }  // namespace
@@ -177,9 +426,11 @@ extern "C" {
 // Launches the forward pass on `stream` and returns cudaGetLastError() as
 // an int (0 = launched). syn0/syn1 are [V, stride] of `dtype` (0 = f32,
 // 1 = bf16); centers, contexts [P] int32; mask [P] f32; negs [P, n] int32;
-// nmask [P, n] f32; alpha a device f32 scalar. Outputs, contiguous fp32:
-// c_pos [P], c_neg [P, n], h [P, d], d_center [P, d], loss [P]. Does not
-// synchronise and allocates nothing.
+// nmask [P, n] f32; alpha a device f32 scalar. Outputs, contiguous fp32,
+// 16-byte aligned: c_pos [P], c_neg [P, n], h [P, d], d_center [P, d],
+// loss [P]. Does not synchronise and allocates nothing. Returns
+// cudaErrorInvalidValue when a pair's 2 + n rows do not fit in shared
+// memory (see the header).
 int glint_pair_forward(const void* syn0, const void* syn1, int64_t stride,
                        int32_t dtype, const void* centers, const void* contexts,
                        const void* mask, const void* negs, const void* nmask,
@@ -188,19 +439,48 @@ int glint_pair_forward(const void* syn0, const void* syn1, int64_t stride,
                        void* loss, void* stream) {
   if (P < 0 || n < 1 || d <= 0 || stride < d) return cudaErrorInvalidValue;
   if (P == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kDtypeF32:
-      return launch<float>(syn0, syn1, stride, centers, contexts, mask, negs,
-                           nmask, alpha, P, n, d, c_pos, c_neg, h, d_center,
-                           loss, s);
-    case kDtypeBF16:
-      return launch<uint16_t>(syn0, syn1, stride, centers, contexts, mask,
-                              negs, nmask, alpha, P, n, d, c_pos, c_neg, h,
-                              d_center, loss, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  const void* fn = kernel_for(dtype, syn0, syn1, stride);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  const int64_t slice = slice_bytes(n, d, dtype == kDtypeF32 ? 4 : 2);
+  Plan plan;
+  const int e = plan_for(fn, slice, &plan);
+  if (e != cudaSuccess) return e;
+  const int64_t blocks = (P + plan.warps - 1) / plan.warps;
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  const int32_t* ci = static_cast<const int32_t*>(centers);
+  const int32_t* xi = static_cast<const int32_t*>(contexts);
+  const float* mk = static_cast<const float*>(mask);
+  const int32_t* ng = static_cast<const int32_t*>(negs);
+  const float* nm = static_cast<const float*>(nmask);
+  const float* al = static_cast<const float*>(alpha);
+  float* o[5] = {static_cast<float*>(c_pos), static_cast<float*>(c_neg),
+                 static_cast<float*>(h), static_cast<float*>(d_center),
+                 static_cast<float*>(loss)};
+  void* args[] = {&syn0, &syn1, &stride, &ci, &xi, &mk, &ng, &nm, &al,
+                  &P,    &n,    &d,      &o[0], &o[1], &o[2], &o[3], &o[4]};
+  return static_cast<int>(cudaLaunchKernel(
+      fn, dim3(static_cast<unsigned>(blocks)), dim3(32 * plan.warps), args,
+      static_cast<size_t>(plan.warps * slice),
+      static_cast<cudaStream_t>(stream)));
+}
+
+// The launch glint_pair_forward makes for these arguments, into out[0..3]:
+// blocks, pairs a block, blocks an SM holds at once, SMs.
+int glint_pair_forward_grid(const void* syn0, const void* syn1, int64_t stride,
+                            int32_t dtype, int64_t P, int32_t n, int64_t d,
+                            int64_t* out) {
+  if (P < 0 || n < 1 || d <= 0 || stride < d) return cudaErrorInvalidValue;
+  const void* fn = kernel_for(dtype, syn0, syn1, stride);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  Plan plan;
+  const int e = plan_for(fn, slice_bytes(n, d, dtype == kDtypeF32 ? 4 : 2),
+                         &plan);
+  if (e != cudaSuccess) return e;
+  out[0] = (P + plan.warps - 1) / plan.warps;
+  out[1] = plan.warps;
+  out[2] = plan.per_sm;
+  out[3] = plan.sms;
+  return cudaSuccess;
 }
 
 const char* glint_cuda_error_string(int code) {

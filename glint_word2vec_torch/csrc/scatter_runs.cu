@@ -55,23 +55,26 @@
 // the launch and a few dependent round trips to device memory.
 //
 // Design. A run of 32 (kLongRun) or more updates is long: row 0, which
-// every padded slot of a batch targets, or a frequent word.
-// - Three forms (scatter_add_rows_f32, B6; scatter_add_rows, B3;
-//   scatter_add_rank1, B2) are two kernels, with the payload (an update
-//   row of upd, or a rank-1 update coef * h[hidx]) a template parameter.
-//   A pre-pass (find_long_runs_kernel), one warp every 32 sorted
+// every padded slot of a batch targets, or a frequent word. Every form is
+// two kernels, with the payload (an update row of upd, or a rank-1 update
+// coef * h[hidx]) and the policy template parameters: scatter_add_rows_f32
+// (B6: rows, fp32 sums), scatter_add_rank1_hbm (B7: rank-1, fp32 sums),
+// scatter_add_rows (B3: rows, table dtype) and scatter_add_rank1 (B2:
+// rank-1, table dtype).
+// - A pre-pass (find_long_runs_kernel), one warp every 32 sorted
 //   positions (a long run holds at least one multiple of 32), writes a
 //   slot for each multiple p: (first, end) of the long run whose first
 //   multiple p is, else (-1, -1). Every slot is written, so the workspace
 //   needs no clearing; one round trip reads the ids around p and every
 //   32nd id up to p + 1024, and a second one finds the end of a run past
-//   p + 32. Then rows_kernel, on a grid fixed from N on the host (no
-//   readback), starts with up to 2 blocks an SM that take the items
-//   (slot, 8-column slice) in turn, skipping empty slots, followed by one
-//   warp per sorted position, which leave long runs alone: the long runs'
-//   add chains run beside the short runs, and however many long runs
-//   there are, every SM keeps a slot for the short runs. Under the
-//   fp32-sum policy rows_kernel is a programmatic dependent launch: its
+//   p + 32.
+// - Then rows_kernel, on a grid fixed from N on the host (no readback),
+//   starts with up to 2 blocks an SM that take the items (slot, 8-column
+//   slice) in turn, skipping empty slots, followed by one warp per sorted
+//   position, which leave long runs alone: the long runs' add chains run
+//   beside the short runs, and however many long runs there are, every SM
+//   keeps a slot for the short runs. Under the fp32-sum policy and for
+//   the rank-1 payload rows_kernel is a programmatic dependent launch: its
 //   short runs start while the pre-pass runs, and only its long-run
 //   blocks wait for the pre-pass's grid (griddepcontrol.wait).
 //   * A long-run block of 256 threads stages the slice's payload rows (32
@@ -85,45 +88,33 @@
 //     fetched two chunks ahead, and its coefficient goes into a second
 //     ring of 4 x 256 floats. Each of the slice's 8 columns is summed by
 //     one thread in sorted order, which reads the next 16 staged values
-//     into registers (for B2 forming each update there, the fp32 product
-//     of coefficient and h value, off the add chain) while it adds the
-//     last 16; the row is written once. The fp32-sum policy keeps the sum
-//     in fp32 from the row's fp32 value and rounds at the store; under the
+//     into registers (a rank-1 update formed there, the fp32 product of
+//     coefficient and h value, off the add chain) while it adds the last
+//     16; the row is written once. The fp32-sum policy keeps the sum in
+//     fp32 from the row's fp32 value and rounds at the store; under the
 //     table-dtype policy on bf16 the thread keeps its sum as bf16 bits and
 //     adds with one fma.rn.bf16 (see Chain<uint16_t>: bit for bit the fp32
 //     add rounded to bf16). At d = 300 a run has 38 blocks on 38 SMs
 //     loading it, so its payload does not set its time.
 //   * A short run's warps (short_run_warp) load, in one round trip, the
 //     ids and permutation entries of the 32 positions each side of their
-//     own, so each knows its run and its offset k in it. Rows forms: a
+//     own, so each knows its run and its offset k in it. Rows payload: a
 //     run of one update (most runs) is its warp's: 10 columns a lane, the
 //     table and payload values loaded together. A run of L in 2 .. 31 is
 //     shared by the warps at its first h = min(L, ceil(d / 32)) positions,
 //     warp k taking the 32-column slices k, k + h, ...; each lane loads,
 //     32 at a time and before it adds any, the table value and the L
 //     updates of each of its columns, so the run takes one round trip for
-//     its loads instead of one per few updates. B2: a short run is the
-//     warp's at its first position (rank1_warp_run); lane t loads update
-//     t's h row index and coefficient while the warp loads the table row,
-//     then the updates follow in order, four h rows in flight, 10 columns
-//     a lane.
-//   Under the fp32-sum policy the kernel keeps 4 blocks an SM (at most
-//   64 registers), under the table-dtype policy 3 (80): B6's runs are
-//   short and its time is round trips, while B3 at fastText width (a
-//   row-0 run of 9,262 beside 22,593 short runs) ran 9 % slower with a
-//   fourth block (PERF.md §6).
-// - scatter_add_rank1_hbm (B7) is one kernel (scatter_runs_kernel) of one
-//   warp per sorted position, the last user of helper warps. Each lane
-//   loads one update's permutation entry, coefficient and h row index and
-//   the warp broadcasts them with shuffles; the run's end comes from a
-//   ballot over the next 32 ids, then a galloping search for longer runs.
-//   A short run belongs to the warp at its first position, which keeps up
-//   to 10 columns per lane (320 per pass, so d = 300 is one pass) in
-//   registers; a long run is shared by the warps at its first
-//   min(ceil(d / 32), 32) positions, each taking 32-column slices of the
-//   row; a lane loads its column of 32 updates before adding them in
-//   order, so 32 row loads are in flight. The run's length sets their
-//   time.
+//     its loads instead of one per few updates. Rank-1 payload: a short
+//     run is the warp's at its first position (rank1_warp_run); lane t
+//     loads update t's h row index and coefficient while the warp loads
+//     the table row, then the updates follow in order, a few h rows in
+//     flight (kRank1InFlight), 10 columns a lane.
+//   Blocks an SM: 3 under the table-dtype policy (at most 80 registers;
+//   B3 at fastText width, a row-0 run of 9,262 beside 22,593 short runs,
+//   ran 9 % slower with a fourth block), 4 under the fp32-sum policy (at
+//   most 64: B6's and B7's runs are short and their time is round trips;
+//   B7's short runs keep two h rows in flight, B2's four).
 // In every path each column of a run is one thread's serial sum in sorted
 // order, under its policy's rounding, so every path gives the same bits.
 // Row offsets are 64-bit: id * d passes 2^31 at V = 10,000,000. bf16 table
@@ -150,7 +141,6 @@ constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kCols = 10;  // columns per lane per pass of a short run
 constexpr int kLongRun = 32;  // runs this long or longer are long runs
-constexpr int kHelpers = 32;  // at most this many warps share one run
 constexpr unsigned kFull = 0xffffffffu;
 // rows_kernel's long-run blocks: kSlice columns an item (32 B of fp32),
 // chunks of kChunk update rows (one a thread), a ring of kStages.
@@ -162,17 +152,23 @@ static_assert(kChunk == kThreads, "a long-run block copies a row a thread");
 // rows_kernel keeps at least kRowsBlocksPerSm blocks an SM resident under
 // the table-dtype policy (scatter_add_rows and scatter_add_rank1, whose
 // row-0 chains of thousands of adds run slower beside more warps) and
-// kF32BlocksPerSm under the
-// fp32-sum policy (scatter_add_rows_f32, whose runs are short and whose
-// time is the short runs' round trips); at most kLongBlocksPerSm of them
-// (per SM of the card) take long runs, so that however many long runs a
-// call has, every SM keeps a slot for the short runs' warps.
+// kF32BlocksPerSm under the fp32-sum policy (scatter_add_rows_f32 and
+// scatter_add_rank1_hbm, whose runs are short and whose time is the short
+// runs' round trips); at most kLongBlocksPerSm of them (per SM of the
+// card) take long runs, so that however many long runs a call has, every
+// SM keeps a slot for the short runs' warps.
 constexpr int kRowsBlocksPerSm = 3;
 constexpr int kF32BlocksPerSm = 4;
 constexpr int kLongBlocksPerSm = 2;
 static_assert(kLongBlocksPerSm < kRowsBlocksPerSm &&
                   kLongBlocksPerSm < kF32BlocksPerSm,
               "long-run blocks must leave the short runs a slot an SM");
+// The h rows a rank-1 short run keeps in flight (rank1_warp_run): four
+// under the table-dtype policy (B2, within 3 blocks' 80 registers), two
+// under the fp32-sum policy (B7, within 4 blocks' 64: four rows at 3
+// blocks an SM took 12 % longer; PERF.md §6).
+template <bool kRoundEach>
+constexpr int kRank1InFlight = kRoundEach ? 4 : 2;
 
 __host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -333,18 +329,17 @@ __device__ __forceinline__ int64_t run_end(const int32_t* __restrict__ ids,
   return hi;
 }
 
-// A short run of rank-1 updates (scatter_add_rank1) by one warp: the table
-// row's values, then the run's len updates in sorted order, kCols columns
-// a lane per pass (one pass for d <= 320). Lane t < len holds update t's
-// reference (`mine`), broadcast with shuffles. The h values of each full
-// group of kInFlight updates are loaded before the first of them is
-// added, so that four rows are in flight whatever the compiler unrolls;
-// the last len % kInFlight updates follow one at a time. (Left to
+// A short run of rank-1 updates by one warp: the table row's values, then
+// the run's len updates in sorted order under policy kRoundEach, kCols
+// columns a lane per pass (one pass for d <= 320). Lane t < len holds
+// update t's reference (`mine`), broadcast with shuffles. The h values of
+// each full group of kInFlight updates are loaded before the first of them
+// is added, so that kInFlight rows are in flight whatever the compiler
+// unrolls; the last len % kInFlight updates follow one at a time. (Left to
 // `#pragma unroll 4`, the bf16 form compiled to 63 registers and its runs
 // of 2 to 31 took 4.8 times as long as fp32's; groups predicated update by
 // update took 3.7 times as long in fp32: PERF.md §6.)
-constexpr int kInFlight = 4;
-template <typename T>
+template <typename T, bool kRoundEach, int kInFlight>
 __device__ __forceinline__ void rank1_warp_run(T* __restrict__ trow,
                                                int64_t d, int len,
                                                const Rank1Payload& pay,
@@ -372,7 +367,9 @@ __device__ __forceinline__ void rank1_warp_run(T* __restrict__ trow,
 #pragma unroll
       for (int u = 0; u < kInFlight; ++u) {
 #pragma unroll
-        for (int i = 0; i < kCols; ++i) acc[i] = add<T, true>(acc[i], v[u][i]);
+        for (int i = 0; i < kCols; ++i) {
+          acc[i] = add<T, kRoundEach>(acc[i], v[u][i]);
+        }
       }
     }
     for (; t < len; ++t) {
@@ -380,7 +377,7 @@ __device__ __forceinline__ void rank1_warp_run(T* __restrict__ trow,
 #pragma unroll
       for (int i = 0; i < kCols; ++i) {
         const int64_t j = c0 + lane + 32 * i;
-        if (j < d) acc[i] = add<T, true>(acc[i], pay.at(m, d, j));
+        if (j < d) acc[i] = add<T, kRoundEach>(acc[i], pay.at(m, d, j));
       }
     }
 #pragma unroll
@@ -391,111 +388,9 @@ __device__ __forceinline__ void rank1_warp_run(T* __restrict__ trow,
   }
 }
 
-// The run of sorted position w, for the warp at w, under
-// scatter_add_rank1_hbm (see Design): a short run's first warp sums it,
-// helper warps share a long run. Sums in fp32, rounded once at the store.
-template <typename T>
-__device__ __forceinline__ void scatter_run_warp(
-    T* __restrict__ table, int64_t stride, int64_t d,
-    const int32_t* __restrict__ sorted_ids, const int32_t* __restrict__ order,
-    int64_t n, const Rank1Payload& pay, int64_t w) {
-  if (w >= n) return;  // uniform across the warp
-  const int lane = threadIdx.x & 31;
-  const int32_t id = __ldg(sorted_ids + w);
-
-  // w's offset k in its run, if k < helpers: the ids before w equal to
-  // `id` are a prefix of the lanes' probes.
-  const int64_t slices = (d + 31) / 32;
-  const int helpers = static_cast<int>(slices < kHelpers ? slices : kHelpers);
-  const int64_t back = w - 1 - lane;
-  const unsigned before = __ballot_sync(
-      kFull, lane < helpers && back >= 0 && __ldg(sorted_ids + back) == id);
-  if (before == kFull) return;
-  const int k = __ffs(~before) - 1;
-  if (k >= helpers) return;
-  const int64_t s0 = w - k;  // the run's first position
-  if (k > 0) {  // a short run belongs to its first warp alone
-    const int64_t q = s0 + kLongRun - 1;
-    if (!(q < n && __ldg(sorted_ids + q) == id)) return;
-  }
-  const int64_t end = run_end(sorted_ids, n, s0, id, lane);
-  const int64_t len = end - s0;
-  T* trow = table + static_cast<int64_t>(id) * stride;
-
-  if (len < kLongRun) {
-    // Short run, one warp: kCols columns a lane per pass, the updates in
-    // order, each update's row loads issued together.
-    Rank1Payload::Ref mine{0, 0.0f};
-    if (lane < len) mine = pay.ref(__ldg(order + s0 + lane));
-    const int cnt = static_cast<int>(len);
-    for (int64_t c0 = 0; c0 < d; c0 += 32 * kCols) {
-      float acc[kCols];
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        const int64_t j = c0 + lane + 32 * i;
-        acc[i] = j < d ? load_f(trow, j) : 0.0f;
-      }
-#pragma unroll 4
-      for (int t = 0; t < cnt; ++t) {
-        const Rank1Payload::Ref m = Rank1Payload::shfl(mine, t);
-#pragma unroll
-        for (int i = 0; i < kCols; ++i) {
-          const int64_t j = c0 + lane + 32 * i;
-          if (j < d) acc[i] = add<T, false>(acc[i], pay.at(m, d, j));
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < kCols; ++i) {
-        const int64_t j = c0 + lane + 32 * i;
-        if (j < d) store_f(trow, j, acc[i]);
-      }
-    }
-    return;
-  }
-
-  // Long run: `helpers` warps split the row into 32-column slices (warp k
-  // takes slices k, k + helpers, ...), and each walks the whole run for
-  // its slice, one column a lane. A lane loads its column of 32 updates
-  // before it adds any of them, and the next 32 updates' indices are
-  // fetched before the adds: the loads overlap, the adds stay in order.
-  for (int64_t s = k; s < slices; s += helpers) {
-    const int64_t j = 32 * s + lane;
-    const bool col = j < d;
-    float acc = col ? load_f(trow, j) : 0.0f;
-    Rank1Payload::Ref mine = pay.ref(__ldg(order + s0 + lane));  // len >= 32
-    for (int64_t b = s0; b < end; b += 32) {
-      const int cnt = static_cast<int>(end - b < 32 ? end - b : 32);
-      float v[32];
-#pragma unroll
-      for (int t = 0; t < 32; ++t) {
-        const Rank1Payload::Ref m = Rank1Payload::shfl(mine, t);
-        v[t] = (t < cnt && col) ? pay.at(m, d, j) : 0.0f;
-      }
-      if (b + 32 + lane < end) mine = pay.ref(__ldg(order + b + 32 + lane));
-#pragma unroll
-      for (int t = 0; t < 32; ++t) {
-        if (t < cnt) acc = add<T, false>(acc, v[t]);
-      }
-    }
-    if (col) store_f(trow, j, acc);
-  }
-}
-
-// scatter_add_rank1_hbm, which shares long runs among helper warps.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-scatter_runs_kernel(T* __restrict__ table, int64_t stride, int64_t d,
-                    const int32_t* __restrict__ sorted_ids,
-                    const int32_t* __restrict__ order, int64_t n,
-                    Rank1Payload pay) {
-  scatter_run_warp<T>(
-      table, stride, d, sorted_ids, order, n, pay,
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5));
-}
-
-// The run of sorted position w, for the warp at w, under the forms that
-// run on rows_kernel (see Design): a long run is the long-run blocks'. A
-// short run of L updates of a rows form is shared by the warps at its
+// The run of sorted position w, for the warp at w, under any form (see
+// Design): a long run is the long-run blocks'. A short run of L updates
+// of a rows form is shared by the warps at its
 // first min(L, ceil(d / 32)) positions, warp k taking the 32-column slices
 // k, k + h, ...; each lane sums its column of each slice: the table value,
 // then the run's updates in sorted order. A rank-1 short run is the warp's
@@ -533,8 +428,9 @@ __device__ __forceinline__ void short_run_warp(
     if (k > 0) return;
     const int32_t first = __shfl_sync(kFull, src_lo, 31);
     const int32_t later = __shfl_sync(kFull, src_hi, (lane - 1) & 31);
-    rank1_warp_run<T>(table + static_cast<int64_t>(id) * stride, d, len,
-                      pay, pay.ref(lane == 0 ? first : later));
+    rank1_warp_run<T, kRoundEach, kRank1InFlight<kRoundEach>>(
+        table + static_cast<int64_t>(id) * stride, d, len, pay,
+        pay.ref(lane == 0 ? first : later));
     return;
   }
   const int slices = static_cast<int>((d + 31) / 32);
@@ -885,12 +781,11 @@ __device__ __forceinline__ void long_runs_block(
   }
 }
 
-// The forms after find_long_runs_kernel (scatter_add_rows_f32,
-// scatter_add_rows, scatter_add_rank1): blocks [0, long_blocks) take the
-// long runs' items, the others one sorted position a warp, so the long
-// runs' add chains run beside the short runs. Three or four blocks an SM
-// keep the short runs' warps in flight (at 94 registers the bf16 rows
-// form held two, and its short runs ran slower: PERF.md §6).
+// Every form's scatter kernel, after find_long_runs_kernel: blocks [0,
+// long_blocks) take the long runs' items, the others one sorted position a
+// warp, so the long runs' add chains run beside the short runs. Three or
+// four blocks an SM keep the short runs' warps in flight (at 94 registers
+// the bf16 rows form held two, and its short runs ran slower: PERF.md §6).
 template <typename T, bool kRoundEach, typename Payload>
 __global__ void __launch_bounds__(kThreads,
                                   kRoundEach ? kRowsBlocksPerSm
@@ -911,22 +806,6 @@ rows_kernel(T* __restrict__ table, int64_t stride, int64_t d,
       table, stride, d, sorted_ids, order, n, pay,
       (static_cast<int64_t>(blockIdx.x) - long_blocks) * kWarpsPerBlock +
           (threadIdx.x >> 5));
-}
-
-// scatter_add_rank1_hbm: one warp per sorted position.
-template <typename T>
-int launch_rank1_hbm(void* table, int64_t stride, int64_t d,
-                     const void* sorted_ids, const void* order, int64_t n,
-                     const Rank1Payload& pay, cudaStream_t s) {
-  if (n < 0 || d <= 0 || stride < d) return cudaErrorInvalidValue;
-  if (n == 0) return cudaSuccess;
-  const int64_t blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
-  scatter_runs_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      static_cast<T*>(table), stride, d,
-      static_cast<const int32_t*>(sorted_ids),
-      static_cast<const int32_t*>(order), n, pay);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // int32 words of the rows_kernel forms' workspace for n updates: a
@@ -964,7 +843,7 @@ int launch_rows(void* table, int64_t stride, int64_t d,
                         int64_t{kLongBlocksPerSm} * sms);
   }
   // A programmatic dependent launch where the short runs set the time
-  // (the fp32-sum policy's rows form, B6, and the rank-1 payload, B2): the
+  // (the fp32-sum policy, B6 and B7, and the rank-1 payload, B2): the
   // short runs' warps start while the pre-pass runs, and the long-run
   // blocks wait for it. Not for scatter_add_rows (B3), whose row-0 chain
   // of thousands of adds is its longest path: there the short runs' loads
@@ -1022,9 +901,8 @@ extern "C" {
 // Every entry launches on `stream` and returns cudaGetLastError() as an int
 // (0 = launched). `table` is [V, stride] of `dtype` (0 = f32, 1 = bf16),
 // updated in place; sorted_ids and order are [n] int32. None synchronises
-// or allocates. `work`, where an entry takes one, is int32
-// [glint_scatter_add_rows_workspace(n)], 8-byte aligned, contents ignored;
-// the call overwrites it.
+// or allocates. `work` is int32 [glint_scatter_add_rows_workspace(n)],
+// 8-byte aligned, contents ignored; the call overwrites it.
 
 // fp32-sum policy. upd is [n, d] fp32, contiguous, in input order.
 int glint_scatter_add_rows_f32(void* table, int64_t stride, int64_t d,
@@ -1041,20 +919,11 @@ int glint_scatter_add_rank1(void* table, int64_t stride, int64_t d,
                             int32_t dtype, const void* sorted_ids,
                             const void* order, int64_t n, const void* coef,
                             const void* h, const void* hidx, int64_t h_stride,
-                            void* stream) {
+                            void* work, void* stream) {
   if (h_stride < d) return cudaErrorInvalidValue;
-  const Rank1Payload pay = rank1_payload(coef, h, hidx, h_stride);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kDtypeF32:
-      return launch_rank1_hbm<float>(table, stride, d, sorted_ids, order, n,
-                                     pay, s);
-    case kDtypeBF16:
-      return launch_rank1_hbm<uint16_t>(table, stride, d, sorted_ids, order,
-                                        n, pay, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch_rows_dtype<false>(table, stride, d, dtype, sorted_ids, order,
+                                  n, rank1_payload(coef, h, hidx, h_stride),
+                                  work, stream);
 }
 
 // int32 words of the workspace the rows_kernel forms need for n updates.

@@ -7,7 +7,8 @@ version and with a ``launches`` counter on its wrapper:
 
 - :func:`pair_forward` (``csrc/pair_forward.cu``): gathers, dot products,
   sigmoids and coefficients, the fp32 center rows ``h`` and the center
-  gradient ``d_center``, and the summed loss.
+  gradient ``d_center``, and the summed loss; one warp a pair, all of its
+  ``2 + n`` rows staged in shared memory before any is used.
 - :func:`pair_forward_shared` (``csrc/pair_forward_shared.cu``): the same
   against one pool of S negatives shared by the batch, with the three
   dense pool products (``f_pool``, the pool term of ``d_center``, and
@@ -16,6 +17,10 @@ version and with a ``launches`` counter on its wrapper:
   coef * h[hidx]``, never materialising the ``(N, d)`` payload.
 - :func:`scatter_add_rows_f32` (``csrc/scatter_runs.cu``): ``table[ids] +=
   upd``.
+
+The two scatters run on one kernel design with two payloads: a pre-pass
+that finds the runs of 32 or more equal ids, then a scatter kernel whose
+first blocks take those runs and whose other warps each take a short run.
 
 The scatters sum each run of equal ids in fp32, in input order, and round
 to the storage dtype once per run. Unlike the JAX functions, which return
@@ -58,6 +63,10 @@ def _lib(name: str):
                 _P, _P, _P, _P, _P, _P,
             ]
             lib.glint_pair_forward.restype = ctypes.c_int
+            lib.glint_pair_forward_grid.argtypes = [
+                _P, _P, _I64, _I32, _I64, _I32, _I64, _P,
+            ]
+            lib.glint_pair_forward_grid.restype = ctypes.c_int
         elif name == "pair_forward_shared":
             lib.glint_pair_forward_shared.argtypes = [
                 _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _I64, _I64, _I64,
@@ -78,7 +87,7 @@ def _lib(name: str):
             lib.glint_scatter_add_rows_workspace.argtypes = [_I64]
             lib.glint_scatter_add_rows_workspace.restype = _I64
             lib.glint_scatter_add_rank1.argtypes = [
-                _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P, _P, _I64, _P,
+                _P, _I64, _I64, _I32, _P, _P, _I64, _P, _P, _P, _I64, _P, _P,
             ]
             lib.glint_scatter_add_rank1.restype = ctypes.c_int
         lib.glint_cuda_error_string.argtypes = [ctypes.c_int]
@@ -164,9 +173,14 @@ def pair_forward(syn0: torch.Tensor, syn1: torch.Tensor,
     ``syn0``/``syn1`` are contiguous ``(V, d)`` tables of one dtype (fp32
     or bf16); ``centers``/``contexts`` ``(P,)`` int32 in ``[0, V)``;
     ``mask`` ``(P,)`` fp32; ``negs`` ``(P, n)`` int32; ``nmask`` ``(P, n)``
-    fp32; ``alpha`` a 0-d fp32 tensor, all on one device. The per-pair
-    losses are summed in a fixed order (``torch.sum``), never with float
-    atomics. Each kernel launch adds one to ``pair_forward.launches``."""
+    fp32; ``alpha`` a 0-d fp32 tensor, all on one device. The kernel gives
+    each pair one warp, which loads the pair's ids in one trip and then
+    stages all its ``2 + n`` rows in shared memory before it uses any, so
+    a pair's rows, ``(2 + n) * d`` values of the table's dtype, must fit
+    in a block's 227 KB (the launch raises otherwise). The per-pair losses
+    are summed in a fixed order (``torch.sum``), never with float atomics:
+    two calls on the same inputs agree bitwise. Each kernel launch adds
+    one to ``pair_forward.launches``."""
     _check_table(syn0, "syn0")
     _check_table(syn1, "syn1")
     if syn0.dtype != syn1.dtype or syn0.shape[1] != syn1.shape[1]:
@@ -213,6 +227,21 @@ def pair_forward(syn0: torch.Tensor, syn1: torch.Tensor,
 #: Kernel launches since the last reset (``chip_smoke.py`` zeroes it
 #: before driving the training path and reads it after).
 pair_forward.launches = 0
+
+
+def pair_forward_grid(P: int, n: int, syn0: torch.Tensor,
+                      syn1: torch.Tensor) -> dict:
+    """The launch :func:`pair_forward` makes for ``P`` pairs of ``n``
+    negatives on these CUDA tables, on the current card: ``{"blocks",
+    "pairs_per_block", "per_sm": blocks an SM holds at once, "sms"}``;
+    ``blocks / (per_sm * sms)`` is its number of waves."""
+    out = (ctypes.c_int64 * 4)()
+    lib = _lib("pair_forward")
+    _check(lib, lib.glint_pair_forward_grid(
+        syn0.data_ptr(), syn1.data_ptr(), syn0.stride(0),
+        _DTYPE_TAGS[syn0.dtype], P, n, syn0.shape[1], out), "pair_forward_grid")
+    return {"blocks": out[0], "pairs_per_block": out[1], "per_sm": out[2],
+            "sms": out[3]}
 
 
 class SharedPairForward(NamedTuple):
@@ -450,8 +479,9 @@ def scatter_add_rank1_hbm(table: torch.Tensor, ids: torch.Tensor,
     """``table[ids] += coef[:, None] * h[hidx]`` in place, without the
     ``(N, d)`` payload: runs of equal ids summed in fp32, one rounding per
     run. ``ids``/``hidx`` ``(N,)`` int32, ``coef`` ``(N,)`` fp32, ``h``
-    ``(B, d)`` fp32 contiguous. Each kernel launch adds one to
-    ``scatter_add_rank1_hbm.launches``."""
+    ``(B, d)`` fp32 contiguous. Each call that reaches the card adds one
+    to ``scatter_add_rank1_hbm.launches``, though it is the pre-pass and
+    the scatter kernel (see :func:`scatter_add_rank1_hbm_sorted`)."""
     _check_table(table, "table")
     dev = table.device
     N, d = ids.shape[0], table.shape[1]
@@ -472,19 +502,26 @@ def scatter_add_rank1_hbm_sorted(table: torch.Tensor, sorted_ids: torch.Tensor,
                                  order: torch.Tensor, coef: torch.Tensor,
                                  h: torch.Tensor, hidx: torch.Tensor) -> None:
     """The kernel launch of :func:`scatter_add_rank1_hbm` for CUDA tensors
-    already validated and sorted by :func:`sorted_runs`."""
+    already validated and sorted by :func:`sorted_runs` (what
+    ``chip_smoke.py`` times on its own): the kernels of
+    :func:`scatter_add_rows_f32_sorted` with the rank-1 payload, and the
+    int32 workspace of their pre-pass taken from the caching allocator."""
     lib = _lib("scatter_runs")
+    n = sorted_ids.shape[0]
+    work = torch.empty(lib.glint_scatter_add_rows_workspace(n),
+                       dtype=torch.int32, device=table.device)
     rc = lib.glint_scatter_add_rank1(
         table.data_ptr(), table.stride(0), table.shape[1],
         _DTYPE_TAGS[table.dtype], sorted_ids.data_ptr(), order.data_ptr(),
-        sorted_ids.shape[0], coef.data_ptr(), h.data_ptr(), hidx.data_ptr(),
-        h.stride(0), torch.cuda.current_stream(table.device).cuda_stream,
+        n, coef.data_ptr(), h.data_ptr(), hidx.data_ptr(), h.stride(0),
+        work.data_ptr(), torch.cuda.current_stream(table.device).cuda_stream,
     )
     _check(lib, rc, "scatter_add_rank1_hbm")
     scatter_add_rank1_hbm.launches += 1
 
 
-#: Kernel launches since the last reset.
+#: Calls that launched the kernels since the last reset: one a call,
+#: though a call is up to two kernel launches (pre-pass, scatter).
 scatter_add_rank1_hbm.launches = 0
 
 
