@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``glint_word2vec_torch``) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --only 7      # phases 1, 2 and 7 (or "5,7", ...)
+    python3 chip_smoke.py --only 7      # phases 1, 2 and 7 (or "5,10", ...)
 
 With ``--only`` it runs phases 1, 2 and the phases named, prints their
 lines, and exits with code 4 without the kernels line or the result line,
@@ -54,13 +54,21 @@ nothing of JAX. Phases, each of which fails the run on any error:
    into syn1 at a Zipf pool of 4,096), (e) the centers of one packed
    step of phase 6's corpus. The counter-based draws of
    ``ops/random.py`` must come out bitwise the same on the card as on
-   the CPU.
+   the CPU. ``pair_forward``'s tiled form (rows past the one-pass form's
+   shared memory): at phase 5's shape bitwise the one-pass form's, and at
+   d = 20,000, n = 5 (100,000-row tables) and d = 2,200, n = 25
+   (1,000,000 rows), fp32 and bf16, entries at about 1/sqrt(d):
+   ``pair_forward`` and ``pair_forward_tiled`` each within rtol 1e-5 of
+   the plain version, two calls bitwise, the two bitwise equal, timed
+   beside the plain version and the bound.
 6. Train: (a) ``Word2Vec().fit_file`` on a seeded synthetic corpus of
    10,000,000 tokens over 1,000,000 words (each at least 5 times, the rest
    Zipf(1.0), sentences of 20 words) at d = 300, W = 5, B = 1024, n = 5,
-   fp32, one epoch, with every launch counter zeroed just before; words/s,
-   and the card's busy share and top kernels in a profiled window of 48
-   steps; (b) the ``tiny_corpus`` quality gates of
+   fp32, one epoch, with every launch counter zeroed just before; it must
+   take the native host pass (its ingestion and alias build, by the
+   counters of ``native.calls``); words/s, and the card's busy share and
+   top kernels in a profiled window of 48 steps; the ingestion and the
+   alias build at 1,000,000 words, native and Python, equal outputs; (b) the ``tiny_corpus`` quality gates of
    ``tests/test_model_e2e.py`` on the card, with fp32 and with bf16
    tables; (c) two epochs straight equal,
    bitwise, one epoch plus a resume from its checkpoint plus one epoch;
@@ -94,8 +102,12 @@ nothing of JAX. Phases, each of which fails the run on any error:
 8. fastText and the host batcher: (a) ``FastTextWord2Vec().fit_file`` on
    phase 6's corpus at that width, fp32, one epoch, with every launch
    counter zeroed just before (``scatter_add_rows`` and
-   ``scatter_add_rank1`` once a step, ``gather_rows`` on every pull); its
+   ``scatter_add_rank1`` once a step, ``gather_rows`` on every pull) and
+   the native host pass taken (ingestion, alias build, batcher); its
    words/s, and steps/s, busy share and top kernels of 48 composed steps;
+   the same fit through the Python host pass (``GLINT_W2V_NO_NATIVE=1``),
+   words/s and the consumer's stall (``host`` seconds) beside the native
+   pass's;
    (b) the ``tiny_corpus`` gates of ``tests/test_fasttext.py`` in fp32 and
    bf16 (OOV cosine, no bucket row in a top-k, save and ``load_model``
    keep the vectors); (c) word2vec through the host batcher (the script
@@ -128,6 +140,18 @@ nothing of JAX. Phases, each of which fails the run on any error:
    and through the host batcher (where ``gather_rows`` pulls the pool
    and ``scatter_add_rows`` lands both tables), and fastText's OOV gate
    with the pool; (d) bitwise resume with the pool.
+10. Grid packing, mid-epoch resume and wide rows: (a)
+   ``Word2Vec(batch_packing="grid").fit_file`` on phase 6's corpus at its
+   width, fp32, one epoch on the device corpus, every counter zeroed just
+   before: ``gather_rows`` three times, ``scatter_add_rank1`` and
+   ``scatter_add_rows`` once a step, ``pair_forward`` never; words/s, and
+   steps/s, busy share and device time a step of 48 grid steps; (b) the
+   ``tiny_corpus`` gates under grid packing; (c) the mid-epoch drill at
+   full width (``GLINT_PACKED_STOP_AFTER_GROUPS=3``, then a resume from the
+   checkpoint's position) equal to the uninterrupted epoch bitwise; (d)
+   ``Word2Vec().fit_file`` at d = 2,200, n = 25 and d = 20,000, n = 5
+   over the first 100,000 tokens of phase 6's corpus (every word kept),
+   one epoch, every ``pair_forward`` launch in the tiled form.
 
 It prints one JSON ``kernels`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -136,6 +160,7 @@ exits non-zero before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import multiprocessing
@@ -176,6 +201,9 @@ FT_BUCKET, FT_SUBWORDS = 2_000_000, 32
 #: The shared negative pool of the JAX package's throughput and quality
 #: runs (``bench.py:105``, ``scripts/reference_quality.py:135``).
 S_POOL = 4096
+#: Tokens of phase 10's fits at d = 2,200 and 20,000 (a prefix of phase 6's
+#: corpus).
+WIDE_TOKENS = 100_000
 #: The card the script runs on; the port's entry points default to it.
 DEV = "cuda"
 
@@ -190,6 +218,30 @@ def nvidia_smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout
     return out.strip().splitlines()[0]
+
+
+@contextlib.contextmanager
+def python_host_pass():
+    """Within the block the port's host pass runs in Python
+    (``GLINT_W2V_NO_NATIVE=1``): the numpy batcher, the Python alias loop
+    and the Python ingestion."""
+    before = os.environ.get("GLINT_W2V_NO_NATIVE")
+    os.environ["GLINT_W2V_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        if before is None:
+            os.environ.pop("GLINT_W2V_NO_NATIVE", None)
+        else:
+            os.environ["GLINT_W2V_NO_NATIVE"] = before
+
+
+def native_calls_since(before: dict) -> dict:
+    """The native host pass's calls, by wrapper, since ``before`` (a copy
+    of ``native.calls``)."""
+    from glint_word2vec_torch import native
+
+    return {k: native.calls[k] - before.get(k, 0) for k in native.calls}
 
 
 # ----------------------------------------------------------------------
@@ -806,16 +858,18 @@ def scatter_f32_parts(torch, fs, table, ids, upd, pool_case, packed, flush,
     return out
 
 
-def pair_forward_held(torch, fs, args, what) -> tuple:
-    """``pair_forward`` on ``args`` called twice, the two results bitwise
-    equal, and held against its plain version run on a CPU copy of the
-    rows it reads (the ids remapped to those rows): ``h`` bitwise,
-    ``c_pos``, ``c_neg`` and ``d_center`` within rtol 1e-5 and atol
-    1e-6 x max, the loss within rel 1e-5. Returns (the first result, the
-    largest abs difference, the loss's relative difference)."""
+def pair_forward_held(torch, fs, args, what, fn=None) -> tuple:
+    """``fn`` (``pair_forward``, or its tiled form ``pair_forward_tiled``)
+    on ``args`` called twice, the two results bitwise equal, and held
+    against its plain version run on a CPU copy of the rows it reads (the
+    ids remapped to those rows): ``h`` bitwise, ``c_pos``, ``c_neg`` and
+    ``d_center`` within rtol 1e-5 and atol 1e-6 x max, the loss within
+    rel 1e-5. Returns (the first result, the largest abs difference, the
+    loss's relative difference)."""
+    fn = fn or fs.pair_forward
     syn0, syn1, centers, contexts, mask, negs, nmask, alpha = args
-    fw = fs.pair_forward(*args)
-    again = fs.pair_forward(*args)
+    fw = fn(*args)
+    again = fn(*args)
     torch.cuda.synchronize()
     for field in fw._fields:
         expect(torch.equal(bits(torch, getattr(fw, field)),
@@ -868,12 +922,86 @@ def pair_forward_parts(torch, np, fs, syn0, syn1, alpha, alias_table, flush,
     return out
 
 
-def pair_forward_waves(fs, P, n, syn0, syn1) -> str:
-    """The launch's shape and waves (``fs.pair_forward_grid``)."""
-    g = fs.pair_forward_grid(P, n, syn0, syn1)
+def pair_forward_waves(fs, P, n, syn0, syn1, tiled=False) -> str:
+    """The launch's form, shape and waves (``fs.pair_forward_grid``)."""
+    g = fs.pair_forward_grid(P, n, syn0, syn1, tiled)
     waves = g["blocks"] / (g["per_sm"] * g["sms"])
-    return (f"{g['blocks']} blocks of {g['pairs_per_block']} pairs, "
-            f"{g['per_sm']} a SM, {waves:.3f} waves")
+    return (f"{'tiled' if g['tiled'] else 'one-pass'} form, {g['blocks']} "
+            f"blocks of {g['pairs_per_block']} pairs, {g['per_sm']} a SM, "
+            f"{waves:.3f} waves")
+
+
+def bits_equal(torch, a, b) -> bool:
+    """Two ``PairForward`` results equal bit for bit."""
+    return all(torch.equal(bits(torch, x), bits(torch, y)) for x, y in zip(a, b))
+
+
+#: The (d, n) that do not fit the one-pass form's shared memory in fp32
+#: (7 rows of 20,000 values; 27 rows of 2,200), each on a table of the
+#: rows given (fp32 8.0 and 8.8 GB a table).
+TILED_SHAPES = ((20_000, 5, 100_000), (2_200, 25, V_TRAIN))
+
+
+def check_tiled_pair_forward(torch, np, fs, gen, flush) -> dict:
+    """Phase 5, B4's tiled form: at each of TILED_SHAPES, fp32 and bf16,
+    one step's P pairs (Zipf ids with 0 and V-1, 13 padded slots, table
+    entries at about 1/sqrt(d) as training keeps them), ``pair_forward``
+    (which takes the tiled form where the rows do not fit) and
+    ``pair_forward_tiled`` each held against the plain version, two calls
+    bitwise, the two bitwise equal, and timed beside the plain version
+    and the bound (each distinct row read once, outputs written once);
+    where the one-pass form fits (bf16 at d = 2,200) its time too."""
+    from glint_word2vec_torch.corpus.batching import packed_pair_batch
+    from glint_word2vec_torch.ops.sgns import negative_mask
+
+    P = packed_pair_batch(B_TRAIN, W_TRAIN)
+    alpha = torch.tensor(0.025, device=DEV)
+    out = {}
+    for d, n, v in TILED_SHAPES:
+        ids = zipf_ids(torch, gen, (P, 2 + n), v)
+        ids[0, 0], ids[1, 1], ids[2, 2], ids[3, 2] = v - 1, v - 1, v - 1, 0
+        centers, contexts = ids[:, 0].contiguous(), ids[:, 1].contiguous()
+        negs = ids[:, 2:].contiguous()
+        mask = (torch.arange(P, device=DEV) < P - 13).to(torch.float32)
+        centers, contexts = centers * mask.int(), contexts * mask.int()
+        nmask = negative_mask(negs, contexts, mask)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = "f32" if dtype == torch.float32 else "bf16"
+            s = 4 if dtype == torch.float32 else 2
+            syn0, syn1 = ((d ** -0.5 * torch.randn((v, d), generator=gen, device=DEV))
+                          .to(dtype) for _ in range(2))
+            args = (syn0, syn1, centers, contexts, mask, negs, nmask, alpha)
+            what = f"{name} d={d} n={n} V={v}"
+            auto = fs.pair_forward_grid(P, n, syn0, syn1)
+            fw, e1, rel1 = pair_forward_held(torch, fs, args, what)
+            tw, e2, rel2 = pair_forward_held(
+                torch, fs, args, f"{what} tiled", fs.pair_forward_tiled)
+            expect(bits_equal(torch, fw, tw),
+                   f"pair_forward {what}: the two forms differ")
+            ms = median_ms(torch, lambda: fs.pair_forward_tiled(*args), flush)
+            one_pass = None
+            if not auto["tiled"]:
+                one_pass = median_ms(torch, lambda: fs.pair_forward(*args), flush)
+            plain = median_ms(torch, lambda: fs.pair_forward_reference(*args), flush)
+            uniq0 = int(torch.unique(centers).numel())
+            uniq1 = int(torch.unique(torch.cat([contexts, negs.reshape(-1)])).numel())
+            bound, nbytes = pair_forward_bound(P, n, d, s, uniq0, uniq1)
+            out[(d, n, name)] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                     one_pass_ms=one_pass,
+                                     max_abs_err=max(e1, e2))
+            op_txt = (f", one-pass form {one_pass:.4f} ms" if one_pass is not None
+                      else "")
+            log(f"pair_forward {what} P={P}: the wrapper takes the "
+                f"{'tiled' if auto['tiled'] else 'one-pass'} form; both forms "
+                f"within rtol 1e-5 (max |diff| {max(e1, e2):.3g}), h bitwise, "
+                f"loss rel {max(rel1, rel2):.2g}, two calls bitwise, the two "
+                f"forms bitwise equal; tiled {ms:.4f} ms{op_txt}, plain "
+                f"{plain:.4f} ms, bound {bound:.5f} ms ({nbytes} bytes, "
+                f"{uniq0}+{uniq1} distinct rows); "
+                f"{pair_forward_waves(fs, P, n, syn0, syn1, tiled=True)}")
+            del syn0, syn1, args, fw, tw
+            torch.cuda.empty_cache()
+    return out
 
 
 def rank1_hbm_parts(torch, fs, table, ids, coef, h, hidx, flush, name) -> dict:
@@ -954,6 +1082,15 @@ def check_training_kernels(torch, np, fs) -> dict:
             f"{pair_forward_waves(fs, P, n, syn0, syn1)}")
         out[("pair_forward", name)]["parts"] = pair_forward_parts(
             torch, np, fs, syn0, syn1, alpha, (prob, alias), flush, gen, name)
+        # The tiled form at this shape: bitwise the one-pass form's.
+        tw, _, _ = pair_forward_held(torch, fs, args, f"{name} tiled",
+                                     fs.pair_forward_tiled)
+        expect(bits_equal(torch, fw, tw), f"pair_forward {name}: the two forms differ")
+        tiled = median_ms(torch, lambda: fs.pair_forward_tiled(*args), flush)
+        out[("pair_forward", name)]["tiled_ms"] = tiled
+        log(f"pair_forward {name}, tiled form at this shape: bitwise the "
+            f"one-pass form's, {tiled:.4f} ms; "
+            f"{pair_forward_waves(fs, P, n, syn0, syn1, tiled=True)}")
 
         # scatter_add_rank1_hbm: syn1 += coef * h[hidx], from the kernel's
         # own forward outputs, as the training step runs it.
@@ -1057,8 +1194,12 @@ def check_training_kernels(torch, np, fs) -> dict:
         f"1e-5 (max |diff| {e:.3g}), h bitwise, two calls bitwise")
     del table
     torch.cuda.empty_cache()
+    tiled = check_tiled_pair_forward(torch, np, fs, gen, flush)
+    err["pair_forward"] = max([err["pair_forward"]]
+                              + [r["max_abs_err"] for r in tiled.values()])
     for (kernel, name), r in out.items():
         r["max_abs_err"] = err[kernel]
+    out["tiled"] = tiled
     return out
 
 
@@ -1131,14 +1272,58 @@ def tiny_w2v(Word2Vec, **kw):
             .set_min_count(5).set_num_iterations(6).set_seed(1))
 
 
-def profile_training(torch, engine, groups: int) -> None:
-    """Steps/s of ``groups`` packed groups at full width without the
-    profiler, then the card's busy share and the kernels with the most
-    device time in a ``torch.profiler`` window of as many groups. The
-    corpus is still on the card after the fit; the window trains on."""
+def profile_window(torch, run, steps: int, what: str) -> dict:
+    """Steps/s of ``run(1)`` without the profiler after a warming
+    ``run(0)``, then the card's busy share, device activities and device
+    time a step, and the kernels with the most device time, in a
+    ``torch.profiler`` window of ``run(2)``; each run takes ``steps``
+    steps. Returns ``{"steps_per_s", "busy", "device_ms"}`` (None where
+    the profiler saw no device activity)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    run(0)  # warm
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run(1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    out = {"steps_per_s": steps / wall, "busy": None, "device_ms": None}
+    log(f"{what} at full width, unprofiled: {steps} steps in {wall:.3f} s, "
+        f"{steps / wall:.1f} steps/s")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run(2)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    spans = sorted(
+        (e.time_range.start, e.time_range.end)
+        for e in prof.events() if e.device_type == DeviceType.CUDA
+    )
+    if not spans:
+        log(f"device busy share of the {what}: not measured (the profiler "
+            "saw no device activity)")
+        return out
+    busy_us, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    out.update(busy=busy_us / (wall * 1e6), device_ms=busy_us / steps / 1e3)
+    log(f"device busy share of the {what} (profiled, {steps} steps in "
+        f"{wall:.3f} s): {out['busy']:.4f}; {len(spans) / steps:.1f} device "
+        f"activities a step, {out['device_ms']:.4f} ms of device time a step")
+    top = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
+    for a in top[:8]:
+        log(f"  {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<6d} "
+            f"{a.key[:90]}")
+    return out
+
+
+def profile_training(torch, engine, groups: int) -> dict:
+    """:func:`profile_window` over ``groups`` packed groups (16 steps
+    each) at full width. The corpus is still on the card after the fit;
+    the windows train on."""
     from glint_word2vec_torch.corpus.batching import packed_pair_batch
     from glint_word2vec_torch.ops import random as rnd
 
@@ -1146,46 +1331,15 @@ def profile_training(torch, engine, groups: int) -> None:
     key = rnd.seed_key(2)
     pos, step = [0], [0]
 
-    def run():
+    def run(_):
         for _ in range(groups):
             out = engine.train_steps_corpus_packed(
                 pos[0], P, W_TRAIN, B_TRAIN, key, 16, step0=step[0],
                 step_size=0.025, total_words=CORPUS_TOKENS + 1,
             )
             pos[0], step[0] = int(out[2][-1]), step[0] + 16
-        torch.cuda.synchronize()
 
-    run()  # warm
-    t = time.perf_counter()
-    run()
-    wall = time.perf_counter() - t
-    log(f"packed steps at full width, unprofiled: {groups * 16} steps in "
-        f"{wall:.3f} s, {groups * 16 / wall:.1f} steps/s")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t
-    spans = sorted(
-        (e.time_range.start, e.time_range.end)
-        for e in prof.events() if e.device_type == DeviceType.CUDA
-    )
-    if not spans:
-        log("device busy share while training: not measured (the profiler "
-            "saw no device activity)")
-        return
-    busy_us, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    log(f"device busy share while training (profiled, {groups * 16} steps "
-        f"in {wall:.3f} s): {busy_us / (wall * 1e6):.4f}; "
-        f"{len(spans) / (groups * 16):.1f} device activities a step, "
-        f"{busy_us / (groups * 16) / 1e3:.4f} ms of device time a step")
-    top = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
-    for a in top[:8]:
-        log(f"  {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<6d} "
-            f"{a.key[:90]}")
+    return profile_window(torch, run, groups * 16, "packed steps")
 
 
 def check_compaction_memory(torch, model, n_words: int) -> None:
@@ -1223,6 +1377,41 @@ def check_compaction_memory(torch, model, n_words: int) -> None:
             f"at most about {words} words")
 
 
+def host_pass_numbers(np, path: str, counts) -> None:
+    """``fit_file``'s ingestion of the corpus at ``path``
+    (``scan_and_encode_file``) and the alias build over ``counts``, each
+    through the native pass and then through the Python pass, host clock;
+    the two give the same vocabulary, ids, offsets and table."""
+    from glint_word2vec_torch import native
+    from glint_word2vec_torch.corpus.alias import build_unigram_alias
+    from glint_word2vec_torch.corpus.vocab import scan_and_encode_file
+
+    runs = {}
+    for mode in ("native", "python"):
+        calls = dict(native.calls)
+        with python_host_pass() if mode == "python" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            vocab, ids, offsets = scan_and_encode_file(
+                path, min_count=MIN_PER_WORD, max_sentence_length=1000)
+            t1 = time.perf_counter()
+            table = build_unigram_alias(counts)
+            t2 = time.perf_counter()
+        took = native_calls_since(calls)
+        expect((took["corpus_scan"], took["alias_build"])
+               == ((1, 1) if mode == "native" else (0, 0)),
+               f"{mode} host pass: native calls {took}")
+        runs[mode] = (vocab, ids, offsets, table, t1 - t0, t2 - t1)
+    a, b = runs["native"], runs["python"]
+    expect(a[0].words == b[0].words and np.array_equal(a[1], b[1])
+           and np.array_equal(a[2], b[2]), "native and Python ingestion differ")
+    expect(np.array_equal(a[3].prob.view(np.uint32), b[3].prob.view(np.uint32))
+           and np.array_equal(a[3].alias, b[3].alias),
+           "native and Python alias tables differ")
+    log(f"host pass, {a[1].size} tokens, {len(counts)} words: ingestion "
+        f"(scan_and_encode_file) native {a[4]:.3f} s, Python {b[4]:.3f} s; "
+        f"alias build native {a[5]:.4f} s, Python {b[5]:.3f} s; outputs equal")
+
+
 def train_end_to_end(torch, np, fs, rows_mod) -> dict:
     """Phase 6. Returns the training kernels' launch counts from (a) and
     the gather's from (d)."""
@@ -1238,10 +1427,14 @@ def train_end_to_end(torch, np, fs, rows_mod) -> dict:
 
         # (a) The main path: every counter zeroed just before, read just
         # after.
+        from glint_word2vec_torch import native
+
         counters = (fs.pair_forward, fs.scatter_add_rank1_hbm,
                     fs.scatter_add_rows_f32, rows_mod.gather_rows)
         for c in counters:
             c.launches = 0
+        fs.pair_forward.tiled_launches = 0
+        calls = dict(native.calls)
         t0 = time.perf_counter()
         model = Word2Vec(
             vector_size=D, window=W_TRAIN, batch_size=B_TRAIN,
@@ -1251,6 +1444,11 @@ def train_end_to_end(torch, np, fs, rows_mod) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters[:3]}
+        took = native_calls_since(calls)
+        expect(took["corpus_scan"] == 1 and took["alias_build"] >= 1,
+               f"fit_file did not take the native host pass: {took}")
+        expect(fs.pair_forward.tiled_launches == 0,
+               "the 300-wide fit took pair_forward's tiled form")
         tm = model.training_metrics
         log(f"fit_file 1M x 300: {wall:.1f} s in all (vocabulary scan, "
             f"encode, upload, training); training {tm['wall_seconds']} s, "
@@ -1269,6 +1467,7 @@ def train_end_to_end(torch, np, fs, rows_mod) -> dict:
             expect(bool(torch.isfinite(t).all()), "non-finite table entries")
         profile_training(torch, model.engine, PROFILE_GROUPS)
         check_compaction_memory(torch, model, n_tok)
+        host_pass_numbers(np, path, model.vocab.counts)
 
         # (d) Queries on the trained model run the gather.
         rows_mod.gather_rows.launches = 0
@@ -1675,16 +1874,11 @@ def check_composed_kernels(torch, np, rows_mod, fs) -> dict:
 # ----------------------------------------------------------------------
 
 
-def profile_composed(torch, np, model, path: str, groups: int) -> None:
-    """Steps/s of ``groups`` groups of 16 composed fastText steps at full
-    width without the profiler, then the card's busy share and the
-    kernels with the most device time in a ``torch.profiler`` window of
-    as many groups. The batches come from the host batcher over the
-    corpus's first sentences, expanded to subword groups; the trained
-    tables train on."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+def profile_composed(torch, np, model, path: str, groups: int) -> dict:
+    """:func:`profile_window` over ``groups`` groups of 16 composed
+    fastText steps at full width. The batches come from the host batcher
+    over the corpus's first sentences, expanded to subword groups; the
+    trained tables train on."""
     from glint_word2vec_torch.corpus.batching import (
         SkipGramBatcher,
         group_batches,
@@ -1698,48 +1892,18 @@ def profile_composed(torch, np, model, path: str, groups: int) -> None:
     batcher = SkipGramBatcher(sents, model.vocab, B_TRAIN, W_TRAIN, seed=2)
     it = group_batches(batcher.epoch(0), 16)
     grps = [next(it) for _ in range(2 * groups + 1)]
+    windows = [grps[:1], grps[1 : 1 + groups], grps[1 + groups :]]
     eng, key = model.engine, rnd.seed_key(2)
     step = [0]
 
-    def run(gs):
-        for g in gs:
+    def run(i):
+        for g in windows[i]:
             eng.train_steps_grouped(
                 model._sub_ids[g.centers], model._sub_mask[g.centers],
                 g.contexts, g.mask, key, [0.001] * 16, step[0])
             step[0] += 16
-        torch.cuda.synchronize()
 
-    run(grps[:1])  # warm
-    t = time.perf_counter()
-    run(grps[1 : 1 + groups])
-    wall = time.perf_counter() - t
-    log(f"composed fastText steps at full width, unprofiled: {groups * 16} "
-        f"steps in {wall:.3f} s, {groups * 16 / wall:.1f} steps/s")
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run(grps[1 + groups :])
-        wall = time.perf_counter() - t
-    spans = sorted(
-        (e.time_range.start, e.time_range.end)
-        for e in prof.events() if e.device_type == DeviceType.CUDA
-    )
-    if not spans:
-        log("device busy share of the composed steps: not measured (the "
-            "profiler saw no device activity)")
-        return
-    busy_us, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy_us += e - max(s, end)
-            end = e
-    log(f"device busy share of the composed steps (profiled, {groups * 16} "
-        f"steps in {wall:.3f} s): {busy_us / (wall * 1e6):.4f}; "
-        f"{len(spans) / (groups * 16):.1f} device activities a step, "
-        f"{busy_us / (groups * 16) / 1e3:.4f} ms of device time a step")
-    top = sorted(prof.key_averages(), key=lambda a: -a.self_device_time_total)
-    for a in top[:8]:
-        log(f"  {a.self_device_time_total / 1e3:9.3f} ms  x{a.count:<6d} "
-            f"{a.key[:90]}")
+    return profile_window(torch, run, groups * 16, "composed fastText steps")
 
 
 def tiny_fasttext(FastTextWord2Vec, **kw):
@@ -1807,6 +1971,16 @@ def serve_fasttext(torch, np, rows_mod, model, tmp: str) -> None:
         f"equals find_synonyms: {hits[:3]} ...")
 
 
+def fasttext_fit(FastTextWord2Vec, path: str):
+    """Phase 8's fastText fit: ``fit_file`` at full width, one epoch."""
+    return FastTextWord2Vec(
+        vector_size=D, window=W_TRAIN, batch_size=B_TRAIN,
+        num_negatives=N_NEG, min_count=MIN_PER_WORD, num_iterations=1,
+        step_size=0.025, seed=1, bucket=FT_BUCKET, min_n=3, max_n=6,
+        max_subwords=FT_SUBWORDS,
+    ).fit_file(path)
+
+
 def train_fasttext_end_to_end(torch, np, rows_mod) -> dict:
     """Phase 8. Returns the composed step's launch counts from (a)."""
     from glint_word2vec_torch import FastTextWord2Vec, Word2Vec
@@ -1820,20 +1994,22 @@ def train_fasttext_end_to_end(torch, np, rows_mod) -> dict:
 
         # (a) The main path: every counter zeroed just before, read just
         # after.
+        from glint_word2vec_torch import native
+
         counters = (rows_mod.scatter_add_rows, rows_mod.scatter_add_rank1,
                     rows_mod.gather_rows)
         for c in counters:
             c.launches = 0
+        calls = dict(native.calls)
         t0 = time.perf_counter()
-        model = FastTextWord2Vec(
-            vector_size=D, window=W_TRAIN, batch_size=B_TRAIN,
-            num_negatives=N_NEG, min_count=MIN_PER_WORD, num_iterations=1,
-            step_size=0.025, seed=1, bucket=FT_BUCKET, min_n=3, max_n=6,
-            max_subwords=FT_SUBWORDS,
-        ).fit_file(path)
+        model = fasttext_fit(FastTextWord2Vec, path)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters}
+        took = native_calls_since(calls)
+        expect(took["corpus_scan"] == 1 and took["window_batch_epoch"] >= 1
+               and took["alias_build"] >= 1,
+               f"the fastText fit did not take the native host pass: {took}")
         tm = model.training_metrics
         log(f"fastText fit_file {V_TRAIN} words + {FT_BUCKET} buckets x {D}: "
             f"{wall:.1f} s in all (vocabulary scan, encode, subword table, "
@@ -1856,6 +2032,27 @@ def train_fasttext_end_to_end(torch, np, rows_mod) -> dict:
         for t in (model.engine.syn0, model.engine.syn1):
             expect(bool(torch.isfinite(t).all()), "non-finite table entries")
         profile_composed(torch, np, model, path, PROFILE_GROUPS)
+        model.stop()
+        del model
+        torch.cuda.empty_cache()
+        # (a') The same fit through the Python host pass: the numpy batcher
+        # on the producer thread, the Python ingestion and alias loop.
+        with python_host_pass():
+            calls = dict(native.calls)
+            t0 = time.perf_counter()
+            model = fasttext_fit(FastTextWord2Vec, path)
+            torch.cuda.synchronize()
+            wall_py = time.perf_counter() - t0
+        expect(not any(native_calls_since(calls).values()),
+               "the Python host pass called the native library")
+        tp = model.training_metrics
+        expect(tp["words_done"] == n_tok and math.isfinite(tp["final_loss"]), tp)
+        log(f"fastText fit_file, host pass native against Python: {wall:.1f} "
+            f"against {wall_py:.1f} s in all; training {tm['wall_seconds']} "
+            f"against {tp['wall_seconds']} s, {tm['words_per_sec']} against "
+            f"{tp['words_per_sec']} words/s, consumer stall (host) "
+            f"{tm['host_time']} against {tp['host_time']} s, step "
+            f"{tm['step_time']} against {tp['step_time']} s")
         model.stop()
         del model
         torch.cuda.empty_cache()
@@ -2268,6 +2465,175 @@ def train_shared_end_to_end(torch, np, fs, rows_mod) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 10: grid packing on the device corpus, mid-epoch resume, wide rows
+# ----------------------------------------------------------------------
+
+
+def kernel_counters(fs, rows_mod) -> tuple:
+    """Every kernel wrapper's launch counter."""
+    return (rows_mod.gather_rows, rows_mod.scatter_add_rank1,
+            rows_mod.scatter_add_rows, fs.pair_forward, fs.pair_forward_shared,
+            fs.scatter_add_rank1_hbm, fs.scatter_add_rows_f32)
+
+
+def zero_counters(fs, rows_mod) -> None:
+    for c in kernel_counters(fs, rows_mod):
+        c.launches = 0
+    fs.pair_forward.tiled_launches = 0
+
+
+def read_counters(fs, rows_mod) -> dict:
+    out = {c.__name__: c.launches for c in kernel_counters(fs, rows_mod)}
+    out["pair_forward (tiled form)"] = fs.pair_forward.tiled_launches
+    return out
+
+
+def expect_launched(launches: dict, names, what: str) -> None:
+    for name in names:
+        if launches[name] <= 0:
+            raise AssertionError(f"{what} never launched {name}: {launches}")
+
+
+def profile_grid(torch, engine, groups: int) -> dict:
+    """:func:`profile_window` over ``groups`` grid groups (16 steps each)
+    on the device corpus at full width, from the corpus's start; the
+    trained tables train on."""
+    from glint_word2vec_torch.ops import random as rnd
+
+    key = rnd.seed_key(2)
+    step = [0]
+
+    def run(_):
+        for _ in range(groups):
+            engine.train_steps_corpus(step[0] * B_TRAIN, B_TRAIN, W_TRAIN, key,
+                                      [0.001] * 16, step[0])
+            step[0] += 16
+
+    return profile_window(torch, run, groups * 16, "grid steps")
+
+
+def train_grid_and_resume(torch, np, fs, rows_mod) -> dict:
+    """Phase 10. Returns the launch counts of (a) and (d)."""
+    from glint_word2vec_torch import Word2Vec
+
+    tmp = tempfile.mkdtemp(prefix="glint_chip_grid_")
+    try:
+        path = os.path.join(tmp, "corpus.txt")
+        n_tok = write_synthetic_corpus(np, path)
+        full_width = dict(vector_size=D, window=W_TRAIN, batch_size=B_TRAIN,
+                          num_negatives=N_NEG, min_count=MIN_PER_WORD,
+                          num_iterations=1, step_size=0.025, seed=1)
+
+        # (a) Grid batches on the device corpus, one epoch: B1, B2, B3
+        # every step, the fused pair step never.
+        zero_counters(fs, rows_mod)
+        t0 = time.perf_counter()
+        model = Word2Vec(**full_width, batch_packing="grid").fit_file(path)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grid_launches = read_counters(fs, rows_mod)
+        tm = model.training_metrics
+        log(f"grid fit_file {V_TRAIN} x {D} on the device corpus: {wall:.1f} s "
+            f"in all; training {tm['wall_seconds']} s, {tm['steps']} steps, "
+            f"{tm['words_per_sec']} words/s, final loss {tm['final_loss']}; "
+            f"launches {grid_launches}")
+        expect(tm["pipeline"] == "device_corpus" and tm["batch_packing"] == "grid", tm)
+        expect(tm["words_done"] == n_tok and math.isfinite(tm["final_loss"]), tm)
+        expect_launched(grid_launches, ("gather_rows", "scatter_add_rank1",
+                                        "scatter_add_rows"), "the grid fit")
+        steps = tm["steps"] + (-tm["steps"]) % 16
+        expect(grid_launches["gather_rows"] == 3 * steps
+               and grid_launches["scatter_add_rank1"] == steps
+               and grid_launches["scatter_add_rows"] == steps
+               and grid_launches["pair_forward"] == 0,
+               f"grid launches a step: {grid_launches} for {tm['steps']} steps")
+        for t in (model.engine.syn0, model.engine.syn1):
+            expect(bool(torch.isfinite(t).all()), "non-finite table entries")
+        window = profile_grid(torch, model.engine, PROFILE_GROUPS)
+        model.stop()
+        del model
+        torch.cuda.empty_cache()
+
+        # (b) The tiny_corpus gates under grid packing.
+        corpus = make_tiny_corpus(np)
+        m = tiny_w2v(Word2Vec, batch_packing="grid").fit(corpus)
+        syns = m.find_synonyms("austria", 10)
+        ana = m.analogy(positive=["vienna", "germany"], negative=["austria"], num=10)
+        log(f"tiny_corpus grid fit on the card: austria -> {syns[:4]}; "
+            f"vienna - austria + germany -> {ana[:3]}")
+        expect(m.training_metrics["batch_packing"] == "grid", m.training_metrics)
+        expect("vienna" in dict(syns) and dict(syns)["vienna"] > 0.5,
+               f"grid vienna gate failed: {syns}")
+        expect("berlin" in [w for w, _ in ana], f"grid berlin gate failed: {ana}")
+        m.stop()
+
+        # (c) The mid-epoch drill at full width: stop after 3 groups,
+        # resume from the position, equal the uninterrupted epoch bitwise.
+        ck = os.path.join(tmp, "ck")
+        zero_counters(fs, rows_mod)
+        os.environ["GLINT_PACKED_STOP_AFTER_GROUPS"] = "3"
+        try:
+            Word2Vec(**full_width).fit_file(path, checkpoint_dir=ck).stop()
+        finally:
+            os.environ.pop("GLINT_PACKED_STOP_AFTER_GROUPS", None)
+        with open(os.path.join(ck, "train_state.json")) as f:
+            state = json.load(f)
+        expect(state["position"] > 0 and state["epochs_completed"] == 0, state)
+        t0 = time.perf_counter()
+        resumed = Word2Vec(**full_width).fit_file(path, checkpoint_dir=ck)
+        resume_s = time.perf_counter() - t0
+        drill_launches = read_counters(fs, rows_mod)
+        expect_launched(drill_launches, ("pair_forward", "scatter_add_rank1_hbm",
+                                         "scatter_add_rows_f32"), "the drill")
+        full = Word2Vec(**full_width).fit_file(path)
+        for name in ("syn0", "syn1"):
+            expect(torch.equal(getattr(resumed.engine, name), getattr(full.engine, name)),
+                   f"mid-epoch drill: resumed {name} differs from the uninterrupted run")
+        log(f"mid-epoch drill at {V_TRAIN} x {D}: stopped after 3 groups at "
+            f"position {state['position']} (step {state['step']}, words_done "
+            f"{state['words_done']}); the resumed run ({resume_s:.1f} s) equals "
+            "the uninterrupted epoch bitwise")
+        resumed.stop()
+        full.stop()
+        del resumed, full
+        torch.cuda.empty_cache()
+
+        # (d) Rows past the one-pass form's shared memory train: the tiled
+        # form on every step, over the corpus's first WIDE_TOKENS tokens
+        # (every word kept: a Zipf vocabulary, as a real corpus has).
+        wide_path = os.path.join(tmp, "wide.txt")
+        with open(path) as src, open(wide_path, "w") as dst:
+            for _ in range(WIDE_TOKENS // SENTENCE_LEN):
+                dst.write(src.readline())
+        wide = {}
+        for d, n in ((2_200, 25), (20_000, 5)):
+            zero_counters(fs, rows_mod)
+            m = Word2Vec(vector_size=d, num_negatives=n, window=W_TRAIN,
+                         batch_size=B_TRAIN, min_count=1, num_iterations=1,
+                         step_size=0.025, seed=1).fit_file(wide_path)
+            launches = read_counters(fs, rows_mod)
+            tm = m.training_metrics
+            expect_launched(launches, ("pair_forward", "pair_forward (tiled form)",
+                                       "scatter_add_rank1_hbm",
+                                       "scatter_add_rows_f32"),
+                            f"the d={d}, n={n} fit")
+            expect(launches["pair_forward (tiled form)"] == launches["pair_forward"],
+                   f"d={d}, n={n}: not every launch took the tiled form: {launches}")
+            expect(math.isfinite(tm["final_loss"]), tm)
+            for t in (m.engine.syn0, m.engine.syn1):
+                expect(bool(torch.isfinite(t).all()), "non-finite table entries")
+            log(f"Word2Vec(vector_size={d}, num_negatives={n}) fit_file over "
+                f"{WIDE_TOKENS} tokens, {m.vocab.size} words: {tm['steps']} "
+                f"steps, {tm['words_per_sec']} words/s, final loss "
+                f"{tm['final_loss']}; launches {launches}")
+            wide[(d, n)] = launches
+            m.stop()
+        return {"grid": grid_launches, "window": window, "wide": wide}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def ptxas_report(text: str) -> list:
     """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
     (demangled where ``c++filt`` is found), registers and spills."""
@@ -2290,20 +2656,20 @@ def ptxas_report(text: str) -> list:
 
 
 def parse_only(argv) -> set | None:
-    """The phases ``--only`` names (3 to 9), or None to run them all."""
+    """The phases ``--only`` names (3 to 10), or None to run them all."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--only", metavar="N[,N...]",
-        help="run phases 1, 2 and these (3 to 9) only, print their lines, "
+        help="run phases 1, 2 and these (3 to 10) only, print their lines, "
              f"and exit {PARTIAL_EXIT} without the kernels or result line")
     only = ap.parse_args(argv).only
     if only is None:
         return None
     phases = {int(p) for p in only.split(",") if p.strip()}
-    if not phases or not phases <= set(range(3, 10)):
-        ap.error(f"--only takes phases 3 to 9, got {only!r}")
+    if not phases or not phases <= set(range(3, 11)):
+        ap.error(f"--only takes phases 3 to 10, got {only!r}")
     return phases
 
 
@@ -2341,6 +2707,7 @@ def main() -> int:
         7: lambda: check_composed_kernels(torch, np, rows_mod, fs),
         8: lambda: train_fasttext_end_to_end(torch, np, rows_mod),
         9: lambda: check_shared_kernel(torch, fs),
+        10: lambda: train_grid_and_resume(torch, np, fs, rows_mod),
     }
     if only is not None:
         for p in sorted(only):
@@ -2359,6 +2726,7 @@ def main() -> int:
     ft = phases[8]()
     shared_timed = phases[9]()
     shared = train_shared_end_to_end(torch, np, fs, rows_mod)
+    grid = phases[10]()
 
     main_case = gathered[("f32", V_SERVE, 10_000)]
     kernels = [{
@@ -2376,6 +2744,7 @@ def main() -> int:
         "checked": True,
         "shape": f"fp32 table {V_SERVE}x{D}, N=10000",
         "launches_training_queries": trained["gathers"],
+        "launches_grid_fit": grid["grid"]["gather_rows"],
         "waves": main_case["waves"],
         "bf16_ms": gathered[("bf16", V_SERVE, 10_000)]["ms"],
         "bf16_index_select_ms": gathered[("bf16", V_SERVE, 10_000)]["library_ms"],
@@ -2411,10 +2780,17 @@ def main() -> int:
             "bf16_bound_ms": timed[(name, "bf16")]["bound_ms"],
         })
     b4, b7 = kernels[-3], kernels[-2]
+    b4["tiled_launches"] = {f"d={d} n={n}": w["pair_forward (tiled form)"]
+                            for (d, n), w in grid["wide"].items()}
+    for (d, n, dt), r in timed["tiled"].items():
+        b4.update({f"tiled_{d}x{n}_{dt}_{k}": r[k]
+                   for k in ("ms", "plain_ms", "bound_ms", "one_pass_ms")
+                   if r[k] is not None})
     for dt in ("f32", "bf16"):
         parts = timed[("pair_forward", dt)]["parts"]
         b4.update({f"{dt}_pairs_x4_ms": parts["b"]["ms"],
                    f"{dt}_one_row_ms": parts["c"]["ms"],
+                   f"{dt}_tiled_form_ms": timed[("pair_forward", dt)]["tiled_ms"],
                    f"{dt}_loss_sum_ms": timed[("pair_forward", dt)]["loss_sum_ms"]})
         r7 = timed[("scatter_add_rank1_hbm", dt)]
         b7.update({f"{dt}_longest_run": r7["longest"],
@@ -2442,6 +2818,7 @@ def main() -> int:
             "shape": (f"fp32 table {V_TRAIN + FT_BUCKET}x{D}, N={r['n']}"),
             "runs": r["runs"],
             "longest_run": r["longest"],
+            "launches_grid_fit": grid["grid"][name],
             "bf16_ms": composed[(name, "bf16")]["ms"],
             "bf16_bound_ms": composed[(name, "bf16")]["bound_ms"],
         })

@@ -48,11 +48,13 @@ def _add_train(sub) -> None:
                         "whole batch, weighted n/S each (0: n per-pair "
                         "draws)")
     p.add_argument("--packing", choices=["dense", "grid"], default="dense",
-                   help="dispatch shape on the device corpus (only dense "
-                        "trains there in the port so far; the host batcher "
-                        "always trains grid batches)")
+                   help="dispatch shape on the device corpus: dense pair "
+                        "packing or grid batches (the host batcher always "
+                        "trains grid batches)")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="enable epoch-granular checkpoint/resume")
+                   help="enable checkpoint/resume: at epoch ends, and "
+                        "mid-epoch on the packed path when "
+                        "GLINT_PACKED_STOP_AFTER_GROUPS stops it")
     p.add_argument("--checkpoint-every", type=int, default=1,
                    help="epochs between checkpoints (default 1)")
     p.add_argument("--metrics-out", default=None,

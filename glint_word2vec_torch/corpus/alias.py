@@ -1,12 +1,15 @@
 """Unigram noise distribution as a Walker/Vose alias table (own copy of
-``glint_word2vec_tpu/corpus/alias.py:30-121``, without its native builder).
+``glint_word2vec_tpu/corpus/alias.py:30-121``, with its native builder).
 
 The table is two vocabulary-length arrays, ``prob`` (float32 acceptance
 probabilities) and ``alias`` (int32 fallback columns): draw ``k`` uniform
 over the vocabulary and ``u ~ U[0, 1)``, and take ``k`` if ``u < prob[k]``
 else ``alias[k]`` (``ops/sampling.py``). The construction is the JAX
 package's two-stack loop, step for step, so both packages build the same
-table from the same counts.
+table from the same counts. The native builder (``native/host_ops.cpp``,
+milliseconds where the Python loop takes minutes at a 10M vocabulary)
+runs whenever it is built, as in the JAX package, and the Python loop
+otherwise.
 """
 
 from __future__ import annotations
@@ -29,11 +32,12 @@ class AliasTable:
 
 
 def build_alias(weights: np.ndarray) -> AliasTable:
-    """Alias table for a nonnegative weight vector.
+    """Alias table for a nonnegative weight vector: the native builder
+    when it is available, else the Python loop.
 
-    The column total is summed in index order (a running sum), as the
-    JAX package's builder does it, so the scaled columns, and with them
-    every ``prob`` and ``alias`` entry, come out the same."""
+    The Python loop sums the column total in index order (a running
+    sum), as the native builder does it, so the scaled columns, and with
+    them every ``prob`` and ``alias`` entry, come out the same."""
     w = np.asarray(weights, dtype=np.float64)
     if w.ndim != 1 or w.size == 0:
         raise ValueError("weights must be a nonempty 1-D array")
@@ -42,6 +46,12 @@ def build_alias(weights: np.ndarray) -> AliasTable:
     total = float(np.cumsum(w)[-1])
     if total <= 0:
         raise ValueError("weights must sum to > 0")
+
+    from glint_word2vec_torch.native import alias_build_native
+
+    native = alias_build_native(w)
+    if native is not None:
+        return AliasTable(prob=native[0], alias=native[1])
 
     n = w.size
     scaled = (w * (n / total)).tolist()  # mean 1.0

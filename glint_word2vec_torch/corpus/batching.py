@@ -4,17 +4,21 @@
 ``encode_sentences`` (:87), ``chunk_sentences`` (:137), and the host
 batcher's ``subsample_sentence`` (:153), ``window_batch`` (:171),
 ``Batch`` (:202), ``BatchGroup`` (:212), ``group_batches`` (:229) and
-``SkipGramBatcher`` (:288) with its numpy epoch pass (:475-507).
+``SkipGramBatcher`` (:288) with its native epoch pass (:385-473) and its
+numpy epoch pass (:475-507).
 
 Window semantics are the reference's: for center position ``i`` draw
 ``b ~ U[0, window)`` and take context positions ``[max(0, i-b),
 min(i+b, len))`` without ``i``. The upper bound is half-open, so offsets
 span ``[-(W-1), W-2]`` and a position has ``2W - 3`` context lanes.
 
-The host batcher's batches equal the JAX package's numpy pass bitwise:
-the same ``np.random.default_rng((seed, epoch))`` stream, drawn in the
-same order. (The JAX package prefers a native C++ pass when a compiler is
-present, which draws another stream; the port has no native pass yet.)
+The host batcher takes the native C++ pass (``native/host_ops.cpp``)
+whenever it is built, as the JAX package does, and its batches then equal
+the JAX package's native pass bitwise: the same per-block seeds and the
+same C++ draws. Without it the numpy pass runs, whose batches equal the
+JAX package's numpy pass bitwise: the same ``np.random.default_rng((seed,
+epoch))`` stream, drawn in the same order. The two passes draw different
+streams.
 """
 
 from __future__ import annotations
@@ -275,9 +279,97 @@ class SkipGramBatcher:
         return ids[offsets[i] : offsets[i + 1]]
 
     def epoch(self, epoch_index: int) -> Iterator[Batch]:
-        """Yield every minibatch of one pass over the corpus. The draws are
-        made sentence by sentence, in the order of the JAX package's numpy
-        pass (:func:`subsample_sentence`, then the window draws of
+        """Yield every minibatch of one pass over the corpus: the native
+        pass (:meth:`_epoch_native`) when the library is available, else
+        the numpy pass (:meth:`_epoch_python`). Each is deterministic per
+        seed and epoch; the two draw different streams."""
+        native = self._epoch_native(epoch_index)
+        if native is not None:
+            return native
+        return self._epoch_python(epoch_index)
+
+    #: Words a native call windows at once: bounds the host memory of a
+    #: block to about 60 bytes a word times this (about 250 MB) whatever
+    #: the corpus size. An epoch is one native call a block of sentences.
+    NATIVE_BLOCK_WORDS = 4_000_000
+
+    def _epoch_native(self, epoch_index: int) -> Optional[Iterator[Batch]]:
+        """The native epoch pass, or None without the library."""
+        from glint_word2vec_torch.native import get_lib
+
+        if get_lib() is None:
+            return None
+        if self._flat is None:
+            if self.sentences:
+                ids = np.concatenate(self.sentences).astype(np.int32)
+                lens = np.array([len(s) for s in self.sentences], np.int64)
+            else:
+                ids = np.zeros(0, np.int32)
+                lens = np.zeros(0, np.int64)
+            offsets = np.zeros(len(lens) + 1, np.int64)
+            np.cumsum(lens, out=offsets[1:])
+            self._flat = (ids, offsets)
+        return self._native_batches(epoch_index)
+
+    def _native_batches(self, epoch_index: int) -> Iterator[Batch]:
+        """Blocks of about ``NATIVE_BLOCK_WORDS`` words, each one
+        ``window_batch_epoch_native`` call under the seed of ``(seed,
+        epoch, block)``, cut into batches of ``batch_size`` rows (a batch
+        may span blocks; the last one is zero-padded). A block's words are
+        credited to its batches in proportion to the rows they take, so
+        the learning rate anneals smoothly within a block."""
+        from glint_word2vec_torch.native import window_batch_epoch_native
+
+        ids, offsets = self._flat
+        kp = self.keep_prob.astype(np.float32)
+        n_sent = len(offsets) - 1
+        B = self.batch_size
+        C = context_width(self.window)
+        buf_c = np.zeros(B, np.int32)
+        buf_x = np.zeros((B, C), np.int32)
+        buf_m = np.zeros((B, C), np.float32)
+        fill = 0
+        s = 0
+        block = 0
+        while s < n_sent:
+            e = int(np.searchsorted(
+                offsets, offsets[s] + self.NATIVE_BLOCK_WORDS, side="left"
+            ))
+            e = min(max(e, s + 1), n_sent)
+            seed = int(np.random.SeedSequence(
+                (self.seed, epoch_index, block)
+            ).generate_state(1, np.uint64)[0])
+            centers, contexts, mask, block_words = window_batch_epoch_native(
+                ids[offsets[s] : offsets[e]], offsets[s : e + 1] - offsets[s],
+                kp, self.window, seed,
+            )
+            wd_base = self.words_done
+            self.words_done += block_words
+            n = centers.shape[0]
+            start = 0
+            while n - start > 0:
+                take = min(B - fill, n - start)
+                buf_c[fill : fill + take] = centers[start : start + take]
+                buf_x[fill : fill + take] = contexts[start : start + take]
+                buf_m[fill : fill + take] = mask[start : start + take]
+                fill += take
+                start += take
+                if fill == B:
+                    wd = wd_base + int(round(block_words * (start / n)))
+                    yield Batch(buf_c.copy(), buf_x.copy(), buf_m.copy(), wd)
+                    fill = 0
+            s = e
+            block += 1
+        if fill > 0:
+            buf_c[fill:] = 0
+            buf_x[fill:] = 0
+            buf_m[fill:] = 0.0
+            yield Batch(buf_c.copy(), buf_x.copy(), buf_m.copy(), self.words_done)
+
+    def _epoch_python(self, epoch_index: int) -> Iterator[Batch]:
+        """The numpy epoch pass. The draws are made sentence by sentence,
+        in the order of the JAX package's numpy pass
+        (:func:`subsample_sentence`, then the window draws of
         :func:`window_batch`); the windows of ``_BLOCK_ROWS`` rows are then
         built at once, which keeps the producer thread's hold on the
         interpreter short. A batch's ``words_done`` is the count after the

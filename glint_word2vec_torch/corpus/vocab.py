@@ -1,5 +1,5 @@
 """Vocabulary construction and corpus encoding (own copy of
-``glint_word2vec_tpu/corpus/vocab.py``, without its native scanner).
+``glint_word2vec_tpu/corpus/vocab.py``, with its native scanner).
 
 Index == frequency rank, most frequent word first, ties broken by first
 occurrence, as the JAX package builds it; a saved model directory lists
@@ -265,9 +265,22 @@ def scan_and_encode_file(
     max_sentence_length: int = 1000,
     lowercase: bool = False,
 ) -> Tuple[Vocabulary, np.ndarray, np.ndarray]:
-    """Both ingestion passes over a text file: the vocabulary scan
-    (:func:`build_vocab` over :func:`iter_text_file`), then the flat
-    encode (:func:`encode_file`). Returns ``(vocab, ids, offsets)``."""
+    """Both ingestion passes over a text file: through the native scanner
+    (``native/host_ops.cpp``) when it is available, else the vocabulary
+    scan (:func:`build_vocab` over :func:`iter_text_file`), then the flat
+    encode (:func:`encode_file`). The native scanner gives the Python
+    passes' output for valid UTF-8 and declines, leaving the file to
+    them, on invalid UTF-8 or ``lowercase=True``, as the JAX package's
+    does. Returns ``(vocab, ids, offsets)``."""
+    from glint_word2vec_torch.native import corpus_scan_native
+
+    res = corpus_scan_native(
+        path, min_count, max_sentence_length, lowercase=lowercase
+    )
+    if res is not None:
+        words, counts, ids, offsets = res
+        vocab = Vocabulary.from_sorted(words, counts, min_count=min_count)
+        return vocab, ids, offsets
     vocab = build_vocab(
         iter_text_file(path, lowercase=lowercase), min_count=min_count
     )

@@ -1,6 +1,6 @@
-"""Build-on-first-use of the port's CUDA sources (the pattern of
-``glint_word2vec_tpu/native/__init__.py``, for ``nvcc`` instead of a C++
-compiler).
+"""Build-on-first-use of the port's native sources: the CUDA kernels
+(``csrc/*.cu``, with ``nvcc``) and the host pass (``native/*.cpp``, with
+``g++``).
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
 into ``_build/<name>-<hash>.so``, where the hash covers the source and the
@@ -9,13 +9,24 @@ reused. :func:`build` starts one ``nvcc`` per source, all at once, and
 waits for them; :func:`library` builds one source if needed and loads it
 with ctypes. A missing ``nvcc`` or a failed build raises: there is no
 version of the port that runs on the card without its kernels.
+
+:func:`native_library` does the same for ``native/<name>.cpp`` with
+``g++ -O3 -march=native``; its hash also covers the host CPU's model and
+feature flags, so a tree copied to another machine rebuilds instead of
+running code built for another instruction set. The build writes a
+temporary file and renames it under a file lock, so processes that build
+at once (test workers) never load a half-written library. A missing
+``g++`` or a failed build raises here; the caller
+(``native/__init__.py``) falls back to the Python pass.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -25,6 +36,7 @@ from typing import Dict, Iterable, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
+NATIVE_DIR = PACKAGE_DIR / "native"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 #: ``sm_90a`` keeps Hopper's arch-specific instructions available to the
@@ -35,6 +47,10 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+#: The host pass: optimised for the CPU that builds it.
+GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17",
+             "-pthread")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -128,4 +144,67 @@ def library(name: str) -> ctypes.CDLL:
             build([name])
             lib = ctypes.CDLL(str(library_path(name)))
             _libs[name] = lib
+        return lib
+
+
+def host_cpu_model() -> str:
+    """The host CPU's model name and feature flags (``/proc/cpuinfo``),
+    which ``-march=native`` compiles for."""
+    fields: Dict[str, str] = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                if key in ("model name", "flags", "Features", "CPU part"):
+                    fields.setdefault(key, value.strip())
+    except OSError:
+        pass
+    return "|".join(f"{k}={fields[k]}" for k in sorted(fields)) or (
+        f"{platform.machine()}|{platform.processor()}"
+    )
+
+
+def native_library_path(name: str) -> Path:
+    """Where the built library of ``native/<name>.cpp`` lives for this
+    host."""
+    h = hashlib.sha256((NATIVE_DIR / f"{name}.cpp").read_bytes())
+    h.update(" ".join(GXX_FLAGS).encode())
+    h.update(host_cpu_model().encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _build_native(name: str, out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{out.stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():  # another process built it while this one waited
+            return
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found: the native host pass cannot "
+                               "be built")
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        cmd = [gxx, *GXX_FLAGS, str(NATIVE_DIR / f"{name}.cpp"), "-o", str(tmp)]
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"g++ failed on native/{name}.cpp (exit {proc.returncode}):\n"
+                f"{proc.stderr}"
+            )
+        os.replace(tmp, out)
+
+
+def native_library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``native/<name>.cpp``, built on first use."""
+    key = f"native/{name}"
+    with _lock:
+        lib = _libs.get(key)
+        if lib is None:
+            out = native_library_path(name)
+            if not out.exists():
+                _build_native(name, out)
+            lib = ctypes.CDLL(str(out))
+            _libs[key] = lib
         return lib

@@ -4,11 +4,13 @@
 :class:`Word2Vec` trains on one device by one of two routes, chosen as
 the JAX package chooses them (``models/word2vec.py:422-559``):
 
-- the corpus-resident dense packed path, when the model family allows it
-  and the corpus fits the device budget: build the vocabulary and the
-  flat corpus on the host, upload the corpus once, then per epoch
-  subsample and compact it on the device and run groups of packed steps
-  (``EmbeddingEngine.train_steps_corpus_packed``);
+- the corpus-resident path, when the model family allows it and the
+  corpus fits the device budget: build the vocabulary and the flat
+  corpus on the host, upload the corpus once, then per epoch subsample
+  and compact it on the device and run groups of dense packed steps
+  (``EmbeddingEngine.train_steps_corpus_packed``) or, with
+  ``batch_packing="grid"``, of grid steps assembled on the device
+  (``EmbeddingEngine.train_steps_corpus``);
 - the host batcher otherwise (a corpus past the budget, or a family such
   as fastText whose centers need host-side expansion): the host windows
   the corpus into grid batches on a producer thread
@@ -16,10 +18,11 @@ the JAX package chooses them (``models/word2vec.py:422-559``):
   engine runs groups of composed steps
   (``EmbeddingEngine.train_steps_grouped``).
 
-Both anneal the learning rate linearly and checkpoint at epoch ends, and
-both train per-pair negatives or the shared negative pool
-(``shared_negatives > 0``). What the JAX package trains by other routes
-(grid packing on the device corpus, meshes and replica exchange, the
+Both anneal the learning rate linearly and checkpoint at epoch ends (the
+packed path also mid-epoch, under the JAX package's
+``GLINT_PACKED_STOP_AFTER_GROUPS`` drill), and both train per-pair
+negatives or the shared negative pool (``shared_negatives > 0``). What
+the JAX package trains by other routes (meshes and replica exchange, the
 ``dims`` layout) raises ``ValueError``: those are later slices of the
 port.
 
@@ -43,6 +46,7 @@ from glint_word2vec_torch.corpus.batching import (
     BatchGroup,
     SkipGramBatcher,
     chunk_sentences,
+    context_width,
     encode_sentences,
     group_batches,
     packed_pair_batch,
@@ -330,13 +334,6 @@ class Word2Vec:
             )
             free = _free_device_bytes(resolve_device(self.device))
             if need <= DEVICE_MEMORY_FRACTION * free:
-                if p.batch_packing != "dense":
-                    raise ValueError(
-                        "not ported yet, a later slice of the PyTorch port: "
-                        "batch_packing='grid' (grid packing on the device "
-                        "corpus); a corpus past the device budget trains "
-                        "grid batches through the host batcher"
-                    )
                 return self._fit_corpus_resident(
                     vocab, ids, offsets, checkpoint_dir,
                     checkpoint_every_epochs, stop_after_epochs,
@@ -369,16 +366,23 @@ class Word2Vec:
         packing, draw and sort buffers with room to spare; with a shared
         pool of S, also the pool's fp32 rows and ``d_pool``, and the
         forward kernel's ``(P, S)`` fp32 ``c_pool``, partial losses and
-        second K chunk of ``d_center`` and ``d_pool``),
-        and the corpus at its peak bytes a word, with its offsets (three
-        copies with subsampling: uploaded, compacted, and the pass's
-        prefix sums)."""
+        second K chunk of ``d_center`` and ``d_pool``; under grid
+        packing, also the composed step's fp32 context and negative rows
+        and their gradients), and the corpus at its peak bytes a word,
+        with its offsets (three copies with subsampling: uploaded,
+        compacted, and the pass's prefix sums)."""
         p = self.params
         s = 2 if p.dtype == "bfloat16" else 4
         P = packed_pair_batch(p.batch_size, p.window)
         S = p.shared_negatives
         tables = vocab_size * (2 * p.vector_size * s + 16)
         step = 2 * P * p.vector_size * 4 + 1024 * P * (1 + p.num_negatives)
+        if p.batch_packing == "grid":
+            # The composed step's fp32 context and negative rows and their
+            # gradients, for B rows of C lanes.
+            lanes = p.batch_size * context_width(p.window)
+            step += 3 * lanes * (1 + p.num_negatives) * p.vector_size * 4
+            step += 1024 * lanes * (1 + p.num_negatives)
         if S:
             step += (2 * S * p.vector_size * 4 + P * S * 4
                      + P * (S // 64 + 1) * 4 + (P + S) * p.vector_size * 4
@@ -469,13 +473,6 @@ class Word2Vec:
             logger.info("resuming after epoch %d (step %d)", start_epoch, step)
         metrics = TrainingMetrics(base_words=batcher.words_done)
 
-        def harvest(pend) -> None:
-            losses, wds, alphas, n_real = pend
-            with metrics.timing("step"):
-                host = losses.cpu().numpy()
-            for i in range(n_real):
-                metrics.record_step(wds[i], loss=host[i], alpha=alphas[i])
-
         for epoch in range(start_epoch, p.num_iterations):
             it = prefetch(group_batches(batcher.epoch(epoch), spc), depth=2)
             pending = None
@@ -496,10 +493,10 @@ class Word2Vec:
                     )
                 step += spc  # pad steps consumed keys too
                 if pending is not None:
-                    harvest(pending)
+                    self._harvest(metrics, *pending)
                 pending = (losses, wds, alphas, grp.n_real)
             if pending is not None:
-                harvest(pending)
+                self._harvest(metrics, *pending)
             stopping = (
                 stop_after_epochs is not None
                 and (epoch + 1 - start_epoch) >= stop_after_epochs
@@ -532,23 +529,37 @@ class Word2Vec:
         checkpoint_every_epochs: int,
         stop_after_epochs: Optional[int],
     ) -> "Word2VecModel":
-        """The device-resident training loop, dense packing, one device
-        (the JAX package's ``_fit_corpus_resident``, :628-1240, trimmed).
+        """The device-resident training loop, one device (the JAX package's
+        ``_fit_corpus_resident``, :628-1240, trimmed): dense pair packing
+        (``engine.train_steps_corpus_packed``) or, with
+        ``batch_packing="grid"``, grid batches assembled on the device
+        (``engine.train_steps_corpus``).
 
         Key schedule, kept exactly so that a resumed run equals an
         uninterrupted one: step ``s`` draws its negatives (or its shared
         pool) under ``fold_in(seed_key, s)``, and the step counter advances by
         ``steps_per_call`` per group, tail no-ops included; the shrink
-        draws follow the grid-equivalent counter ``gstep``, which advances
-        by ``groups * steps_per_call`` per epoch; the subsample draws are
-        keyed by the epoch alone. Each group is one call of the engine and
-        one readback."""
+        draws follow the grid-equivalent counter ``gstep`` (the grid
+        path's own step counter), which advances by ``groups *
+        steps_per_call`` per epoch; the subsample draws are keyed by the
+        epoch alone. Each group is one call of the engine and one readback.
+
+        Checkpoints at epoch ends carry ``position`` 0, ``gstep`` and the
+        ``batch_packing`` that wrote them, and resume under either packing.
+        ``GLINT_PACKED_STOP_AFTER_GROUPS=N`` (the JAX package's drill hook)
+        stops the packed path after N dispatch groups with a mid-epoch
+        checkpoint: the consumed ``position`` in the epoch's stream
+        (compacted when subsampling), ``step``, the epoch's ``gstep`` base
+        and ``words_done``. A resume starts the epoch's first group at
+        ``position``, so every later dispatch is the uninterrupted run's;
+        a mid-epoch state resumes only under the packing that wrote it."""
         p = self.params
         subsampling = p.subsample_ratio > 0
+        packed = p.batch_packing == "dense"
         logger.info(
-            "vocab: %d words, %d train words (device-resident corpus%s)",
-            vocab.size, vocab.train_words_count,
-            ", on-device subsampling" if subsampling else "",
+            "vocab: %d words, %d train words (device-resident corpus, %s "
+            "packing%s)", vocab.size, vocab.train_words_count,
+            p.batch_packing, ", on-device subsampling" if subsampling else "",
         )
         engine = self._make_engine(vocab)
         twc = vocab.train_words_count
@@ -560,8 +571,10 @@ class Word2Vec:
         total_words = p.num_iterations * twc + 1
         base_key = rnd.seed_key(p.seed)
         pair_batch = packed_pair_batch(B, p.window)
-        step = gstep = start_epoch = 0
-        packed_pairs = packed_slots = 0
+        step = gstep = start_epoch = resume_position = 0
+        packed_groups = packed_pairs = packed_slots = 0
+        stop_after_groups = os.environ.get("GLINT_PACKED_STOP_AFTER_GROUPS")
+        stop_after_groups = int(stop_after_groups) if stop_after_groups else None
 
         state_path = (
             os.path.join(checkpoint_dir, "train_state.json")
@@ -570,22 +583,36 @@ class Word2Vec:
         resume_words = None
         state = resolve_train_state(checkpoint_dir) if state_path else None
         if state is not None:
-            if int(state.get("position", 0)) > 0:
+            # A mid-epoch state resumes only under the packing that wrote
+            # it: the other would misread its position and train the
+            # epoch's consumed prefix again.
+            state_packing = state.get("batch_packing", "grid")
+            if (int(state.get("position", 0)) > 0
+                    and state_packing != p.batch_packing):
                 raise ValueError(
-                    f"the checkpoint at {checkpoint_dir} is mid-epoch "
-                    f"(position {state['position']}); mid-epoch resume is a "
-                    "later slice of the PyTorch port"
+                    f"mid-epoch checkpoint at {checkpoint_dir} was written "
+                    f"with batch_packing={state_packing!r} (position "
+                    f"{state['position']}); resume with the same packing "
+                    "mode, or restart from an epoch-boundary checkpoint"
                 )
             engine.load_tables(os.path.join(checkpoint_dir, state["ckpt"]))
             start_epoch = int(state["epochs_completed"])
             step = int(state["step"])
+            resume_position = int(state.get("position", 0))
             gstep = int(state.get("gstep", step))
             resume_words = int(state.get("words_done", start_epoch * twc))
-            logger.info("resuming after epoch %d (step %d)", start_epoch, step)
+            logger.info("resuming after epoch %d (step %d, position %d)",
+                        start_epoch, step, resume_position)
         metrics = TrainingMetrics(
             base_words=resume_words if resume_words is not None
             else start_epoch * twc
         )
+
+        def save(ck_name: str, **fields) -> None:
+            with metrics.stall_timing():
+                engine.save(os.path.join(checkpoint_dir, ck_name))
+                _flip_checkpoint_state(checkpoint_dir, state_path, ck_name,
+                                       **fields)
 
         for epoch in range(start_epoch, p.num_iterations):
             if subsampling:
@@ -594,41 +621,84 @@ class Word2Vec:
                 offsets_c = engine.compacted_offsets()
             else:
                 n_pos, offsets_c = N, None
+
+            def words_done(end_pos: int) -> int:
+                if subsampling:
+                    return epoch * twc + corpus_words_done_compacted(
+                        offsets, offsets_c, end_pos, n_pos)
+                return epoch * twc + corpus_words_done(offsets, end_pos)
+
             steps_per_epoch = max(1, -(-n_pos // B))
             groups = max(1, -(-steps_per_epoch // spc))
-            pos = 0
-            while pos < n_pos:
-                with metrics.timing("step"):
-                    losses, pair_counts, pos_ends, alphas = (
-                        engine.train_steps_corpus_packed(
-                            pos, pair_batch, p.window, B, base_key, spc,
-                            step0=step, grid_step0=gstep,
-                            step_size=p.step_size, total_words=total_words,
-                            words_base=epoch * twc,
-                        )
-                    )
-                # Live steps form a prefix: the first start past the
-                # stream's end makes every later step a no-op.
-                starts = np.concatenate(([pos], pos_ends[:-1]))
-                n_real = int((starts < n_pos).sum())
-                with metrics.timing("host"):
-                    for i in range(n_real):
-                        step += 1
-                        end_pos = int(min(pos_ends[i], n_pos))
-                        if subsampling:
-                            done = corpus_words_done_compacted(
-                                offsets, offsets_c, end_pos, n_pos
+            if packed:
+                pos, resume_position = resume_position, 0
+                epoch_wd = epoch * twc
+                stopped = False
+                while pos < n_pos:
+                    with metrics.timing("step"):
+                        losses, pair_counts, pos_ends, alphas = (
+                            engine.train_steps_corpus_packed(
+                                pos, pair_batch, p.window, B, base_key, spc,
+                                step0=step, grid_step0=gstep,
+                                step_size=p.step_size, total_words=total_words,
+                                words_base=epoch * twc,
                             )
-                        else:
-                            done = corpus_words_done(offsets, end_pos)
-                        metrics.record_step(
-                            epoch * twc + done, loss=losses[i], alpha=alphas[i]
                         )
-                step += spc - n_real  # tail no-ops consumed keys
-                packed_pairs += int(pair_counts[:n_real].sum())
-                packed_slots += n_real * pair_batch
-                pos = int(pos_ends[-1])
-            gstep += groups * spc
+                    # Live steps form a prefix: the first start past the
+                    # stream's end makes every later step a no-op.
+                    starts = np.concatenate(([pos], pos_ends[:-1]))
+                    n_real = int((starts < n_pos).sum())
+                    with metrics.timing("host"):
+                        for i in range(n_real):
+                            epoch_wd = words_done(int(min(pos_ends[i], n_pos)))
+                            metrics.record_step(epoch_wd, loss=losses[i],
+                                                alpha=alphas[i])
+                    step += spc  # tail no-ops consumed keys
+                    packed_pairs += int(pair_counts[:n_real].sum())
+                    packed_slots += n_real * pair_batch
+                    packed_groups += 1
+                    pos = int(pos_ends[-1])
+                    if (stop_after_groups is not None
+                            and packed_groups >= stop_after_groups):
+                        stopped = True
+                        break
+                if stopped:
+                    if state_path:
+                        save(f"ckpt-e{epoch}-p{pos}", epochs_completed=epoch,
+                             step=step, words_done=epoch_wd,
+                             extra={"position": pos, "gstep": gstep,
+                                    "batch_packing": "dense"})
+                    logger.info("stopping mid-epoch %d at position %d "
+                                "(GLINT_PACKED_STOP_AFTER_GROUPS)", epoch, pos)
+                    break
+                gstep += groups * spc
+            else:
+                pending = None
+                for g in range(groups):
+                    start_pos = g * spc * B
+                    with metrics.timing("host"):
+                        wds = [words_done(min(start_pos + (j + 1) * B, n_pos))
+                               for j in range(spc)]
+                        alphas = np.maximum(
+                            p.step_size * (1 - np.asarray(wds) / total_words),
+                            p.step_size * 1e-4,
+                        ).astype(np.float32)
+                    # An epoch subsampled to nothing dispatches its one
+                    # no-op group but records no steps.
+                    n_real = min(spc, max(0, -(-(n_pos - start_pos) // B)))
+                    with metrics.timing("step"):
+                        losses = engine.train_steps_corpus(
+                            start_pos, B, p.window, base_key, alphas, step,
+                        )
+                    step += spc  # tail no-ops consumed keys
+                    # A group's losses are read back after the next group
+                    # is dispatched.
+                    if pending is not None:
+                        self._harvest(metrics, *pending)
+                    pending = (losses, wds, alphas, n_real)
+                if pending is not None:
+                    self._harvest(metrics, *pending)
+                gstep = step
             stopping = (
                 stop_after_epochs is not None
                 and (epoch + 1 - start_epoch) >= stop_after_epochs
@@ -636,20 +706,14 @@ class Word2Vec:
             if state_path and (
                 stopping or (epoch + 1) % max(checkpoint_every_epochs, 1) == 0
             ):
-                ck_name = f"ckpt-{epoch + 1}"
-                with metrics.stall_timing():
-                    engine.save(os.path.join(checkpoint_dir, ck_name))
-                    _flip_checkpoint_state(
-                        checkpoint_dir, state_path, ck_name,
-                        epochs_completed=epoch + 1, step=step,
-                        words_done=(epoch + 1) * twc,
-                        extra={
-                            "position": 0, "gstep": gstep,
-                            "batch_packing": p.batch_packing,
-                            "exchange_wire": p.exchange_wire,
-                            "exchange_every": p.exchange_every,
-                        },
-                    )
+                save(f"ckpt-{epoch + 1}", epochs_completed=epoch + 1,
+                     step=step, words_done=(epoch + 1) * twc,
+                     extra={
+                         "position": 0, "gstep": gstep,
+                         "batch_packing": p.batch_packing,
+                         "exchange_wire": p.exchange_wire,
+                         "exchange_every": p.exchange_every,
+                     })
             if stopping:
                 logger.info("stopping early after epoch %d", epoch + 1)
                 break
@@ -669,6 +733,17 @@ class Word2Vec:
             )
         logger.info("training done: %s", model.training_metrics)
         return model
+
+    @staticmethod
+    def _harvest(metrics: TrainingMetrics, losses: torch.Tensor, wds,
+                 alphas, n_real: int) -> None:
+        """Read one group of grid steps' ``(K,)`` device losses back and
+        record its ``n_real`` live steps (the grid loops read a group back
+        after the next one is dispatched)."""
+        with metrics.timing("step"):
+            host = losses.cpu().numpy()
+        for i in range(n_real):
+            metrics.record_step(wds[i], loss=host[i], alpha=alphas[i])
 
 
 class Word2VecModel:

@@ -9,8 +9,9 @@ round trip. Window semantics are the reference's (see
 ids int32.
 
 Each function that draws takes its draws through one argument, so a test
-can hand in the JAX package's: :func:`pack_window_pairs` takes the span's
-shrink values, :func:`subsample_compact` the keep mask. The functions
+can hand in the JAX package's: :func:`device_window_batch` and
+:func:`pack_window_pairs` take the shrink values, :func:`subsample_compact`
+the keep mask. The functions
 that make those draws, :func:`grid_window_shrink` and
 :func:`subsample_keep_mask`, use the counter-based words of
 ``ops/random.py``: a position's draw depends on the position alone.
@@ -73,6 +74,54 @@ def grid_window_shrink(base_key: int, positions: torch.Tensor,
     k = rnd.fold_in(k, WINDOW_FOLD)
     k = rnd.fold_in(k, positions % int(grid_batch))
     return rnd.below(k, int(window))
+
+
+def device_window_batch(
+    ids: torch.Tensor, offsets: torch.Tensor, positions: torch.Tensor,
+    shrink: torch.Tensor, window: int, n_valid=None,
+):
+    """Assemble one grid minibatch ``(centers, contexts, mask)`` on the
+    device (``device_window_batch``, ``device_batching.py:68-125`` of the
+    JAX package).
+
+    Row ``i`` is centered on ``positions[i]`` with the window-shrink draw
+    ``shrink[i]`` in ``[0, window)``, which the caller makes as a pure
+    function of the step key and the row (``grid_window_shrink`` over the
+    positions of a grid step). A position outside ``[0, n_valid)`` gives a
+    fully masked row: the epoch tail, and a negative position (a wrapped
+    one included) too, which must not train sentence 0. ``n_valid`` (an
+    int or a 0-d tensor; None for ``len(ids)``) is the corpus-end bound of
+    the active view: the compacted view keeps the buffer's length and
+    only its first ``n_kept`` positions live. Context validity needs no
+    other bound, since compacted sentence offsets never pass ``n_kept``.
+
+    Returns ``centers (B,) int32``, ``contexts (B, C) int32`` and ``mask
+    (B, C) float32``, ``C = context_width(window)``; masked lanes hold id
+    0."""
+    N = ids.shape[0]
+    if n_valid is None:
+        n_valid = N
+    dev = ids.device
+    last = max(N - 1, 0)
+    positions = positions.to(torch.int64)
+    in_corpus = (positions >= 0) & (positions < n_valid)
+    p = positions.clamp(0, last)
+    sent = torch.searchsorted(offsets, p, right=True) - 1
+    start = offsets[sent]
+    end = offsets[(sent + 1).clamp(max=offsets.shape[0] - 1)]
+    b = shrink.to(torch.int64)
+    offs = torch.as_tensor(window_offsets(window), dtype=torch.int64, device=dev)
+    cpos = p[:, None] + offs[None, :]
+    valid = (
+        (offs[None, :] >= -b[:, None])
+        & (offs[None, :] <= b[:, None] - 1)
+        & (cpos >= start[:, None])
+        & (cpos < end[:, None])
+        & in_corpus[:, None]
+    )
+    centers = torch.where(in_corpus, ids[p], 0).to(torch.int32)
+    contexts = torch.where(valid, ids[cpos.clamp(0, last)], 0).to(torch.int32)
+    return centers, contexts, valid.to(torch.float32)
 
 
 def pack_window_pairs(

@@ -8,7 +8,8 @@ version and with a ``launches`` counter on its wrapper:
 - :func:`pair_forward` (``csrc/pair_forward.cu``): gathers, dot products,
   sigmoids and coefficients, the fp32 center rows ``h`` and the center
   gradient ``d_center``, and the summed loss; one warp a pair, all of its
-  ``2 + n`` rows staged in shared memory before any is used.
+  ``2 + n`` rows staged in shared memory before any is used, or, where
+  they do not fit, read from the tables in two passes (the tiled form).
 - :func:`pair_forward_shared` (``csrc/pair_forward_shared.cu``): the same
   against one pool of S negatives shared by the batch, with the three
   dense pool products (``f_pool``, the pool term of ``d_center``, and
@@ -58,13 +59,16 @@ def _lib(name: str):
 
         lib = build.library(name)
         if name == "pair_forward":
-            lib.glint_pair_forward.argtypes = [
+            forward = [
                 _P, _P, _I64, _I32, _P, _P, _P, _P, _P, _P, _I64, _I32, _I64,
                 _P, _P, _P, _P, _P, _P,
             ]
+            lib.glint_pair_forward.argtypes = forward + [_P]
             lib.glint_pair_forward.restype = ctypes.c_int
+            lib.glint_pair_forward_tiled.argtypes = forward
+            lib.glint_pair_forward_tiled.restype = ctypes.c_int
             lib.glint_pair_forward_grid.argtypes = [
-                _P, _P, _I64, _I32, _I64, _I32, _I64, _P,
+                _P, _P, _I64, _I32, _I64, _I32, _I64, _I32, _P,
             ]
             lib.glint_pair_forward_grid.restype = ctypes.c_int
         elif name == "pair_forward_shared":
@@ -164,23 +168,10 @@ def pair_forward_reference(syn0, syn1, centers, contexts, mask, negs, nmask,
     return PairForward(c_pos, c_neg, h, d_center, pair_loss.sum())
 
 
-def pair_forward(syn0: torch.Tensor, syn1: torch.Tensor,
-                 centers: torch.Tensor, contexts: torch.Tensor,
-                 mask: torch.Tensor, negs: torch.Tensor, nmask: torch.Tensor,
-                 alpha: torch.Tensor) -> PairForward:
-    """Forward half of the fused pair step (per-pair negatives).
-
-    ``syn0``/``syn1`` are contiguous ``(V, d)`` tables of one dtype (fp32
-    or bf16); ``centers``/``contexts`` ``(P,)`` int32 in ``[0, V)``;
-    ``mask`` ``(P,)`` fp32; ``negs`` ``(P, n)`` int32; ``nmask`` ``(P, n)``
-    fp32; ``alpha`` a 0-d fp32 tensor, all on one device. The kernel gives
-    each pair one warp, which loads the pair's ids in one trip and then
-    stages all its ``2 + n`` rows in shared memory before it uses any, so
-    a pair's rows, ``(2 + n) * d`` values of the table's dtype, must fit
-    in a block's 227 KB (the launch raises otherwise). The per-pair losses
-    are summed in a fixed order (``torch.sum``), never with float atomics:
-    two calls on the same inputs agree bitwise. Each kernel launch adds
-    one to ``pair_forward.launches``."""
+def _pair_forward(syn0, syn1, centers, contexts, mask, negs, nmask, alpha,
+                  tiled: bool) -> PairForward:
+    """:func:`pair_forward` (``tiled`` False) or :func:`pair_forward_tiled`
+    (True)."""
     _check_table(syn0, "syn0")
     _check_table(syn1, "syn1")
     if syn0.dtype != syn1.dtype or syn0.shape[1] != syn1.shape[1]:
@@ -211,7 +202,7 @@ def pair_forward(syn0: torch.Tensor, syn1: torch.Tensor,
     loss = torch.empty(P, **f32)
     if P:
         lib = _lib("pair_forward")
-        rc = lib.glint_pair_forward(
+        args = (
             syn0.data_ptr(), syn1.data_ptr(), syn0.stride(0),
             _DTYPE_TAGS[syn0.dtype], centers.data_ptr(), contexts.data_ptr(),
             mask.data_ptr(), negs.data_ptr(), nmask.data_ptr(),
@@ -219,29 +210,81 @@ def pair_forward(syn0: torch.Tensor, syn1: torch.Tensor,
             h.data_ptr(), d_center.data_ptr(), loss.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
-        _check(lib, rc, "pair_forward")
-        pair_forward.launches += 1
+        if tiled:
+            _check(lib, lib.glint_pair_forward_tiled(*args),
+                   "pair_forward_tiled")
+            pair_forward_tiled.launches += 1
+        else:
+            form = ctypes.c_int32(0)
+            _check(lib, lib.glint_pair_forward(*args, ctypes.byref(form)),
+                   "pair_forward")
+            pair_forward.launches += 1
+            pair_forward.tiled_launches += form.value
     return PairForward(c_pos, c_neg, h, d_center, loss.sum())
 
 
+def pair_forward(syn0: torch.Tensor, syn1: torch.Tensor,
+                 centers: torch.Tensor, contexts: torch.Tensor,
+                 mask: torch.Tensor, negs: torch.Tensor, nmask: torch.Tensor,
+                 alpha: torch.Tensor) -> PairForward:
+    """Forward half of the fused pair step (per-pair negatives).
+
+    ``syn0``/``syn1`` are contiguous ``(V, d)`` tables of one dtype (fp32
+    or bf16); ``centers``/``contexts`` ``(P,)`` int32 in ``[0, V)``;
+    ``mask`` ``(P,)`` fp32; ``negs`` ``(P, n)`` int32; ``nmask`` ``(P, n)``
+    fp32; ``alpha`` a 0-d fp32 tensor, all on one device. Every ``d`` and
+    ``n >= 1`` runs: the kernel gives each pair one warp, which stages all
+    its ``2 + n`` rows in shared memory before it uses any where they fit
+    in a block's 227 KB (the one-pass form), and otherwise reads them from
+    the tables in two passes over the columns (the tiled form,
+    :func:`pair_forward_tiled`), which forms the same sums in the same
+    order. The per-pair losses are summed in a fixed order
+    (``torch.sum``), never with float atomics: two calls on the same
+    inputs agree bitwise. Each kernel launch adds one to
+    ``pair_forward.launches``, and one in the tiled form also to
+    ``pair_forward.tiled_launches``."""
+    return _pair_forward(syn0, syn1, centers, contexts, mask, negs, nmask,
+                         alpha, tiled=False)
+
+
 #: Kernel launches since the last reset (``chip_smoke.py`` zeroes it
-#: before driving the training path and reads it after).
+#: before driving the training path and reads it after), and those of
+#: them in the tiled form.
 pair_forward.launches = 0
+pair_forward.tiled_launches = 0
+
+
+def pair_forward_tiled(syn0: torch.Tensor, syn1: torch.Tensor,
+                       centers: torch.Tensor, contexts: torch.Tensor,
+                       mask: torch.Tensor, negs: torch.Tensor,
+                       nmask: torch.Tensor, alpha: torch.Tensor) -> PairForward:
+    """:func:`pair_forward` in its tiled form at any shape, for holding
+    the two forms against each other (:func:`pair_forward` takes it only
+    where a pair's rows do not fit in shared memory). Each launch adds one
+    to ``pair_forward_tiled.launches``."""
+    return _pair_forward(syn0, syn1, centers, contexts, mask, negs, nmask,
+                         alpha, tiled=True)
+
+
+pair_forward_tiled.launches = 0
 
 
 def pair_forward_grid(P: int, n: int, syn0: torch.Tensor,
-                      syn1: torch.Tensor) -> dict:
-    """The launch :func:`pair_forward` makes for ``P`` pairs of ``n``
-    negatives on these CUDA tables, on the current card: ``{"blocks",
-    "pairs_per_block", "per_sm": blocks an SM holds at once, "sms"}``;
-    ``blocks / (per_sm * sms)`` is its number of waves."""
-    out = (ctypes.c_int64 * 4)()
+                      syn1: torch.Tensor, tiled: bool = False) -> dict:
+    """The launch :func:`pair_forward` (or, with ``tiled``,
+    :func:`pair_forward_tiled`) makes for ``P`` pairs of ``n`` negatives on
+    these CUDA tables, on the current card: ``{"blocks",
+    "pairs_per_block", "per_sm": blocks an SM holds at once, "sms",
+    "tiled": whether it takes the tiled form}``; ``blocks / (per_sm *
+    sms)`` is its number of waves."""
+    out = (ctypes.c_int64 * 5)()
     lib = _lib("pair_forward")
     _check(lib, lib.glint_pair_forward_grid(
         syn0.data_ptr(), syn1.data_ptr(), syn0.stride(0),
-        _DTYPE_TAGS[syn0.dtype], P, n, syn0.shape[1], out), "pair_forward_grid")
+        _DTYPE_TAGS[syn0.dtype], P, n, syn0.shape[1], int(tiled), out),
+        "pair_forward_grid")
     return {"blocks": out[0], "pairs_per_block": out[1], "per_sm": out[2],
-            "sms": out[3]}
+            "sms": out[3], "tiled": bool(out[4])}
 
 
 class SharedPairForward(NamedTuple):

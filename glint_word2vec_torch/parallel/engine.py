@@ -9,7 +9,7 @@ cosine top-k, whose matrix products and ``topk`` are plain torch calls, as
 the JAX package leaves them to XLA. Every computation is in fp32 whatever
 the storage dtype.
 
-Training takes two routes, both updating the tables in place:
+Training takes three routes, all updating the tables in place:
 
 - the corpus-resident packed path: the flat corpus is uploaded once
   (:meth:`EmbeddingEngine.upload_corpus`), subsampled and compacted on
@@ -18,6 +18,10 @@ Training takes two routes, both updating the tables in place:
   pair packing, negative draws and the fused pair step of
   ``ops/fused_sgns.py`` as a Python loop of launches, with one readback
   per K steps;
+- the corpus-resident grid path over the same corpus:
+  :meth:`EmbeddingEngine.train_steps_corpus` assembles K grid batches on
+  the device (``ops/device_batching.device_window_batch``) and runs the
+  composed step below on each;
 - the composed step of host batches (:meth:`EmbeddingEngine.
   train_steps_grouped`, the JAX engine's ``step_body_rows``,
   ``engine.py:643-758``): grid batches whose centers are groups of S rows
@@ -558,19 +562,14 @@ class EmbeddingEngine:
         Returns host arrays ``(losses (K,), pair_counts (K,), pos_ends
         (K,), alphas (K,))``: per-step loss, live pairs packed, consumed
         position after the step, and alpha."""
-        ids_full, offsets = self._require_corpus()
+        offsets = self._require_corpus()[1]
         P, W, B = int(pair_batch), int(window), int(grid_batch)
         C = context_width(W)
         if P < C:
             raise ValueError(f"pair_batch ({P}) must be >= context lanes ({C})")
         S = dbat.packed_span(P, C)
         K = int(n_steps)
-        if self._corpus_compacted is not None:
-            ids, soffs = self._corpus_compacted
-            n_valid = self._n_kept
-        else:
-            ids, soffs = ids_full, offsets
-            n_valid = ids_full.shape[0]
+        ids, soffs, n_valid = self._active_corpus()
         if draws is None:
             draws = TrainingDraws(
                 base_key, *self.noise_tables(), W, B, self.num_negatives
@@ -616,6 +615,64 @@ class EmbeddingEngine:
             host[0].astype(np.float32), host[1].astype(np.int64),
             host[2].astype(np.int64), host[3].astype(np.float32),
         )
+
+    def _active_corpus(self):
+        """``(ids, sentence offsets, n_valid)`` of the active corpus view:
+        the epoch's compacted buffers after :meth:`compact_corpus`, else
+        the uploaded corpus."""
+        ids, offsets = self._require_corpus()
+        if self._corpus_compacted is not None:
+            return (*self._corpus_compacted, self._n_kept)
+        return ids, offsets, ids.shape[0]
+
+    def train_steps_corpus(
+        self, start_position: int, batch_size: int, window: int,
+        base_key: int, alphas, step0: int = 0, *, draws=None,
+    ) -> torch.Tensor:
+        """K = ``len(alphas)`` composed steps of grid batches over the
+        active corpus view (the JAX engine's ``train_steps_corpus``,
+        ``engine.py:1761-1799``, and its corpus scan, :944-999).
+
+        Batch ``i`` covers positions ``[start + i*B, start + (i+1)*B)``
+        (``start`` a position of the compacted stream when subsampling);
+        positions past the view's end are masked rows, the epoch tail. Its
+        rows draw their window shrinks and their ``(C, n)`` negatives (or
+        the step's shared pool) under ``fold_in(base_key, step0 + i)``, the
+        key schedule of :meth:`train_steps`, so a grid step over the
+        device corpus draws what the same batch draws from the host.
+        ``draws`` supplies them (:class:`TrainingDraws` over ``base_key``
+        by default; tests hand in the JAX package's). Every step is
+        :meth:`_composed_step` (``gather_rows``, ``scatter_add_rank1``,
+        ``scatter_add_rows``). Returns the ``(K,)`` fp32 losses as a
+        device tensor, read back once by the caller."""
+        ids, soffs, n_valid = self._active_corpus()
+        B, W = int(batch_size), int(window)
+        C = context_width(W)
+        alphas_t = self._on_device(np.asarray(alphas, np.float32), torch.float32)
+        K = alphas_t.shape[0]
+        if draws is None:
+            draws = TrainingDraws(
+                base_key, *self.noise_tables(), W, B, self.num_negatives
+            )
+        dev = self.device
+        rows = torch.arange(B, dtype=torch.int64, device=dev)
+        ones = torch.ones((B, 1), dtype=torch.float32, device=dev)
+        losses = torch.empty(K, dtype=torch.float32, device=dev)
+        for i in range(K):
+            step = int(step0) + i
+            positions = rows + (int(start_position) + i * B)
+            centers, contexts, mask = dbat.device_window_batch(
+                ids, soffs, positions, draws.step_shrink(step, B), W,
+                n_valid=n_valid,
+            )
+            noise = (draws.pool(step, self.shared_negatives)
+                     if self.shared_negatives
+                     else draws.window_negatives(step, B, C))
+            losses[i] = self._composed_step(
+                centers[:, None], ones, contexts, mask, alphas_t[i], noise
+            )
+        self._tick_tables()
+        return losses
 
     # ------------------------------------------------------------------
     # Host batches: the composed step
@@ -1006,9 +1063,11 @@ class TrainingDraws:
     :meth:`negatives` the per-pair-row negatives of one step under
     ``fold_in(base_key, step)`` (``sampling.sample_negatives_per_row``),
     and :meth:`pool` the step's shared pool under the same key, with no
-    per-row fold (``sampling.sample_negatives``). Tests hand the engine
-    another object with these methods to replay the JAX package's
-    draws."""
+    per-row fold (``sampling.sample_negatives``). The grid steps of the
+    device corpus take :meth:`step_shrink`, the shrinks of one grid
+    step's rows, and :meth:`window_negatives`, its rows' ``(C, n)``
+    negatives. Tests hand the engine another object with these methods to
+    replay the JAX package's draws."""
 
     def __init__(self, base_key: int, prob: torch.Tensor, alias: torch.Tensor,
                  window: int, grid_batch: int, num_negatives: int):
@@ -1027,6 +1086,25 @@ class TrainingDraws:
         key = rnd.fold_in(self.base_key, int(step) & 0xFFFFFFFF)
         return sample_negatives_per_row(
             key, self.prob, self.alias, rows, (self.num_negatives,)
+        )
+
+    def step_shrink(self, step: int, n_rows: int) -> torch.Tensor:
+        """The shrinks of grid step ``step``'s rows: row ``r`` draws under
+        ``fold_in(fold_in(fold_in(base_key, step), WINDOW_FOLD), r)``, what
+        :meth:`shrink` gives the positions that step covers."""
+        rows = torch.arange(n_rows, dtype=torch.int64, device=self.prob.device)
+        return dbat.grid_window_shrink(
+            self.base_key, rows, n_rows, step, self.window
+        )
+
+    def window_negatives(self, step: int, n_rows: int,
+                         lanes: int) -> torch.Tensor:
+        """Grid step ``step``'s ``(n_rows, lanes, n)`` negatives, the draws
+        of :meth:`EmbeddingEngine.train_steps_grouped`."""
+        rows = torch.arange(n_rows, dtype=torch.int64, device=self.prob.device)
+        key = rnd.fold_in(self.base_key, int(step) & 0xFFFFFFFF)
+        return sample_negatives_per_row(
+            key, self.prob, self.alias, rows, (int(lanes), self.num_negatives)
         )
 
     def pool(self, step: int, size: int) -> torch.Tensor:

@@ -2,9 +2,11 @@
 ``group_batches``, ``utils/prefetch.py``) against the JAX package's, and
 word2vec trained through it.
 
-* The batches equal the JAX package's numpy epoch pass bitwise (the same
-  ``default_rng((seed, epoch))`` stream and ``words_done``), from a
-  sentence list and from the flat corpus, with and without subsampling.
+* The numpy epoch pass equals the JAX package's numpy epoch pass bitwise
+  (the same ``default_rng((seed, epoch))`` stream and ``words_done``), and
+  the native pass the JAX package's native pass, from a sentence list and
+  from the flat corpus, with and without subsampling;
+  ``GLINT_W2V_NO_NATIVE=1`` gives the numpy pass.
 * ``prefetch`` hands the producer thread's exception to the consumer.
 * ``Word2Vec(device="cpu")`` with a device reporting too little free
   memory (``_free_device_bytes`` monkeypatched) trains ``tiny_corpus``
@@ -64,7 +66,7 @@ def test_batches_equal_the_jax_numpy_pass(tiny_corpus, monkeypatch,
         want = list(jbat._epoch_python(epoch))
         assert len(want) > 3 and want[-1].mask[-1].sum() == 0  # padded tail
         for pbat in pbats:
-            got = list(pbat.epoch(epoch))
+            got = list(pbat._epoch_python(epoch))
             assert len(got) == len(want)
             for g, w in zip(got, want):
                 np.testing.assert_array_equal(g.centers, w.centers)
@@ -72,7 +74,7 @@ def test_batches_equal_the_jax_numpy_pass(tiny_corpus, monkeypatch,
                 np.testing.assert_array_equal(g.mask, w.mask)
                 assert g.words_done == w.words_done
             assert pbat.words_done == jbat.words_done
-    groups_p = list(pb.group_batches(pbats[0].epoch(2), 4))
+    groups_p = list(pb.group_batches(pbats[0]._epoch_python(2), 4))
     groups_j = list(jb.group_batches(jbat._epoch_python(2), 4))
     assert len(groups_p) == len(groups_j)
     for g, w in zip(groups_p, groups_j):
@@ -80,6 +82,67 @@ def test_batches_equal_the_jax_numpy_pass(tiny_corpus, monkeypatch,
         for f in ("centers", "contexts", "mask"):
             np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
     assert groups_p[-1].n_real < 4  # the tail group is padded
+
+
+@pytest.mark.parametrize("block_words", [4_000_000, 150])
+@pytest.mark.parametrize("subsample_ratio", [0.0, 0.05])
+def test_native_batches_equal_the_jax_native_pass(tiny_corpus, tmp_path,
+                                                  subsample_ratio, block_words):
+    # Both packages' epoch() take their native pass when it is built:
+    # bitwise equal batches and words_done, from a sentence list and from
+    # the flat corpus. 150 words a block: an epoch of several native
+    # calls, batches spanning blocks.
+    from glint_word2vec_torch import native as pnative
+
+    from torch_jax_native import jax_native_library
+
+    assert pnative.get_lib() is not None
+    with jax_native_library(str(tmp_path)):
+        _native_batches_equal(tiny_corpus, subsample_ratio, block_words)
+
+
+def _native_batches_equal(tiny_corpus, subsample_ratio, block_words):
+    from glint_word2vec_torch import native as pnative
+
+    jvoc, jenc = _encoded(tiny_corpus, jv, jb)
+    pvoc, penc = _encoded(tiny_corpus, pv, pb)
+    kw = dict(batch_size=64, window=4, subsample_ratio=subsample_ratio, seed=3)
+    jbat = jb.SkipGramBatcher(jenc, jvoc, **kw)
+    jbat.NATIVE_BLOCK_WORDS = block_words
+    ids = np.concatenate(penc)
+    offsets = np.zeros(len(penc) + 1, np.int64)
+    np.cumsum([len(s) for s in penc], out=offsets[1:])
+    pbats = [pb.SkipGramBatcher(penc, pvoc, **kw),
+             pb.SkipGramBatcher.from_flat(ids, offsets, pvoc, **kw)]
+    calls = pnative.calls["window_batch_epoch"]
+    for epoch in (0, 1):
+        want = list(jbat.epoch(epoch))
+        for pbat in pbats:
+            pbat.NATIVE_BLOCK_WORDS = block_words
+            got = list(pbat.epoch(epoch))
+            assert len(got) == len(want) > 3
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g.centers, w.centers)
+                np.testing.assert_array_equal(g.contexts, w.contexts)
+                np.testing.assert_array_equal(g.mask, w.mask)
+                assert g.words_done == w.words_done
+            assert pbat.words_done == jbat.words_done
+    assert pnative.calls["window_batch_epoch"] > calls + 3
+
+
+def test_no_native_gives_the_numpy_pass(tiny_corpus, monkeypatch):
+    # GLINT_W2V_NO_NATIVE=1: epoch() is the numpy pass, which equals the
+    # JAX package's numpy pass.
+    monkeypatch.setenv("GLINT_W2V_NO_NATIVE", "1")
+    jvoc, jenc = _encoded(tiny_corpus, jv, jb)
+    pvoc, penc = _encoded(tiny_corpus, pv, pb)
+    kw = dict(batch_size=64, window=4, subsample_ratio=0.05, seed=3)
+    want = list(jb.SkipGramBatcher(jenc, jvoc, **kw)._epoch_python(1))
+    got = list(pb.SkipGramBatcher(penc, pvoc, **kw).epoch(1))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.contexts, w.contexts)
+        assert g.words_done == w.words_done
 
 
 def test_window_batch_and_subsample_equal_jax():
@@ -204,11 +267,12 @@ def test_host_route_alphas_follow_the_batchers_words(monkeypatch):
 
 
 def test_grid_packing_past_the_budget_trains(monkeypatch):
-    # batch_packing="grid" is refused on the device corpus, but a corpus
-    # past the budget trains grid batches through the host batcher under
+    # batch_packing="grid" trains on the device corpus, and a corpus past
+    # the budget trains grid batches through the host batcher under
     # either packing, as in the JAX package.
-    with pytest.raises(ValueError, match="grid packing"):
-        _small(batch_packing="grid").fit(SMALL)
+    m = _small(batch_packing="grid", num_iterations=1).fit(SMALL)
+    assert m.training_metrics["pipeline"] == "device_corpus"
+    assert m.training_metrics["batch_packing"] == "grid"
     _host_route(monkeypatch)
     a = _small(batch_packing="grid", num_iterations=1).fit(SMALL)
     b = _small(num_iterations=1).fit(SMALL)

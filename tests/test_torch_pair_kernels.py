@@ -8,7 +8,8 @@ Tolerances: ``pair_forward`` within rtol 2e-5 and atol 1e-6 of the JAX
 kernel on the CPU (fp32 dot products summed in another order), its loss
 within rel 1e-5; on the card ``h`` bitwise (an exact upcast), ``c_pos``,
 ``c_neg`` and ``d_center`` within rtol 1e-5 and atol 1e-6 x max, the loss
-within rel 1e-5, and two calls bitwise equal. ``scatter_add_rank1_hbm``
+within rel 1e-5, and two calls bitwise equal; its one-pass and tiled
+forms bitwise equal where both run. ``scatter_add_rank1_hbm``
 has none: each run is summed in fp32 in stable sorted order onto the fp32
 value of the table row and rounded to the table's dtype once. The CPU
 cases use dyadic values, whose products and fp32 sums are exact, and give
@@ -74,12 +75,13 @@ def test_cpu_rank1_hbm_long_runs_bitwise_equal_jax(dtype, run, others):
     assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
-def _pair_case(seed, n, P=24, d=D):
-    """Tables near the training scale, ``P`` pairs with the last 3 padded,
-    ``n`` negatives each (some equal to the pair's context, masked out)."""
+def _pair_case(seed, n, P=24, d=D, scale=0.3):
+    """Tables near the training scale (entries ``scale`` times normal
+    draws), ``P`` pairs with the last 3 padded, ``n`` negatives each (some
+    equal to the pair's context, masked out)."""
     rng = np.random.default_rng(seed)
-    syn0 = (0.3 * rng.normal(size=(V, d))).astype(np.float32)
-    syn1 = (0.3 * rng.normal(size=(V, d))).astype(np.float32)
+    syn0 = (scale * rng.normal(size=(V, d))).astype(np.float32)
+    syn1 = (scale * rng.normal(size=(V, d))).astype(np.float32)
     centers = rng.integers(0, V, P).astype(np.int32)
     contexts = rng.integers(0, V, P).astype(np.int32)
     negs = rng.integers(0, V, (P, n)).astype(np.int32)
@@ -89,15 +91,12 @@ def _pair_case(seed, n, P=24, d=D):
     return syn0, syn1, centers, contexts, mask, negs, nmask
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", [1, 15])
-def test_cpu_pair_forward_matches_jax(dtype, n):
-    # One negative, and more than one pass of the kernel's chunk of 8.
+def _cpu_pair_forward_against_jax(dtype, n, **case):
     import jax.numpy as jnp
 
     from glint_word2vec_tpu.ops.pallas_sgns import pair_forward as jax_fn
 
-    syn0, syn1, *rest = _pair_case(n, n)
+    syn0, syn1, *rest = _pair_case(n, n, **case)
     jdt = getattr(jnp, dtype)
     jfw = jax_fn(jnp.asarray(syn0, dtype=jdt), jnp.asarray(syn1, dtype=jdt),
                  *(jnp.asarray(a) for a in rest), jnp.float32(0.05),
@@ -115,6 +114,20 @@ def test_cpu_pair_forward_matches_jax(dtype, n):
     assert float(pfw.loss_sum) == pytest.approx(float(jfw.loss_sum), rel=1e-5)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 15])
+def test_cpu_pair_forward_matches_jax(dtype, n):
+    # One negative, and more than one pass of the kernel's chunk of 8.
+    _cpu_pair_forward_against_jax(dtype, n)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cpu_pair_forward_wide_matches_jax(dtype):
+    # d = 2,200, n = 25, P = 16: past the one-pass form's shared memory in
+    # fp32 (the card takes the tiled form there); entries at 1/sqrt(d).
+    _cpu_pair_forward_against_jax(dtype, 25, P=16, d=2_200, scale=2_200 ** -0.5)
+
+
 # ----------------------------------------------------------------------
 # On the card: each kernel against its plain version
 # ----------------------------------------------------------------------
@@ -125,14 +138,16 @@ def _cuda_or_skip():
         pytest.skip("needs a CUDA device: the kernels have no CPU form")
 
 
-def _random_pairs(dtype, d, n, P=333, Vc=5000, seed=0, tables=None):
-    """Tables on the card (or ``tables``) and ``P`` pairs of Zipf-like
-    ids (repeats) with ids 0 and V-1, the last 7 pairs padded."""
+def _random_pairs(dtype, d, n, P=333, Vc=5000, seed=0, tables=None,
+                  scale=0.3):
+    """Tables on the card (or ``tables``), entries ``scale`` times normal
+    draws, and ``P`` pairs of Zipf-like ids (repeats) with ids 0 and V-1,
+    the last 7 pairs padded."""
     from glint_word2vec_torch.ops.sgns import negative_mask
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     if tables is None:
-        tables = tuple((0.3 * torch.randn((Vc, d), generator=gen, device="cuda"))
+        tables = tuple((scale * torch.randn((Vc, d), generator=gen, device="cuda"))
                        .to(dtype) for _ in range(2))
     Vc = tables[0].shape[0]
     z = torch.rand((P, n + 2), generator=gen, device="cuda")
@@ -146,14 +161,15 @@ def _random_pairs(dtype, d, n, P=333, Vc=5000, seed=0, tables=None):
             torch.tensor(0.025, device="cuda"))
 
 
-def _check_pair_forward(args):
-    """The kernel against the plain version on the CPU, one launch a
-    call, and a second call bitwise equal to the first."""
-    before = fs.pair_forward.launches
-    got = fs.pair_forward(*args)
-    again = fs.pair_forward(*args)
+def _check_pair_forward(args, fn=fs.pair_forward):
+    """The kernel (``fn``: ``pair_forward`` or ``pair_forward_tiled``)
+    against the plain version on the CPU, one launch a call, and a second
+    call bitwise equal to the first. Returns the first call's result."""
+    before = fn.launches
+    got = fn(*args)
+    again = fn(*args)
     torch.cuda.synchronize()
-    assert fs.pair_forward.launches == before + 2
+    assert fn.launches == before + 2
     want = fs.pair_forward_reference(*(t.cpu() for t in args))
     assert torch.equal(got.h.cpu(), want.h)  # an upcast: bitwise
     for name in ("c_pos", "c_neg", "d_center"):
@@ -163,6 +179,12 @@ def _check_pair_forward(args):
     assert float(got.loss_sum) == pytest.approx(float(want.loss_sum), rel=1e-5)
     for a, b in zip(got, again):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return got
+
+
+def _bitwise_equal(a, b):
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -220,12 +242,62 @@ def test_cuda_pair_forward_ragged_last_block(dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_pair_forward_rows_past_shared_memory_raise():
-    # 7 fp32 rows of 20,000 values (560 KB) do not fit in a block.
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,n", [(20_000, 5), (2_200, 25)])
+def test_cuda_pair_forward_rows_past_shared_memory_raise(dtype, d, n):
+    # Rows past a block's 227 KB of shared memory in fp32 (7 rows of
+    # 20,000 values: 560 KB; 27 rows of 2,200: 238 KB) no longer raise:
+    # the wrapper takes the tiled form. bf16 rows of 2,200 fit (119 KB),
+    # so there the wrapper keeps the one-pass form and the two forms are
+    # held bitwise against each other. Entries at about 1/sqrt(d) keep the
+    # logits O(1), as training tables keep them.
     _cuda_or_skip()
-    args = _random_pairs(torch.float32, 20_000, 5, P=4, Vc=8)
-    with pytest.raises(RuntimeError, match="pair_forward launch failed"):
-        fs.pair_forward(*args)
+    tdt = getattr(torch, dtype)
+    args = _random_pairs(tdt, d, n, P=64, Vc=300, scale=d ** -0.5)
+    fits = (2 + n) * d * tdt.itemsize < 227 * 1024
+    assert fs.pair_forward_grid(64, n, args[0], args[1])["tiled"] == (not fits)
+    tiled_before = fs.pair_forward.tiled_launches
+    auto = _check_pair_forward(args)
+    assert fs.pair_forward.tiled_launches == tiled_before + (0 if fits else 2)
+    tiled = _check_pair_forward(args, fs.pair_forward_tiled)
+    _bitwise_equal(auto, tiled)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [1, 7, 300, 301, 1100])
+@pytest.mark.parametrize("n", [1, 5, 15])
+def test_cuda_pair_forward_tiled_equals_one_pass_bitwise(dtype, d, n):
+    # Where both forms run, the same lane-to-column order gives the same
+    # bits; the tiled form alone against the plain version too.
+    _cuda_or_skip()
+    args = _random_pairs(getattr(torch, dtype), d, n)
+    assert not fs.pair_forward_grid(333, n, args[0], args[1])["tiled"]
+    assert fs.pair_forward_grid(333, n, args[0], args[1], tiled=True)["tiled"]
+    _bitwise_equal(fs.pair_forward(*args),
+                   _check_pair_forward(args, fs.pair_forward_tiled))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_cuda_pair_forward_tiled_tables_4_bytes_off(dtype):
+    # The tiled form's narrow loads: tables 4 bytes off 16-byte alignment
+    # (fp32 one value a load; bf16 pairs of values), and bf16 rows of an
+    # odd width (2-byte aligned).
+    _cuda_or_skip()
+    tdt = getattr(torch, dtype)
+    for d in (300, 301):
+        Vc, off = 3000, 4 // tdt.itemsize
+        gen = torch.Generator(device="cuda").manual_seed(d)
+        tables = []
+        for _ in range(2):
+            flat = torch.empty(Vc * d + off, dtype=tdt, device="cuda")
+            t = flat[off:].view(Vc, d)
+            t.copy_(0.3 * torch.randn((Vc, d), generator=gen, device="cuda"))
+            tables.append(t)
+        args = _random_pairs(tdt, d, 5, tables=tuple(tables))
+        _bitwise_equal(fs.pair_forward(*args),
+                       _check_pair_forward(args, fs.pair_forward_tiled))
 
 
 def _check_rank1_hbm(table, ids, coef, h, hidx):

@@ -273,12 +273,13 @@ def test_cli_train_on_cpu(tmp_path, capsys):
     assert m.vector_size == 8 and "fox" in m.vocab
 
 
+# The ids the cases had while grid packing (kw0) was among them.
 @pytest.mark.parametrize("kw,what", [
-    ({"batch_packing": "grid"}, "grid packing"),
-    ({"num_shards": 2}, "multi-device"),
-    ({"num_partitions": 2}, "multi-device"),
-    ({"exchange": "sparse"}, "replica exchange"),
-    ({"layout": "dims"}, "dims layout"),
+    pytest.param({"num_shards": 2}, "multi-device", id="kw1-multi-device"),
+    pytest.param({"num_partitions": 2}, "multi-device", id="kw2-multi-device"),
+    pytest.param({"exchange": "sparse"}, "replica exchange",
+                 id="kw3-replica exchange"),
+    pytest.param({"layout": "dims"}, "dims layout", id="kw4-dims layout"),
 ])
 def test_unported_settings_raise(kw, what):
     with pytest.raises(ValueError, match=what):
