@@ -152,6 +152,28 @@ nothing of JAX. Phases, each of which fails the run on any error:
    ``Word2Vec().fit_file`` at d = 2,200, n = 25 and d = 20,000, n = 5
    over the first 100,000 tokens of phase 6's corpus (every word kept),
    one epoch, every ``pair_forward`` launch in the tiled form.
+11. The stall-free loop and its hooks: a checkpointed two-epoch
+   ``Word2Vec(subsample_ratio=1e-3).fit_file`` on phase 6's corpus at its
+   width, twice, with every counter zeroed just before each: (a) the
+   defaults (deferred readbacks, asynchronous checkpoints, the next
+   epoch's compaction prefetched) with the event log, status file,
+   heartbeat (polled for ``/healthz`` and the Prometheus ``/metrics``
+   mid-fit), canary ``warn`` and step-time file on; (b)
+   ``GLINT_SYNC_READBACK=1 GLINT_SYNC_CKPT=1 GLINT_NO_COMPACT_PREFETCH=1``
+   with only the step-time ledger. ``pair_forward``,
+   ``scatter_add_rank1_hbm`` and ``scatter_add_rows_f32`` launch 16 times
+   a dispatched group (in (a) one zero-pair phantom group an epoch more
+   than in (b)); the tables of (a) and (b) are equal bitwise, with equal
+   steps, words and pairs; (c) a resume from (a)'s epoch-1 asynchronous
+   checkpoint equals (a) bitwise; one packed group is enqueued from a
+   device-scalar start with no host-device synchronization (CUDA sync
+   debug mode "error"); and a canary ``abort`` drill on ``tiny_corpus``
+   with NaN tables raises, writes ``ckpt-diverged`` and leaves no
+   ``train_state.json``. Words/s, ``device_stall_seconds``, the
+   ``ckpt_snapshot`` and ``ckpt_write`` seconds and the step-time
+   ledger's phases of both runs. Phase 6 also measures the peak of a
+   compaction prefetched while a compacted view is active, enqueued
+   with no synchronization.
 
 It prints one JSON ``kernels`` line, the ``nvidia-smi`` line, and as its
 last line ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -1345,7 +1367,13 @@ def profile_training(torch, engine, groups: int) -> dict:
 def check_compaction_memory(torch, model, n_words: int) -> None:
     """The peak device bytes a word of one subsample-and-compact pass
     over the trained model's 10M-token corpus, against the estimate that
-    bounds the resident fit (``SUBSAMPLED_CORPUS_BYTES_PER_WORD``)."""
+    bounds the resident fit (``SUBSAMPLED_CORPUS_BYTES_PER_WORD``); then
+    the peak of the next epoch's pass prefetched while that compacted
+    view is active, against the estimate with the prefetched copy
+    (``+ PREFETCHED_CORPUS_BYTES_PER_WORD``). The prefetch must enqueue
+    its pass with no host-device synchronization (CUDA sync debug mode
+    set to error around it), and its adoption must equal the pass run
+    directly, bitwise."""
     from glint_word2vec_torch.models import word2vec as w2v
 
     engine = model.engine
@@ -1363,6 +1391,32 @@ def check_compaction_memory(torch, model, n_words: int) -> None:
     expect(per_word <= w2v.SUBSAMPLED_CORPUS_BYTES_PER_WORD,
            f"compaction took {per_word:.2f} bytes a word, more than the "
            "fit's estimate")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        engine.prefetch_compact_corpus(2)
+        enqueue_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    peak_pre = torch.cuda.max_memory_allocated() - base
+    per_word_pre = w2v.CORPUS_BYTES_PER_WORD + peak_pre / n_words
+    budget = (w2v.SUBSAMPLED_CORPUS_BYTES_PER_WORD
+              + w2v.PREFETCHED_CORPUS_BYTES_PER_WORD)
+    log(f"prefetched pass beside the active compacted view: enqueued in "
+        f"{enqueue_s * 1e3:.2f} ms with no synchronization, peak {peak_pre} "
+        f"bytes above the uploaded corpus, {per_word_pre:.2f} bytes a word "
+        f"with its id (estimate {budget})")
+    expect(per_word_pre <= budget,
+           f"the prefetch took {per_word_pre:.2f} bytes a word, more than "
+           "the fit's estimate")
+    adopted = engine.compact_corpus(2)
+    ids_p = engine._corpus_compacted[0].clone()
+    expect(engine.compact_corpus(2) == adopted
+           and torch.equal(engine._corpus_compacted[0], ids_p),
+           "the adopted prefetch differs from the pass run directly")
     # What the budget admits at this width on this card, for a fit in a
     # fresh process: the free memory plus all this process holds.
     free = w2v._free_device_bytes(engine.device) + torch.cuda.memory_allocated()
@@ -1461,7 +1515,9 @@ def train_end_to_end(torch, np, fs, rows_mod) -> dict:
         for name, k in launches.items():
             if k <= 0:
                 raise AssertionError(f"the training path never launched {name}")
-        expect(launches["pair_forward"] == tm["steps"] + (-tm["steps"]) % 16,
+        # Groups of 16 steps, and the deferred schedule's one zero-pair
+        # phantom group of the epoch.
+        expect(launches["pair_forward"] == tm["steps"] + (-tm["steps"]) % 16 + 16,
                f"one pair_forward per step: {launches} for {tm['steps']} steps")
         for t in (model.engine.syn0, model.engine.syn1):
             expect(bool(torch.isfinite(t).all()), "non-finite table entries")
@@ -2387,7 +2443,8 @@ def train_shared_end_to_end(torch, np, fs, rows_mod) -> dict:
         expect(tm["pipeline"] == "device_corpus", tm)
         expect(tm["words_done"] == n_tok, tm)
         expect(math.isfinite(tm["final_loss"]), tm)
-        steps = tm["steps"] + (-tm["steps"]) % 16
+        # Groups of 16 steps, and the epoch's phantom group.
+        steps = tm["steps"] + (-tm["steps"]) % 16 + 16
         expect(launches["pair_forward_shared"] == steps,
                f"one pair_forward_shared per step: {launches} for {tm['steps']} steps")
         expect(launches["pair_forward"] == 0, f"pair_forward launched: {launches}")
@@ -2634,6 +2691,345 @@ def train_grid_and_resume(torch, np, fs, rows_mod) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 11: the stall-free fit loop and its observability at full width
+# ----------------------------------------------------------------------
+
+
+class HeartbeatPoller:
+    """Polls a fit's heartbeat (``/healthz`` and
+    ``/metrics?format=prometheus``) every ``period`` seconds on a thread
+    of its own, once the server has bound; keeps what it saw while the
+    fit was running."""
+
+    def __init__(self, obs, period: float = 0.5):
+        self.obs, self.period = obs, period
+        self.running = []  # (healthz dict, prometheus text) mid-fit
+        # Failed polls followed by a good one; those after the last good
+        # poll met the server shutting down with the fit.
+        self.errors, self._pending = [], []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.wait(self.period):
+            port = self.obs.bound_port
+            if port is None:
+                continue
+            try:
+                health = get_json(port, "/healthz")
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics?format=prometheus",
+                        timeout=10) as r:
+                    text = r.read().decode()
+            except (OSError, ValueError) as e:
+                self._pending.append(repr(e))
+                continue
+            self.errors += self._pending
+            self._pending = []
+            if health.get("state") == "running" and len(self.running) < 50:
+                self.running.append((health, text))
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+
+
+def span_seconds(log_path: str, name: str) -> list:
+    """Durations in seconds of the spans ``name`` of a JSONL event log."""
+    out = []
+    with open(log_path) as f:
+        for line in f:
+            ev = json.loads(line)
+            if ev.get("name") == name and ev.get("ph") == "X":
+                out.append(ev["dur"] / 1e6)
+    return out
+
+
+def packed_groups(log_path: str) -> tuple:
+    """(dispatched packed groups, groups read back with live steps, live
+    steps) of a JSONL event log."""
+    dispatched = live = steps = 0
+    with open(log_path) as f:
+        for line in f:
+            ev = json.loads(line)
+            args = ev.get("args", {})
+            if ev.get("name") == "device_steps" and args.get("packed"):
+                dispatched += 1
+            elif ev.get("name") == "readback_harvest" and args.get("n"):
+                live += 1
+                steps += args["n"]
+    return dispatched, live, steps
+
+
+def obs_cost(log_path: str, status, train_s: float, tmp: str) -> None:
+    """The host cost of the observability hooks in a fit: the events its
+    log holds, times the cost of one span with a JSONL sink, one status
+    update and one heartbeat render (snapshot plus Prometheus text,
+    twice a second while polled), each timed here over many calls, on
+    this machine's host."""
+    from glint_word2vec_torch.obs import ObsConfig, ObsRun
+    from glint_word2vec_torch.obs.prometheus import training_to_prometheus
+
+    with open(log_path) as f:
+        n_events = sum(1 for _ in f)
+    run = ObsRun(ObsConfig(event_log=os.path.join(tmp, "cost.jsonl"),
+                           status_file=os.path.join(tmp, "cost-status.json")))
+    try:
+        n = 20_000
+        t0 = time.perf_counter()
+        for i in range(n):
+            with run.span("device_steps", step0=i, n=16, packed=True):
+                pass
+        span_s = (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        for i in range(n):
+            run.update(step=i, words_done=i, alpha=0.01)
+        update_s = (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        for _ in range(200):
+            training_to_prometheus(status.snapshot())
+        render_s = (time.perf_counter() - t0) / 200
+    finally:
+        run.close()
+    total = n_events * span_s + n_events / 2 * update_s + 2 * train_s * render_s
+    log(f"obs hooks on this host: {n_events} events in (a)'s log, "
+        f"{span_s * 1e6:.2f} us a span with the JSONL sink, "
+        f"{update_s * 1e6:.2f} us a status update, {render_s * 1e3:.3f} ms a "
+        f"heartbeat render; about {total:.3f} s of (a)'s {train_s:.1f} s "
+        f"training ({100 * total / train_s:.2f} %)")
+
+
+def check_deferred_dispatch_syncs_nothing(torch, np, engine) -> None:
+    """One packed group enqueued from a device-scalar start position with
+    no readback, under CUDA sync debug mode "error": any host-device
+    synchronization in the dispatch raises."""
+    from glint_word2vec_torch.corpus.batching import packed_pair_batch
+    from glint_word2vec_torch.ops import random as rnd
+
+    P = packed_pair_batch(B_TRAIN, W_TRAIN)
+    start = torch.zeros((), dtype=torch.int64, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        group = engine.train_steps_corpus_packed(
+            start, P, W_TRAIN, B_TRAIN, rnd.seed_key(3), 16, step0=0,
+            step_size=0.001, total_words=CORPUS_TOKENS + 1, readback=False)
+        enqueue_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t0 = time.perf_counter()
+    losses = engine.packed_readback(group)[0]
+    wait_s = time.perf_counter() - t0
+    expect(bool(np.isfinite(losses).all()), f"deferred group losses {losses}")
+    log(f"one packed group of 16 steps enqueued with no synchronization in "
+        f"{enqueue_s * 1e3:.1f} ms (host), read back {wait_s * 1e3:.1f} ms "
+        "later")
+
+
+def canary_abort_drill(torch, np, tmp: str) -> None:
+    """The canary's abort path on the card: ``tiny_corpus`` with syn0 set
+    to NaN before the first step, so the fused kernels' first losses are
+    NaN; the fit must raise TrainingDiverged, leave ``ckpt-diverged`` and
+    no ``train_state.json``, and publish ``diverged``."""
+    from glint_word2vec_torch import Word2Vec
+    from glint_word2vec_torch.obs import ObsConfig, TrainingDiverged
+
+    class Poisoned(Word2Vec):
+        def _make_engine(self, vocab):
+            eng = super()._make_engine(vocab)
+            eng.syn0.fill_(float("nan"))
+            return eng
+
+    ck = os.path.join(tmp, "ck-canary")
+    status = os.path.join(tmp, "canary-status.json")
+    obs = ObsConfig(status_file=status, status_interval=0.0, canary="abort",
+                    canary_check_every=1)
+    try:
+        tiny_w2v(Poisoned, obs=obs, num_iterations=1).fit(
+            make_tiny_corpus(np), checkpoint_dir=ck)
+    except TrainingDiverged as e:
+        reason = str(e)
+    else:
+        raise AssertionError("the poisoned fit did not trip the canary")
+    with open(status) as f:
+        state = json.load(f)["state"]
+    expect("non-finite" in reason, reason)
+    expect(os.path.exists(os.path.join(ck, "ckpt-diverged", "manifest.json")),
+           "no ckpt-diverged snapshot")
+    expect(not os.path.exists(os.path.join(ck, "train_state.json")),
+           "the canary abort flipped train_state.json")
+    expect(state == "diverged", f"status {state}")
+    log(f"canary abort drill on the card: TrainingDiverged({reason!r}); "
+        "ckpt-diverged written, train_state.json untouched, status diverged")
+
+
+def a_status(model):
+    """A TrainingStatus over a fitted model's metrics-free engine, for
+    timing the heartbeat's render."""
+    from glint_word2vec_torch.obs import StepTimeLedger, TrainingStatus
+
+    return TrainingStatus(pipeline="device_corpus", engine=model.engine,
+                          ledger=StepTimeLedger())
+
+
+def train_stall_free(torch, np, fs, rows_mod) -> dict:
+    """Phase 11. Returns the launch counts of (a)."""
+    from glint_word2vec_torch import Word2Vec
+    from glint_word2vec_torch.obs import ObsConfig
+    from glint_word2vec_torch.obs.prometheus import lint_prometheus_text
+
+    tmp = tempfile.mkdtemp(prefix="glint_chip_stall_")
+    try:
+        path = os.path.join(tmp, "corpus.txt")
+        n_tok = write_synthetic_corpus(np, path)
+        log(f"phase 11 scratch: {shutil.disk_usage(tmp).free / 2**30:.1f} GiB "
+            "free on its disk")
+        width = dict(vector_size=D, window=W_TRAIN, batch_size=B_TRAIN,
+                     num_negatives=N_NEG, min_count=MIN_PER_WORD,
+                     num_iterations=2, step_size=0.025, seed=1,
+                     subsample_ratio=1e-3)
+        three = ("pair_forward", "scatter_add_rank1_hbm", "scatter_add_rows_f32")
+
+        # (a) The defaults (deferred readbacks, async checkpoints,
+        # compaction prefetch) with every observability hook on.
+        files = {k: os.path.join(tmp, f"a-{k}") for k in
+                 ("events.jsonl", "status.json", "STEPTIME.json")}
+        obs = ObsConfig(event_log=files["events.jsonl"],
+                        status_file=files["status.json"], status_port=0,
+                        canary="warn", steptime_path=files["STEPTIME.json"])
+        ck_a = os.path.join(tmp, "ck-a")
+        zero_counters(fs, rows_mod)
+        with HeartbeatPoller(obs) as poller:
+            t0 = time.perf_counter()
+            a = Word2Vec(**width, obs=obs).fit_file(path, checkpoint_dir=ck_a)
+            torch.cuda.synchronize()
+            wall_a = time.perf_counter() - t0
+        launches_a = read_counters(fs, rows_mod)
+        tm_a = a.training_metrics
+        dispatched, live, steps = packed_groups(files["events.jsonl"])
+        expect(tm_a["words_done"] == 2 * n_tok and math.isfinite(tm_a["final_loss"]),
+               tm_a)
+        expect(steps == tm_a["steps"] and dispatched == live + 2,
+               f"(a) {dispatched} groups dispatched, {live} live, {steps} "
+               f"steps, metrics {tm_a['steps']}: one phantom an epoch")
+        for name in three:
+            expect(launches_a[name] == 16 * dispatched,
+                   f"(a) {name} launched {launches_a[name]} times for "
+                   f"{dispatched} groups of 16 steps")
+        expect(launches_a["pair_forward (tiled form)"] == 0, launches_a)
+        expect(a.engine.checkpoint_stats()["forced_sync_saves"] == 0,
+               a.engine.checkpoint_stats())
+        expect(poller.running and not poller.errors,
+               f"heartbeat polls mid-fit: {len(poller.running)}, errors "
+               f"{poller.errors[:3]}")
+        for health, text in poller.running:
+            expect(health["status"] == "ok" and health["pipeline"] == "device_corpus",
+                   health)
+            lint_prometheus_text(text)
+            expect("glint_training_device_stall_seconds" in text, text[:200])
+        with open(files["status.json"]) as f:
+            status = json.load(f)
+        expect(status["state"] == "done" and status["pending_async_saves"] == 0,
+               status)
+        snap_a = span_seconds(files["events.jsonl"], "ckpt_snapshot")
+        write_a = span_seconds(files["events.jsonl"], "ckpt_write")
+        expect(len(snap_a) == 2 and len(write_a) == 2, (snap_a, write_a))
+        mem = status.get("device_memory", {})
+        log(f"(a) deferred readbacks, async checkpoints, compaction prefetch, "
+            f"obs on: {wall_a:.1f} s in all; {tm_a['steps']} steps, "
+            f"{tm_a['words_per_sec']} words/s, device_stall_seconds "
+            f"{tm_a['device_stall_seconds']}, ckpt_snapshot s {snap_a}, "
+            f"ckpt_write s {write_a}, steptime {tm_a['steptime']}; "
+            f"{dispatched} packed groups dispatched ({live} live), launches "
+            f"{ {k: launches_a[k] for k in three} }; {len(poller.running)} "
+            f"heartbeat polls mid-fit, last healthz {poller.running[-1][0]}; "
+            f"device memory {mem}")
+
+        obs_cost(files["events.jsonl"], a_status(a), tm_a["wall_seconds"], tmp)
+
+        # (a)'s epoch-1 checkpoint (the state's "prev") in a directory of
+        # its own, to resume from after (b).
+        with open(os.path.join(ck_a, "train_state.json")) as f:
+            state_a = json.load(f)
+        prev = state_a["prev"]
+        expect(prev["epochs_completed"] == 1 and prev["ckpt"] == "ckpt-1", state_a)
+        ck_r = os.path.join(tmp, "ck-resume")
+        os.makedirs(ck_r)
+        os.rename(os.path.join(ck_a, "ckpt-1"), os.path.join(ck_r, "ckpt-1"))
+        with open(os.path.join(ck_r, "train_state.json"), "w") as f:
+            json.dump(prev, f)
+        shutil.rmtree(ck_a)
+
+        # (b) The synchronous schedule, blocking checkpoints, no prefetch;
+        # of the observability hooks only the step-time ledger.
+        sync_env = {"GLINT_SYNC_READBACK": "1", "GLINT_SYNC_CKPT": "1",
+                    "GLINT_NO_COMPACT_PREFETCH": "1"}
+        os.environ.update(sync_env)
+        ck_b = os.path.join(tmp, "ck-b")
+        zero_counters(fs, rows_mod)
+        try:
+            t0 = time.perf_counter()
+            b = Word2Vec(**width, obs=ObsConfig(
+                steptime_path=os.path.join(tmp, "b-STEPTIME.json"))).fit_file(
+                    path, checkpoint_dir=ck_b)
+            torch.cuda.synchronize()
+            wall_b = time.perf_counter() - t0
+        finally:
+            for k in sync_env:
+                os.environ.pop(k, None)
+        launches_b = read_counters(fs, rows_mod)
+        tm_b = b.training_metrics
+        write_b = b.engine.checkpoint_stats()["checkpoint_write_seconds"]
+        shutil.rmtree(ck_b)
+        for name in three:
+            expect(launches_b[name] == launches_a[name] - 2 * 16,
+                   f"(b) {name} launched {launches_b[name]} times, (a) "
+                   f"{launches_a[name]}: (a) has one phantom group an epoch")
+        expect((tm_b["steps"], tm_b["words_done"], tm_b["packed_pairs"])
+               == (tm_a["steps"], tm_a["words_done"], tm_a["packed_pairs"]),
+               f"(a) {tm_a} (b) {tm_b}")
+        for name in ("syn0", "syn1"):
+            expect(torch.equal(getattr(a.engine, name), getattr(b.engine, name)),
+                   f"(a) and (b) {name} differ")
+        log(f"(b) synchronous readbacks, blocking checkpoints, no prefetch: "
+            f"{wall_b:.1f} s in all; {tm_b['steps']} steps, "
+            f"{tm_b['words_per_sec']} words/s, device_stall_seconds "
+            f"{tm_b['device_stall_seconds']}, last checkpoint's write "
+            f"(checkpoint_save) {write_b} s, steptime {tm_b['steptime']}; "
+            f"launches { {k: launches_b[k] for k in three} }; tables equal "
+            "(a)'s bitwise, and steps, words and pairs")
+        b.stop()
+        del b
+        torch.cuda.empty_cache()
+
+        # (c) Resume from (a)'s epoch-1 asynchronous checkpoint.
+        zero_counters(fs, rows_mod)
+        r = Word2Vec(**width).fit_file(path, checkpoint_dir=ck_r)
+        expect_launched(read_counters(fs, rows_mod), three, "the resumed fit")
+        for name in ("syn0", "syn1"):
+            expect(torch.equal(getattr(a.engine, name), getattr(r.engine, name)),
+                   f"resumed {name} differs from (a)")
+        log(f"resume from (a)'s epoch-1 async checkpoint: epoch 2 "
+            f"({r.training_metrics['steps']} steps) equals (a) bitwise")
+        r.stop()
+        check_deferred_dispatch_syncs_nothing(torch, np, a.engine)
+        a.stop()
+        del a, r
+        torch.cuda.empty_cache()
+
+        canary_abort_drill(torch, np, tmp)
+        log(f"phase 11 on {nvidia_smi_line()}")
+        return {"launches": launches_a}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def ptxas_report(text: str) -> list:
     """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
     (demangled where ``c++filt`` is found), registers and spills."""
@@ -2656,20 +3052,20 @@ def ptxas_report(text: str) -> list:
 
 
 def parse_only(argv) -> set | None:
-    """The phases ``--only`` names (3 to 10), or None to run them all."""
+    """The phases ``--only`` names (3 to 11), or None to run them all."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--only", metavar="N[,N...]",
-        help="run phases 1, 2 and these (3 to 10) only, print their lines, "
+        help="run phases 1, 2 and these (3 to 11) only, print their lines, "
              f"and exit {PARTIAL_EXIT} without the kernels or result line")
     only = ap.parse_args(argv).only
     if only is None:
         return None
     phases = {int(p) for p in only.split(",") if p.strip()}
-    if not phases or not phases <= set(range(3, 11)):
-        ap.error(f"--only takes phases 3 to 10, got {only!r}")
+    if not phases or not phases <= set(range(3, 12)):
+        ap.error(f"--only takes phases 3 to 11, got {only!r}")
     return phases
 
 
@@ -2708,6 +3104,7 @@ def main() -> int:
         8: lambda: train_fasttext_end_to_end(torch, np, rows_mod),
         9: lambda: check_shared_kernel(torch, fs),
         10: lambda: train_grid_and_resume(torch, np, fs, rows_mod),
+        11: lambda: train_stall_free(torch, np, fs, rows_mod),
     }
     if only is not None:
         for p in sorted(only):
@@ -2727,6 +3124,7 @@ def main() -> int:
     shared_timed = phases[9]()
     shared = train_shared_end_to_end(torch, np, fs, rows_mod)
     grid = phases[10]()
+    stall = phases[11]()
 
     main_case = gathered[("f32", V_SERVE, 10_000)]
     kernels = [{
@@ -2778,6 +3176,7 @@ def main() -> int:
             "runs": r["runs"],
             "bf16_ms": timed[(name, "bf16")]["ms"],
             "bf16_bound_ms": timed[(name, "bf16")]["bound_ms"],
+            "launches_stall_free_fit": stall["launches"][name],
         })
     b4, b7 = kernels[-3], kernels[-2]
     b4["tiled_launches"] = {f"d={d} n={n}": w["pair_forward (tiled form)"]

@@ -5,11 +5,14 @@
   python -m glint_word2vec_torch.cli synonyms  --model m/ --word w [-n 10]
   python -m glint_word2vec_torch.cli analogy   --model m/ --positive a b --negative c
   python -m glint_word2vec_torch.cli transform --model m/ --sentence "w1 w2 w3"
+  python -m glint_word2vec_torch.cli eval      --model m/ --questions q.txt
   python -m glint_word2vec_torch.cli info      --model m/
 
 The model directory may come from either package. Every command runs on
 the CUDA card unless ``--device cpu`` is given. ``train`` takes the JAX
-package's training arguments except the mesh and replica-exchange ones.
+package's training and observability arguments except the mesh and
+replica-exchange ones; a run the divergence canary aborts exits 2 with
+one line.
 """
 
 from __future__ import annotations
@@ -56,7 +59,11 @@ def _add_train(sub) -> None:
                         "mid-epoch on the packed path when "
                         "GLINT_PACKED_STOP_AFTER_GROUPS stops it")
     p.add_argument("--checkpoint-every", type=int, default=1,
-                   help="epochs between checkpoints (default 1)")
+                   help="epochs between checkpoints (default 1). Saves are "
+                        "asynchronous: the fit waits for the copy of the "
+                        "tables to host memory, and a background thread "
+                        "writes and commits them (GLINT_SYNC_CKPT=1 forces "
+                        "blocking saves)")
     p.add_argument("--metrics-out", default=None,
                    help="write the training metrics JSON here (atomic write)")
     p.add_argument("--fasttext", action="store_true",
@@ -69,6 +76,72 @@ def _add_train(sub) -> None:
                    help="subword hash-bucket rows (fastText family)")
     p.add_argument("--max-subwords", type=int, default=32,
                    help="max subword rows per word (fastText family)")
+    obs = p.add_argument_group(
+        "observability",
+        "live heartbeat, span event log, divergence canary (all opt-in)",
+    )
+    obs.add_argument("--status-port", type=int, default=None,
+                     help="serve a live training heartbeat on this port: "
+                          "GET /healthz and /metrics (JSON, or "
+                          "?format=prometheus); 0 binds an ephemeral port")
+    obs.add_argument("--status-host", default="127.0.0.1",
+                     help="heartbeat bind address (default 127.0.0.1)")
+    obs.add_argument("--status-file", default=None,
+                     help="atomically mirror the status snapshot JSON to "
+                          "this path")
+    obs.add_argument("--event-log", default=None,
+                     help="JSONL span/event log of the fit's phases "
+                          "(upload, subsample-compact, host batches, device "
+                          "dispatch, readback, checkpoints) and engine "
+                          "events (table mutations)")
+    obs.add_argument("--event-capacity", type=int, default=65536,
+                     help="in-memory event ring bound; overflow is counted "
+                          "(default 65536)")
+    obs.add_argument("--steptime-out", default=None,
+                     help="write the step-time ledger (STEPTIME.json) here at "
+                          "fit end: the fit thread's wall seconds by phase "
+                          "(dispatch, readback_harvest, producer_wait, "
+                          "compact, checkpoint, other) and each phase's "
+                          "span-duration quantiles")
+    obs.add_argument("--chrome-trace", default=None,
+                     help="write the event log as chrome://tracing / "
+                          "Perfetto JSON at run end")
+    obs.add_argument("--canary", choices=["off", "warn", "abort"],
+                     default="off",
+                     help="divergence canary over a rolling loss window: "
+                          "'warn' logs and records an event; 'abort' writes "
+                          "a final ckpt-diverged snapshot, flushes the event "
+                          "log and fails the run (exit 2)")
+    obs.add_argument("--canary-window", type=int, default=64,
+                     help="rolling loss window size (default 64)")
+    obs.add_argument("--canary-factor", type=float, default=10.0,
+                     help="trip when a loss exceeds factor x the window "
+                          "median (default 10.0); NaN/Inf always trips")
+    obs.add_argument("--canary-check-every", type=int, default=32,
+                     help="steps between canary checks (default 32)")
+
+
+def _obs_config(args):
+    """The ``ObsConfig`` the train flags ask for, or None."""
+    if not (args.status_port is not None or args.status_file
+            or args.event_log or args.chrome_trace or args.steptime_out
+            or args.canary != "off"):
+        return None
+    from glint_word2vec_torch.obs import ObsConfig
+
+    return ObsConfig(
+        event_log=args.event_log,
+        event_capacity=args.event_capacity,
+        chrome_trace=args.chrome_trace,
+        status_port=args.status_port,
+        status_host=args.status_host,
+        status_file=args.status_file,
+        canary=args.canary,
+        canary_window=args.canary_window,
+        canary_factor=args.canary_factor,
+        canary_check_every=args.canary_check_every,
+        steptime_path=args.steptime_out,
+    )
 
 
 def _train(args) -> int:
@@ -94,13 +167,14 @@ def _train(args) -> int:
         shared_negatives=args.shared_negatives,
         batch_packing=args.packing,
     )
+    obs = _obs_config(args)
     if args.fasttext:
         w2v = FastTextWord2Vec(
-            **kw, min_n=args.min_n, max_n=args.max_n, bucket=args.bucket,
-            max_subwords=args.max_subwords,
+            **kw, obs=obs, min_n=args.min_n, max_n=args.max_n,
+            bucket=args.bucket, max_subwords=args.max_subwords,
         )
     else:
-        w2v = Word2Vec(**kw)
+        w2v = Word2Vec(**kw, obs=obs)
     model = w2v.fit_file(
         args.corpus, lowercase=args.lowercase,
         checkpoint_dir=args.checkpoint_dir,
@@ -138,6 +212,11 @@ def _parser() -> argparse.ArgumentParser:
     p = add("transform", "embed a sentence (mean of word vectors)")
     p.add_argument("--sentence", required=True, help="whitespace-tokenized")
     add("info", "model metadata")
+    p = add("eval", "analogy accuracy on a standard question file")
+    p.add_argument("--questions", required=True,
+                   help="': section' headers and 'a b c d' rows")
+    p.add_argument("--top-k", type=int, default=1)
+    p.add_argument("--no-lowercase", action="store_true")
     p = add("serve", "serve a saved model over HTTP")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8801)
@@ -156,10 +235,18 @@ def _parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    from glint_word2vec_torch.obs.canary import TrainingDiverged
+
     args = _parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
     if args.cmd == "train":
-        return _train(args)
+        try:
+            return _train(args)
+        except TrainingDiverged as e:
+            # The canary already wrote ckpt-diverged and flushed the event
+            # log: one line, no traceback.
+            print(f"error: training diverged: {e}", file=sys.stderr)
+            return 2
     if args.cmd == "serve":
         from glint_word2vec_torch.serving import serve_model_dir
 
@@ -184,6 +271,16 @@ def main(argv=None) -> int:
         elif args.cmd == "transform":
             vec = model.transform_sentences([args.sentence.split()])[0]
             print(json.dumps([round(float(x), 6) for x in vec]))
+        elif args.cmd == "eval":
+            from glint_word2vec_torch.eval import (
+                evaluate_analogies,
+                parse_analogy_file,
+            )
+
+            questions = parse_analogy_file(
+                args.questions, lowercase=not args.no_lowercase)
+            result = evaluate_analogies(model, questions, top_k=args.top_k)
+            print(json.dumps(result.to_dict()))
         elif args.cmd == "info":
             print(json.dumps({
                 "family": type(model).__name__,

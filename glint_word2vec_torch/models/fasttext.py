@@ -21,6 +21,7 @@ from glint_word2vec_torch.corpus.batching import BatchGroup
 from glint_word2vec_torch.corpus.subword import build_subword_table, subword_group
 from glint_word2vec_torch.corpus.vocab import Vocabulary
 from glint_word2vec_torch.device import DeviceLike
+from glint_word2vec_torch.obs import events as obs_events
 from glint_word2vec_torch.models.word2vec import (
     MAX_QUERY_ROWS,
     LocalWord2VecModel,
@@ -55,8 +56,9 @@ class FastTextWord2Vec(Word2Vec):
     host."""
 
     def __init__(self, params: Optional[FastTextParams] = None,
-                 device: DeviceLike = None, **overrides):
-        super().__init__(params or FastTextParams(), device=device, **overrides)
+                 device: DeviceLike = None, obs=None, **overrides):
+        super().__init__(params or FastTextParams(), device=device, obs=obs,
+                         **overrides)
         if not isinstance(self.params, FastTextParams):
             raise TypeError("FastTextWord2Vec requires FastTextParams")
         self._sub_ids: Optional[np.ndarray] = None
@@ -104,10 +106,14 @@ class FastTextWord2Vec(Word2Vec):
     def _train_batches(self, engine, group: BatchGroup, base_key: int,
                        step0: int, alphas: np.ndarray):
         # Padded batch rows (center 0) carry zero context masks, so their
-        # group updates are zeroed by the gradient coefficients.
+        # group updates are zeroed by the gradient coefficients. The
+        # expansion is this family's own host phase inside the loop's
+        # device_steps span.
+        with obs_events.span("subword_expand", step0=step0):
+            groups = self._sub_ids[group.centers]
+            gmask = self._sub_mask[group.centers]
         return engine.train_steps_grouped(
-            self._sub_ids[group.centers], self._sub_mask[group.centers],
-            group.contexts, group.mask, base_key, alphas, step0,
+            groups, gmask, group.contexts, group.mask, base_key, alphas, step0,
         )
 
     def _make_model(self, vocab: Vocabulary, engine) -> "FastTextModel":
@@ -230,17 +236,18 @@ class FastTextModel(Word2VecModel):
         if self._qeng is None:
             from glint_word2vec_torch.parallel.engine import EmbeddingEngine
 
-            qeng = EmbeddingEngine(
-                self.vocab.size, self.vector_size, self.vocab.counts,
-                num_negatives=self.engine.num_negatives, seed=0,
-                device=self.engine.device,
-            )
-            B = self.COMPOSE_BLOCK
-            for s in range(0, self.vocab.size, B):
-                e = min(s + B, self.vocab.size)
-                qeng.write_rows(s, self.engine.pull_average(
-                    self._sub_ids[s:e], self._sub_mask[s:e]
-                ))
+            with obs_events.span("compose_query_engine", vocab=self.vocab.size):
+                qeng = EmbeddingEngine(
+                    self.vocab.size, self.vector_size, self.vocab.counts,
+                    num_negatives=self.engine.num_negatives, seed=0,
+                    device=self.engine.device,
+                )
+                B = self.COMPOSE_BLOCK
+                for s in range(0, self.vocab.size, B):
+                    e = min(s + B, self.vocab.size)
+                    qeng.write_rows(s, self.engine.pull_average(
+                        self._sub_ids[s:e], self._sub_mask[s:e]
+                    ))
             self._qeng = qeng
         return self._qeng
 

@@ -21,7 +21,14 @@ the JAX package chooses them (``models/word2vec.py:422-559``):
 Both anneal the learning rate linearly and checkpoint at epoch ends (the
 packed path also mid-epoch, under the JAX package's
 ``GLINT_PACKED_STOP_AFTER_GROUPS`` drill), and both train per-pair
-negatives or the shared negative pool (``shared_negatives > 0``). What
+negatives or the shared negative pool (``shared_negatives > 0``). Both
+loops keep the card fed: a group is read back while the next one is
+queued, a checkpoint stalls the loop only for the copy of the tables to
+host memory (a writer thread writes and commits it), and the next
+epoch's compaction is dispatched during the current epoch's tail. An
+``obs.ObsConfig`` (``obs=`` or :meth:`Word2Vec.set_observability`) adds
+the event log, the heartbeat and status file, the divergence canary and
+the step-time ledger. What
 the JAX package trains by other routes (meshes and replica exchange, the
 ``dims`` layout) raises ``ValueError``: those are later slices of the
 port.
@@ -33,10 +40,12 @@ port.
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
 import shutil
+import time
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -59,6 +68,8 @@ from glint_word2vec_torch.corpus.vocab import (
     scan_and_encode_stream,
 )
 from glint_word2vec_torch.device import DeviceLike, resolve_device
+from glint_word2vec_torch.obs import TrainingDiverged, start_run
+from glint_word2vec_torch.parallel.engine import DeferredReadback, deferred_readback
 from glint_word2vec_torch.ops import random as rnd
 from glint_word2vec_torch.ops.device_batching import (
     corpus_words_done,
@@ -87,6 +98,10 @@ MAX_QUERY_ROWS = 10_000
 #: measures the compaction's peak on the card against the second.
 CORPUS_BYTES_PER_WORD = 4
 SUBSAMPLED_CORPUS_BYTES_PER_WORD = 64
+#: What a word adds while the next epoch's pass is prefetched: the active
+#: epoch's compacted copy lives beside the pass until the next epoch
+#: adopts it. ``chip_smoke.py`` measures that peak too.
+PREFETCHED_CORPUS_BYTES_PER_WORD = 4
 
 #: Share of the device's free memory that the tables, the step's working
 #: set and the corpus may take together.
@@ -142,6 +157,56 @@ def _flip_checkpoint_state(
             shutil.rmtree(os.path.join(checkpoint_dir, entry), ignore_errors=True)
 
 
+def _ckpt_wait_timeout() -> Optional[float]:
+    """Seconds fit exit waits for a checkpoint write in flight before it
+    fails the run naming the write (``GLINT_CKPT_WAIT_TIMEOUT``, default
+    900; 0 waits without bound)."""
+    raw = os.environ.get("GLINT_CKPT_WAIT_TIMEOUT", "900")
+    try:
+        t = float(raw)
+    except ValueError:
+        logger.warning("GLINT_CKPT_WAIT_TIMEOUT=%r is not a number; using 900",
+                       raw)
+        t = 900.0
+    return t if t > 0 else None
+
+
+def _checkpoint_tables(engine, obs_run, metrics, ck_path: str, ck_name: str,
+                       commit) -> None:
+    """Write one checkpoint with the least stall of the fit loop.
+
+    By default (``engine.save_async``) the loop waits only for the copy
+    of the tables to host memory (the ``ckpt_snapshot`` span); the write,
+    its fsyncs, the directory's commit and then ``commit`` (the
+    ``train_state.json`` flip) run in that order on the engine's writer
+    thread, so a crash at any point leaves the previous checkpoint
+    authoritative. ``GLINT_SYNC_CKPT=1`` writes and commits here
+    (``checkpoint_save``). Either way the wait is charged to
+    ``device_stall_seconds``."""
+    t0 = time.time()
+    if engine.async_saves_enabled():
+        with obs_run.span("ckpt_snapshot", ckpt=ck_name):
+            engine.save_async(ck_path, on_commit=commit)
+    else:
+        with obs_run.span("checkpoint_save", ckpt=ck_name):
+            engine.save(ck_path)
+            commit()
+    metrics.record_stall(time.time() - t0)
+
+
+def _save_diverged_snapshot(engine, checkpoint_dir: Optional[str],
+                            obs_run) -> None:
+    """The canary abort's tail in both loops: a final ``ckpt-diverged``
+    snapshot for the post-mortem, without flipping ``train_state.json``,
+    so a resume restarts from the last healthy checkpoint."""
+    if not checkpoint_dir:
+        return
+    ck = os.path.join(checkpoint_dir, "ckpt-diverged")
+    with obs_run.span("checkpoint_save", ckpt="ckpt-diverged"):
+        engine.save(ck)
+    logger.error("canary abort: diverged tables saved to %s", ck)
+
+
 class Word2Vec:
     """Skip-gram negative-sampling estimator on one device.
 
@@ -159,9 +224,13 @@ class Word2Vec:
     """
 
     def __init__(self, params: Optional[Word2VecParams] = None,
-                 device: DeviceLike = None, **overrides):
+                 device: DeviceLike = None, obs=None, **overrides):
         self.params = (params or Word2VecParams()).replace(**overrides)
         self.device = device
+        #: Optional ``obs.ObsConfig``: the run's event log, heartbeat,
+        #: status file, canary and step-time file. Run config, never part
+        #: of the params or the saved model.
+        self.obs = obs
 
     def _set(self, **kw) -> "Word2Vec":
         self.params = self.params.replace(**kw)
@@ -230,6 +299,12 @@ class Word2Vec:
 
     def set_batch_packing(self, v: str) -> "Word2Vec":
         return self._set(batch_packing=v)
+
+    def set_observability(self, obs) -> "Word2Vec":
+        """Attach an ``obs.ObsConfig`` for later fits (event log,
+        heartbeat, status file, divergence canary, step-time file)."""
+        self.obs = obs
+        return self
 
     # ------------------------------------------------------------------
 
@@ -370,7 +445,10 @@ class Word2Vec:
         packing, also the composed step's fp32 context and negative rows
         and their gradients), and the corpus at its peak bytes a word,
         with its offsets (three copies with subsampling: uploaded,
-        compacted, and the pass's prefix sums)."""
+        compacted, and the pass's prefix sums; a fourth, the active
+        epoch's compacted copy, while the next epoch's pass is
+        prefetched). A checkpoint takes no device memory: its snapshot
+        copies the tables straight to host memory."""
         p = self.params
         s = 2 if p.dtype == "bfloat16" else 4
         P = packed_pair_batch(p.batch_size, p.window)
@@ -389,6 +467,11 @@ class Word2Vec:
                      + 1024 * S)
         if p.subsample_ratio > 0:
             corpus = n_words * SUBSAMPLED_CORPUS_BYTES_PER_WORD + 24 * n_offsets
+            if (p.num_iterations > 1
+                    and os.environ.get("GLINT_NO_COMPACT_PREFETCH", "0") != "1"):
+                # The active compacted view beside the prefetched pass.
+                corpus += (n_words * PREFETCHED_CORPUS_BYTES_PER_WORD
+                           + 8 * n_offsets)
         else:
             corpus = n_words * CORPUS_BYTES_PER_WORD + 8 * n_offsets
         return tables + step + corpus
@@ -442,9 +525,10 @@ class Word2Vec:
         under ``fold_in(seed_key, s)``, and the step counter advances by
         ``steps_per_call`` a group, pad steps included, so a resumed run
         equals an uninterrupted one. A group's losses are read back after
-        the next group is dispatched. Checkpoints keep the JAX package's
+        the next group is dispatched, and the metrics, the status and the
+        canary see the group then. Checkpoints keep the JAX package's
         ``train_state.json`` keys (no ``position`` or ``gstep`` on this
-        route)."""
+        route) and are written by :func:`_checkpoint_tables`."""
         p = self.params
         if p.batch_packing == "dense":
             logger.info(
@@ -456,67 +540,100 @@ class Word2Vec:
                     vocab.train_words_count)
         engine = self._make_engine(vocab)
         twc = vocab.train_words_count
-        total_words = p.num_iterations * twc + 1
-        base_key = rnd.seed_key(p.seed)
-        spc = p.steps_per_call
-        step = start_epoch = 0
-        state_path = (
-            os.path.join(checkpoint_dir, "train_state.json")
-            if checkpoint_dir else None
+        obs_run = start_run(
+            self.obs, pipeline="host", total_epochs=p.num_iterations,
+            total_words=p.num_iterations * twc, engine=engine,
         )
-        state = resolve_train_state(checkpoint_dir) if state_path else None
-        if state is not None:
-            engine.load_tables(os.path.join(checkpoint_dir, state["ckpt"]))
-            start_epoch = int(state["epochs_completed"])
-            step = int(state["step"])
-            batcher.words_done = int(state["words_done"])
-            logger.info("resuming after epoch %d (step %d)", start_epoch, step)
-        metrics = TrainingMetrics(base_words=batcher.words_done)
-
-        for epoch in range(start_epoch, p.num_iterations):
-            it = prefetch(group_batches(batcher.epoch(epoch), spc), depth=2)
-            pending = None
-            while True:
-                with metrics.timing("host"), metrics.stall_timing():
-                    grp = next(it, None)
-                if grp is None:
-                    break
-                wds = list(grp.words_done)
-                alphas = [
-                    max(p.step_size * (1 - wd / total_words), p.step_size * 1e-4)
-                    for wd in wds
-                ]
-                with metrics.timing("step"):
-                    losses = self._train_batches(
-                        engine, grp, base_key, step,
-                        np.asarray(alphas, np.float32),
-                    )
-                step += spc  # pad steps consumed keys too
-                if pending is not None:
-                    self._harvest(metrics, *pending)
-                pending = (losses, wds, alphas, grp.n_real)
-            if pending is not None:
-                self._harvest(metrics, *pending)
-            stopping = (
-                stop_after_epochs is not None
-                and (epoch + 1 - start_epoch) >= stop_after_epochs
+        try:
+            total_words = p.num_iterations * twc + 1
+            base_key = rnd.seed_key(p.seed)
+            spc = p.steps_per_call
+            step = start_epoch = 0
+            state_path = (
+                os.path.join(checkpoint_dir, "train_state.json")
+                if checkpoint_dir else None
             )
-            if state_path and (
-                stopping or (epoch + 1) % max(checkpoint_every_epochs, 1) == 0
-            ):
-                ck_name = f"ckpt-{epoch + 1}"
-                with metrics.stall_timing():
-                    engine.save(os.path.join(checkpoint_dir, ck_name))
-                    _flip_checkpoint_state(
-                        checkpoint_dir, state_path, ck_name,
-                        epochs_completed=epoch + 1, step=step,
-                        words_done=batcher.words_done,
+            state = resolve_train_state(checkpoint_dir) if state_path else None
+            if state is not None:
+                with obs_run.span("checkpoint_restore", ckpt=state["ckpt"]):
+                    engine.load_tables(os.path.join(checkpoint_dir, state["ckpt"]))
+                start_epoch = int(state["epochs_completed"])
+                step = int(state["step"])
+                batcher.words_done = int(state["words_done"])
+                logger.info("resuming after epoch %d (step %d)", start_epoch, step)
+            metrics = TrainingMetrics(base_words=batcher.words_done)
+            obs_run.attach_metrics(metrics)
+
+            for epoch in range(start_epoch, p.num_iterations):
+                obs_run.update(epoch=epoch)
+                it = prefetch(group_batches(batcher.epoch(epoch), spc), depth=2)
+                pending = None
+                g = 0
+                while True:
+                    # The wait for the producer is a stall of the loop.
+                    with metrics.timing("host"), metrics.stall_timing(), \
+                            obs_run.span("host_batch", epoch=epoch, group=g):
+                        grp = next(it, None)
+                    if grp is None:
+                        break
+                    wds = list(grp.words_done)
+                    alphas = [
+                        max(p.step_size * (1 - wd / total_words),
+                            p.step_size * 1e-4)
+                        for wd in wds
+                    ]
+                    with metrics.timing("step"), obs_run.span(
+                            "device_steps", step0=step, n=grp.n_real):
+                        losses = deferred_readback(self._train_batches(
+                            engine, grp, base_key, step,
+                            np.asarray(alphas, np.float32),
+                        ))
+                    new_pend = (losses, wds, alphas, grp.n_real, step)
+                    step += spc  # pad steps consumed keys too
+                    if pending is not None:
+                        self._harvest(metrics, obs_run, *pending)
+                    pending = new_pend
+                    g += 1
+                if pending is not None:
+                    self._harvest(metrics, obs_run, *pending)
+                stopping = (
+                    stop_after_epochs is not None
+                    and (epoch + 1 - start_epoch) >= stop_after_epochs
+                )
+                if state_path and (
+                    stopping or (epoch + 1) % max(checkpoint_every_epochs, 1) == 0
+                ):
+                    ck_name = f"ckpt-{epoch + 1}"
+                    _checkpoint_tables(
+                        engine, obs_run, metrics,
+                        os.path.join(checkpoint_dir, ck_name), ck_name,
+                        functools.partial(
+                            _flip_checkpoint_state, checkpoint_dir,
+                            state_path, ck_name, epochs_completed=epoch + 1,
+                            step=step, words_done=batcher.words_done,
+                        ),
                     )
-            if stopping:
-                logger.info("stopping early after epoch %d", epoch + 1)
-                break
+                if stopping:
+                    logger.info("stopping early after epoch %d", epoch + 1)
+                    break
+            # Fit exit waits for the write in flight: a failed write
+            # raises here, a hung one after GLINT_CKPT_WAIT_TIMEOUT.
+            engine.wait_pending_saves(timeout=_ckpt_wait_timeout())
+        except TrainingDiverged:
+            engine.wait_pending_saves(reraise=False, timeout=_ckpt_wait_timeout())
+            _save_diverged_snapshot(engine, checkpoint_dir, obs_run)
+            raise
+        except BaseException:
+            engine.wait_pending_saves(reraise=False, timeout=_ckpt_wait_timeout())
+            obs_run.close(failed=True)
+            raise
+        finally:
+            obs_run.close()
         model = self._make_model(vocab, engine)
         model.training_metrics = {**metrics.summary(), "pipeline": "host"}
+        steptime = obs_run.steptime_totals()
+        if steptime:
+            model.training_metrics["steptime"] = steptime
         logger.info("training done: %s", model.training_metrics)
         return model
 
@@ -542,17 +659,36 @@ class Word2Vec:
         draws follow the grid-equivalent counter ``gstep`` (the grid
         path's own step counter), which advances by ``groups *
         steps_per_call`` per epoch; the subsample draws are keyed by the
-        epoch alone. Each group is one call of the engine and one readback.
+        epoch alone.
+
+        Deferred readbacks: a packed group's dispatch chains on the
+        previous group's end position as a device scalar, and the previous
+        group is read back (``readback_harvest``) while this one is
+        queued, so the host never waits for the card between groups; the
+        metrics, status and canary run one group behind. The dispatch
+        arguments are the synchronous loop's, except for at most one
+        zero-pair phantom group an epoch, dispatched past the stream's end
+        before the previous group's end was read: it records no step,
+        advances no counter, and its keys are dropped at the epoch's end,
+        so the tables are bitwise those of the synchronous loop
+        (``GLINT_SYNC_READBACK=1``). The grid loop also reads each group
+        back one group late. While an epoch's last group is still queued,
+        the next epoch's compaction is dispatched ahead
+        (``subsample_prefetch``) and adopted by the next
+        ``compact_corpus``, bitwise the pass it replaces
+        (``GLINT_NO_COMPACT_PREFETCH=1`` turns it off).
 
         Checkpoints at epoch ends carry ``position`` 0, ``gstep`` and the
-        ``batch_packing`` that wrote them, and resume under either packing.
+        ``batch_packing`` that wrote them, and resume under either packing;
+        :func:`_checkpoint_tables` writes them.
         ``GLINT_PACKED_STOP_AFTER_GROUPS=N`` (the JAX package's drill hook)
-        stops the packed path after N dispatch groups with a mid-epoch
-        checkpoint: the consumed ``position`` in the epoch's stream
-        (compacted when subsampling), ``step``, the epoch's ``gstep`` base
-        and ``words_done``. A resume starts the epoch's first group at
-        ``position``, so every later dispatch is the uninterrupted run's;
-        a mid-epoch state resumes only under the packing that wrote it."""
+        stops the packed path after N dispatch groups, read back one at a
+        time, with a mid-epoch checkpoint: the consumed ``position`` in
+        the epoch's stream (compacted when subsampling), ``step``, the
+        epoch's ``gstep`` base and ``words_done``. A resume starts the
+        epoch's first group at ``position``, so every later dispatch is
+        the uninterrupted run's; a mid-epoch state resumes only under the
+        packing that wrote it."""
         p = self.params
         subsampling = p.subsample_ratio > 0
         packed = p.batch_packing == "dense"
@@ -563,64 +699,87 @@ class Word2Vec:
         )
         engine = self._make_engine(vocab)
         twc = vocab.train_words_count
-        engine.upload_corpus(ids, offsets)
-        if subsampling:
-            engine.set_keep_probs(vocab.device_keep_probabilities(p.subsample_ratio))
-        N = int(ids.shape[0])
-        B, spc = p.batch_size, p.steps_per_call
-        total_words = p.num_iterations * twc + 1
-        base_key = rnd.seed_key(p.seed)
-        pair_batch = packed_pair_batch(B, p.window)
-        step = gstep = start_epoch = resume_position = 0
-        packed_groups = packed_pairs = packed_slots = 0
-        stop_after_groups = os.environ.get("GLINT_PACKED_STOP_AFTER_GROUPS")
-        stop_after_groups = int(stop_after_groups) if stop_after_groups else None
-
-        state_path = (
-            os.path.join(checkpoint_dir, "train_state.json")
-            if checkpoint_dir else None
+        obs_run = start_run(
+            self.obs, pipeline="device_corpus", total_epochs=p.num_iterations,
+            total_words=p.num_iterations * twc, engine=engine,
         )
-        resume_words = None
-        state = resolve_train_state(checkpoint_dir) if state_path else None
-        if state is not None:
-            # A mid-epoch state resumes only under the packing that wrote
-            # it: the other would misread its position and train the
-            # epoch's consumed prefix again.
-            state_packing = state.get("batch_packing", "grid")
-            if (int(state.get("position", 0)) > 0
-                    and state_packing != p.batch_packing):
-                raise ValueError(
-                    f"mid-epoch checkpoint at {checkpoint_dir} was written "
-                    f"with batch_packing={state_packing!r} (position "
-                    f"{state['position']}); resume with the same packing "
-                    "mode, or restart from an epoch-boundary checkpoint"
-                )
-            engine.load_tables(os.path.join(checkpoint_dir, state["ckpt"]))
-            start_epoch = int(state["epochs_completed"])
-            step = int(state["step"])
-            resume_position = int(state.get("position", 0))
-            gstep = int(state.get("gstep", step))
-            resume_words = int(state.get("words_done", start_epoch * twc))
-            logger.info("resuming after epoch %d (step %d, position %d)",
-                        start_epoch, step, resume_position)
-        metrics = TrainingMetrics(
-            base_words=resume_words if resume_words is not None
-            else start_epoch * twc
-        )
-
-        def save(ck_name: str, **fields) -> None:
-            with metrics.stall_timing():
-                engine.save(os.path.join(checkpoint_dir, ck_name))
-                _flip_checkpoint_state(checkpoint_dir, state_path, ck_name,
-                                       **fields)
-
-        for epoch in range(start_epoch, p.num_iterations):
+        try:
+            with obs_run.span("upload_corpus", words=int(ids.shape[0])):
+                engine.upload_corpus(ids, offsets)
             if subsampling:
-                with metrics.timing("step"), metrics.stall_timing():
-                    n_pos = engine.compact_corpus(rnd.fold_in(base_key, epoch))
-                offsets_c = engine.compacted_offsets()
-            else:
-                n_pos, offsets_c = N, None
+                engine.set_keep_probs(
+                    vocab.device_keep_probabilities(p.subsample_ratio))
+            N = int(ids.shape[0])
+            B, spc = p.batch_size, p.steps_per_call
+            total_words = p.num_iterations * twc + 1
+            base_key = rnd.seed_key(p.seed)
+            pair_batch = packed_pair_batch(B, p.window)
+            step = gstep = start_epoch = resume_position = 0
+            packed_groups = packed_pairs = packed_slots = 0
+            stop_after_groups = os.environ.get("GLINT_PACKED_STOP_AFTER_GROUPS")
+            stop_after_groups = int(stop_after_groups) if stop_after_groups else None
+            # The drill decides on each group's end before the next
+            # dispatch, so it reads every group back at once.
+            defer = (stop_after_groups is None
+                     and os.environ.get("GLINT_SYNC_READBACK", "0") != "1")
+
+            state_path = (
+                os.path.join(checkpoint_dir, "train_state.json")
+                if checkpoint_dir else None
+            )
+            resume_words = None
+            state = resolve_train_state(checkpoint_dir) if state_path else None
+            if state is not None:
+                # A mid-epoch state resumes only under the packing that
+                # wrote it: the other would misread its position and train
+                # the epoch's consumed prefix again.
+                state_packing = state.get("batch_packing", "grid")
+                if (int(state.get("position", 0)) > 0
+                        and state_packing != p.batch_packing):
+                    raise ValueError(
+                        f"mid-epoch checkpoint at {checkpoint_dir} was written "
+                        f"with batch_packing={state_packing!r} (position "
+                        f"{state['position']}); resume with the same packing "
+                        "mode, or restart from an epoch-boundary checkpoint"
+                    )
+                with obs_run.span("checkpoint_restore", ckpt=state["ckpt"]):
+                    engine.load_tables(os.path.join(checkpoint_dir, state["ckpt"]))
+                start_epoch = int(state["epochs_completed"])
+                step = int(state["step"])
+                resume_position = int(state.get("position", 0))
+                gstep = int(state.get("gstep", step))
+                resume_words = int(state.get("words_done", start_epoch * twc))
+                logger.info("resuming after epoch %d (step %d, position %d)",
+                            start_epoch, step, resume_position)
+            metrics = TrainingMetrics(
+                base_words=resume_words if resume_words is not None
+                else start_epoch * twc
+            )
+            obs_run.attach_metrics(metrics)
+
+            def checkpoint(ck_name: str, **fields) -> None:
+                _checkpoint_tables(
+                    engine, obs_run, metrics,
+                    os.path.join(checkpoint_dir, ck_name), ck_name,
+                    functools.partial(_flip_checkpoint_state, checkpoint_dir,
+                                      state_path, ck_name, **fields),
+                )
+
+            def prefetch_compact(next_epoch: int) -> None:
+                # Enqueue the next epoch's compaction behind the queued
+                # groups; skipped when this run will not train that epoch.
+                if not subsampling or next_epoch >= p.num_iterations:
+                    return
+                if (stop_after_epochs is not None
+                        and next_epoch - start_epoch >= stop_after_epochs):
+                    return
+                if os.environ.get("GLINT_NO_COMPACT_PREFETCH", "0") == "1":
+                    return
+                with obs_run.span("subsample_prefetch", epoch=next_epoch):
+                    engine.prefetch_compact_corpus(rnd.fold_in(base_key, next_epoch))
+
+            # Read by the closures below (bound to this scope).
+            n_pos, offsets_c, epoch, epoch_wd = N, None, start_epoch, 0
 
             def words_done(end_pos: int) -> int:
                 if subsampling:
@@ -628,95 +787,159 @@ class Word2Vec:
                         offsets, offsets_c, end_pos, n_pos)
                 return epoch * twc + corpus_words_done(offsets, end_pos)
 
-            steps_per_epoch = max(1, -(-n_pos // B))
-            groups = max(1, -(-steps_per_epoch // spc))
-            if packed:
-                pos, resume_position = resume_position, 0
-                epoch_wd = epoch * twc
-                stopped = False
-                while pos < n_pos:
-                    with metrics.timing("step"):
-                        losses, pair_counts, pos_ends, alphas = (
-                            engine.train_steps_corpus_packed(
-                                pos, pair_batch, p.window, B, base_key, spc,
-                                step0=step, grid_step0=gstep,
-                                step_size=p.step_size, total_words=total_words,
-                                words_base=epoch * twc,
-                            )
-                        )
+            def harvest_packed(group, start: int) -> int:
+                # Read one dispatched packed group back and record its
+                # live steps; returns its end position. A group that
+                # started past the stream's end (the phantom) records
+                # nothing and advances no counter.
+                nonlocal step, epoch_wd, packed_pairs, packed_slots, packed_groups
+                with metrics.timing("step"), obs_run.span(
+                        "readback_harvest", packed=True) as hspan:
+                    losses, pair_counts, pos_ends, alphas = engine.packed_readback(group)
                     # Live steps form a prefix: the first start past the
                     # stream's end makes every later step a no-op.
-                    starts = np.concatenate(([pos], pos_ends[:-1]))
+                    starts = np.concatenate(([start], pos_ends[:-1]))
                     n_real = int((starts < n_pos).sum())
-                    with metrics.timing("host"):
-                        for i in range(n_real):
-                            epoch_wd = words_done(int(min(pos_ends[i], n_pos)))
-                            metrics.record_step(epoch_wd, loss=losses[i],
-                                                alpha=alphas[i])
+                    hspan.update(n=n_real)
+                    for i in range(n_real):
+                        epoch_wd = words_done(int(min(pos_ends[i], n_pos)))
+                        metrics.record_step(epoch_wd, loss=losses[i],
+                                            alpha=alphas[i])
+                    obs_run.observe_losses(step, losses, n_real)
+                if n_real:
+                    obs_run.update(step=step + n_real, words_done=epoch_wd,
+                                   alpha=float(alphas[n_real - 1]))
                     step += spc  # tail no-ops consumed keys
                     packed_pairs += int(pair_counts[:n_real].sum())
                     packed_slots += n_real * pair_batch
                     packed_groups += 1
-                    pos = int(pos_ends[-1])
-                    if (stop_after_groups is not None
-                            and packed_groups >= stop_after_groups):
-                        stopped = True
-                        break
-                if stopped:
-                    if state_path:
-                        save(f"ckpt-e{epoch}-p{pos}", epochs_completed=epoch,
-                             step=step, words_done=epoch_wd,
-                             extra={"position": pos, "gstep": gstep,
-                                    "batch_packing": "dense"})
-                    logger.info("stopping mid-epoch %d at position %d "
-                                "(GLINT_PACKED_STOP_AFTER_GROUPS)", epoch, pos)
-                    break
-                gstep += groups * spc
-            else:
-                pending = None
-                for g in range(groups):
-                    start_pos = g * spc * B
-                    with metrics.timing("host"):
-                        wds = [words_done(min(start_pos + (j + 1) * B, n_pos))
-                               for j in range(spc)]
-                        alphas = np.maximum(
-                            p.step_size * (1 - np.asarray(wds) / total_words),
-                            p.step_size * 1e-4,
-                        ).astype(np.float32)
-                    # An epoch subsampled to nothing dispatches its one
-                    # no-op group but records no steps.
-                    n_real = min(spc, max(0, -(-(n_pos - start_pos) // B)))
-                    with metrics.timing("step"):
-                        losses = engine.train_steps_corpus(
-                            start_pos, B, p.window, base_key, alphas, step,
-                        )
-                    step += spc  # tail no-ops consumed keys
-                    # A group's losses are read back after the next group
-                    # is dispatched.
+                return int(pos_ends[-1])
+
+            for epoch in range(start_epoch, p.num_iterations):
+                obs_run.update(epoch=epoch)
+                if subsampling:
+                    # n_kept is read back here; with the pass prefetched
+                    # during the last epoch's tail the wait is short.
+                    with metrics.timing("step"), metrics.stall_timing(), \
+                            obs_run.span("subsample_compact", epoch=epoch):
+                        n_pos = engine.compact_corpus(rnd.fold_in(base_key, epoch))
+                    offsets_c = engine.compacted_offsets()
+                else:
+                    n_pos, offsets_c = N, None
+
+                steps_per_epoch = max(1, -(-n_pos // B))
+                groups = max(1, -(-steps_per_epoch // spc))
+                if packed:
+                    pos, resume_position = resume_position, 0
+                    epoch_wd = epoch * twc
+                    stopped = False
+                    pending = None
+                    next_start = pos  # a host int, then the device chain
+                    dstep = step  # dispatch-time step0, one group ahead
+                    while pos < n_pos:
+                        with metrics.timing("step"), obs_run.span(
+                                "device_steps", step0=dstep, n=spc, packed=True):
+                            group = engine.train_steps_corpus_packed(
+                                next_start, pair_batch, p.window, B, base_key,
+                                spc, step0=dstep, grid_step0=gstep,
+                                step_size=p.step_size, total_words=total_words,
+                                words_base=epoch * twc, readback=False,
+                            )
+                        dstep += spc
+                        next_start = group.out[2, spc - 1]
+                        new_pend = [group, pos]
+                        if pending is not None:
+                            # Read group g-1 back while group g is queued;
+                            # its end is group g's true start.
+                            pos = harvest_packed(*pending)
+                            new_pend[1] = pos
+                        pending = new_pend
+                        if not defer:
+                            pos = harvest_packed(*pending)
+                            pending = None
+                            next_start = pos
+                            if (stop_after_groups is not None
+                                    and packed_groups >= stop_after_groups):
+                                stopped = True
+                                break
+                    if not stopped:
+                        # Behind the last group in the queue, ahead of the
+                        # drain.
+                        prefetch_compact(epoch + 1)
                     if pending is not None:
-                        self._harvest(metrics, *pending)
-                    pending = (losses, wds, alphas, n_real)
-                if pending is not None:
-                    self._harvest(metrics, *pending)
-                gstep = step
-            stopping = (
-                stop_after_epochs is not None
-                and (epoch + 1 - start_epoch) >= stop_after_epochs
-            )
-            if state_path and (
-                stopping or (epoch + 1) % max(checkpoint_every_epochs, 1) == 0
-            ):
-                save(f"ckpt-{epoch + 1}", epochs_completed=epoch + 1,
-                     step=step, words_done=(epoch + 1) * twc,
-                     extra={
-                         "position": 0, "gstep": gstep,
-                         "batch_packing": p.batch_packing,
-                         "exchange_wire": p.exchange_wire,
-                         "exchange_every": p.exchange_every,
-                     })
-            if stopping:
-                logger.info("stopping early after epoch %d", epoch + 1)
-                break
+                        pos = harvest_packed(*pending)
+                        pending = None
+                    # dstep is dropped here with a phantom group's keys:
+                    # the next epoch dispatches from ``step``.
+                    if stopped:
+                        if state_path:
+                            checkpoint(f"ckpt-e{epoch}-p{pos}",
+                                       epochs_completed=epoch, step=step,
+                                       words_done=epoch_wd,
+                                       extra={"position": pos, "gstep": gstep,
+                                              "batch_packing": "dense"})
+                        logger.info("stopping mid-epoch %d at position %d "
+                                    "(GLINT_PACKED_STOP_AFTER_GROUPS)", epoch, pos)
+                        break
+                    gstep += groups * spc
+                else:
+                    pending = None
+                    for g in range(groups):
+                        start_pos = g * spc * B
+                        with metrics.timing("host"), obs_run.span(
+                                "host_batch", epoch=epoch, group=g):
+                            wds = [words_done(min(start_pos + (j + 1) * B, n_pos))
+                                   for j in range(spc)]
+                            alphas = np.maximum(
+                                p.step_size * (1 - np.asarray(wds) / total_words),
+                                p.step_size * 1e-4,
+                            ).astype(np.float32)
+                        # An epoch subsampled to nothing dispatches its
+                        # one no-op group but records no steps.
+                        n_real = min(spc, max(0, -(-(n_pos - start_pos) // B)))
+                        with metrics.timing("step"), obs_run.span(
+                                "device_steps", step0=step, n=n_real):
+                            losses = deferred_readback(engine.train_steps_corpus(
+                                start_pos, B, p.window, base_key, alphas, step,
+                            ))
+                        new_pend = (losses, wds, alphas, n_real, step)
+                        step += spc  # tail no-ops consumed keys
+                        if pending is not None:
+                            self._harvest(metrics, obs_run, *pending)
+                        pending = new_pend
+                    gstep = step
+                    prefetch_compact(epoch + 1)
+                    if pending is not None:
+                        self._harvest(metrics, obs_run, *pending)
+                stopping = (
+                    stop_after_epochs is not None
+                    and (epoch + 1 - start_epoch) >= stop_after_epochs
+                )
+                if state_path and (
+                    stopping or (epoch + 1) % max(checkpoint_every_epochs, 1) == 0
+                ):
+                    checkpoint(f"ckpt-{epoch + 1}", epochs_completed=epoch + 1,
+                               step=step, words_done=(epoch + 1) * twc,
+                               extra={
+                                   "position": 0, "gstep": gstep,
+                                   "batch_packing": p.batch_packing,
+                                   "exchange_wire": p.exchange_wire,
+                                   "exchange_every": p.exchange_every,
+                               })
+                if stopping:
+                    logger.info("stopping early after epoch %d", epoch + 1)
+                    break
+            engine.wait_pending_saves(timeout=_ckpt_wait_timeout())
+        except TrainingDiverged:
+            engine.wait_pending_saves(reraise=False, timeout=_ckpt_wait_timeout())
+            _save_diverged_snapshot(engine, checkpoint_dir, obs_run)
+            raise
+        except BaseException:
+            engine.wait_pending_saves(reraise=False, timeout=_ckpt_wait_timeout())
+            obs_run.close(failed=True)
+            raise
+        finally:
+            obs_run.close()
 
         model = self._make_model(vocab, engine)
         model.training_metrics = {
@@ -724,6 +947,9 @@ class Word2Vec:
             "pipeline": "device_corpus",
             "batch_packing": p.batch_packing,
         }
+        steptime = obs_run.steptime_totals()
+        if steptime:
+            model.training_metrics["steptime"] = steptime
         if packed_slots:
             # Live pairs over dispatched pair slots: the packed steps'
             # effective mask density.
@@ -735,15 +961,22 @@ class Word2Vec:
         return model
 
     @staticmethod
-    def _harvest(metrics: TrainingMetrics, losses: torch.Tensor, wds,
-                 alphas, n_real: int) -> None:
-        """Read one group of grid steps' ``(K,)`` device losses back and
-        record its ``n_real`` live steps (the grid loops read a group back
-        after the next one is dispatched)."""
-        with metrics.timing("step"):
-            host = losses.cpu().numpy()
-        for i in range(n_real):
-            metrics.record_step(wds[i], loss=host[i], alpha=alphas[i])
+    def _harvest(metrics: TrainingMetrics, obs_run, losses: DeferredReadback,
+                 wds, alphas, n_real: int, step0: int) -> None:
+        """Read one group of grid steps' ``(K,)`` losses back and record its
+        ``n_real`` live steps, which start at step ``step0``; the canary
+        and the status see them here (the grid loops read a group back
+        after the next one is dispatched, waiting for that group alone)."""
+        if not n_real:
+            return
+        with metrics.timing("step"), obs_run.span(
+                "readback_harvest", step0=step0, n=n_real):
+            host = losses.wait()
+            for i in range(n_real):
+                metrics.record_step(wds[i], loss=host[i], alpha=alphas[i])
+            obs_run.observe_losses(step0, host, n_real)
+        obs_run.update(step=step0 + n_real, words_done=int(wds[n_real - 1]),
+                       alpha=float(alphas[n_real - 1]))
 
 
 class Word2VecModel:

@@ -29,6 +29,22 @@ from glint_word2vec_torch.ops import random as rnd
 from glint_word2vec_torch.ops.random import SUBSAMPLE_FOLD, WINDOW_FOLD
 
 
+#: ``window_offsets(window)`` as int64 tensors, one per (window, device).
+_OFFSETS_ON_DEVICE: dict = {}
+
+
+def _window_offsets_on(window: int, device) -> torch.Tensor:
+    """The lane offsets of ``window`` as an int64 tensor on ``device``,
+    made once: a copy from host memory to the card waits for the card's
+    queued work, and the steps ask for the offsets every step."""
+    key = (int(window), str(device))
+    offs = _OFFSETS_ON_DEVICE.get(key)
+    if offs is None:
+        offs = _OFFSETS_ON_DEVICE[key] = torch.as_tensor(
+            window_offsets(window), dtype=torch.int64, device=device)
+    return offs
+
+
 def subsample_keep_mask(ids: torch.Tensor, keep_prob: torch.Tensor,
                         epoch_key: int) -> torch.Tensor:
     """Per-position keep mask for frequency subsampling: position ``t``
@@ -110,7 +126,7 @@ def device_window_batch(
     start = offsets[sent]
     end = offsets[(sent + 1).clamp(max=offsets.shape[0] - 1)]
     b = shrink.to(torch.int64)
-    offs = torch.as_tensor(window_offsets(window), dtype=torch.int64, device=dev)
+    offs = _window_offsets_on(window, dev)
     cpos = p[:, None] + offs[None, :]
     valid = (
         (offs[None, :] >= -b[:, None])
@@ -146,7 +162,7 @@ def pack_window_pairs(
     S = shrink.shape[0]
     P = int(pair_batch)
     dev = ids.device
-    offs = torch.as_tensor(window_offsets(window), dtype=torch.int64, device=dev)
+    offs = _window_offsets_on(window, dev)
     C = offs.shape[0]
     if P < C:
         raise ValueError(f"pair_batch ({P}) must be >= context lanes ({C})")
@@ -195,8 +211,10 @@ def device_words_done(offsets: torch.Tensor, offsets_c: torch.Tensor,
     subsampling pass the original offsets twice (it then equals
     :func:`corpus_words_done`). Returns a 0-d int64 tensor."""
     end = torch.as_tensor(end_position, dtype=torch.int64, device=offsets.device)
-    j = torch.searchsorted(offsets_c, (end - 1).reshape(1), right=True)[0] - 1
-    done = offsets[(j + 1).clamp(0, offsets.shape[0] - 1)]
+    # One-element index tensors: indexing with a 0-d tensor would read
+    # it back to the host.
+    j = torch.searchsorted(offsets_c, (end - 1).reshape(1), right=True) - 1
+    done = offsets[(j + 1).clamp(0, offsets.shape[0] - 1)].reshape(())
     done = torch.where(end >= n_valid, offsets[-1], done)
     return torch.where(end <= 0, 0, done)
 

@@ -17,7 +17,11 @@ Training takes three routes, all updating the tables in place:
   and :meth:`EmbeddingEngine.train_steps_corpus_packed` runs K steps of
   pair packing, negative draws and the fused pair step of
   ``ops/fused_sgns.py`` as a Python loop of launches, with one readback
-  per K steps;
+  per K steps, which the caller may defer: the dispatch form takes its
+  start position as a device scalar and returns its results on the
+  device (:meth:`EmbeddingEngine.packed_readback` reads them), and the
+  next epoch's compaction can be dispatched ahead
+  (:meth:`EmbeddingEngine.prefetch_compact_corpus`);
 - the corpus-resident grid path over the same corpus:
   :meth:`EmbeddingEngine.train_steps_corpus` assembles K grid batches on
   the device (``ops/device_batching.device_window_batch``) and runs the
@@ -37,7 +41,11 @@ S > 0``): one pool of S negatives a step for the whole batch, through
 
 Checkpoints use the JAX package's on-disk layout (``engine.json``,
 ``counts.npy``, ``.npy`` table blocks, ``manifest.json`` and the per-shard
-sidecars), so either package loads what the other saved. Loading reads
+sidecars), so either package loads what the other saved. A save is a
+snapshot of the tables to host arrays, then a write of those arrays;
+:meth:`EmbeddingEngine.save_async` stalls its caller for the snapshot
+alone and hands the write and the commit to one writer thread
+(``utils/async_ckpt.py``). Loading reads
 every form the JAX package writes: ``single`` files, ``sharded`` row blocks
 ``r…`` and ``dims`` column blocks ``c…``.
 """
@@ -47,7 +55,8 @@ from __future__ import annotations
 import json
 import os
 import shutil
-from typing import Optional, Tuple
+import time
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,6 +64,7 @@ import torch
 from glint_word2vec_torch.corpus.alias import build_unigram_alias
 from glint_word2vec_torch.corpus.batching import context_width
 from glint_word2vec_torch.device import DeviceLike, resolve_device
+from glint_word2vec_torch.obs import events as obs_events
 from glint_word2vec_torch.ops import device_batching as dbat
 from glint_word2vec_torch.ops import random as rnd
 from glint_word2vec_torch.ops.fused_sgns import (
@@ -172,6 +182,36 @@ def _apply_rank1_updates(syn1: torch.Tensor, ids1: torch.Tensor,
     return _rank1_dense_payload(c_pos, c_neg, h)
 
 
+class DeferredReadback(NamedTuple):
+    """A device result whose readback is deferred: ``out`` on the device,
+    ``host``, the pinned host tensor a copy enqueued right behind the work
+    that made ``out`` fills, and ``ready``, the CUDA event recorded after
+    that copy (None on the CPU, where ``host`` is ``out``).
+    :meth:`wait` waits for that work alone, not for work queued after it,
+    as a ``.cpu()`` on the same stream would."""
+
+    out: torch.Tensor
+    host: torch.Tensor
+    ready: Optional["torch.cuda.Event"]
+
+    def wait(self) -> np.ndarray:
+        if self.ready is not None:
+            self.ready.synchronize()
+        return self.host.numpy()
+
+
+def deferred_readback(out: torch.Tensor) -> DeferredReadback:
+    """Enqueue the copy of ``out`` to host memory behind the work queued
+    so far, without waiting for it."""
+    if out.device.type != "cuda":
+        return DeferredReadback(out, out, None)
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return DeferredReadback(out, host, ready)
+
+
 def _fsync_dir(dirpath: str) -> None:
     """Make renames inside ``dirpath`` durable; best-effort (some
     filesystems refuse directory fsync)."""
@@ -267,6 +307,15 @@ class EmbeddingEngine:
         self._n_kept = None
         self._compacted_offsets_host = None
         self._keep_prob = None
+        #: The next epoch's compaction dispatched ahead: ``(epoch_key,
+        #: ids_c, offsets_c, n_kept)`` on the device, or None.
+        self._compact_prefetch = None
+        # Checkpoint writer and its telemetry (checkpoint_stats).
+        self._ckpt_writer = None
+        self._ckpt_forced_sync = 0
+        self._ckpt_last_write_s: Optional[float] = None
+        self._ckpt_last_commit: Optional[float] = None
+        self._ckpt_shard_write_s: Optional[float] = None
 
     # ------------------------------------------------------------------
     # Bookkeeping
@@ -283,11 +332,14 @@ class EmbeddingEngine:
         assigned extra row."""
         return self.vocab_size + self.extra_rows_assigned
 
-    def _tick_tables(self) -> None:
-        """One table mutation: drop the norms cache and tick
-        ``table_version``."""
+    def _tick_tables(self, reason: str) -> None:
+        """One table mutation: drop the norms cache, tick
+        ``table_version`` and record the ``table_mutation`` event (one
+        global read when no recorder is installed)."""
         self._norms_cache = None
         self.table_version += 1
+        obs_events.emit("table_mutation", reason=reason,
+                        version=self.table_version)
 
     def _k_bucket(self, k: int) -> int:
         return min(max(next_pow2(k), TOPK_MIN_K_BUCKET), self.padded_vocab)
@@ -423,28 +475,31 @@ class EmbeddingEngine:
     ) -> int:
         """Run every query shape the serving path dispatches once, so the
         first real request pays no kernel build, library load or library
-        handle set-up. Returns the number of dispatches made."""
+        handle set-up. Returns the number of dispatches made. Recorded as
+        the ``engine_warmup`` span and the ``warmup_done`` event."""
         n = 0
         d = self.dim
-        ks = sorted({self._k_bucket(int(k)) for k in k_buckets})
-        for k in ks:
-            self.top_k_cosine(np.zeros(d, np.float32), k)
-            n += 1
-        for q in sorted({next_pow2(int(q)) for q in q_buckets}):
-            self.pull(np.zeros(q, np.int32))
-            n += 1
-        for q in sorted({self._q_bucket(int(q)) for q in q_buckets}):
+        with obs_events.span("engine_warmup"):
+            ks = sorted({self._k_bucket(int(k)) for k in k_buckets})
             for k in ks:
-                self.top_k_cosine_batch(np.zeros((q, d), np.float32), k)
+                self.top_k_cosine(np.zeros(d, np.float32), k)
                 n += 1
-        for s in sorted({next_pow2(int(s)) for s in sentence_rows}):
-            for L in sorted({next_pow2(int(L)) for L in sentence_lens}):
-                self.pull_average(
-                    np.zeros((s, L), np.int32), np.zeros((s, L), np.float32)
-                )
+            for q in sorted({next_pow2(int(q)) for q in q_buckets}):
+                self.pull(np.zeros(q, np.int32))
                 n += 1
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            for q in sorted({self._q_bucket(int(q)) for q in q_buckets}):
+                for k in ks:
+                    self.top_k_cosine_batch(np.zeros((q, d), np.float32), k)
+                    n += 1
+            for s in sorted({next_pow2(int(s)) for s in sentence_rows}):
+                for L in sorted({next_pow2(int(L)) for L in sentence_lens}):
+                    self.pull_average(
+                        np.zeros((s, L), np.int32), np.zeros((s, L), np.float32)
+                    )
+                    n += 1
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        obs_events.emit("warmup_done", dispatches=n)
         return n
 
     # ------------------------------------------------------------------
@@ -477,6 +532,7 @@ class EmbeddingEngine:
             )
         self._corpus = dbat.to_device_corpus(ids, offsets, self.device)
         self._corpus_compacted = None
+        self._compact_prefetch = None
         self._n_kept = None
         self._compacted_offsets_host = None
 
@@ -496,26 +552,59 @@ class EmbeddingEngine:
             )
         self._keep_prob = torch.from_numpy(kp).to(self.device)
 
+    def _require_keep_probs(self) -> None:
+        self._require_corpus()
+        if self._keep_prob is None:
+            raise ValueError(
+                "no keep probabilities installed (call set_keep_probs first)"
+            )
+
+    def _compact_dispatch(self, epoch_key: int,
+                          keep: Optional[torch.Tensor] = None):
+        """Enqueue one subsample-and-compact pass over the uploaded
+        corpus; returns ``(ids_c, offsets_c, n_kept)`` on the device, with
+        no readback."""
+        ids, offsets = self._require_corpus()
+        if keep is None:
+            keep = dbat.subsample_keep_mask(ids, self._keep_prob, epoch_key)
+        return dbat.subsample_compact(ids, offsets, keep)
+
     def compact_corpus(self, epoch_key: int,
                        keep: Optional[torch.Tensor] = None) -> int:
         """Run one epoch's subsample-and-compact pass over the uploaded
         corpus and make the compacted view the active corpus of the next
         packed steps. The keep mask is drawn from ``epoch_key``
-        (``subsample_keep_mask``) unless given. Returns ``n_kept``, the
-        one scalar read back per epoch."""
-        ids, offsets = self._require_corpus()
-        if self._keep_prob is None:
-            raise ValueError(
-                "no keep probabilities installed (call set_keep_probs first)"
-            )
+        (``subsample_keep_mask``) unless given. A pass
+        :meth:`prefetch_compact_corpus` dispatched for the same key is
+        adopted instead of run again: the same function of the same
+        inputs, so bitwise the same buffers. The previous view is dropped
+        first, so without a prefetch the card holds one compacted copy.
+        Returns ``n_kept``, the one scalar read back per epoch."""
+        self._require_keep_probs()
         self._corpus_compacted = None
-        if keep is None:
-            keep = dbat.subsample_keep_mask(ids, self._keep_prob, epoch_key)
-        ids_c, offsets_c, n_kept = dbat.subsample_compact(ids, offsets, keep)
-        self._corpus_compacted = (ids_c, offsets_c)
         self._compacted_offsets_host = None
+        pre, self._compact_prefetch = self._compact_prefetch, None
+        if keep is None and pre is not None and pre[0] == int(epoch_key):
+            ids_c, offsets_c, n_kept = pre[1:]
+        else:
+            del pre  # prefetched for another key: dropped, not adopted
+            ids_c, offsets_c, n_kept = self._compact_dispatch(epoch_key, keep)
+        self._corpus_compacted = (ids_c, offsets_c)
         self._n_kept = int(n_kept)
         return self._n_kept
+
+    def prefetch_compact_corpus(self, epoch_key: int) -> None:
+        """Enqueue the next epoch's subsample-and-compact pass into new
+        device buffers without adopting them, while the current epoch's
+        last group is still queued, so the epoch boundary does not wait
+        for the pass. Nothing is read back. The next
+        :meth:`compact_corpus` with the same ``epoch_key`` adopts the
+        buffers; the active view is untouched until then, so the card
+        holds two compacted copies in between."""
+        self._require_keep_probs()
+        self._compact_prefetch = None
+        self._compact_prefetch = (int(epoch_key),
+                                  *self._compact_dispatch(epoch_key))
 
     def compacted_offsets(self) -> np.ndarray:
         """Host copy of the active epoch's compacted sentence offsets (one
@@ -527,10 +616,11 @@ class EmbeddingEngine:
         return self._compacted_offsets_host
 
     def train_steps_corpus_packed(
-        self, start_position: int, pair_batch: int, window: int,
+        self, start_position, pair_batch: int, window: int,
         grid_batch: int, base_key: int, n_steps: int, step0: int = 0,
         grid_step0: int = 0, *, step_size: float = 0.025,
         total_words: int = 1, words_base: int = 0, draws=None,
+        readback: bool = True,
     ):
         """K = ``n_steps`` packed SGNS steps over the active corpus view
         (the epoch's compacted buffers after :meth:`compact_corpus`, else
@@ -546,6 +636,9 @@ class EmbeddingEngine:
         step_size * 1e-4)`` with ``wd = words_base + device_words_done``.
         The position, the consumed count and alpha stay 0-d device tensors
         through the loop; nothing is read back until its end.
+        ``start_position`` is an int or a 0-d tensor on the device (the
+        previous group's end position, so that a group chains on the one
+        before it with no readback).
 
         With ``shared_negatives = S > 0`` step ``i`` draws one pool of S
         negatives for the whole batch instead and applies
@@ -561,7 +654,11 @@ class EmbeddingEngine:
 
         Returns host arrays ``(losses (K,), pair_counts (K,), pos_ends
         (K,), alphas (K,))``: per-step loss, live pairs packed, consumed
-        position after the step, and alpha."""
+        position after the step, and alpha. With ``readback=False`` it
+        reads nothing back and returns a :class:`DeferredReadback` of
+        those four rows as one ``(4, K)`` float64 tensor on the device,
+        whose ``out[2, -1]`` is the next group's start;
+        :meth:`packed_readback` waits for it later."""
         offsets = self._require_corpus()[1]
         P, W, B = int(pair_batch), int(window), int(grid_batch)
         C = context_width(W)
@@ -575,13 +672,19 @@ class EmbeddingEngine:
                 base_key, *self.noise_tables(), W, B, self.num_negatives
             )
         dev = self.device
+        # Scalars by fill kernels: a copy from host memory to the card
+        # would wait for the groups already queued.
         f32 = dict(dtype=torch.float32, device=dev)
-        step_size_t = torch.tensor(step_size, **f32)
+        step_size_t = torch.full((), float(step_size), **f32)
         floor = step_size_t * 1e-4
-        inv_total = torch.tensor(1.0 / float(total_words), **f32)
-        base_words = torch.tensor(float(words_base), **f32)
+        inv_total = torch.full((), 1.0 / float(total_words), **f32)
+        base_words = torch.full((), float(words_base), **f32)
         arange_s = torch.arange(S, dtype=torch.int64, device=dev)
-        pos = torch.tensor(int(start_position), dtype=torch.int64, device=dev)
+        if isinstance(start_position, torch.Tensor):
+            pos = start_position.to(device=dev, dtype=torch.int64)
+        else:
+            pos = torch.full((), int(start_position), dtype=torch.int64,
+                             device=dev)
         out = torch.empty((4, K), dtype=torch.float64, device=dev)
         for i in range(K):
             shrink = draws.shrink(pos + arange_s, grid_step0)
@@ -609,8 +712,16 @@ class EmbeddingEngine:
             out[1, i] = n_pairs
             out[2, i] = pos
             out[3, i] = alpha
-        self._tick_tables()
-        host = out.cpu().numpy()
+        self._tick_tables("train_steps_corpus_packed")
+        group = deferred_readback(out)
+        return self.packed_readback(group) if readback else group
+
+    @staticmethod
+    def packed_readback(group: DeferredReadback):
+        """One packed group's results as host arrays ``(losses,
+        pair_counts, pos_ends, alphas)``, once its copy has landed: the
+        wait covers this group and not the groups queued after it."""
+        host = group.wait()
         return (
             host[0].astype(np.float32), host[1].astype(np.int64),
             host[2].astype(np.int64), host[3].astype(np.float32),
@@ -671,7 +782,7 @@ class EmbeddingEngine:
             losses[i] = self._composed_step(
                 centers[:, None], ones, contexts, mask, alphas_t[i], noise
             )
-        self._tick_tables()
+        self._tick_tables("train_steps_corpus")
         return losses
 
     # ------------------------------------------------------------------
@@ -807,7 +918,7 @@ class EmbeddingEngine:
             losses[i] = self._composed_step(
                 cg[i], gm[i], cx[i], mk[i], alphas_t[i], ng
             )
-        self._tick_tables()
+        self._tick_tables("train_steps")
         return losses
 
     def write_rows(self, start_row: int, rows) -> None:
@@ -826,7 +937,7 @@ class EmbeddingEngine:
                 f"{self.num_rows} rows"
             )
         self.syn0[start_row : start_row + m] = rows.to(self.device, self._dtype)
-        self._tick_tables()
+        self._tick_tables("write_rows")
 
     # ------------------------------------------------------------------
     # Persistence
@@ -848,42 +959,70 @@ class EmbeddingEngine:
         }
 
     def _host_table(self, table: torch.Tensor) -> np.ndarray:
-        """The first ``num_rows`` rows of a table as a host fp32 array."""
+        """A copy of the first ``num_rows`` rows of ``table`` as a new host
+        fp32 array, ``_IO_ROWS`` rows a transfer. From the card each
+        transfer waits for the work queued before it, so the copy holds
+        the table as it stood when it was asked for, whatever the caller
+        enqueues next."""
         out = np.empty((self.num_rows, self.dim), np.float32)
         for s in range(0, self.num_rows, _IO_ROWS):
             e = min(s + _IO_ROWS, self.num_rows)
-            out[s:e] = table[s:e].float().cpu().numpy()
+            torch.from_numpy(out[s:e]).copy_(table[s:e].float())
         return out
 
-    def save(self, path: str, mode: str = "sharded") -> None:
-        """Write both tables, ``counts.npy``, ``engine.json`` and the
-        integrity manifests in the JAX package's layout.
-
-        ``mode="sharded"`` writes one row block per table (this engine
-        holds all rows on one device: ``syn0.r000000000000.npy``) with its
-        sidecar manifest; ``mode="single"`` writes ``syn0.npy`` and
-        ``syn1.npy``. A fresh ``path`` is written as a temp directory and
-        committed with one rename; an existing ``path`` is updated file by
-        file through temp + ``os.replace``, ``engine.json`` and
-        ``manifest.json`` last. ``GLINT_CKPT_NO_FSYNC=1`` skips the fsyncs,
-        as it does for the JAX package."""
+    def _snapshot_host(self, mode: str, *, lazy: bool = False):
+        """The host half of a save: ``(files, meta)``, where ``files`` is
+        the list of ``(file name, array)`` blocks (both tables, then
+        ``counts.npy``) and ``meta`` the ``engine.json`` dict. ``lazy``
+        (the blocking save) leaves each table as a zero-argument callable
+        that copies it when the write reaches it, so host memory holds
+        one table at a time; otherwise both tables are copied here (the
+        asynchronous save, whose caller goes on training)."""
         if mode not in ("sharded", "single"):
             raise ValueError("mode must be 'sharded' or 'single'")
-        fsync = os.environ.get("GLINT_CKPT_NO_FSYNC", "0") != "1"
         meta = self._save_meta(mode)
-        shard_files = []
         if mode == "sharded":
             meta["shards"] = {}
             for name in ("syn0", "syn1"):
-                fname = f"{name}.r{0:012d}.npy"
                 meta["shards"][name] = [{
-                    "file": fname, "start": 0, "stop": self.num_rows,
-                    "axis": "rows",
+                    "file": f"{name}.r{0:012d}.npy", "start": 0,
+                    "stop": self.num_rows, "axis": "rows",
                 }]
-                shard_files.append(fname)
-            files = list(zip(shard_files, ("syn0", "syn1")))
+            names = [f"{name}.r{0:012d}.npy" for name in ("syn0", "syn1")]
         else:
-            files = [("syn0.npy", "syn0"), ("syn1.npy", "syn1")]
+            names = ["syn0.npy", "syn1.npy"]
+        files = []
+        for fname, table in zip(names, (self.syn0, self.syn1)):
+            files.append((fname, (lambda t=table: self._host_table(t))
+                          if lazy else self._host_table(table)))
+        files.append(("counts.npy", np.asarray(self._counts, np.int64).copy()))
+        return files, meta
+
+    @staticmethod
+    def _commit_snapshot_dir(tmp: str, path: str) -> None:
+        """The commit point of a fresh snapshot directory: one atomic
+        rename (a seam of its own, so a test can fail the write between
+        the temp directory and the rename)."""
+        os.rename(tmp, path)
+
+    def _write_snapshot(self, path: str, files, meta: dict,
+                        table_version: int) -> None:
+        """Write a host snapshot in the JAX package's layout: the table
+        blocks (each shard with its sidecar manifest), ``counts.npy``,
+        ``engine.json`` and ``manifest.json``, which names everything else
+        by sha256 and size. A fresh ``path`` is written as a temp
+        directory and committed with one rename, so a crash at any point
+        before it leaves only an unreferenced ``*.tmp-*`` directory; an
+        existing ``path`` is updated file by file through temp +
+        ``os.replace``, ``engine.json`` and ``manifest.json`` last. Every
+        file and the directories are fsync'd unless
+        ``GLINT_CKPT_NO_FSYNC=1``. Runs on the writer thread for an
+        asynchronous save: it touches host arrays only."""
+        t0 = time.time()
+        fsync = os.environ.get("GLINT_CKPT_NO_FSYNC", "0") != "1"
+        shard_set = {b["file"] for t in (meta.get("shards") or {}).values()
+                     for b in t}
+        t_shards = 0.0
 
         def put(dirpath: str, fname: str, write) -> None:
             tmp_f = os.path.join(dirpath, f"{fname}.tmp.{os.getpid()}")
@@ -899,37 +1038,127 @@ class EmbeddingEngine:
         if fresh:
             shutil.rmtree(target, ignore_errors=True)
             os.makedirs(target)
-        for fname, name in files:
-            arr = self._host_table(getattr(self, name))
+        for fname, arr in files:
+            if callable(arr):
+                arr = arr()
+            ts = time.time()
             put(target, fname, lambda f, a=arr: np.save(f, a))
             del arr
-            if fname in shard_files:
+            if fname in shard_set:
                 integrity.write_shard_manifest(
                     target, fname,
-                    integrity.build_shard_manifest(
-                        target, fname, self.table_version
-                    ),
+                    integrity.build_shard_manifest(target, fname, table_version),
                     fsync=fsync,
                 )
-        put(target, "counts.npy",
-            lambda f: np.save(f, np.asarray(self._counts, np.int64)))
+                t_shards += time.time() - ts
         put(target, "engine.json", lambda f: f.write(json.dumps(meta).encode()))
         manifest = integrity.build_manifest(
             target,
-            [f for f, _ in files if f not in shard_files]
-            + ["counts.npy", "engine.json"],
-            self.table_version,
+            [f for f, _ in files if f not in shard_set] + ["engine.json"],
+            table_version,
             table_dtype=self.dtype,
         )
-        if shard_files:
-            manifest.update(version=2, shard_files=sorted(shard_files))
+        if shard_set:
+            manifest.update(version=2, shard_files=sorted(shard_set))
         integrity.write_manifest(target, manifest, fsync=fsync)
         if fsync:
             _fsync_dir(target)
         if fresh:
-            os.rename(target, path)
+            self._commit_snapshot_dir(target, path)
             if fsync:
                 _fsync_dir(os.path.dirname(os.path.abspath(path)))
+        self._ckpt_last_write_s = time.time() - t0
+        self._ckpt_last_commit = time.time()
+        self._ckpt_shard_write_s = round(t_shards, 6)
+
+    def save(self, path: str, mode: str = "sharded") -> None:
+        """Write both tables, ``counts.npy``, ``engine.json`` and the
+        integrity manifests in the JAX package's layout, blocking until
+        committed (:meth:`_write_snapshot`).
+
+        ``mode="sharded"`` writes one row block per table (this engine
+        holds all rows on one device: ``syn0.r000000000000.npy``) with its
+        sidecar manifest; ``mode="single"`` writes ``syn0.npy`` and
+        ``syn1.npy``."""
+        files, meta = self._snapshot_host(mode, lazy=True)
+        self._write_snapshot(path, files, meta, self.table_version)
+
+    def async_saves_enabled(self) -> bool:
+        """Whether :meth:`save_async` writes in the background: unless
+        ``GLINT_SYNC_CKPT=1`` asks for blocking saves."""
+        return os.environ.get("GLINT_SYNC_CKPT", "0") != "1"
+
+    def save_async(self, path: str, mode: str = "sharded",
+                   on_commit=None) -> bool:
+        """:meth:`save` without the wait: the caller blocks for the copy
+        of both tables to host memory alone, and the single writer thread
+        (``utils/async_ckpt.py``) writes and commits them, then runs
+        ``on_commit`` (the fit loops flip ``train_state.json`` there), so
+        a crash mid-write never leaves the state naming a partial
+        snapshot. At most one snapshot is in flight: a second request
+        first waits for the first (``async_save_waits``). Under
+        ``GLINT_SYNC_CKPT=1`` it saves and commits before returning, and
+        returns False."""
+        if not self.async_saves_enabled():
+            self.save(path, mode)
+            self._ckpt_forced_sync += 1
+            if on_commit is not None:
+                on_commit()
+            return False
+        if self._ckpt_writer is None:
+            from glint_word2vec_torch.utils.async_ckpt import AsyncSnapshotWriter
+
+            self._ckpt_writer = AsyncSnapshotWriter()
+        writer = self._ckpt_writer
+        # Wait for the snapshot in flight before copying this one: host
+        # memory holds at most one extra table pair.
+        writer.wait_for_slot()
+        files, meta = self._snapshot_host(mode)
+        tv = self.table_version
+
+        def job():
+            with obs_events.span("ckpt_write", ckpt=path):
+                self._write_snapshot(path, files, meta, tv)
+                if on_commit is not None:
+                    on_commit()
+
+        writer.submit(job, label=path)
+        return True
+
+    def wait_pending_saves(self, *, reraise: bool = True,
+                           timeout=None) -> None:
+        """Block until no asynchronous save is in flight. A failed write
+        raises here unless ``reraise=False`` (the exception path, which
+        must not mask the original failure); a writer still busy after
+        ``timeout`` seconds raises ``SnapshotWriterHung``."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.wait(reraise=reraise, timeout=timeout)
+
+    def checkpoint_stats(self) -> dict:
+        """Checkpoint telemetry for the heartbeat: ``pending_async_saves``
+        (0 or 1), ``async_save_waits`` (requests that waited for the one
+        in flight), ``checkpoint_write_seconds`` (the last write),
+        ``last_checkpoint_age_seconds`` (since the last commit; None
+        before any), ``forced_sync_saves`` and
+        ``checkpoint_shard_write_seconds``. Host values only."""
+        w = self._ckpt_writer
+        ws = w.stats() if w is not None else {}
+        last_write = self._ckpt_last_write_s
+        if ws.get("last_write_seconds") is not None:
+            last_write = ws["last_write_seconds"]
+        last_commit = self._ckpt_last_commit
+        if ws.get("last_commit_time") is not None:
+            last_commit = max(last_commit or 0.0, ws["last_commit_time"])
+        return {
+            "pending_async_saves": int(ws.get("pending", 0)),
+            "async_save_waits": int(ws.get("blocked_waits", 0)),
+            "checkpoint_write_seconds": (
+                round(last_write, 4) if last_write is not None else None),
+            "last_checkpoint_age_seconds": (
+                round(time.time() - last_commit, 2) if last_commit else None),
+            "forced_sync_saves": self._ckpt_forced_sync,
+            "checkpoint_shard_write_seconds": self._ckpt_shard_write_s,
+        }
 
     @classmethod
     def load(cls, path: str, device: DeviceLike = None) -> "EmbeddingEngine":
@@ -1024,7 +1253,7 @@ class EmbeddingEngine:
         self.extra_rows_assigned = int(
             staged["meta"].get("extra_rows_assigned", 0)
         )
-        self._tick_tables()
+        self._tick_tables("load_tables")
 
     def set_tables(self, syn0, syn1) -> None:
         """Install a copy of the given table values (all ``num_rows``
@@ -1039,19 +1268,19 @@ class EmbeddingEngine:
                 arr = torch.from_numpy(np.ascontiguousarray(arr, dtype=np.float32))
             t = arr.to(self.device, torch.float32)
             setattr(self, name, t.to(self._dtype, copy=True).contiguous())
-        self._tick_tables()
+        self._tick_tables("set_tables")
 
     def release_tables(self) -> None:
         """Free the tables' device memory; :meth:`load_tables` (or
         :meth:`set_tables`) makes the engine answer again."""
         self.syn0 = self.syn1 = None
-        self._tick_tables()
+        self._tick_tables("release_tables")
 
     def destroy(self) -> None:
         """Free every device buffer of the engine."""
         self.release_tables()
         self._noise = self._corpus = self._corpus_compacted = None
-        self._keep_prob = None
+        self._compact_prefetch = self._keep_prob = None
 
 
 class TrainingDraws:

@@ -1,15 +1,18 @@
-"""Training throughput counters (trimmed copy of
-``glint_word2vec_tpu/utils/metrics.py:27-123``): words done, words per
-second, the host/step time split, and loss and alpha per step."""
+"""Training throughput counters and the step-time ledger (trimmed copy
+of ``glint_word2vec_tpu/utils/metrics.py:27-375``): words done, words per
+second, the host/step time split, the stall proxy, loss and alpha per
+step, and the per-phase attribution of the fit thread's wall clock."""
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import logging
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 logger = logging.getLogger(__name__)
 
@@ -26,8 +29,10 @@ class TrainingMetrics:
     words_done: int = 0
     host_time: float = 0.0  # seconds spent preparing work on the host
     step_time: float = 0.0  # seconds spent dispatching and reading back steps
-    #: Seconds the dispatch loop stood still: blocking checkpoint saves
-    #: and the epoch-boundary compaction readback.
+    #: Seconds the dispatch loop stood still: checkpoint saves (the
+    #: snapshot copy alone when they are asynchronous), waits for the
+    #: batch producer and the epoch-boundary compaction readback. An
+    #: upper bound on the card's idle time, whose direction is exact.
     stall_time: float = 0.0
     last_loss: Optional[float] = None
     last_alpha: Optional[float] = None
@@ -92,6 +97,9 @@ class TrainingMetrics:
             else:
                 self.step_time += dt
 
+    def record_stall(self, seconds: float) -> None:
+        self.stall_time += seconds
+
     @contextlib.contextmanager
     def stall_timing(self):
         """Charge the wrapped block to ``stall_time`` (composable with
@@ -100,7 +108,7 @@ class TrainingMetrics:
         try:
             yield
         finally:
-            self.stall_time += time.time() - t0
+            self.record_stall(time.time() - t0)
 
     def summary(self) -> dict:
         wall = max(time.time() - self._t_start, 1e-9)
@@ -115,3 +123,144 @@ class TrainingMetrics:
             "final_loss": self.last_loss,
             "final_alpha": self.last_alpha,
         }
+
+
+class LatencyHistogram:
+    """Fixed log-spaced latency histogram: O(1) memory, quantiles by
+    linear interpolation inside the winning bucket. Edges run 50 us to
+    about 20 min with a sqrt(2) growth factor."""
+
+    _EDGES = [5e-5 * (2 ** (i / 2.0)) for i in range(64)]
+
+    __slots__ = ("counts", "n", "total", "max")
+
+    def __init__(self) -> None:
+        self.counts = [0] * (len(self._EDGES) + 1)
+        self.n = 0
+        self.total = 0.0
+        self.max = 0.0
+
+    def record(self, seconds: float) -> None:
+        self.counts[bisect.bisect_right(self._EDGES, seconds)] += 1
+        self.n += 1
+        self.total += seconds
+        if seconds > self.max:
+            self.max = seconds
+
+    def quantile(self, q: float) -> float:
+        if self.n == 0:
+            return 0.0
+        target = q * self.n
+        acc = 0
+        for i, c in enumerate(self.counts):
+            acc += c
+            if c and acc >= target:
+                lo = self._EDGES[i - 1] if i > 0 else 0.0
+                hi = self._EDGES[i] if i < len(self._EDGES) else self.max
+                hi = min(max(hi, lo), self.max) if self.max else hi
+                return lo + (hi - lo) * ((target - (acc - c)) / c)
+        return self.max
+
+    def state(self) -> dict:
+        """JSON-serializable snapshot (sparse bucket counts)."""
+        return {
+            "counts": {str(i): c for i, c in enumerate(self.counts) if c},
+            "n": self.n,
+            "total": self.total,
+            "max": self.max,
+        }
+
+
+#: The step-time ledger's named phases (the JAX package's):
+#:   dispatch          - device train-step dispatch calls
+#:   readback_harvest  - reading a dispatched group's results back
+#:   producer_wait     - waiting on the host batch producer
+#:   compact           - subsample-compact passes (and their prefetch)
+#:   checkpoint        - snapshot copies, blocking saves, restores
+#:   other             - the corpus upload plus the wall-clock gap no
+#:                       span covered
+LEDGER_PHASES = (
+    "dispatch", "readback_harvest", "producer_wait", "compact",
+    "checkpoint", "other",
+)
+
+
+class StepTimeLedger:
+    """Step-time attribution for one fit: every accounted span charges
+    its wall time to a named phase, so the phases say where the fit
+    thread's wall clock went. Fed by ``obs.ObsRun.span``; only the fit
+    thread accounts (the checkpoint writer's spans bypass the ledger), so
+    the phase totals sum to the wall clock. Per phase: total seconds,
+    span count and a :class:`LatencyHistogram` of span durations."""
+
+    def __init__(self) -> None:
+        self._mu = threading.Lock()
+        self._t0 = time.time()
+        self._t_end: Optional[float] = None
+        self._seconds = {p: 0.0 for p in LEDGER_PHASES}
+        self._counts = {p: 0 for p in LEDGER_PHASES}
+        self._hists = {p: LatencyHistogram() for p in LEDGER_PHASES}
+
+    def account(self, phase: str, seconds: float) -> None:
+        with self._mu:
+            self._seconds[phase] += seconds
+            self._counts[phase] += 1
+            self._hists[phase].record(seconds)
+
+    def finalize(self) -> None:
+        """Freeze the wall clock at run end (first call wins)."""
+        with self._mu:
+            if self._t_end is None:
+                self._t_end = time.time()
+
+    def wall_seconds(self) -> float:
+        with self._mu:
+            return (self._t_end or time.time()) - self._t0
+
+    def totals(self) -> Dict[str, float]:
+        """{phase: seconds}, the unattributed gap folded into ``other``:
+        the phases sum to the ledger's wall clock."""
+        snap = self.snapshot(include_hists=False)
+        return {p: info["seconds"] for p, info in snap["phases"].items()}
+
+    def snapshot(self, include_hists: bool = True) -> dict:
+        """Wall, per-phase seconds and count (with the histogram state),
+        and the unattributed gap, which ``other`` includes."""
+        with self._mu:
+            wall = (self._t_end or time.time()) - self._t0
+            accounted = sum(self._seconds.values())
+            gap = max(0.0, wall - accounted)
+            phases = {}
+            for p in LEDGER_PHASES:
+                info = {
+                    "seconds": round(
+                        self._seconds[p] + (gap if p == "other" else 0.0), 4
+                    ),
+                    "count": self._counts[p],
+                }
+                if include_hists:
+                    info["hist"] = self._hists[p].state()
+                phases[p] = info
+            return {
+                "wall_seconds": round(wall, 4),
+                "accounted_seconds": round(accounted, 4),
+                "unattributed_seconds": round(gap, 4),
+                "phases": phases,
+            }
+
+    def dump(self, path: str) -> None:
+        """Write the per-run STEPTIME.json (atomic): the phase breakdown
+        plus each phase's span-duration quantiles."""
+        from glint_word2vec_torch.utils import atomic_write_json
+
+        snap = self.snapshot(include_hists=False)
+        with self._mu:
+            for p in LEDGER_PHASES:
+                h = self._hists[p]
+                snap["phases"][p].update(
+                    p50_ms=round(h.quantile(0.50) * 1e3, 3),
+                    p95_ms=round(h.quantile(0.95) * 1e3, 3),
+                    p99_ms=round(h.quantile(0.99) * 1e3, 3),
+                )
+        snap["schema_version"] = 1
+        atomic_write_json(path, snap)

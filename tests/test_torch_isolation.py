@@ -76,6 +76,14 @@ def test_every_module_imports_with_jax_poisoned():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert len(modules) >= 14
+    # The observability, checkpoint-writer and evaluation modules too.
+    assert {
+        "glint_word2vec_torch.obs", "glint_word2vec_torch.obs.events",
+        "glint_word2vec_torch.obs.canary", "glint_word2vec_torch.obs.heartbeat",
+        "glint_word2vec_torch.obs.prometheus",
+        "glint_word2vec_torch.utils.async_ckpt",
+        "glint_word2vec_torch.eval", "glint_word2vec_torch.eval.analogy",
+    } <= set(modules)
 
 
 def test_no_cuda_raises_unless_cpu_is_asked(monkeypatch, tmp_path):
