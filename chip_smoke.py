@@ -105,9 +105,9 @@ nothing of JAX. Phases, each of which fails the run on any error:
    ``scatter_add_rank1`` once a step, ``gather_rows`` on every pull) and
    the native host pass taken (ingestion, alias build, batcher); its
    words/s, and steps/s, busy share and top kernels of 48 composed steps;
-   the same fit through the Python host pass (``GLINT_W2V_NO_NATIVE=1``),
-   words/s and the consumer's stall (``host`` seconds) beside the native
-   pass's;
+   a fit through the Python host pass (``GLINT_W2V_NO_NATIVE=1``) over the
+   corpus's first 2,000,000 tokens, its words/s and the consumer's stall
+   (``host`` seconds);
    (b) the ``tiny_corpus`` gates of ``tests/test_fasttext.py`` in fp32 and
    bf16 (OOV cosine, no bucket row in a top-k, save and ``load_model``
    keep the vectors); (c) word2vec through the host batcher (the script
@@ -147,7 +147,8 @@ nothing of JAX. Phases, each of which fails the run on any error:
    ``scatter_add_rows`` once a step, ``pair_forward`` never; words/s, and
    steps/s, busy share and device time a step of 48 grid steps; (b) the
    ``tiny_corpus`` gates under grid packing; (c) the mid-epoch drill at
-   full width (``GLINT_PACKED_STOP_AFTER_GROUPS=3``, then a resume from the
+   d = 300 over the corpus's first 2,000,000 tokens, every word kept
+   (``GLINT_PACKED_STOP_AFTER_GROUPS=3``, then a resume from the
    checkpoint's position) equal to the uninterrupted epoch bitwise; (d)
    ``Word2Vec().fit_file`` at d = 2,200, n = 25 and d = 20,000, n = 5
    over the first 100,000 tokens of phase 6's corpus (every word kept),
@@ -174,9 +175,41 @@ nothing of JAX. Phases, each of which fails the run on any error:
    ledger's phases of both runs. Phase 6 also measures the peak of a
    compaction prefetched while a compacted view is active, enqueued
    with no synchronization.
+12. The ANN index and the bulk transform, on a 1,000,000 x 300 fp32
+   model of 4,096 seeded Gaussian centres with spread 0.25: (a) the model
+   built and saved; (b) ``configure_ann()`` at its defaults (1,024
+   clusters x 2,048 slots, nprobe 8, 6 sweeps of 65,536 sampled rows) and
+   ``ann_build`` with every counter zeroed just before (``gather_rows``
+   must launch, ``scatter_add_rows`` once a sweep block), its seconds by
+   stage, spilled rows and block bytes, a second build bitwise the
+   first, the member blocks bitwise ``gather_rows_reference`` on the
+   members' ids, and two sweep blocks' ``scatter_add_rows`` on the
+   (1,024, 301) accumulator bitwise ``scatter_add_rows_reference``; (c)
+   recall@10 against exact at nprobe 8 and 32 on 64 and 1,024
+   sampled rows, nprobe = C equal to ``top_k_cosine_batch`` on a
+   65,536-row prefix, the device time (CUDA events) of one search, of its
+   block gather alone and of the exact path at Q = 1, 8, 16, k = 10, both
+   entry points' host time, and a refresh through ``write_rows``; (d) the
+   saved model served by ``serve_model_dir(ann=True)``: ``/healthz``'s gate
+   fields against (c)'s recall and the 0.95 gate, ``exact=true`` answers
+   equal to ``find_synonyms``, ``/synonyms`` latency over 200 cache misses
+   with 1 and 16 clients for the ANN path and for ``exact=true``; (e) the
+   CLI's ``transform-file`` over 100,000 seeded lines of 0 to 64 Zipf
+   words with OOV tokens (rows 1,024, max_len 256, shards of 8,192):
+   sentences/s and ``gather_rows`` launches, one batch's ``_pull_rows``
+   bitwise ``index_select``, the first 4,096 rows bitwise
+   ``transform_sentences``, a fault at the third shard commit then a
+   resume bitwise the run without it, and ranks 0 and 1 of 2 concatenated
+   bitwise the same; (f) ``synonyms_dump`` of the first 65,536 words,
+   exact, then through an index built and adopted as ``synonyms-dump
+   --ann`` does it (the queries ``ann.search`` takes are counted: none,
+   then every word): words/s and the share of top-10 neighbours they
+   agree on.
 
-It prints one JSON ``kernels`` line, the ``nvidia-smi`` line, and as its
-last line ``{"ok": true, "device": {...}}``. Without a CUDA device it
+After each phase it prints ``phase N: S s``, and before the kernels line
+the whole script's seconds. It prints one JSON ``kernels`` line, the
+``nvidia-smi`` line, and as its last line ``{"ok": true, "device":
+{...}}``. Without a CUDA device it
 exits non-zero before printing any result.
 """
 
@@ -226,6 +259,10 @@ S_POOL = 4096
 #: Tokens of phase 10's fits at d = 2,200 and 20,000 (a prefix of phase 6's
 #: corpus).
 WIDE_TOKENS = 100_000
+#: Tokens of phase 8's fit through the Python host pass and of phase 10's
+#: mid-epoch drill (prefixes of phase 6's corpus).
+PY_PASS_TOKENS = 2_000_000
+DRILL_TOKENS = 2_000_000
 #: The card the script runs on; the port's entry points default to it.
 DEV = "cuda"
 
@@ -442,17 +479,20 @@ def post_status(port: int, path: str, payload) -> int:
     return 200
 
 
-def closed_loop(port: int, clients: int, per_client: int, first_word: int):
+def closed_loop(port: int, clients: int, per_client: int, first_word: int,
+                exact: bool = False):
     """``clients`` threads, each sending ``per_client`` ``/synonyms``
     requests back to back for words no earlier request asked for (cache
-    misses). Returns every request's latency in ms and the wall seconds."""
+    misses), with ``"exact": true`` if ``exact``. Returns every request's
+    latency in ms and the wall seconds."""
     lat = [[] for _ in range(clients)]
+    extra = {"exact": True} if exact else {}
 
     def client(c):
         for i in range(per_client):
             word = f"w{first_word + c * per_client + i}"
             t = time.perf_counter()
-            post(port, "/synonyms", {"word": word, "num": 10})
+            post(port, "/synonyms", {"word": word, "num": 10, **extra})
             lat[c].append((time.perf_counter() - t) * 1e3)
 
     t = time.perf_counter()
@@ -468,11 +508,12 @@ def closed_loop(port: int, clients: int, per_client: int, first_word: int):
 
 
 def closed_loop_in_child(port: int, clients: int, per_client: int,
-                         first_word: int):
+                         first_word: int, exact: bool = False):
     """:func:`closed_loop` in a child process, so the clients' Python does
     not take the server's interpreter lock from it."""
     with multiprocessing.get_context("spawn").Pool(1) as pool:
-        return pool.apply(closed_loop, (port, clients, per_client, first_word))
+        return pool.apply(closed_loop,
+                          (port, clients, per_client, first_word, exact))
 
 
 def device_busy(torch, port: int) -> None:
@@ -1253,6 +1294,16 @@ def write_synthetic_corpus(np, path: str, seed: int = 1) -> int:
             block = words[toks[s : s + 100_000]].reshape(-1, SENTENCE_LEN)
             f.write("\n".join(" ".join(line) for line in block) + "\n")
     return int(toks.size)
+
+
+def write_prefix(path: str, out: str, tokens: int) -> int:
+    """The first ``tokens`` tokens (whole sentences of SENTENCE_LEN) of the
+    corpus at ``path``, written to ``out``. Returns the token count."""
+    lines = tokens // SENTENCE_LEN
+    with open(path) as src, open(out, "w") as dst:
+        for _ in range(lines):
+            dst.write(src.readline())
+    return lines * SENTENCE_LEN
 
 
 def make_tiny_corpus(np):
@@ -2091,24 +2142,28 @@ def train_fasttext_end_to_end(torch, np, rows_mod) -> dict:
         model.stop()
         del model
         torch.cuda.empty_cache()
-        # (a') The same fit through the Python host pass: the numpy batcher
-        # on the producer thread, the Python ingestion and alias loop.
+        # (a') A fit through the Python host pass (the numpy batcher on the
+        # producer thread, the Python ingestion and alias loop), over the
+        # corpus's first PY_PASS_TOKENS tokens.
+        prefix = os.path.join(tmp, "prefix.txt")
+        n_prefix = write_prefix(path, prefix, PY_PASS_TOKENS)
         with python_host_pass():
             calls = dict(native.calls)
             t0 = time.perf_counter()
-            model = fasttext_fit(FastTextWord2Vec, path)
+            model = fasttext_fit(FastTextWord2Vec, prefix)
             torch.cuda.synchronize()
             wall_py = time.perf_counter() - t0
         expect(not any(native_calls_since(calls).values()),
                "the Python host pass called the native library")
         tp = model.training_metrics
-        expect(tp["words_done"] == n_tok and math.isfinite(tp["final_loss"]), tp)
-        log(f"fastText fit_file, host pass native against Python: {wall:.1f} "
-            f"against {wall_py:.1f} s in all; training {tm['wall_seconds']} "
-            f"against {tp['wall_seconds']} s, {tm['words_per_sec']} against "
-            f"{tp['words_per_sec']} words/s, consumer stall (host) "
-            f"{tm['host_time']} against {tp['host_time']} s, step "
-            f"{tm['step_time']} against {tp['step_time']} s")
+        # min_count drops the prefix's rare words: every kept token trains.
+        expect(tp["words_done"] == model.vocab.train_words_count
+               and math.isfinite(tp["final_loss"]), tp)
+        log(f"fastText fit_file through the Python host pass over a "
+            f"{n_prefix}-token prefix ({model.vocab.size} words): {wall_py:.1f} "
+            f"s in all, training {tp['wall_seconds']} s, {tp['words_per_sec']} "
+            f"words/s, consumer stall (host) {tp['host_time']} s, step "
+            f"{tp['step_time']} s")
         model.stop()
         del model
         torch.cuda.empty_cache()
@@ -2625,29 +2680,34 @@ def train_grid_and_resume(torch, np, fs, rows_mod) -> dict:
         expect("berlin" in [w for w, _ in ana], f"grid berlin gate failed: {ana}")
         m.stop()
 
-        # (c) The mid-epoch drill at full width: stop after 3 groups,
-        # resume from the position, equal the uninterrupted epoch bitwise.
+        # (c) The mid-epoch drill at full width over the corpus's first
+        # DRILL_TOKENS tokens, every word kept: stop after 3 groups, resume
+        # from the position, equal the uninterrupted epoch bitwise.
+        drill_path = os.path.join(tmp, "drill.txt")
+        write_prefix(path, drill_path, DRILL_TOKENS)
+        drill_width = dict(full_width, min_count=1)
         ck = os.path.join(tmp, "ck")
         zero_counters(fs, rows_mod)
         os.environ["GLINT_PACKED_STOP_AFTER_GROUPS"] = "3"
         try:
-            Word2Vec(**full_width).fit_file(path, checkpoint_dir=ck).stop()
+            Word2Vec(**drill_width).fit_file(drill_path, checkpoint_dir=ck).stop()
         finally:
             os.environ.pop("GLINT_PACKED_STOP_AFTER_GROUPS", None)
         with open(os.path.join(ck, "train_state.json")) as f:
             state = json.load(f)
         expect(state["position"] > 0 and state["epochs_completed"] == 0, state)
         t0 = time.perf_counter()
-        resumed = Word2Vec(**full_width).fit_file(path, checkpoint_dir=ck)
+        resumed = Word2Vec(**drill_width).fit_file(drill_path, checkpoint_dir=ck)
         resume_s = time.perf_counter() - t0
         drill_launches = read_counters(fs, rows_mod)
         expect_launched(drill_launches, ("pair_forward", "scatter_add_rank1_hbm",
                                          "scatter_add_rows_f32"), "the drill")
-        full = Word2Vec(**full_width).fit_file(path)
+        full = Word2Vec(**drill_width).fit_file(drill_path)
         for name in ("syn0", "syn1"):
             expect(torch.equal(getattr(resumed.engine, name), getattr(full.engine, name)),
                    f"mid-epoch drill: resumed {name} differs from the uninterrupted run")
-        log(f"mid-epoch drill at {V_TRAIN} x {D}: stopped after 3 groups at "
+        log(f"mid-epoch drill at {resumed.vocab.size} x {D} over {DRILL_TOKENS} "
+            f"tokens: stopped after 3 groups at "
             f"position {state['position']} (step {state['step']}, words_done "
             f"{state['words_done']}); the resumed run ({resume_s:.1f} s) equals "
             "the uninterrupted epoch bitwise")
@@ -2660,9 +2720,7 @@ def train_grid_and_resume(torch, np, fs, rows_mod) -> dict:
         # form on every step, over the corpus's first WIDE_TOKENS tokens
         # (every word kept: a Zipf vocabulary, as a real corpus has).
         wide_path = os.path.join(tmp, "wide.txt")
-        with open(path) as src, open(wide_path, "w") as dst:
-            for _ in range(WIDE_TOKENS // SENTENCE_LEN):
-                dst.write(src.readline())
+        write_prefix(path, wide_path, WIDE_TOKENS)
         wide = {}
         for d, n in ((2_200, 25), (20_000, 5)):
             zero_counters(fs, rows_mod)
@@ -2942,7 +3000,8 @@ def train_stall_free(torch, np, fs, rows_mod) -> dict:
         expect(len(snap_a) == 2 and len(write_a) == 2, (snap_a, write_a))
         mem = status.get("device_memory", {})
         log(f"(a) deferred readbacks, async checkpoints, compaction prefetch, "
-            f"obs on: {wall_a:.1f} s in all; {tm_a['steps']} steps, "
+            f"obs on, {a.vocab.size} x {D} over {n_tok} tokens: {wall_a:.1f} s "
+            f"in all; {tm_a['steps']} steps, "
             f"{tm_a['words_per_sec']} words/s, device_stall_seconds "
             f"{tm_a['device_stall_seconds']}, ckpt_snapshot s {snap_a}, "
             f"ckpt_write s {write_a}, steptime {tm_a['steptime']}; "
@@ -3030,6 +3089,507 @@ def train_stall_free(torch, np, fs, rows_mod) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 12: the ANN index and the bulk transform
+# ----------------------------------------------------------------------
+
+#: Phase 12's table: a mixture of ANN_CENTRES seeded Gaussian centres with
+#: spread ANN_SPREAD, ``tests/test_ann.py``'s ``_structured_rows`` at full
+#: width (random rows have no cluster structure for IVF to find).
+ANN_CENTRES, ANN_SPREAD = 4096, 0.25
+#: Rows of the prefix on which nprobe = C must give the exact path's ids.
+ANN_PREFIX = 65_536
+#: The serving recall gate (``ModelServer``'s default).
+RECALL_GATE = 0.95
+#: The bulk transform's input lines and its ``transform-file`` geometry.
+TRANSFORM_LINES, TRANSFORM_ROWS, TRANSFORM_MAX_LEN, TRANSFORM_SHARD = (
+    100_000, 1024, 256, 8192)
+#: Words of the synonyms dump's vocabulary span.
+DUMP_WORDS = 65_536
+
+
+def model_over(torch, np, syn0):
+    """A word2vec model on the card over the rows ``syn0`` (words ``w<i>``,
+    syn1 zero)."""
+    from glint_word2vec_torch.convert import model_from_arrays
+    from glint_word2vec_torch.utils.params import Word2VecParams
+
+    n = syn0.shape[0]
+    return model_from_arrays(
+        [f"w{i}" for i in range(n)], syn0, torch.zeros_like(syn0),
+        np.arange(n, 0, -1, dtype=np.int64),
+        Word2VecParams(vector_size=D, min_count=1), device=DEV,
+    )
+
+
+def clustered_model(torch, np):
+    """The 1,000,000 x 300 fp32 mixture-of-Gaussians model of phase 12."""
+    gen = torch.Generator(device=DEV).manual_seed(12)
+    centres = torch.randn((ANN_CENTRES, D), generator=gen, device=DEV)
+    which = torch.randint(0, ANN_CENTRES, (V_SERVE,), generator=gen, device=DEV)
+    syn0 = centres[which] + ANN_SPREAD * torch.randn(
+        (V_SERVE, D), generator=gen, device=DEV)
+    return model_over(torch, np, syn0)
+
+
+def same_ids_up_to_ties(np, got, want, want_sims, tol: float = 1e-6) -> int:
+    """Fail unless ``got`` equals ``want`` row by row, except where two
+    neighbouring entries of ``want`` score within ``tol`` (a tie at fp32
+    precision, which two summation orders may break either way) and
+    ``got`` holds the other of the two. Returns the number of such
+    swapped positions."""
+    swaps = 0
+    for q in range(want.shape[0]):
+        for j in np.flatnonzero(got[q] != want[q]):
+            s = want_sims[q]
+            near = [i for i in (j - 1, j + 1) if 0 <= i < s.shape[0]
+                    and abs(s[i] - s[j]) <= tol]
+            expect(any(got[q, j] == want[q, i] for i in near),
+                   f"query {q} position {j}: id {got[q, j]} against {want[q, j]}")
+            swaps += 1
+    return swaps
+
+
+def check_ann_kernels(torch, np, rows_mod, eng, idx) -> dict:
+    """B1 and B3 held bitwise against their plain versions at the shapes
+    the index build gives them: the member blocks (one gather of all C x L
+    slots, byte offsets past 2^31) against ``gather_rows_reference`` on
+    the same ids, and two sweep blocks' sums on the ``(C, d + 1)`` fp32
+    accumulator, payload ``[x·w, w]``, each against
+    ``scatter_add_rows_reference`` on a CPU copy of the accumulator it
+    started from. Returns the largest difference of each."""
+    from glint_word2vec_torch.ops import ann
+
+    C, L = idx.clusters, idx.slots
+    want = rows_mod.gather_rows_reference(eng.syn0, idx.members.reshape(-1))
+    got = idx.member_rows.reshape(C * L, D)
+    b1_err = float((got.float() - want).abs().max())
+    expect(torch.equal(got, want.to(got.dtype)),
+           f"the member blocks differ from gather_rows_reference: {b1_err}")
+    del want, got
+    rng = np.random.default_rng(12)
+    ids = torch.from_numpy(rng.choice(V_SERVE, 2 * ann.ASSIGN_BLOCK, replace=False)
+                           .astype(np.int32)).to(DEV)
+    xn = ann.normalized_rows(eng.syn0, eng.norms(), ids)
+    acc = torch.zeros((C, D + 1), dtype=torch.float32, device=DEV)
+    b3_err = 0.0
+    for s in range(0, xn.shape[0], ann.ASSIGN_BLOCK):
+        x = xn[s : s + ann.ASSIGN_BLOCK]
+        a = torch.argmax(x @ idx.centroids.T, dim=1).to(torch.int32)
+        payload = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
+        before = acc.cpu()
+        rows_mod.scatter_add_rows(acc, a, payload)
+        want = rows_mod.scatter_add_rows_reference(before, a.cpu(), payload.cpu())
+        b3_err = max(b3_err, float((acc.cpu() - want).abs().max()))
+        expect(torch.equal(acc.cpu(), want),
+               f"a sweep block's scatter_add_rows differs from its plain "
+               f"version: {b3_err}")
+    log(f"at the build's shapes, bitwise their plain versions: gather_rows of "
+        f"the {C * L} member slots ({C * L * D * 4} bytes out); scatter_add_rows "
+        f"of two {ann.ASSIGN_BLOCK}-row sweep blocks on the ({C}, {D + 1}) "
+        f"accumulator ({int(torch.unique(a).numel())} clusters in the last)")
+    return {"gather_rows": b1_err, "scatter_add_rows": b3_err}
+
+
+def ann_index_and_search(torch, np, fs, rows_mod, model) -> dict:
+    """Phase 12 (b) and (c): two builds of the index at the default
+    geometry, recall, the exact check on a prefix, timings, and a refresh
+    through ``write_rows``. Returns the launch counts and the recalls."""
+    from glint_word2vec_torch.ops import ann
+    from glint_word2vec_torch.utils import next_pow2
+
+    eng = model.engine
+    conf = eng.configure_ann()
+    C = ann.auto_clusters(V_SERVE)
+    expect((conf["clusters"], conf["slots"], conf["nprobe"], conf["iters"],
+            conf["sample"]) == (C, ann.member_slots(V_SERVE, C), 8, 6, 65_536),
+           conf)
+    zero_counters(fs, rows_mod)
+    idx = eng.ann_build()
+    torch.cuda.synchronize()
+    build = read_counters(fs, rows_mod)
+    expect_launched(build, ("gather_rows", "scatter_add_rows"), "the index build")
+    sample = max(ann.ASSIGN_BLOCK, next_pow2(min(conf["sample"], V_SERVE)))
+    sweeps = conf["iters"] * (sample // ann.ASSIGN_BLOCK)
+    expect(build["scatter_add_rows"] == sweeps,
+           f"scatter_add_rows once a sweep block: {build}")
+    block_bytes = idx.member_rows.numel() * idx.member_rows.element_size()
+    parts = ", ".join(f"{k} {v:.3f}" for k, v in idx.build_parts.items())
+    log(f"ANN build at {V_SERVE} x {D} ({conf['clusters']} clusters x "
+        f"{conf['slots']} slots, {conf['iters']} sweeps of {conf['sample']} "
+        f"sampled rows): build_seconds {idx.build_seconds:.3f} ({parts}); "
+        f"spilled_rows {idx.spilled_rows}; member blocks {block_bytes} bytes; "
+        f"launches gather_rows {build['gather_rows']}, scatter_add_rows "
+        f"{build['scatter_add_rows']}")
+    again = eng.ann_build()
+    expect(torch.equal(idx.centroids, again.centroids)
+           and np.array_equal(idx.members_np, again.members_np)
+           and np.array_equal(idx.invn_np, again.invn_np)
+           and torch.equal(idx.member_rows, again.member_rows),
+           "two builds on the same table differ")
+    log(f"a second build ({again.build_seconds:.3f} s) is bitwise the first: "
+        "centroids, members, inverse norms and member blocks")
+    del again
+    path_err = check_ann_kernels(torch, np, rows_mod, eng, idx)
+    eng.adopt_ann(idx)
+    live = idx.members_np[idx.invn_np > 0]
+    expect(live.size == V_SERVE and np.unique(live).size == V_SERVE,
+           f"{live.size} member slots for {V_SERVE} rows")
+
+    # (c) Recall@10 against exact, and the launches it makes.
+    zero_counters(fs, rows_mod)
+    recall = {}
+    for p in (8, 32):
+        for n in (64, 1024):
+            t0 = time.perf_counter()
+            recall[(p, n)] = eng.ann_recall_at_k(10, sample=n, nprobe=p)
+            log(f"recall@10 at nprobe {p} on {n} sampled rows: "
+                f"{recall[(p, n)]:.6f} ({time.perf_counter() - t0:.2f} s)")
+    recall_launches = rows_mod.gather_rows.launches
+    log(f"the four recall measurements launched gather_rows {recall_launches} "
+        "times")
+    expect(recall[(8, 64)] >= 0.9, f"recall@10 {recall[(8, 64)]} on a clustered table")
+
+    # nprobe = C on a prefix is the exact masked top-k.
+    pm = model_over(torch, np, eng.syn0[:ANN_PREFIX])
+    pe = pm.engine
+    pconf = pe.configure_ann()
+    pe.adopt_ann(pe.ann_build())
+    q = pe.pull(np.arange(0, ANN_PREFIX, ANN_PREFIX // 16, dtype=np.int32))
+    q = q.cpu().numpy() + 0.01
+    av, ai = pe.ann_top_k_batch(q, 10, nprobe=pconf["clusters"])
+    ev, ei = pe.top_k_cosine_batch(q, 10)
+    err = float(np.abs(av - ev).max())
+    expect(err <= 1e-5, f"nprobe = C sims differ from exact by {err}")
+    swaps = same_ids_up_to_ties(np, ai, ei, ev)
+    log(f"nprobe = C ({pconf['clusters']} clusters x {pconf['slots']} slots) on "
+        f"the {ANN_PREFIX}-row prefix: the ids of top_k_cosine_batch for 16 "
+        f"queries ({swaps} tie swaps), sims within {err:.2e}")
+    pm.stop()
+    del pm, pe
+    torch.cuda.empty_cache()
+
+    # Device and host time of one search against the exact path.
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
+    C, L = idx.clusters, idx.slots
+    for Q in (1, 8, 16):
+        qv = eng.pull(np.arange(7, 7 + Q, dtype=np.int32)).cpu().numpy()
+        qt = torch.from_numpy(qv / np.linalg.norm(qv, axis=1, keepdims=True)).to(DEV)
+        pid = torch.topk(qt @ idx.centroids.T, conf["nprobe"], dim=1).indices.reshape(-1)
+        ann_ms = median_ms(torch, lambda: ann.search(idx, qt, 16, conf["nprobe"],
+                                                     V_SERVE), flush)
+        gather_ms = median_ms(torch, lambda: idx.member_rows.reshape(C, L * D)
+                              .index_select(0, pid), flush)
+        exact_ms = median_ms(torch, lambda: eng._exact_topk(qt, 16), flush)
+        host = {"ann": [], "exact": []}
+        for _ in range(30):
+            for name, fn in (("ann", eng.ann_top_k_batch),
+                             ("exact", eng.top_k_cosine_batch)):
+                t = time.perf_counter()
+                fn(qv, 10)
+                host[name].append((time.perf_counter() - t) * 1e3)
+        tmp_bytes = Q * conf["nprobe"] * L * D * 4
+        log(f"Q = {Q}, k = 10: device ANN search {ann_ms:.4f} ms (its block "
+            f"gather alone {gather_ms:.4f} ms, {tmp_bytes} bytes), exact "
+            f"{exact_ms:.4f} ms; host ann_top_k_batch {summary(host['ann'])}, "
+            f"top_k_cosine_batch {summary(host['exact'])}")
+    del flush
+
+    # A refresh: rewriting rows re-buckets them (their own values, so the
+    # table does not change).
+    ids = np.arange(8, dtype=np.int32)
+    vecs = eng.pull(ids).cpu().numpy()
+    updated = idx.updated_rows
+    zero_counters(fs, rows_mod)
+    eng.write_rows(0, vecs)
+    refresh_launches = rows_mod.gather_rows.launches
+    expect(refresh_launches > 0, "the refresh never launched gather_rows")
+    expect(idx.updated_rows == updated + 8 and idx.table_version == eng.table_version,
+           "write_rows did not re-bucket its rows")
+    _, top = eng.ann_top_k_batch(vecs, 1)
+    expect(np.array_equal(top[:, 0], ids), f"rewritten rows not found: {top[:, 0]}")
+    log(f"write_rows of 8 rows re-bucketed them: gather_rows launched "
+        f"{refresh_launches} times; each is its own top-1 through the index")
+    return {"build": build, "recall": recall, "recall_launches": recall_launches,
+            "refresh_launches": refresh_launches, "path_err": path_err}
+
+
+def serve_ann(torch, np, model, model_dir: str, recall_8_64: float) -> dict:
+    """Phase 12 (d): the saved model served with ``ann=True``."""
+    from glint_word2vec_torch.serving import serve_model_dir
+
+    port_file = os.path.join(os.path.dirname(model_dir), "ann_port.json")
+    failure = []
+
+    def run():
+        try:
+            serve_model_dir(model_dir, port=0, port_file=port_file,
+                            device=DEV, ann=True)
+        except BaseException as e:  # reported by the main thread
+            failure.append(e)
+
+    t0 = time.perf_counter()
+    th = threading.Thread(target=run, name="serve_ann", daemon=True)
+    th.start()
+    while not os.path.exists(port_file):
+        if failure or not th.is_alive():
+            raise RuntimeError(f"serve_model_dir failed: {failure}")
+        if time.perf_counter() - t0 > 600:
+            raise RuntimeError("server not listening after 600 s")
+        time.sleep(0.2)
+    with open(port_file) as f:
+        port = json.load(f)["port"]
+    health = get_json(port, "/healthz")
+    gate_ok = recall_8_64 >= RECALL_GATE
+    log(f"ANN server loaded, built, warmed and gated in "
+        f"{time.perf_counter() - t0:.1f} s: ann_enabled {health['ann_enabled']}, "
+        f"ann_recall_gate_ok {health['ann_recall_gate_ok']}, its recall@10 "
+        f"{health['index']['recall_at10']} (phase 12 (c): {recall_8_64}), index "
+        f"build {health['index']['build_seconds']} s")
+    expect(health["ann_enabled"] is gate_ok and health["ann_recall_gate_ok"] is gate_ok,
+           f"/healthz gate fields {health['ann_enabled']}, "
+           f"{health['ann_recall_gate_ok']} against recall {recall_8_64}")
+    swaps = 0
+    for i in range(16):
+        w = f"w{5000 + 37 * i}"
+        got = post(port, "/synonyms", {"word": w, "num": 10, "exact": True})
+        want = model.find_synonyms(w, 10)
+        expect(len(got) == len(want) and np.allclose(
+            [g[1] for g in got], [x[1] for x in want], atol=1e-5, rtol=0),
+            f"exact=true for {w}: {got[:3]} against {want[:3]}")
+        swaps += same_ids_up_to_ties(
+            np, np.array([[g[0] for g in got]]), np.array([[x[0] for x in want]]),
+            np.array([[x[1] for x in want]]))
+    log(f"exact=true answers of 16 words equal find_synonyms ({swaps} tie swaps)")
+    lat = {}
+    for mode, exact in (("ann", False), ("exact", True)):
+        xs = []
+        for i in range(SEQ_REQUESTS):
+            payload = {"word": f"w{(20_000 if exact else 10_000) + i}", "num": 10}
+            if exact:
+                payload["exact"] = True
+            t = time.perf_counter()
+            post(port, "/synonyms", payload)
+            xs.append((time.perf_counter() - t) * 1e3)
+        lat[(mode, 1)] = xs
+        xs, wall = closed_loop_in_child(port, 16, 13, 40_000 if exact else 30_000,
+                                        exact)
+        lat[(mode, 16)] = xs
+        log(f"/synonyms {mode}, 1 client: {summary(lat[(mode, 1)])}; 16 clients: "
+            f"{summary(xs)}, {len(xs) / wall:.1f} requests/s")
+    health = get_json(port, "/healthz")
+    log(f"ANN server index block: {json.dumps(health['index'])}")
+    expect(health["post_warmup_compiles"] == 0,
+           f"{health['post_warmup_compiles']} query shapes after the warmup")
+    expect(post(port, "/shutdown", {}) == {"status": "shutting down"},
+           "/shutdown was not acknowledged")
+    th.join(timeout=120)
+    if th.is_alive() or failure:
+        raise RuntimeError(f"ANN server did not stop cleanly: {failure}")
+    return lat
+
+
+def write_transform_input(np, path: str) -> list:
+    """TRANSFORM_LINES seeded lines of 0 to 64 words drawn Zipf(1) from
+    the vocabulary, about 2 % of them out-of-vocabulary tokens (lines of
+    0 words are blank). Returns the tokenized lines."""
+    rng = np.random.default_rng(13)
+    lens = rng.integers(0, 65, TRANSFORM_LINES)
+    u = rng.random(int(lens.sum()))
+    ids = np.minimum(np.floor(np.exp(u * math.log(V_SERVE + 1))) - 1, V_SERVE - 1)
+    toks = np.array([f"w{i}" for i in ids.astype(np.int64)], dtype=object)
+    oov = np.flatnonzero(rng.random(toks.size) < 0.02)
+    toks[oov] = [f"oov{i}" for i in oov]
+    ends = np.cumsum(lens)
+    sents = [list(toks[e - n : e]) for n, e in zip(lens, ends)]
+    with open(path, "w") as f:
+        f.write("\n".join(" ".join(s) for s in sents) + "\n")
+    return sents
+
+
+def run_cli(argv) -> dict:
+    """``glint_word2vec_torch.cli.main(argv)`` with its standard output
+    captured; the JSON of its last line."""
+    import io
+
+    from glint_word2vec_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    expect(rc == 0, f"cli {argv[0]} exited {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def transform_and_dump(torch, np, fs, rows_mod, model, model_dir: str,
+                       tmp: str) -> dict:
+    """Phase 12 (e) and (f): ``transform-file`` with its resume drill and
+    rank spans, then ``synonyms-dump`` exact and with ``--ann``."""
+    from glint_word2vec_torch.batch.transform import (
+        load_transform_output,
+        synonyms_dump,
+        transform_file,
+    )
+    from glint_word2vec_torch.parallel.distributed import shard_span
+    from glint_word2vec_torch.utils import faults
+
+    path = os.path.join(tmp, "sentences.txt")
+    sents = write_transform_input(np, path)
+    geometry = dict(rows=TRANSFORM_ROWS, max_len=TRANSFORM_MAX_LEN,
+                    shard_size=TRANSFORM_SHARD)
+    out = os.path.join(tmp, "vectors")
+    zero_counters(fs, rows_mod)
+    stats = run_cli(["transform-file", "--model", model_dir, "--input", path,
+                     "--out", out, "--rows", str(TRANSFORM_ROWS),
+                     "--max-len", str(TRANSFORM_MAX_LEN), "--shard-size",
+                     str(TRANSFORM_SHARD), "--device", DEV])
+    launches = rows_mod.gather_rows.launches
+    expect(launches > 0, "transform-file never launched gather_rows")
+    expect(stats["sentences_done"] == TRANSFORM_LINES
+           and stats["post_warmup_compiles"] == 0, stats)
+    log(f"transform-file of {TRANSFORM_LINES} lines ({sum(map(len, sents))} "
+        f"tokens): {stats['sentences_per_sec']} sentences/s, wall "
+        f"{stats['wall_seconds']} s, dispatch {stats['dispatch_seconds']} s, "
+        f"producer wait {stats['producer_wait_seconds']} s, bucket fill "
+        f"{stats['bucket_fill']}, {stats['batches']} batches, "
+        f"{stats['shards_committed']} shards; gather_rows launched {launches} "
+        f"times")
+    # One batch's dispatch alone: its host time with no producer thread
+    # beside it, and the device time of its gather and masked mean.
+    from glint_word2vec_torch.corpus.batching import pack_query_block
+
+    eng = model.engine
+    idx_b, mask_b, _ = pack_query_block(
+        [model.vocab.encode(x) for x in sents[:TRANSFORM_ROWS]], rows=TRANSFORM_ROWS)
+    host = []
+    for _ in range(20):
+        t = time.perf_counter()
+        model.transform_packed(idx_b, mask_b)
+        host.append((time.perf_counter() - t) * 1e3)
+    idx_t, m_t = torch.from_numpy(idx_b).to(DEV), torch.from_numpy(mask_b).to(DEV)
+    flat = idx_t.reshape(-1)
+    expect(bool(((flat >= 0) & (flat < eng.padded_vocab)).all()), "batch ids")
+    got, want = eng._pull_rows(flat), eng.syn0.index_select(0, flat.long()).float()
+    gather_err = float((got - want).abs().max())
+    expect(torch.equal(got, want),
+           f"the batch's _pull_rows differs from index_select: {gather_err}")
+    del got, want
+
+    def batch_device_work():
+        rows = eng._pull_rows(idx_t.reshape(-1)).reshape(*idx_t.shape, D)
+        (rows * m_t[..., None]).sum(dim=1) / m_t.sum(dim=1)[:, None].clamp(min=1.0)
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
+    dev_ms = median_ms(torch, batch_device_work, flush)
+    del flush
+    log(f"one {idx_b.shape} batch alone: transform_packed host {summary(host)}; "
+        f"its gather (bitwise index_select) and masked mean on the device "
+        f"{dev_ms:.4f} ms; in the "
+        f"stream {1e3 * stats['dispatch_seconds'] / stats['batches']:.3f} ms of "
+        "dispatch a batch")
+    vecs = load_transform_output(out)
+    expect(vecs.shape == (TRANSFORM_LINES, D) and np.isfinite(vecs).all(),
+           f"transform output {vecs.shape}")
+    ref = model.transform_sentences(sents[:4096])
+    expect(np.array_equal(vecs[:4096], ref),
+           "the first 4,096 rows differ from transform_sentences")
+    faulted = os.path.join(tmp, "faulted")
+    faults.arm("transform.shard_commit:exc@3")
+    try:
+        transform_file(model, path, faulted, **geometry)
+        raise AssertionError("the armed fault did not fire")
+    except faults.FaultInjected:
+        pass
+    finally:
+        faults.disarm()
+    resumed = transform_file(model, path, faulted, **geometry)
+    expect(resumed["shards_skipped"] == 3, resumed)
+    expect(np.array_equal(load_transform_output(faulted), vecs),
+           "the resumed transform differs from the run without a fault")
+    parts = []
+    for rank in (0, 1):
+        start, end = shard_span(TRANSFORM_LINES, rank, 2)
+        rank_dir = os.path.join(tmp, f"rank-{rank}")
+        transform_file(model, path, rank_dir, start=start, end=end, **geometry)
+        parts.append(load_transform_output(rank_dir))
+    expect(np.array_equal(np.concatenate(parts), vecs),
+           "rank spans 0/1 of 2 do not concatenate to the whole run")
+    log("transform: the first 4,096 rows bitwise transform_sentences; a fault "
+        "at the third shard commit, then a resume (3 shards skipped), bitwise "
+        "the run without it; ranks 0 and 1 of 2 concatenated, bitwise")
+
+    # The dump of the first DUMP_WORDS words, exact and then through an
+    # index built and adopted as ``synonyms-dump --ann`` builds it; every
+    # query the index searches is counted, so an exact pass cannot pass
+    # for an approximate one.
+    from glint_word2vec_torch.ops import ann
+
+    searched = [0]
+    search = ann.search
+
+    def counted_search(index, q, *a, **kw):
+        searched[0] += q.shape[0]
+        return search(index, q, *a, **kw)
+
+    dumps, dump_stats, dump_searched = {}, {}, {}
+    for mode in ("exact", "ann"):
+        if mode == "ann":
+            eng.configure_ann()
+            eng.adopt_ann(eng.ann_build())
+        jsonl = os.path.join(tmp, f"dump_{mode}.jsonl")
+        searched[0] = 0
+        ann.search = counted_search
+        try:
+            dump_stats[mode] = synonyms_dump(model, jsonl, num=10, end=DUMP_WORDS,
+                                             approximate=mode == "ann")
+        finally:
+            ann.search = search
+        dump_searched[mode] = searched[0]
+        with open(jsonl) as f:
+            dumps[mode] = [json.loads(line) for line in f]
+        expect(len(dumps[mode]) == DUMP_WORDS, f"{mode} dump rows")
+    expect(dump_searched["exact"] == 0 and dump_searched["ann"] >= DUMP_WORDS,
+           f"queries searched through the index: {dump_searched}")
+    agree = total = 0
+    for e, a in zip(dumps["exact"], dumps["ann"]):
+        want = {w for w, _ in e["synonyms"]}
+        agree += len(want & {w for w, _ in a["synonyms"]})
+        total += len(want)
+    share = agree / max(1, total)
+    log(f"synonyms-dump of {DUMP_WORDS} words, top-10: exact "
+        f"{dump_stats['exact']['words_per_sec']} words/s "
+        f"({dump_stats['exact']['seconds']} s), --ann "
+        f"{dump_stats['ann']['words_per_sec']} words/s "
+        f"({dump_stats['ann']['seconds']} s, {dump_searched['ann']} queries "
+        f"searched through the index); the two agree on {share:.6f} of the "
+        "neighbours")
+    expect(share >= 0.9, f"the dumps agree on {share} of the neighbours")
+    return {"launches": launches, "stats": stats, "dump": dump_stats,
+            "agree": share, "transform_err": gather_err}
+
+
+def ann_and_transform(torch, np, fs, rows_mod) -> dict:
+    """Phase 12. Returns the launch counts of the index and transform paths."""
+    tmp = tempfile.mkdtemp(prefix="glint_chip_ann_")
+    try:
+        t0 = time.perf_counter()
+        model = clustered_model(torch, np)
+        model_dir = os.path.join(tmp, "model")
+        model.save(model_dir)
+        log(f"clustered model ({ANN_CENTRES} centres, spread {ANN_SPREAD}) built "
+            f"and saved in {time.perf_counter() - t0:.1f} s")
+        index = ann_index_and_search(torch, np, fs, rows_mod, model)
+        serve_ann(torch, np, model, model_dir, index["recall"][(8, 64)])
+        model.engine.adopt_ann(None)
+        torch.cuda.empty_cache()
+        out = transform_and_dump(torch, np, fs, rows_mod, model, model_dir, tmp)
+        model.stop()
+        log(f"phase 12 on {nvidia_smi_line()}")
+        return {**index, **out}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def ptxas_report(text: str) -> list:
     """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
     (demangled where ``c++filt`` is found), registers and spills."""
@@ -3052,24 +3612,25 @@ def ptxas_report(text: str) -> list:
 
 
 def parse_only(argv) -> set | None:
-    """The phases ``--only`` names (3 to 11), or None to run them all."""
+    """The phases ``--only`` names (3 to 12), or None to run them all."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--only", metavar="N[,N...]",
-        help="run phases 1, 2 and these (3 to 11) only, print their lines, "
+        help="run phases 1, 2 and these (3 to 12) only, print their lines, "
              f"and exit {PARTIAL_EXIT} without the kernels or result line")
     only = ap.parse_args(argv).only
     if only is None:
         return None
     phases = {int(p) for p in only.split(",") if p.strip()}
-    if not phases or not phases <= set(range(3, 12)):
-        ap.error(f"--only takes phases 3 to 11, got {only!r}")
+    if not phases or not phases <= set(range(3, 13)):
+        ap.error(f"--only takes phases 3 to 12, got {only!r}")
     return phases
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     only = parse_only(sys.argv[1:])
     import torch
 
@@ -3089,11 +3650,14 @@ def main() -> int:
         f"(torch {torch.__version__}, CUDA {torch.version.cuda}); "
         f"nvidia-smi: {smi}")
 
+    log(f"phase 1: {time.perf_counter() - t_start:.1f} s")
+    t0 = time.perf_counter()
     secs = build.build()
     log(f"built {build.sources()} with nvcc in {secs:.1f} s")
     for name, text in sorted(build.build_logs.items()):
         for line in ptxas_report(text):
             log(f"  {name}: {line}")
+    log(f"phase 2: {time.perf_counter() - t0:.1f} s")
 
     phases = {
         3: lambda: check_gather(torch, rows_mod),
@@ -3105,26 +3669,35 @@ def main() -> int:
         9: lambda: check_shared_kernel(torch, fs),
         10: lambda: train_grid_and_resume(torch, np, fs, rows_mod),
         11: lambda: train_stall_free(torch, np, fs, rows_mod),
+        12: lambda: ann_and_transform(torch, np, fs, rows_mod),
     }
+
+    def run(p):
+        t0 = time.perf_counter()
+        out = phases[p]()
+        if p == 9:
+            out = (out, train_shared_end_to_end(torch, np, fs, rows_mod))
+        log(f"phase {p}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     if only is not None:
         for p in sorted(only):
-            phases[p]()
-            if p == 9:
-                train_shared_end_to_end(torch, np, fs, rows_mod)
-        log(f"partial run: phases 1, 2 and {sorted(only)} passed; no kernels "
-            f"line and no result line (exit {PARTIAL_EXIT})")
+            run(p)
+        log(f"partial run: phases 1, 2 and {sorted(only)} passed in "
+            f"{time.perf_counter() - t_start:.1f} s; no kernels line and no "
+            f"result line (exit {PARTIAL_EXIT})")
         return PARTIAL_EXIT
 
-    gathered = phases[3]()
-    served = phases[4]()
-    timed = phases[5]()
-    trained = phases[6]()
-    composed = phases[7]()
-    ft = phases[8]()
-    shared_timed = phases[9]()
-    shared = train_shared_end_to_end(torch, np, fs, rows_mod)
-    grid = phases[10]()
-    stall = phases[11]()
+    gathered = run(3)
+    served = run(4)
+    timed = run(5)
+    trained = run(6)
+    composed = run(7)
+    ft = run(8)
+    shared_timed, shared = run(9)
+    grid = run(10)
+    stall = run(11)
+    annt = run(12)
 
     main_case = gathered[("f32", V_SERVE, 10_000)]
     kernels = [{
@@ -3150,6 +3723,12 @@ def main() -> int:
         "clean_flush_index_select_ms": main_case["clean_library_ms"],
         "n1_ms": gathered[("f32", V_SERVE, 1)]["ms"],
         "n64_ms": gathered[("f32", V_SERVE, 64)]["ms"],
+        "launches_ann_build": annt["build"]["gather_rows"],
+        "launches_ann_recall": annt["recall_launches"],
+        "launches_ann_refresh": annt["refresh_launches"],
+        "launches_transform": annt["launches"],
+        "ann_build_max_abs_err": annt["path_err"]["gather_rows"],
+        "transform_max_abs_err": annt["transform_err"],
     }]
     train_shape = (f"fp32 tables {V_TRAIN}x{D}, P={packed_pair_batch(B_TRAIN, W_TRAIN)}, "
                    f"n={N_NEG}")
@@ -3218,6 +3797,8 @@ def main() -> int:
             "runs": r["runs"],
             "longest_run": r["longest"],
             "launches_grid_fit": grid["grid"][name],
+            "launches_ann_build": annt["build"][name],
+            "ann_build_max_abs_err": annt["path_err"].get(name),
             "bf16_ms": composed[(name, "bf16")]["ms"],
             "bf16_bound_ms": composed[(name, "bf16")]["bound_ms"],
         })
@@ -3252,6 +3833,7 @@ def main() -> int:
         "bf16_ms": shared_timed["bf16"]["ms"],
         "bf16_bound_ms": shared_timed["bf16"]["bound_ms"],
     })
+    log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

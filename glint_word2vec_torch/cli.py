@@ -1,7 +1,9 @@
 """Command line of the port: train, query and serve a model.
 
   python -m glint_word2vec_torch.cli train     --corpus c.txt --output m/ [--fasttext] [...]
-  python -m glint_word2vec_torch.cli serve     --model m/ --port 8801
+  python -m glint_word2vec_torch.cli serve     --model m/ --port 8801 [--ann]
+  python -m glint_word2vec_torch.cli transform-file --model m/ --input s.txt --out shards/
+  python -m glint_word2vec_torch.cli synonyms-dump  --model m/ --out n.jsonl [--ann]
   python -m glint_word2vec_torch.cli synonyms  --model m/ --word w [-n 10]
   python -m glint_word2vec_torch.cli analogy   --model m/ --positive a b --negative c
   python -m glint_word2vec_torch.cli transform --model m/ --sentence "w1 w2 w3"
@@ -190,10 +192,183 @@ def _train(args) -> int:
     return 0
 
 
+def _add_ann_flags(p) -> None:
+    ann = p.add_argument_group(
+        "approximate top-k (ANN index)",
+        "k-means centroids trained on the device from the table; coarse "
+        "scores pick nprobe clusters, an exact rerank runs inside them; "
+        "served only while its measured recall@10 against the exact path "
+        'passes the gate (a request with {"exact": true} always takes the '
+        "exact path)",
+    )
+    ann.add_argument("--ann", action="store_true",
+                     help="answer through the ANN index (built, and for "
+                          "serve gated, before the work starts)")
+    ann.add_argument("--ann-clusters", type=int, default=-1,
+                     help="coarse cluster count (-1: next_pow2(sqrt(rows)))")
+    ann.add_argument("--ann-nprobe", type=int, default=8,
+                     help="clusters probed a query (default 8)")
+    ann.add_argument("--ann-iters", type=int, default=6,
+                     help="k-means sweeps a build (default 6)")
+    ann.add_argument("--ann-sample", type=int, default=65536,
+                     help="rows sampled to train the centroids (default "
+                          "65536; every row is assigned)")
+    ann.add_argument("--ann-recall-gate", type=float, default=0.95,
+                     help="least recall@10 against the exact path for the "
+                          "index to serve (default 0.95)")
+    ann.add_argument("--ann-recall-sample", type=int, default=64,
+                     help="query rows a recall measurement samples "
+                          "(default 64)")
+
+
+def _add_transform_file(sub) -> None:
+    p = sub.add_parser(
+        "transform-file",
+        help="embed a sentence file into resumable .npy vector shards")
+    p.add_argument("--model", required=True, help="saved model directory")
+    p.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
+    p.add_argument("--input", required=True,
+                   help="one whitespace-tokenized sentence per line; blank "
+                        "and all-OOV lines become zero vectors, so output "
+                        "row i is input line i")
+    p.add_argument("--out", required=True,
+                   help="shard directory (rank-NNNN/ inside it under "
+                        "--world > 1)")
+    p.add_argument("--rows", type=int, default=1024,
+                   help="sentences a packed device batch (default 1024)")
+    p.add_argument("--max-len", type=int, default=256,
+                   help="token cap a sentence (longer tails are truncated; "
+                        "default 256)")
+    p.add_argument("--shard-size", type=int, default=8192,
+                   help="sentences an output shard, rounded up to a --rows "
+                        "multiple (default 8192)")
+    p.add_argument("--lowercase", action="store_true")
+    p.add_argument("--prefetch", type=int, default=2,
+                   help="producer batches buffered ahead (default 2)")
+    p.add_argument("--no-deep-verify", action="store_true",
+                   help="the resume scan checks shard sizes only instead of "
+                        "re-hashing them")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="skip dispatching the stream's shapes before it starts")
+    p.add_argument("--metrics-out", default=None,
+                   help="write the run's stats JSON here too (always printed)")
+    p.add_argument("--rank", type=int, default=None,
+                   help="this process's rank: it embeds its contiguous span "
+                        "of the input into <out>/rank-NNNN")
+    p.add_argument("--world", type=int, default=None,
+                   help="the number of ranks the input is split across")
+    p.add_argument("--workers", type=int, default=1,
+                   help="supervised rank-parallel workers: only 1 in the "
+                        "port so far (run ranks with --rank/--world)")
+    obs = p.add_argument_group("observability")
+    obs.add_argument("--status-file", default=None,
+                     help="atomically mirror the transform's status snapshot "
+                          "JSON to this path")
+    obs.add_argument("--status-port", type=int, default=None,
+                     help="serve /healthz and /metrics for this run (0 binds "
+                          "an ephemeral port)")
+    obs.add_argument("--event-log", default=None,
+                     help="JSONL span/event log of the run")
+
+
+def _add_synonyms_dump(sub) -> None:
+    p = sub.add_parser(
+        "synonyms-dump",
+        help="every vocabulary word's top-k neighbours (JSONL) and/or the "
+             "k-NN graph arrays")
+    p.add_argument("--model", required=True, help="saved model directory")
+    p.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
+    p.add_argument("--out", default=None,
+                   help='JSONL output (one {"word", "synonyms"} object a '
+                        "word, the word itself excluded)")
+    p.add_argument("--graph-out", default=None, metavar="PREFIX",
+                   help="also write <PREFIX>.ids.npy, <PREFIX>.sims.npy and "
+                        "<PREFIX>.json (int32 neighbour ids, -1 padded)")
+    p.add_argument("-n", "--num", type=int, default=10)
+    p.add_argument("--block", type=int, default=1024,
+                   help="vocabulary rows pulled and queried a dispatch "
+                        "(default 1024)")
+    p.add_argument("--metrics-out", default=None)
+    _add_ann_flags(p)
+
+
+def _ann_kwargs(args) -> dict:
+    return dict(
+        ann=args.ann, ann_clusters=args.ann_clusters,
+        ann_nprobe=args.ann_nprobe, ann_iters=args.ann_iters,
+        ann_sample=args.ann_sample, ann_recall_gate=args.ann_recall_gate,
+        ann_recall_sample=args.ann_recall_sample,
+    )
+
+
+def _run_transform_file(args, model) -> int:
+    """One rank of a transform (or the whole run): derive the input span,
+    wire the observability, stream the file."""
+    import os
+
+    from glint_word2vec_torch.batch.transform import count_lines, transform_file
+    from glint_word2vec_torch.obs import ObsConfig, start_run
+
+    rank, world = args.rank or 0, args.world or 1
+    out_dir, start, end = args.out, 0, None
+    if world > 1:
+        from glint_word2vec_torch.parallel.distributed import shard_span
+
+        start, end = shard_span(count_lines(args.input), rank, world)
+        out_dir = os.path.join(args.out, f"rank-{rank:04d}")
+    run = start_run(
+        ObsConfig(status_file=args.status_file, status_port=args.status_port,
+                  event_log=args.event_log),
+        pipeline="transform", engine=model.engine,
+    )
+    failed = True
+    try:
+        stats = transform_file(
+            model, args.input, out_dir, rows=args.rows, max_len=args.max_len,
+            shard_size=args.shard_size, start=start, end=end,
+            lowercase=args.lowercase, prefetch_depth=args.prefetch,
+            deep_verify=not args.no_deep_verify, warmup=not args.no_warmup,
+            obs_run=run,
+        )
+        failed = False
+    finally:
+        run.close(failed=failed)
+    stats["rank"], stats["world"] = rank, world
+    print(json.dumps(stats))
+    if args.metrics_out:
+        from glint_word2vec_torch.utils import atomic_write_json
+
+        atomic_write_json(args.metrics_out, stats)
+    return 0
+
+
+def _run_synonyms_dump(args, model) -> int:
+    from glint_word2vec_torch.batch.transform import synonyms_dump
+
+    if args.ann:
+        eng = model._query_engine()
+        eng.configure_ann(clusters=args.ann_clusters, nprobe=args.ann_nprobe,
+                          iters=args.ann_iters, sample=args.ann_sample)
+        if eng.ann_index is None:
+            eng.adopt_ann(eng.ann_build())
+    stats = synonyms_dump(
+        model, args.out, num=args.num, block=args.block,
+        approximate=args.ann, graph_prefix=args.graph_out,
+    )
+    print(json.dumps(stats))
+    if args.metrics_out:
+        from glint_word2vec_torch.utils import atomic_write_json
+
+        atomic_write_json(args.metrics_out, stats)
+    return 0
+
+
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="glint_word2vec_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_train(sub)
+    _add_transform_file(sub)
+    _add_synonyms_dump(sub)
 
     def add(name: str, help: str) -> argparse.ArgumentParser:
         p = sub.add_parser(name, help=help)
@@ -231,6 +406,7 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--port-file", default=None, metavar="FILE",
                    help="write the bound {host, port} JSON here once the "
                         "server is warmed and listening")
+    _add_ann_flags(p)
     return ap
 
 
@@ -254,14 +430,28 @@ def main(argv=None) -> int:
             args.model, host=args.host, port=args.port,
             max_batch=args.max_batch, warmup=not args.no_warmup,
             cache_size=args.cache_size, port_file=args.port_file,
-            device=args.device,
+            device=args.device, **_ann_kwargs(args),
         )
         return 0
+    if args.cmd == "transform-file" and args.workers > 1:
+        print("error: transform-file --workers > 1 needs the port's "
+              "supervisor, which is not ported yet (ROADMAP Queue A item 8); "
+              "run one process per rank with --rank R --world N instead",
+              file=sys.stderr)
+        return 2
+    if args.cmd == "synonyms-dump" and args.out is None and args.graph_out is None:
+        print("error: synonyms-dump needs --out and/or --graph-out",
+              file=sys.stderr)
+        return 1
 
     from glint_word2vec_torch.models import load_model
 
     model = load_model(args.model, device=args.device)
     try:
+        if args.cmd == "transform-file":
+            return _run_transform_file(args, model)
+        if args.cmd == "synonyms-dump":
+            return _run_synonyms_dump(args, model)
         if args.cmd == "synonyms":
             for w, s in model.find_synonyms(args.word, args.num):
                 print(f"{w}\t{s:.4f}")

@@ -1,7 +1,8 @@
 """Window geometry, sentence encoding and the host batcher (own copy of
 ``glint_word2vec_tpu/corpus/batching.py``, trimmed): ``context_width``
 (:38), ``packed_pair_batch`` (:49), ``window_offsets`` (:79),
-``encode_sentences`` (:87), ``chunk_sentences`` (:137), and the host
+``encode_sentences`` (:87), ``pack_query_block`` (:102), ``chunk_sentences``
+(:137), and the host
 batcher's ``subsample_sentence`` (:153), ``window_batch`` (:171),
 ``Batch`` (:202), ``BatchGroup`` (:212), ``group_batches`` (:229) and
 ``SkipGramBatcher`` (:288) with its native epoch pass (:385-473) and its
@@ -73,6 +74,38 @@ def encode_sentences(
         if ids.size:
             out.append(ids)
     return out
+
+
+def pack_query_block(
+    encoded: Sequence[np.ndarray], rows: Optional[int] = None
+) -> Tuple[Optional[np.ndarray], Optional[np.ndarray], int]:
+    """Pack encoded sentences into one dense ``(rows, len)`` index and mask
+    pair, ``len`` the power of two at or above the longest sentence: the
+    padding of :meth:`Word2VecModel.transform_sentences` factored out for
+    the bulk transform (``batch/transform.py``). ``rows`` fixes the row
+    bucket; None takes ``next_pow2(len(encoded))``. Mask-0 padding keeps
+    the means exact: padded rows come back as zero vectors, padded columns
+    add exact +0.0 terms to each masked mean.
+
+    Returns ``(idx, mask, n)``, ``n`` the real row count. A block whose
+    sentences are all empty returns ``(None, None, n)``: nothing to
+    dispatch, every row is the zero vector."""
+    from glint_word2vec_torch.utils import next_pow2
+
+    n = len(encoded)
+    max_len = max((len(x) for x in encoded), default=0)
+    if max_len == 0:
+        return None, None, n
+    r = int(rows) if rows is not None else next_pow2(n)
+    if n > r:
+        raise ValueError(f"{n} sentences exceed the {r}-row bucket")
+    idx = np.zeros((r, next_pow2(max_len)), np.int32)
+    mask = np.zeros(idx.shape, np.float32)
+    for i, x in enumerate(encoded):
+        if len(x):
+            idx[i, : len(x)] = x
+            mask[i, : len(x)] = 1.0
+    return idx, mask, n
 
 
 def chunk_sentences(

@@ -227,6 +227,16 @@ class FastTextModel(Word2VecModel):
         flat = idx[mask > 0.0].astype(np.int32)
         return self._segment_means(flat, [int(n) for n in lens])
 
+    def bulk_warmup(self, rows: int, max_len: int) -> int:
+        """The compose path dispatches only ``(COMPOSE_BLOCK,
+        max_subwords)`` blocks whatever the producer's packing, so one
+        shape warms the whole stream. Returns the shapes dispatched for
+        the first time."""
+        before = self.engine.query_compiles
+        g = np.zeros((self.COMPOSE_BLOCK, self.params.max_subwords), np.int32)
+        self.engine.pull_average(g, np.zeros(g.shape, np.float32))
+        return self.engine.query_compiles - before
+
     # -- similarity over composed vectors ------------------------------
 
     def _query_engine(self):

@@ -58,6 +58,7 @@ from glint_word2vec_torch.corpus.batching import (
     context_width,
     encode_sentences,
     group_batches,
+    pack_query_block,
     packed_pair_batch,
 )
 from glint_word2vec_torch.corpus.vocab import (
@@ -1027,19 +1028,33 @@ class Word2VecModel:
         sents = [self.vocab.encode(s) for s in sentences]
         out = np.zeros((len(sents), self.vector_size), np.float32)
         for s in range(0, len(sents), MAX_QUERY_ROWS):
-            block = sents[s : s + MAX_QUERY_ROWS]
-            L = max((len(x) for x in block), default=0)
-            if L == 0:
-                continue
-            idx = np.zeros((next_pow2(len(block)), next_pow2(L)), np.int32)
-            m = np.zeros(idx.shape, np.float32)
-            for i, x in enumerate(block):
-                idx[i, : len(x)] = x
-                m[i, : len(x)] = 1.0
-            out[s : s + len(block)] = (
-                self.engine.pull_average(idx, m).cpu().numpy()[: len(block)]
-            )
+            idx, m, n = pack_query_block(sents[s : s + MAX_QUERY_ROWS])
+            if idx is not None:
+                out[s : s + n] = self.transform_packed(idx, m)[:n]
         return out
+
+    def transform_packed(self, idx: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """One packed power-of-two ``(rows, len)`` block with its mask ->
+        ``(rows, d)`` host means: the ``pull_average`` of
+        :meth:`transform_sentences` with the packing done by the caller
+        (``corpus.batching.pack_query_block``), the bulk transform's
+        dispatch. Subword families override it."""
+        return self.engine.pull_average(idx, mask).cpu().numpy()
+
+    def bulk_warmup(self, rows: int, max_len: int) -> int:
+        """Dispatch every shape the bulk transform will: one
+        ``pull_average`` per power-of-two length up to
+        ``next_pow2(max_len)`` at the fixed ``rows`` bucket, so the stream
+        itself meets no new shape. Returns the shapes dispatched for the
+        first time (0 = already warm)."""
+        before = self.engine.query_compiles
+        lens, L = [], 1
+        while L <= next_pow2(max_len):
+            lens.append(L)
+            L *= 2
+        self.engine.warmup(q_buckets=(), k_buckets=(),
+                           sentence_lens=tuple(lens), sentence_rows=(rows,))
+        return self.engine.query_compiles - before
 
     # ------------------------------------------------------------------
     # Similarity and analogy
@@ -1059,7 +1074,9 @@ class Word2VecModel:
         return self.engine
 
     def _decode_hits(self, sims, idx) -> List[Tuple[str, float]]:
-        # Masked rows score -inf and are filler, never results.
+        # Masked rows score -inf and are filler, never results: the exact
+        # path's ride ids past the vocabulary, but the ANN path's empty
+        # member slots carry id 0, a real word, so the score is the filter.
         return [
             (self.vocab.words[int(i)], float(s))
             for s, i in zip(sims, idx)
@@ -1079,16 +1096,24 @@ class Word2VecModel:
         return self._decode_hits(sims, idx)
 
     def find_synonyms_batch(
-        self, vectors: np.ndarray, num: int
+        self, vectors: np.ndarray, num: int, *, approximate: bool = False
     ) -> List[List[Tuple[str, float]]]:
         """Top-``num`` neighbours for a whole ``(Q, d)`` query batch in one
-        matrix product and one ``topk`` (the exact path)."""
+        matrix product and one ``topk`` (the exact path), or with
+        ``approximate=True`` through the engine's adopted ANN index. A
+        ``num`` past the index's probe capacity (nprobe x member slots)
+        takes the exact path."""
         if num <= 0:
             raise ValueError("num must be > 0")
         num = min(num, self.vocab.size)
-        sims, idx = self._query_engine().top_k_cosine_batch(
-            np.asarray(vectors, np.float32), num
-        )
+        eng = self._query_engine()
+        if approximate:
+            idx_obj = eng.ann_index
+            conf = eng._ann_conf or {}
+            cap = conf.get("nprobe", 0) * idx_obj.slots if idx_obj is not None else 0
+            approximate = num <= cap
+        search = eng.ann_top_k_batch if approximate else eng.top_k_cosine_batch
+        sims, idx = search(np.asarray(vectors, np.float32), num)
         return [self._decode_hits(s, i) for s, i in zip(sims, idx)]
 
     def analogy(

@@ -156,6 +156,9 @@ class _NullRun:
     def update(self, **kw) -> None:
         pass
 
+    def update_transform(self, **kw) -> None:
+        pass
+
     def observe_losses(self, first_step: int, losses, n_real: int) -> None:
         pass
 
@@ -242,6 +245,12 @@ class ObsRun:
 
     def update(self, **kw) -> None:
         self.status.update(**kw)
+        self._write_status()
+
+    def update_transform(self, **kw) -> None:
+        """The bulk transform's gauge hook: ``TrainingStatus.set_transform``,
+        then the status file on its usual cadence."""
+        self.status.set_transform(**kw)
         self._write_status()
 
     def observe_losses(self, first_step: int, losses, n_real: int) -> None:

@@ -109,6 +109,9 @@ class TrainingStatus:
         self.unhealthy_reason: Optional[str] = None
         self.supervisor_generation: Optional[int] = None
         self._rolling: deque = deque(maxlen=self.ROLLING)
+        #: The bulk transform's gauges; None until a transform run sets
+        #: them, so a fit's snapshot has no ``transform`` block.
+        self._transform: Optional[dict] = None
 
     def attach(self, *, metrics=None, engine=None, recorder=None,
                ledger=None) -> None:
@@ -143,6 +146,28 @@ class TrainingStatus:
                 "mode": mode, "trips": int(trips), "last_reason": last_reason,
             }
 
+    def set_transform(self, *, sentences_done=0, input_sentences=0,
+                      sentences_per_sec=0.0, shards_committed=0,
+                      shards_skipped=0, bucket_fill=None,
+                      producer_wait_seconds=0.0, dispatch_seconds=0.0,
+                      post_warmup_compiles=0) -> None:
+        """Install the bulk transform's gauges (``heartbeat.py:200`` of
+        the JAX package): progress, shard commits and skips, packing
+        density, the producer wait and the dispatch seconds, and the query
+        shapes first met after the warmup."""
+        with self._mu:
+            self._transform = {
+                "sentences_done_total": sentences_done,
+                "input_sentences": input_sentences,
+                "sentences_per_sec": _finite_or_none(sentences_per_sec),
+                "shards_committed_total": shards_committed,
+                "shards_skipped_total": shards_skipped,
+                "bucket_fill": _finite_or_none(bucket_fill),
+                "producer_wait_seconds": _finite_or_none(producer_wait_seconds),
+                "dispatch_seconds": _finite_or_none(dispatch_seconds),
+                "post_warmup_compiles_total": post_warmup_compiles,
+            }
+
     def _rolling_wps(self) -> float:
         if len(self._rolling) < 2:
             return 0.0
@@ -168,6 +193,8 @@ class TrainingStatus:
                 "supervisor_generation": self.supervisor_generation,
                 "unhealthy_reason": self.unhealthy_reason,
             }
+            if self._transform is not None:
+                snap["transform"] = dict(self._transform)
         if m is not None:
             # last_loss is what the fit loop last read back: the
             # heartbeat never reads a device value of its own.

@@ -222,6 +222,39 @@ def training_to_prometheus(snap: dict) -> str:
         for phase, info in steptime.items():
             p.sample("glint_training_steptime_ops_total",
                      {"phase": phase}, info.get("count", 0))
+    transform = snap.get("transform") or {}
+    if transform:
+        # The bulk transform's gauges: present only on transform runs.
+        for name, key, help_ in [
+            ("glint_transform_sentences_done_total", "sentences_done_total",
+             "Sentences embedded into committed vector shards (resumed "
+             "prefix included)."),
+            ("glint_transform_shards_committed_total", "shards_committed_total",
+             "Vector shards committed this run."),
+            ("glint_transform_shards_skipped_total", "shards_skipped_total",
+             "Committed shards verified and skipped by the resume scan."),
+            ("glint_transform_post_warmup_compiles_total",
+             "post_warmup_compiles_total",
+             "Query shapes first dispatched after the bulk warmup."),
+        ]:
+            p.head(name, "counter", help_)
+            p.sample(name, None, transform.get(key, 0))
+        for name, key, help_ in [
+            ("glint_transform_input_sentences", "input_sentences",
+             "Input span size in sentences (lines)."),
+            ("glint_transform_sentences_per_sec", "sentences_per_sec",
+             "Embedded sentences a second this run (resumed prefix "
+             "excluded)."),
+            ("glint_transform_bucket_fill", "bucket_fill",
+             "Real tokens over the padded capacity of the dispatched "
+             "blocks."),
+            ("glint_transform_producer_wait_seconds", "producer_wait_seconds",
+             "Wall seconds the dispatch loop waited on the producer."),
+            ("glint_transform_dispatch_seconds", "dispatch_seconds",
+             "Wall seconds of device dispatch and readback."),
+        ]:
+            p.head(name, "gauge", help_)
+            p.sample(name, None, transform.get(key))
     mem = snap.get("device_memory") or {}
     if mem:
         p.head("glint_device_memory_bytes", "gauge",

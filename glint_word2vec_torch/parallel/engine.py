@@ -34,6 +34,14 @@ Training takes three routes, all updating the tables in place:
   updates through the ``scatter_add_rank1`` and ``scatter_add_rows``
   kernels of ``ops/rows.py``.
 
+The engine also holds the ANN index of ``ops/ann.py`` (the JAX engine's
+``configure_ann`` to ``ann_recall_at_k``): built from the live table or a
+staged one, adopted as a value, searched by :meth:`EmbeddingEngine.
+ann_top_k_batch`, and re-bucketed row by row on :meth:`EmbeddingEngine.
+write_rows`. ``query_compiles`` counts the query shapes dispatched for the
+first time, the counter the serving and bulk-transform warmups hold steady
+state to.
+
 Both routes also train the shared negative pool (``shared_negatives =
 S > 0``): one pool of S negatives a step for the whole batch, through
 ``fused_pair_step_shared`` on the packed path and ``shared_sgns_grads``
@@ -97,6 +105,10 @@ TOPK_MIN_K_BUCKET = 16
 #: Floor of the batched top-k Q-bucket family for Q > 1 (``engine.py:267``):
 #: batches of 2..7 queries pad to 8 zero rows.
 TOPK_MIN_Q_BUCKET = 8
+
+#: Query rows a batched approximate top-k dispatches at once
+#: (``engine.py:273``): larger batches run in chunks of 16.
+ANN_MAX_Q = 16
 
 #: Rows a table block moves between host and device at a time, so loading
 #: or saving a large table never holds more than one such slice in fp32 on
@@ -283,6 +295,9 @@ class EmbeddingEngine:
         self.unigram_power = float(unigram_power)
         self.unigram_table_size = unigram_table_size
         self.shared_negatives = int(shared_negatives)
+        #: Seed of the initial tables, and of the ANN index's k-means
+        #: sample and recall queries.
+        self._seed = int(seed)
         self.dtype = dtype
         self._dtype = _DTYPES[dtype]
         # One device holds every row: no model-axis padding.
@@ -295,6 +310,15 @@ class EmbeddingEngine:
         #: Ticks on every table mutation: the token the serving result
         #: cache validates against.
         self.table_version = 0
+        #: Query shapes dispatched for the first time (the JAX engine's
+        #: jit-compile count, ``engine.py:2003``): what a warmup must cover
+        #: so that steady state adds none.
+        self.query_compiles = 0
+        self._query_shapes: set = set()
+        #: The adopted ANN index (None keeps every query exact) and its
+        #: geometry (:meth:`configure_ann`).
+        self._ann = None
+        self._ann_conf: Optional[dict] = None
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self.syn0, self.syn1 = init_tables(
             gen, self.num_rows, self.dim, self._dtype, self.device
@@ -341,6 +365,15 @@ class EmbeddingEngine:
         obs_events.emit("table_mutation", reason=reason,
                         version=self.table_version)
 
+    def _count_query_shape(self, *key) -> None:
+        """Record one query dispatch shape; a first-seen shape ticks
+        ``query_compiles`` and records the ``query_compile`` event."""
+        if key not in self._query_shapes:
+            self._query_shapes.add(key)
+            self.query_compiles += 1
+            obs_events.emit("query_compile", op=str(key[0]),
+                            shape=list(key[1:]), total=self.query_compiles)
+
     def _k_bucket(self, k: int) -> int:
         return min(max(next_pow2(k), TOPK_MIN_K_BUCKET), self.padded_vocab)
 
@@ -370,7 +403,9 @@ class EmbeddingEngine:
 
     def pull(self, indices) -> torch.Tensor:
         """syn0 rows by global index, ``(N, dim)`` fp32 on the device."""
-        return self._pull_rows(self._ids(indices).reshape(-1))
+        idx = self._ids(indices).reshape(-1)
+        self._count_query_shape("pull", int(idx.shape[0]))
+        return self._pull_rows(idx)
 
     def pull_average(self, sentence_indices, mask) -> torch.Tensor:
         """Masked mean of syn0 rows per row of a padded ``(S, L)`` index
@@ -380,29 +415,38 @@ class EmbeddingEngine:
             raise ValueError("sentence_indices must be (S, L)")
         m = torch.as_tensor(np.asarray(mask, dtype=np.float32)).to(self.device)
         S, L = idx.shape
+        self._count_query_shape("pull_average", S, L)
         rows = self._pull_rows(idx.reshape(-1)).reshape(S, L, self.dim)
         rows = rows * m[..., None]
         return rows.sum(dim=1) / m.sum(dim=1)[:, None].clamp(min=1.0)
+
+    @staticmethod
+    def _norms(syn0: torch.Tensor) -> torch.Tensor:
+        """Euclidean norm of every row of ``syn0`` (the live table or a
+        staged one), fp32, ``_SCORE_ROWS`` rows at a time."""
+        return torch.cat([
+            syn0[s : s + _SCORE_ROWS].float().square().sum(dim=1)
+            for s in range(0, syn0.shape[0], _SCORE_ROWS)
+        ]).sqrt()
 
     def norms(self) -> torch.Tensor:
         """Euclidean norm of every syn0 row, ``(padded_vocab,)`` fp32,
         cached until the next table mutation."""
         if self._norms_cache is None:
-            self._norms_cache = torch.cat([
-                self.syn0[s : s + _SCORE_ROWS].float().square().sum(dim=1)
-                for s in range(0, self.padded_vocab, _SCORE_ROWS)
-            ]).sqrt()
+            self._norms_cache = self._norms(self.syn0)
         return self._norms_cache
 
-    def _scores(self, q: torch.Tensor) -> torch.Tensor:
+    def _scores(self, q: torch.Tensor,
+                syn0: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``syn0 @ q.T`` in fp32 for a ``(Q, d)`` fp32 query block,
-        ``(padded_vocab, Q)``. A bf16 table is upcast one row slice at a
-        time."""
-        if self._dtype == torch.float32:
-            return self.syn0 @ q.T
+        ``(padded_vocab, Q)``; the live table unless ``syn0`` is given. A
+        bf16 table is upcast one row slice at a time."""
+        syn0 = self.syn0 if syn0 is None else syn0
+        if syn0.dtype == torch.float32:
+            return syn0 @ q.T
         return torch.cat([
-            self.syn0[s : s + _SCORE_ROWS].float() @ q.T
-            for s in range(0, self.padded_vocab, _SCORE_ROWS)
+            syn0[s : s + _SCORE_ROWS].float() @ q.T
+            for s in range(0, syn0.shape[0], _SCORE_ROWS)
         ])
 
     def multiply(self, vec) -> torch.Tensor:
@@ -412,15 +456,18 @@ class EmbeddingEngine:
             raise ValueError(f"vec must have shape ({self.dim},)")
         return self._scores(torch.from_numpy(v).to(self.device)[None, :])[:, 0]
 
-    def _mask_terms(self) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _mask_terms(self, norms: Optional[torch.Tensor] = None,
+                    queryable: Optional[int] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(inv, neg) over every row: the reciprocal norm (0 where
         masked) and 0 or -inf, so a masked cosine is ``s * inv + neg``.
         Zero-norm rows and rows at or past ``queryable_rows`` are masked:
-        only real words surface from similarity search."""
-        norms = self.norms()
+        only real words surface from similarity search. ``norms`` and
+        ``queryable`` default to the live table's."""
+        norms = self.norms() if norms is None else norms
+        queryable = self.queryable_rows if queryable is None else int(queryable)
         ok = (norms > 0) & (
-            torch.arange(self.padded_vocab, device=self.device)
-            < self.queryable_rows
+            torch.arange(norms.shape[0], device=self.device) < queryable
         )
         inv = torch.where(ok, 1.0 / torch.where(norms > 0, norms, 1.0), 0.0)
         neg = torch.where(ok, 0.0, float("-inf"))
@@ -436,6 +483,7 @@ class EmbeddingEngine:
         if nrm > 0:
             v = v / nrm
         k_b = self._k_bucket(k)
+        self._count_query_shape("topk", k_b)
         scores = self._scores(torch.from_numpy(v).to(self.device)[None, :])[:, 0]
         inv, neg = self._mask_terms()
         val, idx = torch.topk(scores * inv + neg, k_b)
@@ -460,10 +508,20 @@ class EmbeddingEngine:
         q_b = self._q_bucket(n)
         if q_b != n:
             q = np.concatenate([q, np.zeros((q_b - n, self.dim), np.float32)])
-        scores = self._scores(torch.from_numpy(q).to(self.device)).T
-        inv, neg = self._mask_terms()
-        val, idx = torch.topk(scores * inv[None, :] + neg[None, :], self._k_bucket(k))
+        k_b = self._k_bucket(k)
+        self._count_query_shape("topk_batch", q_b, k_b)
+        val, idx = self._exact_topk(torch.from_numpy(q).to(self.device), k_b)
         return val[:n, :k].cpu().numpy(), idx[:n, :k].cpu().numpy()
+
+    def _exact_topk(self, q: torch.Tensor, k_b: int, syn0=None, norms=None,
+                    queryable=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The masked cosine top-``k_b`` of unit ``(Q, d)`` queries over the
+        live table, or over ``syn0``/``norms``/``queryable`` (a staged
+        generation's): one matrix product and one ``topk``, on the
+        device."""
+        scores = self._scores(q, syn0).T
+        inv, neg = self._mask_terms(norms, queryable)
+        return torch.topk(scores * inv[None, :] + neg[None, :], k_b)
 
     def warmup(
         self,
@@ -501,6 +559,212 @@ class EmbeddingEngine:
                 torch.cuda.synchronize(self.device)
         obs_events.emit("warmup_done", dispatches=n)
         return n
+
+    # ------------------------------------------------------------------
+    # Approximate top-k (the ANN index of ops/ann.py)
+    # ------------------------------------------------------------------
+
+    def configure_ann(self, *, clusters: int = -1, nprobe: int = 8,
+                      iters: int = 6, sample: int = 65536) -> dict:
+        """Fix the coarse index's geometry (``engine.py:2388``):
+        ``clusters`` -1 takes ``ann.auto_clusters`` of the full row
+        capacity, from which the member slots follow. Returns it."""
+        from glint_word2vec_torch.ops import ann as _ann
+
+        C = int(clusters) if int(clusters) > 0 else _ann.auto_clusters(self.num_rows)
+        self._ann_conf = {
+            "clusters": C,
+            "slots": _ann.member_slots(self.num_rows, C),
+            "nprobe": max(1, min(int(nprobe), C)),
+            "iters": max(1, int(iters)),
+            "sample": max(1, int(sample)),
+        }
+        return dict(self._ann_conf)
+
+    @property
+    def ann_index(self):
+        """The adopted index, or None."""
+        return self._ann
+
+    def ann_build(self, syn0=None, norms=None, queryable=None):
+        """Build an index from the live table, or from a staged
+        generation's ``syn0`` (with its ``norms`` and ``queryable``, or
+        derived), and return it without adopting it
+        (:meth:`adopt_ann`). Reads no engine state but the geometry of
+        :meth:`configure_ann`, the seed and the table version."""
+        from glint_word2vec_torch.ops import ann as _ann
+
+        conf = self._ann_conf
+        if conf is None:
+            raise RuntimeError("call configure_ann() before ann_build()")
+        if syn0 is None:
+            syn0, norms, queryable = self.syn0, self.norms(), self.queryable_rows
+        elif norms is None:
+            norms = self._norms(syn0)
+        if queryable is None:
+            queryable = self.queryable_rows
+        return _ann.build(
+            syn0, norms, int(queryable), clusters=conf["clusters"],
+            iters=conf["iters"], sample=conf["sample"], seed=self._seed,
+            table_version=self.table_version, num_rows=self.num_rows,
+        )
+
+    def adopt_ann(self, index) -> None:
+        """Make ``index`` the live index (None disables the approximate
+        path)."""
+        self._ann = index
+        if index is not None:
+            index.table_version = self.table_version
+
+    def ann_stats(self) -> dict:
+        """Index telemetry; ``{"enabled": False}`` without an index."""
+        idx = self._ann
+        if idx is None:
+            return {"enabled": False}
+        st = idx.stats()
+        st["enabled"] = True
+        st["nprobe"] = self._ann_conf["nprobe"]
+        st["table_versions_behind"] = max(0, self.table_version - idx.table_version)
+        return st
+
+    def ann_top_k_batch(self, vecs, k: int, nprobe: Optional[int] = None, *,
+                        index=None, queryable=None
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+        """Approximate :meth:`top_k_cosine_batch` through the index
+        (``ann.search``): Q padded to its bucket and capped at
+        ``ANN_MAX_Q`` a dispatch, k rounded to its bucket and truncated. A
+        k past ``nprobe`` x slots raises (the model layer sends such a k to
+        the exact path). ``index``/``queryable`` run a staged generation's
+        recall check on the same path."""
+        from glint_word2vec_torch.ops import ann as _ann
+
+        idx = index if index is not None else self._ann
+        if idx is None:
+            raise RuntimeError("no ANN index adopted (ann_build/adopt_ann)")
+        if queryable is None:
+            queryable = self.queryable_rows
+        if nprobe is None:
+            nprobe = self._ann_conf["nprobe"]
+        nprobe = max(1, min(int(nprobe), idx.clusters))
+        if not 0 < k <= self.padded_vocab:
+            raise ValueError(f"k must be in [1, {self.padded_vocab}]")
+        if k > nprobe * idx.slots:
+            raise ValueError(
+                f"k={k} exceeds the index's probe capacity "
+                f"({nprobe} probes x {idx.slots} slots); raise nprobe "
+                "or use the exact path"
+            )
+        q = np.asarray(vecs, dtype=np.float32)
+        if q.ndim != 2 or q.shape[1] != self.dim:
+            raise ValueError(f"vecs must have shape (Q, {self.dim})")
+        nrm = np.linalg.norm(q, axis=1, keepdims=True)
+        q = q / np.where(nrm > 0, nrm, 1.0)
+        if q.shape[0] == 0:
+            empty = np.zeros((0, k))
+            return empty.astype(np.float32), empty.astype(np.int64)
+        k_b = min(self._k_bucket(k), nprobe * idx.slots)
+        vals, ids = [], []
+        for s in range(0, q.shape[0], ANN_MAX_Q):
+            qc = q[s : s + ANN_MAX_Q]
+            n = qc.shape[0]
+            q_b = min(self._q_bucket(n), ANN_MAX_Q)
+            if q_b != n:
+                qc = np.concatenate([qc, np.zeros((q_b - n, self.dim), np.float32)])
+            self._count_query_shape("ann_topk", q_b, k_b, nprobe)
+            val, i = _ann.search(idx, torch.from_numpy(qc).to(self.device),
+                                 k_b, nprobe, queryable)
+            vals.append(val[:n, :k])
+            ids.append(i[:n, :k])
+        return (torch.cat(vals).cpu().numpy(),
+                torch.cat(ids).long().cpu().numpy())
+
+    def warmup_ann(self, q_buckets=(1, 8, ANN_MAX_Q),
+                   k_buckets=(TOPK_MIN_K_BUCKET,), nprobes=()) -> int:
+        """Dispatch the approximate family once: every (Q bucket, k
+        bucket, nprobe), plus the incremental assignment's score product.
+        Returns the query shapes it dispatched for the first time."""
+        from glint_word2vec_torch.ops import ann as _ann
+
+        idx = self._ann
+        if idx is None:
+            raise RuntimeError("adopt an index before warmup_ann()")
+        before = self.query_compiles
+        nps = sorted({max(1, min(int(p), idx.clusters))
+                      for p in (*nprobes, self._ann_conf["nprobe"])})
+        with obs_events.span("engine_warmup_ann"):
+            for p in nps:
+                for q in sorted({min(self._q_bucket(int(q)), ANN_MAX_Q)
+                                 for q in q_buckets}):
+                    for k in sorted({self._k_bucket(int(k)) for k in k_buckets}):
+                        self.ann_top_k_batch(
+                            np.zeros((q, self.dim), np.float32),
+                            min(k, p * idx.slots), p)
+            _ann.centroid_scores(self.syn0, self.norms(),
+                                 np.zeros(_ann.INCREMENTAL_BLOCK, np.int32),
+                                 idx.centroids)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        n = self.query_compiles - before
+        obs_events.emit("warmup_ann_done", shapes_compiled=n)
+        return n
+
+    def ann_recall_at_k(self, k: int = 10, sample: int = 64,
+                        nprobe: Optional[int] = None, *, index=None,
+                        syn0=None, norms=None, queryable=None,
+                        q_chunk: int = 64) -> float:
+        """Recall@k of the approximate path against the exact path on the
+        same tables (live, or a staged generation's): ``sample`` table
+        rows drawn by ``np.random.default_rng(seed)``, each query's exact
+        and approximate top-(k+1) compared with the query row itself
+        excluded, as ``/synonyms`` answers."""
+        idx = index if index is not None else self._ann
+        if idx is None:
+            raise RuntimeError("no ANN index adopted")
+        if syn0 is None:
+            syn0, norms, queryable = self.syn0, self.norms(), self.queryable_rows
+        elif norms is None:
+            norms = self._norms(syn0)
+        if queryable is None:
+            queryable = self.queryable_rows
+        queryable = int(queryable)
+        rng = np.random.default_rng(self._seed)
+        n_q = min(int(sample), queryable)
+        if n_q == 0:
+            return 1.0
+        qids = rng.choice(queryable, n_q, replace=False).astype(np.int32)
+        qvecs = gather_rows(syn0, torch.from_numpy(qids).to(self.device))
+        qvecs = qvecs.cpu().numpy()
+        live = np.linalg.norm(qvecs, axis=1) > 0
+        if not live.any():
+            return 1.0
+        qids, qvecs = qids[live], qvecs[live]
+        k_b = self._k_bucket(k + 1)
+        hits = total = 0
+        for s in range(0, qids.shape[0], q_chunk):
+            qc, ic = qvecs[s : s + q_chunk], qids[s : s + q_chunk]
+            n = qc.shape[0]
+            nrm = np.linalg.norm(qc, axis=1, keepdims=True)
+            qp = qc / np.where(nrm > 0, nrm, 1.0)
+            q_b = self._q_bucket(n)
+            if q_b != n:
+                qp = np.concatenate([qp, np.zeros((q_b - n, self.dim), np.float32)])
+            self._count_query_shape("topk_batch", q_b, k_b)
+            ex_val, ex_idx = self._exact_topk(
+                torch.from_numpy(qp).to(self.device), k_b, syn0, norms, queryable)
+            ex_val, ex_idx = ex_val[:n].cpu().numpy(), ex_idx[:n].cpu().numpy()
+            ap_val, ap_idx = self.ann_top_k_batch(
+                qc, k + 1, nprobe, index=idx, queryable=queryable)
+            for row in range(n):
+                # -inf entries are masked filler on either side, not
+                # results.
+                ex = [int(i) for i, v in zip(ex_idx[row], ex_val[row])
+                      if np.isfinite(v) and int(i) != int(ic[row])]
+                ap = {int(i) for i, v in zip(ap_idx[row], ap_val[row])
+                      if np.isfinite(v) and int(i) != int(ic[row])}
+                want = ex[:k]
+                hits += len(set(want) & ap)
+                total += len(want)
+        return hits / max(1, total)
 
     # ------------------------------------------------------------------
     # Corpus-resident training
@@ -938,6 +1202,18 @@ class EmbeddingEngine:
             )
         self.syn0[start_row : start_row + m] = rows.to(self.device, self._dtype)
         self._tick_tables("write_rows")
+        self._ann_touch_rows(range(start_row, start_row + m))
+
+    def _ann_touch_rows(self, rows) -> None:
+        """Re-bucket rows whose values just changed into the adopted ANN
+        index (only those rows move); a no-op without one. The index's
+        version follows the table's."""
+        if self._ann is None:
+            return
+        from glint_word2vec_torch.ops import ann as _ann_mod
+
+        _ann_mod.update_rows(self._ann, self.syn0, self.norms(), rows)
+        self._ann.table_version = self.table_version
 
     # ------------------------------------------------------------------
     # Persistence
@@ -1271,9 +1547,10 @@ class EmbeddingEngine:
         self._tick_tables("set_tables")
 
     def release_tables(self) -> None:
-        """Free the tables' device memory; :meth:`load_tables` (or
-        :meth:`set_tables`) makes the engine answer again."""
-        self.syn0 = self.syn1 = None
+        """Free the tables' and the ANN index's device memory;
+        :meth:`load_tables` (or :meth:`set_tables`) makes the engine answer
+        again."""
+        self.syn0 = self.syn1 = self._ann = None
         self._tick_tables("release_tables")
 
     def destroy(self) -> None:

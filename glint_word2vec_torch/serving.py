@@ -5,8 +5,8 @@ Endpoints (JSON in and out, stdlib server), with the JAX package's request
 and response shapes and status codes:
 
   GET  /healthz            -> {"status": "ok", "vocab_size": V, "dim": d, ...}
-  POST /synonyms           {"word": w, "num": k}
-  POST /synonyms_vector    {"vector": [...], "num": k}
+  POST /synonyms           {"word": w, "num": k[, "exact": true]}
+  POST /synonyms_vector    {"vector": [...], "num": k[, "exact": true]}
   POST /analogy            {"positive": [...], "negative": [...], "num": k}
   POST /vector             {"word": w}            (OOV -> 404)
   POST /transform          {"sentences": [[w, ...], ...]}  (OOV dropped)
@@ -24,6 +24,14 @@ vectors from subwords, out-of-vocabulary words included) answers through
 its own methods, one request at a time under the lock, as the JAX
 server's ``can_batch`` rule does. The server runs every query shape once
 (``warmup``) before it binds its port.
+
+With ``ann=True`` a word-level model also serves ``/synonyms`` through the
+engine's ANN index (``ops/ann.py``): built at start, warmed, then gated by
+its measured recall@10 against the exact path. A failing gate keeps the
+exact path serving; ``"exact": true`` on a request always takes it. Cache
+keys carry the mode, and a drained batch dispatches each mode apart.
+``/healthz`` reports ``ann_enabled``, ``ann_recall_gate_ok`` and an
+``index`` block.
 
 Start from the CLI:  python -m glint_word2vec_torch.cli serve --model DIR
 """
@@ -113,8 +121,23 @@ class _SynonymCoalescer:
         #: they answered, the largest batch, and cache hits.
         self.stats = {"dispatches": 0, "requests": 0, "largest_batch": 0,
                       "cache_hits": 0}
+        #: Whether default requests take the approximate path (installed
+        #: by the server once its index is built and gated); a request
+        #: with ``exact=True`` never does.
+        self.ann_active = lambda: False
+        #: True while an index exists but the recall gate holds the
+        #: approximate path back: those exact serves count as gate
+        #: fallbacks.
+        self.gate_failing = lambda: False
+        #: The nprobe the approximate path runs at.
+        self.ann_nprobe = 0
+        #: Approximate queries answered, and exact ones served while an
+        #: index exists, by reason (``requested`` or ``gate``).
+        self.index_stats = {"ann_queries_total": 0,
+                            "exact_fallbacks": {"requested": 0, "gate": 0}}
 
-    def query(self, word=None, vector=None, num: int = 10):
+    def query(self, word=None, vector=None, num: int = 10,
+              exact: bool = False):
         if not self.can_batch:
             with self.device_lock:
                 if word is not None:
@@ -130,15 +153,19 @@ class _SynonymCoalescer:
                 if num == 0:
                     return []
             raise ValueError("num must be > 0")
+        # The mode is fixed at enqueue: a gate flip while the request waits
+        # must not hand it a mode its cache key never saw.
+        mode = "exact" if (exact or not self.ann_active()) else "ann"
         if word is not None and self.cache_size:
             with self._mu:
                 self._cache_sync_locked()
-                hit = self._cache.get((word, num))
+                hit = self._cache.get((word, num, mode))
                 if hit is not None:
                     self.stats["cache_hits"] += 1
                     return hit
         req = {"word": word, "vector": vector, "num": int(num),
-               "event": threading.Event(), "result": None, "error": None}
+               "event": threading.Event(), "result": None, "error": None,
+               "mode": mode, "exact_requested": bool(exact)}
         with self._mu:
             self._pending.append(req)
         # A leader sets every event of its batch before it releases the
@@ -207,8 +234,11 @@ class _SynonymCoalescer:
                 continue
             live.append(r)
         try:
-            for s in range(0, len(live), self.max_batch):
-                self._dispatch(live[s : s + self.max_batch])
+            # A batch can mix modes: each mode group is its own dispatch.
+            for mode in ("ann", "exact"):
+                group = [r for r in live if r["mode"] == mode]
+                for s in range(0, len(group), self.max_batch):
+                    self._dispatch(group[s : s + self.max_batch], mode)
         except Exception as e:
             logger.exception("synonym dispatch failed")
             for r in live:
@@ -218,9 +248,9 @@ class _SynonymCoalescer:
             for r in live:
                 r["event"].set()
 
-    def _dispatch(self, chunk) -> None:
+    def _dispatch(self, chunk, mode: str = "exact") -> None:
         """Answer one <= max_batch slice with one pull and one batched
-        top-k."""
+        top-k, exact or through the ANN index (``mode == "ann"``)."""
         m = self.model
         # Version before the reads: results of a dispatch that a table
         # mutation overtook must not enter the cache.
@@ -234,7 +264,8 @@ class _SynonymCoalescer:
                 r["vec"] = v
         k = max(r["num"] + (1 if r["word"] is not None else 0) for r in chunk)
         hits = m.find_synonyms_batch(
-            np.stack([r["vec"] for r in chunk]), min(k, m.vocab.size)
+            np.stack([r["vec"] for r in chunk]), min(k, m.vocab.size),
+            approximate=(mode == "ann"),
         )
         for r, hs in zip(chunk, hits):
             if r["word"] is not None:
@@ -246,13 +277,24 @@ class _SynonymCoalescer:
             self.stats["largest_batch"] = max(
                 self.stats["largest_batch"], len(chunk)
             )
+            if mode == "ann":
+                self.index_stats["ann_queries_total"] += len(chunk)
+            elif self.ann_active() or self.gate_failing():
+                # Per request: an explicit exact=true is "requested" even
+                # while the gate fails; only defaults held back count as
+                # "gate".
+                fb = self.index_stats["exact_fallbacks"]
+                n_req = sum(1 for r in chunk if r["exact_requested"])
+                fb["requested"] += n_req
+                if self.gate_failing():
+                    fb["gate"] += len(chunk) - n_req
             if not self.cache_size or self._cache_sync_locked() != ver:
                 return
             for r in chunk:
                 if r["word"] is not None:
                     while len(self._cache) >= self.cache_size:
                         self._cache.pop(next(iter(self._cache)))
-                    self._cache[(r["word"], r["num"])] = r["result"]
+                    self._cache[(r["word"], r["num"], mode)] = r["result"]
 
 
 class ModelServer:
@@ -264,6 +306,13 @@ class ModelServer:
     ``WARM_SENTENCE_ROWS`` x ``WARM_SENTENCE_LENS`` transform grid) before
     the port binds, so the first request pays no kernel build or library
     set-up. ``port=0`` binds an ephemeral port; ``self.port`` says which.
+
+    ``ann=True`` (word-level families only) configures the engine's ANN
+    index with ``ann_clusters``, ``ann_nprobe``, ``ann_iters`` and
+    ``ann_sample``, builds it unless one is adopted, warms the approximate
+    shapes with the exact ones, and then gates it: recall@10 against the
+    exact path on ``ann_recall_sample`` rows must reach
+    ``ann_recall_gate``, or the exact path keeps serving.
     """
 
     def __init__(
@@ -275,6 +324,13 @@ class ModelServer:
         max_batch: int = 64,
         warmup: bool = True,
         cache_size: int = 65536,
+        ann: bool = False,
+        ann_clusters: int = -1,
+        ann_nprobe: int = 8,
+        ann_iters: int = 6,
+        ann_sample: int = 65536,
+        ann_recall_gate: float = 0.95,
+        ann_recall_sample: int = 64,
     ):
         self.model = model
         self._lock = threading.Lock()
@@ -282,10 +338,32 @@ class ModelServer:
             model, self._lock, max_batch=max_batch, cache_size=cache_size
         )
         self.max_batch = self._coalescer.max_batch
+        self.ann = bool(ann) and self._coalescer.can_batch
+        self.ann_recall_gate = float(ann_recall_gate)
+        self.ann_recall_sample = max(1, int(ann_recall_sample))
+        #: Whether the gated index serves default requests (its last gate
+        #: passed), and that gate's recall (None before any).
+        self._ann_live = False
+        self._ann_recall: Optional[float] = None
+        if self.ann:
+            eng = model.engine
+            conf = eng.configure_ann(
+                clusters=ann_clusters, nprobe=ann_nprobe, iters=ann_iters,
+                sample=ann_sample,
+            )
+            self._coalescer.ann_nprobe = conf["nprobe"]
+            if eng.ann_index is None:
+                t0 = time.time()
+                eng.adopt_ann(eng.ann_build())
+                logger.info("ANN index built in %.1fs (%d clusters x %d slots)",
+                            time.time() - t0, conf["clusters"], conf["slots"])
+            self._coalescer.ann_active = lambda: self._ann_live
+            self._coalescer.gate_failing = lambda: not self._ann_live
         if warmup:
             t0 = time.time()
+            q_buckets = [1 << i for i in range(self.max_batch.bit_length())]
             n = model.engine.warmup(
-                [1 << i for i in range(self.max_batch.bit_length())],
+                q_buckets,
                 WARM_KS,
                 sentence_lens=WARM_SENTENCE_LENS,
                 sentence_rows=WARM_SENTENCE_ROWS,
@@ -295,8 +373,17 @@ class ModelServer:
                 # A family that queries composed vectors builds them now,
                 # not on the first request.
                 n += qeng.warmup((), WARM_KS)
+            if self.ann:
+                n += model.engine.warmup_ann(q_buckets=q_buckets,
+                                             k_buckets=WARM_KS)
             logger.info("serving warmup: %d dispatches in %.1fs",
                         n, time.time() - t0)
+        if self.ann:
+            # The gate after the warmup: it rides the warmed shapes.
+            self._gate_index()
+        #: Query shapes first dispatched before the port binds; any later
+        #: one is a miss of the warmed family (``post_warmup_compiles``).
+        self.warmup_compiles = model.engine.query_compiles
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -354,10 +441,33 @@ class ModelServer:
         self.host, self.port = self._httpd.server_address[:2]
         self._thread: Optional[threading.Thread] = None
 
+    def _gate_index(self) -> None:
+        """Measure recall@10 of the approximate path against the exact
+        path on the live tables and let the index serve only if it reaches
+        ``ann_recall_gate``."""
+        recall = self.model.engine.ann_recall_at_k(
+            10, sample=self.ann_recall_sample, q_chunk=self.max_batch,
+        )
+        ok = recall >= self.ann_recall_gate
+        self._ann_recall, self._ann_live = recall, ok
+        if ok:
+            logger.info("ANN recall gate ok: %.3f >= %.3f", recall,
+                        self.ann_recall_gate)
+        else:
+            logger.warning("ANN recall gate FAILED (%.3f < %.3f): the exact "
+                           "path keeps serving", recall, self.ann_recall_gate)
+
     def health(self) -> dict:
         m = self.model
         with self._coalescer._mu:
             stats = dict(self._coalescer.stats)
+            index = {**self._coalescer.index_stats,
+                     "exact_fallbacks": dict(
+                         self._coalescer.index_stats["exact_fallbacks"])}
+        index.update(m.engine.ann_stats() if self.ann else {"enabled": False})
+        index.update(recall_at10=self._ann_recall,
+                     recall_gate_threshold=self.ann_recall_gate)
+        compiles = m.engine.query_compiles
         return {
             "status": "ok",
             "model": DEFAULT_MODEL_ID,
@@ -367,6 +477,11 @@ class ModelServer:
             "max_batch": self.max_batch,
             "device": device_name(m.engine.device),
             "coalescer": stats,
+            "compiles": compiles,
+            "post_warmup_compiles": compiles - self.warmup_compiles,
+            "ann_enabled": self._ann_live,
+            "ann_recall_gate_ok": self._ann_live,
+            "index": index,
         }
 
     def _dispatch(self, path: str, req: dict):
@@ -375,7 +490,9 @@ class ModelServer:
         if path in ("/synonyms", "/synonyms_vector"):
             key = "word" if path == "/synonyms" else "vector"
             query = {key: req[key]}
-            hits = self._coalescer.query(num=int(req.get("num", 10)), **query)
+            hits = self._coalescer.query(num=int(req.get("num", 10)),
+                                         exact=bool(req.get("exact", False)),
+                                         **query)
             return [[w, float(s)] for w, s in hits]
         with self._lock:
             if path == "/analogy":
@@ -419,18 +536,20 @@ def serve_model_dir(
     cache_size: int = 65536,
     port_file: Optional[str] = None,
     device: DeviceLike = None,
+    **ann_kw,
 ) -> None:
     """Load a saved model directory onto ``device`` and serve it until
     ``/shutdown`` or an interrupt, then free its tables. ``port_file``
     receives ``{"host", "port"}`` (atomically) once the server is warmed
-    and listening: the readiness signal for ``port=0``."""
+    and listening: the readiness signal for ``port=0``. ``ann_kw`` are
+    :class:`ModelServer`'s ``ann*`` arguments."""
     from glint_word2vec_torch.models import load_model
 
     model = load_model(model_dir, device=device)
     try:
         server = ModelServer(
             model, host=host, port=port, max_batch=max_batch,
-            warmup=warmup, cache_size=cache_size,
+            warmup=warmup, cache_size=cache_size, **ann_kw,
         )
         if port_file:
             atomic_write_json(port_file, {"host": server.host, "port": server.port})

@@ -1,6 +1,6 @@
 """Checkpoint integrity manifests (own copy of ``glint_word2vec_tpu/utils/integrity.py``,
-trimmed to what saving and loading a model directory and resuming a
-training run need).
+trimmed to what saving and loading a model directory, resuming a
+training run and resuming a bulk transform need).
 
 A snapshot directory carries ``manifest.json``: sha256 and byte size of
 every small file, plus (version 2) the names of the table shard files,
@@ -90,7 +90,8 @@ def write_shard_manifest(dirpath: str, fname: str, manifest: dict, *,
                 manifest, fsync)
 
 
-def _check_entry(path: str, fname: str, ent: dict, what: str) -> None:
+def _check_entry(path: str, fname: str, ent: dict, what: str,
+                 deep: bool = True) -> None:
     fp = os.path.join(path, fname)
     if not os.path.exists(fp):
         raise CheckpointCorruptError(f"{path}: missing {what} {fname}")
@@ -100,13 +101,13 @@ def _check_entry(path: str, fname: str, ent: dict, what: str) -> None:
             f"{path}: {what} {fname} is {size} bytes, its manifest says "
             f"{ent['size']}"
         )
-    if _sha256_file(fp) != ent["sha256"]:
+    if deep and _sha256_file(fp) != ent["sha256"]:
         raise CheckpointCorruptError(
             f"{path}: {what} {fname} sha256 mismatch (bit rot or torn write)"
         )
 
 
-def _verify_shard(path: str, fname: str) -> None:
+def _verify_shard(path: str, fname: str, *, deep: bool = True) -> None:
     mp = os.path.join(path, fname + SHARD_MANIFEST_SUFFIX)
     if not os.path.exists(os.path.join(path, fname)):
         raise CheckpointCorruptError(f"{path}: missing shard {fname}")
@@ -121,7 +122,16 @@ def _verify_shard(path: str, fname: str) -> None:
         raise CheckpointCorruptError(
             f"{path}: unreadable shard manifest for {fname} ({e})"
         )
-    _check_entry(path, fname, ent, "shard")
+    _check_entry(path, fname, ent, "shard", deep)
+
+
+def verify_shard(path: str, fname: str, *, deep: bool = True) -> None:
+    """One shard file against its sidecar manifest, raising
+    :class:`CheckpointCorruptError` on any mismatch. ``deep=False`` checks
+    existence and byte size only; ``deep=True`` re-hashes the payload. The
+    bulk transform's resume scan (``batch/transform.py``) trusts exactly
+    the committed-shard prefix that verifies."""
+    _verify_shard(path, fname, deep=deep)
 
 
 def verify_snapshot_dir(path: str) -> bool:
