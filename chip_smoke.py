@@ -141,9 +141,9 @@ nothing of JAX. Phases, each of which fails the run on any error:
    and ``scatter_add_rows`` lands both tables), and fastText's OOV gate
    with the pool; (d) bitwise resume with the pool.
 10. Grid packing, mid-epoch resume and wide rows: (a)
-   ``Word2Vec(batch_packing="grid").fit_file`` on phase 6's corpus at its
-   width, fp32, one epoch on the device corpus, every counter zeroed just
-   before: ``gather_rows`` three times, ``scatter_add_rank1`` and
+   ``Word2Vec(batch_packing="grid").fit_file`` on the first 5,000,000
+   tokens of phase 6's corpus at its width (every word kept), fp32, one
+   epoch on the device corpus, every counter zeroed just before: ``gather_rows`` three times, ``scatter_add_rank1`` and
    ``scatter_add_rows`` once a step, ``pair_forward`` never; words/s, and
    steps/s, busy share and device time a step of 48 grid steps; (b) the
    ``tiny_corpus`` gates under grid packing; (c) the mid-epoch drill at
@@ -205,6 +205,36 @@ nothing of JAX. Phases, each of which fails the run on any error:
    --ann`` does it (the queries ``ann.search`` takes are counted: none,
    then every word): words/s and the share of top-10 neighbours they
    agree on.
+13. Streaming training and the serving hot swap, at phase 6's width on
+   its corpus: (a) a ``fit_stream`` trainer thread (bootstrap 5,000,000
+   tokens, min_count 1, 65,536 spare rows, a 65,536-word buffer, a
+   publish every 2,500,000 words, 2 generations kept), every counter
+   zeroed just before, and in the same process a ``ModelServer`` booted
+   from gen-000001 with ``ann=True`` that watches the publish directory
+   (poll 0.5 s) and rebuilds and gates the index on every swap, under 4
+   closed-loop ``/synonyms`` clients (a child process) asking distinct
+   base words (cache misses) and, every eighth request, one word first
+   seen after the bootstrap. The stream is held while
+   the server lags more than one generation (so each generation is
+   swapped in under load; the hold is printed and left out of words/s).
+   At least 3 swaps and no failure, no 5xx or dropped response, the late
+   word 404 then 200 for every client, no new query shape after the
+   warmup, at least 10,000 promotions, ``queryable_rows`` equal to the
+   vocabulary, finite tables, ``pair_forward``, ``scatter_add_rank1_hbm``
+   and ``scatter_add_rows_f32`` launched, and ``gather_rows`` and
+   ``scatter_add_rows`` launched by the swaps' index builds; words/s,
+   rounds, fill seconds a round, ``device_stall_seconds``, each publish's
+   snapshot and write seconds, each swap's stage, index, gate and flip
+   seconds, and ``/synonyms`` p50/p95 over the run and inside the swap
+   windows; (b) the last (partial) round's first packed group run again
+   from its captured tables through the kernels and through a
+   ``device="cpu"`` engine: pair counts and positions equal, tables within
+   rtol 1e-4 and atol 1e-6, and in its first step that touches promoted
+   rows ``pair_forward`` held as in phase 5 and the two scatters bitwise;
+   (c) ``cli fit-stream`` on the card over the shifted ``tiny_corpus``,
+   SIGKILLed by ``GLINT_FAULTS=publish.pre_pointer:kill@2``: LATEST stays
+   on gen-000001, gen-000002 is complete and a watcher refuses it, a
+   second run numbers past it and passes vienna in austria's top 10.
 
 After each phase it prints ``phase N: S s``, and before the kernels line
 the whole script's seconds. It prints one JSON ``kernels`` line, the
@@ -263,6 +293,8 @@ WIDE_TOKENS = 100_000
 #: mid-epoch drill (prefixes of phase 6's corpus).
 PY_PASS_TOKENS = 2_000_000
 DRILL_TOKENS = 2_000_000
+#: Tokens of phase 10 (a)'s grid fit: a prefix of phase 6's corpus.
+GRID_TOKENS = 5_000_000
 #: The card the script runs on; the port's entry points default to it.
 DEV = "cuda"
 
@@ -2632,26 +2664,32 @@ def train_grid_and_resume(torch, np, fs, rows_mod) -> dict:
     tmp = tempfile.mkdtemp(prefix="glint_chip_grid_")
     try:
         path = os.path.join(tmp, "corpus.txt")
-        n_tok = write_synthetic_corpus(np, path)
+        write_synthetic_corpus(np, path)
         full_width = dict(vector_size=D, window=W_TRAIN, batch_size=B_TRAIN,
                           num_negatives=N_NEG, min_count=MIN_PER_WORD,
                           num_iterations=1, step_size=0.025, seed=1)
 
-        # (a) Grid batches on the device corpus, one epoch: B1, B2, B3
-        # every step, the fused pair step never.
+        # (a) Grid batches on the device corpus, one epoch over the
+        # corpus's first GRID_TOKENS tokens, every word kept (the table
+        # keeps about its full width): B1, B2, B3 every step, the fused
+        # pair step never.
+        grid_path = os.path.join(tmp, "grid.txt")
+        n_grid = write_prefix(path, grid_path, GRID_TOKENS)
         zero_counters(fs, rows_mod)
         t0 = time.perf_counter()
-        model = Word2Vec(**full_width, batch_packing="grid").fit_file(path)
+        model = Word2Vec(**dict(full_width, min_count=1),
+                         batch_packing="grid").fit_file(grid_path)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         grid_launches = read_counters(fs, rows_mod)
         tm = model.training_metrics
-        log(f"grid fit_file {V_TRAIN} x {D} on the device corpus: {wall:.1f} s "
-            f"in all; training {tm['wall_seconds']} s, {tm['steps']} steps, "
+        log(f"grid fit_file on the corpus's first {n_grid} tokens, "
+            f"{model.vocab.size} x {D}, on the device corpus: {wall:.1f} s in "
+            f"all; training {tm['wall_seconds']} s, {tm['steps']} steps, "
             f"{tm['words_per_sec']} words/s, final loss {tm['final_loss']}; "
             f"launches {grid_launches}")
         expect(tm["pipeline"] == "device_corpus" and tm["batch_packing"] == "grid", tm)
-        expect(tm["words_done"] == n_tok and math.isfinite(tm["final_loss"]), tm)
+        expect(tm["words_done"] == n_grid and math.isfinite(tm["final_loss"]), tm)
         expect_launched(grid_launches, ("gather_rows", "scatter_add_rank1",
                                         "scatter_add_rows"), "the grid fit")
         steps = tm["steps"] + (-tm["steps"]) % 16
@@ -3590,6 +3628,551 @@ def ann_and_transform(torch, np, fs, rows_mod) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 13: streaming training and the serving hot swap
+# ----------------------------------------------------------------------
+
+#: Phase 13 (a)'s trainer: the tokens it bootstraps its vocabulary from
+#: (half the corpus), its spare rows and buffer (the JAX defaults for the
+#: buffer), and its publish cadence; the server's poll and clients.
+STREAM_BOOTSTRAP = 5_000_000
+STREAM_EXTRA_ROWS = 65_536
+STREAM_BUFFER = 65_536
+STREAM_PUBLISH_WORDS = 2_500_000
+STREAM_POLL = 0.5
+STREAM_CLIENTS = 4
+#: Least promotions phase 13 (a) must make (about 30,000 words of the
+#: corpus are first seen past the bootstrap).
+STREAM_MIN_PROMOTED = 10_000
+#: Seconds the stream may be held while the server catches up, and the
+#: clients may wait for the final generation's swap.
+STREAM_HOLD_LIMIT = 600.0
+
+
+def stream_client_loop(port: int, words, late: str, stop, out_path: str) -> None:
+    """The closed-loop ``/synonyms`` clients of phase 13 (a), run in a
+    child process: STREAM_CLIENTS threads, each sending back to back,
+    every eighth request for the late word and the rest for base words,
+    each client its own slice of ``words`` in turn (cache misses, as a
+    served query finds the table), until ``stop`` is set. Writes one
+    ``[client, kind, status, sent, done]`` row a request (unix seconds;
+    status -1 for a dropped connection) to ``out_path`` as JSON."""
+    rows = [[] for _ in range(STREAM_CLIENTS)]
+    per = len(words) // STREAM_CLIENTS
+
+    def client(c):
+        i = 0
+        while not stop.is_set():
+            late_q = i % 8 == 7
+            word = late if late_q else words[c * per + i % per]
+            t = time.time()
+            try:
+                status = post_status(port, "/synonyms", {"word": word, "num": 10})
+            except (OSError, ValueError):
+                status = -1
+            rows[c].append([c, "late" if late_q else "base", status, t, time.time()])
+            i += 1
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(STREAM_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    with open(out_path, "w") as f:
+        json.dump([r for c in rows for r in c], f)
+
+
+def stream_words(np) -> tuple:
+    """Phase 13 (a)'s query words: the late word, absent from the corpus's
+    first STREAM_BOOTSTRAP tokens (so outside the bootstrap vocabulary and
+    promoted after gen-1), the one that first appears earliest after them,
+    with its first position and the count of such words; and the base
+    words, every word of the bootstrap among the 400,000 most frequent."""
+    toks = synthetic_tokens(np)
+    _, first = np.unique(toks, return_index=True)
+    late = np.flatnonzero(first >= STREAM_BOOTSTRAP)
+    k = int(late[np.argmin(first[late])])
+    base = np.flatnonzero(first[:400_000] < STREAM_BOOTSTRAP)
+    return f"w{k}", int(first[k]), int(late.size), [f"w{i}" for i in base]
+
+
+def percentile_line(ms) -> str:
+    return summary(ms) if ms else "no requests"
+
+
+class StreamCapture:
+    """Phase 13 (b)'s capture of the stream's last round: when the source
+    has ended, the next ``upload_corpus`` (the last round's) records its
+    buffer, the engine's counts and a device copy of both tables, and the
+    first packed group after it records its arguments."""
+
+    def __init__(self, np, engine_cls):
+        self.np, self.cls = np, engine_cls
+        self.ended = threading.Event()
+        self.upload = self.group = None
+        self._orig = (engine_cls.upload_corpus, engine_cls.train_steps_corpus_packed)
+
+    def install(self) -> None:
+        cap, np = self, self.np
+        upload, packed = self._orig
+
+        def capturing_upload(eng, ids, offsets, n_valid=None):
+            if cap.ended.is_set() and cap.upload is None:
+                cap.upload = dict(
+                    engine=eng, ids=np.array(ids), offsets=np.array(offsets),
+                    n_valid=n_valid, counts=eng._counts.copy(),
+                    syn0=eng.syn0.clone(), syn1=eng.syn1.clone())
+            return upload(eng, ids, offsets, n_valid=n_valid)
+
+        def capturing_group(eng, *args, **kw):
+            if cap.upload is not None and cap.group is None:
+                cap.group = (args, dict(kw))
+            return packed(eng, *args, **kw)
+
+        self.cls.upload_corpus = capturing_upload
+        self.cls.train_steps_corpus_packed = capturing_group
+
+    def remove(self) -> None:
+        self.cls.upload_corpus, self.cls.train_steps_corpus_packed = self._orig
+
+
+def serve_stream(torch, np, pub: str, ready, failure: list, box: dict,
+                 counted: dict) -> None:
+    """Phase 13 (a)'s server thread: boots from gen-000001 once it is
+    committed, with the ANN index at its defaults, watches the publish
+    directory, and serves until the main thread stops it."""
+    from glint_word2vec_torch.models import load_model
+    from glint_word2vec_torch.serving import ModelServer
+    from glint_word2vec_torch.streaming.publish import read_latest
+
+    try:
+        t0 = time.perf_counter()
+        while read_latest(pub) is None:
+            if time.perf_counter() - t0 > STREAM_HOLD_LIMIT:
+                raise RuntimeError("no generation published")
+            time.sleep(0.05)
+        t1 = time.perf_counter()
+        gen1 = os.path.join(pub, "gen-000001")
+        model = load_model(gen1, device=DEV)
+        server = ModelServer(model, port=0, ann=True)
+        counted["boot"] = dict(counted["now"])
+        server.watch(pub, poll_seconds=STREAM_POLL, current="gen-000001")
+        server.start_background()
+        box.update(model=model, server=server,
+                   boot_seconds=time.perf_counter() - t1)
+    except BaseException as e:  # reported by the main thread
+        failure.append(e)
+    finally:
+        ready.set()
+
+
+def stream_and_swap(torch, np, fs, rows_mod, tmp: str) -> dict:
+    """Phase 13 (a): the trainer thread and the hot-swapping server in
+    one process. Returns what (b) replays and the launch counts."""
+    from glint_word2vec_torch.corpus.vocab import iter_text_file
+    from glint_word2vec_torch.models.word2vec import Word2Vec
+    from glint_word2vec_torch.ops import ann as ann_mod
+    from glint_word2vec_torch.parallel.engine import EmbeddingEngine
+    from glint_word2vec_torch.streaming.publish import read_latest
+
+    path = os.path.join(tmp, "corpus.txt")
+    n_tok = write_synthetic_corpus(np, path)
+    late, late_pos, n_late, base_words = stream_words(np)
+    log(f"stream corpus: {n_tok} tokens; {n_late} words first seen past the "
+        f"{STREAM_BOOTSTRAP}-token bootstrap; late word {late} first at "
+        f"token {late_pos}")
+    pub = os.path.join(tmp, "publish")
+
+    # B1 and B3 launches of the index builds: the index module's own
+    # references, counted on top of the wrappers' counters.
+    counted = {"now": {"gather_rows": 0, "scatter_add_rows": 0}}
+
+    def counting(name, fn):
+        def wrapper(*a, **kw):
+            counted["now"][name] += 1
+            return fn(*a, **kw)
+        return wrapper
+
+    ann_orig = (ann_mod.gather_rows, ann_mod.scatter_add_rows)
+    ann_mod.gather_rows = counting("gather_rows", ann_orig[0])
+    ann_mod.scatter_add_rows = counting("scatter_add_rows", ann_orig[1])
+    capture = StreamCapture(np, EmbeddingEngine)
+    capture.install()
+    ready, failure, box = threading.Event(), [], {}
+    hold = {"seconds": 0.0}
+    server_thread = threading.Thread(
+        target=serve_stream, args=(torch, np, pub, ready, failure, box, counted),
+        name="stream_server", daemon=True)
+
+    def source():
+        """The corpus, one sentence a line; every 256 sentences the stream
+        is held while the server lags: until the server is up once gen-1
+        is committed, and while it serves a generation more than one
+        behind the newest (the trainer runs at most one generation
+        ahead, so every generation is swapped in under load)."""
+        for i, toks in enumerate(iter_text_file(path)):
+            if i % 256 == 0:
+                latest = read_latest(pub)
+                t0 = time.perf_counter()
+                while latest is not None:
+                    if failure:
+                        raise RuntimeError(f"server failed: {failure}")
+                    srv = box.get("server")
+                    if srv is not None:
+                        served = int((srv.metrics.generation or "gen-0").split("-")[1])
+                        if served >= int(latest["seq"]) - 1:
+                            break
+                    if time.perf_counter() - t0 > STREAM_HOLD_LIMIT:
+                        raise RuntimeError("the server never caught up")
+                    yield []
+                    time.sleep(0.01)
+                hold["seconds"] += time.perf_counter() - t0
+            yield toks
+        capture.ended.set()
+
+    result = {}
+
+    def train():
+        try:
+            w2v = Word2Vec(device=DEV, vector_size=D, window=W_TRAIN,
+                           batch_size=B_TRAIN, num_negatives=N_NEG,
+                           steps_per_call=16, min_count=1, seed=1)
+            t0 = time.perf_counter()
+            result["model"] = w2v.fit_stream(
+                source(), publish_dir=pub, bootstrap_words=STREAM_BOOTSTRAP,
+                extra_rows=STREAM_EXTRA_ROWS, buffer_words=STREAM_BUFFER,
+                publish_words=STREAM_PUBLISH_WORDS, publish_seconds=1e9,
+                publish_keep=2)
+            result["seconds"] = time.perf_counter() - t0
+        except BaseException as e:  # reported by the main thread
+            result["error"] = e
+
+    zero_counters(fs, rows_mod)
+    # Daemon threads: a failed phase must not keep the process alive.
+    trainer = threading.Thread(target=train, name="stream_trainer", daemon=True)
+    t_start = time.perf_counter()
+    server_thread.start()
+    trainer.start()
+    clients = None
+    try:
+        ready.wait()
+        if failure:
+            raise RuntimeError(f"stream server failed: {failure[0]!r}") from failure[0]
+        server = box["server"]
+        port = server.port
+        ix = server.model.engine.ann_index.stats()
+        log(f"server booted from gen-000001 (load, warmup, index build and gate) "
+            f"in {box['boot_seconds']:.1f} s; index build {ix['build_seconds']} s, "
+            f"{ix['spilled_rows']} rows spilled; recall@10 "
+            f"{server._ann_recall}, ANN serving {server._ann_live}")
+        ctx = multiprocessing.get_context("spawn")
+        stop = ctx.Event()
+        out_path = os.path.join(tmp, "clients.json")
+        clients = ctx.Process(target=stream_client_loop,
+                              args=(port, base_words, late, stop, out_path))
+        clients.start()
+        trainer.join()
+        if "error" in result:
+            raise RuntimeError(f"fit_stream failed: {result['error']!r}") from result["error"]
+        final = read_latest(pub)["generation"]
+        t0 = time.perf_counter()
+        while server.metrics.generation != final:
+            expect(time.perf_counter() - t0 < STREAM_HOLD_LIMIT,
+                   f"the server never swapped to {final}")
+            time.sleep(0.05)
+        stop.set()
+        clients.join(timeout=300)
+        expect(clients.exitcode == 0, f"the client process exited {clients.exitcode}")
+        with open(out_path) as f:
+            reqs = json.load(f)
+        health = server.health()
+        launches = read_counters(fs, rows_mod)
+    finally:
+        if clients is not None and clients.is_alive():
+            stop.set()
+            clients.join(timeout=60)
+            if clients.is_alive():
+                clients.terminate()
+                clients.join(timeout=30)
+        capture.remove()
+        ann_mod.gather_rows, ann_mod.scatter_add_rows = ann_orig
+    wall = time.perf_counter() - t_start
+    model = result["model"]
+    tm = model.training_metrics
+    pubr = tm["generations_published"]
+
+    # -- the trainer ---------------------------------------------------
+    fill_net = tm["fill_seconds"] - hold["seconds"]
+    train_s = result["seconds"] - hold["seconds"]
+    log(f"fit_stream: {tm['words_trained']} words in {tm['rounds']} rounds, "
+        f"{result['seconds']:.1f} s ({hold['seconds']:.1f} s of it the stream "
+        f"held for the server): {tm['words_trained'] / train_s:.1f} words/s "
+        f"without the holds ({tm['words_per_sec']} with them); fill "
+        f"{fill_net / tm['rounds']:.4f} s a round on the host (holds "
+        f"excluded); device_stall_seconds {tm['device_stall_seconds']}; "
+        f"{tm['steps']} steps, {tm['promoted_words']} promoted, vocabulary "
+        f"{tm['vocab_size']}, {pubr} generations")
+    for h in tm["publishes"]:
+        log(f"  publish {h['generation']}: snapshot {h['snapshot_seconds']:.3f} s "
+            f"(the trainer's stall), write {h['write_seconds']:.3f} s (writer thread)")
+    eng = model.engine
+    expect(tm["promoted_words"] >= STREAM_MIN_PROMOTED,
+           f"only {tm['promoted_words']} words promoted")
+    expect(eng.queryable_rows == model.vocab.size,
+           f"queryable rows {eng.queryable_rows} != vocabulary {model.vocab.size}")
+    expect(bool(torch.isfinite(eng.syn0).all()) and bool(torch.isfinite(eng.syn1).all()),
+           "the stream's final tables hold non-finite values")
+    expect(late in model.vocab.word_index
+           and model.vocab.word_index[late] >= eng.vocab_size,
+           f"the late word {late} was not promoted")
+
+    # -- the swaps -----------------------------------------------------
+    m = server.metrics
+    swaps = list(server.swap_history)
+    for s in swaps:
+        ix = s["index"]
+        log(f"  swap {s['generation']}: stage {s['stage_seconds']:.3f} s, index "
+            f"build {s['index_seconds']:.3f} s ({ix['spilled_rows']} rows "
+            f"spilled; {json.dumps(ix['build_parts'])}), gate "
+            f"{s['gate_seconds']:.3f} s (recall@10 {s['recall_at10']}), lock wait "
+            f"{s['lock_wait_seconds']:.4f} s, flip held {s['flip_seconds']:.4f} s")
+    expect(m.table_swaps >= 3 and m.swap_failures == 0,
+           f"{m.table_swaps} swaps, {m.swap_failures} failures")
+    expect(health["post_warmup_compiles"] == 0,
+           f"{health['post_warmup_compiles']} new query shapes after the warmup")
+
+    # -- the clients ---------------------------------------------------
+    bad = [r for r in reqs if r[2] == -1 or r[2] >= 500]
+    expect(not bad, f"{len(bad)} dropped or 5xx responses, e.g. {bad[:3]}")
+    base_ok = [r for r in reqs if r[1] == "base"]
+    expect(all(r[2] == 200 for r in base_ok),
+           f"base-word statuses {sorted({r[2] for r in base_ok})}")
+    late_rows = [r for r in reqs if r[1] == "late"]
+    for c in range(STREAM_CLIENTS):
+        seq = [r[2] for r in sorted(late_rows, key=lambda r: r[3]) if r[0] == c]
+        first_ok = seq.index(200) if 200 in seq else len(seq)
+        expect(all(s == 404 for s in seq[:first_ok]) and all(s == 200 for s in seq[first_ok:]),
+               f"client {c}: the late word's statuses go {seq[:8]}..., not 404 then 200")
+    statuses = [r[2] for r in late_rows]
+    expect(404 in statuses and 200 in statuses,
+           f"the late word never answered both 404 and 200: {sorted(set(statuses))}")
+    first_200 = min(r[4] for r in late_rows if r[2] == 200)
+    expect(any(s["end_unix"] <= first_200 for s in swaps),
+           "the late word answered 200 before any swap")
+    lat_all = [(r[4] - r[3]) * 1e3 for r in reqs]
+    lat_swap = [(r[4] - r[3]) * 1e3 for r in reqs
+                if any(r[3] < s["end_unix"] and r[4] > s["start_unix"] for s in swaps)]
+    span = max(r[4] for r in reqs) - min(r[3] for r in reqs)
+    log(f"/synonyms under the stream, {STREAM_CLIENTS} clients, {len(reqs)} "
+        f"requests in {span:.1f} s: {percentile_line(lat_all)}; inside the swap "
+        f"windows: {percentile_line(lat_swap)}; late word {late}: "
+        f"{statuses.count(404)} x 404 then {statuses.count(200)} x 200")
+    swap_launches = {k: counted["now"][k] - counted["boot"][k] for k in counted["now"]}
+    log(f"phase 13 (a) launches, all zeroed before the trainer started: "
+        f"{json.dumps(launches)}; of which the swaps' index builds "
+        f"(after the boot): {json.dumps(swap_launches)}; whole (a) {wall:.1f} s")
+    expect_launched(launches, ("pair_forward", "scatter_add_rank1_hbm",
+                               "scatter_add_rows_f32"), "phase 13 (a)'s trainer")
+    expect(all(v > 0 for v in swap_launches.values()),
+           f"the swaps launched no index-build kernel: {swap_launches}")
+    server.stop()
+    box["model"].stop()
+    server_thread.join(timeout=60)
+    return dict(model=model, capture=capture, launches=launches,
+                swap_launches=swap_launches)
+
+
+def hold_stream_group(torch, np, fs, stream: dict) -> dict:
+    """Phase 13 (b): the captured first packed group of the stream's last
+    round, run twice from the same tables: through the kernels on the
+    card, and through their plain versions in a ``device="cpu"`` engine.
+    Pair counts and consumed positions must be equal, and the tables
+    within rtol 1e-4 and atol 1e-6 (``test_torch_train.py``'s tolerance).
+    Inside the kernel run, the first step whose pairs touch a promoted
+    row is held kernel by kernel: ``pair_forward`` through
+    :func:`pair_forward_held`, ``scatter_add_rank1_hbm`` through
+    :func:`rank1_bitwise`, ``scatter_add_rows_f32`` through
+    :func:`touched_rows_check`."""
+    from glint_word2vec_torch.parallel import engine as engine_mod
+    from glint_word2vec_torch.parallel.engine import EmbeddingEngine
+
+    cap = stream["capture"]
+    up, group = cap.upload, cap.group
+    expect(up is not None and group is not None, "the last round was not captured")
+    eng = up["engine"]
+    n_valid = up["n_valid"]
+    expect(n_valid < STREAM_BUFFER, f"the last round is full ({n_valid} words)")
+    args, kw = group
+    kw = dict(kw, readback=True)
+    V = eng.vocab_size
+    held = {}
+
+    def checked(syn0, syn1, centers, contexts, pm, negs, nmask, alpha):
+        promoted = bool(((centers >= V) | (contexts >= V)).any())
+        if held or not promoted:
+            return step(syn0, syn1, centers, contexts, pm, negs, nmask, alpha)
+        P, n = negs.shape
+        fw, e, rel = pair_forward_held(
+            torch, fs, (syn0, syn1, centers, contexts, pm, negs, nmask, alpha),
+            "on the stream's group")
+        rows = torch.arange(P, dtype=torch.int32, device=centers.device)
+        ids1 = torch.cat([contexts, negs.reshape(-1)])
+        coefs = torch.cat([fw.c_pos, fw.c_neg.reshape(-1)])
+        hidx = torch.cat([rows, rows.repeat_interleave(n)])
+        r7 = rank1_bitwise(
+            torch, (fs.scatter_add_rank1_hbm, fs.scatter_add_rank1_hbm_reference),
+            syn1, ids1, coefs, fw.h, hidx, "scatter_add_rank1_hbm (stream group)")
+        uniq = torch.unique(centers.long())
+        before = syn0[uniq].cpu()
+        fs.scatter_add_rows_f32(syn0, centers, fw.d_center)
+        torch.cuda.synchronize()
+        r6 = touched_rows_check(
+            torch, syn0, before, centers,
+            lambda t, local: fs.scatter_add_rows_f32_reference(t, local, fw.d_center.cpu()),
+            "scatter_add_rows_f32 (stream group)")
+        held.update(
+            err=e, loss_rel=rel, runs7=r7, runs6=r6,
+            promoted_centers=int((centers >= V).sum()),
+            promoted_contexts=int((contexts >= V).sum()), pairs=int(pm.sum()))
+        return fw.loss_sum
+
+    step = engine_mod.fused_pair_step
+    eng.syn0.copy_(up["syn0"])
+    eng.syn1.copy_(up["syn1"])
+    eng.set_noise_counts(up["counts"])
+    eng.upload_corpus(up["ids"], up["offsets"], n_valid=n_valid)
+    engine_mod.fused_pair_step = checked
+    try:
+        _, pairs_k, pos_k, _ = eng.train_steps_corpus_packed(*args, **kw)
+    finally:
+        engine_mod.fused_pair_step = step
+    torch.cuda.synchronize()
+    expect(held, "no step of the captured group touched a promoted row")
+    log(f"stream group (b): the last round's first group, n_valid {n_valid} of "
+        f"{STREAM_BUFFER}, start {args[0]}, {args[5]} steps; in its first step "
+        f"touching promoted rows ({held['pairs']} pairs, {held['promoted_centers']} "
+        f"promoted centers, {held['promoted_contexts']} promoted contexts): "
+        f"pair_forward within rtol 1e-5 (max |diff| {held['err']:.3g}), h "
+        f"bitwise, loss rel {held['loss_rel']:.2g}, two calls bitwise; "
+        f"scatter_add_rank1_hbm bitwise (R={held['runs7']}), two calls equal; "
+        f"scatter_add_rows_f32 bitwise (R={held['runs6']})")
+
+    t0 = time.perf_counter()
+    cpu = EmbeddingEngine(V, eng.dim, up["counts"], num_negatives=eng.num_negatives,
+                          unigram_power=eng.unigram_power,
+                          unigram_table_size=eng.unigram_table_size, seed=eng._seed,
+                          extra_rows=eng.num_rows - V, device="cpu")
+    cpu.set_tables(up["syn0"].cpu(), up["syn1"].cpu())
+    cpu.set_noise_counts(up["counts"])
+    cpu.upload_corpus(up["ids"], up["offsets"], n_valid=n_valid)
+    _, pairs_p, pos_p, _ = cpu.train_steps_corpus_packed(*args, **kw)
+    expect(np.array_equal(pairs_k, pairs_p) and np.array_equal(pos_k, pos_p),
+           f"pair counts / positions differ from the CPU engine's: {pairs_k} "
+           f"{pos_k} against {pairs_p} {pos_p}")
+    err = 0.0
+    for name in ("syn0", "syn1"):
+        got, want = getattr(eng, name).cpu(), getattr(cpu, name)
+        diff = (got - want).abs()
+        ok = bool((diff <= 1e-4 * want.abs() + 1e-6).all())
+        err = max(err, float(diff.max()))
+        expect(ok, f"{name} after the group: off by {float(diff.max())} from the "
+                   "plain versions' (rtol 1e-4, atol 1e-6)")
+    log(f"stream group (b): pair counts {pairs_k.tolist()} and positions equal to "
+        f"the device='cpu' engine's (its plain versions, "
+        f"{time.perf_counter() - t0:.1f} s); tables within rtol 1e-4, atol 1e-6 "
+        f"of it (max |diff| {err:.3g})")
+    del cpu
+    return dict(held, table_err=err)
+
+
+def stream_kill_drill(torch, np, tmp: str) -> None:
+    """Phase 13 (c): ``fit-stream`` on the card through the CLI on the
+    shifted tiny corpus (``tests/test_streaming.py``'s stream), SIGKILLed
+    between the second generation's rename and its pointer flip; a
+    watcher must refuse the unreferenced generation, a second run numbers
+    past it, and its stream passes the JAX streaming quality gate."""
+    from glint_word2vec_torch.models import load_model
+    from glint_word2vec_torch.serving import ModelServer
+    from glint_word2vec_torch.streaming.publish import read_latest
+
+    tiny = make_tiny_corpus(np)
+    corpus = os.path.join(tmp, "tiny_stream.txt")
+    with open(corpus, "w") as f:
+        f.writelines(" ".join(s) + "\n" for s in tiny)
+        for _ in range(3):
+            f.writelines(" ".join(s + ["zagreb", "zagreb"]) + "\n" for s in tiny[:300])
+    pub = os.path.join(tmp, "tiny_pub")
+    argv = [sys.executable, "-m", "glint_word2vec_torch.cli", "fit-stream",
+            "--corpus", corpus, "--publish-dir", pub, "--vector-size", "32",
+            "--window", "3", "--step-size", "0.025", "--batch-size", "256",
+            "--min-count", "5", "--seed", "1", "--steps-per-call", "4",
+            "--bootstrap-words", "2000", "--buffer-words", "4096",
+            "--extra-rows", "8", "--publish-words", "8000",
+            "--publish-every", "1e9", "--device", DEV]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    t0 = time.perf_counter()
+    r = subprocess.run(argv, cwd=root, capture_output=True, text=True, timeout=600,
+                       env=dict(env, GLINT_FAULTS="publish.pre_pointer:kill@2"))
+    expect(r.returncode == -9, f"fit-stream under the kill fault exited "
+                               f"{r.returncode}: {r.stderr[-2000:]}")
+    expect(read_latest(pub)["generation"] == "gen-000001",
+           f"LATEST moved past gen-000001: {read_latest(pub)}")
+    gen2 = os.path.join(pub, "gen-000002")
+    m2 = load_model(gen2, device=DEV)  # complete: verifies and loads
+    m2.stop()
+    model = load_model(os.path.join(pub, "gen-000001"), device=DEV)
+    server = ModelServer(model, port=0, warmup=False)
+    watcher = server.watch(pub, poll_seconds=3600, current="gen-000001")
+    server.start_background()
+    try:
+        expect(watcher.poll_once() is None and server.metrics.table_swaps == 0,
+               "a watcher loaded the unreferenced gen-000002")
+    finally:
+        server.stop()
+        model.stop()
+    out = os.path.join(tmp, "tiny_stream_model")
+    r = subprocess.run(argv + ["--output", out], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=600)
+    expect(r.returncode == 0, f"the second fit-stream exited {r.returncode}: "
+                              f"{r.stderr[-2000:]}")
+    tm = json.loads(r.stdout.strip().splitlines()[-1])
+    seq = int(read_latest(pub)["seq"])
+    route = "cuda" if DEV.startswith("cuda") else "plain"
+    expect(tm["kernel_route"] == route and seq >= 3,
+           f"second run: route {tm['kernel_route']}, LATEST seq {seq}")
+    m = load_model(out, device=DEV)
+    try:
+        syns = dict(m.find_synonyms("austria", 10))
+        expect("vienna" in syns, f"vienna not in austria's top 10: {list(syns)}")
+        expect("zagreb" in m.vocab.word_index, "zagreb was not promoted")
+    finally:
+        m.stop()
+    log(f"stream kill drill (c): killed at the second publish between rename "
+        f"and pointer (LATEST on gen-000001, gen-000002 complete and not "
+        f"loaded by a watcher); the second run published up to gen-{seq:06d}, "
+        f"{tm['words_trained']} words, {tm['promoted_words']} promoted; vienna "
+        f"in austria's top 10; {time.perf_counter() - t0:.1f} s")
+
+
+def stream_and_hot_swap(torch, np, fs, rows_mod) -> dict:
+    """Phase 13. Returns the launch counts and the held group's numbers."""
+    tmp = tempfile.mkdtemp(prefix="glint_chip_stream_")
+    try:
+        stream = stream_and_swap(torch, np, fs, rows_mod, tmp)
+        group = hold_stream_group(torch, np, fs, stream)
+        stream["model"].stop()
+        stream["capture"].upload = None
+        torch.cuda.empty_cache()
+        stream_kill_drill(torch, np, tmp)
+        log(f"phase 13 on {nvidia_smi_line()}")
+        return dict(launches=stream["launches"],
+                    swap_launches=stream["swap_launches"], group=group)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def ptxas_report(text: str) -> list:
     """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
     (demangled where ``c++filt`` is found), registers and spills."""
@@ -3612,20 +4195,20 @@ def ptxas_report(text: str) -> list:
 
 
 def parse_only(argv) -> set | None:
-    """The phases ``--only`` names (3 to 12), or None to run them all."""
+    """The phases ``--only`` names (3 to 13), or None to run them all."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--only", metavar="N[,N...]",
-        help="run phases 1, 2 and these (3 to 12) only, print their lines, "
+        help="run phases 1, 2 and these (3 to 13) only, print their lines, "
              f"and exit {PARTIAL_EXIT} without the kernels or result line")
     only = ap.parse_args(argv).only
     if only is None:
         return None
     phases = {int(p) for p in only.split(",") if p.strip()}
-    if not phases or not phases <= set(range(3, 13)):
-        ap.error(f"--only takes phases 3 to 12, got {only!r}")
+    if not phases or not phases <= set(range(3, 14)):
+        ap.error(f"--only takes phases 3 to 13, got {only!r}")
     return phases
 
 
@@ -3670,6 +4253,7 @@ def main() -> int:
         10: lambda: train_grid_and_resume(torch, np, fs, rows_mod),
         11: lambda: train_stall_free(torch, np, fs, rows_mod),
         12: lambda: ann_and_transform(torch, np, fs, rows_mod),
+        13: lambda: stream_and_hot_swap(torch, np, fs, rows_mod),
     }
 
     def run(p):
@@ -3698,6 +4282,7 @@ def main() -> int:
     grid = run(10)
     stall = run(11)
     annt = run(12)
+    streamed = run(13)
 
     main_case = gathered[("f32", V_SERVE, 10_000)]
     kernels = [{
@@ -3729,6 +4314,8 @@ def main() -> int:
         "launches_transform": annt["launches"],
         "ann_build_max_abs_err": annt["path_err"]["gather_rows"],
         "transform_max_abs_err": annt["transform_err"],
+        "launches_stream_and_swaps": streamed["launches"]["gather_rows"],
+        "launches_swap_index_builds": streamed["swap_launches"]["gather_rows"],
     }]
     train_shape = (f"fp32 tables {V_TRAIN}x{D}, P={packed_pair_batch(B_TRAIN, W_TRAIN)}, "
                    f"n={N_NEG}")
@@ -3756,8 +4343,10 @@ def main() -> int:
             "bf16_ms": timed[(name, "bf16")]["ms"],
             "bf16_bound_ms": timed[(name, "bf16")]["bound_ms"],
             "launches_stall_free_fit": stall["launches"][name],
+            "launches_stream_fit": streamed["launches"][name],
         })
     b4, b7 = kernels[-3], kernels[-2]
+    b4["stream_group_max_abs_err"] = streamed["group"]["err"]
     b4["tiled_launches"] = {f"d={d} n={n}": w["pair_forward (tiled form)"]
                             for (d, n), w in grid["wide"].items()}
     for (d, n, dt), r in timed["tiled"].items():
@@ -3799,10 +4388,12 @@ def main() -> int:
             "launches_grid_fit": grid["grid"][name],
             "launches_ann_build": annt["build"][name],
             "ann_build_max_abs_err": annt["path_err"].get(name),
+            "launches_stream_and_swaps": streamed["launches"][name],
             "bf16_ms": composed[(name, "bf16")]["ms"],
             "bf16_bound_ms": composed[(name, "bf16")]["bound_ms"],
         })
     b2, b2_bf16 = (composed[("scatter_add_rank1", dt)]["parts"] for dt in ("f32", "bf16"))
+    kernels[-1]["launches_swap_index_builds"] = streamed["swap_launches"]["scatter_add_rows"]
     kernels[-2].update(
         no_long_run_ms=b2["a"]["ms"], long_run_alone_ms=b2["b"]["ms"],
         wide_ms=b2["c"]["ms"], index_add_payload_ms=b2["index_add_payload_ms"],

@@ -1,7 +1,9 @@
 """Command line of the port: train, query and serve a model.
 
   python -m glint_word2vec_torch.cli train     --corpus c.txt --output m/ [--fasttext] [...]
+  python -m glint_word2vec_torch.cli fit-stream --corpus c.txt|- --publish-dir P/ [...]
   python -m glint_word2vec_torch.cli serve     --model m/ --port 8801 [--ann]
+  python -m glint_word2vec_torch.cli serve     --watch-checkpoint P/ [--watch-poll 1]
   python -m glint_word2vec_torch.cli transform-file --model m/ --input s.txt --out shards/
   python -m glint_word2vec_torch.cli synonyms-dump  --model m/ --out n.jsonl [--ann]
   python -m glint_word2vec_torch.cli synonyms  --model m/ --word w [-n 10]
@@ -14,7 +16,9 @@ The model directory may come from either package. Every command runs on
 the CUDA card unless ``--device cpu`` is given. ``train`` takes the JAX
 package's training and observability arguments except the mesh and
 replica-exchange ones; a run the divergence canary aborts exits 2 with
-one line.
+one line. ``fit-stream`` trains on a sentence stream (a file, a followed
+file or stdin) and publishes generations that ``serve --watch-checkpoint``
+swaps in.
 """
 
 from __future__ import annotations
@@ -121,6 +125,206 @@ def _add_train(sub) -> None:
                           "median (default 10.0); NaN/Inf always trips")
     obs.add_argument("--canary-check-every", type=int, default=32,
                      help="steps between canary checks (default 32)")
+
+
+def _add_fit_stream(sub) -> None:
+    p = sub.add_parser(
+        "fit-stream",
+        help="incremental (ISGNS) training on an unbounded sentence stream: "
+             "online vocabulary growth, adaptive distributions, and "
+             "committed generations that `serve --watch-checkpoint` "
+             "hot-swaps under load",
+    )
+    p.add_argument("--corpus", default="-",
+                   help="sentence source, one per line: a file path, or '-' "
+                        "(default) for stdin")
+    p.add_argument("--follow", action="store_true",
+                   help="tail the --corpus file (tail -f): keep polling for "
+                        "appended lines instead of stopping at EOF")
+    p.add_argument("--device", default="cuda", help="cuda (default), cuda:N or cpu")
+    p.add_argument("--lowercase", action="store_true")
+    p.add_argument("--publish-dir", default=None,
+                   help="publish committed generations here (gen-NNNNNN "
+                        "directories and the LATEST.json pointer)")
+    p.add_argument("--publish-every", type=float, default=30.0,
+                   help="seconds between publishes (default 30; whichever "
+                        "of the time and word cadences fires first)")
+    p.add_argument("--publish-words", type=int, default=None,
+                   help="also publish every N trained words")
+    p.add_argument("--output", default=None,
+                   help="save the final model here when the stream ends")
+    p.add_argument("--bootstrap-words", type=int, default=10000,
+                   help="stream prefix scanned batch-style for the base "
+                        "vocabulary (default 10000 words)")
+    p.add_argument("--buffer-words", type=int, default=65536,
+                   help="mini-epoch buffer capacity in words (default 65536)")
+    p.add_argument("--extra-rows", type=int, default=1024,
+                   help="spare table rows reserved for vocabulary growth, the "
+                        "promotion budget (default 1024)")
+    p.add_argument("--refresh-words", type=int, default=None,
+                   help="kept-word cadence of the noise and subsample "
+                        "refreshes (default: one buffer)")
+    p.add_argument("--max-words", type=int, default=None,
+                   help="stop after training this many words (default: run "
+                        "until the stream ends)")
+    p.add_argument("--max-seconds", type=float, default=None,
+                   help="stop after this much wall time")
+    p.add_argument("--vector-size", type=int, default=100)
+    p.add_argument("--window", type=int, default=5)
+    p.add_argument("--step-size", type=float, default=0.01875)
+    p.add_argument("--batch-size", type=int, default=1024)
+    p.add_argument("--negatives", type=int, default=5)
+    p.add_argument("--subsample-ratio", type=float, default=0.0)
+    p.add_argument("--min-count", type=int, default=5,
+                   help="bootstrap admission and promotion threshold (a "
+                        "candidate's guaranteed sketch count must clear it)")
+    p.add_argument("--max-sentence-length", type=int, default=1000)
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--num-partitions", type=int, default=1,
+                   help="data-parallel axis size: only 1 in the port so far")
+    p.add_argument("--num-shards", type=int, default=1,
+                   help="model-parallel axis size: only 1 in the port so far")
+    p.add_argument("--steps-per-call", type=int, default=16)
+    p.add_argument("--metrics-out", default=None,
+                   help="write the final training metrics JSON here (atomic "
+                        "write)")
+    obs = p.add_argument_group(
+        "observability",
+        "live heartbeat with the streaming gauges (glint_stream_* in the "
+        "Prometheus exposition)",
+    )
+    obs.add_argument("--status-port", type=int, default=None,
+                     help="serve /healthz and /metrics for the trainer (0 "
+                          "binds an ephemeral port)")
+    obs.add_argument("--status-host", default="127.0.0.1")
+    obs.add_argument("--status-file", default=None,
+                     help="atomically mirror the status snapshot JSON here")
+    obs.add_argument("--event-log", default=None,
+                     help="JSONL span/event log (stream_fill, device_steps, "
+                          "publish, table mutations)")
+
+
+def _stream_sentences(path: str, follow: bool, lowercase: bool):
+    """Tokenized sentences from a file, stdin (``-``) or a followed file
+    (``cli.py:1044`` of the JAX package). Pull-based: a bounded trainer
+    stops pulling. While stdin or a followed file is quiet it yields
+    ``[]`` heartbeats, so the trainer keeps checking its stop bounds and
+    publish cadence, and a half-written trailing line is held until its
+    newline arrives."""
+
+    def _toks(line):
+        return (line.lower() if lowercase else line).split()
+
+    if path != "-" and not follow:
+        from glint_word2vec_torch.corpus.vocab import iter_text_file
+
+        yield from iter_text_file(path, lowercase)
+        return
+    if path == "-":
+        try:
+            fd = sys.stdin.fileno()
+        except (OSError, ValueError, AttributeError):
+            fd = None
+        if fd is None:
+            # Not a real descriptor: plain blocking iteration.
+            for line in sys.stdin:
+                toks = _toks(line)
+                if toks:
+                    yield toks
+            return
+        import codecs
+        import os
+        import select
+
+        dec = codecs.getincrementaldecoder("utf-8")("replace")
+        pending = ""
+        while True:
+            ready, _, _ = select.select([fd], [], [], 0.2)
+            if not ready:
+                yield []  # idle heartbeat
+                continue
+            chunk = os.read(fd, 65536)
+            if not chunk:  # EOF: flush a final newline-less line
+                pending += dec.decode(b"", final=True)
+                toks = _toks(pending)
+                if toks:
+                    yield toks
+                return
+            pending += dec.decode(chunk)
+            *lines, pending = pending.split("\n")
+            for line in lines:
+                toks = _toks(line)
+                if toks:
+                    yield toks
+    import time
+
+    with open(path, encoding="utf-8") as f:
+        pending = ""
+        while True:
+            line = f.readline()
+            if not line:
+                time.sleep(0.2)
+                yield []  # idle heartbeat
+                continue
+            line = pending + line
+            pending = ""
+            if not line.endswith("\n"):
+                pending = line
+                continue
+            toks = _toks(line)
+            if toks:
+                yield toks
+
+
+def _run_fit_stream(args) -> int:
+    from glint_word2vec_torch.models.word2vec import Word2Vec
+    from glint_word2vec_torch.utils import atomic_write_json
+
+    obs = None
+    if args.status_port is not None or args.status_file or args.event_log:
+        from glint_word2vec_torch.obs import ObsConfig
+
+        obs = ObsConfig(event_log=args.event_log, status_port=args.status_port,
+                        status_host=args.status_host,
+                        status_file=args.status_file)
+    w2v = Word2Vec(
+        device=args.device,
+        vector_size=args.vector_size,
+        window=args.window,
+        step_size=args.step_size,
+        batch_size=args.batch_size,
+        num_negatives=args.negatives,
+        subsample_ratio=args.subsample_ratio,
+        min_count=args.min_count,
+        max_sentence_length=args.max_sentence_length,
+        seed=args.seed,
+        num_partitions=args.num_partitions,
+        num_shards=args.num_shards,
+        steps_per_call=args.steps_per_call,
+        obs=obs,
+    )
+    model = w2v.fit_stream(
+        _stream_sentences(args.corpus, args.follow, args.lowercase),
+        publish_dir=args.publish_dir,
+        bootstrap_words=args.bootstrap_words,
+        buffer_words=args.buffer_words,
+        extra_rows=args.extra_rows,
+        refresh_words=args.refresh_words,
+        publish_seconds=args.publish_every,
+        publish_words=args.publish_words,
+        max_words=args.max_words,
+        max_seconds=args.max_seconds,
+    )
+    try:
+        if args.output:
+            model.save(args.output)
+        print(json.dumps({**({"saved": args.output} if args.output else {}),
+                          **model.training_metrics}))
+        if args.metrics_out:
+            atomic_write_json(args.metrics_out, model.training_metrics)
+    finally:
+        model.stop()
+    return 0
 
 
 def _obs_config(args):
@@ -367,12 +571,15 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="glint_word2vec_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_train(sub)
+    _add_fit_stream(sub)
     _add_transform_file(sub)
     _add_synonyms_dump(sub)
 
-    def add(name: str, help: str) -> argparse.ArgumentParser:
+    def add(name: str, help: str, model_required: bool = True
+            ) -> argparse.ArgumentParser:
         p = sub.add_parser(name, help=help)
-        p.add_argument("--model", required=True, help="saved model directory")
+        p.add_argument("--model", required=model_required,
+                       help="saved model directory")
         p.add_argument("--device", default="cuda",
                        help="cuda (default), cuda:N or cpu")
         return p
@@ -392,9 +599,17 @@ def _parser() -> argparse.ArgumentParser:
                    help="': section' headers and 'a b c d' rows")
     p.add_argument("--top-k", type=int, default=1)
     p.add_argument("--no-lowercase", action="store_true")
-    p = add("serve", "serve a saved model over HTTP")
+    p = add("serve", "serve a saved model over HTTP", model_required=False)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8801)
+    p.add_argument("--watch-checkpoint", default=None, metavar="DIR",
+                   help="follow a fit-stream publish directory: each new "
+                        "committed generation (LATEST.json) is staged off "
+                        "the request path and hot-swapped in (POST /reload "
+                        "polls now); without --model the newest generation "
+                        "boots the server")
+    p.add_argument("--watch-poll", type=float, default=1.0,
+                   help="seconds between LATEST.json polls (default 1)")
     p.add_argument("--max-batch", type=int, default=64,
                    help="coalesced /synonyms dispatch cap (rounded up to a "
                         "power of two)")
@@ -423,14 +638,21 @@ def main(argv=None) -> int:
             # log: one line, no traceback.
             print(f"error: training diverged: {e}", file=sys.stderr)
             return 2
+    if args.cmd == "fit-stream":
+        return _run_fit_stream(args)
     if args.cmd == "serve":
         from glint_word2vec_torch.serving import serve_model_dir
 
+        if args.model is None and args.watch_checkpoint is None:
+            print("error: serve needs --model or --watch-checkpoint",
+                  file=sys.stderr)
+            return 1
         serve_model_dir(
             args.model, host=args.host, port=args.port,
             max_batch=args.max_batch, warmup=not args.no_warmup,
             cache_size=args.cache_size, port_file=args.port_file,
-            device=args.device, **_ann_kwargs(args),
+            device=args.device, watch_dir=args.watch_checkpoint,
+            watch_poll=args.watch_poll, **_ann_kwargs(args),
         )
         return 0
     if args.cmd == "transform-file" and args.workers > 1:

@@ -394,6 +394,22 @@ class Word2Vec:
             stop_after_epochs,
         )
 
+    def fit_stream(self, sentences: Iterable[Sequence[str]],
+                   publish_dir: Optional[str] = None,
+                   **stream_kw) -> "Word2VecModel":
+        """Incremental training on an unbounded sentence stream (the ISGNS
+        construction, arXiv:1704.03956): one look at each sentence, the
+        noise and subsample distributions refreshed from live counts,
+        vocabulary growth onto the engine's spare extra rows and, with
+        ``publish_dir``, committed generations for a server to hot-swap
+        (``streaming/publish.py``). Returns the fitted model when the
+        stream ends or a ``max_words``/``max_seconds`` bound trips. The
+        cadence and capacity knobs go to
+        :class:`~glint_word2vec_torch.streaming.trainer.StreamTrainer`."""
+        from glint_word2vec_torch.streaming.trainer import StreamTrainer
+
+        return StreamTrainer(self, publish_dir=publish_dir, **stream_kw).run(sentences)
+
     def _fit_flat(self, vocab: Vocabulary, ids: np.ndarray,
                   offsets: np.ndarray, checkpoint_dir: Optional[str],
                   checkpoint_every_epochs: int,

@@ -1,14 +1,16 @@
 """The native host pass of the port: ``host_ops.cpp`` loaded with ctypes
 (the port's own copy of ``glint_word2vec_tpu/native/__init__.py``).
 
-Three wrappers, each returning None when the library is unavailable, so
+Four wrappers, each returning None when the library is unavailable, so
 that its caller runs the Python pass instead:
 
 - :func:`alias_build_native`: the alias table (``corpus/alias.py``);
 - :func:`window_batch_epoch_native`: an epoch's subsample and window rows
   (``corpus/batching.py``);
 - :func:`corpus_scan_native`: ``fit_file``'s vocabulary and flat encode
-  (``corpus/vocab.py``).
+  (``corpus/vocab.py``);
+- :func:`ann_place_spills_native`: the ANN build's spill placement
+  (``ops/ann.py``), which runs with the interpreter lock released.
 
 The library is built with ``g++`` on first use, never at import
 (``kernels/build.native_library``, into the gitignored ``_build/``).
@@ -39,7 +41,8 @@ _build_failed = False
 #: Native calls that ran since import, by wrapper: ``chip_smoke.py``
 #: reads them to show the fits took the native pass. The host batcher's
 #: producer thread counts too, so a count is taken under a lock.
-calls = {"alias_build": 0, "window_batch_epoch": 0, "corpus_scan": 0}
+calls = {"alias_build": 0, "window_batch_epoch": 0, "corpus_scan": 0,
+         "ann_place_spills": 0}
 _calls_lock = threading.Lock()
 
 
@@ -48,7 +51,8 @@ def _count(name: str) -> None:
         calls[name] += 1
 
 
-def _bind(lib: ctypes.CDLL) -> None:
+def _bind_shared(lib: ctypes.CDLL) -> None:
+    """Bind the interface this library shares with the JAX package's."""
     P = ctypes.POINTER
     lib.alias_build.restype = ctypes.c_int
     lib.alias_build.argtypes = [
@@ -82,6 +86,18 @@ def _bind(lib: ctypes.CDLL) -> None:
     ]
     lib.corpus_free.restype = None
     lib.corpus_free.argtypes = [ctypes.c_void_p]
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    _bind_shared(lib)
+    P = ctypes.POINTER
+    lib.ann_place_spills.restype = ctypes.c_int64
+    lib.ann_place_spills.argtypes = [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, P(ctypes.c_int32),
+        P(ctypes.c_int64), P(ctypes.c_int64), P(ctypes.c_float), ctypes.c_int64,
+        P(ctypes.c_int64), P(ctypes.c_int32), P(ctypes.c_float),
+        P(ctypes.c_int32), P(ctypes.c_int32),
+    ]
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
@@ -257,3 +273,38 @@ def corpus_scan_native(
         return words, counts, ids, soffs
     finally:
         lib.corpus_free(h)
+
+
+def ann_place_spills_native(start: int, stop: int, cand: np.ndarray,
+                            rid: np.ndarray, pos: np.ndarray, inv: np.ndarray,
+                            L: int, fill: np.ndarray, members: np.ndarray,
+                            invn: np.ndarray, cluster_of: np.ndarray,
+                            slot_of: np.ndarray) -> Optional[int]:
+    """Place spilled rows ``[start, stop)`` in order, each into the first
+    of its candidates (``cand``: the rows' ``(stop - start, K)`` best
+    clusters) with space, editing the layout arrays in place (``fill``
+    int64, ``members``/``cluster_of``/``slot_of`` int32, ``invn``
+    float32, all contiguous). Returns the first row whose candidates are
+    all full, or ``stop``; None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    for a, dt in ((fill, np.int64), (members, np.int32), (invn, np.float32),
+                  (cluster_of, np.int32), (slot_of, np.int32)):
+        if a.dtype != dt or not a.flags.c_contiguous:
+            raise ValueError(f"layout arrays must be contiguous {dt.__name__}")
+    cand = np.ascontiguousarray(cand, dtype=np.int32)
+    if cand.ndim != 2 or cand.shape[0] < stop - start:
+        raise ValueError("cand must hold (stop - start, K) candidates")
+    rid = np.ascontiguousarray(rid, dtype=np.int64)
+    pos = np.ascontiguousarray(pos, dtype=np.int64)
+    inv = np.ascontiguousarray(inv, dtype=np.float32)
+    out = lib.ann_place_spills(
+        int(start), int(stop), cand.shape[1], _ptr(cand, ctypes.c_int32),
+        _ptr(rid, ctypes.c_int64), _ptr(pos, ctypes.c_int64),
+        _ptr(inv, ctypes.c_float), int(L), _ptr(fill, ctypes.c_int64),
+        _ptr(members, ctypes.c_int32), _ptr(invn, ctypes.c_float),
+        _ptr(cluster_of, ctypes.c_int32), _ptr(slot_of, ctypes.c_int32),
+    )
+    _count("ann_place_spills")
+    return int(out)

@@ -1,9 +1,9 @@
 // host_ops: the native host pass of glint_word2vec_torch, its own copy of
 // glint_word2vec_tpu/native/host_ops.cpp (entry points, draws and outputs
-// unchanged, so the two packages' native passes agree bit for bit).
+// unchanged, so the two packages' native passes agree bit for bit), plus
+// the ANN build's spill placement (4. below, the port's own).
 //
-// Three host-side hot spots of the data path, each taken over from the
-// interpreter:
+// Four host-side hot spots, each taken over from the interpreter:
 //
 //   1. alias_build        — O(V) Walker alias-table construction (the
 //                           Python two-stack loop takes minutes at a 10M
@@ -15,6 +15,10 @@
 //   3. corpus_*           — fit_file's ingestion: the vocabulary count and
 //                           the flat encode of a text file
 //                           (corpus/vocab.py).
+//   4. ann_place_spills   — the ANN build's spilled rows placed one at a
+//                           time into their first cluster with space
+//                           (ops/ann.py; a stream-trained table spills
+//                           most of its rows).
 //
 // A plain C interface, loaded with ctypes by native/__init__.py, which
 // builds it with g++ through kernels/build.py on first use. Every buffer is
@@ -914,5 +918,35 @@ int corpus_encode_fill(void* h, int32_t* ids, int64_t* soffs) {
 }
 
 void corpus_free(void* h) { delete static_cast<Corpus*>(h); }
+
+// Place spilled rows [start, stop) of the ANN build in order: row i takes
+// the first cluster of its candidates (cand + (i - start) * K, best
+// first) whose fill is below L, into slot fill[c]. Layout arrays are the
+// caller's: members and invn (C, L) row-major, fill (C,), cluster_of and
+// slot_of indexed by row id. Returns the first row whose K candidates are
+// all full (the caller supplies its whole preference order), or stop.
+int64_t ann_place_spills(int64_t start, int64_t stop, int64_t K,
+                         const int32_t* cand, const int64_t* rid,
+                         const int64_t* pos, const float* inv, int64_t L,
+                         int64_t* fill, int32_t* members, float* invn,
+                         int32_t* cluster_of, int32_t* slot_of) {
+    for (int64_t i = start; i < stop; ++i) {
+        const int32_t* row = cand + (i - start) * K;
+        int64_t k = 0;
+        for (; k < K; ++k) {
+            const int64_t c = row[k];
+            if (fill[c] < L) {
+                const int64_t s = fill[c]++;
+                members[c * L + s] = static_cast<int32_t>(rid[i]);
+                invn[c * L + s] = inv[pos[i]];
+                cluster_of[rid[i]] = static_cast<int32_t>(c);
+                slot_of[rid[i]] = static_cast<int32_t>(s);
+                break;
+            }
+        }
+        if (k == K) return i;
+    }
+    return stop;
+}
 
 }  // extern "C"

@@ -8,7 +8,8 @@
   warmup), exportable as a Chrome trace;
 - the live heartbeat (:mod:`obs.heartbeat`): ``/healthz`` and
   ``/metrics`` (JSON and Prometheus) on the training process, and an
-  atomic status-file mirror;
+  atomic status-file mirror, with the streaming trainer's and the bulk
+  transform's gauges when they run;
 - the divergence canary (:mod:`obs.canary`): rolling-loss NaN and
   explosion detection, warn or abort; an abort flushes the event log
   and raises :class:`TrainingDiverged`, and the fit loop leaves a
@@ -156,6 +157,9 @@ class _NullRun:
     def update(self, **kw) -> None:
         pass
 
+    def update_streaming(self, **kw) -> None:
+        pass
+
     def update_transform(self, **kw) -> None:
         pass
 
@@ -245,6 +249,13 @@ class ObsRun:
 
     def update(self, **kw) -> None:
         self.status.update(**kw)
+        self._write_status()
+
+    def update_streaming(self, **kw) -> None:
+        """The streaming trainer's gauge hook:
+        ``TrainingStatus.set_streaming``, then the status file on its
+        usual cadence."""
+        self.status.set_streaming(**kw)
         self._write_status()
 
     def update_transform(self, **kw) -> None:

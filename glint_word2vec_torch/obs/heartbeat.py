@@ -109,6 +109,10 @@ class TrainingStatus:
         self.unhealthy_reason: Optional[str] = None
         self.supervisor_generation: Optional[int] = None
         self._rolling: deque = deque(maxlen=self.ROLLING)
+        #: The streaming trainer's gauges and its last publish's unix
+        #: time; None until a ``fit_stream`` run sets them.
+        self._streaming: Optional[dict] = None
+        self._last_publish_unix: Optional[float] = None
         #: The bulk transform's gauges; None until a transform run sets
         #: them, so a fit's snapshot has no ``transform`` block.
         self._transform: Optional[dict] = None
@@ -144,6 +148,33 @@ class TrainingStatus:
         with self._mu:
             self.canary = {
                 "mode": mode, "trips": int(trips), "last_reason": last_reason,
+            }
+
+    def set_streaming(self, *, words_streamed=0, sentences_streamed=0,
+                      oov_words=0, vocab_size=0, promoted_words=0,
+                      extra_rows_free=0, sketch_fill=0.0,
+                      noise_drift_l1=None, stream_lag_seconds=None,
+                      generations_published=0, last_publish_unix=None,
+                      buffer_fill=None) -> None:
+        """Install the streaming trainer's gauges (``heartbeat.py:170`` of
+        the JAX package): stream progress, vocabulary growth, the noise
+        distribution's drift and the publish cadence, which
+        ``training_to_prometheus`` renders as ``glint_stream_*``. The
+        publish age is computed at snapshot time."""
+        with self._mu:
+            self._last_publish_unix = last_publish_unix
+            self._streaming = {
+                "words_streamed_total": words_streamed,
+                "sentences_streamed_total": sentences_streamed,
+                "oov_words_total": oov_words,
+                "stream_vocab_size": vocab_size,
+                "promoted_words_total": promoted_words,
+                "extra_rows_free": extra_rows_free,
+                "sketch_fill": _finite_or_none(sketch_fill),
+                "noise_drift_l1": _finite_or_none(noise_drift_l1),
+                "stream_lag_seconds": _finite_or_none(stream_lag_seconds),
+                "generations_published_total": generations_published,
+                "buffer_fill": _finite_or_none(buffer_fill),
             }
 
     def set_transform(self, *, sentences_done=0, input_sentences=0,
@@ -193,6 +224,13 @@ class TrainingStatus:
                 "supervisor_generation": self.supervisor_generation,
                 "unhealthy_reason": self.unhealthy_reason,
             }
+            if self._streaming is not None:
+                streaming = dict(self._streaming)
+                streaming["last_publish_age_seconds"] = _finite_or_none(
+                    time.time() - self._last_publish_unix
+                    if self._last_publish_unix else None
+                )
+                snap["streaming"] = streaming
             if self._transform is not None:
                 snap["transform"] = dict(self._transform)
         if m is not None:

@@ -222,6 +222,48 @@ def training_to_prometheus(snap: dict) -> str:
         for phase, info in steptime.items():
             p.sample("glint_training_steptime_ops_total",
                      {"phase": phase}, info.get("count", 0))
+    stream = snap.get("streaming") or {}
+    if stream:
+        # The streaming trainer's gauges: present only on fit_stream runs.
+        for name, key, help_ in [
+            ("glint_stream_words_total", "words_streamed_total",
+             "Kept (in-vocabulary) words consumed from the stream."),
+            ("glint_stream_sentences_total", "sentences_streamed_total",
+             "Sentences consumed from the stream."),
+            ("glint_stream_oov_words_total", "oov_words_total",
+             "Out-of-vocabulary occurrences routed to the candidate "
+             "sketch."),
+            ("glint_stream_promoted_words_total", "promoted_words_total",
+             "Words promoted onto spare extra rows (online vocab "
+             "growth)."),
+            ("glint_stream_generations_published_total",
+             "generations_published_total",
+             "Committed model generations published for serving."),
+        ]:
+            p.head(name, "counter", help_)
+            p.sample(name, None, stream.get(key, 0))
+        for name, key, help_ in [
+            ("glint_stream_vocab_size", "stream_vocab_size",
+             "Grown vocabulary size (bootstrap base + promoted)."),
+            ("glint_stream_extra_rows_free", "extra_rows_free",
+             "Spare table rows still available for promotion."),
+            ("glint_stream_sketch_fill", "sketch_fill",
+             "Candidate-sketch occupancy fraction (1.0 = evicting)."),
+            ("glint_stream_noise_drift_l1", "noise_drift_l1",
+             "L1 distance between consecutive adaptive noise "
+             "distributions at the last refresh."),
+            ("glint_stream_lag_seconds", "stream_lag_seconds",
+             "Wall seconds from a mini-epoch's first streamed sentence "
+             "to its training completing (ingest-to-trained lag)."),
+            ("glint_stream_last_publish_age_seconds",
+             "last_publish_age_seconds",
+             "Seconds since the last committed generation publish "
+             "(NaN before any)."),
+            ("glint_stream_buffer_fill", "buffer_fill",
+             "Fill fraction of the last mini-epoch buffer."),
+        ]:
+            p.head(name, "gauge", help_)
+            p.sample(name, None, stream.get(key))
     transform = snap.get("transform") or {}
     if transform:
         # The bulk transform's gauges: present only on transform runs.

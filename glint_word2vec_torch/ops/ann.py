@@ -50,8 +50,15 @@ from glint_word2vec_torch.utils import next_pow2
 #: bounds the ``(block, C)`` score matrix on the device.
 ASSIGN_BLOCK = 8192
 
-#: Chunk of the spill scores and of the incremental (re-)assignment path.
+#: Chunk of the incremental (re-)assignment path.
 INCREMENTAL_BLOCK = 256
+
+#: Best clusters kept a spilled row (its candidates); a row that finds all
+#: of them full takes its whole preference order.
+SPILL_CANDIDATES = 32
+
+#: Spilled rows placed a round (see :func:`_place_spills`).
+SPILL_ROUND = 4096
 
 #: Member-slot headroom: the index holds about ``SLOT_FACTOR`` times the
 #: table's rows, split evenly across clusters.
@@ -125,14 +132,106 @@ def assign_rows(syn0: torch.Tensor, norms: torch.Tensor, ids: np.ndarray,
 
 def centroid_scores(syn0: torch.Tensor, norms: torch.Tensor, ids: np.ndarray,
                     cent: torch.Tensor) -> np.ndarray:
-    """The ``(n, C)`` centroid scores of rows ``ids``, in
-    ``INCREMENTAL_BLOCK`` chunks: the spill path's preference order."""
+    """The ``(n, C)`` centroid scores of rows ``ids`` as a host array, in
+    ``INCREMENTAL_BLOCK`` chunks: the incremental path's preference
+    order."""
     out = np.zeros((len(ids), cent.shape[0]), np.float32)
     for s in range(0, len(ids), INCREMENTAL_BLOCK):
-        xn = normalized_rows(syn0, norms, _ids(ids[s : s + INCREMENTAL_BLOCK],
-                                               cent.device))
-        out[s : s + xn.shape[0]] = (xn @ cent.T).cpu().numpy()
+        out[s : s + INCREMENTAL_BLOCK] = centroid_scores_on_device(
+            syn0, norms, ids[s : s + INCREMENTAL_BLOCK], cent).cpu().numpy()
     return out
+
+
+def centroid_scores_on_device(syn0: torch.Tensor, norms: torch.Tensor,
+                              ids: np.ndarray, cent: torch.Tensor) -> torch.Tensor:
+    """The ``(n, C)`` centroid scores of rows ``ids`` on the centroids'
+    device, one gather and one product (the build's spill path)."""
+    return normalized_rows(syn0, norms, _ids(ids, cent.device)) @ cent.T
+
+
+def _preference(scores, width: int) -> torch.Tensor:
+    """Each row's ``width`` best clusters, by descending score with ties to
+    the lower cluster (a stable sort), on the scores' device; ``scores``
+    is a host array or a tensor."""
+    t = scores if isinstance(scores, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(scores, dtype=np.float32))
+    return torch.sort(t, dim=1, descending=True, stable=True).indices[:, :width]
+
+
+def _place_spills(pos: np.ndarray, rid: np.ndarray, inv: np.ndarray,
+                  pref_scores, members, invn, fill, cluster_of, slot_of,
+                  L: int) -> None:
+    """Place the spilled rows in order, each into the first cluster of its
+    preference order that still has space, editing the layout in place:
+    the result of placing them one at a time. Each row's
+    ``SPILL_CANDIDATES`` best clusters come from one readback; a row that
+    finds them all full takes its whole order.
+
+    The native host pass (``native.ann_place_spills_native``) places them
+    one at a time with the interpreter lock released, whole orders fetched
+    ``SPILL_ROUND`` rows at a time. Without it, the Python pass runs in
+    vectorised rounds over up to ``SPILL_ROUND`` rows: every row takes
+    its first candidate (of ``SPILL_CANDIDATES``, or of its whole order
+    once they are all full) under the clusters full at the round's start.
+    Those choices are a row at a time's up to the first row that finds its
+    cluster filled by the rows before it in the round (the only way a
+    cluster's fullness can differ), so the rows before that one are placed
+    and the next round starts there. A round ends at a cluster filling up
+    or at its last row, so there are at most ``C`` more rounds than
+    ``ceil(n / SPILL_ROUND)``."""
+    from glint_word2vec_torch import native
+
+    n, C = rid.shape[0], members.shape[0]
+    # One readback of every row's candidates.
+    cand = torch.cat([
+        _preference(pref_scores(rid[s : s + ASSIGN_BLOCK]), SPILL_CANDIDATES)
+        for s in range(0, n, ASSIGN_BLOCK)
+    ]).to(torch.int32).cpu().numpy()
+    layout = (L, fill, members, invn, cluster_of, slot_of)
+    i = native.ann_place_spills_native(0, n, cand, rid, pos, inv, *layout)
+    if i is not None:
+        while i < n:
+            b = min(i + SPILL_ROUND, n)
+            whole = _preference(pref_scores(rid[i:b]), C).to(torch.int32)
+            native.ann_place_spills_native(i, b, whole.cpu().numpy(), rid, pos,
+                                           inv, *layout)
+            i = native.ann_place_spills_native(b, n, cand[b:], rid, pos, inv,
+                                               *layout)
+        return
+    deep: dict = {}  # row -> its whole preference order
+    i = 0
+    while i < n:
+        b = min(i + SPILL_ROUND, n)
+        full = fill >= L
+        c_k = cand[i:b]
+        ok = ~full[c_k]
+        has = ok.any(axis=1)
+        ch = c_k[np.arange(b - i), ok.argmax(axis=1)]
+        if not has.all():
+            lack = np.flatnonzero(~has) + i
+            new = [r for r in lack.tolist() if r not in deep]
+            if new:
+                whole = _preference(pref_scores(rid[new]), C).to(torch.int32).cpu().numpy()
+                deep.update(zip(new, whole))
+            order = np.stack([deep[r] for r in lack.tolist()])
+            ch[lack - i] = order[np.arange(lack.size), (~full[order]).argmax(axis=1)]
+        # Rank of each row among the round's rows choosing its cluster.
+        srt = np.argsort(ch, kind="stable")
+        counts = np.bincount(ch, minlength=C)
+        starts = np.zeros(C + 1, np.int64)
+        np.cumsum(counts, out=starts[1:])
+        rank = np.empty(b - i, np.int64)
+        rank[srt] = np.arange(b - i) - starts[ch[srt]]
+        over = np.flatnonzero(rank >= L - fill[ch])
+        m = int(over[0]) if over.size else b - i
+        c, r = ch[:m], rank[:m]
+        slot = fill[c] + r
+        members[c, slot] = rid[i : i + m]
+        invn[c, slot] = inv[pos[i : i + m]]
+        cluster_of[rid[i : i + m]] = c
+        slot_of[rid[i : i + m]] = slot
+        fill += np.bincount(c, minlength=C).astype(fill.dtype)
+        i += m
 
 
 # ----------------------------------------------------------------------
@@ -216,11 +315,15 @@ def _pack_members(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
     """Pack assigned rows into the fixed (C, L) slot layout, spilling
     the overflow of oversized clusters to their next-best cluster with
-    space (``pref_scores(ids) -> (n, C)`` supplies preference rows for
-    exactly the spilled ids). Returns the host masters + spill count.
+    space (``pref_scores(ids) -> (n, C)``, a host array or a tensor,
+    supplies preference rows for spilled ids). Returns the host masters +
+    spill count.
 
     The non-spill majority places vectorized (stable argsort + rank
-    within cluster); only the rare spill tail pays per-row work."""
+    within cluster), the spill tail in vectorised rounds
+    (:func:`_place_spills`). Where a row's scores tie, the lower cluster
+    comes first (the JAX package's ``argsort`` leaves that order to its
+    sort); elsewhere the layout is the JAX package's."""
     num_rows_bound = int(live_ids.max()) + 1 if live_ids.size else 1
     members = np.zeros((C, L), np.int32)
     invn = np.zeros((C, L), np.float32)
@@ -244,26 +347,13 @@ def _pack_members(
     fill = np.minimum(counts, L)
     spilled = order[~fit]
     if spilled.size:
+        # Total capacity C*L >= SLOT_FACTOR * rows > rows, so some cluster
+        # always has space.
+        if int(counts.sum()) > C * L:
+            raise ValueError("ANN member capacity exhausted")
         sp = np.asarray(spilled, np.int64)
-        scores = pref_scores(live_ids[sp])  # (n_spill, C)
-        pref = np.argsort(-scores, axis=1)
-        for row, pos in enumerate(sp):
-            rid = int(live_ids[pos])
-            placed = False
-            for c in pref[row]:
-                c = int(c)
-                if fill[c] < L:
-                    s = int(fill[c])
-                    members[c, s] = rid
-                    invn[c, s] = inv[pos]
-                    cluster_of[rid] = c
-                    slot_of[rid] = s
-                    fill[c] += 1
-                    placed = True
-                    break
-            # Total capacity C*L >= SLOT_FACTOR * rows > rows, so some
-            # cluster always has space.
-            assert placed, "ANN member capacity exhausted"
+        _place_spills(sp, live_ids[sp].astype(np.int64), inv, pref_scores,
+                      members, invn, fill, cluster_of, slot_of, L)
     return members, invn, fill, cluster_of, slot_of, len(spilled)
 
 
@@ -353,7 +443,7 @@ def build(
     inv_live = inv_all[live_ids]
     members, invn, fill, cluster_of, slot_of, n_spill = _pack_members(
         assign, inv_live, live_ids, C, L,
-        lambda ids: centroid_scores(syn0, norms, ids, cent),
+        lambda ids: centroid_scores_on_device(syn0, norms, ids, cent),
     )
     # Per-row maps sized to the full capacity so later promotions index
     # directly.

@@ -47,6 +47,14 @@ S > 0``): one pool of S negatives a step for the whole batch, through
 ``fused_pair_step_shared`` on the packed path and ``shared_sgns_grads``
 (dense ``torch`` products) on the composed one.
 
+The streaming trainer's hooks (``engine.py:1558-2270`` of the JAX
+package): :meth:`EmbeddingEngine.upload_corpus` takes an ``n_valid``
+prefix bound on a fixed-capacity buffer, :meth:`EmbeddingEngine.
+assign_extra_rows` and :meth:`EmbeddingEngine.free_extra_rows` grow and
+shrink the vocabulary on spare extra rows (which the packed path's
+kernels train like any other row), and :meth:`EmbeddingEngine.
+set_noise_counts` installs a new alias table from live counts.
+
 Checkpoints use the JAX package's on-disk layout (``engine.json``,
 ``counts.npy``, ``.npy`` table blocks, ``manifest.json`` and the per-shard
 sidecars), so either package loads what the other saved. A save is a
@@ -251,7 +259,8 @@ class EmbeddingEngine:
       dtype: table storage dtype, ``"float32"`` or ``"bfloat16"``.
       extra_rows: non-vocabulary rows after the vocabulary (masked from
         every similarity query unless assigned): fastText's n-gram
-        buckets.
+        buckets, or the streaming trainer's spare rows for promoted
+        words.
       compute_dtype: operand dtype of the composed step's contractions,
         ``"float32"`` (None) or ``"bfloat16"`` (fp32 accumulation either
         way); the fused pair step always computes in fp32.
@@ -327,6 +336,9 @@ class EmbeddingEngine:
         # never needs them), the corpus by upload_corpus.
         self._noise = None
         self._corpus = None
+        #: Live center positions of the uploaded corpus: a prefix bound
+        #: (the streaming trainer's fill), or its length.
+        self._corpus_n_valid = None
         self._corpus_compacted = None
         self._n_kept = None
         self._compacted_offsets_host = None
@@ -772,7 +784,8 @@ class EmbeddingEngine:
 
     def noise_tables(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """The unigram^power alias table on the device, ``(prob float32,
-        alias int32)`` over the unpadded vocabulary, built on first use."""
+        alias int32)`` over the unpadded vocabulary, built on first use
+        (and anew by :meth:`set_noise_counts`)."""
         if self._noise is None:
             t = build_unigram_alias(
                 self._counts, power=self.unigram_power,
@@ -784,17 +797,56 @@ class EmbeddingEngine:
             )
         return self._noise
 
-    def upload_corpus(self, ids: np.ndarray, offsets: np.ndarray) -> None:
+    def set_noise_counts(self, counts: np.ndarray) -> None:
+        """Install new per-word counts and rebuild the negative-sampling
+        alias table from them (``engine.py:2246`` of the JAX package): the
+        streaming trainer's adaptive unigram distribution. The shapes stay
+        ``(vocab_size,)``; promoted extra rows are never negatives. New
+        tensors are installed and the old ones left alone, so a packed
+        group already queued keeps reading the table it was enqueued
+        with; the next group's draws take the new one. Checkpoints carry
+        the new counts."""
+        c = np.asarray(counts, dtype=np.int64)
+        if c.shape != (self.vocab_size,):
+            raise ValueError(
+                f"counts must have shape ({self.vocab_size},), got {c.shape}"
+            )
+        if c.sum() <= 0:
+            raise ValueError("counts must sum to > 0")
+        t = build_unigram_alias(
+            c, power=self.unigram_power, table_size=self.unigram_table_size
+        )
+        self._counts = c.copy()
+        self._noise = (
+            torch.from_numpy(t.prob).to(self.device),
+            torch.from_numpy(t.alias).to(self.device),
+        )
+        obs_events.emit("noise_counts_updated", train_words=int(c.sum()))
+
+    def upload_corpus(self, ids: np.ndarray, offsets: np.ndarray,
+                      n_valid: Optional[int] = None) -> None:
         """Upload the flat encoded corpus (``corpus/vocab.encode_file``'s
         ``(ids, offsets)``) to the device once; the packed steps assemble
-        every batch there."""
+        every batch there.
+
+        ``n_valid`` bounds the live center positions to a prefix of the
+        buffer: positions at or past it are consumed but give no pairs.
+        The streaming trainer fills one fixed-capacity buffer a round and
+        passes its fill here."""
         n = int(np.asarray(ids).shape[0])
         if n < 1 or n >= 2**31 or int(np.asarray(offsets)[-1]) != n:
             raise ValueError(
                 "corpus must be non-empty with offsets[-1] == len(ids) "
                 f"< 2**31 (got len(ids)={n})"
             )
+        if n_valid is None:
+            n_valid = n
+        if not 0 <= int(n_valid) <= n:
+            raise ValueError(
+                f"n_valid ({n_valid}) must be in [0, len(ids)={n}]"
+            )
         self._corpus = dbat.to_device_corpus(ids, offsets, self.device)
+        self._corpus_n_valid = int(n_valid)
         self._corpus_compacted = None
         self._compact_prefetch = None
         self._n_kept = None
@@ -804,6 +856,11 @@ class EmbeddingEngine:
         if self._corpus is None:
             raise ValueError("no corpus uploaded (call upload_corpus first)")
         return self._corpus
+
+    @property
+    def corpus_positions(self) -> int:
+        """Center positions of the uploaded corpus (its words)."""
+        return int(self._require_corpus()[0].shape[0])
 
     def set_keep_probs(self, keep_prob: np.ndarray) -> None:
         """Install the per-word keep probabilities of frequency
@@ -816,11 +873,21 @@ class EmbeddingEngine:
             )
         self._keep_prob = torch.from_numpy(kp).to(self.device)
 
-    def _require_keep_probs(self) -> None:
-        self._require_corpus()
+    def _require_compactable(self) -> None:
+        """Raise unless the uploaded corpus can be subsampled on the
+        device: keep probabilities installed, and no ``n_valid`` bound
+        (the pass draws over the whole buffer and would compact the
+        padding past the bound into the live stream)."""
+        ids = self._require_corpus()[0]
         if self._keep_prob is None:
             raise ValueError(
                 "no keep probabilities installed (call set_keep_probs first)"
+            )
+        if self._corpus_n_valid != int(ids.shape[0]):
+            raise ValueError(
+                "on-device subsampling over an n_valid-bounded corpus "
+                "view is unsupported (subsample host-side when filling "
+                "the buffer)"
             )
 
     def _compact_dispatch(self, epoch_key: int,
@@ -844,7 +911,7 @@ class EmbeddingEngine:
         inputs, so bitwise the same buffers. The previous view is dropped
         first, so without a prefetch the card holds one compacted copy.
         Returns ``n_kept``, the one scalar read back per epoch."""
-        self._require_keep_probs()
+        self._require_compactable()
         self._corpus_compacted = None
         self._compacted_offsets_host = None
         pre, self._compact_prefetch = self._compact_prefetch, None
@@ -865,7 +932,7 @@ class EmbeddingEngine:
         :meth:`compact_corpus` with the same ``epoch_key`` adopts the
         buffers; the active view is untouched until then, so the card
         holds two compacted copies in between."""
-        self._require_keep_probs()
+        self._require_compactable()
         self._compact_prefetch = None
         self._compact_prefetch = (int(epoch_key),
                                   *self._compact_dispatch(epoch_key))
@@ -994,11 +1061,11 @@ class EmbeddingEngine:
     def _active_corpus(self):
         """``(ids, sentence offsets, n_valid)`` of the active corpus view:
         the epoch's compacted buffers after :meth:`compact_corpus`, else
-        the uploaded corpus."""
+        the uploaded corpus with its ``n_valid`` bound."""
         ids, offsets = self._require_corpus()
         if self._corpus_compacted is not None:
             return (*self._corpus_compacted, self._n_kept)
-        return ids, offsets, ids.shape[0]
+        return ids, offsets, self._corpus_n_valid
 
     def train_steps_corpus(
         self, start_position: int, batch_size: int, window: int,
@@ -1203,6 +1270,96 @@ class EmbeddingEngine:
         self.syn0[start_row : start_row + m] = rows.to(self.device, self._dtype)
         self._tick_tables("write_rows")
         self._ann_touch_rows(range(start_row, start_row + m))
+
+    # ------------------------------------------------------------------
+    # Vocabulary growth (the streaming trainer's spare extra rows)
+    # ------------------------------------------------------------------
+
+    @property
+    def extra_rows_total(self) -> int:
+        """Spare non-vocabulary rows reserved at construction."""
+        return self.num_rows - self.vocab_size
+
+    @property
+    def extra_rows_free(self) -> int:
+        """Spare rows :meth:`assign_extra_rows` can still claim."""
+        return self.extra_rows_total - self.extra_rows_assigned
+
+    def _extra_row_init(self, start: int, m: int) -> torch.Tensor:
+        """The fresh syn0 rows ``[start, start + m)``: word2vec's ``U[-0.5/d,
+        0.5/d)``, element ``(r, j)`` from the counter hash under
+        ``fold_in(fold_in(seed_key(seed), 2^30 + r), j)``. Each row depends
+        on its global index alone, so a batch of rows equals the same rows
+        assigned one at a time."""
+        d = self.dim
+        rows = torch.arange(start, start + m, dtype=torch.int64,
+                            device=self.device) + (1 << 30)
+        cols = torch.arange(d, dtype=torch.int64, device=self.device)
+        keys = rnd.fold_in(rnd.fold_in(rnd.seed_key(self._seed), rows)[:, None],
+                           cols[None, :])
+        return (rnd.uniform(keys) - 0.5) * (1.0 / d)
+
+    def assign_extra_rows(self, words) -> list:
+        """Claim the next ``len(words)`` spare extra rows in one mutation
+        (``engine.py:2135`` of the JAX package): each syn0 row gets its
+        fresh init (:meth:`_extra_row_init`) and each syn1 row zeros, with
+        one ``table_version`` tick for the batch. Returns the claimed
+        global rows, always the next ones after ``queryable_rows``, so the
+        caller's grown word list stays aligned with the table. ``words``
+        feed the event only."""
+        words = list(words)
+        n = len(words)
+        if n == 0:
+            return []
+        if n > self.extra_rows_free:
+            raise ValueError(
+                f"no spare extra rows left for {n} word(s) "
+                f"({self.extra_rows_assigned}/{self.extra_rows_total} "
+                "assigned); construct the engine with more extra_rows "
+                "headroom"
+            )
+        start = self.vocab_size + self.extra_rows_assigned
+        self.syn0[start : start + n] = self._extra_row_init(start, n).to(self._dtype)
+        self.syn1[start : start + n] = 0
+        self.extra_rows_assigned += n
+        self._tick_tables("assign_extra_row")
+        self._ann_touch_rows(range(start, start + n))
+        obs_events.emit("extra_rows_assigned", start=start, n=n,
+                        assigned=self.extra_rows_assigned, words=words[:8])
+        return list(range(start, start + n))
+
+    def assign_extra_row(self, word: Optional[str] = None) -> int:
+        """:meth:`assign_extra_rows` of one word; returns its row."""
+        return self.assign_extra_rows([word])[0]
+
+    def free_extra_rows(self, n: Optional[int] = None) -> int:
+        """Release the last ``n`` assigned extra rows (default: all),
+        zeroing both tables' rows so a later assignment never sees the
+        previous word's values. Returns the number freed; one
+        ``table_version`` tick unless it is 0."""
+        if n is None:
+            n = self.extra_rows_assigned
+        n = int(n)
+        if n < 0 or n > self.extra_rows_assigned:
+            raise ValueError(
+                f"cannot free {n} extra rows "
+                f"({self.extra_rows_assigned} assigned)"
+            )
+        if n == 0:
+            return 0
+        start = self.vocab_size + self.extra_rows_assigned - n
+        self.syn0[start : start + n] = 0
+        self.syn1[start : start + n] = 0
+        self.extra_rows_assigned -= n
+        self._tick_tables("free_extra_rows")
+        if self._ann is not None:
+            from glint_word2vec_torch.ops import ann as _ann_mod
+
+            _ann_mod.remove_rows(self._ann, self.syn0, range(start, start + n))
+            self._ann.table_version = self.table_version
+        obs_events.emit("extra_rows_freed", freed=n,
+                        assigned=self.extra_rows_assigned)
+        return n
 
     def _ann_touch_rows(self, rows) -> None:
         """Re-bucket rows whose values just changed into the adopted ANN
@@ -1557,6 +1714,7 @@ class EmbeddingEngine:
         """Free every device buffer of the engine."""
         self.release_tables()
         self._noise = self._corpus = self._corpus_compacted = None
+        self._corpus_n_valid = None
         self._compact_prefetch = self._keep_prob = None
 
 

@@ -10,6 +10,8 @@ and response shapes and status codes:
   POST /analogy            {"positive": [...], "negative": [...], "num": k}
   POST /vector             {"word": w}            (OOV -> 404)
   POST /transform          {"sentences": [[w, ...], ...]}  (OOV dropped)
+  POST /reload             {"dir": GEN_DIR} swaps that generation in; {}
+                           polls the watched publish directory now
   POST /shutdown           stops the server
 
 An out-of-vocabulary word answers 404 and a bad ``num`` 400. Device work
@@ -33,15 +35,30 @@ keys carry the mode, and a drained batch dispatches each mode apart.
 ``/healthz`` reports ``ann_enabled``, ``ann_recall_gate_ok`` and an
 ``index`` block.
 
+Hot swap: :meth:`ModelServer.watch` follows a streaming trainer's publish
+directory (:class:`SnapshotWatcher` polls ``LATEST.json``), and
+:meth:`ModelServer.reload_generation` swaps a committed generation in.
+Staging (the manifest-checked read into new device tensors, the
+vocabulary and, with ``ann=True``, the new generation's index and its
+recall gate) runs with no lock held, beside live queries; the flip (tables,
+vocabulary, index and the result cache) runs under the device lock, so no
+response mixes two generations. Same-shape tables reuse every warmed
+query shape. ``/healthz`` names the served ``generation``; the swap
+counters are on ``ModelServer.metrics``.
+
 Start from the CLI:  python -m glint_word2vec_torch.cli serve --model DIR
+                     (or --watch-checkpoint PUBLISH_DIR)
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
+import os
 import threading
 import time
+from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import urlparse
@@ -50,7 +67,8 @@ import numpy as np
 
 from glint_word2vec_torch.device import DeviceLike, device_name
 from glint_word2vec_torch.models.word2vec import MAX_QUERY_ROWS
-from glint_word2vec_torch.utils import atomic_write_json, next_pow2
+from glint_word2vec_torch.utils import atomic_write_json, faults, next_pow2
+from glint_word2vec_torch.utils.metrics import ServingMetrics
 
 logger = logging.getLogger(__name__)
 
@@ -297,6 +315,153 @@ class _SynonymCoalescer:
                     self._cache[(r["word"], r["num"], mode)] = r["result"]
 
 
+class SnapshotWatcher:
+    """Background poller that follows a publish directory's
+    ``LATEST.json`` (``streaming/publish.py``) and hot-swaps each new
+    generation into the server (``serving.py:609-800`` of the JAX
+    package).
+
+    The pointer flips only after a generation's atomic commit, so the
+    watcher never sees a partial snapshot, and staging checks the
+    matrix's manifest besides: a corrupt generation is a counted swap
+    failure (the previous tables stay live) and is not retried until the
+    pointer moves. Transient storage trouble is not failure: a pointer or
+    generation read error backs off with a capped doubling delay and is
+    retried on a later poll, counted in ``watch_errors``."""
+
+    #: Transient-error backoff ceiling (seconds).
+    BACKOFF_CAP = 30.0
+    #: Consecutive polls a referenced generation directory may be
+    #: invisible before it is marked failed: rename visibility can lag the
+    #: pointer on a network filesystem, an operator's deletion lasts.
+    MISSING_DIR_STRIKES = 2
+    #: Consecutive transient staging read errors (``OSError`` inside an
+    #: existing generation directory) before the generation is marked
+    #: failed.
+    STAGING_ERROR_STRIKES = 5
+
+    def __init__(self, server: "ModelServer", watch_dir: str,
+                 poll_seconds: float = 1.0):
+        self.server = server
+        self.watch_dir = watch_dir
+        self.poll_seconds = max(0.05, float(poll_seconds))
+        #: Current backoff (0 while healthy).
+        self._backoff = 0.0
+        #: ``time.monotonic()`` before which polls are skipped.
+        self._retry_at = 0.0
+        #: (generation, consecutive polls its directory was missing).
+        self._missing = (None, 0)
+        #: (generation, consecutive transient staging read errors).
+        self._stage_errs = (None, 0)
+        #: Generation served (``/reload`` reads it for "unchanged").
+        self.current: Optional[str] = None
+        #: Last generation that failed staging: not retried until the
+        #: pointer names another.
+        self._failed: Optional[str] = None
+        #: Serialises polls of the watcher thread and ``/reload`` request
+        #: threads, so one generation is never staged or adopted twice.
+        self._poll_mu = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def metrics(self) -> ServingMetrics:
+        return self.server.metrics
+
+    def poll_once(self) -> Optional[str]:
+        """One pointer check; returns the generation swapped in, else
+        None. Never raises: failures are logged and counted."""
+        with self._poll_mu:
+            return self._poll_once_locked()
+
+    def _poll_once_locked(self) -> Optional[str]:
+        from glint_word2vec_torch.streaming.publish import read_latest
+
+        if time.monotonic() < self._retry_at:
+            return None  # backing off after a transient read error
+        try:
+            latest = read_latest(self.watch_dir, raise_errors=True)
+        except (OSError, ValueError) as e:
+            return self._watch_error_locked(f"unreadable pointer: {e}")
+        if latest is None:
+            self._backoff = 0.0
+            return None
+        gen = str(latest["generation"])
+        if gen == self.current or gen == self._failed:
+            self._backoff = 0.0
+            return None
+        gen_dir = os.path.join(self.watch_dir, gen)
+        if not os.path.isdir(gen_dir):
+            mgen, n = self._missing
+            n = n + 1 if mgen == gen else 1
+            self._missing = (gen, n)
+            if n < self.MISSING_DIR_STRIKES:
+                return self._watch_error_locked(
+                    f"referenced generation {gen} not visible yet "
+                    f"(miss {n}/{self.MISSING_DIR_STRIKES})"
+                )
+            logger.error("hot-swap of %s failed: generation directory "
+                         "missing after %d polls", gen, n)
+            self.metrics.record_swap(gen, ok=False)
+            self._failed = gen
+            return None
+        self._missing = (None, 0)
+        try:
+            self.server.reload_generation(gen_dir, generation=gen)
+        except OSError as e:
+            # The directory exists but a read inside it failed: transient
+            # storage trouble unless it lasts.
+            sgen, n = self._stage_errs
+            n = n + 1 if sgen == gen else 1
+            self._stage_errs = (gen, n)
+            if n >= self.STAGING_ERROR_STRIKES:
+                logger.error("hot-swap of %s failed: %d consecutive staging "
+                             "read errors (%s)", gen, n, e)
+                self.metrics.record_swap(gen, ok=False)
+                self._failed = gen
+                return None
+            return self._watch_error_locked(
+                f"transient read error staging {gen}: {e} "
+                f"(strike {n}/{self.STAGING_ERROR_STRIKES})"
+            )
+        except Exception as e:
+            logger.error("hot-swap of %s failed: %s", gen, e)
+            self.metrics.record_swap(gen, ok=False)
+            self._failed = gen
+            return None
+        self.current = gen
+        self._failed = None
+        self._backoff = 0.0
+        self._stage_errs = (None, 0)
+        return gen
+
+    def _watch_error_locked(self, msg: str) -> None:
+        """Count one transient read failure and arm the capped doubling
+        retry delay."""
+        self._backoff = min(max(self.poll_seconds, self._backoff * 2),
+                            self.BACKOFF_CAP)
+        self._retry_at = time.monotonic() + self._backoff
+        self.metrics.record_watch_error()
+        logger.warning("snapshot watcher: %s (retrying in %.1fs)", msg,
+                       self._backoff)
+        return None
+
+    def start(self) -> None:
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="glint-snapshot-watcher")
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.poll_seconds):
+            self.poll_once()
+
+    def stop(self) -> None:
+        """Stop polling and wait for a swap in progress to end."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=300)
+
+
 class ModelServer:
     """Holds one loaded model and serves its query surface over HTTP.
 
@@ -334,6 +499,12 @@ class ModelServer:
     ):
         self.model = model
         self._lock = threading.Lock()
+        #: Hot-swap counters and the served generation.
+        self.metrics = ServingMetrics()
+        #: The publish-directory watcher (:meth:`watch`), or None.
+        self.watcher: Optional[SnapshotWatcher] = None
+        #: Timings of the last swaps (:meth:`reload_generation`).
+        self.swap_history: deque = deque(maxlen=64)
         self._coalescer = _SynonymCoalescer(
             model, self._lock, max_batch=max_batch, cache_size=cache_size
         )
@@ -395,11 +566,13 @@ class ModelServer:
             def log_message(self, fmt, *args):
                 logger.debug("serve: " + fmt, *args)
 
-            def _send(self, code: int, obj) -> None:
+            def _send(self, code: int, obj, headers=None) -> None:
                 body = json.dumps(obj).encode()
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(body)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(body)
 
@@ -424,6 +597,10 @@ class ModelServer:
                         self._send(200, {"status": "shutting down"})
                     threading.Thread(target=server.stop, daemon=True).start()
                     return
+                if path == "/reload":
+                    code, out = server._reload_request(req)
+                    headers = {"Retry-After": "1"} if code == 503 else None
+                    return self._send(code, out, headers)
                 try:
                     out = server._dispatch(path, req)
                 except KeyError as e:
@@ -457,6 +634,139 @@ class ModelServer:
             logger.warning("ANN recall gate FAILED (%.3f < %.3f): the exact "
                            "path keeps serving", recall, self.ann_recall_gate)
 
+    # -- hot swap --------------------------------------------------------
+
+    def watch(self, watch_dir: str, poll_seconds: float = 1.0,
+              current: Optional[str] = None) -> SnapshotWatcher:
+        """Follow a publish directory: each new committed generation is
+        staged off the request path and flipped in. ``current`` names the
+        generation already loaded, so the first poll does not load it
+        again."""
+        w = SnapshotWatcher(self, watch_dir, poll_seconds)
+        w.current = current
+        if current is not None:
+            self.metrics.generation = current
+        self.watcher = w
+        w.start()
+        logger.info("watching %s for published generations (poll %.2fs)",
+                    watch_dir, poll_seconds)
+        return w
+
+    def reload_generation(self, gen_dir: str,
+                          generation: Optional[str] = None) -> None:
+        """Hot-swap the served tables to a committed generation directory
+        (a model directory: ``matrix/``, ``words.txt``).
+
+        Staging runs on the calling thread with no lock held, beside live
+        queries: the manifest check and the read into new device tensors
+        (``stage_tables``), the vocabulary, and with ``ann=True`` the new
+        generation's index built from the staged table and its recall
+        gate. The flip runs under the device lock, so dispatches in flight
+        end first: the tables, the vocabulary, the index and its gate
+        verdict, and an emptied result cache. Same-shape tables and index
+        dispatch only warmed query shapes. Appends the swap's seconds by
+        stage, and its start and end (unix time), to ``swap_history``."""
+        from glint_word2vec_torch.corpus.vocab import saved_model_vocabulary
+        from glint_word2vec_torch.models.word2vec import Word2VecModel
+
+        faults.fire("serving.reload")
+        if type(self.model) is not Word2VecModel:
+            raise ValueError(
+                "hot-swap supports the base word-level family only "
+                f"(serving a {type(self.model).__name__})"
+            )
+        engine = self.model.engine
+        start_unix = time.time()
+        t0 = time.perf_counter()
+        staged = engine.stage_tables(os.path.join(gen_dir, "matrix"))
+        meta = staged["meta"]
+        queryable = int(meta["vocab_size"]) + int(meta.get("extra_rows_assigned", 0))
+        vocab = saved_model_vocabulary(
+            gen_dir, np.load(os.path.join(gen_dir, "matrix", "counts.npy")),
+            queryable,
+        )
+        t1 = time.perf_counter()
+        staged_ann, recall, ok = None, None, False
+        t2 = t1
+        if self.ann:
+            norms = engine._norms(staged["syn0"])
+            staged_ann = engine.ann_build(staged["syn0"], norms, queryable)
+            t2 = time.perf_counter()
+            recall = engine.ann_recall_at_k(
+                10, sample=self.ann_recall_sample, index=staged_ann,
+                syn0=staged["syn0"], norms=norms, queryable=queryable,
+                q_chunk=self.max_batch,
+            )
+            ok = recall >= self.ann_recall_gate
+            if not ok:
+                logger.warning("ANN recall gate FAILED (%.3f < %.3f) for %s: "
+                               "the exact path serves it", recall,
+                               self.ann_recall_gate, generation or gen_dir)
+        t3 = time.perf_counter()
+        with self._lock:
+            t4 = time.perf_counter()
+            engine.adopt_tables(staged)
+            self.model.vocab = vocab
+            if staged_ann is not None:
+                engine.adopt_ann(staged_ann)
+                self._ann_recall, self._ann_live = recall, ok
+            with self._coalescer._mu:
+                self._coalescer._cache.clear()
+            t5 = time.perf_counter()
+        self.metrics.record_swap(generation, ok=True)
+        self.swap_history.append({
+            "generation": generation, "start_unix": start_unix,
+            "end_unix": start_unix + (t5 - t0),
+            "stage_seconds": t1 - t0, "index_seconds": t2 - t1,
+            "gate_seconds": t3 - t2, "lock_wait_seconds": t4 - t3,
+            "flip_seconds": t5 - t4, "recall_at10": recall,
+            "index": None if staged_ann is None else {
+                **staged_ann.stats(),
+                "build_parts": {k: round(v, 3)
+                                for k, v in staged_ann.build_parts.items()}},
+        })
+        logger.info("hot-swapped to %s (%d words, table_version %d%s)",
+                    generation or gen_dir, vocab.size, engine.table_version,
+                    ", index refreshed" if staged_ann is not None else "")
+
+    def _reload_request(self, req: dict):
+        """``POST /reload`` (``serving.py:1490-1563`` of the JAX package):
+        ``{"dir": ...}`` swaps that generation in, ``{}`` polls the watched
+        directory now. Returns ``(status code, body)``: 503 for a
+        transient read error inside an existing directory, 400 for a
+        failed swap or no watcher."""
+        w = self.watcher
+        if "dir" in req:
+            gen_dir = str(req["dir"])
+            gen = req.get("generation") or os.path.basename(os.path.normpath(gen_dir))
+            # Serialised with the watcher's polls: the same generation is
+            # never staged twice.
+            with (w._poll_mu if w is not None else contextlib.nullcontext()):
+                try:
+                    self.reload_generation(gen_dir, generation=gen)
+                except OSError as e:
+                    if os.path.isdir(gen_dir):
+                        self.metrics.record_watch_error()
+                        return 503, {"error": f"transient staging error: {e}"}
+                    self.metrics.record_swap(gen, ok=False)
+                    return 400, {"error": str(e)}
+                except Exception as e:
+                    self.metrics.record_swap(gen, ok=False)
+                    return 400, {"error": str(e)}
+                if w is not None:
+                    w.current = gen
+            return 200, {"status": "reloaded", "generation": gen,
+                         "model": DEFAULT_MODEL_ID}
+        if w is None:
+            return 400, {"error": "no watched publish dir for model "
+                                  f"{DEFAULT_MODEL_ID!r}; " + 'pass {"dir": ...}'}
+        gen = w.poll_once()
+        if gen is None:
+            return 200, {"status": "unchanged", "generation": w.current,
+                         "model": DEFAULT_MODEL_ID}
+        return 200, {"status": "reloaded", "generation": gen,
+                     "model": DEFAULT_MODEL_ID}
+
     def health(self) -> dict:
         m = self.model
         with self._coalescer._mu:
@@ -482,6 +792,7 @@ class ModelServer:
             "ann_enabled": self._ann_live,
             "ann_recall_gate_ok": self._ann_live,
             "index": index,
+            "generation": self.metrics.generation,
         }
 
     def _dispatch(self, path: str, req: dict):
@@ -522,12 +833,42 @@ class ModelServer:
         self._thread.start()
 
     def stop(self) -> None:
+        if self.watcher is not None:
+            self.watcher.stop()
         self._httpd.shutdown()
         self._httpd.server_close()
 
 
+def _boot_generation(watch_dir: str, watch_poll: float, device: DeviceLike):
+    """``(model, generation directory)`` of the newest committed
+    generation in ``watch_dir``, waiting for a first one. A generation
+    that retention prunes while it loads is chased through the pointer; a
+    load failure with the pointer unchanged and the directory present
+    raises."""
+    from glint_word2vec_torch.models import load_model
+    from glint_word2vec_torch.streaming.publish import resolve_latest
+
+    while True:
+        gen_dir = resolve_latest(watch_dir)
+        if gen_dir is None:
+            logger.info("waiting for a first committed generation in %s",
+                        watch_dir)
+            time.sleep(max(0.05, watch_poll))
+            continue
+        try:
+            return load_model(gen_dir, device=device), gen_dir
+        except Exception as e:
+            if resolve_latest(watch_dir) != gen_dir or not os.path.isdir(gen_dir):
+                logger.warning("boot load of %s failed (%s): generation "
+                               "pruned mid-read; chasing the pointer",
+                               gen_dir, e)
+                time.sleep(max(0.05, watch_poll))
+                continue
+            raise
+
+
 def serve_model_dir(
-    model_dir: str,
+    model_dir: Optional[str],
     host: str = "127.0.0.1",
     port: int = 8801,
     *,
@@ -536,21 +877,43 @@ def serve_model_dir(
     cache_size: int = 65536,
     port_file: Optional[str] = None,
     device: DeviceLike = None,
+    watch_dir: Optional[str] = None,
+    watch_poll: float = 1.0,
     **ann_kw,
 ) -> None:
     """Load a saved model directory onto ``device`` and serve it until
     ``/shutdown`` or an interrupt, then free its tables. ``port_file``
     receives ``{"host", "port"}`` (atomically) once the server is warmed
     and listening: the readiness signal for ``port=0``. ``ann_kw`` are
-    :class:`ModelServer`'s ``ann*`` arguments."""
-    from glint_word2vec_torch.models import load_model
+    :class:`ModelServer`'s ``ann*`` arguments.
 
-    model = load_model(model_dir, device=device)
+    ``watch_dir`` follows a streaming trainer's publish directory, polled
+    every ``watch_poll`` seconds: with ``model_dir=None`` the server boots
+    from its newest committed generation (waiting for the first), and
+    every later generation is hot-swapped in."""
+    from glint_word2vec_torch.models import load_model
+    from glint_word2vec_torch.streaming.publish import _GEN_RE
+
+    if model_dir is None:
+        if watch_dir is None:
+            raise ValueError("model_dir or watch_dir required")
+        model, model_dir = _boot_generation(watch_dir, watch_poll, device)
+    else:
+        model = load_model(model_dir, device=device)
+    # A generation directory names the generation served.
+    base = os.path.basename(os.path.normpath(model_dir))
+    current = base if _GEN_RE.match(base) else None
     try:
         server = ModelServer(
             model, host=host, port=port, max_batch=max_batch,
             warmup=warmup, cache_size=cache_size, **ann_kw,
         )
+        if watch_dir is not None:
+            # The watcher starts from the generation loaded, so its first
+            # poll does not load it again.
+            server.watch(watch_dir, poll_seconds=watch_poll, current=current)
+        elif current is not None:
+            server.metrics.generation = current
         if port_file:
             atomic_write_json(port_file, {"host": server.host, "port": server.port})
         try:

@@ -1,10 +1,17 @@
 """Deterministic fault injection (own copy of
-``glint_word2vec_tpu/utils/faults.py``, trimmed to the bulk transform's
-points).
+``glint_word2vec_tpu/utils/faults.py``, trimmed to the points the port
+fires).
 
 Injection points are plain string names fired where a fault domain
 boundary exists:
 
+  ``worker.step``             once per dispatched streaming training group
+  ``publish.pre_commit``      just before a published generation
+                              directory's atomic rename
+  ``publish.pre_pointer``     between the generation rename and the
+                              ``LATEST.json`` pointer flip
+  ``serving.reload``          at the start of a serving hot-swap reload,
+                              before staging
   ``transform.producer``      once per packed bulk-transform batch
                               (producer thread)
   ``transform.shard_commit``  after each vector shard + sidecar manifest
@@ -24,6 +31,8 @@ separated::
                 The point keeps counting afterwards but fires only once.
 
     GLINT_FAULTS="transform.shard_commit:exc@3"   fail the third commit
+    GLINT_FAULTS="publish.pre_pointer:kill@2"     SIGKILL the second publish
+                                                  between rename and pointer
 
 Unarmed cost is one module-global ``is None`` check per :func:`fire`.
 """
@@ -43,6 +52,14 @@ logger = logging.getLogger(__name__)
 #: :func:`parse_spec` validates specs against it and :func:`fire` rejects
 #: undeclared names, so a typo fails loudly instead of never firing.
 POINTS = {
+    "worker.step":
+        "once per dispatched training group (all fit loops)",
+    "publish.pre_commit":
+        "just before a published generation directory's atomic rename",
+    "publish.pre_pointer":
+        "between the generation rename and the LATEST pointer flip",
+    "serving.reload":
+        "at the start of a serving hot-swap reload, before staging",
     "transform.producer":
         "once per packed bulk-transform batch (producer thread)",
     "transform.shard_commit":

@@ -1,7 +1,8 @@
-"""Training throughput counters and the step-time ledger (trimmed copy
-of ``glint_word2vec_tpu/utils/metrics.py:27-375``): words done, words per
-second, the host/step time split, the stall proxy, loss and alpha per
-step, and the per-phase attribution of the fit thread's wall clock."""
+"""Training throughput counters, the step-time ledger and the serving
+swap counters (trimmed copy of ``glint_word2vec_tpu/utils/metrics.py:27-527``):
+words done, words per second, the host/step time split, the stall proxy,
+loss and alpha per step, the per-phase attribution of the fit thread's
+wall clock, and the hot-swap accounting of a server."""
 
 from __future__ import annotations
 
@@ -264,3 +265,41 @@ class StepTimeLedger:
                 )
         snap["schema_version"] = 1
         atomic_write_json(path, snap)
+
+
+class ServingMetrics:
+    """A server's hot-swap accounting (``ServingMetrics`` of the JAX
+    package, trimmed to ``record_swap`` and ``record_watch_error``):
+    generations flipped into the live engine by the snapshot watcher or
+    ``/reload``, failed attempts, and the transient publish-directory read
+    errors the watcher absorbed. Thread-safe."""
+
+    def __init__(self) -> None:
+        self._mu = threading.Lock()
+        self.table_swaps = 0
+        self.swap_failures = 0
+        #: Transient publish-dir read errors the watcher backed off from
+        #: instead of marking the generation failed.
+        self.watch_errors = 0
+        self.last_swap_time: Optional[float] = None
+        #: Name of the generation served (None until one is named).
+        self.generation: Optional[str] = None
+
+    def record_swap(self, generation: Optional[str] = None,
+                    ok: bool = True) -> None:
+        """One hot-swap attempt: ``ok`` flips the live generation; a
+        failure leaves the previous tables live."""
+        with self._mu:
+            if ok:
+                self.table_swaps += 1
+                self.last_swap_time = time.time()
+                if generation is not None:
+                    self.generation = generation
+            else:
+                self.swap_failures += 1
+
+    def record_watch_error(self) -> None:
+        """One transient ``LATEST.json`` or generation-directory read
+        failure that the watcher backed off from and will retry."""
+        with self._mu:
+            self.watch_errors += 1

@@ -177,16 +177,35 @@ def _pack_both(assign, inv, live_ids, C, L, pref):
     return b
 
 
-@pytest.mark.parametrize("case", ["census", "spill"])
-def test_pack_members_bitwise(case):
+@pytest.mark.parametrize("route", ["native", "python"])
+@pytest.mark.parametrize("case", ["census", "spill", "heavy", "heavy-deep"])
+def test_pack_members_bitwise(case, route, monkeypatch):
+    from glint_word2vec_torch import native
+
+    if route == "python":
+        monkeypatch.setenv("GLINT_W2V_NO_NATIVE", "1")
+    elif native.get_lib() is None:
+        pytest.skip("the native host pass does not build here")
+    calls = native.calls["ann_place_spills"]
     rng = np.random.default_rng(7)
     if case == "census":
         n, C, L = 1000, 64, 32
         assign = rng.integers(0, C, n).astype(np.int32)
-    else:
+    elif case == "spill":
         # Every row claims cluster 0: everything past its slots spills.
         n, C, L = 64, 8, 16
         assign = np.zeros(n, np.int32)
+    else:
+        # A skewed census (a poorly clustered table): most clusters
+        # overflow, the spill rounds fill them one after another, and
+        # late rows find their first candidates full. "heavy-deep" keeps
+        # 2 candidates a row in rounds of 64, so rows take their whole
+        # preference order.
+        n, C, L = 7800, 64, 128
+        assign = np.minimum(rng.zipf(1.3, n) - 1, C - 1).astype(np.int32)
+        if case == "heavy-deep":
+            monkeypatch.setattr(pann, "SPILL_CANDIDATES", 2)
+            monkeypatch.setattr(pann, "SPILL_ROUND", 64)
     live_ids = np.sort(rng.choice(2 * n, n, replace=False)).astype(np.int32)
     inv = rng.random(n).astype(np.float32) + 0.5
     pref = rng.standard_normal((2 * n, C)).astype(np.float32)
@@ -195,6 +214,10 @@ def test_pack_members_bitwise(case):
     assert fill.sum() == n
     if case == "spill":
         assert n_spill == n - L
+    if case.startswith("heavy"):
+        assert n_spill > n // 2 and (fill == L).sum() > C // 2
+    placed_natively = native.calls["ann_place_spills"] > calls
+    assert placed_natively == (route == "native" and n_spill > 0)
     live = members[invn > 0]
     assert len(set(live.tolist())) == n == live.size
 

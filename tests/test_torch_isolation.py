@@ -76,13 +76,17 @@ def test_every_module_imports_with_jax_poisoned():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert len(modules) >= 14
-    # The observability, checkpoint-writer and evaluation modules too.
+    # The observability, checkpoint-writer, evaluation and streaming
+    # modules too.
     assert {
         "glint_word2vec_torch.obs", "glint_word2vec_torch.obs.events",
         "glint_word2vec_torch.obs.canary", "glint_word2vec_torch.obs.heartbeat",
         "glint_word2vec_torch.obs.prometheus",
         "glint_word2vec_torch.utils.async_ckpt",
         "glint_word2vec_torch.eval", "glint_word2vec_torch.eval.analogy",
+        "glint_word2vec_torch.corpus.stream_vocab",
+        "glint_word2vec_torch.streaming", "glint_word2vec_torch.streaming.publish",
+        "glint_word2vec_torch.streaming.trainer",
     } <= set(modules)
 
 
@@ -105,6 +109,8 @@ def test_no_cuda_raises_unless_cpu_is_asked(monkeypatch, tmp_path):
     sents = [["a", "b", "c", "d"]] * 8
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Word2Vec(min_count=1, vector_size=3).fit(sents)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Word2Vec(min_count=1, vector_size=3).fit_stream(iter(sents))
     assert Word2Vec(device="cpu", min_count=1, vector_size=3).fit(sents).vocab.size == 4
 
 

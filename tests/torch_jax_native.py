@@ -5,8 +5,9 @@ pass against it.
 The JAX package builds its library in place next to its source, and test
 processes that build it at the same moment can load a half-written file
 and fall back to Python for good; a private build avoids that. The two
-packages' sources share one C interface, so the port's ctypes binding
-binds this library too.
+packages' sources share one C interface (the port's adds the ANN spill
+placement), so the port's ctypes binding of that interface binds this
+library too.
 """
 
 import contextlib
@@ -29,7 +30,7 @@ def jax_native_library(tmpdir: str):
     subprocess.run(["g++", *build.GXX_FLAGS, jnative._SRC, "-o", out],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(out)
-    pnative._bind(lib)
+    pnative._bind_shared(lib)
     saved = jnative._lib
     jnative._lib = lib
     try:
