@@ -130,7 +130,8 @@ nothing of JAX. Phases, each of which fails the run on any error:
    ``torch.matmul`` on each of the three products, and in fp32 and bf16
    two calls bitwise equal and ``d_center`` and ``d_pool`` within 10
    times the plain version's norm-wise error against float64 on the card; (b) ``Word2Vec().set_shared_negatives(4096)
-   .fit_file`` on phase 6's corpus at 1M x 300, fp32, one epoch, with
+   .fit_file`` on the first 2,500,000 tokens of phase 6's corpus, every
+   word kept (824,820 x 300), fp32, one epoch, with
    every launch counter zeroed just before: ``pair_forward_shared`` once
    a step, ``pair_forward`` never, ``scatter_add_rank1_hbm`` once and
    ``scatter_add_rows_f32`` twice a step; words/s, busy share and top
@@ -154,8 +155,8 @@ nothing of JAX. Phases, each of which fails the run on any error:
    over the first 100,000 tokens of phase 6's corpus (every word kept),
    one epoch, every ``pair_forward`` launch in the tiled form.
 11. The stall-free loop and its hooks: a checkpointed two-epoch
-   ``Word2Vec(subsample_ratio=1e-3).fit_file`` on phase 6's corpus at its
-   width, twice, with every counter zeroed just before each: (a) the
+   ``Word2Vec(subsample_ratio=1e-3).fit_file`` on the first 2,500,000
+   tokens of phase 6's corpus, every word kept (824,820 x 300), twice, with every counter zeroed just before each: (a) the
    defaults (deferred readbacks, asynchronous checkpoints, the next
    epoch's compaction prefetched) with the event log, status file,
    heartbeat (polled for ``/healthz`` and the Prometheus ``/metrics``
@@ -235,6 +236,36 @@ nothing of JAX. Phases, each of which fails the run on any error:
    SIGKILLed by ``GLINT_FAULTS=publish.pre_pointer:kill@2``: LATEST stays
    on gen-000001, gen-000002 is complete and a watcher refuses it, a
    second run numbers past it and passes vienna in austria's top 10.
+14. The replica-exchange gang, at ``configs[1]``'s width on phase 10
+   (a)'s 5,000,000-token prefix (981,169 x 300, fp32): (a) two replica
+   engines on the card, from identical tables, each training its
+   round-robin shard in packed groups under its rank-folded key, through
+   ``parallel/exchange.sync_group`` over 8 groups: fp32 sparse every
+   group, with a dense pair beside it over the first 4 (equal then), bf16
+   and int8 sparse every 4 groups; the replicas bitwise equal after every
+   round; rank 1's first step holds B4, B7 and B6 as phase 5 does; a
+   round's seconds by device stage (diff, encode, copy to host, apply;
+   CUDA events), the touched rows against the capacity, the bytes by
+   wire; one more fp32 round's payloads applied by the card (B3) and by a ``device="cpu"``
+   engine on fp32 and bf16 tables, bitwise, and B3 alone at that shape
+   (capacity rows, the padding a long zero run on row 0, an fp32
+   accumulator) bitwise its plain version and timed beside
+   ``index_add_``; (b) ``cli supervise --workers 2 train --exchange sparse
+   --exchange-wire int8 --exchange-every 4`` over the corpus's first
+   1,250,000 tokens (every word kept, 300 wide), two epochs, checkpointed, both ranks
+   on the card, rank 1 SIGKILLed early in its second epoch
+   (``GLINT_FAULTS=exchange.pre_send:kill@N``, first generation only):
+   one restart from ``ckpt-1``, the ranks' table hashes equal, the model
+   loads; words/s a rank, exchange bytes and ``exchange_sync`` seconds a
+   round, the capacity's adaptation, ``device_stall_seconds``, and each
+   rank's launches (B4, B6, B7 and B3 must launch); (c) a two-rank
+   ``--exchange sparse`` gang on ``tiny_corpus`` held to the vienna and
+   berlin gates; (d) ``transform-file --workers 2`` over phase 12's
+   100,000 lines under the supervisor, bitwise ``--workers 1``. Each of
+   (a), (b) and (c) with (d) prints its peak host memory (this process
+   and its children, and the machine's used), (a) this process's pinned
+   bytes before and after their release, (b) each rank's peak resident
+   set, pinned peak and the bytes its exchange keeps.
 
 After each phase it prints ``phase N: S s``, and before the kernels line
 the whole script's seconds. It prints one JSON ``kernels`` line, the
@@ -295,6 +326,10 @@ PY_PASS_TOKENS = 2_000_000
 DRILL_TOKENS = 2_000_000
 #: Tokens of phase 10 (a)'s grid fit: a prefix of phase 6's corpus.
 GRID_TOKENS = 5_000_000
+#: Phase 9 (b)'s shared-pool fit and phase 11's fits: the corpus's first
+#: tokens.
+SHARED_TOKENS = 2_500_000
+STALL_TOKENS = 2_500_000
 #: The card the script runs on; the port's entry points default to it.
 DEV = "cuda"
 
@@ -1316,10 +1351,15 @@ def synthetic_tokens(np, seed: int = 1):
     return toks
 
 
-def write_synthetic_corpus(np, path: str, seed: int = 1) -> int:
+def write_synthetic_corpus(np, path: str, seed: int = 1,
+                           tokens: int | None = None) -> int:
     """:func:`synthetic_tokens` as words ``w<k>``, in sentences of
-    SENTENCE_LEN words. Returns the token count."""
+    SENTENCE_LEN words; with ``tokens``, only the corpus's first whole
+    sentences up to that many tokens (what :func:`write_prefix` cuts from
+    the whole file). Returns the token count."""
     toks = synthetic_tokens(np, seed)
+    if tokens is not None:
+        toks = toks[: tokens // SENTENCE_LEN * SENTENCE_LEN]
     words = np.array([f"w{i}" for i in range(V_TRAIN)])
     with open(path, "w") as f:
         for s in range(0, toks.size, 100_000):
@@ -2504,8 +2544,9 @@ def train_shared_end_to_end(torch, np, fs, rows_mod) -> dict:
 
     tmp = tempfile.mkdtemp(prefix="glint_chip_shared_")
     try:
-        path = os.path.join(tmp, "corpus.txt")
-        n_tok = write_synthetic_corpus(np, path)
+        # The corpus's first SHARED_TOKENS tokens, every word kept.
+        path = os.path.join(tmp, "shared.txt")
+        n_tok = write_synthetic_corpus(np, path, tokens=SHARED_TOKENS)
 
         # (b) The main path: every counter zeroed just before, read just
         # after.
@@ -2516,14 +2557,15 @@ def train_shared_end_to_end(torch, np, fs, rows_mod) -> dict:
         t0 = time.perf_counter()
         model = Word2Vec(
             vector_size=D, window=W_TRAIN, batch_size=B_TRAIN,
-            num_negatives=N_NEG, min_count=MIN_PER_WORD, num_iterations=1,
+            num_negatives=N_NEG, min_count=1, num_iterations=1,
             step_size=0.025, seed=1,
         ).set_shared_negatives(S_POOL).fit_file(path)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {c.__name__: c.launches for c in counters}
         tm = model.training_metrics
-        log(f"shared-pool fit_file {V_TRAIN} x {D}, S={S_POOL}: {wall:.1f} s in all; "
+        log(f"shared-pool fit_file on the corpus's first {n_tok} tokens, "
+            f"{model.vocab.size} x {D}, S={S_POOL}: {wall:.1f} s in all; "
             f"training {tm['wall_seconds']} s, {tm['steps']} steps, "
             f"{tm['words_per_sec']} words/s, final loss {tm['final_loss']}; "
             f"launches {launches}")
@@ -2982,12 +3024,13 @@ def train_stall_free(torch, np, fs, rows_mod) -> dict:
 
     tmp = tempfile.mkdtemp(prefix="glint_chip_stall_")
     try:
-        path = os.path.join(tmp, "corpus.txt")
-        n_tok = write_synthetic_corpus(np, path)
+        # The corpus's first STALL_TOKENS tokens, every word kept.
+        path = os.path.join(tmp, "stall.txt")
+        n_tok = write_synthetic_corpus(np, path, tokens=STALL_TOKENS)
         log(f"phase 11 scratch: {shutil.disk_usage(tmp).free / 2**30:.1f} GiB "
             "free on its disk")
         width = dict(vector_size=D, window=W_TRAIN, batch_size=B_TRAIN,
-                     num_negatives=N_NEG, min_count=MIN_PER_WORD,
+                     num_negatives=N_NEG, min_count=1,
                      num_iterations=2, step_size=0.025, seed=1,
                      subsample_ratio=1e-3)
         three = ("pair_forward", "scatter_add_rank1_hbm", "scatter_add_rows_f32")
@@ -4173,6 +4216,547 @@ def stream_and_hot_swap(torch, np, fs, rows_mod) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 14: the replica-exchange gang
+# ----------------------------------------------------------------------
+
+#: Phase 14's corpus (phase 10 (a)'s prefix: 981,169 words kept at
+#: min_count 1), its in-process replica groups, and the time limit of a
+#: supervised CLI run. The supervised gang (b) trains two epochs of the
+#: corpus's first GANG_FIT_TOKENS: at int8, a round every 4 groups, the
+#: capacity grows to the whole table after the first round's spill, so
+#: every round ships the whole table through gloo, and the gang's time
+#: grows with the prefix (PERF.md §5 has the times of each prefix tried).
+GANG_TOKENS = GRID_TOKENS
+GANG_FIT_TOKENS = 1_250_000
+GANG_GROUPS = 8
+#: Groups over which the fp32 dense replica pair runs beside the sparse
+#: pair (sparse == dense is checked after the last of them).
+GANG_DENSE_GROUPS = 4
+GANG_TIMEOUT = 600
+
+
+def gib(n) -> str:
+    """Bytes as GiB; "not measured" where the statistic is missing."""
+    return "not measured" if n is None else f"{n / 2**30:.2f} GiB"
+
+
+def _tree_rss_bytes(root: int) -> int:
+    """Resident bytes of process ``root`` and all its descendants (the
+    supervisor and its ranks), from ``/proc``."""
+    kids, rss = {}, {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{name}/statm") as f:
+                rss[int(name)] = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+        except (OSError, ValueError, IndexError):
+            continue
+        kids.setdefault(ppid, []).append(int(name))
+    total, todo = 0, [root]
+    while todo:
+        pid = todo.pop()
+        total += rss.get(pid, 0)
+        todo += kids.get(pid, [])
+    return total
+
+
+def _machine_used_bytes() -> int:
+    """MemTotal less MemAvailable of ``/proc/meminfo``."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            info[k] = int(v.split()[0]) * 1024
+    return info["MemTotal"] - info.get("MemAvailable", info.get("MemFree", 0))
+
+
+class HostMemoryPeak:
+    """Peak host memory over a ``with`` block, sampled every ``period``
+    seconds on a thread of its own: this process with its descendants,
+    and the machine's used memory."""
+
+    def __init__(self, period: float = 0.25):
+        self.period, self.tree, self.machine = period, 0, 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _sample(self):
+        self.tree = max(self.tree, _tree_rss_bytes(os.getpid()))
+        self.machine = max(self.machine, _machine_used_bytes())
+
+    def _run(self):
+        while not self._stop.wait(self.period):
+            self._sample()
+
+    def __enter__(self):
+        self._sample()
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=30)
+        self._sample()
+
+    def line(self) -> str:
+        return (f"peak host memory: this process and its children "
+                f"{gib(self.tree)}, the machine's used {gib(self.machine)}")
+
+
+def gang_kill_round(n_tok: int) -> int:
+    """The exchange round at which phase 14 (b) kills rank 1: early in its
+    second epoch, two rounds past the first epoch's rounds (a rank's shard
+    in packed steps of about B_TRAIN centres, which overcounts them a
+    little, 16 steps a group, a round every 4) and its flush."""
+    rounds = -(-(-(-(-(-(n_tok // 2) // B_TRAIN)) // 16)) // 4)
+    return rounds + 1 + 2
+
+
+def _stage_line(stages: list) -> str:
+    keys = ("diff", "encode", "copy_to_host", "apply")
+    mean = {k: sum(s.get(k, 0.0) for s in stages) / max(len(stages), 1) for k in keys}
+    return ", ".join(f"{k} {1e3 * v:.2f}" for k, v in mean.items()) + " ms"
+
+
+def replica_rounds(torch, np, fs, rows_mod, path: str) -> dict:
+    """Phase 14 (a): ``sync_group`` over two replica engines on the card,
+    from identical tables, each training its round-robin shard of the
+    prefix in packed groups of 16 steps under its rank-folded key.
+    fp32 sparse every group, with a dense pair beside it over the first
+    ``GANG_DENSE_GROUPS`` (equal tables then), bf16 and int8 sparse every 4
+    groups; after every round the two replicas are bitwise equal. Rank 1's first step holds B4, B7 and B6
+    as phase 5 does. One more round's payloads are applied by the card
+    (B3) and by a ``device="cpu"`` engine (B3's plain version), fp32 and
+    bf16 tables, bitwise; B3 at that shape is timed."""
+    from glint_word2vec_torch.corpus.batching import packed_pair_batch
+    from glint_word2vec_torch.corpus.vocab import scan_and_encode_file
+    from glint_word2vec_torch.ops import random as rnd
+    from glint_word2vec_torch.parallel import distributed as pdist
+    from glint_word2vec_torch.parallel import engine as engine_mod
+    from glint_word2vec_torch.parallel import exchange as pex
+    from glint_word2vec_torch.parallel.engine import EmbeddingEngine
+
+    vocab, ids, offsets = scan_and_encode_file(path, min_count=1,
+                                               max_sentence_length=1000)
+    V, P = vocab.size, packed_pair_batch(B_TRAIN, W_TRAIN)
+    shards = [pdist.shard_flat_for_process(ids, offsets, r, 2) for r in range(2)]
+    base_key = rnd.seed_key(1)
+    total = int(ids.size) + 1
+
+    def replicas():
+        engs = []
+        for r in range(2):
+            e = EmbeddingEngine(V, D, vocab.counts, num_negatives=N_NEG, seed=1,
+                                device=DEV)
+            e.upload_corpus(*shards[r])
+            e.pos = 0
+            engs.append(e)
+        return engs
+
+    def train(engs, g, hold_rank=None):
+        for r, e in enumerate(engs):
+            if r == hold_rank:
+                engine_mod.fused_pair_step = checked
+            try:
+                _, _, pos_ends, _ = e.train_steps_corpus_packed(
+                    e.pos, P, W_TRAIN, B_TRAIN, rnd.fold_in(base_key, r), 16,
+                    step0=16 * g, step_size=0.025, total_words=total)
+            finally:
+                engine_mod.fused_pair_step = step
+            e.pos = int(pos_ends[-1])
+
+    step = engine_mod.fused_pair_step
+    held = {}
+
+    def checked(syn0, syn1, centers, contexts, pm, negs, nmask, alpha):
+        if held:
+            return step(syn0, syn1, centers, contexts, pm, negs, nmask, alpha)
+        P_, n = negs.shape
+        fw, e, rel = pair_forward_held(
+            torch, fs, (syn0, syn1, centers, contexts, pm, negs, nmask, alpha),
+            "on rank 1's first group")
+        rows = torch.arange(P_, dtype=torch.int32, device=centers.device)
+        r7 = rank1_bitwise(
+            torch, (fs.scatter_add_rank1_hbm, fs.scatter_add_rank1_hbm_reference),
+            syn1, torch.cat([contexts, negs.reshape(-1)]),
+            torch.cat([fw.c_pos, fw.c_neg.reshape(-1)]), fw.h,
+            torch.cat([rows, rows.repeat_interleave(n)]),
+            "scatter_add_rank1_hbm (rank 1)")
+        uniq = torch.unique(centers.long())
+        before = syn0[uniq].cpu()
+        fs.scatter_add_rows_f32(syn0, centers, fw.d_center)
+        torch.cuda.synchronize()
+        r6 = touched_rows_check(
+            torch, syn0, before, centers,
+            lambda t, local: fs.scatter_add_rows_f32_reference(t, local, fw.d_center.cpu()),
+            "scatter_add_rows_f32 (rank 1)")
+        held.update(err=e, loss_rel=rel, runs7=r7, runs6=r6, pairs=int(pm.sum()))
+        return fw.loss_sum
+
+    out = {}
+    # fp32, every group: sparse and dense pairs trained alike over the
+    # first GANG_DENSE_GROUPS groups, the sparse pair alone after them.
+    t0 = time.perf_counter()
+    sp, de = replicas(), replicas()
+    xs = [pex.ReplicaExchanger(e, mode="sparse", pair_batch=P) for e in sp]
+    xd = [pex.ReplicaExchanger(e, mode="dense", pair_batch=P) for e in de]
+    stages, rounds, dense_bytes = [], [], 0
+    for g in range(GANG_GROUPS):
+        train(sp, g, hold_rank=1 if g == 0 else None)
+        if de:
+            train(de, g)
+        rs = pex.sync_group(xs)
+        stages.append(xs[0].round_stage_seconds())
+        rounds.append(rs)
+        pairs = [(sp, "sparse")]
+        if de:
+            pex.sync_group(xd)
+            pairs.append((de, "dense"))
+        for pair, what in pairs:
+            expect(torch.equal(pair[0].syn0, pair[1].syn0)
+                   and torch.equal(pair[0].syn1, pair[1].syn1),
+                   f"fp32 {what} replicas differ after round {g}")
+        if de and g + 1 == GANG_DENSE_GROUPS:
+            expect(torch.equal(sp[0].syn0, de[0].syn0)
+                   and torch.equal(sp[0].syn1, de[0].syn1),
+                   f"fp32 sparse tables differ from dense after round {g}")
+            dense_bytes = de[0].exchange_stats()["exchange_bytes_total"] // GANG_DENSE_GROUPS
+            for e in de:
+                e.destroy()
+            de, xd = [], []
+            torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    expect(held, "rank 1's first step was not held")
+    log(f"replicas (a) rank 1's first step ({held['pairs']} pairs, its rank-folded "
+        f"draws): pair_forward within rtol 1e-5 (max |diff| {held['err']:.3g}), h "
+        f"bitwise, loss rel {held['loss_rel']:.2g}, two calls bitwise; "
+        f"scatter_add_rank1_hbm bitwise (R={held['runs7']}); scatter_add_rows_f32 "
+        f"bitwise (R={held['runs6']})")
+    rows = [max(r["rows"]) for r in rounds]
+    log(f"replicas (a) fp32, every=1, {V} x {D}: {GANG_GROUPS} rounds, replicas "
+        f"bitwise equal after each, sparse == dense bitwise after the first "
+        f"{GANG_DENSE_GROUPS}; touched rows a rank "
+        f"(both tables) {min(rows)} to {max(rows)} against capacity "
+        f"{rounds[-1]['capacity']} a table; bytes a rank a round sparse "
+        f"{rounds[0]['bytes_per_rank']}, dense {dense_bytes}; "
+        f"seconds a round (host) sparse {sum(r['seconds'] for r in rounds) / len(rounds):.3f}; "
+        f"device stages of rank 0's sparse round: {_stage_line(stages)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    out["fp32"] = dict(rows=rows, stages=stages, bytes=rounds[0]["bytes_per_rank"])
+    out["apply"] = apply_on_card_and_cpu(torch, np, sp, xs, train, vocab)
+    for e in sp:
+        e.destroy()
+    del sp, xs
+    torch.cuda.empty_cache()
+
+    # bf16 and int8 wires, every 4 groups.
+    for wire in ("bf16", "int8"):
+        t0 = time.perf_counter()
+        engs = replicas()
+        xw = [pex.ReplicaExchanger(e, mode="sparse", pair_batch=P, wire=wire,
+                                   every=4) for e in engs]
+        stages, rounds = [], []
+        for g in range(GANG_GROUPS):
+            train(engs, g)
+            if (g + 1) % 4 == 0:
+                rounds.append(pex.sync_group(xw))
+                stages.append(xw[0].round_stage_seconds())
+                expect(torch.equal(engs[0].syn0, engs[1].syn0)
+                       and torch.equal(engs[0].syn1, engs[1].syn1),
+                       f"{wire} replicas differ after group {g}")
+        st = engs[0].exchange_stats()
+        # Four groups can touch more rows than the default capacity (sized
+        # for one): such a round spills to the dense path, exact fp32.
+        expect(st[f"exchange_bytes_wire_{wire}_total"]
+               + st["exchange_bytes_wire_fp32_total"] == st["exchange_bytes_total"] > 0
+               and st["exchange_dense_syncs_total"] == st["exchange_overflow_total"],
+               f"{wire} bytes: {st}")
+        log(f"replicas (a) {wire}, every=4: {len(rounds)} rounds "
+            f"({[('dense spill' if r['dense'] else r['wire']) for r in rounds]}, capacity "
+            f"after each {[r['capacity'] for r in rounds]}), replicas bitwise equal "
+            f"after each; touched rows a rank {[max(r['rows']) for r in rounds]}; bytes "
+            f"a rank a round {[r['bytes_per_rank'] for r in rounds]}; residual carry "
+            f"{st['exchange_residual_abs']:.3g}; device stages of rank 0's rounds: "
+            f"{_stage_line(stages)} ({time.perf_counter() - t0:.1f} s)")
+        out[wire] = dict(rounds=rounds, stages=stages)
+        for e in engs:
+            e.destroy()
+        del engs, xw
+        torch.cuda.empty_cache()
+    # The exchangers are gone; their pinned blocks stay cached by the host
+    # allocator until released, and the gang's ranks need the memory.
+    held_pinned = pex.pinned_stats().get("allocated_bytes.current")
+    pex.release_host_cache()
+    st = pex.pinned_stats()
+    log(f"replicas (a) pinned host memory of this process: peak "
+        f"{gib(st.get('allocated_bytes.peak'))}, {gib(held_pinned)} held after "
+        f"the replicas, {gib(st.get('allocated_bytes.current'))} after the release")
+    return out
+
+
+def apply_on_card_and_cpu(torch, np, engs, xw, train, vocab) -> dict:
+    """Phase 14 (a)'s last round: both fp32 replicas' payloads of one more
+    group, applied to the base by the card (B3) and by a ``device="cpu"``
+    engine (B3's plain version), on the fp32 base and on its bf16
+    rounding: bitwise equal. Then B3 alone at the apply's shape: capacity
+    rows, the padding a long zero run on row 0, an fp32 accumulator;
+    bitwise against its plain version and timed beside ``index_add_``."""
+    from glint_word2vec_torch.ops.rows import (
+        scatter_add_rows,
+        scatter_add_rows_reference,
+    )
+    from glint_word2vec_torch.parallel import exchange as pex
+    from glint_word2vec_torch.parallel.engine import EmbeddingEngine
+
+    train(engs, GANG_GROUPS)
+    got = [x.harvest() for x in xw]
+    cap = xw[0].capacity
+    stacked = [torch.stack([p[1][k] for p in got]) for k in range(6)]
+    cpu = EmbeddingEngine(vocab.size, D, vocab.counts, num_negatives=N_NEG,
+                          seed=1, device="cpu")
+    wire = xw[0].wire
+    fn_card = pex._build_apply_sparse_fn(engs[0], cap, 2, wire)
+    fn_cpu = pex._build_apply_sparse_fn(cpu, cap, 2, wire)
+    t_cpu = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        base = tuple(t.to(dt) for t in xw[0]._base)
+        before = rows_launches = scatter_add_rows.launches
+        card = fn_card(*base, *stacked)
+        torch.cuda.synchronize()
+        rows_launches = scatter_add_rows.launches - before
+        t0 = time.perf_counter()
+        plain = fn_cpu(*(t.cpu() for t in base), *stacked)
+        t_cpu += time.perf_counter() - t0
+        for a, b in zip(card, plain):
+            expect(a.dtype == dt and torch.equal(bits(torch, a.cpu()), bits(torch, b)),
+                   f"the card's apply differs from the CPU's ({dt})")
+        expect(rows_launches == 4, f"B3 launches in one apply: {rows_launches}")
+    n = [c for c, _ in got]
+    log(f"replicas (a) one {wire} round applied by the card and by a device='cpu' "
+        f"engine, fp32 and bf16 tables: bitwise equal (touched rows {n}, capacity "
+        f"{cap}; 4 B3 launches an apply; CPU {t_cpu:.1f} s)")
+    ids = stacked[0][0].to(DEV)
+    dec = stacked[1][0].float()
+    if wire == "int8":
+        dec = dec * stacked[2][0][:, None]
+    dec = dec.to(DEV)
+    acc = xw[0]._base[0].float().clone()
+    ref = acc.cpu()
+    scatter_add_rows(acc, ids, dec)
+    scatter_add_rows_reference(ref, ids.cpu(), dec.cpu())
+    expect(torch.equal(bits(torch, acc.cpu()), bits(torch, ref)),
+           "B3 at the apply's shape differs from its plain version")
+    zero_run = int((ids == 0).sum())
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=DEV)
+    from glint_word2vec_torch.ops.fused_sgns import sorted_runs
+    from glint_word2vec_torch.ops.rows import scatter_add_rows_sorted
+
+    sid, order = sorted_runs(ids)
+    ms = median_ms(torch, lambda: scatter_add_rows_sorted(acc, sid, order, dec), flush)
+    lib = median_ms(torch, lambda: acc.index_add_(0, ids.long(), dec), flush)
+    d = dec.shape[1]
+    uniq = int(torch.unique(ids).numel())
+    bound = (2 * uniq * d * 4 + ids.numel() * (d * 4 + 8)) / HBM_BYTES_PER_S * 1e3
+    log(f"B3 at the apply's shape: N={ids.numel()} ({zero_run} slots on row 0, a "
+        f"zero run), fp32 accumulator {acc.shape[0]} x {d}: bitwise its plain "
+        f"version; kernel {ms:.4f} ms, index_add_ {lib:.4f} ms, bound {bound:.4f} ms")
+    del cpu
+    return dict(ms=ms, library_ms=lib, bound_ms=bound, zero_run=zero_run, n=ids.numel())
+
+
+def gang_cli(argv, timeout: float = GANG_TIMEOUT) -> None:
+    """``python -m glint_word2vec_torch.cli`` in a child process (the
+    supervisor, whose workers own the card), from this checkout; fails the
+    phase unless it exits 0."""
+    env = dict(os.environ)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("GLINT_FAULTS", None)
+    r = subprocess.run([sys.executable, "-m", "glint_word2vec_torch.cli", *argv],
+                       env=env, cwd=here, capture_output=True, text=True,
+                       timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"cli {argv[:3]} exited {r.returncode}:\n"
+                             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+
+
+def _mean_ms(xs) -> str:
+    return f"{1e3 * sum(xs) / len(xs):.1f}" if xs else "none"
+
+
+def supervised_gang(torch, np, path: str, n_tok: int, tmp: str) -> dict:
+    """Phase 14 (b): ``cli supervise --workers 2 train --exchange sparse
+    --exchange-wire int8 --exchange-every 4`` over the corpus at ``path``,
+    two epochs, checkpointed, both ranks on the card, rank 1 killed early
+    in its second epoch (:func:`gang_kill_round`), in its first
+    generation: one restart from the last committed checkpoint, equal table hashes, a model that
+    loads; the ranks' words/s, exchange seconds and bytes a round,
+    capacity and stall; each rank's kernel launches (its metrics file)."""
+    from glint_word2vec_torch.models import load_model
+
+    d = os.path.join(tmp, "gang")
+    report_path, model_dir = os.path.join(d, "report.json"), os.path.join(d, "model")
+    os.makedirs(d)
+    kill = gang_kill_round(n_tok)
+    t0 = time.perf_counter()
+    gang_cli(["supervise", "--workers", "2", "--report-out", report_path,
+              "--backoff-base", "1", "--heartbeat-stale", "300",
+              "--rank-env", f"1:GLINT_FAULTS=exchange.pre_send:kill@{kill}",
+              "train", "--device", DEV, "--corpus", path, "--output", model_dir,
+              "--checkpoint-dir", os.path.join(d, "ck"),
+              "--metrics-out", os.path.join(d, "metrics.json"),
+              "--exchange", "sparse", "--exchange-wire", "int8",
+              "--exchange-every", "4", "--iterations", "2",
+              "--vector-size", str(D), "--window", str(W_TRAIN),
+              "--batch-size", str(B_TRAIN), "--negatives", str(N_NEG),
+              "--min-count", "1", "--step-size", "0.025", "--seed", "1"])
+    wall = time.perf_counter() - t0
+    report = json.load(open(report_path))
+    expect(report["completed"] and report["restarts"] == 1, f"report {report}")
+    rec = report["restart_records"][0]
+    expect("worker 1 killed by signal SIGKILL" in rec["reason"]
+           and rec["resumed_from"] == "ckpt-1", f"restart {rec}")
+    ranks = [json.load(open(os.path.join(d, f"metrics-rank{r}.json"))) for r in (0, 1)]
+    expect(ranks[0]["tables_sha256"] == ranks[1]["tables_sha256"],
+           "the ranks' final tables differ")
+    launches = {}
+    for m in ranks:
+        for k, v in m["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        expect_launched(m["kernel_launches"], (
+            "pair_forward", "scatter_add_rank1_hbm", "scatter_add_rows_f32",
+            "scatter_add_rows"), f"rank {m['rank']}")
+    model = load_model(model_dir, device=DEV)
+    for t in (model.engine.syn0, model.engine.syn1):
+        expect(bool(torch.isfinite(t).all()), "non-finite gang tables")
+    vsize = model.vocab.size
+    model.stop()
+    sup = os.path.join(d, "ck", "supervisor")
+    syncs = [span_seconds(os.path.join(sup, f"events-{r}.jsonl"), "exchange_sync")
+             for r in (0, 1)]
+    ex = [m["exchange"] for m in ranks]
+    wps = [m["words_per_sec"] for m in ranks]
+    log(f"gang (b) {vsize} x {D}, 2 ranks on {torch.cuda.get_device_name(0)}, int8 "
+        f"every=4, 2 epochs over {n_tok} tokens: {wall:.1f} s in all (supervisor); "
+        f"rank 1 killed at round {kill}: restart {rec['reason']!r}, resumed from {rec['resumed_from']}, detect to "
+        f"relaunch {rec['detect_to_relaunch_seconds']} s, to heartbeat "
+        f"{rec['detect_to_heartbeat_seconds']} s; table hashes equal "
+        f"({ranks[0]['tables_sha256'][:16]}); words/s rank 0 {wps[0]}, rank 1 "
+        f"{wps[1]}, gang {wps[0] + wps[1]:.1f} (the resumed generation's fit)")
+    for r in (0, 1):
+        log(f"gang (b) rank {r}: {ex[r]['exchange_syncs_total']} rounds "
+            f"({ex[r]['exchange_groups_total']} groups, "
+            f"{ex[r]['exchange_flushes_total']} flushes, "
+            f"{ex[r]['exchange_overflow_total']} spills), "
+            f"{ex[r]['exchange_bytes_total'] // max(ex[r]['exchange_syncs_total'], 1)} "
+            f"bytes a round, exchange_sync span mean {_mean_ms(syncs[r])} ms over "
+            f"{len(syncs[r])} spans (both generations), capacity "
+            f"{ex[r]['exchange_capacity']} (shrinks "
+            f"{ex[r]['exchange_capacity_shrinks_total']}, grows "
+            f"{ex[r]['exchange_capacity_grows_total']}), residual "
+            f"{ex[r]['exchange_residual_abs']:.3g}, seconds by stage over the "
+            f"resumed generation's rounds {ex[r].get('exchange_stage_seconds')}, "
+            f"device_stall_seconds "
+            f"{ranks[r]['device_stall_seconds']}, steptime {ranks[r].get('steptime')}; "
+            f"launches {ranks[r]['kernel_launches']}")
+        mem = ranks[r]["host_memory"]
+        log(f"gang (b) rank {r} host memory (its resumed generation): peak RSS "
+            f"{gib(mem['peak_rss_bytes'])}, pinned peak "
+            f"{gib(mem.get('pinned_peak_bytes'))}, pinned at the end "
+            f"{gib(mem.get('pinned_bytes'))}, kept by the exchange "
+            f"{gib(mem['exchange_kept_bytes'])}")
+    return dict(launches=launches, model_dir=model_dir, wps=wps, ex=ex,
+                report=report)
+
+
+def gang_quality(torch, np, tmp: str) -> None:
+    """Phase 14 (c): a two-rank ``--exchange sparse`` gang on the
+    ``tiny_corpus`` structure at the settings of
+    ``tests/test_model_e2e.py``, held to the vienna and berlin gates."""
+    from glint_word2vec_torch.models import load_model
+
+    d = os.path.join(tmp, "tiny")
+    os.makedirs(d)
+    corpus = os.path.join(d, "c.txt")
+    with open(corpus, "w") as f:
+        f.write("".join(" ".join(s) + "\n" for s in make_tiny_corpus(np)))
+    gang_cli(["supervise", "--workers", "2", "--report-out",
+              os.path.join(d, "report.json"), "train", "--device", DEV,
+              "--corpus", corpus,
+              "--output", os.path.join(d, "m"), "--checkpoint-dir",
+              os.path.join(d, "ck"), "--exchange", "sparse", "--iterations", "6",
+              "--vector-size", "48", "--window", "5", "--step-size", "0.025",
+              "--batch-size", "256", "--negatives", "5", "--min-count", "5",
+              "--seed", "1"])
+    m = load_model(os.path.join(d, "m"), device=DEV)
+    syns = m.find_synonyms("austria", 10)
+    res = [w for w, _ in m.analogy(positive=["vienna", "germany"],
+                                   negative=["austria"], num=10)]
+    log(f"gang (c) tiny_corpus, 2 ranks, sparse: austria -> "
+        f"{[w for w, _ in syns][:4]}; vienna - austria + germany -> {res[:3]}")
+    expect("vienna" in dict(syns) and dict(syns)["vienna"] > 0.5,
+           f"gang vienna gate: {syns}")
+    expect("berlin" in res, f"gang berlin gate: {res}")
+    m.stop()
+
+
+def gang_transform(torch, np, model_dir: str, tmp: str) -> None:
+    """Phase 14 (d): ``transform-file --workers 2`` over phase 12's
+    100,000 lines under the supervisor, against ``--workers 1``: the
+    ranks' shards concatenated are bitwise the single run's."""
+    from glint_word2vec_torch.batch.transform import load_transform_output
+
+    inp = os.path.join(tmp, "lines.txt")
+    write_transform_input(np, inp)
+    base = ["transform-file", "--model", model_dir, "--input", inp,
+            "--rows", str(TRANSFORM_ROWS), "--max-len", str(TRANSFORM_MAX_LEN),
+            "--shard-size", str(TRANSFORM_SHARD), "--device", DEV]
+    t0 = time.perf_counter()
+    gang_cli(base + ["--out", os.path.join(tmp, "t2"), "--workers", "2"])
+    t2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli(base + ["--out", os.path.join(tmp, "t1")])
+    t1 = time.perf_counter() - t0
+    one = load_transform_output(os.path.join(tmp, "t1"))
+    two = np.concatenate([load_transform_output(os.path.join(tmp, "t2", f"rank-{r:04d}"))
+                          for r in (0, 1)])
+    expect(one.shape[0] == TRANSFORM_LINES and np.array_equal(one, two),
+           f"--workers 2 differs from --workers 1 ({one.shape}, {two.shape})")
+    log(f"gang (d) transform-file of {TRANSFORM_LINES} lines: --workers 2 under the "
+        f"supervisor ({t2:.1f} s with start-up) bitwise --workers 1 in this "
+        f"process ({t1:.1f} s with the model's load)")
+
+
+def exchange_gang(torch, np, fs, rows_mod) -> dict:
+    """Phase 14."""
+    tmp = tempfile.mkdtemp(prefix="glint_chip_gang_")
+    try:
+        prefix = os.path.join(tmp, "prefix.txt")
+        write_synthetic_corpus(np, prefix, tokens=GANG_TOKENS)
+        with HostMemoryPeak() as mem:
+            replicas = replica_rounds(torch, np, fs, rows_mod, prefix)
+        log(f"replicas (a) {mem.line()}")
+        torch.cuda.empty_cache()
+        short = os.path.join(tmp, "gang.txt")
+        n_tok = write_synthetic_corpus(np, short, tokens=GANG_FIT_TOKENS)
+        zero_counters(fs, rows_mod)
+        with HostMemoryPeak() as mem:
+            gang = supervised_gang(torch, np, short, n_tok, tmp)
+        log(f"gang (b) {mem.line()}")
+        with HostMemoryPeak() as mem:
+            gang_quality(torch, np, tmp)
+            gang_transform(torch, np, gang["model_dir"], tmp)
+        log(f"gang (c), (d) {mem.line()}")
+        log(f"phase 14 on {nvidia_smi_line()}")
+        return {**gang, "replicas": replicas}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def ptxas_report(text: str) -> list:
     """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
     (demangled where ``c++filt`` is found), registers and spills."""
@@ -4195,20 +4779,20 @@ def ptxas_report(text: str) -> list:
 
 
 def parse_only(argv) -> set | None:
-    """The phases ``--only`` names (3 to 13), or None to run them all."""
+    """The phases ``--only`` names (3 to 14), or None to run them all."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--only", metavar="N[,N...]",
-        help="run phases 1, 2 and these (3 to 13) only, print their lines, "
+        help="run phases 1, 2 and these (3 to 14) only, print their lines, "
              f"and exit {PARTIAL_EXIT} without the kernels or result line")
     only = ap.parse_args(argv).only
     if only is None:
         return None
     phases = {int(p) for p in only.split(",") if p.strip()}
-    if not phases or not phases <= set(range(3, 14)):
-        ap.error(f"--only takes phases 3 to 13, got {only!r}")
+    if not phases or not phases <= set(range(3, 15)):
+        ap.error(f"--only takes phases 3 to 14, got {only!r}")
     return phases
 
 
@@ -4254,6 +4838,7 @@ def main() -> int:
         11: lambda: train_stall_free(torch, np, fs, rows_mod),
         12: lambda: ann_and_transform(torch, np, fs, rows_mod),
         13: lambda: stream_and_hot_swap(torch, np, fs, rows_mod),
+        14: lambda: exchange_gang(torch, np, fs, rows_mod),
     }
 
     def run(p):
@@ -4283,6 +4868,7 @@ def main() -> int:
     stall = run(11)
     annt = run(12)
     streamed = run(13)
+    gang = run(14)
 
     main_case = gathered[("f32", V_SERVE, 10_000)]
     kernels = [{
@@ -4344,6 +4930,7 @@ def main() -> int:
             "bf16_bound_ms": timed[(name, "bf16")]["bound_ms"],
             "launches_stall_free_fit": stall["launches"][name],
             "launches_stream_fit": streamed["launches"][name],
+            "launches_gang": gang["launches"][name],
         })
     b4, b7 = kernels[-3], kernels[-2]
     b4["stream_group_max_abs_err"] = streamed["group"]["err"]
@@ -4394,6 +4981,12 @@ def main() -> int:
         })
     b2, b2_bf16 = (composed[("scatter_add_rank1", dt)]["parts"] for dt in ("f32", "bf16"))
     kernels[-1]["launches_swap_index_builds"] = streamed["swap_launches"]["scatter_add_rows"]
+    applied = gang["replicas"]["apply"]
+    kernels[-1].update(
+        launches_gang=gang["launches"]["scatter_add_rows"],
+        exchange_apply_ms=applied["ms"], exchange_apply_bound_ms=applied["bound_ms"],
+        exchange_apply_index_add_ms=applied["library_ms"],
+        exchange_apply_n=applied["n"], exchange_apply_zero_run=applied["zero_run"])
     kernels[-2].update(
         no_long_run_ms=b2["a"]["ms"], long_run_alone_ms=b2["b"]["ms"],
         wide_ms=b2["c"]["ms"], index_add_payload_ms=b2["index_add_payload_ms"],

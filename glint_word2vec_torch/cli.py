@@ -1,6 +1,7 @@
 """Command line of the port: train, query and serve a model.
 
   python -m glint_word2vec_torch.cli train     --corpus c.txt --output m/ [--fasttext] [...]
+  python -m glint_word2vec_torch.cli supervise --workers 2 train --exchange sparse --checkpoint-dir ck/ [...]
   python -m glint_word2vec_torch.cli fit-stream --corpus c.txt|- --publish-dir P/ [...]
   python -m glint_word2vec_torch.cli serve     --model m/ --port 8801 [--ann]
   python -m glint_word2vec_torch.cli serve     --watch-checkpoint P/ [--watch-poll 1]
@@ -14,11 +15,15 @@
 
 The model directory may come from either package. Every command runs on
 the CUDA card unless ``--device cpu`` is given. ``train`` takes the JAX
-package's training and observability arguments except the mesh and
-replica-exchange ones; a run the divergence canary aborts exits 2 with
-one line. ``fit-stream`` trains on a sentence stream (a file, a followed
-file or stdin) and publishes generations that ``serve --watch-checkpoint``
-swaps in.
+package's training, replica-exchange, distributed and observability
+arguments except the mesh ones; a run the divergence canary aborts exits
+2 with one line. ``supervise`` runs a train command as a supervised gang
+of ``--workers`` processes (rank ``r`` on ``cuda:{r % cards}``, a gloo
+group between them), relaunching it from the last committed checkpoint
+after a crash or a hang; ``transform-file --workers N`` runs N transform
+ranks under the same supervisor. ``fit-stream`` trains on a sentence
+stream (a file, a followed file or stdin) and publishes generations that
+``serve --watch-checkpoint`` swaps in.
 """
 
 from __future__ import annotations
@@ -60,6 +65,33 @@ def _add_train(sub) -> None:
                    help="dispatch shape on the device corpus: dense pair "
                         "packing or grid batches (the host batcher always "
                         "trains grid batches)")
+    p.add_argument("--exchange", choices=["none", "sparse", "dense"],
+                   default="none",
+                   help="replica reconciliation of a gang: sparse ships only "
+                        "the touched rows' (id, delta) after every dispatch "
+                        "group, dense full-table deltas; none trains one "
+                        "process alone")
+    p.add_argument("--exchange-capacity", type=int, default=0,
+                   help="touched-row buffer capacity a round (0: sized from "
+                        "the dispatch group and adapted from the observed "
+                        "counts; nonzero pins it)")
+    p.add_argument("--exchange-wire", choices=["fp32", "bf16", "int8"],
+                   default="fp32",
+                   help="sparse payload encoding: fp32 exact, bf16, or int8 "
+                        "with per-row scales and an error-feedback carry; "
+                        "dense, spill and flush rounds ship fp32")
+    p.add_argument("--exchange-every", type=int, default=1,
+                   help="dispatch groups coalesced into one exchange round")
+    p.add_argument("--exchange-topology", choices=["flat", "twolevel"],
+                   default="flat",
+                   help="flat allgather, or twolevel: exact intra-node hop "
+                        "and a leaders-only wire-encoded inter-node hop "
+                        "(GLINT_RANKS_PER_NODE sets the node size)")
+    p.add_argument("--exchange-shard", choices=["roundrobin", "locality"],
+                   default="roundrobin",
+                   help="corpus split across the gang: round-robin "
+                        "sentences, or contiguous runs sorted by each "
+                        "sentence's rarest word")
     p.add_argument("--checkpoint-dir", default=None,
                    help="enable checkpoint/resume: at epoch ends, and "
                         "mid-epoch on the packed path when "
@@ -71,7 +103,9 @@ def _add_train(sub) -> None:
                         "writes and commits them (GLINT_SYNC_CKPT=1 forces "
                         "blocking saves)")
     p.add_argument("--metrics-out", default=None,
-                   help="write the training metrics JSON here (atomic write)")
+                   help="write the training metrics JSON here (atomic write; "
+                        "in a gang rank R writes <stem>-rankR<ext>, with its "
+                        "tables' sha256 and its kernel launch counts)")
     p.add_argument("--fasttext", action="store_true",
                    help="train the subword (fastText-style) family")
     p.add_argument("--min-n", type=int, default=3,
@@ -125,6 +159,73 @@ def _add_train(sub) -> None:
                           "median (default 10.0); NaN/Inf always trips")
     obs.add_argument("--canary-check-every", type=int, default=32,
                      help="steps between canary checks (default 32)")
+    dist_g = p.add_argument_group(
+        "distributed",
+        "multi-process bring-up (supervise fills these in for each worker; "
+        "set them by hand for a custom launcher)",
+    )
+    dist_g.add_argument("--coordinator", default=None,
+                        help="host:port of the gloo rendezvous (rank 0 "
+                             "binds it)")
+    dist_g.add_argument("--num-processes", type=int, default=None,
+                        help="worker processes in the gang")
+    dist_g.add_argument("--process-id", type=int, default=None,
+                        help="this worker's rank in [0, num-processes)")
+
+
+def _add_supervise(sub) -> None:
+    p = sub.add_parser(
+        "supervise",
+        help="run a train command as a supervised gang: launch, crash and "
+             "hang detection, teardown, resume from the last committed "
+             "checkpoint with capped backoff",
+    )
+    p.add_argument("--workers", type=int, default=1,
+                   help="worker processes (1: a supervised one-process fit; "
+                        "more: a gloo gang on a local rendezvous, rank r on "
+                        "cuda:{r %% cards})")
+    p.add_argument("--max-restarts", type=int, default=3,
+                   help="gang restarts before giving up")
+    p.add_argument("--backoff-base", type=float, default=1.0,
+                   help="first restart delay in seconds (doubles each "
+                        "restart, capped at --backoff-cap)")
+    p.add_argument("--backoff-cap", type=float, default=30.0)
+    p.add_argument("--heartbeat-stale", type=float, default=120.0,
+                   help="status-file age that counts as a hang (0 disables "
+                        "hang detection)")
+    p.add_argument("--startup-grace", type=float, default=600.0,
+                   help="seconds a fresh worker may run before its first "
+                        "heartbeat")
+    p.add_argument("--supervise-dir", default=None,
+                   help="status files and worker logs (default "
+                        "<checkpoint-dir>/supervisor)")
+    p.add_argument("--report-out", default=None,
+                   help="also write the supervisor report JSON here (it is "
+                        "always printed)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve the merged gang /metrics (JSON, or "
+                        "?format=prometheus) and /healthz on this port (0: "
+                        "ephemeral)")
+    p.add_argument("--metrics-host", default="127.0.0.1")
+    p.add_argument("--join-serving", action="append", default=[],
+                   metavar="URL",
+                   help="not in the port yet: joining serving replicas into "
+                        "the gang view comes with the fleet slice")
+    p.add_argument("--rank-env", action="append", default=[],
+                   metavar="R:KEY=VAL",
+                   help="environment for rank R's first launch only "
+                        "(repeatable): arms a GLINT_FAULTS schedule without "
+                        "re-arming it on the relaunch")
+    p.add_argument("--rank0-env", action="append", default=[],
+                   metavar="KEY=VAL",
+                   help="alias of --rank-env 0:KEY=VAL (the JAX CLI's flag)")
+    p.add_argument(
+        "train_args", nargs=argparse.REMAINDER,
+        help="the train command: everything after the supervise flags, e.g. "
+             "`supervise --workers 2 train --corpus c.txt --output m/ "
+             "--exchange sparse --checkpoint-dir ck/`; --checkpoint-dir is "
+             "required",
+    )
 
 
 def _add_fit_stream(sub) -> None:
@@ -350,13 +451,145 @@ def _obs_config(args):
     )
 
 
+def _argv_value(argv, flag):
+    """Last value of ``--flag v`` or ``--flag=v`` in a raw argv list."""
+    val = None
+    for i, a in enumerate(argv):
+        if a == flag and i + 1 < len(argv):
+            val = argv[i + 1]
+        elif a.startswith(flag + "="):
+            val = a.split("=", 1)[1]
+    return val
+
+
+def _parse_rank_env(args):
+    """``{rank: {KEY: VAL}}`` from ``--rank0-env`` and ``--rank-env``, or
+    a message naming the malformed entry."""
+    out: dict = {}
+    entries = [f"0:{kv}" for kv in args.rank0_env] + list(args.rank_env)
+    for ent in entries:
+        rank, sep, kv = ent.partition(":")
+        if not sep or "=" not in kv or not rank.isdigit():
+            return None, f"expected R:KEY=VAL (or KEY=VAL for --rank0-env), got {ent!r}"
+        k, v = kv.split("=", 1)
+        out.setdefault(int(rank), {})[k] = v
+    return out, None
+
+
+def _run_supervise(args) -> int:
+    """``supervise``: a thin shell over ``parallel.supervisor.Supervisor``.
+    The supervisor process touches no device; the workers own the cards."""
+    import os
+
+    train_args = list(args.train_args)
+    if train_args and train_args[0] == "--":
+        train_args = train_args[1:]
+    if not train_args or train_args[0] != "train":
+        print("error: supervise expects the train command to run, e.g. "
+              "`supervise --workers 2 train --corpus c.txt --output m/ "
+              "--exchange sparse --checkpoint-dir ck/`", file=sys.stderr)
+        return 1
+    rest = train_args[1:]
+    checkpoint_dir = _argv_value(rest, "--checkpoint-dir")
+    if checkpoint_dir is None:
+        print("error: supervise requires --checkpoint-dir in the train "
+              "arguments (recovery relaunches resume from it)",
+              file=sys.stderr)
+        return 1
+    if args.join_serving:
+        print("error: --join-serving is not in the port yet: joining serving "
+              "replicas into the gang view comes with the fleet slice "
+              "(ROADMAP Queue A item 10)", file=sys.stderr)
+        return 1
+    rank_env, err = _parse_rank_env(args)
+    if err:
+        print(f"error: {err}", file=sys.stderr)
+        return 1
+    from glint_word2vec_torch.parallel.supervisor import (
+        Supervisor,
+        cli_train_build_argv,
+    )
+
+    report = Supervisor(
+        cli_train_build_argv(rest), args.workers,
+        status_dir=args.supervise_dir or os.path.join(checkpoint_dir,
+                                                      "supervisor"),
+        checkpoint_dir=checkpoint_dir,
+        rank_env_first_launch=rank_env or None,
+        heartbeat_stale_seconds=(args.heartbeat_stale
+                                 if args.heartbeat_stale > 0 else None),
+        startup_grace_seconds=args.startup_grace,
+        max_restarts=args.max_restarts,
+        backoff_base_seconds=args.backoff_base,
+        backoff_cap_seconds=args.backoff_cap,
+        metrics_port=args.metrics_port,
+        metrics_host=args.metrics_host,
+    ).run()
+    return _report(report, args.report_out)
+
+
+def _report(report, path) -> int:
+    out = report.to_dict()
+    print(json.dumps(out))
+    if path:
+        from glint_word2vec_torch.utils import atomic_write_json
+
+        atomic_write_json(path, out)
+    return 0 if report.completed else 3
+
+
+def _run_transform_fleet(args) -> int:
+    """``transform-file --workers N``: a device-free supervisor shell. Each
+    rank re-enters this CLI with ``--rank``/``--world``, embeds its
+    contiguous input span into a private ``rank-NNNN/`` directory, and
+    after a crash or a hang resumes from its own committed shards."""
+    import os
+
+    from glint_word2vec_torch.parallel.supervisor import (
+        Supervisor,
+        cli_transform_build_argv,
+    )
+
+    rest = [
+        "--model", args.model, "--input", args.input, "--out", args.out,
+        "--rows", str(args.rows), "--max-len", str(args.max_len),
+        "--shard-size", str(args.shard_size), "--prefetch", str(args.prefetch),
+        "--device", args.device,
+    ]
+    for flag, on in (("--lowercase", args.lowercase),
+                     ("--no-deep-verify", args.no_deep_verify),
+                     ("--no-warmup", args.no_warmup)):
+        if on:
+            rest.append(flag)
+    report = Supervisor(
+        cli_transform_build_argv(rest), args.workers,
+        status_dir=args.supervise_dir or os.path.join(args.out, "supervisor"),
+        heartbeat_stale_seconds=(args.heartbeat_stale
+                                 if args.heartbeat_stale > 0 else None),
+        startup_grace_seconds=args.startup_grace,
+        max_restarts=args.max_restarts,
+        metrics_port=args.metrics_port,
+    ).run()
+    return _report(report, args.report_out)
+
+
 def _train(args) -> int:
+    import os
+
+    from glint_word2vec_torch.kernels import launch_counts
     from glint_word2vec_torch.models.fasttext import FastTextWord2Vec
     from glint_word2vec_torch.models.word2vec import Word2Vec
+    from glint_word2vec_torch.parallel import distributed as dist
     from glint_word2vec_torch.utils import atomic_write_json
 
+    device = args.device
+    if args.coordinator or args.num_processes:
+        dist.initialize(coordinator_address=args.coordinator,
+                        num_processes=args.num_processes,
+                        process_id=args.process_id)
+        device = dist.rank_device(device, dist.process_index())
     kw = dict(
-        device=args.device,
+        device=device,
         vector_size=args.vector_size,
         window=args.window,
         step_size=args.step_size,
@@ -372,6 +605,12 @@ def _train(args) -> int:
         steps_per_call=args.steps_per_call,
         shared_negatives=args.shared_negatives,
         batch_packing=args.packing,
+        exchange=args.exchange,
+        exchange_capacity=args.exchange_capacity,
+        exchange_wire=args.exchange_wire,
+        exchange_every=args.exchange_every,
+        exchange_topology=args.exchange_topology,
+        exchange_shard=args.exchange_shard,
     )
     obs = _obs_config(args)
     if args.fasttext:
@@ -387,12 +626,25 @@ def _train(args) -> int:
         checkpoint_every_epochs=args.checkpoint_every,
     )
     try:
+        # In a gang every rank writes its row block of the shared output,
+        # and the barrier holds each rank until the directory is whole.
         model.save(args.output)
-        if args.metrics_out:
-            atomic_write_json(args.metrics_out, model.training_metrics)
-        print(json.dumps({"saved": args.output, **model.training_metrics}))
+        dist.barrier("model_save")
+        metrics = dict(model.training_metrics)
+        metrics["kernel_launches"] = launch_counts()
+        metrics_out = args.metrics_out
+        if dist.process_count() > 1:
+            # Each rank reports its replica's digest in its own file.
+            metrics["tables_sha256"] = model.engine.tables_digest()
+            if metrics_out:
+                root, ext = os.path.splitext(metrics_out)
+                metrics_out = f"{root}-rank{dist.process_index()}{ext}"
+        if metrics_out:
+            atomic_write_json(metrics_out, metrics)
+        print(json.dumps({"saved": args.output, **metrics}))
     finally:
         model.stop()
+        dist.shutdown()
     return 0
 
 
@@ -462,8 +714,22 @@ def _add_transform_file(sub) -> None:
     p.add_argument("--world", type=int, default=None,
                    help="the number of ranks the input is split across")
     p.add_argument("--workers", type=int, default=1,
-                   help="supervised rank-parallel workers: only 1 in the "
-                        "port so far (run ranks with --rank/--world)")
+                   help="rank-parallel workers under the supervisor: each "
+                        "rank embeds a contiguous input span into its own "
+                        "shard directory, and a crashed rank relaunches and "
+                        "resumes from its committed shards")
+    p.add_argument("--max-restarts", type=int, default=3)
+    p.add_argument("--heartbeat-stale", type=float, default=120.0,
+                   help="status-file age that counts as a hang (0 disables "
+                        "hang detection)")
+    p.add_argument("--startup-grace", type=float, default=600.0)
+    p.add_argument("--supervise-dir", default=None,
+                   help="supervisor status and log directory (default "
+                        "<out>/supervisor)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="merged gang /metrics and /healthz (0: ephemeral)")
+    p.add_argument("--report-out", default=None,
+                   help="also write the supervisor report JSON here")
     obs = p.add_argument_group("observability")
     obs.add_argument("--status-file", default=None,
                      help="atomically mirror the transform's status snapshot "
@@ -571,6 +837,7 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="glint_word2vec_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     _add_train(sub)
+    _add_supervise(sub)
     _add_fit_stream(sub)
     _add_transform_file(sub)
     _add_synonyms_dump(sub)
@@ -630,6 +897,11 @@ def main(argv=None) -> int:
 
     args = _parser().parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
+    if args.cmd == "supervise":
+        return _run_supervise(args)
+    if (args.cmd == "transform-file" and args.workers > 1
+            and args.rank is None):
+        return _run_transform_fleet(args)
     if args.cmd == "train":
         try:
             return _train(args)
@@ -655,12 +927,6 @@ def main(argv=None) -> int:
             watch_poll=args.watch_poll, **_ann_kwargs(args),
         )
         return 0
-    if args.cmd == "transform-file" and args.workers > 1:
-        print("error: transform-file --workers > 1 needs the port's "
-              "supervisor, which is not ported yet (ROADMAP Queue A item 8); "
-              "run one process per rank with --rank R --world N instead",
-              file=sys.stderr)
-        return 2
     if args.cmd == "synonyms-dump" and args.out is None and args.graph_out is None:
         print("error: synonyms-dump needs --out and/or --graph-out",
               file=sys.stderr)
@@ -668,7 +934,12 @@ def main(argv=None) -> int:
 
     from glint_word2vec_torch.models import load_model
 
-    model = load_model(args.model, device=args.device)
+    device = args.device
+    if args.cmd == "transform-file" and (args.world or 1) > 1:
+        from glint_word2vec_torch.parallel.distributed import rank_device
+
+        device = rank_device(device, args.rank or 0)
+    model = load_model(args.model, device=device)
     try:
         if args.cmd == "transform-file":
             return _run_transform_file(args, model)

@@ -28,10 +28,17 @@ host memory (a writer thread writes and commits it), and the next
 epoch's compaction is dispatched during the current epoch's tail. An
 ``obs.ObsConfig`` (``obs=`` or :meth:`Word2Vec.set_observability`) adds
 the event log, the heartbeat and status file, the divergence canary and
-the step-time ledger. What
-the JAX package trains by other routes (meshes and replica exchange, the
-``dims`` layout) raises ``ValueError``: those are later slices of the
-port.
+the step-time ledger.
+
+With ``exchange="sparse"|"dense"`` in a gang of processes
+(``parallel/distributed.initialize``) each process trains its own replica
+on its shard of the corpus through the resident route, and the replicas
+reconcile the rows they touched after every dispatch group
+(``parallel/exchange.py``, :meth:`Word2Vec._fit_replica_exchange`); one
+process runs the same protocol with the wire short-circuited. What the
+JAX package trains on an SPMD mesh (``num_partitions``/``num_shards``
+above 1, the ``dims`` layout, a gang with ``exchange="none"``) raises
+``ValueError``: that is the port's mesh slice, still to come.
 
 :class:`Word2VecModel` is the query surface over an
 :class:`~glint_word2vec_torch.parallel.engine.EmbeddingEngine`, and
@@ -70,6 +77,7 @@ from glint_word2vec_torch.corpus.vocab import (
 )
 from glint_word2vec_torch.device import DeviceLike, resolve_device
 from glint_word2vec_torch.obs import TrainingDiverged, start_run
+from glint_word2vec_torch.parallel import distributed as dist
 from glint_word2vec_torch.parallel.engine import DeferredReadback, deferred_readback
 from glint_word2vec_torch.ops import random as rnd
 from glint_word2vec_torch.ops.device_batching import (
@@ -118,6 +126,14 @@ def _free_device_bytes(device: torch.device) -> int:
         idle = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
         return int(free + idle)
     return os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+
+def _multiprocess_barrier(tag: str) -> None:
+    """All-rank rendezvous before a gang's checkpoint commits: no rank may
+    flip ``train_state.json`` while a peer is still writing its row block
+    (the flip would commit a snapshot whose shard manifests do not all
+    exist yet). A no-op on one process."""
+    dist.barrier("ckpt_" + tag)
 
 
 def _flip_checkpoint_state(
@@ -181,8 +197,10 @@ def _checkpoint_tables(engine, obs_run, metrics, ck_path: str, ck_name: str,
     its fsyncs, the directory's commit and then ``commit`` (the
     ``train_state.json`` flip) run in that order on the engine's writer
     thread, so a crash at any point leaves the previous checkpoint
-    authoritative. ``GLINT_SYNC_CKPT=1`` writes and commits here
-    (``checkpoint_save``). Either way the wait is charged to
+    authoritative. ``GLINT_SYNC_CKPT=1``, and a gang's save split, write
+    and commit here (``checkpoint_save``): in a gang every rank writes its
+    row block, all meet at a barrier, and rank 0 alone flips the shared
+    state file. Either way the wait is charged to
     ``device_stall_seconds``."""
     t0 = time.time()
     if engine.async_saves_enabled():
@@ -191,7 +209,9 @@ def _checkpoint_tables(engine, obs_run, metrics, ck_path: str, ck_name: str,
     else:
         with obs_run.span("checkpoint_save", ckpt=ck_name):
             engine.save(ck_path)
-            commit()
+            _multiprocess_barrier(ck_name)
+            if dist.process_index() == 0:
+                commit()
     metrics.record_stall(time.time() - t0)
 
 
@@ -310,19 +330,21 @@ class Word2Vec:
     # ------------------------------------------------------------------
 
     def _check_supported(self) -> None:
-        """Raise ``ValueError`` for settings this slice does not train,
-        naming the later slice of the port that brings them."""
+        """Raise ``ValueError`` for settings the port does not train yet,
+        naming the later slice that brings them: everything of the SPMD
+        mesh (one program across several cards)."""
         p = self.params
         later = []
         if p.num_partitions > 1 or p.num_shards > 1:
             later.append("num_partitions/num_shards > 1 (multi-device "
-                         "training)")
-        if p.exchange != "none":
-            later.append(f"exchange={p.exchange!r} (replica exchange, with "
-                         "multi-device training)")
+                         "training: the SPMD mesh slice)")
         if p.layout != "rows":
-            later.append(f"layout={p.layout!r} (the dims layout, with "
-                         "multi-device training)")
+            later.append(f"layout={p.layout!r} (the dims layout, with the "
+                         "SPMD mesh slice)")
+        if p.exchange == "none" and dist.process_count() > 1:
+            later.append("a gang of processes with exchange='none' (the "
+                         "mesh gang, with the SPMD mesh slice; train a "
+                         "gang with exchange='sparse' or 'dense')")
         if later:
             raise ValueError(
                 "not ported yet, a later slice of the PyTorch port: "
@@ -418,8 +440,13 @@ class Word2Vec:
         when the family allows it and the corpus fits on the device (the
         tables, a step's working set and the corpus within
         ``DEVICE_MEMORY_FRACTION`` of the free memory), else the host
-        batcher."""
+        batcher. In a gang with an exchange, :meth:`_fit_replica_exchange`."""
         p = self.params
+        if p.exchange != "none" and dist.process_count() > 1:
+            return self._fit_replica_exchange(
+                vocab, ids, offsets, checkpoint_dir,
+                checkpoint_every_epochs, stop_after_epochs,
+            )
         if self._device_corpus_eligible() and int(ids.size) < 2**31:
             need = self._device_bytes_needed(
                 vocab.size, int(ids.size), offsets.size
@@ -444,6 +471,41 @@ class Word2Vec:
             stop_after_epochs,
         )
 
+    def _fit_replica_exchange(self, vocab: Vocabulary, ids: np.ndarray,
+                              offsets: np.ndarray,
+                              checkpoint_dir: Optional[str],
+                              checkpoint_every_epochs: int,
+                              stop_after_epochs: Optional[int]) -> "Word2VecModel":
+        """The gang's fit (``models/word2vec.py:561`` of the JAX package):
+        every process takes its shard of the corpus (round-robin, or by
+        locality with ``exchange_shard="locality"``), trains it on its own
+        card through the resident route, and reconciles the touched rows
+        with its peers after every dispatch group (``parallel/
+        exchange.py``); no collective crosses processes inside a step.
+        The engines' seed gives every replica the same initial tables,
+        and each round leaves them equal again. The shard must fit the
+        card: there is no host-batcher gang."""
+        if self.params.exchange_shard == "locality":
+            ids, offsets = dist.shard_flat_locality(ids, offsets)
+        else:
+            ids, offsets = dist.shard_flat_for_process(ids, offsets)
+        device = resolve_device(self.device)
+        need = self._device_bytes_needed(vocab.size, int(ids.size), offsets.size)
+        free = _free_device_bytes(device)
+        if (not self._device_corpus_eligible() or int(ids.size) >= 2**31
+                or need > DEVICE_MEMORY_FRACTION * free):
+            raise ValueError(
+                "replica-exchange training needs the device-resident corpus "
+                f"path: this process's shard of {int(ids.size)} words needs "
+                f"about {need} bytes of device memory with the tables and the "
+                f"exchange's buffers, {free} are free on {device}, or the "
+                "model family builds its centers on the host"
+            )
+        return self._fit_corpus_resident(
+            vocab, ids, offsets, checkpoint_dir, checkpoint_every_epochs,
+            stop_after_epochs,
+        )
+
     def _device_corpus_eligible(self) -> bool:
         """Whether the family's centers are words, which the packed path
         assembles on the device (the fastText family says no: its centers
@@ -465,7 +527,10 @@ class Word2Vec:
         compacted, and the pass's prefix sums; a fourth, the active
         epoch's compacted copy, while the next epoch's pass is
         prefetched). A checkpoint takes no device memory: its snapshot
-        copies the tables straight to host memory."""
+        copies the tables straight to host memory. An exchange adds its
+        base snapshot of both tables, the two fp32 diffs, the fp32
+        accumulator of the apply and, on the int8 wire, the two fp32
+        error-feedback carries."""
         p = self.params
         s = 2 if p.dtype == "bfloat16" else 4
         P = packed_pair_batch(p.batch_size, p.window)
@@ -491,6 +556,11 @@ class Word2Vec:
                            + 8 * n_offsets)
         else:
             corpus = n_words * CORPUS_BYTES_PER_WORD + 8 * n_offsets
+        if p.exchange != "none":
+            per_row = 2 * p.vector_size * s + 3 * p.vector_size * 4
+            if p.exchange_wire == "int8":
+                per_row += 2 * p.vector_size * 4
+            tables += vocab_size * per_row
         return tables + step + corpus
 
     def _make_engine(self, vocab: Vocabulary):
@@ -773,6 +843,52 @@ class Word2Vec:
                 else start_epoch * twc
             )
             obs_run.attach_metrics(metrics)
+            # The replica exchange, built after any resume so that its base
+            # snapshots the restored tables. A gang folds the rank into the
+            # draw stream (table initialisation stays the seed's on every
+            # rank: reconciliation depends on it) and splits its saves.
+            exchanger = None
+            if p.exchange != "none":
+                from glint_word2vec_torch.parallel import exchange as exmod
+
+                if dist.process_count() > 1:
+                    if stop_after_groups is not None:
+                        raise ValueError(
+                            "GLINT_PACKED_STOP_AFTER_GROUPS is not supported "
+                            "with multi-process replica exchange (the peers "
+                            "would wait in the exchange collective forever)"
+                        )
+                    transport = exmod.ProcessTransport()
+                    engine.set_save_split(transport.rank, transport.world)
+                    base_key = rnd.fold_in(base_key, transport.rank)
+                else:
+                    transport = exmod.NullTransport()
+                    logger.info(
+                        "replica exchange on one process: the protocol runs "
+                        "with its wire short-circuited")
+                exchanger = exmod.ReplicaExchanger(
+                    engine, mode=p.exchange,
+                    capacity=p.exchange_capacity or None,
+                    transport=transport,
+                    pair_batch=pair_batch if packed else B,
+                    steps_per_call=spc, wire=p.exchange_wire,
+                    every=p.exchange_every, topology=p.exchange_topology,
+                )
+                # Rounds are reconciliation barriers: each group is read
+                # back before its round, as in the JAX loop.
+                defer = False
+
+            def exchange_round(live: bool, done: bool, **span_args) -> bool:
+                with metrics.timing("step"), obs_run.span("exchange_sync",
+                                                          **span_args):
+                    return exchanger.group_end(live=live, done=done)
+
+            def drain_exchange(gang_live: bool) -> None:
+                # Lockstep fillers: a drained rank answers the gang's
+                # rounds with empty payloads until every rank is done.
+                while gang_live:
+                    gang_live = exchange_round(False, True, filler=True)
+                exchanger.epoch_reset()
 
             def checkpoint(ck_name: str, **fields) -> None:
                 _checkpoint_tables(
@@ -853,6 +969,8 @@ class Word2Vec:
                     pending = None
                     next_start = pos  # a host int, then the device chain
                     dstep = step  # dispatch-time step0, one group ahead
+                    gang_live = (exchanger is not None
+                                 and exchanger.transport.world > 1)
                     while pos < n_pos:
                         with metrics.timing("step"), obs_run.span(
                                 "device_steps", step0=dstep, n=spc, packed=True):
@@ -875,6 +993,9 @@ class Word2Vec:
                             pos = harvest_packed(*pending)
                             pending = None
                             next_start = pos
+                            if exchanger is not None:
+                                gang_live = exchange_round(
+                                    True, pos >= n_pos, packed=True)
                             if (stop_after_groups is not None
                                     and packed_groups >= stop_after_groups):
                                 stopped = True
@@ -886,6 +1007,8 @@ class Word2Vec:
                     if pending is not None:
                         pos = harvest_packed(*pending)
                         pending = None
+                    if exchanger is not None and not stopped:
+                        drain_exchange(gang_live)
                     # dstep is dropped here with a phantom group's keys:
                     # the next epoch dispatches from ``step``.
                     if stopped:
@@ -901,6 +1024,8 @@ class Word2Vec:
                     gstep += groups * spc
                 else:
                     pending = None
+                    gang_live = (exchanger is not None
+                                 and exchanger.transport.world > 1)
                     for g in range(groups):
                         start_pos = g * spc * B
                         with metrics.timing("host"), obs_run.span(
@@ -924,6 +1049,14 @@ class Word2Vec:
                         if pending is not None:
                             self._harvest(metrics, obs_run, *pending)
                         pending = new_pend
+                        if exchanger is not None:
+                            # Read the group back before its round, as
+                            # the JAX loop records a group's steps first.
+                            self._harvest(metrics, obs_run, *pending)
+                            pending = None
+                            gang_live = exchange_round(True, g == groups - 1)
+                    if exchanger is not None:
+                        drain_exchange(gang_live)
                     gstep = step
                     prefetch_compact(epoch + 1)
                     if pending is not None:
@@ -935,6 +1068,12 @@ class Word2Vec:
                 if state_path and (
                     stopping or (epoch + 1) % max(checkpoint_every_epochs, 1) == 0
                 ):
+                    if exchanger is not None:
+                        # Drain the int8 error-feedback carry through one
+                        # exact round (the same decision on every rank), so
+                        # a resume from this checkpoint replays bitwise.
+                        with obs_run.span("exchange_flush"):
+                            exchanger.flush()
                     checkpoint(f"ckpt-{epoch + 1}", epochs_completed=epoch + 1,
                                step=step, words_done=(epoch + 1) * twc,
                                extra={
@@ -967,6 +1106,15 @@ class Word2Vec:
         steptime = obs_run.steptime_totals()
         if steptime:
             model.training_metrics["steptime"] = steptime
+        if exchanger is not None:
+            model.training_metrics.update(
+                exchange_mode=p.exchange, exchange_wire=p.exchange_wire,
+                exchange_every=p.exchange_every,
+                exchange_topology=p.exchange_topology,
+                exchange=engine.exchange_stats(),
+                rank=exchanger.transport.rank, world=exchanger.transport.world,
+                host_memory=exchanger.host_memory(),
+            )
         if packed_slots:
             # Live pairs over dispatched pair slots: the packed steps'
             # effective mask density.

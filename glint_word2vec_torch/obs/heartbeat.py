@@ -24,6 +24,7 @@ from __future__ import annotations
 import json
 import logging
 import math
+import os
 import threading
 import time
 from collections import deque
@@ -32,6 +33,19 @@ from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 logger = logging.getLogger(__name__)
+
+
+#: The exchange counters a snapshot carries (``heartbeat.py:317-360`` of
+#: the JAX package).
+_EXCHANGE_COUNTERS = (
+    "exchange_bytes_total", "exchange_rows_total", "exchange_overflow_total",
+    "exchange_syncs_total", "exchange_bytes_wire_fp32_total",
+    "exchange_bytes_wire_bf16_total", "exchange_bytes_wire_int8_total",
+    "exchange_groups_total", "exchange_flushes_total",
+    "exchange_world1_skips_total", "exchange_intra_bytes_total",
+    "exchange_inter_bytes_total", "exchange_capacity_grows_total",
+    "exchange_capacity_shrinks_total",
+)
 
 
 def _finite_or_none(v):
@@ -104,10 +118,16 @@ class TrainingStatus:
         self.words_done = 0
         self.alpha: Optional[float] = None
         self.canary = {"mode": "off", "trips": 0, "last_reason": None}
-        # The JAX package's supervisor fields; the port has no supervisor
-        # yet, so every fit is unsupervised and healthy until it ends.
         self.unhealthy_reason: Optional[str] = None
-        self.supervisor_generation: Optional[int] = None
+        # The supervisor's handshake (parallel/supervisor.py): every
+        # snapshot echoes the launch generation, so the supervisor tells a
+        # live heartbeat of the current gang from a pre-restart file.
+        gen = os.environ.get("GLINT_SUPERVISOR_GEN")
+        try:
+            self.supervisor_generation: Optional[int] = (
+                int(gen) if gen is not None else None)
+        except ValueError:
+            self.supervisor_generation = None
         self._rolling: deque = deque(maxlen=self.ROLLING)
         #: The streaming trainer's gauges and its last publish's unix
         #: time; None until a ``fit_stream`` run sets them.
@@ -265,6 +285,19 @@ class TrainingStatus:
                     ck.get("checkpoint_shard_verify_seconds"))
                 snap["checkpoint_shards_skipped"] = ck.get(
                     "checkpoint_shards_skipped", 0)
+            ex_stats = getattr(eng, "exchange_stats", None)
+            if ex_stats is not None:
+                # The replica exchange's counters (zeros on a fit without
+                # one), summed over the gang by obs.aggregate.
+                try:
+                    exs = ex_stats()
+                except Exception:
+                    exs = {}
+                for k in _EXCHANGE_COUNTERS:
+                    snap[k] = exs.get(k, 0)
+                snap["exchange_capacity"] = exs.get("exchange_capacity")
+                snap["exchange_residual_abs"] = exs.get(
+                    "exchange_residual_abs", 0.0)
         if rec is not None:
             snap["events"] = rec.counts()
         if ledger is not None:

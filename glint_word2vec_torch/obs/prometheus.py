@@ -6,9 +6,10 @@ A pure function dict -> text, so the heartbeat renders
 ``/metrics?format=prometheus`` from the same snapshot its JSON endpoint
 serves. The metric families and their labels are the JAX package's,
 including the replica-exchange ones, which a one-device fit reports as
-0 or NaN. Also :func:`lint_prometheus_text`, the validator the tests run
-over every rendered exposition. The gang, serving and fleet renderers
-come with the port's multi-device and serving slices.
+0 or NaN. :func:`gang_to_prometheus` renders the supervisor's merged
+gang view (``obs/aggregate.py``). Also :func:`lint_prometheus_text`, the
+validator the tests run over every rendered exposition. The serving and
+fleet renderers come with the port's serving slices.
 """
 
 from __future__ import annotations
@@ -305,6 +306,144 @@ def training_to_prometheus(snap: dict) -> str:
             for stat, val in sorted(stats.items()):
                 p.sample("glint_device_memory_bytes",
                          {"device": dev, "stat": stat}, val)
+    return p.text()
+
+
+# ----------------------------------------------------------------------
+# Gang exposition (obs/aggregate.merge_training_snapshots)
+# ----------------------------------------------------------------------
+
+
+def gang_to_prometheus(snap: dict) -> str:
+    """Render the merged gang snapshot as scrape-ready text: the gang's
+    counters (sums of the per-rank values), total words/s, the rank-skew
+    straggler gauge, per-rank progress and the merged step-time ledger
+    (``prometheus.py:410`` of the JAX package, without the serving SLO
+    families)."""
+    p = _Prom()
+    p.head("glint_gang_info", "gauge",
+           "Gang metadata carried as labels; value is always 1.")
+    p.sample("glint_gang_info", {"state": snap.get("state", "")}, 1)
+    for name, key, help_ in [
+        ("glint_gang_generation", "generation",
+         "Supervisor launch generation the merged view reflects."),
+        ("glint_gang_num_workers", "num_workers", "Configured gang size."),
+        ("glint_gang_ranks_reporting", "ranks_reporting",
+         "Ranks with a current-generation heartbeat in the last sweep."),
+        ("glint_gang_words_per_sec", "words_per_sec_total",
+         "Sum of per-rank rolling trained-words/sec."),
+        ("glint_gang_rank_skew", "rank_skew",
+         "Straggler skew: max/median of per-rank mean step seconds "
+         "(1.0 = balanced; NaN until ranks report step timing)."),
+        ("glint_gang_checkpoint_shard_write_seconds",
+         "checkpoint_shard_write_seconds_max",
+         "Slowest rank's shard-block write seconds in the most recent "
+         "checkpoint save (NaN before any)."),
+    ]:
+        p.head(name, "gauge", help_)
+        p.sample(name, None, snap.get(key))
+    counters = snap.get("counters") or {}
+    for name, key, help_ in [
+        ("glint_gang_steps_total", "steps_total",
+         "Optimizer steps summed over ranks."),
+        ("glint_gang_words_done_total", "words_done_total",
+         "Trained words summed over ranks."),
+        ("glint_gang_query_compiles_total", "query_compiles_total",
+         "Engine query shapes first dispatched, summed over ranks."),
+        ("glint_gang_async_save_waits_total", "async_save_waits_total",
+         "Checkpoint back-pressure waits summed over ranks."),
+        ("glint_gang_exchange_bytes_total", "exchange_bytes_total",
+         "Replica-exchange bytes on the wire summed over ranks."),
+        ("glint_gang_exchange_rows_total", "exchange_rows_total",
+         "Touched rows shipped through the exchange summed over ranks."),
+        ("glint_gang_exchange_overflow_total", "exchange_overflow_total",
+         "Capacity-overflow dense spills summed over ranks."),
+        ("glint_gang_exchange_groups_total", "exchange_groups_total",
+         "Dispatch groups folded into exchange rounds summed over ranks."),
+        ("glint_gang_exchange_intra_bytes_total",
+         "exchange_intra_bytes_total",
+         "Two-level intra-node hop bytes summed over ranks."),
+        ("glint_gang_exchange_inter_bytes_total",
+         "exchange_inter_bytes_total",
+         "Slow-hop (inter-node or flat) exchange bytes summed over ranks."),
+        ("glint_gang_checkpoint_shards_skipped_total",
+         "checkpoint_shards_skipped_total",
+         "Clean checkpoint shards skipped in place summed over ranks."),
+        ("glint_gang_canary_trips_total", "canary_trips_total",
+         "Divergence-canary trips summed over ranks."),
+        ("glint_gang_events_recorded_total", "events_recorded_total",
+         "Obs events recorded summed over ranks."),
+        ("glint_gang_events_dropped_total", "events_dropped_total",
+         "Obs ring evictions summed over ranks."),
+    ]:
+        p.head(name, "counter", help_)
+        p.sample(name, None, counters.get(key, 0))
+    transform = snap.get("transform") or {}
+    if transform:
+        for name, key, help_ in [
+            ("glint_gang_transform_sentences_done_total",
+             "sentences_done_total",
+             "Sentences embedded into committed shards summed over ranks."),
+            ("glint_gang_transform_shards_committed_total",
+             "shards_committed_total",
+             "Vector shards committed summed over ranks."),
+            ("glint_gang_transform_shards_skipped_total",
+             "shards_skipped_total",
+             "Resume-scan shard skips summed over ranks."),
+            ("glint_gang_transform_post_warmup_compiles_total",
+             "post_warmup_compiles_total",
+             "Query shapes first met after the warmup, summed over ranks."),
+        ]:
+            p.head(name, "counter", help_)
+            p.sample(name, None, transform.get(key, 0))
+        for name, key, help_ in [
+            ("glint_gang_transform_input_sentences", "input_sentences",
+             "Total input sentences across all rank spans."),
+            ("glint_gang_transform_sentences_per_sec",
+             "sentences_per_sec_total",
+             "Sum of per-rank embedded-sentences/sec."),
+            ("glint_gang_transform_bucket_fill_min", "bucket_fill_min",
+             "Sparsest rank's packing density."),
+            ("glint_gang_transform_producer_wait_seconds",
+             "producer_wait_seconds_max",
+             "Slowest rank's wait on the producer thread."),
+        ]:
+            p.head(name, "gauge", help_)
+            p.sample(name, None, transform.get(key))
+    per_rank = snap.get("per_rank") or {}
+    for name, key, help_ in [
+        ("glint_gang_rank_words_per_sec", "words_per_sec_rolling",
+         "Per-rank rolling trained-words/sec."),
+        ("glint_gang_rank_mean_step_seconds", "mean_step_seconds",
+         "Per-rank mean seconds per optimizer step."),
+        ("glint_gang_rank_words_done", "words_done",
+         "Per-rank trained-words counter."),
+    ]:
+        p.head(name, "gauge", help_)
+        for rank, r in per_rank.items():
+            p.sample(name, {"rank": rank}, r.get(key))
+    steptime = snap.get("steptime") or {}
+    if steptime:
+        p.head("glint_gang_steptime_seconds", "gauge",
+               "Merged step-time attribution: fit-thread wall seconds by "
+               "phase, summed over ranks.")
+        for phase, info in steptime.items():
+            p.sample("glint_gang_steptime_seconds", {"phase": phase},
+                     info.get("seconds"))
+        p.head("glint_gang_steptime_span_seconds", "summary",
+               "Merged per-span duration quantiles by ledger phase "
+               "(bucket-exact cross-rank histogram merge).")
+        for phase, info in steptime.items():
+            if "p50_ms" not in info:
+                continue
+            for q, key in (("0.5", "p50_ms"), ("0.95", "p95_ms"),
+                           ("0.99", "p99_ms")):
+                p.sample("glint_gang_steptime_span_seconds",
+                         {"phase": phase, "quantile": q}, info[key] / 1e3)
+            p.sample("glint_gang_steptime_span_seconds_sum", {"phase": phase},
+                     info.get("span_seconds", info.get("seconds")))
+            p.sample("glint_gang_steptime_span_seconds_count",
+                     {"phase": phase}, info.get("count", 0))
     return p.text()
 
 

@@ -55,6 +55,13 @@ shrink the vocabulary on spare extra rows (which the packed path's
 kernels train like any other row), and :meth:`EmbeddingEngine.
 set_noise_counts` installs a new alias table from live counts.
 
+The replica exchange's hooks (``engine.py:1910-2000, 2952-3030`` of the
+JAX package): :meth:`EmbeddingEngine.exchange_adopt` installs the tables
+a round rebuilt, :meth:`EmbeddingEngine.exchange_stats` holds the
+round counters the heartbeat reads, :meth:`EmbeddingEngine.tables_digest`
+hashes both tables, and :meth:`EmbeddingEngine.set_save_split` makes a
+gang rank write only its own row block of a sharded save.
+
 Checkpoints use the JAX package's on-disk layout (``engine.json``,
 ``counts.npy``, ``.npy`` table blocks, ``manifest.json`` and the per-shard
 sidecars), so either package loads what the other saved. A save is a
@@ -128,6 +135,21 @@ _IO_ROWS = 1 << 20
 _SCORE_ROWS = 1 << 20
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+#: The replica exchange's counters (:meth:`EmbeddingEngine.exchange_stats`)
+#: before any round: the heartbeat renders them as zeros on every fit.
+_EXCHANGE_ZERO = {
+    "exchange_bytes_total": 0, "exchange_rows_total": 0,
+    "exchange_overflow_total": 0, "exchange_syncs_total": 0,
+    "exchange_dense_syncs_total": 0, "exchange_last_seconds": 0.0,
+    "exchange_bytes_wire_fp32_total": 0, "exchange_bytes_wire_bf16_total": 0,
+    "exchange_bytes_wire_int8_total": 0, "exchange_groups_total": 0,
+    "exchange_flushes_total": 0, "exchange_world1_skips_total": 0,
+    "exchange_intra_bytes_total": 0, "exchange_inter_bytes_total": 0,
+    "exchange_capacity": None, "exchange_capacity_grows_total": 0,
+    "exchange_capacity_shrinks_total": 0, "exchange_residual_abs": 0.0,
+}
 
 
 def _dup_sum_f32(idx: torch.Tensor, upd: torch.Tensor):
@@ -352,6 +374,9 @@ class EmbeddingEngine:
         self._ckpt_last_write_s: Optional[float] = None
         self._ckpt_last_commit: Optional[float] = None
         self._ckpt_shard_write_s: Optional[float] = None
+        #: Replica save split ``(rank, world)`` (:meth:`set_save_split`).
+        self._save_split: Optional[Tuple[int, int]] = None
+        self._exchange_stats = dict(_EXCHANGE_ZERO)
 
     # ------------------------------------------------------------------
     # Bookkeeping
@@ -1376,6 +1401,153 @@ class EmbeddingEngine:
     # Persistence
     # ------------------------------------------------------------------
 
+    # ------------------------------------------------------------------
+    # Replica exchange (parallel/exchange.py)
+    # ------------------------------------------------------------------
+
+    def exchange_adopt(self, syn0: torch.Tensor, syn1: torch.Tensor) -> None:
+        """Install the tables a replica-exchange round rebuilt (``base``
+        plus every rank's deltas): two attribute flips and one
+        ``table_version`` tick, like :meth:`adopt_tables`."""
+        self.syn0 = syn0
+        self.syn1 = syn1
+        self._tick_tables("exchange_adopt")
+
+    def _note_exchange(self, *, bytes_sent: int, rows: int, overflow: bool,
+                       dense: bool, seconds: float, wire: str = "fp32",
+                       groups: int = 1, flush: bool = False,
+                       world1_skip: bool = False, intra_bytes: int = 0,
+                       capacity: Optional[int] = None,
+                       cap_event: Optional[str] = None,
+                       residual_abs: float = 0.0) -> None:
+        """Fold one exchange round into :meth:`exchange_stats`."""
+        st = self._exchange_stats
+        st["exchange_bytes_total"] += int(bytes_sent)
+        st["exchange_rows_total"] += int(rows)
+        st["exchange_overflow_total"] += int(bool(overflow))
+        st["exchange_syncs_total"] += 1
+        st["exchange_dense_syncs_total"] += int(bool(dense))
+        st["exchange_last_seconds"] = round(float(seconds), 6)
+        wire_key = "exchange_bytes_wire_%s_total" % (
+            wire if wire in ("fp32", "bf16", "int8") else "fp32")
+        st[wire_key] += int(bytes_sent)
+        st["exchange_groups_total"] += int(groups)
+        st["exchange_flushes_total"] += int(bool(flush))
+        st["exchange_world1_skips_total"] += int(bool(world1_skip))
+        st["exchange_intra_bytes_total"] += int(intra_bytes)
+        st["exchange_inter_bytes_total"] += max(int(bytes_sent) - int(intra_bytes), 0)
+        if capacity is not None:
+            st["exchange_capacity"] = int(capacity)
+        st["exchange_capacity_grows_total"] += int(cap_event == "grow")
+        st["exchange_capacity_shrinks_total"] += int(cap_event == "shrink")
+        st["exchange_residual_abs"] = float(residual_abs)
+
+    def _note_exchange_stages(self, seconds: dict) -> None:
+        """Fold one round's seconds by stage (``ReplicaExchanger``'s clock:
+        device time on the card, the wire's host time between) into
+        ``exchange_stats()["exchange_stage_seconds"]``."""
+        tot = self._exchange_stats.setdefault("exchange_stage_seconds", {})
+        for k, v in seconds.items():
+            tot[k] = round(tot.get(k, 0.0) + float(v), 6)
+
+    def exchange_stats(self) -> dict:
+        """The replica exchange's counters for the heartbeat (zeros until
+        a :class:`~glint_word2vec_torch.parallel.exchange.ReplicaExchanger`
+        runs a round). Host values only."""
+        out = dict(self._exchange_stats)
+        if "exchange_stage_seconds" in out:
+            out["exchange_stage_seconds"] = dict(out["exchange_stage_seconds"])
+        return out
+
+    def tables_digest(self) -> str:
+        """sha256 of both tables' bytes in storage dtype (the first
+        ``num_rows`` rows), copied to the host ``_IO_ROWS`` rows at a
+        time: what a gang's ranks compare to show their replicas equal."""
+        import hashlib
+
+        h = hashlib.sha256()
+        for table in (self.syn0, self.syn1):
+            for s in range(0, self.num_rows, _IO_ROWS):
+                part = table[s:min(s + _IO_ROWS, self.num_rows)]
+                if part.dtype == torch.bfloat16:
+                    part = part.view(torch.int16)
+                h.update(part.cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def set_save_split(self, rank: int, world: int) -> None:
+        """Split sharded saves across the replicas of a gang: the tables
+        (the same on every rank) are cut into ``world`` row blocks and
+        this engine writes only block ``rank``, its sidecar manifest and,
+        on rank 0, ``counts.npy``, ``engine.json`` and ``manifest.json``,
+        all in place into the shared directory; the caller's barrier then
+        orders every rank's writes before the state flip. ``world <= 1``
+        clears the split."""
+        if world <= 1:
+            self._save_split = None
+            return
+        if not 0 <= rank < world:
+            raise ValueError(f"rank {rank} not in [0, {world})")
+        self._save_split = (int(rank), int(world))
+
+    def _split_blocks(self):
+        """``(rank, [(name, table, file name, start, stop)])``: every row
+        block of the save split (each table cut into ``world`` blocks of
+        ``ceil(rows / world)``) and this engine's rank."""
+        rank, world = self._save_split
+        per = max(1, -(-self.num_rows // world))
+        blocks = []
+        for name, table in (("syn0", self.syn0), ("syn1", self.syn1)):
+            for k in range(world):
+                start, stop = k * per, min((k + 1) * per, self.num_rows)
+                if start < stop:
+                    blocks.append((k, name, table, f"{name}.r{start:012d}.npy",
+                                   start, stop))
+        return rank, blocks
+
+    def _save_split_blocks(self, path: str) -> None:
+        """The sharded save of one rank of a gang (:meth:`set_save_split`):
+        in place into ``path``, every file through temp +
+        ``os.replace``; rank 0 writes the small files and the version-2
+        manifest that names every rank's blocks. The commit point is the
+        caller's barrier and ``train_state.json`` flip."""
+        from glint_word2vec_torch.utils import atomic_write_json, atomic_write_npy
+
+        t0 = time.time()
+        os.makedirs(path, exist_ok=True)
+        t_shards = 0.0
+        rank, blocks = self._split_blocks()
+        for k, _, table, fname, start, stop in blocks:
+            if k != rank:
+                continue
+            ts = time.time()
+            obs_events.emit("ckpt_shard_write", file=fname, rank=rank)
+            atomic_write_npy(os.path.join(path, fname),
+                             self._host_rows(table, start, stop))
+            integrity.write_shard_manifest(
+                path, fname,
+                integrity.build_shard_manifest(path, fname, self.table_version),
+            )
+            t_shards += time.time() - ts
+        if rank == 0:
+            meta = self._save_meta("sharded")
+            meta["shards"] = {"syn0": [], "syn1": []}
+            for _, name, _, fname, start, stop in blocks:
+                meta["shards"][name].append({"file": fname, "start": start,
+                                             "stop": stop, "axis": "rows"})
+            atomic_write_npy(os.path.join(path, "counts.npy"),
+                             np.asarray(self._counts, np.int64))
+            atomic_write_json(os.path.join(path, "engine.json"), meta)
+            manifest = integrity.build_manifest(
+                path, ["counts.npy", "engine.json"], self.table_version,
+                table_dtype=self.dtype,
+            )
+            manifest.update(version=2, shard_files=sorted(
+                b["file"] for t in meta["shards"].values() for b in t))
+            integrity.write_manifest(path, manifest)
+        self._ckpt_last_write_s = time.time() - t0
+        self._ckpt_last_commit = time.time()
+        self._ckpt_shard_write_s = round(t_shards, 6)
+
     def _save_meta(self, mode: str) -> dict:
         return {
             "format": mode,
@@ -1397,10 +1569,15 @@ class EmbeddingEngine:
         transfer waits for the work queued before it, so the copy holds
         the table as it stood when it was asked for, whatever the caller
         enqueues next."""
-        out = np.empty((self.num_rows, self.dim), np.float32)
-        for s in range(0, self.num_rows, _IO_ROWS):
-            e = min(s + _IO_ROWS, self.num_rows)
-            torch.from_numpy(out[s:e]).copy_(table[s:e].float())
+        return self._host_rows(table, 0, self.num_rows)
+
+    def _host_rows(self, table: torch.Tensor, start: int, stop: int) -> np.ndarray:
+        """Rows ``[start, stop)`` of ``table`` as a new host fp32 array, as
+        :meth:`_host_table` copies them."""
+        out = np.empty((stop - start, self.dim), np.float32)
+        for s in range(start, stop, _IO_ROWS):
+            e = min(s + _IO_ROWS, stop)
+            torch.from_numpy(out[s - start:e - start]).copy_(table[s:e].float())
         return out
 
     def _snapshot_host(self, mode: str, *, lazy: bool = False):
@@ -1513,13 +1690,18 @@ class EmbeddingEngine:
         holds all rows on one device: ``syn0.r000000000000.npy``) with its
         sidecar manifest; ``mode="single"`` writes ``syn0.npy`` and
         ``syn1.npy``."""
+        if self._save_split is not None and mode == "sharded":
+            self._save_split_blocks(path)
+            return
         files, meta = self._snapshot_host(mode, lazy=True)
         self._write_snapshot(path, files, meta, self.table_version)
 
     def async_saves_enabled(self) -> bool:
         """Whether :meth:`save_async` writes in the background: unless
-        ``GLINT_SYNC_CKPT=1`` asks for blocking saves."""
-        return os.environ.get("GLINT_SYNC_CKPT", "0") != "1"
+        ``GLINT_SYNC_CKPT=1`` asks for blocking saves, or a save split
+        (a gang) needs its cross-rank barrier before the state flip."""
+        return (self._save_split is None
+                and os.environ.get("GLINT_SYNC_CKPT", "0") != "1")
 
     def save_async(self, path: str, mode: str = "sharded",
                    on_commit=None) -> bool:

@@ -6,6 +6,8 @@ Injection points are plain string names fired where a fault domain
 boundary exists:
 
   ``worker.step``             once per dispatched streaming training group
+  ``exchange.pre_send``       before each replica-exchange round's header
+                              allgather
   ``publish.pre_commit``      just before a published generation
                               directory's atomic rename
   ``publish.pre_pointer``     between the generation rename and the
@@ -54,6 +56,9 @@ logger = logging.getLogger(__name__)
 POINTS = {
     "worker.step":
         "once per dispatched training group (all fit loops)",
+    "exchange.pre_send":
+        "before each replica-exchange round's header allgather "
+        "(a peer lost here leaves the others waiting in the collective)",
     "publish.pre_commit":
         "just before a published generation directory's atomic rename",
     "publish.pre_pointer":

@@ -171,6 +171,33 @@ class LatencyHistogram:
             "max": self.max,
         }
 
+    @classmethod
+    def from_state(cls, state: dict) -> "LatencyHistogram":
+        """Rebuild a histogram from :meth:`state`."""
+        h = cls()
+        for i, c in (state.get("counts") or {}).items():
+            h.counts[int(i)] = int(c)
+        h.n = int(state.get("n", 0))
+        h.total = float(state.get("total", 0.0))
+        h.max = float(state.get("max", 0.0))
+        return h
+
+    @classmethod
+    def merge(cls, hists) -> "LatencyHistogram":
+        """Merge histograms (objects or :meth:`state` dicts) into a new
+        one, bucket for bucket: what the gang aggregate does to the ranks'
+        step-time ledgers."""
+        out = cls()
+        for h in hists:
+            if isinstance(h, dict):
+                h = cls.from_state(h)
+            for i, c in enumerate(h.counts):
+                out.counts[i] += c
+            out.n += h.n
+            out.total += h.total
+            out.max = max(out.max, h.max)
+        return out
+
 
 #: The step-time ledger's named phases (the JAX package's):
 #:   dispatch          - device train-step dispatch calls

@@ -123,10 +123,14 @@ def test_canary_abort_raises_the_port_error():
 
 class _StubEngine:
     """The engine surface the heartbeat reads, identical for both
-    packages: a mutation counter and checkpoint stats."""
+    packages: a mutation counter, checkpoint stats and the replica
+    exchange's counters (zeros before any round)."""
 
     table_version = 5
     device = torch.device("cpu")
+
+    def exchange_stats(self):
+        return {}
 
     def checkpoint_stats(self):
         return {"pending_async_saves": 1, "async_save_waits": 2,

@@ -273,17 +273,34 @@ def test_cli_train_on_cpu(tmp_path, capsys):
     assert m.vector_size == 8 and "fox" in m.vocab
 
 
-# The ids the cases had while grid packing (kw0) was among them.
-@pytest.mark.parametrize("kw,what", [
-    pytest.param({"num_shards": 2}, "multi-device", id="kw1-multi-device"),
-    pytest.param({"num_partitions": 2}, "multi-device", id="kw2-multi-device"),
-    pytest.param({"exchange": "sparse"}, "replica exchange",
+# The ids the cases had while grid packing (kw0) was among them. Since the
+# replica exchange trains, kw3 is the mesh gang: several processes with
+# exchange="none" (the process count faked), which waits for the SPMD mesh.
+@pytest.mark.parametrize("kw,what,world", [
+    pytest.param({"num_shards": 2}, "multi-device", 1, id="kw1-multi-device"),
+    pytest.param({"num_partitions": 2}, "multi-device", 1,
+                 id="kw2-multi-device"),
+    pytest.param({"exchange": "none"}, "mesh slice", 2,
                  id="kw3-replica exchange"),
-    pytest.param({"layout": "dims"}, "dims layout", id="kw4-dims layout"),
+    pytest.param({"layout": "dims"}, "dims layout", 1, id="kw4-dims layout"),
 ])
-def test_unported_settings_raise(kw, what):
+def test_unported_settings_raise(kw, what, world, monkeypatch):
+    from glint_word2vec_torch.parallel import distributed as dist
+
+    monkeypatch.setattr(dist, "process_count", lambda: world)
     with pytest.raises(ValueError, match=what):
         _small(**kw).fit(SMALL)
+
+
+def test_single_process_exchange_fit_trains():
+    # One process with an exchange runs the protocol with its wire
+    # short-circuited: every round is a counted world-1 skip.
+    m = _small(exchange="sparse").fit(SMALL)
+    st = m.training_metrics["exchange"]
+    assert st["exchange_syncs_total"] > 0
+    assert st["exchange_world1_skips_total"] == st["exchange_syncs_total"]
+    assert st["exchange_bytes_total"] == 0
+    assert m.training_metrics["world"] == 1
 
 
 def test_budget_overflow_raises(monkeypatch):
