@@ -29,7 +29,21 @@ nothing of JAX. Phases, each of which fails the run on any error:
    through every endpoint; the answers must be the planted ones, and the
    kernel's launch count must grow on that served path. Request latency
    with 1 and 16 clients (host clock), and the card's busy share under
-   16 clients (``torch.profiler``).
+   16 clients (``torch.profiler``). The server records request traces
+   (``trace_log``); 16-client windows with and without the recorder, in
+   turns, give what tracing costs. (a) ``/metrics`` counts every request
+   the phase sent, per endpoint; (b) its Prometheus text passes
+   ``lint_prometheus_text`` and carries exemplars; (c) a POST with
+   ``X-Glint-Trace`` that answers 404 is on ``/trace``. Then a second
+   server over the planted model: (d) 64 clients released together, 4
+   cache-miss ``/synonyms`` each, against ``max_inflight=8``: 429s with
+   ``Retry-After: 1``, the shed count on ``/metrics``, the admitted
+   requests' p50 and p95, and ``gather_rows`` launched once a coalesced
+   dispatch, never for a shed request; (e) ``serving.dispatch`` delayed
+   2 s past a 0.5 s deadline: the requests behind it answer 504 without a
+   dispatch; (f) the device lock held past ``degraded_after``: a cached
+   word answers 200 from the cache, a miss 429, ``/healthz`` says
+   ``degraded`` and then ``ok``.
 
 5. Training kernels against plain, at full width (V = 1,000,000,
    d = 300, P = 3,277 pair slots, n = 5; fp32 and bf16), on Zipf-like ids
@@ -73,7 +87,13 @@ nothing of JAX. Phases, each of which fails the run on any error:
    tables; (c) two epochs straight equal,
    bitwise, one epoch plus a resume from its checkpoint plus one epoch;
    (d) ``find_synonyms`` on the trained 1,000,000 x 300 model, which runs
-   ``gather_rows``.
+   ``gather_rows``; (e) the reference's PySpark surface,
+   ``ServerSideGlintWord2Vec`` at vectorSize 100 with 4 partitions x 2
+   parameter servers, on the ``tiny_corpus``: the topology clamps to the
+   one card with the JAX layer's warning, the fit launches
+   ``pair_forward``, ``scatter_add_rank1_hbm`` and
+   ``scatter_add_rows_f32``, passes the gates of ``tests/test_compat.py``
+   and the vienna/berlin gates, and a save loads back equal.
 7. The composed step's kernels against plain, at full fastText width
    (3,000,000 x 300 tables: 1,000,000 words and 2,000,000 n-gram
    buckets; fp32 and bf16): ``scatter_add_rows`` on the B·S = 32,768 syn0
@@ -98,7 +118,11 @@ nothing of JAX. Phases, each of which fails the run on any error:
    ``index_add_`` of the payload made beforehand (fp32) and the longest
    run's add chain at 4 cycles an add; and a run of zero and non-zero
    coefficients onto rows of -0.0, where skipping a zero-coefficient
-   update would flip a sign.
+   update would flip a sign. (g) ``train_step`` and ``train_step_grouped``
+   (groups of 4) on copies of one 1,000,000 x 300 fp32 table pair: loss
+   and tables bitwise ``train_steps_grouped`` with K = 1 on the same batch
+   and draws, and ``gather_rows``, ``scatter_add_rank1`` and
+   ``scatter_add_rows`` launched.
 8. fastText and the host batcher: (a) ``FastTextWord2Vec().fit_file`` on
    phase 6's corpus at that width, fp32, one epoch, with every launch
    counter zeroed just before (``scatter_add_rows`` and
@@ -288,6 +312,7 @@ import tempfile
 import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes per second.
@@ -298,6 +323,9 @@ GATHER_NS = (1, 64, 10_000)
 TIMED_TRIALS = 25
 #: Requests per latency sample: p95 of 200 has 10 samples beyond it.
 SEQ_REQUESTS = 200
+#: Phase 4 (d): clients of the overload burst, requests each, and the
+#: drill server's admission bound.
+DRILL_CLIENTS, DRILL_PER_CLIENT, DRILL_INFLIGHT = 64, 4, 8
 #: H100 SXM fp32 rate outside the tensor cores (NVIDIA data sheet), flop/s.
 FP32_FLOPS = 67e12
 #: H100 SXM dense TF32 tensor-core rate (NVIDIA data sheet), flop/s.
@@ -583,6 +611,206 @@ def closed_loop_in_child(port: int, clients: int, per_client: int,
                           (port, clients, per_client, first_word, exact))
 
 
+def post_full(port: int, path: str, payload, headers=None):
+    """``(status, Retry-After header, body or None)`` of one POST."""
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.headers.get("Retry-After"), json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Retry-After"), None
+
+
+def burst(port: int, clients: int, per_client: int, first_word: int):
+    """``clients`` threads released together, each sending ``per_client``
+    cache-miss ``/synonyms`` back to back, each on a new connection.
+    Returns ``(status, Retry-After, ms, connect ms)`` of every request:
+    the whole request, and the TCP connect alone."""
+    import http.client
+
+    out = [[] for _ in range(clients)]
+    gate = threading.Barrier(clients)
+
+    def client(c):
+        gate.wait()
+        for i in range(per_client):
+            word = f"w{first_word + c * per_client + i}"
+            body = json.dumps({"word": word, "num": 10})
+            t = time.perf_counter()
+            tc = t
+            try:
+                conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+                conn.connect()
+                tc = time.perf_counter()
+                conn.request("POST", "/synonyms", body,
+                             {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                st, retry, data = r.status, r.getheader("Retry-After"), r.read()
+                conn.close()
+                ok = st != 200 or (lambda h: len(h) == 10 and h[0][0] != word)(
+                    json.loads(data))
+                st = st if ok else "wrong answer"
+            except OSError as e:  # a reset connection, reported as such
+                st, retry = type(e).__name__, None
+            done = time.perf_counter()
+            out[c].append((st, retry, (done - t) * 1e3, (tc - t) * 1e3))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(clients)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    return [x for c in out for x in c]
+
+
+def burst_in_child(port: int, clients: int, per_client: int, first_word: int):
+    """:func:`burst` in a child process, so the clients do not take the
+    server's interpreter lock."""
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return pool.apply(burst, (port, clients, per_client, first_word))
+
+
+def counting(sent, fn):
+    """``fn(port, path, ...)`` that first counts the request in ``sent``
+    under its path."""
+    def call(port, path, *args):
+        sent[urllib.parse.urlparse(path).path] += 1
+        return fn(port, path, *args)
+    return call
+
+
+def dispatches(snap: dict) -> int:
+    """Coalesced dispatches a ``/metrics`` snapshot counts."""
+    return sum(snap["coalesced_batch_sizes"].values())
+
+
+def overload_drills(torch, np, rows_mod, model) -> dict:
+    """Phase 4 (d) to (f) on a second server over the planted model: the
+    admission bound under a burst past it, a deadline passed while a
+    dispatch is slow, and degraded cache-only mode. The ``gather_rows``
+    launches of each drill must equal its coalesced dispatches (one pull
+    a dispatch): a shed or timed-out request launches nothing."""
+    from glint_word2vec_torch.serving import ModelServer
+    from glint_word2vec_torch.utils import faults
+
+    server = ModelServer(model, port=0, max_inflight=DRILL_INFLIGHT,
+                         request_deadline=30.0, degraded_after=None)
+    # Nothing else runs in the process meanwhile: serve as the CLI does
+    # (serve_forever, which tightens the switch interval until stop()).
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    port = server.port
+    try:
+        def snap():
+            return get_json(port, "/metrics")
+
+        def launched_per_dispatch(s0, g0, what):
+            s1, g1 = snap(), rows_mod.gather_rows.launches
+            expect(g1 - g0 == dispatches(s1) - dispatches(s0),
+                   f"{what}: {g1 - g0} gather_rows launches for "
+                   f"{dispatches(s1) - dispatches(s0)} dispatches")
+            return s1, g1 - g0
+
+        # (d) A burst past the admission bound.
+        s0, g0 = snap(), rows_mod.gather_rows.launches
+        t0 = time.perf_counter()
+        res = burst_in_child(port, DRILL_CLIENTS, DRILL_PER_CLIENT, 600_000)
+        wall = time.perf_counter() - t0
+        s1, launched = launched_per_dispatch(s0, g0, "(d) overload drill")
+        shed = [r for r in res if r[0] == 429]
+        ok = [r[2] for r in res if r[0] == 200]
+        ok_connect = [r[3] for r in res if r[0] == 200]
+        shed_ms = [r[2] for r in shed]
+        expect(len(res) == DRILL_CLIENTS * DRILL_PER_CLIENT
+               and len(shed) + len(ok) == len(res),
+               f"(d) {len(res)} answers, other than 200/429: "
+               f"{sorted({str(r[0]) for r in res} - {'200', '429'})}")
+        expect(shed, f"(d) no 429 from {DRILL_CLIENTS} clients past "
+                     f"max_inflight={DRILL_INFLIGHT}")
+        expect(all(r[1] == "1" for r in shed), "(d) a 429 without Retry-After: 1")
+        over = s1["overload"]
+        expect(over["shed_admission_total"] - s0["overload"]["shed_admission_total"]
+               == len(shed), f"(d) shed count {over} against {len(shed)} 429s")
+        expect(over["inflight_peak"] <= DRILL_INFLIGHT, over)
+        log(f"(d) overload drill, {DRILL_CLIENTS} clients x {DRILL_PER_CLIENT} "
+            f"cache-miss /synonyms at max_inflight={DRILL_INFLIGHT} in "
+            f"{wall:.3f} s: {len(shed)} shed with 429 (Retry-After 1), "
+            f"{len(ok)} admitted; admitted {summary(ok)} (of which the TCP "
+            f"connect {summary(ok_connect)}); shed {summary(shed_ms)}; "
+            f"in-flight peak {over['inflight_peak']}; gather_rows launched "
+            f"{launched} times for {dispatches(s1) - dispatches(s0)} "
+            f"coalesced dispatches")
+        drill = {"shed": len(shed), "admitted": len(ok), "launches": launched,
+                 "p50_ms": sorted(ok)[len(ok) // 2],
+                 "p95_ms": sorted(ok)[min(len(ok) - 1, int(0.95 * len(ok)))],
+                 "connect_p95_ms": sorted(ok_connect)[
+                     min(len(ok) - 1, int(0.95 * len(ok)))]}
+
+        # (e) A dispatch slower than the deadline: a request behind it
+        # answers 504 without a dispatch of its own.
+        server.request_deadline = 0.5
+        s0, g0 = s1, rows_mod.gather_rows.launches
+        faults.arm("serving.dispatch:delay=2.0@1")
+        slow = {}
+        th = threading.Thread(target=lambda: slow.update(
+            r=post_full(port, "/synonyms", {"word": "w700000", "num": 10})))
+        th.start()
+        time.sleep(0.15)
+        t0 = time.perf_counter()
+        late = [post_full(port, "/synonyms", {"word": "w700001", "num": 10}),
+                post_full(port, "/vector", {"word": "w700002"})]
+        waited = time.perf_counter() - t0
+        th.join(timeout=60)
+        faults.disarm()
+        s1, launched_e = launched_per_dispatch(s0, g0, "(e) deadline drill")
+        expect([r[0] for r in late] == [504, 504], f"(e) answers {late}")
+        expect(slow["r"][0] == 200, f"(e) the slow dispatch answered {slow['r']}")
+        expect(s1["overload"]["deadline_504_total"]
+               - s0["overload"]["deadline_504_total"] == 2, s1["overload"])
+        expect(server._coalescer._pending == [], "(e) a 504'd request stayed pending")
+        log(f"(e) deadline drill: serving.dispatch delayed 2.0 s past the "
+            f"0.5 s deadline; /synonyms and /vector behind it answered 504 in "
+            f"{waited:.3f} s, deadline_504_total +2, gather_rows launched "
+            f"{launched_e} time(s) for {dispatches(s1) - dispatches(s0)} "
+            f"dispatch(es)")
+
+        # (f) Degraded mode: the device lock held past degraded_after.
+        server.request_deadline = 30.0
+        server.degraded_after = 0.3
+        hot = post_full(port, "/synonyms", {"word": "w700010", "num": 10})
+        s0, g0 = snap(), rows_mod.gather_rows.launches
+        faults.arm("serving.dispatch:delay=1.5@1")
+        th = threading.Thread(target=lambda: slow.update(
+            f=post_full(port, "/synonyms", {"word": "w700011", "num": 10})))
+        th.start()
+        time.sleep(0.6)
+        during = get_json(port, "/healthz")["status"]
+        hit = post_full(port, "/synonyms", {"word": "w700010", "num": 10})
+        miss = post_full(port, "/synonyms", {"word": "w700012", "num": 10})
+        th.join(timeout=60)
+        faults.disarm()
+        after = get_json(port, "/healthz")["status"]
+        s1, launched_f = launched_per_dispatch(s0, g0, "(f) degraded drill")
+        over0, over1 = s0["overload"], s1["overload"]
+        expect((during, after) == ("degraded", "ok"), (during, after))
+        expect(hit[0] == 200 and hit[2] == hot[2], f"(f) cache hit {hit[:2]}")
+        expect(miss[:2] == (429, "1"), f"(f) miss answered {miss[:2]}")
+        expect(over1["degraded_entered_total"] - over0["degraded_entered_total"] == 1
+               and over1["shed_degraded_total"] - over0["shed_degraded_total"] == 1,
+               over1)
+        log(f"(f) degraded drill: lock held 1.5 s past degraded_after 0.3 s: "
+            f"/healthz {during} then {after}; the cached word answered 200 "
+            f"from the cache, a miss 429; gather_rows launched {launched_f} "
+            f"time(s) for {dispatches(s1) - dispatches(s0)} dispatch(es)")
+        drill["launches"] += launched_e + launched_f
+        return drill
+    finally:
+        faults.disarm()
+        server.stop()
+
+
 def device_busy(torch, port: int) -> None:
     """Share of a 16-client ``/synonyms`` window in which the card was
     busy, from a ``torch.profiler`` trace of this process (the server's
@@ -641,9 +869,14 @@ def time_layers(torch, model) -> None:
 
 def serve_end_to_end(torch, np, rows_mod) -> dict:
     """Phase 4. Returns the served-path counts and request times."""
+    from collections import Counter
+
+    from glint_word2vec_torch.obs import events
+    from glint_word2vec_torch.obs.prometheus import lint_prometheus_text
     from glint_word2vec_torch.serving import serve_model_dir
 
     tmp = tempfile.mkdtemp(prefix="glint_chip_smoke_")
+    model = None
     try:
         t0 = time.perf_counter()
         model, rows, (a1, a2, b1, b2) = planted_model(torch, np)
@@ -651,9 +884,6 @@ def serve_end_to_end(torch, np, rows_mod) -> dict:
         model.save(model_dir)
         log(f"planted model built and saved in {time.perf_counter() - t0:.1f} s")
         time_layers(torch, model)
-        model.stop()
-        del model
-        torch.cuda.empty_cache()
 
         port_file = os.path.join(tmp, "port.json")
         failure = []
@@ -661,7 +891,8 @@ def serve_end_to_end(torch, np, rows_mod) -> dict:
         def run():
             try:
                 serve_model_dir(model_dir, port=0, port_file=port_file,
-                                device="cuda")
+                                device="cuda",
+                                trace_log=os.path.join(tmp, "trace.jsonl"))
             except BaseException as e:  # reported by the main thread
                 failure.append(e)
 
@@ -682,12 +913,17 @@ def serve_end_to_end(torch, np, rows_mod) -> dict:
         log(f"server loaded, warmed and listening in "
             f"{time.perf_counter() - t0:.1f} s (port {port})")
 
-        health = get_json(port, "/healthz")
+        # Every request this phase sends, by endpoint, for (a).
+        sent = Counter()
+        send, fetch, send_status = (counting(sent, f)
+                                    for f in (post, get_json, post_status))
+
+        health = fetch(port, "/healthz")
         expect(health["status"] == "ok", health)
         expect((health["vocab_size"], health["dim"]) == (V_SERVE, D), health)
         expect(health["device"] == torch.cuda.get_device_name(0), health)
 
-        vec = np.asarray(post(port, "/vector", {"word": "w7"}), np.float32)
+        vec = np.asarray(send(port, "/vector", {"word": "w7"}), np.float32)
         expect(np.array_equal(vec, rows[7]), "/vector differs from the row")
 
         def unit(x):
@@ -697,19 +933,19 @@ def serve_end_to_end(torch, np, rows_mod) -> dict:
         for i in range(16):
             a, b = f"w{2 * i}", f"w{2 * i + 1}"
             before = rows_mod.gather_rows.launches
-            hits = post(port, "/synonyms", {"word": a, "num": 5})
+            hits = send(port, "/synonyms", {"word": a, "num": 5})
             per_request.setdefault("/synonyms", rows_mod.gather_rows.launches - before)
             expect(len(hits) == 5 and hits[0][0] == b, (a, hits))
             cos = float(unit(rows[2 * i].astype(np.float64))
                         @ unit(rows[2 * i + 1].astype(np.float64)))
             expect(abs(hits[0][1] - cos) < 1e-5, (hits[0], cos))
 
-        hits = post(port, "/synonyms_vector",
+        hits = send(port, "/synonyms_vector",
                     {"vector": rows[2].tolist(), "num": 3})
         expect([h[0] for h in hits[:2]] == ["w2", "w3"], hits)
 
         before = rows_mod.gather_rows.launches
-        hits = post(port, "/analogy", {
+        hits = send(port, "/analogy", {
             "positive": [f"w{b1}", f"w{a2}"], "negative": [f"w{a1}"], "num": 3,
         })
         per_request["/analogy"] = rows_mod.gather_rows.launches - before
@@ -717,7 +953,7 @@ def serve_end_to_end(torch, np, rows_mod) -> dict:
 
         sents = [[f"w{a1}", f"w{a2}", f"w{b1}"], [f"w{b2}", "not_a_word"], []]
         before = rows_mod.gather_rows.launches
-        means = np.asarray(post(port, "/transform", {"sentences": sents}))
+        means = np.asarray(send(port, "/transform", {"sentences": sents}))
         per_request["/transform"] = rows_mod.gather_rows.launches - before
         want = np.stack([
             rows[[a1, a2, b1]].astype(np.float64).mean(axis=0),
@@ -731,18 +967,20 @@ def serve_end_to_end(torch, np, rows_mod) -> dict:
         expect(err <= 1e-6 * max(1.0, np.abs(want).max()),
                f"/transform differs from the mean of the rows by {err}")
 
-        expect(post_status(port, "/vector", {"word": "not_a_word"}) == 404,
+        expect(send_status(port, "/vector", {"word": "not_a_word"}) == 404,
                "an out-of-vocabulary /vector did not answer 404")
-        expect(post_status(port, "/synonyms", {"word": "w1", "num": -1}) == 400,
+        expect(send_status(port, "/synonyms", {"word": "w1", "num": -1}) == 400,
                "/synonyms with num=-1 did not answer 400")
 
         # 16 concurrent /synonyms (new words, so no cache hits).
         results = [None] * 16
 
         def ask(i):
-            results[i] = post(port, "/synonyms", {"word": f"w{2 * i + 1}", "num": 3})
+            results[i] = post(port, "/synonyms",
+                              {"word": f"w{2 * i + 1}", "num": 3})
 
-        stats0 = get_json(port, "/healthz")["coalescer"]
+        stats0 = fetch(port, "/healthz")["coalescer"]
+        sent["/synonyms"] += 16
         threads = [threading.Thread(target=ask, args=(i,)) for i in range(16)]
         for t in threads:
             t.start()
@@ -750,7 +988,7 @@ def serve_end_to_end(torch, np, rows_mod) -> dict:
             t.join(timeout=120)
         for i, hits in enumerate(results):
             expect(hits is not None and hits[0][0] == f"w{2 * i}", (i, hits))
-        stats = get_json(port, "/healthz")["coalescer"]
+        stats = fetch(port, "/healthz")["coalescer"]
         log(f"16 concurrent /synonyms: {stats['requests'] - stats0['requests']}"
             f" requests in {stats['dispatches'] - stats0['dispatches']} "
             f"dispatches (largest batch so far {stats['largest_batch']})")
@@ -761,23 +999,76 @@ def serve_end_to_end(torch, np, rows_mod) -> dict:
         lat = {"/synonyms": [], "/transform": []}
         for i in range(SEQ_REQUESTS):
             t = time.perf_counter()
-            post(port, "/synonyms", {"word": f"w{1000 + i}", "num": 10})
+            send(port, "/synonyms", {"word": f"w{1000 + i}", "num": 10})
             lat["/synonyms"].append((time.perf_counter() - t) * 1e3)
             t = time.perf_counter()
-            post(port, "/transform",
+            send(port, "/transform",
                  {"sentences": [[f"w{5000 + 8 * i + j}" for j in range(8)]]})
             lat["/transform"].append((time.perf_counter() - t) * 1e3)
         for path, xs in lat.items():
             log(f"{path}, 1 client: {summary(xs)}")
-        stats = get_json(port, "/healthz")["coalescer"]
+        stats = fetch(port, "/healthz")["coalescer"]
         xs, wall = closed_loop_in_child(port, 16, SEQ_REQUESTS // 2, 100_000)
-        stats1 = get_json(port, "/healthz")["coalescer"]
+        sent["/synonyms"] += len(xs)
+        stats1 = fetch(port, "/healthz")["coalescer"]
         log(f"/synonyms, 16 clients: {summary(xs)}; {len(xs) / wall:.1f} "
             f"requests/s; {stats1['requests'] - stats['requests']} requests in "
             f"{stats1['dispatches'] - stats['dispatches']} dispatches")
+        # What request tracing costs: the same 16-client window with the
+        # recorder the server installed, and with none (every request then
+        # carries a null trace), in turns.
+        t_added = time.perf_counter()
+        rec = events.get_recorder()
+        expect(rec is not None, "serve_model_dir(trace_log=) installed no recorder")
+        tails = {"traced": [], "untraced": []}
+        for i, mode in enumerate(("untraced", "traced", "untraced", "traced")):
+            events.set_recorder(None if mode == "untraced" else rec)
+            xs, wall = closed_loop_in_child(port, 16, SEQ_REQUESTS // 8,
+                                            110_000 + 1_000 * i)
+            sent["/synonyms"] += len(xs)
+            tails[mode].append(xs)
+        events.set_recorder(rec)
+        for mode, runs in tails.items():
+            log(f"/synonyms, 16 clients, {mode}: "
+                + "; ".join(summary(xs) for xs in runs))
         device_busy(torch, port)
+        sent["/synonyms"] += 16 * 25
 
-        expect(post(port, "/shutdown", {}) == {"status": "shutting down"},
+        # (a) /metrics counts every request of the phase, per endpoint
+        # (a request is counted just after its answer is sent, so poll).
+        for _ in range(50):
+            want = dict(sent)
+            snap = fetch(port, "/metrics")
+            counts = {p: e["count"] for p, e in snap["endpoints"].items()}
+            if counts == want:
+                break
+            time.sleep(0.1)
+        expect(counts == want, f"(a) /metrics counts {counts}, sent {want}")
+        expect(snap["overload"]["shed_admission_total"] == 0, snap["overload"])
+        log(f"(a) /metrics counts every request: {counts}; coalesced "
+            f"dispatches {dispatches(snap)}; cache {snap['synonym_cache']}")
+        # (b) The Prometheus text passes the linter, with exemplars.
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics?format=prometheus",
+                timeout=60) as r:
+            text = r.read().decode()
+        lint_prometheus_text(text)
+        expect(' # {trace_id="' in text, "(b) no exemplar in the Prometheus text")
+        # (c) A traced request that answers 404 is kept and on /trace.
+        tid = "c41b5e0d00000016"
+        st = counting(sent, post_full)(port, "/vector", {"word": "not_a_word"},
+                                       {"X-Glint-Trace": tid})
+        expect(st[0] == 404, f"(c) traced /vector answered {st[0]}")
+        doc = fetch(port, "/trace?seconds=600")
+        mine = [e for e in doc["events"] if e.get("args", {}).get("trace") == tid]
+        expect([e["name"] for e in mine][-1:] == ["req.accept"]
+               and mine[-1]["args"]["status"] == 404, f"(c) /trace gave {mine}")
+        log(f"(b) Prometheus text lint-clean, {len(text.splitlines())} lines; "
+            f"(c) traced 404 on /trace: {[e['name'] for e in mine]}; the ring "
+            f"holds {len(doc['events'])} events")
+        t_added = time.perf_counter() - t_added
+
+        expect(send(port, "/shutdown", {}) == {"status": "shutting down"},
                "/shutdown was not acknowledged")
         th.join(timeout=120)
         if th.is_alive():
@@ -789,8 +1080,20 @@ def serve_end_to_end(torch, np, rows_mod) -> dict:
             f"request {per_request}")
         if launches <= 0:
             raise AssertionError("the served path never launched gather_rows")
-        return {"launches": launches, "per_request": per_request}
+        expect(events.get_recorder() is None,
+               "serve_model_dir left its recorder installed")
+        t_drill = time.perf_counter()
+        drill = overload_drills(torch, np, rows_mod, model)
+        log(f"phase 4 additions: tracing windows and (a) to (c) "
+            f"{t_added:.1f} s, drills (d) to (f) "
+            f"{time.perf_counter() - t_drill:.1f} s")
+        return {"launches": launches, "per_request": per_request,
+                "drill": drill}
     finally:
+        if model is not None:
+            model.stop()
+            del model
+        torch.cuda.empty_cache()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -1589,6 +1892,67 @@ def host_pass_numbers(np, path: str, counts) -> None:
         f"alias build native {a[5]:.4f} s, Python {b[5]:.3f} s; outputs equal")
 
 
+def compat_fit(torch, np, fs, corpus, tmp: str) -> dict:
+    """Phase 6 (e): the reference's PySpark surface
+    (``ServerSideGlintWord2Vec``) fits the tiny corpus on the card at
+    vectorSize 100 with a requested topology of 4 partitions x 2 parameter
+    servers, which clamps to the one card with the JAX layer's warning;
+    the fit runs B4, B6 and B7 and passes the gates of
+    ``tests/test_compat.py`` and the vienna/berlin gates; a save loads
+    back with the same answers. Returns the kernels' launches."""
+    import warnings
+
+    from glint_word2vec_torch import (
+        ServerSideGlintWord2Vec,
+        ServerSideGlintWord2VecModel,
+    )
+
+    counters = (fs.pair_forward, fs.scatter_add_rank1_hbm, fs.scatter_add_rows_f32)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        m = ServerSideGlintWord2Vec(
+            vectorSize=100, numPartitions=4, numParameterServers=2, seed=1,
+            maxIter=6, stepSize=0.025, batchSize=256, windowSize=5,
+            unigramTableSize=100_000,
+        ).fit(corpus)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {c.__name__: c.launches for c in counters}
+    clamp = [str(w.message) for w in caught if "clamped" in str(w.message)]
+    expect(clamp == ["requested topology 4x2 (partitions x parameter servers) "
+                     f"clamped to mesh 1x1 for {torch.cuda.device_count()} "
+                     "device(s)"], f"compat clamp warnings: {clamp}")
+    for name, k in launches.items():
+        expect(k > 0, f"the compat fit never launched {name}: {launches}")
+    by_word = m.findSynonyms("germany", 5)
+    expect(len(by_word) == 5 and all(isinstance(w, str) for w, _ in by_word), by_word)
+    vecs = m.getVectors()
+    expect(len(vecs) > 50 and vecs[0][1].shape == (100,), len(vecs))
+    expect(len(m.findSynonymsArray(np.asarray(vecs[0][1]), 3)) == 3, "findSynonymsArray")
+    out = m.transform([["germany", "berlin"], ["nonexistent_word"]])
+    expect(out.shape == (2, 100) and np.linalg.norm(out[0]) > 0
+           and not out[1].any(), f"compat transform {out.shape}")
+    syns = dict(m.findSynonyms("austria", 10))
+    ana = m._model.analogy(positive=["vienna", "germany"], negative=["austria"],
+                           num=10)
+    expect(syns.get("vienna", 0.0) > 0.5, f"compat vienna gate failed: {syns}")
+    expect("berlin" in [w for w, _ in ana], f"compat berlin gate failed: {ana}")
+    path = os.path.join(tmp, "compat_model")
+    m.save(path)
+    loaded = ServerSideGlintWord2VecModel.load(path)
+    expect([w for w, _ in loaded.findSynonyms("germany", 3)]
+           == [w for w, _ in m.findSynonyms("germany", 3)], "compat reload")
+    loaded.stop()
+    m.stop(terminateOtherClients=True)
+    log(f"(e) ServerSideGlintWord2Vec 4x2 fit on the card in {wall:.1f} s "
+        f"(clamped: {clamp[0]!r}); austria -> vienna {syns['vienna']:.4f}; "
+        f"launches {launches}; save and load equal")
+    return launches
+
+
 def train_end_to_end(torch, np, fs, rows_mod) -> dict:
     """Phase 6. Returns the training kernels' launch counts from (a) and
     the gather's from (d)."""
@@ -1689,7 +2053,10 @@ def train_end_to_end(torch, np, fs, rows_mod) -> dict:
         log("resume on the card: 1 epoch + resume + 1 epoch == 2 epochs, bitwise")
         resumed.stop()
         full.stop()
-        return {"launches": launches, "gathers": gathers}
+        t_added = time.perf_counter()
+        compat = compat_fit(torch, np, fs, corpus, tmp)
+        log(f"phase 6 addition: (e) {time.perf_counter() - t_added:.1f} s")
+        return {"launches": launches, "gathers": gathers, "compat": compat}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2045,7 +2412,67 @@ def check_composed_kernels(torch, np, rows_mod, fs) -> dict:
         torch.cuda.empty_cache()
     for r in out.values():
         r["max_abs_err"] = 0.0  # every case above is bitwise
+    t_added = time.perf_counter()
+    out["train_step_launches"] = check_train_step(torch, np, rows_mod, gen, C)
+    log(f"phase 7 addition: (g) {time.perf_counter() - t_added:.1f} s")
     return out
+
+
+def check_train_step(torch, np, rows_mod, gen, C: int) -> dict:
+    """Phase 7 (g): ``train_step`` and ``train_step_grouped`` (the JAX
+    engine's one-batch forms) on copies of one 1,000,000 x 300 fp32 table
+    pair are bitwise ``train_steps_grouped`` with K = 1 on the same batch
+    and the same draws, and run B1, B2 and B3. Returns the one-batch
+    calls' launches (the ``train_steps_grouped`` side is not counted)."""
+    from glint_word2vec_torch.convert import engine_from_arrays
+
+    counts = np.arange(V_TRAIN, 0, -1, dtype=np.int64)
+    syn0 = 0.3 * torch.randn((V_TRAIN, D), generator=gen, device=DEV)
+    syn1 = 0.3 * torch.randn((V_TRAIN, D), generator=gen, device=DEV)
+    S = 4
+    cg = zipf_ids(torch, gen, (B_TRAIN, S), V_TRAIN).to(torch.int32)
+    gm = (torch.rand((B_TRAIN, S), generator=gen, device=DEV) < 0.7).float()
+    gm[:, 0] = 1.0
+    cg = torch.where(gm > 0, cg, 0)
+    cx = zipf_ids(torch, gen, (B_TRAIN, C), V_TRAIN).to(torch.int32)
+    mk = (torch.rand((B_TRAIN, C), generator=gen, device=DEV) < 0.6).float()
+    cx = torch.where(mk > 0, cx, 0)
+    counters = (rows_mod.gather_rows, rows_mod.scatter_add_rank1,
+                rows_mod.scatter_add_rows)
+    launched = {c.__name__: 0 for c in counters}
+    for grouped in (False, True):
+        one, many = (engine_from_arrays(syn0, syn1, counts, num_negatives=N_NEG,
+                                        device=DEV) for _ in range(2))
+        before = {c.__name__: c.launches for c in counters}
+        if grouped:
+            loss = one.train_step_grouped(cg, gm, cx, mk, 77, 0.025)
+        else:
+            loss = one.train_step(cg[:, 0], cx, mk, 77, 0.025)
+            cg1, gm1 = cg[:, :1], torch.ones_like(gm[:, :1])
+        torch.cuda.synchronize()
+        for c in counters:
+            launched[c.__name__] += c.launches - before[c.__name__]
+        g, m = (cg, gm) if grouped else (cg1, gm1)
+        ref = many.train_steps_grouped(g[None], m[None], cx[None], mk[None], 77,
+                                       [0.025], 0)
+        what = "train_step_grouped" if grouped else "train_step"
+        expect(loss == float(ref[0]), f"{what} loss {loss} != {float(ref[0])}")
+        for name in ("syn0", "syn1"):
+            expect(torch.equal(bits(torch, getattr(one, name)),
+                               bits(torch, getattr(many, name))),
+                   f"{what} {name} differs from train_steps_grouped K=1")
+        expect(math.isfinite(loss), f"{what} loss {loss}")
+        log(f"(g) {what} at {V_TRAIN} x {D}, B={B_TRAIN}, C={C}"
+            f"{f', S={S}' if grouped else ''}: loss {loss:.6f}, tables bitwise "
+            f"train_steps_grouped with K = 1")
+        one.destroy()
+        many.destroy()
+    del syn0, syn1
+    torch.cuda.empty_cache()
+    for name, k in launched.items():
+        expect(k > 0, f"train_step never launched {name}: {launched}")
+    log(f"(g) the one-batch steps launched {launched}")
+    return launched
 
 
 # ----------------------------------------------------------------------
@@ -3733,11 +4160,12 @@ def stream_words(np) -> tuple:
     with its first position and the count of such words; and the base
     words, every word of the bootstrap among the 400,000 most frequent."""
     toks = synthetic_tokens(np)
-    _, first = np.unique(toks, return_index=True)
+    # ids[i] is the word whose first position is first[i].
+    ids, first = np.unique(toks, return_index=True)
     late = np.flatnonzero(first >= STREAM_BOOTSTRAP)
-    k = int(late[np.argmin(first[late])])
-    base = np.flatnonzero(first[:400_000] < STREAM_BOOTSTRAP)
-    return f"w{k}", int(first[k]), int(late.size), [f"w{i}" for i in base]
+    i = int(late[np.argmin(first[late])])
+    base = ids[(ids < 400_000) & (first < STREAM_BOOTSTRAP)]
+    return f"w{ids[i]}", int(first[i]), int(late.size), [f"w{k}" for k in base]
 
 
 def percentile_line(ms) -> str:
@@ -3908,7 +4336,7 @@ def stream_and_swap(torch, np, fs, rows_mod, tmp: str) -> dict:
         log(f"server booted from gen-000001 (load, warmup, index build and gate) "
             f"in {box['boot_seconds']:.1f} s; index build {ix['build_seconds']} s, "
             f"{ix['spilled_rows']} rows spilled; recall@10 "
-            f"{server._ann_recall}, ANN serving {server._ann_live}")
+            f"{server.metrics.index_recall_at10}, ANN serving {server._ann_live}")
         ctx = multiprocessing.get_context("spawn")
         stop = ctx.Event()
         out_path = os.path.join(tmp, "clients.json")
@@ -4841,11 +5269,18 @@ def main() -> int:
         14: lambda: exchange_gang(torch, np, fs, rows_mod),
     }
 
+    switch = sys.getswitchinterval()
+
     def run(p):
         t0 = time.perf_counter()
         out = phases[p]()
         if p == 9:
             out = (out, train_shared_end_to_end(torch, np, fs, rows_mod))
+        # A server tightens the process-wide switch interval while it
+        # serves; a phase must not leave it tightened for the next.
+        expect(sys.getswitchinterval() == switch,
+               f"phase {p} left the switch interval at "
+               f"{sys.getswitchinterval()} (was {switch})")
         log(f"phase {p}: {time.perf_counter() - t0:.1f} s")
         return out
 
@@ -4902,6 +5337,8 @@ def main() -> int:
         "transform_max_abs_err": annt["transform_err"],
         "launches_stream_and_swaps": streamed["launches"]["gather_rows"],
         "launches_swap_index_builds": streamed["swap_launches"]["gather_rows"],
+        "launches_overload_drills": served["drill"]["launches"],
+        "launches_train_step": composed["train_step_launches"]["gather_rows"],
     }]
     train_shape = (f"fp32 tables {V_TRAIN}x{D}, P={packed_pair_batch(B_TRAIN, W_TRAIN)}, "
                    f"n={N_NEG}")
@@ -4931,6 +5368,7 @@ def main() -> int:
             "launches_stall_free_fit": stall["launches"][name],
             "launches_stream_fit": streamed["launches"][name],
             "launches_gang": gang["launches"][name],
+            "launches_compat_fit": trained["compat"][name],
         })
     b4, b7 = kernels[-3], kernels[-2]
     b4["stream_group_max_abs_err"] = streamed["group"]["err"]
@@ -4978,6 +5416,7 @@ def main() -> int:
             "launches_stream_and_swaps": streamed["launches"][name],
             "bf16_ms": composed[(name, "bf16")]["ms"],
             "bf16_bound_ms": composed[(name, "bf16")]["bound_ms"],
+            "launches_train_step": composed["train_step_launches"][name],
         })
     b2, b2_bf16 = (composed[("scatter_add_rank1", dt)]["parts"] for dt in ("f32", "bf16"))
     kernels[-1]["launches_swap_index_builds"] = streamed["swap_launches"]["scatter_add_rows"]

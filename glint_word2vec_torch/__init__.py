@@ -9,7 +9,9 @@ kernels here: the row gather (``csrc/gather_rows.cu``), the fused pair
 step of the resident training path (``csrc/pair_forward.cu``,
 ``csrc/scatter_runs.cu``) with its shared-pool forward
 (``csrc/pair_forward_shared.cu``), and the table-dtype scatters of the
-composed step (``csrc/scatter_runs.cu``).
+composed step (``csrc/scatter_runs.cu``). ``ServerSideGlintWord2Vec``
+and ``ServerSideGlintWord2VecModel`` (``compat.py``) give the reference's
+PySpark surface over the same estimator.
 """
 
 from glint_word2vec_torch.models import load_model
@@ -28,7 +30,18 @@ __all__ = [
     "FastTextParams",
     "FastTextWord2Vec",
     "ModelServer",
+    "ServerSideGlintWord2Vec",
+    "ServerSideGlintWord2VecModel",
     "Word2Vec",
     "Word2VecModel",
     "load_model",
 ]
+
+
+def __getattr__(name):
+    # The reference's PySpark surface (compat.py), imported on first use.
+    if name in ("ServerSideGlintWord2Vec", "ServerSideGlintWord2VecModel"):
+        from glint_word2vec_torch import compat
+
+        return getattr(compat, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -3,7 +3,7 @@
   python -m glint_word2vec_torch.cli train     --corpus c.txt --output m/ [--fasttext] [...]
   python -m glint_word2vec_torch.cli supervise --workers 2 train --exchange sparse --checkpoint-dir ck/ [...]
   python -m glint_word2vec_torch.cli fit-stream --corpus c.txt|- --publish-dir P/ [...]
-  python -m glint_word2vec_torch.cli serve     --model m/ --port 8801 [--ann]
+  python -m glint_word2vec_torch.cli serve     --model m/ --port 8801 [--ann] [--max-inflight 256]
   python -m glint_word2vec_torch.cli serve     --watch-checkpoint P/ [--watch-poll 1]
   python -m glint_word2vec_torch.cli transform-file --model m/ --input s.txt --out shards/
   python -m glint_word2vec_torch.cli synonyms-dump  --model m/ --out n.jsonl [--ann]
@@ -888,7 +888,33 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--port-file", default=None, metavar="FILE",
                    help="write the bound {host, port} JSON here once the "
                         "server is warmed and listening")
+    p.add_argument("--trace-log", default=None, metavar="FILE",
+                   help="record the kept request traces and the dispatch "
+                        "spans to this JSONL sink (also on GET /trace)")
+    p.add_argument("--flight-dir", default=None, metavar="DIR",
+                   help="arm the anomaly flight recorder: a shed burst or "
+                        "an SLO fast burn writes a postmortem bundle "
+                        "(recent spans and the full metrics) here")
     _add_ann_flags(p)
+    over = p.add_argument_group(
+        "overload protection",
+        "bounded admission, deadlines and degraded cache-only mode, so a "
+        "traffic spike sheds load instead of queueing without bound "
+        "(counters on /metrics)",
+    )
+    over.add_argument("--max-inflight", type=int, default=256,
+                      help="admission high-water mark: device requests "
+                           "past this many in flight answer 429 with "
+                           "Retry-After (0 disables; default 256)")
+    over.add_argument("--request-deadline", type=float, default=30.0,
+                      help="seconds a request may wait for the device "
+                           "before it answers 504 without a dispatch (0 "
+                           "disables; default 30)")
+    over.add_argument("--degraded-after", type=float, default=5.0,
+                      help="device-lock hold seconds after which the "
+                           "server answers from its cache alone and sheds "
+                           "misses with 429, until the lock frees (0 "
+                           "disables; default 5)")
     return ap
 
 
@@ -924,7 +950,10 @@ def main(argv=None) -> int:
             max_batch=args.max_batch, warmup=not args.no_warmup,
             cache_size=args.cache_size, port_file=args.port_file,
             device=args.device, watch_dir=args.watch_checkpoint,
-            watch_poll=args.watch_poll, **_ann_kwargs(args),
+            watch_poll=args.watch_poll, trace_log=args.trace_log,
+            flight_dir=args.flight_dir, max_inflight=args.max_inflight,
+            request_deadline=args.request_deadline,
+            degraded_after=args.degraded_after, **_ann_kwargs(args),
         )
         return 0
     if args.cmd == "synonyms-dump" and args.out is None and args.graph_out is None:

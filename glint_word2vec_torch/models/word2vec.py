@@ -321,6 +321,42 @@ class Word2Vec:
     def set_batch_packing(self, v: str) -> "Word2Vec":
         return self._set(batch_packing=v)
 
+    def set_exchange(self, v: str) -> "Word2Vec":
+        """Cross-replica reconciliation of a gang of processes: "none"
+        (one process, or the SPMD mesh, not ported yet), "sparse" (each
+        round exchanges the touched rows' deltas) or "dense" (the full
+        deltas on the same cadence, the parity baseline)."""
+        return self._set(exchange=v)
+
+    def set_exchange_capacity(self, v: int) -> "Word2Vec":
+        """Touched-row buffer capacity of one exchange round (0 sizes it
+        from the group's pair budget and adapts it to what rounds touch;
+        a positive value pins it)."""
+        return self._set(exchange_capacity=v)
+
+    def set_exchange_wire(self, v: str) -> "Word2Vec":
+        """Payload encoding of the sparse exchange: "fp32" (exact),
+        "bf16", or "int8" (a max-abs scale per row with the rounding
+        error carried into the next round)."""
+        return self._set(exchange_wire=v)
+
+    def set_exchange_every(self, v: int) -> "Word2Vec":
+        """Dispatch groups a round of the exchange covers (1 exchanges
+        after every group)."""
+        return self._set(exchange_every=v)
+
+    def set_exchange_topology(self, v: str) -> "Word2Vec":
+        """Exchange topology: "flat" or "twolevel" (an exact hop inside a
+        node, then the wire encoding between node leaders;
+        ``GLINT_RANKS_PER_NODE`` sets the node size)."""
+        return self._set(exchange_topology=v)
+
+    def set_exchange_shard(self, v: str) -> "Word2Vec":
+        """How the corpus splits over the replicas: "roundrobin" or
+        "locality" (sentences grouped by their rarest word, so each
+        replica touches fewer rows)."""
+        return self._set(exchange_shard=v)
+
     def set_observability(self, obs) -> "Word2Vec":
         """Attach an ``obs.ObsConfig`` for later fits (event log,
         heartbeat, status file, divergence canary, step-time file)."""

@@ -13,14 +13,19 @@ Two layers:
 - the module-level :func:`emit` and :func:`span`, which instrumentation
   sites call unconditionally. With no recorder installed they cost one
   global read, and :func:`span` returns the shared no-op
-  :data:`NULL_SPAN`.
-
-The serving data plane's request traces are not ported yet.
+  :data:`NULL_SPAN`;
+- :class:`RequestTrace`, the server's per-request phase-span buffer: a
+  request adopts the trace id a client or balancer sends in
+  ``X-Glint-Trace`` (or mints one, :func:`mint_trace_id`), buffers its
+  phases, and flushes them into the ring only when the tail sampler keeps
+  it (always: errors, sheds, slow requests; 1 in ``GLINT_TRACE_SAMPLE``
+  otherwise). Phase names come from :data:`REQUEST_SPANS`.
 """
 
 from __future__ import annotations
 
 import atexit
+import itertools
 import json
 import logging
 import os
@@ -31,11 +36,46 @@ from typing import Optional
 
 logger = logging.getLogger(__name__)
 
+#: The request-path span vocabulary: every request-tracing site
+#: (``RequestTrace.phase``, ``RequestTrace.add_phase``, ``phase_span``)
+#: names its span with a key of this dict, so tools that stitch traces
+#: can rely on the names.
+REQUEST_SPANS = {
+    "req.accept": "per-process root span of one request hop "
+                  "(balancer or replica handler, accept to response)",
+    "req.admission": "admission gate: inflight-slot acquire or shed",
+    "req.queue": "coalescer queue wait, enqueue to leader drain",
+    "req.hop": "balancer -> replica proxy attempt (one per retry hop)",
+    "req.dispatch": "warm-bucket device dispatch of one coalesced batch",
+    "req.query": "engine query path (args carry mode=ann|exact)",
+    "req.readback": "device result harvest / host materialization",
+    "req.serialize": "response serialization + socket write",
+}
+
+#: Wire header carrying the trace id across the balancer -> replica hop.
+TRACE_HEADER = "X-Glint-Trace"
+
+#: Tail-sampling knobs: keep 1 in GLINT_TRACE_SAMPLE of the healthy/fast
+#: requests; always keep errors (status >= 400, which covers sheds and
+#: deadline 504s) and requests slower than GLINT_TRACE_SLOW_MS.
+_TRACE_SAMPLE_EVERY = max(
+    1, int(os.environ.get("GLINT_TRACE_SAMPLE") or 32)
+)
+_TRACE_SLOW_MS = float(os.environ.get("GLINT_TRACE_SLOW_MS") or 250.0)
+
 #: Default JSONL sink rotation bound: past it the sink rotates to
 #: ``<path>.1`` (one generation kept), so disk stays near twice this.
 _SINK_MAX_BYTES = int(
     os.environ.get("GLINT_EVENT_SINK_MAX_BYTES") or 64 * 1024 * 1024
 )
+
+_sample_counter = itertools.count()
+
+
+def mint_trace_id() -> str:
+    """A 16-hex-char request trace id, read from the OS entropy pool
+    (no seeded generator is disturbed)."""
+    return os.urandom(8).hex()
 
 
 class _NullSpan:
@@ -79,6 +119,129 @@ class _Span:
         self._args.update(args)
 
 
+class _Phase:
+    """Context manager buffering one request phase span into its
+    :class:`RequestTrace` (not the ring — the tail sampler decides at
+    ``finish`` whether the buffered spans are flushed at all)."""
+
+    __slots__ = ("_tr", "_name", "_args", "_t0")
+
+    def __init__(self, tr: "RequestTrace", name: str, args: dict):
+        self._tr = tr
+        self._name = name
+        self._args = args
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        self._tr._spans.append(
+            (self._name, self._t0, t1 - self._t0, self._args)
+        )
+        return False
+
+    def update(self, **args) -> None:
+        self._args.update(args)
+
+
+class NullRequestTrace:
+    """Trace-id-carrying no-op returned when no recorder is installed:
+    the id still propagates over the wire (a downstream hop may be
+    recording even when this one is not), but nothing is buffered."""
+
+    __slots__ = ("trace_id", "kept")
+
+    def __init__(self, trace_id: str):
+        self.trace_id = trace_id
+        self.kept = False
+
+    def phase(self, name: str, **args):
+        return NULL_SPAN
+
+    def add_phase(self, name: str, t0: float, dur: float, **args) -> None:
+        pass
+
+    def finish(self, status: int = 200, *, force: bool = False) -> bool:
+        return False
+
+
+#: Shared stateless no-op trace for call sites whose caller passed no
+#: trace at all (direct library use of the coalescer, tests).
+NULL_TRACE = NullRequestTrace("")
+
+
+class RequestTrace:
+    """Per-request phase-span buffer with tail-based sampling.
+
+    One hop's handler owns one instance (single-writer; cross-thread
+    phases — the coalescer leader's queue/dispatch timestamps — are
+    converted by the OWNING handler thread via :meth:`add_phase`).
+    ``finish(status)`` applies the tail-sampling policy: errors/sheds
+    (status >= 400), slow requests, and ``force`` are always kept;
+    everything else is kept 1 in ``GLINT_TRACE_SAMPLE``. Kept spans are
+    flushed into the recorder ring/sink with the trace id attached, so
+    hops of one request can be stitched across processes by id.
+    """
+
+    __slots__ = ("trace_id", "_rec", "_spans", "_t0", "kept")
+
+    def __init__(self, trace_id: str, rec: "EventRecorder"):
+        self.trace_id = trace_id
+        self._rec = rec
+        self._spans: list = []
+        self._t0 = time.perf_counter()
+        self.kept = False
+
+    def phase(self, name: str, **args) -> _Phase:
+        """Context manager buffering one registry-named phase span."""
+        return _Phase(self, name, args)
+
+    def add_phase(self, name: str, t0: float, dur: float, **args) -> None:
+        """Buffer a phase from externally captured timestamps (the
+        coalescer leader stamps perf_counter() pairs into the request
+        dict; the waiter thread converts them here)."""
+        self._spans.append((name, t0, dur, args))
+
+    def finish(self, status: int = 200, *, force: bool = False) -> bool:
+        """Apply tail sampling; flush buffered spans if kept. Returns
+        whether the trace was kept (the caller can use that to attach
+        an exemplar only for traces that actually exist in the ring)."""
+        spans, self._spans = self._spans, []
+        if not spans:
+            return False
+        slow = (time.perf_counter() - self._t0) * 1e3 >= _TRACE_SLOW_MS
+        keep = (
+            force or slow or int(status) >= 400
+            or next(_sample_counter) % _TRACE_SAMPLE_EVERY == 0
+        )
+        if not keep:
+            return False
+        # The root span (req.accept closes last, so it is the final
+        # buffered entry) carries the response status.
+        spans[-1][3].setdefault("status", int(status))
+        for name, t0, dur, args in spans:
+            a = dict(args)
+            a["trace"] = self.trace_id
+            self._rec._record(name, "X", t0, dur, a)
+        self.kept = True
+        return True
+
+
+def request_trace(trace_id: Optional[str] = None, rec=None):
+    """Start one hop's request trace: adopts the propagated trace id (or
+    mints one at the edge) and binds the process recorder. With no
+    recorder installed this degrades to a :class:`NullRequestTrace` that
+    still carries the id for onward propagation."""
+    if rec is None:
+        rec = _current
+    tid = trace_id or mint_trace_id()
+    if rec is None:
+        return NullRequestTrace(tid)
+    return RequestTrace(tid, rec)
+
+
 class EventRecorder:
     """Thread-safe span/event log: the newest ``capacity`` events in a
     bounded ring (overflow counted in ``dropped``) plus an optional JSONL
@@ -115,6 +278,11 @@ class EventRecorder:
     @property
     def capacity(self) -> int:
         return self._ring.maxlen
+
+    @property
+    def mono_t0(self) -> float:
+        """Monotonic half of the clock-anchor pair (``ts`` zero)."""
+        return self._t0
 
     def _write_anchor_locked(self) -> None:
         """The clock-anchor metadata line: the (monotonic, wall) pair of
@@ -188,6 +356,13 @@ class EventRecorder:
         """Snapshot of the ring, oldest first."""
         with self._mu:
             return list(self._ring)
+
+    def recent_events(self, seconds: float) -> list:
+        """Ring events that started within the last ``seconds`` (the
+        ``/trace`` scrape and the flight recorder's bundle window)."""
+        cutoff = (time.perf_counter() - self._t0 - seconds) * 1e6
+        with self._mu:
+            return [e for e in self._ring if e.get("ts", 0.0) >= cutoff]
 
     def counts(self) -> dict:
         with self._mu:
@@ -273,6 +448,17 @@ def emit(name: str, **args) -> None:
 
 def span(name: str, **args):
     """Span on the current recorder; :data:`NULL_SPAN` when off."""
+    rec = _current
+    if rec is None:
+        return NULL_SPAN
+    return rec.span(name, **args)
+
+
+def phase_span(name: str, **args):
+    """Request-path span recorded straight into the ring, never
+    tail-sampled away: the coalescer leader's dispatch uses it, so a kept
+    request's trace always shows the batch it rode in. ``name`` is a
+    :data:`REQUEST_SPANS` key."""
     rec = _current
     if rec is None:
         return NULL_SPAN

@@ -111,7 +111,7 @@ class TrainingStatus:
         self._engine = engine
         self._recorder = recorder
         self.started = time.time()
-        # starting|running|done|diverged|failed
+        # starting|running|done|diverged|failed|unhealthy
         self.state = "starting"
         self.epoch = 0
         self.step = 0
@@ -218,6 +218,16 @@ class TrainingStatus:
                 "dispatch_seconds": _finite_or_none(dispatch_seconds),
                 "post_warmup_compiles_total": post_warmup_compiles,
             }
+
+    def mark_unhealthy(self, reason: str) -> None:
+        """Flip the worker to ``unhealthy`` so ``/healthz`` answers 503
+        with the reason (probes and the supervisor act on the status
+        code). A terminal state already reported (done, diverged,
+        failed) is not downgraded."""
+        with self._mu:
+            if self.state not in ("done", "diverged", "failed"):
+                self.state = "unhealthy"
+            self.unhealthy_reason = str(reason)
 
     def _rolling_wps(self) -> float:
         if len(self._rolling) < 2:

@@ -1,15 +1,18 @@
 """Prometheus text exposition (format version 0.0.4) of the training
-heartbeat's snapshot (trimmed copy of
-``glint_word2vec_tpu/obs/prometheus.py:18-409, 1417``).
+heartbeat's and the server's snapshots (trimmed copy of
+``glint_word2vec_tpu/obs/prometheus.py:18-1090, 1417``).
 
-A pure function dict -> text, so the heartbeat renders
-``/metrics?format=prometheus`` from the same snapshot its JSON endpoint
+Pure functions dict -> text, so the heartbeat and the server render
+``/metrics?format=prometheus`` from the same snapshot their JSON endpoint
 serves. The metric families and their labels are the JAX package's,
 including the replica-exchange ones, which a one-device fit reports as
 0 or NaN. :func:`gang_to_prometheus` renders the supervisor's merged
-gang view (``obs/aggregate.py``). Also :func:`lint_prometheus_text`, the
-validator the tests run over every rendered exposition. The serving and
-fleet renderers come with the port's serving slices.
+gang view (``obs/aggregate.py``) and :func:`serving_to_prometheus` a
+``ServingMetrics`` snapshot, with OpenMetrics exemplars naming kept
+request traces; its per-model and catalog blocks render only when the
+snapshot carries them. Also :func:`lint_prometheus_text`, the validator
+the tests run over every rendered exposition. The fleet renderer comes
+with the port's fleet slice.
 """
 
 from __future__ import annotations
@@ -50,12 +53,22 @@ class _Prom:
         self.lines.append(f"# HELP {name} {help_}")
         self.lines.append(f"# TYPE {name} {mtype}")
 
-    def sample(self, name: str, labels, value) -> None:
+    def sample(self, name: str, labels, value, exemplar=None) -> None:
         if labels:
             lab = ",".join(f'{k}="{_esc(v)}"' for k, v in labels.items())
-            self.lines.append(f"{name}{{{lab}}} {_num(value)}")
+            line = f"{name}{{{lab}}} {_num(value)}"
         else:
-            self.lines.append(f"{name} {_num(value)}")
+            line = f"{name} {_num(value)}"
+        if exemplar and exemplar.get("trace_id"):
+            # OpenMetrics-style exemplar suffix: a trace id pinned to
+            # one recent observation, so a dashboard quantile links
+            # straight to the trace that produced it.
+            line += (
+                f' # {{trace_id="{_esc(exemplar["trace_id"])}"}}'
+                f' {_num(exemplar.get("value"))}'
+            )
+        self.lines.append(line)
+
 
     def text(self) -> str:
         return "\n".join(self.lines) + "\n"
@@ -444,6 +457,409 @@ def gang_to_prometheus(snap: dict) -> str:
                      info.get("span_seconds", info.get("seconds")))
             p.sample("glint_gang_steptime_span_seconds_count",
                      {"phase": phase}, info.get("count", 0))
+    return p.text()
+
+
+# ----------------------------------------------------------------------
+# Serving exposition (utils/metrics.ServingMetrics.snapshot)
+# ----------------------------------------------------------------------
+
+
+def serving_to_prometheus(snap: dict) -> str:
+    """Render a ServingMetrics snapshot as scrape-ready text: request and
+    error counters per endpoint, a latency summary (the histogram's
+    p50/p95/p99), the coalesced-batch-size histogram, cache counters,
+    and the compile accounting the PR-2 zero-compile contract watches."""
+    p = _Prom()
+    endpoints = snap.get("endpoints", {})
+    p.head("glint_serving_requests_total", "counter",
+           "Requests observed per endpoint path.")
+    for path, ep in endpoints.items():
+        p.sample("glint_serving_requests_total", {"path": path}, ep["count"])
+    p.head("glint_serving_request_errors_total", "counter",
+           "Responses with status >= 400 per endpoint path.")
+    for path, ep in endpoints.items():
+        p.sample("glint_serving_request_errors_total", {"path": path},
+                 ep["errors"])
+    p.head("glint_serving_request_latency_seconds", "summary",
+           "Per-endpoint request latency quantiles.")
+    for path, ep in endpoints.items():
+        for q, key in (("0.5", "p50_ms"), ("0.95", "p95_ms"),
+                       ("0.99", "p99_ms")):
+            p.sample("glint_serving_request_latency_seconds",
+                     {"path": path, "quantile": q}, ep[key] / 1e3)
+        p.sample("glint_serving_request_latency_seconds_sum",
+                 {"path": path}, ep["mean_ms"] * ep["count"] / 1e3)
+        # Exemplar: the last kept request trace on this endpoint, so a
+        # latency quantile on a dashboard links to a concrete trace.
+        ex = ep.get("exemplar") or {}
+        p.sample("glint_serving_request_latency_seconds_count",
+                 {"path": path}, ep["count"],
+                 exemplar=({"trace_id": ex.get("trace_id"),
+                            "value": (ex.get("value_ms") or 0) / 1e3}
+                           if ex.get("trace_id") else None))
+    sizes = {int(k): int(v)
+             for k, v in snap.get("coalesced_batch_sizes", {}).items()}
+    p.head("glint_serving_coalesced_batch_size", "histogram",
+           "Queries per coalesced device dispatch.")
+    cum, total = 0, 0
+    for size in sorted(sizes):
+        cum += sizes[size]
+        total += size * sizes[size]
+        p.sample("glint_serving_coalesced_batch_size_bucket",
+                 {"le": str(size)}, cum)
+    p.sample("glint_serving_coalesced_batch_size_bucket", {"le": "+Inf"}, cum)
+    p.sample("glint_serving_coalesced_batch_size_sum", None, total)
+    p.sample("glint_serving_coalesced_batch_size_count", None, cum)
+    over = snap.get("overload", {})
+    p.head("glint_serving_shed_total", "counter",
+           "Requests shed with 429, by reason (admission = in-flight "
+           "high-water mark; degraded = cache-only mode).")
+    p.sample("glint_serving_shed_total", {"reason": "admission"},
+             over.get("shed_admission_total", 0))
+    p.sample("glint_serving_shed_total", {"reason": "degraded"},
+             over.get("shed_degraded_total", 0))
+    p.head("glint_serving_deadline_hits_total", "counter",
+           "Requests answered 504: deadline passed before the device.")
+    p.sample("glint_serving_deadline_hits_total", None,
+             over.get("deadline_504_total", 0))
+    p.head("glint_serving_degraded_entered_total", "counter",
+           "Transitions into degraded cache-only mode.")
+    p.sample("glint_serving_degraded_entered_total", None,
+             over.get("degraded_entered_total", 0))
+    p.head("glint_serving_inflight_peak", "gauge",
+           "Peak admitted device-touching requests in flight.")
+    p.sample("glint_serving_inflight_peak", None,
+             over.get("inflight_peak", 0))
+    cache = snap.get("synonym_cache", {})
+    p.head("glint_serving_cache_hits_total", "counter",
+           "Synonym result-cache hits.")
+    p.sample("glint_serving_cache_hits_total", None, cache.get("hits", 0))
+    p.head("glint_serving_cache_misses_total", "counter",
+           "Synonym result-cache misses.")
+    p.sample("glint_serving_cache_misses_total", None, cache.get("misses", 0))
+    compiles = snap.get("compiles", {})
+    p.head("glint_serving_compiles_total", "counter",
+           "Query-op shapes jit-compiled since engine construction.")
+    p.sample("glint_serving_compiles_total", None, compiles.get("total", 0))
+    p.head("glint_serving_post_warmup_compiles", "gauge",
+           "Compiles past serving warmup (the zero-compile contract).")
+    p.sample("glint_serving_post_warmup_compiles", None,
+             compiles.get("post_warmup", 0))
+    swap = snap.get("hot_swap") or {}
+    p.head("glint_serving_table_swaps_total", "counter",
+           "Table generations hot-swapped into the live engine.")
+    p.sample("glint_serving_table_swaps_total", None,
+             swap.get("table_swaps_total", 0))
+    p.head("glint_serving_swap_failures_total", "counter",
+           "Hot-swap attempts that failed verification or staging "
+           "(the previous generation stayed live).")
+    p.sample("glint_serving_swap_failures_total", None,
+             swap.get("swap_failures_total", 0))
+    p.head("glint_serving_watch_errors_total", "counter",
+           "Transient publish-dir read errors the snapshot watcher "
+           "absorbed (backed off, retried on a later poll; the "
+           "generation was NOT marked failed).")
+    p.sample("glint_serving_watch_errors_total", None,
+             swap.get("watch_errors_total", 0))
+    p.head("glint_serving_last_swap_age_seconds", "gauge",
+           "Seconds since the last successful hot-swap (NaN before "
+           "any).")
+    p.sample("glint_serving_last_swap_age_seconds", None,
+             swap.get("last_swap_age_seconds"))
+    p.head("glint_serving_generation_info", "gauge",
+           "Served snapshot generation carried as a label; value is "
+           "always 1.")
+    p.sample("glint_serving_generation_info",
+             {"generation": swap.get("generation") or ""}, 1)
+    ck = snap.get("checkpoint") or {}
+    p.head("glint_serving_pending_async_saves", "gauge",
+           "Async table snapshots in flight on the served engine.")
+    p.sample("glint_serving_pending_async_saves", None,
+             ck.get("pending_async_saves", 0))
+    p.head("glint_serving_checkpoint_write_seconds", "gauge",
+           "Wall seconds of the engine's most recent snapshot write.")
+    p.sample("glint_serving_checkpoint_write_seconds", None,
+             ck.get("checkpoint_write_seconds"))
+    p.head("glint_serving_last_checkpoint_age_seconds", "gauge",
+           "Seconds since the engine last committed a table snapshot "
+           "(NaN when it never has).")
+    p.sample("glint_serving_last_checkpoint_age_seconds", None,
+             ck.get("last_checkpoint_age_seconds"))
+    # ANN index family: the serving-side view of the
+    # two-stage approximate top-k — build/refresh lifecycle, the
+    # measured recall gate, and per-query probe accounting.
+    index = snap.get("index") or {}
+    p.head("glint_index_enabled", "gauge",
+           "Whether a device-resident ANN index is built for this "
+           "server (1) or every query is exact (0).")
+    p.sample("glint_index_enabled", None,
+             1 if index.get("enabled") else 0)
+    p.head("glint_index_clusters", "gauge",
+           "Coarse k-means clusters in the ANN index.")
+    p.sample("glint_index_clusters", None, index.get("clusters"))
+    p.head("glint_index_nprobe", "gauge",
+           "Clusters probed per approximate query.")
+    p.sample("glint_index_nprobe", None, index.get("nprobe"))
+    p.head("glint_index_build_seconds", "gauge",
+           "Wall seconds of the most recent index build/refresh.")
+    p.sample("glint_index_build_seconds", None,
+             index.get("build_seconds"))
+    p.head("glint_index_last_refresh_age_seconds", "gauge",
+           "Seconds since the index was last built or refreshed (NaN "
+           "before any build).")
+    p.sample("glint_index_last_refresh_age_seconds", None,
+             index.get("last_refresh_age_seconds"))
+    p.head("glint_index_refreshes_total", "counter",
+           "Index builds/refreshes (boot + one per hot-swap).")
+    p.sample("glint_index_refreshes_total", None,
+             index.get("refreshes_total", 0))
+    p.head("glint_index_recall_at10", "gauge",
+           "Measured recall@10 of the approximate path vs the exact "
+           "path on the same tables (NaN before any measurement).")
+    p.sample("glint_index_recall_at10", None, index.get("recall_at10"))
+    p.head("glint_index_recall_gate_ok", "gauge",
+           "Whether the last recall measurement cleared the gate (a "
+           "failing gate holds the exact path live).")
+    p.sample("glint_index_recall_gate_ok", None,
+             1 if index.get("recall_gate_ok") else 0)
+    p.head("glint_index_probes_per_query", "gauge",
+           "Mean clusters probed per approximate query (NaN before "
+           "any approximate query).")
+    p.sample("glint_index_probes_per_query", None,
+             index.get("probes_per_query"))
+    p.head("glint_index_ann_queries_total", "counter",
+           "Synonym queries answered through the ANN index.")
+    p.sample("glint_index_ann_queries_total", None,
+             index.get("ann_queries_total", 0))
+    p.head("glint_index_probes_total", "counter",
+           "Total clusters probed across all approximate queries.")
+    p.sample("glint_index_probes_total", None,
+             index.get("probes_total", 0))
+    p.head("glint_index_exact_fallbacks_total", "counter",
+           "Queries served by the exact path while the index is "
+           "enabled, by reason (requested = per-request exact=true; "
+           "gate = recall gate holding the approximate path back).")
+    for reason, n in sorted((index.get("exact_fallbacks") or {}).items()):
+        p.sample("glint_index_exact_fallbacks_total",
+                 {"reason": reason}, n)
+    p.head("glint_index_table_versions_behind", "gauge",
+           "Table mutations since the index was built against the "
+           "live tables (staleness; NaN without an index).")
+    p.sample("glint_index_table_versions_behind", None,
+             index.get("table_versions_behind"))
+    slo = snap.get("slo") or {}
+    if slo:
+        # SLO burn-rate families: per-endpoint objectives,
+        # rolling-window good/bad counts, and the multi-window burn
+        # rates + alerts from obs/slo.SloEngine. Rendered only when a
+        # SLO engine is attached, so bare ServingMetrics snapshots keep
+        # their exposition unchanged.
+        slo_eps = slo.get("endpoints") or {}
+        p.head("glint_slo_availability_target", "gauge",
+               "Availability objective (success-ratio target) per "
+               "tracked endpoint.")
+        for ep, doc in slo_eps.items():
+            p.sample("glint_slo_availability_target",
+                     {"endpoint": ep}, doc.get("availability_target"))
+        p.head("glint_slo_latency_target", "gauge",
+               "Latency objective (fraction of good requests under the "
+               "threshold) per tracked endpoint.")
+        for ep, doc in slo_eps.items():
+            p.sample("glint_slo_latency_target",
+                     {"endpoint": ep}, doc.get("latency_target"))
+        p.head("glint_slo_latency_threshold_ms", "gauge",
+               "Latency SLI threshold in milliseconds per endpoint.")
+        for ep, doc in slo_eps.items():
+            p.sample("glint_slo_latency_threshold_ms",
+                     {"endpoint": ep}, doc.get("latency_threshold_ms"))
+        p.head("glint_slo_window_requests", "gauge",
+               "Requests observed in each rolling SLO window.")
+        for ep, doc in slo_eps.items():
+            for win, w in (doc.get("windows") or {}).items():
+                p.sample("glint_slo_window_requests",
+                         {"endpoint": ep, "window": win},
+                         w.get("total", 0))
+        p.head("glint_slo_window_bad", "gauge",
+               "SLI-violating requests in each rolling window, by SLI "
+               "(availability = 5xx; latency = slower than threshold).")
+        for ep, doc in slo_eps.items():
+            for win, w in (doc.get("windows") or {}).items():
+                p.sample("glint_slo_window_bad",
+                         {"endpoint": ep, "sli": "availability",
+                          "window": win}, w.get("bad_availability", 0))
+                p.sample("glint_slo_window_bad",
+                         {"endpoint": ep, "sli": "latency",
+                          "window": win}, w.get("bad_latency", 0))
+        p.head("glint_slo_burn_rate", "gauge",
+               "Error-budget burn rate per SLI and window (1.0 = "
+               "burning exactly the budget; 14.4 = the fast-burn page "
+               "threshold).")
+        for ep, doc in slo_eps.items():
+            burns = doc.get("burn_rates") or {}
+            for win, rate in (burns.get("availability") or {}).items():
+                p.sample("glint_slo_burn_rate",
+                         {"endpoint": ep, "sli": "availability",
+                          "window": win}, rate)
+            for win, rate in (burns.get("latency") or {}).items():
+                p.sample("glint_slo_burn_rate",
+                         {"endpoint": ep, "sli": "latency",
+                          "window": win}, rate)
+        p.head("glint_slo_fast_burn", "gauge",
+               "Multi-window fast-burn alert (5m AND 1h windows both "
+               "over 14.4x): page-severity budget burn.")
+        for ep, doc in slo_eps.items():
+            alerts = doc.get("alerts") or {}
+            p.sample("glint_slo_fast_burn", {"endpoint": ep},
+                     1 if alerts.get("fast_burn") else 0)
+        p.head("glint_slo_slow_burn", "gauge",
+               "Multi-window slow-burn alert (30m AND 6h windows both "
+               "over 6x): ticket-severity budget burn.")
+        for ep, doc in slo_eps.items():
+            alerts = doc.get("alerts") or {}
+            p.sample("glint_slo_slow_burn", {"endpoint": ep},
+                     1 if alerts.get("slow_burn") else 0)
+    # Per-model catalog families: the same snapshot shape
+    # as the top level, one block per catalog model, labeled {model}.
+    # Rendered only for multi-model servers/fleets, so single-model
+    # expositions are byte-identical to the pre-catalog format.
+    models = snap.get("models") or {}
+    if models:
+        p.head("glint_model_requests_total", "counter",
+               "Requests observed per catalog model and endpoint "
+               "path.")
+        for mid, m in sorted(models.items()):
+            for path, ep in (m.get("endpoints") or {}).items():
+                p.sample("glint_model_requests_total",
+                         {"model": mid, "path": path}, ep["count"])
+        p.head("glint_model_request_errors_total", "counter",
+               "Responses with status >= 400 per catalog model and "
+               "endpoint path.")
+        for mid, m in sorted(models.items()):
+            for path, ep in (m.get("endpoints") or {}).items():
+                p.sample("glint_model_request_errors_total",
+                         {"model": mid, "path": path}, ep["errors"])
+        p.head("glint_model_cache_hits_total", "counter",
+               "Synonym result-cache hits per catalog model (each "
+               "model's cache is private — a cross-model hit is "
+               "structurally impossible).")
+        for mid, m in sorted(models.items()):
+            c = m.get("synonym_cache") or {}
+            p.sample("glint_model_cache_hits_total", {"model": mid},
+                     c.get("hits", 0))
+        p.head("glint_model_cache_misses_total", "counter",
+               "Synonym result-cache misses per catalog model.")
+        for mid, m in sorted(models.items()):
+            c = m.get("synonym_cache") or {}
+            p.sample("glint_model_cache_misses_total", {"model": mid},
+                     c.get("misses", 0))
+        p.head("glint_model_post_warmup_compiles", "gauge",
+               "Compiles past this model's load warmup (0 proves "
+               "shape-keyed program sharing: a same-shape model "
+               "reuses every warmed program).")
+        for mid, m in sorted(models.items()):
+            comp = m.get("compiles") or {}
+            p.sample("glint_model_post_warmup_compiles",
+                     {"model": mid}, comp.get("post_warmup", 0))
+        p.head("glint_model_table_swaps_total", "counter",
+               "Generations hot-swapped per catalog model (a "
+               "per-model rollout moves exactly one model's count).")
+        for mid, m in sorted(models.items()):
+            hs = m.get("hot_swap") or {}
+            p.sample("glint_model_table_swaps_total", {"model": mid},
+                     hs.get("table_swaps_total", 0))
+        p.head("glint_model_swap_failures_total", "counter",
+               "Failed hot-swap attempts per catalog model.")
+        for mid, m in sorted(models.items()):
+            hs = m.get("hot_swap") or {}
+            p.sample("glint_model_swap_failures_total", {"model": mid},
+                     hs.get("swap_failures_total", 0))
+        p.head("glint_model_generation_info", "gauge",
+               "Served generation per catalog model carried as a "
+               "label; value is always 1.")
+        for mid, m in sorted(models.items()):
+            hs = m.get("hot_swap") or {}
+            p.sample("glint_model_generation_info",
+                     {"model": mid,
+                      "generation": hs.get("generation") or ""}, 1)
+        p.head("glint_model_resident_replicas", "gauge",
+               "Replicas holding this model's tables on device (a "
+               "single server reports 0 or 1; LRU stage-out drops "
+               "it).")
+        for mid, m in sorted(models.items()):
+            p.sample("glint_model_resident_replicas", {"model": mid},
+                     m.get("resident_replicas", 0))
+        p.head("glint_model_resident_bytes", "gauge",
+               "Device bytes this model's resident tables occupy "
+               "(0 while staged out).")
+        for mid, m in sorted(models.items()):
+            p.sample("glint_model_resident_bytes", {"model": mid},
+                     m.get("resident_bytes", 0))
+        p.head("glint_model_pinned", "gauge",
+               "Whether the model is pinned against LRU eviction "
+               "(default model, mid-rollout holds).")
+        for mid, m in sorted(models.items()):
+            p.sample("glint_model_pinned", {"model": mid},
+                     1 if m.get("pinned") else 0)
+        p.head("glint_model_stage_ins_total", "counter",
+               "Times this model's tables were staged back onto the "
+               "device after an eviction.")
+        for mid, m in sorted(models.items()):
+            p.sample("glint_model_stage_ins_total", {"model": mid},
+                     m.get("stage_ins_total", 0))
+        p.head("glint_model_evictions_total", "counter",
+               "Times this model's tables were staged out under "
+               "memory-budget pressure.")
+        for mid, m in sorted(models.items()):
+            p.sample("glint_model_evictions_total", {"model": mid},
+                     m.get("evictions_total", 0))
+    cat = snap.get("catalog") or {}
+    if cat:
+        p.head("glint_catalog_models", "gauge",
+               "Models installed in the serving catalog.")
+        p.sample("glint_catalog_models", None, cat.get("models", 0))
+        p.head("glint_catalog_resident_models", "gauge",
+               "Catalog models currently resident on device (summed "
+               "across replicas in the fleet view).")
+        p.sample("glint_catalog_resident_models", None,
+                 cat.get("resident_models", 0))
+        p.head("glint_catalog_budget_bytes", "gauge",
+               "Configured device-memory budget for resident tables "
+               "(NaN when unbounded).")
+        p.sample("glint_catalog_budget_bytes", None,
+                 cat.get("budget_bytes"))
+        p.head("glint_catalog_resident_bytes", "gauge",
+               "Device bytes all resident catalog tables occupy.")
+        p.sample("glint_catalog_resident_bytes", None,
+                 cat.get("resident_bytes", 0))
+        p.head("glint_catalog_evictions_total", "counter",
+               "LRU stage-outs forced by the memory budget.")
+        p.sample("glint_catalog_evictions_total", None,
+                 cat.get("evictions_total", 0))
+        p.head("glint_catalog_stage_ins_total", "counter",
+               "Cold models staged back onto the device.")
+        p.sample("glint_catalog_stage_ins_total", None,
+                 cat.get("stage_ins_total", 0))
+        p.head("glint_catalog_stage_in_seconds_total", "counter",
+               "Wall seconds spent staging evicted models back in "
+               "(off the request path; requests queue, never 500).")
+        p.sample("glint_catalog_stage_in_seconds_total", None,
+                 cat.get("stage_in_seconds_total", 0))
+        p.head("glint_catalog_cold_hits_total", "counter",
+               "Requests that arrived while their model was staged "
+               "out (each waited for the stage-in, then served).")
+        p.sample("glint_catalog_cold_hits_total", None,
+                 cat.get("cold_hits_total", 0))
+        p.head("glint_catalog_query_program_builds_total", "counter",
+               "Process-level query program builds — flat across "
+               "same-shape model loads (the sharing proof).")
+        p.sample("glint_catalog_query_program_builds_total", None,
+                 cat.get("query_program_builds", 0))
+        p.head("glint_catalog_shared_program_hits_total", "counter",
+               "Engine program lookups answered by another engine's "
+               "compiled program.")
+        p.sample("glint_catalog_shared_program_hits_total", None,
+                 cat.get("shared_program_hits", 0))
     return p.text()
 
 

@@ -1203,6 +1203,41 @@ class EmbeddingEngine:
             _scatter_rows(self.syn1, ids1, upd1)
         return g.loss
 
+    def train_step(self, centers, contexts, mask, key: int, alpha, *,
+                   negs=None, pools=None) -> float:
+        """One word-level minibatch update (``engine.py:1417`` of the JAX
+        package); returns the batch loss. ``centers (B,)``, ``contexts``/
+        ``mask (B, C)``: :meth:`train_step_grouped` with groups of one
+        row."""
+        centers = self._on_device(centers, torch.int32)
+        ones = torch.ones(centers.shape, dtype=torch.float32, device=self.device)
+        return self.train_step_grouped(
+            centers[:, None], ones[:, None], contexts, mask, key, alpha,
+            negs=negs, pools=pools,
+        )
+
+    def train_step_grouped(self, center_groups, group_mask, contexts, mask,
+                           key: int, alpha, *, negs=None,
+                           pools=None) -> float:
+        """One minibatch update with grouped centers, each center the
+        masked mean of its group's syn0 rows (``engine.py:1458`` of the
+        JAX package); returns the batch loss as a Python float (one
+        readback). It is :meth:`train_steps_grouped` with ``K = 1`` and
+        ``step0 = 0``: the negatives are drawn under ``fold_in(key, 0)``,
+        unless ``negs (B, C, n)`` (or ``pools (P,)`` with shared
+        negatives) supplies them."""
+        def one(x, dtype):
+            return self._on_device(x, dtype)[None]
+
+        losses = self.train_steps_grouped(
+            one(center_groups, torch.int32), one(group_mask, torch.float32),
+            one(contexts, torch.int32), one(mask, torch.float32), key,
+            np.asarray([alpha], np.float32), 0,
+            negs=None if negs is None else one(negs, torch.int32),
+            pools=None if pools is None else one(pools, torch.int32),
+        )
+        return float(losses[0].item())
+
     def train_steps(self, centers_k, contexts_k, mask_k, base_key: int,
                     alphas, step0: int = 0, *, negs=None,
                     pools=None) -> torch.Tensor:

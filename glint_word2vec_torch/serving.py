@@ -4,7 +4,16 @@
 Endpoints (JSON in and out, stdlib server), with the JAX package's request
 and response shapes and status codes:
 
-  GET  /healthz            -> {"status": "ok", "vocab_size": V, "dim": d, ...}
+  GET  /healthz            -> {"status": "ok"|"degraded", "vocab_size": V,
+                               "dim": d, ...}
+  GET  /metrics            per-endpoint latency histograms (p50/p95/p99),
+                           the coalesced-batch-size distribution, cache,
+                           overload, hot-swap, index and SLO blocks
+  GET  /metrics?format=prometheus
+                           the same snapshot as Prometheus text
+  GET  /trace?seconds=S    the last S seconds of the process's span ring
+                           (kept request traces and dispatch spans) with
+                           its clock anchor
   POST /synonyms           {"word": w, "num": k[, "exact": true]}
   POST /synonyms_vector    {"vector": [...], "num": k[, "exact": true]}
   POST /analogy            {"positive": [...], "negative": [...], "num": k}
@@ -27,6 +36,18 @@ its own methods, one request at a time under the lock, as the JAX
 server's ``can_batch`` rule does. The server runs every query shape once
 (``warmup``) before it binds its port.
 
+Overload protection: the device endpoints are bounded by an admission
+high-water mark (past ``max_inflight`` a request answers 429 with
+``Retry-After: 1``), carry a deadline (``request_deadline``, tightened by
+an ``X-Glint-Deadline-Ms`` header) answered 504 without taking a
+dispatch slot, and while the device lock is held past ``degraded_after``
+the server runs cache-only (hits served, the rest 429). Every POST
+carries a request trace (``obs/events.py``): the ``X-Glint-Trace`` id is
+adopted or minted, and the tail sampler keeps errors, sheds, slow
+requests and 1 in ``GLINT_TRACE_SAMPLE`` of the rest. An SLO engine
+(``obs/slo.py``) rides the metrics, and :meth:`ModelServer.enable_flight_recorder`
+writes a postmortem bundle on a shed burst or an SLO fast burn.
+
 With ``ann=True`` a word-level model also serves ``/synonyms`` through the
 engine's ANN index (``ops/ann.py``): built at start, warmed, then gated by
 its measured recall@10 against the exact path. A failing gate keeps the
@@ -44,7 +65,7 @@ recall gate) runs with no lock held, beside live queries; the flip (tables,
 vocabulary, index and the result cache) runs under the device lock, so no
 response mixes two generations. Same-shape tables reuse every warmed
 query shape. ``/healthz`` names the served ``generation``; the swap
-counters are on ``ModelServer.metrics``.
+counters are on ``/metrics`` (``hot_swap``).
 
 Start from the CLI:  python -m glint_word2vec_torch.cli serve --model DIR
                      (or --watch-checkpoint PUBLISH_DIR)
@@ -56,21 +77,38 @@ import contextlib
 import json
 import logging
 import os
+import sys
 import threading
 import time
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
-from urllib.parse import urlparse
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
 from glint_word2vec_torch.device import DeviceLike, device_name
 from glint_word2vec_torch.models.word2vec import MAX_QUERY_ROWS
+from glint_word2vec_torch.obs import events as obs_events
+from glint_word2vec_torch.obs.prometheus import serving_to_prometheus
+from glint_word2vec_torch.obs.slo import (
+    FlightRecorder,
+    ShedBurstDetector,
+    SloEngine,
+)
 from glint_word2vec_torch.utils import atomic_write_json, faults, next_pow2
 from glint_word2vec_torch.utils.metrics import ServingMetrics
 
 logger = logging.getLogger(__name__)
+
+#: Endpoints whose requests touch the device or wait on its lock: the
+#: population the admission bound, the deadlines and degraded mode
+#: govern. ``/healthz``, ``/metrics``, ``/trace``, ``/reload`` and
+#: ``/shutdown`` stay exempt: an overloaded server must still be
+#: probeable, swappable and stoppable.
+_DEVICE_PATHS = frozenset(
+    ("/synonyms", "/synonyms_vector", "/analogy", "/vector", "/transform")
+)
 
 #: Name of the one model a server holds (the JAX server's default model).
 DEFAULT_MODEL_ID = "default"
@@ -85,6 +123,63 @@ WARM_SENTENCE_ROWS = (1, 2, 4, 8, 16)
 #: Seconds a coalescing leader waits for more requests of a burst before
 #: it dispatches (only when it already drained two or more).
 _BATCH_GRACE_S = 0.002
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    """The stdlib threaded server with a listen backlog of 1,024 instead
+    of 5: the connections of a burst must reach the handler, where the
+    admission bound answers 429, instead of being reset by the kernel."""
+
+    request_queue_size = 1024
+
+
+class DeadlineExceeded(Exception):
+    """A request's deadline passed before it could reach the device:
+    answered 504, so the client's own budget, not the server's queue
+    depth, bounds its wait."""
+
+
+class _TrackedLock:
+    """``threading.Lock`` that remembers when it was acquired, so the
+    overload layer sees how long the device has been busy without
+    instrumenting every dispatch site. Usable with ``with``; ``acquire``
+    takes a timeout.
+
+    Every dispatch inside it ends with a readback to the host (``.cpu()``),
+    so the hold covers the device work, not only its launches."""
+
+    __slots__ = ("_lock", "_held_since")
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._held_since: Optional[float] = None
+
+    def acquire(self, timeout: Optional[float] = None) -> bool:
+        if timeout is None:
+            ok = self._lock.acquire()
+        else:
+            ok = self._lock.acquire(timeout=max(0.0, timeout))
+        if ok:
+            self._held_since = time.monotonic()
+        return ok
+
+    def release(self) -> None:
+        self._held_since = None
+        self._lock.release()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+    def held_for(self) -> float:
+        """Seconds the lock has been held without a break; 0.0 when free.
+        Reads one attribute, without a lock: a racing release reads as
+        0.0."""
+        hs = self._held_since
+        return 0.0 if hs is None else time.monotonic() - hs
 
 
 def _pull_coalesced(engine, idx: np.ndarray) -> np.ndarray:
@@ -108,14 +203,18 @@ class _SynonymCoalescer:
     the device lock becomes leader, drains the list, answers all of it
     with one pull plus one batched top-k per ``max_batch`` chunk, and
     wakes the waiters. Exclusion semantics match ``find_synonyms``
-    (fetch num+1, drop the query word, truncate)."""
+    (fetch num+1, drop the query word, truncate). A request with a
+    deadline that passes before a leader reaches it leaves the pending
+    list and raises :class:`DeadlineExceeded` without being dispatched."""
 
     def __init__(self, model, device_lock, max_batch: int = 64,
-                 cache_size: int = 65536):
+                 cache_size: int = 65536,
+                 metrics: Optional[ServingMetrics] = None):
         from glint_word2vec_torch.models.word2vec import Word2VecModel
 
         self.model = model
         self.device_lock = device_lock
+        self.metrics = metrics
         #: Whether the batched word path (one pull of the word rows, one
         #: batched top-k) gives the model's own answers: only for a family
         #: that keeps the word-level ``transform`` and synonym methods.
@@ -135,10 +234,6 @@ class _SynonymCoalescer:
         self._cache_version = None
         self._mu = threading.Lock()
         self._pending: list = []
-        #: Dispatch counts for ``/healthz``: batched dispatches, requests
-        #: they answered, the largest batch, and cache hits.
-        self.stats = {"dispatches": 0, "requests": 0, "largest_batch": 0,
-                      "cache_hits": 0}
         #: Whether default requests take the approximate path (installed
         #: by the server once its index is built and gated); a request
         #: with ``exact=True`` never does.
@@ -149,18 +244,40 @@ class _SynonymCoalescer:
         self.gate_failing = lambda: False
         #: The nprobe the approximate path runs at.
         self.ann_nprobe = 0
-        #: Approximate queries answered, and exact ones served while an
-        #: index exists, by reason (``requested`` or ``gate``).
-        self.index_stats = {"ann_queries_total": 0,
-                            "exact_fallbacks": {"requested": 0, "gate": 0}}
+
+    def _acquire_device(self, deadline: Optional[float]) -> bool:
+        """Take the device lock, bounded by the request's deadline."""
+        if deadline is None:
+            return self.device_lock.acquire()
+        return self.device_lock.acquire(timeout=deadline - time.monotonic())
+
+    def cache_lookup(self, word, num, exact: bool = False):
+        """The cached answer of a word query, or None, with no device work
+        and without waiting for the device lock: degraded mode's read
+        path."""
+        if word is None or not self.cache_size:
+            return None
+        mode = "exact" if (exact or not self.ann_active()) else "ann"
+        with self._mu:
+            self._cache_sync_locked()
+            return self._cache.get((word, int(num), mode))
 
     def query(self, word=None, vector=None, num: int = 10,
-              exact: bool = False):
+              deadline: Optional[float] = None, exact: bool = False,
+              trace=None):
+        tr = trace if trace is not None else obs_events.NULL_TRACE
         if not self.can_batch:
-            with self.device_lock:
-                if word is not None:
-                    return self.model.find_synonyms(word, num)
-                return self.model.find_synonyms_vector(vector, num)
+            with tr.phase("req.queue"):
+                acquired = self._acquire_device(deadline)
+            if not acquired:
+                raise DeadlineExceeded("deadline waiting for device")
+            try:
+                with tr.phase("req.query", mode="exact"):
+                    if word is not None:
+                        return self.model.find_synonyms(word, num)
+                    return self.model.find_synonyms_vector(vector, num)
+            finally:
+                self.device_lock.release()
         if num <= 0:
             # find_synonyms(w, num) looks the word up first (OOV -> 404),
             # then fetches num+1: num=0 with a known word is [], num<0 a
@@ -178,19 +295,26 @@ class _SynonymCoalescer:
             with self._mu:
                 self._cache_sync_locked()
                 hit = self._cache.get((word, num, mode))
-                if hit is not None:
-                    self.stats["cache_hits"] += 1
-                    return hit
+            if self.metrics is not None:
+                self.metrics.record_cache(hit is not None)
+            if hit is not None:
+                return hit
         req = {"word": word, "vector": vector, "num": int(num),
                "event": threading.Event(), "result": None, "error": None,
-               "mode": mode, "exact_requested": bool(exact)}
+               "deadline": deadline, "abandoned": False,
+               "mode": mode, "exact_requested": bool(exact),
+               # The leader stamps the dispatch window's perf_counter()
+               # pairs on the request; this waiter turns them into its
+               # queue, query and readback phases below.
+               "trace": tr.trace_id if trace is not None else None,
+               "t_enq": time.perf_counter()}
         with self._mu:
             self._pending.append(req)
         # A leader sets every event of its batch before it releases the
         # lock, so a request already answered does not queue behind the
         # next leader's dispatch.
-        if not req["event"].is_set():
-            with self.device_lock:
+        if not req["event"].is_set() and self._acquire_device(deadline):
+            try:
                 if not req["event"].is_set():
                     with self._mu:
                         batch, self._pending = self._pending, []
@@ -208,7 +332,29 @@ class _SynonymCoalescer:
                                 break
                     if batch:
                         self._process(batch)
-        req["event"].wait()
+            finally:
+                self.device_lock.release()
+        if deadline is None:
+            req["event"].wait()
+        elif not req["event"].wait(deadline - time.monotonic()):
+            # No leader answered in time: leave the pending list under the
+            # lock (it must not grow while the device is wedged, and a
+            # later leader must not spend work on a request already
+            # answered 504). A result that landed in the race is served.
+            with self._mu:
+                if not req["event"].is_set():
+                    req["abandoned"] = True
+                    with contextlib.suppress(ValueError):
+                        self._pending.remove(req)
+            if req["abandoned"]:
+                raise DeadlineExceeded("deadline waiting for dispatch")
+            req["event"].wait()
+        if req.get("t_dis0") is not None:
+            tr.add_phase("req.queue", req["t_enq"], req["t_dis0"] - req["t_enq"])
+            tr.add_phase("req.query", req["t_dis0"],
+                         req["t_dis1"] - req["t_dis0"], mode=mode)
+            tr.add_phase("req.readback", req["t_dis1"],
+                         req["t_rb1"] - req["t_dis1"])
         if req["error"] is not None:
             raise req["error"]
         return req["result"]
@@ -225,7 +371,18 @@ class _SynonymCoalescer:
     def _process(self, batch) -> None:
         m = self.model
         live = []
+        now = time.monotonic()
         for r in batch:
+            # An abandoned waiter already answered 504, and one whose
+            # deadline passed in the queue is not dispatched either: its
+            # waiter raises the recorded error.
+            if r["abandoned"]:
+                r["event"].set()
+                continue
+            if r["deadline"] is not None and now > r["deadline"]:
+                r["error"] = DeadlineExceeded("deadline exceeded before dispatch")
+                r["event"].set()
+                continue
             # A bad request fails alone: an exception escaping here would
             # strand every co-batched waiter.
             try:
@@ -268,45 +425,60 @@ class _SynonymCoalescer:
 
     def _dispatch(self, chunk, mode: str = "exact") -> None:
         """Answer one <= max_batch slice with one pull and one batched
-        top-k, exact or through the ANN index (``mode == "ann"``)."""
+        top-k, exact or through the ANN index (``mode == "ann"``). Both
+        read their results back to the host before they return."""
+        faults.fire("serving.dispatch")
         m = self.model
         # Version before the reads: results of a dispatch that a table
         # mutation overtook must not enter the cache.
         ver = m.engine.table_version
-        word_rows = [r for r in chunk if "idx" in r]
-        if word_rows:
-            pulled = _pull_coalesced(
-                m.engine, np.asarray([r["idx"] for r in word_rows], np.int32)
+        # One span per dispatch, recorded whatever the sampler keeps: a
+        # kept request's trace always shows the batch it rode in.
+        t_dis0 = time.perf_counter()
+        with obs_events.phase_span(
+            "req.dispatch", batch=len(chunk), mode=mode,
+            traces=[r["trace"] for r in chunk if r["trace"]],
+        ):
+            word_rows = [r for r in chunk if "idx" in r]
+            if word_rows:
+                pulled = _pull_coalesced(
+                    m.engine, np.asarray([r["idx"] for r in word_rows], np.int32)
+                )
+                for r, v in zip(word_rows, pulled):
+                    r["vec"] = v
+            k = max(r["num"] + (1 if r["word"] is not None else 0) for r in chunk)
+            hits = m.find_synonyms_batch(
+                np.stack([r["vec"] for r in chunk]), min(k, m.vocab.size),
+                approximate=(mode == "ann"),
             )
-            for r, v in zip(word_rows, pulled):
-                r["vec"] = v
-        k = max(r["num"] + (1 if r["word"] is not None else 0) for r in chunk)
-        hits = m.find_synonyms_batch(
-            np.stack([r["vec"] for r in chunk]), min(k, m.vocab.size),
-            approximate=(mode == "ann"),
-        )
-        for r, hs in zip(chunk, hits):
-            if r["word"] is not None:
-                hs = [(w, s) for w, s in hs if w != r["word"]]
-            r["result"] = hs[: r["num"]]
-        with self._mu:
-            self.stats["dispatches"] += 1
-            self.stats["requests"] += len(chunk)
-            self.stats["largest_batch"] = max(
-                self.stats["largest_batch"], len(chunk)
-            )
+        t_dis1 = time.perf_counter()
+        metrics = self.metrics
+        if metrics is not None:
+            metrics.record_batch(len(chunk))
             if mode == "ann":
-                self.index_stats["ann_queries_total"] += len(chunk)
+                metrics.record_ann_query(len(chunk), self.ann_nprobe)
             elif self.ann_active() or self.gate_failing():
                 # Per request: an explicit exact=true is "requested" even
                 # while the gate fails; only defaults held back count as
                 # "gate".
-                fb = self.index_stats["exact_fallbacks"]
                 n_req = sum(1 for r in chunk if r["exact_requested"])
-                fb["requested"] += n_req
-                if self.gate_failing():
-                    fb["gate"] += len(chunk) - n_req
-            if not self.cache_size or self._cache_sync_locked() != ver:
+                if n_req:
+                    metrics.record_exact_fallback(n_req, "requested")
+                if len(chunk) - n_req and self.gate_failing():
+                    metrics.record_exact_fallback(len(chunk) - n_req, "gate")
+        for r, hs in zip(chunk, hits):
+            if r["word"] is not None:
+                hs = [(w, s) for w, s in hs if w != r["word"]]
+            r["result"] = hs[: r["num"]]
+        t_rb1 = time.perf_counter()
+        for r in chunk:
+            # Each waiter turns these into its own phases (one writer per
+            # trace: the waiter that owns it).
+            r["t_dis0"], r["t_dis1"], r["t_rb1"] = t_dis0, t_dis1, t_rb1
+        if not self.cache_size:
+            return
+        with self._mu:
+            if self._cache_sync_locked() != ver:
                 return
             for r in chunk:
                 if r["word"] is not None:
@@ -472,6 +644,13 @@ class ModelServer:
     the port binds, so the first request pays no kernel build or library
     set-up. ``port=0`` binds an ephemeral port; ``self.port`` says which.
 
+    Overload protection of the device endpoints: past ``max_inflight``
+    admitted requests a request answers 429 with ``Retry-After: 1``; one
+    that cannot reach the device within ``request_deadline`` seconds
+    answers 504; while the device lock has been held past
+    ``degraded_after`` seconds the server answers from its result cache
+    alone and sheds the rest with 429. 0 or None turns each off.
+
     ``ann=True`` (word-level families only) configures the engine's ANN
     index with ``ann_clusters``, ``ann_nprobe``, ``ann_iters`` and
     ``ann_sample``, builds it unless one is adopted, warms the approximate
@@ -479,6 +658,9 @@ class ModelServer:
     exact path on ``ann_recall_sample`` rows must reach
     ``ann_recall_gate``, or the exact path keeps serving.
     """
+
+    #: The publish-directory watcher (:meth:`watch`), or None.
+    watcher: Optional[SnapshotWatcher] = None
 
     def __init__(
         self,
@@ -489,6 +671,9 @@ class ModelServer:
         max_batch: int = 64,
         warmup: bool = True,
         cache_size: int = 65536,
+        max_inflight: int = 256,
+        request_deadline: Optional[float] = 30.0,
+        degraded_after: Optional[float] = 5.0,
         ann: bool = False,
         ann_clusters: int = -1,
         ann_nprobe: int = 8,
@@ -498,24 +683,43 @@ class ModelServer:
         ann_recall_sample: int = 64,
     ):
         self.model = model
-        self._lock = threading.Lock()
-        #: Hot-swap counters and the served generation.
+        #: The switch interval :meth:`_tighten_gil_switch` replaced,
+        #: restored by :meth:`stop`.
+        self._prev_switch: Optional[float] = None
+        #: The fleet launch generation (``GLINT_FLEET_GEN``), echoed on
+        #: ``/healthz`` and in the port file, so a probe answered by a
+        #: process of an earlier launch is told apart.
+        self.fleet_generation = os.environ.get("GLINT_FLEET_GEN")
+        self._lock = _TrackedLock()
+        #: Latency histograms, cache, overload, hot-swap and index
+        #: counters, and the SLO engine over the device endpoints.
         self.metrics = ServingMetrics()
-        #: The publish-directory watcher (:meth:`watch`), or None.
-        self.watcher: Optional[SnapshotWatcher] = None
+        self.metrics.slo = SloEngine.default_serving(_DEVICE_PATHS)
+        self._shed_burst = ShedBurstDetector()
+        #: The postmortem bundle writer (:meth:`enable_flight_recorder`),
+        #: or None.
+        self.flight: Optional[FlightRecorder] = None
+        self.max_inflight = max(0, int(max_inflight))
+        self.request_deadline = float(request_deadline) if request_deadline else None
+        self.degraded_after = float(degraded_after) if degraded_after else None
+        self._inflight = 0
+        self._inflight_mu = threading.Lock()
+        self._degraded_flag = False
+        self.watcher = None
         #: Timings of the last swaps (:meth:`reload_generation`).
         self.swap_history: deque = deque(maxlen=64)
         self._coalescer = _SynonymCoalescer(
-            model, self._lock, max_batch=max_batch, cache_size=cache_size
+            model, self._lock, max_batch=max_batch, cache_size=cache_size,
+            metrics=self.metrics,
         )
         self.max_batch = self._coalescer.max_batch
+        self.cache_size = self._coalescer.cache_size
         self.ann = bool(ann) and self._coalescer.can_batch
         self.ann_recall_gate = float(ann_recall_gate)
         self.ann_recall_sample = max(1, int(ann_recall_sample))
         #: Whether the gated index serves default requests (its last gate
-        #: passed), and that gate's recall (None before any).
+        #: passed).
         self._ann_live = False
-        self._ann_recall: Optional[float] = None
         if self.ann:
             eng = model.engine
             conf = eng.configure_ann(
@@ -554,7 +758,7 @@ class ModelServer:
             self._gate_index()
         #: Query shapes first dispatched before the port binds; any later
         #: one is a miss of the warmed family (``post_warmup_compiles``).
-        self.warmup_compiles = model.engine.query_compiles
+        self.metrics.warmup_compiles = model.engine.query_compiles
         server = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -567,24 +771,78 @@ class ModelServer:
                 logger.debug("serve: " + fmt, *args)
 
             def _send(self, code: int, obj, headers=None) -> None:
-                body = json.dumps(obj).encode()
+                tr = getattr(self, "_trace", None) or obs_events.NULL_TRACE
+                with tr.phase("req.serialize"):
+                    body = json.dumps(obj).encode()
+                    self._status = code
+                    self.send_response(code)
+                    self.send_header("Content-Type", "application/json")
+                    self.send_header("Content-Length", str(len(body)))
+                    for k, v in (headers or {}).items():
+                        self.send_header(k, v)
+                    self.end_headers()
+                    self.wfile.write(body)
+
+            def _send_text(self, code: int, text: str) -> None:
+                body = text.encode()
+                self._status = code
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type",
+                                 "text/plain; version=0.0.4; charset=utf-8")
                 self.send_header("Content-Length", str(len(body)))
-                for k, v in (headers or {}).items():
-                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(body)
 
             def do_GET(self):
-                path = urlparse(self.path).path
-                if path == "/healthz":
-                    self._send(200, server.health())
-                else:
-                    self._send(404, {"error": f"no route {path}"})
+                t0 = time.perf_counter()
+                self._status = 500
+                # No request trace on probes and scrapes, and none left
+                # over from an earlier POST on this keep-alive connection.
+                self._trace = None
+                url = urlparse(self.path)
+                path = url.path
+                try:
+                    if path == "/healthz":
+                        self._send(200, server.health())
+                    elif path == "/metrics":
+                        doc = server._metrics_doc()
+                        if parse_qs(url.query).get("format", ["json"])[0] == "prometheus":
+                            self._send_text(200, serving_to_prometheus(doc))
+                        else:
+                            self._send(200, doc)
+                    elif path == "/trace":
+                        try:
+                            secs = float(parse_qs(url.query).get("seconds", ["30"])[0])
+                        except ValueError:
+                            secs = 30.0
+                        self._send(200, server._flight_spans(secs))
+                    else:
+                        self._send(404, {"error": f"no route {path}"})
+                finally:
+                    server._observe_request(path, time.perf_counter() - t0,
+                                            self._status)
 
             def do_POST(self):
+                t0 = time.perf_counter()
+                self._status = 500
                 path = urlparse(self.path).path
+                # Adopt the propagated trace id or mint one. The phases
+                # buffer on the trace and reach the ring only if the tail
+                # sampler keeps the request.
+                tr = obs_events.request_trace(
+                    self.headers.get(obs_events.TRACE_HEADER))
+                self._trace = tr
+                try:
+                    with tr.phase("req.accept", path=path):
+                        self._handle_post(path)
+                finally:
+                    kept = tr.finish(self._status)
+                    server._observe_request(
+                        path, time.perf_counter() - t0, self._status,
+                        trace_id=tr.trace_id if kept else None,
+                    )
+
+            def _handle_post(self, path):
                 try:
                     n = int(self.headers.get("Content-Length", 0))
                     req = json.loads(self.rfile.read(n) or b"{}")
@@ -592,6 +850,23 @@ class ModelServer:
                     return self._send(400, {"error": f"bad request: {e}"})
                 if not isinstance(req, dict):
                     return self._send(400, {"error": "bad request: not an object"})
+                if path in _DEVICE_PATHS:
+                    # Past the high-water mark a request sheds now: cheaper
+                    # for everyone than a queue longer than any client's
+                    # timeout.
+                    with self._trace.phase("req.admission") as adm:
+                        admitted = server._admit()
+                        adm.update(admitted=admitted)
+                    if not admitted:
+                        server._record_shed("admission")
+                        return self._send(
+                            429, {"error": "server overloaded (admission queue full)"},
+                            headers={"Retry-After": "1"},
+                        )
+                    try:
+                        return self._handle_device(path, req)
+                    finally:
+                        server._release_slot()
                 if path == "/shutdown":
                     with server._lock:  # let in-flight device work finish
                         self._send(200, {"status": "shutting down"})
@@ -601,8 +876,70 @@ class ModelServer:
                     code, out = server._reload_request(req)
                     headers = {"Retry-After": "1"} if code == 503 else None
                     return self._send(code, out, headers)
+                self._send(404, {"error": f"no route {path}"})
+
+            def _deadline(self) -> Optional[float]:
+                """The request's monotonic deadline: the server's, or
+                sooner when ``X-Glint-Deadline-Ms`` (a balancer's
+                remaining budget) says so; the header never extends it."""
+                deadline = (time.monotonic() + server.request_deadline
+                            if server.request_deadline else None)
+                hdr = self.headers.get("X-Glint-Deadline-Ms")
+                if hdr is not None:
+                    try:
+                        remote = time.monotonic() + max(0.0, float(hdr)) / 1e3
+                    except (TypeError, ValueError):
+                        return deadline
+                    deadline = remote if deadline is None else min(deadline, remote)
+                return deadline
+
+            def _handle_device(self, path, req):
+                """One admitted device request: the degraded-mode gate, the
+                deadline, then the dispatch."""
+                if server._degraded():
+                    # Cache-only mode: the device is wedged. Serve what
+                    # needs no dispatch and shed the rest with 429 (load,
+                    # not failure: the client should back off).
+                    if path == "/synonyms":
+                        try:
+                            num = int(req.get("num", 10))
+                        except (TypeError, ValueError) as e:
+                            return self._send(400, {"error": f"bad num: {e}"})
+                        hit = server._coalescer.cache_lookup(
+                            req.get("word"), num, exact=bool(req.get("exact", False)))
+                        if hit is not None:
+                            server.metrics.record_cache(True)
+                            return self._send(200, [[w, float(s)] for w, s in hit])
+                    server._record_shed("degraded")
+                    return self._send(
+                        429, {"error": "degraded cache-only mode (device busy)"},
+                        headers={"Retry-After": "1"},
+                    )
+                deadline = self._deadline()
                 try:
-                    out = server._dispatch(path, req)
+                    if path in ("/synonyms", "/synonyms_vector"):
+                        key = "word" if path == "/synonyms" else "vector"
+                        hits = server._coalescer.query(
+                            num=int(req.get("num", 10)), deadline=deadline,
+                            exact=bool(req.get("exact", False)),
+                            trace=self._trace, **{key: req[key]},
+                        )
+                        out = [[w, float(s)] for w, s in hits]
+                    else:
+                        with self._trace.phase("req.queue"):
+                            acquired = server._lock.acquire(
+                                None if deadline is None
+                                else deadline - time.monotonic())
+                        if not acquired:
+                            raise DeadlineExceeded("deadline waiting for device")
+                        try:
+                            with self._trace.phase("req.query", mode="exact"):
+                                out = server._dispatch(path, req)
+                        finally:
+                            server._lock.release()
+                except DeadlineExceeded as e:
+                    server.metrics.record_deadline()
+                    return self._send(504, {"error": str(e)})
                 except KeyError as e:
                     return self._send(404, {"error": e.args[0] if e.args else str(e)})
                 except (TypeError, ValueError) as e:
@@ -610,29 +947,140 @@ class ModelServer:
                 except Exception as e:
                     logger.exception("request to %s failed", path)
                     return self._send(500, {"error": f"internal error: {e}"})
-                if out is None:
-                    return self._send(404, {"error": f"no route {path}"})
                 self._send(200, out)
 
-        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd = _HTTPServer((host, port), Handler)
         self.host, self.port = self._httpd.server_address[:2]
         self._thread: Optional[threading.Thread] = None
 
     def _gate_index(self) -> None:
         """Measure recall@10 of the approximate path against the exact
-        path on the live tables and let the index serve only if it reaches
-        ``ann_recall_gate``."""
-        recall = self.model.engine.ann_recall_at_k(
+        path on the live tables, let the index serve only if it reaches
+        ``ann_recall_gate``, and record the refresh on ``/metrics``."""
+        eng = self.model.engine
+        recall = eng.ann_recall_at_k(
             10, sample=self.ann_recall_sample, q_chunk=self.max_batch,
         )
         ok = recall >= self.ann_recall_gate
-        self._ann_recall, self._ann_live = recall, ok
+        self._ann_live = ok
+        self.metrics.record_index_refresh(
+            eng.ann_stats(), recall, ok, self.ann_recall_gate,
+            self._coalescer.ann_nprobe,
+        )
         if ok:
             logger.info("ANN recall gate ok: %.3f >= %.3f", recall,
                         self.ann_recall_gate)
         else:
             logger.warning("ANN recall gate FAILED (%.3f < %.3f): the exact "
                            "path keeps serving", recall, self.ann_recall_gate)
+
+    # -- overload protection ---------------------------------------------
+
+    def _admit(self) -> bool:
+        """Claim an in-flight slot for a device request; False past the
+        high-water mark (shed with 429)."""
+        if not self.max_inflight:
+            return True
+        with self._inflight_mu:
+            if self._inflight >= self.max_inflight:
+                return False
+            self._inflight += 1
+            self.metrics.record_inflight(self._inflight)
+            return True
+
+    def _release_slot(self) -> None:
+        if not self.max_inflight:
+            return
+        with self._inflight_mu:
+            self._inflight -= 1
+
+    def _degraded(self) -> bool:
+        """Whether the server runs cache-only: the device lock has been
+        held past ``degraded_after``. Counts each entry into the mode; the
+        mode ends the moment the lock frees."""
+        if self.degraded_after is None:
+            return False
+        d = self._lock.held_for() > self.degraded_after
+        with self._inflight_mu:
+            if d and not self._degraded_flag:
+                self._degraded_flag = True
+                self.metrics.record_degraded_entered()
+                logger.warning("entering degraded cache-only mode: device "
+                               "lock held > %.1fs", self.degraded_after)
+            elif not d:
+                self._degraded_flag = False
+        return d
+
+    # -- metrics, SLOs and the flight recorder ---------------------------
+
+    def _observe_request(self, path: str, seconds: float, status: int,
+                         trace_id: Optional[str] = None) -> None:
+        """Every request's accounting: the latency histogram and the SLO
+        observation (with the trace id as exemplar when the sampler kept
+        the trace), then the flight recorder on an SLO fast-burn edge."""
+        self.metrics.observe(path, seconds, status=status, trace_id=trace_id)
+        fl, slo = self.flight, self.metrics.slo
+        if fl is not None and slo is not None:
+            for ep in slo.fast_burn_transitions():
+                fl.trigger("slo_fast_burn", endpoint=ep)
+
+    def _record_shed(self, reason: str) -> None:
+        """Count one shed and fire the flight recorder on a burst's edge
+        (one bundle a burst)."""
+        self.metrics.record_shed(reason)
+        if self._shed_burst.note() and self.flight is not None:
+            self.flight.trigger("shed_burst", shed_reason=reason)
+
+    def enable_flight_recorder(
+        self, out_dir: str, *, window_seconds: float = 30.0,
+        min_interval_seconds: float = 60.0,
+    ) -> FlightRecorder:
+        """Install the anomaly flight recorder: on a shed burst or an SLO
+        fast-burn edge it writes this process's recent spans and the full
+        metrics snapshot into a bundle under ``out_dir``."""
+        fl = FlightRecorder(out_dir, window_seconds=window_seconds,
+                            min_interval_seconds=min_interval_seconds)
+        fl.add_source("spans", self._flight_spans)
+        fl.add_source("metrics", self._flight_metrics)
+        self.flight = fl
+        return fl
+
+    def _flight_spans(self, window_seconds: float) -> dict:
+        """The span ring's last ``window_seconds`` and its clock anchor
+        (what ``GET /trace`` answers)."""
+        rec = obs_events.get_recorder()
+        if rec is None:
+            return {"events": [], "anchor": None}
+        return {
+            "events": rec.recent_events(window_seconds),
+            "anchor": {"wall_t0": rec.wall_t0, "mono_t0": rec.mono_t0},
+        }
+
+    def _flight_metrics(self, window_seconds: float) -> dict:
+        return self._metrics_doc()
+
+    def _checkpoint_stats(self) -> dict:
+        """The served engine's checkpoint telemetry (``{}`` for a loaded
+        model); never raises, so ``/metrics`` stays up."""
+        stats = getattr(self.model.engine, "checkpoint_stats", None)
+        if stats is None:
+            return {}
+        try:
+            return stats()
+        except Exception:
+            return {}
+
+    def _metrics_doc(self) -> dict:
+        """The ``/metrics`` document: the model's snapshot, with its id."""
+        eng = self.model.engine
+        idx = eng.ann_index
+        snap = self.metrics.snapshot(
+            eng.query_compiles, checkpoint=self._checkpoint_stats(),
+            index_staleness=(None if idx is None
+                             else max(0, eng.table_version - idx.table_version)),
+        )
+        snap["model_id"] = DEFAULT_MODEL_ID
+        return snap
 
     # -- hot swap --------------------------------------------------------
 
@@ -698,6 +1146,10 @@ class ModelServer:
                 q_chunk=self.max_batch,
             )
             ok = recall >= self.ann_recall_gate
+            self.metrics.record_index_refresh(
+                {**staged_ann.stats(), "enabled": True}, recall, ok,
+                self.ann_recall_gate, self._coalescer.ann_nprobe,
+            )
             if not ok:
                 logger.warning("ANN recall gate FAILED (%.3f < %.3f) for %s: "
                                "the exact path serves it", recall,
@@ -709,7 +1161,7 @@ class ModelServer:
             self.model.vocab = vocab
             if staged_ann is not None:
                 engine.adopt_ann(staged_ann)
-                self._ann_recall, self._ann_live = recall, ok
+                self._ann_live = ok
             with self._coalescer._mu:
                 self._coalescer._cache.clear()
             t5 = time.perf_counter()
@@ -769,64 +1221,84 @@ class ModelServer:
 
     def health(self) -> dict:
         m = self.model
-        with self._coalescer._mu:
-            stats = dict(self._coalescer.stats)
-            index = {**self._coalescer.index_stats,
-                     "exact_fallbacks": dict(
-                         self._coalescer.index_stats["exact_fallbacks"])}
-        index.update(m.engine.ann_stats() if self.ann else {"enabled": False})
-        index.update(recall_at10=self._ann_recall,
-                     recall_gate_threshold=self.ann_recall_gate)
-        compiles = m.engine.query_compiles
+        snap = self._metrics_doc()
+        sizes = {int(k): v for k, v in snap["coalesced_batch_sizes"].items()}
+        index = {**snap["index"],
+                 **(m.engine.ann_stats() if self.ann else {"enabled": False}),
+                 "recall_gate_threshold": self.ann_recall_gate}
+        index["exact_fallbacks"] = {"requested": 0, "gate": 0,
+                                    **index["exact_fallbacks"]}
         return {
-            "status": "ok",
+            # Degraded is alive but impaired: 200 with the flag, so a
+            # balancer does not pull a server that sheds as designed.
+            "status": "degraded" if self._degraded() else "ok",
             "model": DEFAULT_MODEL_ID,
             "family": type(m).__name__,
             "vocab_size": m.vocab.size,
             "dim": m.vector_size,
             "max_batch": self.max_batch,
             "device": device_name(m.engine.device),
-            "coalescer": stats,
-            "compiles": compiles,
-            "post_warmup_compiles": compiles - self.warmup_compiles,
+            # The coalesced dispatches so far, from the batch sizes.
+            "coalescer": {
+                "dispatches": sum(sizes.values()),
+                "requests": sum(k * n for k, n in sizes.items()),
+                "largest_batch": max(sizes, default=0),
+                "cache_hits": snap["synonym_cache"]["hits"],
+            },
+            "compiles": snap["compiles"]["total"],
+            "post_warmup_compiles": snap["compiles"]["post_warmup"],
+            "max_inflight": self.max_inflight,
+            "request_deadline_seconds": self.request_deadline,
+            "degraded_after_seconds": self.degraded_after,
             "ann_enabled": self._ann_live,
             "ann_recall_gate_ok": self._ann_live,
             "index": index,
             "generation": self.metrics.generation,
+            "fleet_generation": self.fleet_generation,
         }
 
     def _dispatch(self, path: str, req: dict):
-        """The JSON answer of one POST endpoint, or None for no route."""
+        """The JSON answer of ``/analogy``, ``/vector`` or ``/transform``,
+        computed under the device lock, which the caller holds."""
+        faults.fire("serving.dispatch")
         m = self.model
-        if path in ("/synonyms", "/synonyms_vector"):
-            key = "word" if path == "/synonyms" else "vector"
-            query = {key: req[key]}
-            hits = self._coalescer.query(num=int(req.get("num", 10)),
-                                         exact=bool(req.get("exact", False)),
-                                         **query)
-            return [[w, float(s)] for w, s in hits]
-        with self._lock:
-            if path == "/analogy":
-                return [
-                    [w, float(s)]
-                    for w, s in m.analogy(
-                        req.get("positive", []),
-                        req.get("negative", []),
-                        int(req.get("num", 10)),
-                    )
-                ]
-            if path == "/vector":
-                return [float(x) for x in m.transform(req["word"])]
-            if path == "/transform":
-                vecs = m.transform_sentences(req["sentences"])
-                return [[float(x) for x in v] for v in vecs]
-        return None
+        if path == "/analogy":
+            return [
+                [w, float(s)]
+                for w, s in m.analogy(
+                    req.get("positive", []),
+                    req.get("negative", []),
+                    int(req.get("num", 10)),
+                )
+            ]
+        if path == "/vector":
+            return [float(x) for x in m.transform(req["word"])]
+        vecs = m.transform_sentences(req["sentences"])
+        return [[float(x) for x in v] for v in vecs]
+
+    def _tighten_gil_switch(self) -> None:
+        """A serving process is a convoy of short sections that hold the
+        interpreter lock (HTTP parsing, JSON, event wake-ups), one thread
+        a connection; at the default 5 ms switch interval a round of N
+        coalesced answers can wait N quanta. 1 ms keeps the hand-off
+        tight, but costs whatever else runs in the process (a trainer
+        beside the server runs at half its speed). Process-wide, so set
+        only where the server owns the process and restored by
+        :meth:`stop`."""
+        if self._prev_switch is None:
+            self._prev_switch = sys.getswitchinterval()
+            sys.setswitchinterval(0.001)
 
     def serve_forever(self) -> None:
+        """Serve on the calling thread: the server owns the process (the
+        CLI), so the switch interval is tightened."""
         logger.info("serving model on %s:%d", self.host, self.port)
+        self._tighten_gil_switch()
         self._httpd.serve_forever()
 
     def start_background(self) -> None:
+        """Serve on a thread of its own, embedded beside other work: the
+        switch interval stays as it is."""
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, daemon=True
         )
@@ -837,6 +1309,9 @@ class ModelServer:
             self.watcher.stop()
         self._httpd.shutdown()
         self._httpd.server_close()
+        if self._prev_switch is not None:
+            sys.setswitchinterval(self._prev_switch)
+            self._prev_switch = None
 
 
 def _boot_generation(watch_dir: str, watch_poll: float, device: DeviceLike):
@@ -867,6 +1342,23 @@ def _boot_generation(watch_dir: str, watch_poll: float, device: DeviceLike):
             raise
 
 
+@contextlib.contextmanager
+def _installed_trace_log(path: Optional[str]):
+    """A process-wide event recorder with a JSONL sink at ``path`` for the
+    block's duration (none when ``path`` is empty); the recorder before it
+    comes back after."""
+    if not path:
+        yield
+        return
+    prev = obs_events.get_recorder()
+    rec = obs_events.set_recorder(obs_events.EventRecorder(jsonl_path=path))
+    try:
+        yield
+    finally:
+        obs_events.set_recorder(prev)
+        rec.close()
+
+
 def serve_model_dir(
     model_dir: Optional[str],
     host: str = "127.0.0.1",
@@ -875,50 +1367,69 @@ def serve_model_dir(
     max_batch: int = 64,
     warmup: bool = True,
     cache_size: int = 65536,
+    max_inflight: int = 256,
+    request_deadline: Optional[float] = 30.0,
+    degraded_after: Optional[float] = 5.0,
     port_file: Optional[str] = None,
     device: DeviceLike = None,
     watch_dir: Optional[str] = None,
     watch_poll: float = 1.0,
+    trace_log: Optional[str] = None,
+    flight_dir: Optional[str] = None,
     **ann_kw,
 ) -> None:
     """Load a saved model directory onto ``device`` and serve it until
     ``/shutdown`` or an interrupt, then free its tables. ``port_file``
-    receives ``{"host", "port"}`` (atomically) once the server is warmed
-    and listening: the readiness signal for ``port=0``. ``ann_kw`` are
-    :class:`ModelServer`'s ``ann*`` arguments.
+    receives ``{"host", "port", "fleet_generation"}`` (atomically) once
+    the server is warmed and listening: the readiness signal for
+    ``port=0``. ``max_inflight``, ``request_deadline`` and
+    ``degraded_after`` are the overload bounds, and ``ann_kw`` the
+    ``ann*`` arguments, of :class:`ModelServer`.
 
     ``watch_dir`` follows a streaming trainer's publish directory, polled
     every ``watch_poll`` seconds: with ``model_dir=None`` the server boots
     from its newest committed generation (waiting for the first), and
-    every later generation is hot-swapped in."""
+    every later generation is hot-swapped in. ``trace_log`` installs a
+    process-wide event recorder with a size-rotated JSONL sink (the kept
+    request traces and the dispatch spans, also on ``GET /trace``) for
+    as long as the server runs; ``flight_dir`` arms the anomaly flight
+    recorder."""
     from glint_word2vec_torch.models import load_model
     from glint_word2vec_torch.streaming.publish import _GEN_RE
 
-    if model_dir is None:
-        if watch_dir is None:
-            raise ValueError("model_dir or watch_dir required")
-        model, model_dir = _boot_generation(watch_dir, watch_poll, device)
-    else:
-        model = load_model(model_dir, device=device)
-    # A generation directory names the generation served.
-    base = os.path.basename(os.path.normpath(model_dir))
-    current = base if _GEN_RE.match(base) else None
-    try:
-        server = ModelServer(
-            model, host=host, port=port, max_batch=max_batch,
-            warmup=warmup, cache_size=cache_size, **ann_kw,
-        )
-        if watch_dir is not None:
-            # The watcher starts from the generation loaded, so its first
-            # poll does not load it again.
-            server.watch(watch_dir, poll_seconds=watch_poll, current=current)
-        elif current is not None:
-            server.metrics.generation = current
-        if port_file:
-            atomic_write_json(port_file, {"host": server.host, "port": server.port})
+    with _installed_trace_log(trace_log):
+        if model_dir is None:
+            if watch_dir is None:
+                raise ValueError("model_dir or watch_dir required")
+            model, model_dir = _boot_generation(watch_dir, watch_poll, device)
+        else:
+            model = load_model(model_dir, device=device)
+        # A generation directory names the generation served.
+        base = os.path.basename(os.path.normpath(model_dir))
+        current = base if _GEN_RE.match(base) else None
         try:
-            server.serve_forever()
-        except KeyboardInterrupt:
-            server.stop()
-    finally:
-        model.stop()
+            server = ModelServer(
+                model, host=host, port=port, max_batch=max_batch,
+                warmup=warmup, cache_size=cache_size, max_inflight=max_inflight,
+                request_deadline=request_deadline, degraded_after=degraded_after,
+                **ann_kw,
+            )
+            if flight_dir:
+                server.enable_flight_recorder(flight_dir)
+            if watch_dir is not None:
+                # The watcher starts from the generation loaded, so its first
+                # poll does not load it again.
+                server.watch(watch_dir, poll_seconds=watch_poll, current=current)
+            elif current is not None:
+                server.metrics.generation = current
+            if port_file:
+                atomic_write_json(port_file, {
+                    "host": server.host, "port": server.port,
+                    "fleet_generation": server.fleet_generation,
+                })
+            try:
+                server.serve_forever()
+            except KeyboardInterrupt:
+                server.stop()
+        finally:
+            model.stop()

@@ -12,6 +12,8 @@ boundary exists:
                               directory's atomic rename
   ``publish.pre_pointer``     between the generation rename and the
                               ``LATEST.json`` pointer flip
+  ``serving.dispatch``        once per coalesced or simple serving
+                              device dispatch
   ``serving.reload``          at the start of a serving hot-swap reload,
                               before staging
   ``transform.producer``      once per packed bulk-transform batch
@@ -63,6 +65,8 @@ POINTS = {
         "just before a published generation directory's atomic rename",
     "publish.pre_pointer":
         "between the generation rename and the LATEST pointer flip",
+    "serving.dispatch":
+        "once per coalesced/simple serving device dispatch",
     "serving.reload":
         "at the start of a serving hot-swap reload, before staging",
     "transform.producer":

@@ -529,3 +529,35 @@ def test_failing_recall_gate_holds_the_exact_path():
     finally:
         server.stop()
         model.stop()
+
+
+def test_serving_metrics_index_and_hot_swap_blocks(tmp_path):
+    # The ANN and hot-swap paths feed ServingMetrics: /metrics carries the
+    # JAX package's index and hot_swap blocks, filled.
+    model = _model(_port_engine(_structured_rows(V), seed=6))
+    server = ModelServer(model, port=0, max_batch=8, ann=True, ann_nprobe=8,
+                         ann_recall_sample=32)
+    server.start_background()
+    try:
+        idx = _get(server, "/metrics")["index"]
+        assert idx["enabled"] and idx["refreshes_total"] == 1
+        assert idx["nprobe"] == 8 and idx["recall_gate_ok"] is True
+        assert idx["clusters"] == model.engine.ann_index.clusters
+        assert idx["recall_at10"] == _get(server, "/healthz")["index"]["recall_at10"]
+        _post(server, "/synonyms", {"word": "w3", "num": 4})
+        _post(server, "/synonyms", {"word": "w4", "num": 4, "exact": True})
+        idx = _get(server, "/metrics")["index"]
+        assert idx["ann_queries_total"] == 1 and idx["probes_total"] == 8
+        assert idx["exact_fallbacks"] == {"requested": 1}
+        assert idx["table_versions_behind"] == 0
+        gen = str(tmp_path / "gen-000002")
+        model.save(gen)
+        server.reload_generation(gen, generation="gen-000002")
+        snap = _get(server, "/metrics")
+        assert snap["hot_swap"]["table_swaps_total"] == 1
+        assert snap["hot_swap"]["generation"] == "gen-000002"
+        assert snap["hot_swap"]["last_swap_age_seconds"] is not None
+        assert snap["index"]["refreshes_total"] == 2
+    finally:
+        server.stop()
+        model.stop()

@@ -125,3 +125,84 @@ def test_masked_rows_never_surface(engines):
     assert (idx[live] != ZERO_ROW).all()
     s1, i1 = peng.top_k_cosine(vecs[0], V)
     assert ZERO_ROW not in i1[np.isfinite(s1)]
+
+
+# ----------------------------------------------------------------------
+# train_step and train_step_grouped (engine.py:1417, 1458 of the JAX
+# package): one batch, the negatives JAX draws from ``key`` handed in.
+# Tolerances are tests/test_torch_composed.py's: fp32 tables within rtol
+# 1e-5 and atol 1e-6, the loss within rtol 1e-5.
+# ----------------------------------------------------------------------
+
+TB, TC, TN, TS = 8, 5, 3, 3
+
+
+def _one_batch(seed):
+    rng = np.random.default_rng(seed)
+    cg = rng.integers(0, V + EXTRA, (TB, TS)).astype(np.int32)
+    cg[:, 0] = rng.integers(0, V, TB)
+    gm = (rng.random((TB, TS)) < 0.7).astype(np.float32)
+    gm[:, 0] = 1.0
+    cg = np.where(gm > 0, cg, 0).astype(np.int32)
+    cx = rng.integers(0, V, (TB, TC)).astype(np.int32)
+    mk = (rng.random((TB, TC)) < 0.6).astype(np.float32)
+    mk[-1] = 0.0
+    cx = np.where(mk > 0, cx, 0).astype(np.int32)
+    return cg, gm, cx, mk
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_train_step_matches_the_jax_engine(grouped):
+    import jax
+    import jax.numpy as jnp
+
+    from glint_word2vec_tpu.ops.sampling import sample_negatives_per_row
+
+    rng = np.random.default_rng(11)
+    s0 = rng.normal(0, 0.3, (V + EXTRA, D)).astype(np.float32)
+    s1 = rng.normal(0, 0.3, (V + EXTRA, D)).astype(np.float32)
+    counts = np.arange(V, 0, -1).astype(np.int64) * 3
+    jeng = JaxEngine(make_mesh(1, 1), V, D, counts, num_negatives=TN, seed=3,
+                     extra_rows=EXTRA, use_pallas=True)
+    jeng.set_tables(s0, s1)
+    peng = engine_from_arrays(s0, s1, counts, num_negatives=TN, device="cpu")
+    cg, gm, cx, mk = _one_batch(int(grouped))
+    key, alpha = jax.random.PRNGKey(9), 0.05
+    negs = np.array(sample_negatives_per_row(
+        key, jeng._prob, jeng._alias, jnp.arange(TB, dtype=jnp.int32), (TC, TN)))
+    if grouped:
+        jl = jeng.train_step_grouped(cg, gm, cx, mk, key, alpha)
+        pl = peng.train_step_grouped(cg, gm, cx, mk, 0, alpha, negs=negs)
+    else:
+        jl = jeng.train_step(cg[:, 0], cx, mk, key, alpha)
+        pl = peng.train_step(cg[:, 0], cx, mk, 0, alpha, negs=negs)
+    assert isinstance(pl, float)
+    np.testing.assert_allclose(pl, float(jl), rtol=1e-5)
+    for name in ("syn0", "syn1"):
+        want = np.asarray(getattr(jeng, name), np.float32)[: V + EXTRA]
+        np.testing.assert_allclose(getattr(peng, name).numpy(), want,
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+    jeng.destroy()
+    peng.destroy()
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_train_step_is_one_step_of_train_steps_grouped(grouped):
+    rng = np.random.default_rng(5)
+    s0 = rng.normal(0, 0.3, (V + EXTRA, D)).astype(np.float32)
+    s1 = rng.normal(0, 0.3, (V + EXTRA, D)).astype(np.float32)
+    counts = np.arange(V, 0, -1).astype(np.int64)
+    a = engine_from_arrays(s0, s1, counts, num_negatives=TN, device="cpu")
+    b = engine_from_arrays(s0, s1, counts, num_negatives=TN, device="cpu")
+    cg, gm, cx, mk = _one_batch(7)
+    if not grouped:
+        cg, gm = cg[:, :1], np.ones_like(gm[:, :1])
+    # The port's own draws: fold_in(key, 0), as train_steps_grouped's
+    # step 0 makes them.
+    lb = b.train_steps_grouped(cg[None], gm[None], cx[None], mk[None], 21,
+                               [0.025], 0)
+    la = (a.train_step_grouped(cg, gm, cx, mk, 21, 0.025) if grouped
+          else a.train_step(cg[:, 0], cx, mk, 21, 0.025))
+    assert la == float(lb[0])
+    assert torch.equal(a.syn0, b.syn0) and torch.equal(a.syn1, b.syn1)
+    assert a.table_version == b.table_version

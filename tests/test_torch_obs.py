@@ -428,3 +428,61 @@ def test_cli_train_with_observability_flags(tmp_path, capsys):
     assert snap["state"] == "done" and snap["canary"]["mode"] == "warn"
     assert "device_steps" in _event_names(str(tmp_path / "ev.jsonl"))
     assert json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+
+
+def test_mark_unhealthy_makes_healthz_answer_503():
+    # JAX tests/test_obs.py::test_heartbeat_healthz_503_on_mark_unhealthy,
+    # on both packages' heartbeat.
+    for mod in (phb, jhb):
+        status = mod.TrainingStatus()
+        status.update(state="running")
+        status.mark_unhealthy("supervisor: peer worker died")
+        srv = mod.HeartbeatServer(status, port=0)
+        srv.start()
+        try:
+            code, body = _get(f"http://127.0.0.1:{srv.port}/healthz")
+            assert code == 503
+            body = json.loads(body)
+            assert body["status"] == "unhealthy"
+            assert "peer worker" in body["unhealthy_reason"]
+        finally:
+            srv.stop()
+        # A terminal state already reported is not downgraded.
+        done = mod.TrainingStatus()
+        done.update(state="done")
+        done.mark_unhealthy("late")
+        assert (done.state, done.unhealthy_reason) == ("done", "late")
+
+
+def test_training_metrics_dump_is_atomic_and_the_jax_layout(tmp_path):
+    # JAX tests/test_metrics_obs.py::test_dump_is_atomic_no_temp_leftovers.
+    docs = []
+    for name, mod in (("port", pmetrics), ("jax", jmetrics)):
+        d = tmp_path / name
+        d.mkdir()
+        m = mod.TrainingMetrics(log_every=1, history_max=2)
+        for i in range(3):
+            m.record_step(10 * (i + 1), loss=2.0 - i, alpha=0.01)
+        p = str(d / "metrics.json")
+        m.dump(p)
+        m.dump(p)  # onto an existing file: os.replace
+        assert os.listdir(d) == ["metrics.json"]
+        docs.append(json.load(open(p)))
+    port, jax_doc = docs
+    assert set(port) == set(jax_doc) == {"summary", "history", "history_dropped"}
+    assert port["summary"]["steps"] == jax_doc["summary"]["steps"] == 3
+    assert port["history_dropped"] == jax_doc["history_dropped"] == 1
+    assert [h["step"] for h in port["history"]] == [h["step"] for h in jax_doc["history"]]
+    assert set(jax_doc["summary"]) <= set(port["summary"])
+
+
+def test_profile_trace_writes_a_chrome_trace(tmp_path):
+    with pmetrics.profile_trace(None):
+        pass  # None: a no-op
+    out = tmp_path / "prof"
+    with pmetrics.profile_trace(str(out)):
+        torch.ones(64).sum()
+    files = os.listdir(out)
+    assert len(files) == 1 and files[0].endswith(".json")
+    doc = json.load(open(out / files[0]))
+    assert doc["traceEvents"]
