@@ -290,9 +290,50 @@ nothing of JAX. Phases, each of which fails the run on any error:
    and its children, and the machine's used), (a) this process's pinned
    bytes before and after their release, (b) each rank's peak resident
    set, pinned peak and the bytes its exchange keeps.
+15. The model catalog: three planted 1,000,000 x 300 fp32 models (phase
+   4's construction with seeds 300, 301 and 302), each saved (2.4 GB with
+   syn1); one in-process ``ModelServer`` with the first as its default
+   model (pinned) and the other two added as ``s301`` and ``s302`` under a
+   budget of 2.5 models' ``resident_bytes``, so at most two are resident.
+   8 clients send 6 cache-miss ``/m/<id>/synonyms`` each, round robin
+   over the three ids, with every counter zeroed just before: (a) every
+   response 200; (b) each answer the top 10 of its own model's table,
+   computed with the plain gather and plain products; (c) at least 2
+   evictions and 2 stage-ins, no fewer cold hits than stage-ins, at most
+   two models resident after every stage-in (each timed); (d)
+   ``max_memory_allocated`` (reset before the drill) under the budget plus
+   1 GiB, and an eviction lowering ``memory_allocated`` by the model's
+   ``resident_bytes`` within 1 %; (e) ``query_program_builds`` unmoved as
+   the two same-shape models load, their warmups all
+   ``shared_program_hits``; (f) ``gather_rows`` launched once a coalesced
+   dispatch. Also the default model's ``/synonyms`` p50/p95 alone and
+   while another model stages in (its copies on a side stream), the
+   ``/models`` document, and the Prometheus text lint-clean with the
+   ``glint_model_*`` and ``glint_catalog_*`` families.
+16. The self-healing fleet: ``cli serve-fleet --replicas 2
+   --watch-checkpoint PUB --add-model b=<phase 15's seed-302 model>
+   --canary-mirror-seconds 3`` on the card, generation 1 in PUB phase 15's
+   seed-300 model (hard links), 4 closed-loop clients through the
+   balancer throughout: (a) each replica's ``/healthz`` names the card
+   and the catalog, and ``/m/b/synonyms`` through the balancer
+   answers model b's top 10; (b) replica 1 SIGKILLed under traffic,
+   relaunched under a new ``GLINT_FLEET_GEN``, its breaker opened and then
+   closed again; (c) generation 2 (generation 1 plus 1 % noise) promoted
+   by the canary and rolled out one replica at a time, the balancer never
+   below one replica in rotation, both replicas on generation 2; (d)
+   generation 3 (a fresh random table) held back by the canary, both
+   replicas left on generation 2; every client request 200 with no
+   connection error; (e) the merged ``/metrics`` lint-clean, and in each
+   replica ``gather_rows``'s launches since its warmup equal to its
+   coalesced dispatches. Prints the fleet's boot and the relaunch
+   seconds, the kill window's client p95, each rollout step's seconds and
+   the canary's agreement for generations 2 and 3. ``--only 16`` runs 15
+   first.
 
 After each phase it prints ``phase N: S s``, and before the kernels line
-the whole script's seconds. It prints one JSON ``kernels`` line, the
+the whole script's seconds. It prints one JSON ``kernels`` line (each
+kernel with ``launches_catalog`` and ``launches_fleet``, its launches in
+phases 15 and 16), the
 ``nvidia-smi`` line, and as its last line ``{"ok": true, "device":
 {...}}``. Without a CUDA device it
 exits non-zero before printing any result.
@@ -314,6 +355,7 @@ import time
 import urllib.error
 import urllib.parse
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), bytes per second.
 HBM_BYTES_PER_S = 3.35e12
@@ -515,14 +557,14 @@ def check_gather(torch, rows_mod) -> dict:
 # ----------------------------------------------------------------------
 
 
-def planted_model(torch, np):
-    """A 1,000,000 x 300 fp32 model on the card: random rows, 16 word
-    pairs (2i, 2i+1) whose second row is the first plus 1% noise, and one
-    analogy quadruple b2 = b1 - a1 + a2 + 1% noise."""
+def planted_model(torch, np, seed: int = 300):
+    """A 1,000,000 x 300 fp32 model on the card: random rows from
+    ``seed``, 16 word pairs (2i, 2i+1) whose second row is the first plus
+    1% noise, and one analogy quadruple b2 = b1 - a1 + a2 + 1% noise."""
     from glint_word2vec_torch.convert import model_from_arrays
     from glint_word2vec_torch.utils.params import Word2VecParams
 
-    gen = torch.Generator(device="cuda").manual_seed(300)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     syn0 = torch.randn((V_SERVE, D), generator=gen, device="cuda")
     noise = lambda: 0.01 * torch.randn((D,), generator=gen, device="cuda")
     for i in range(16):
@@ -5185,6 +5227,727 @@ def exchange_gang(torch, np, fs, rows_mod) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 15: the model catalog
+# ----------------------------------------------------------------------
+
+#: Phase 15's catalog: the planted model of seed 300 as the default and
+#: those of seeds 301 and 302 beside it, under a budget of
+#: CATALOG_BUDGET_MODELS models' resident bytes (two fit, three do not),
+#: asked by CATALOG_CLIENTS clients CATALOG_REQUESTS cache misses each,
+#: round robin over the three ids; then the default model's latency over
+#: HOT_REQUESTS alone and while another model stages in.
+CATALOG_SEEDS = (300, 301, 302)
+CATALOG_IDS = ("default", "s301", "s302")
+CATALOG_BUDGET_MODELS = 2.5
+CATALOG_CLIENTS = 8
+CATALOG_REQUESTS = 6
+CATALOG_FIRST_WORD = 20_000
+HOT_REQUESTS = 60
+#: Words phase 16 asks model b (the seed-302 model) through the balancer.
+FLEET_B_WORDS = ("w7", "w40", "w512")
+
+
+def expected_top10(torch, rows_mod, syn0, words):
+    """Each word's ten nearest words by cosine on ``syn0`` (itself
+    excluded), computed with the plain gather and plain products on the
+    card: ``(ids (Q, 10), sims (Q, 10))`` as host arrays."""
+    ids = torch.tensor([int(w[1:]) for w in words], device=syn0.device)
+    q = rows_mod.gather_rows_reference(syn0, ids)
+    norms = torch.linalg.vector_norm(syn0, dim=1).clamp_min(1e-12)
+    sims = (q @ syn0.T) / norms[None, :] / torch.linalg.vector_norm(
+        q, dim=1, keepdim=True).clamp_min(1e-12)
+    sims[torch.arange(len(words), device=syn0.device), ids] = -2.0
+    top = torch.topk(sims, 10, dim=1)
+    return top.indices.cpu().numpy(), top.values.cpu().numpy()
+
+
+def check_top10(np, answers: dict, expected: dict, what: str) -> int:
+    """Hold every ``(model id, word) -> [[word, score], ...]`` answer
+    against the expected ids of that model (``same_ids_up_to_ties``).
+    Returns the number of tie swaps."""
+    swaps = 0
+    for (mid, word), hits in answers.items():
+        words, ids, sims = expected[mid]
+        q = words.index(word)
+        got = np.array([[int(w[1:]) for w, _ in hits]])
+        expect(got.shape == (1, 10), f"{what}: {mid} {word} gave {hits}")
+        swaps += same_ids_up_to_ties(np, got, ids[q:q + 1], sims[q:q + 1])
+    return swaps
+
+
+def catalog_words():
+    """``{model id: [words]}`` the phase 15 drill sends (distinct across
+    every request: each one a cache miss), and each request's
+    ``(client, i) -> (model id, word)``."""
+    plan = {}
+    for c in range(CATALOG_CLIENTS):
+        for i in range(CATALOG_REQUESTS):
+            plan[(c, i)] = (CATALOG_IDS[(c + i) % len(CATALOG_IDS)],
+                            f"w{CATALOG_FIRST_WORD + c * CATALOG_REQUESTS + i}")
+    words = {mid: [w for m, w in plan.values() if m == mid] for mid in CATALOG_IDS}
+    return words, plan
+
+
+def timed_post(port: int, path: str, payload) -> tuple:
+    """``(status, body or None, ms)`` of one POST on a new connection."""
+    import http.client
+
+    t = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        conn.request("POST", path, json.dumps(payload),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        data = r.read()
+        status = r.status
+    finally:
+        conn.close()
+    body = json.loads(data) if status == 200 else None
+    return status, body, (time.perf_counter() - t) * 1e3
+
+
+def catalog_drill(torch, np, fs, rows_mod, server, expected) -> dict:
+    """Phase 15 (a) to (c) and (f): CATALOG_CLIENTS threads, each sending
+    CATALOG_REQUESTS cache-miss ``/m/<id>/synonyms`` back to back, round
+    robin over the ids, with the launch counters zeroed just before and
+    every stage-in timed."""
+    cat = server.catalog
+    stage_log = []
+    orig = cat._stage_in
+
+    def timed_stage_in(entry):
+        t0 = time.perf_counter()
+        orig(entry)
+        stage_log.append((entry.model_id, time.perf_counter() - t0,
+                          sum(1 for e in cat.entries.values() if e.resident)))
+
+    cat._stage_in = timed_stage_in
+    words, plan = catalog_words()
+    out, errors = {}, []
+    before = {mid: dispatches(server._entry_snapshot(cat.get(mid)))
+              for mid in CATALOG_IDS}
+    snap0 = cat.snapshot()
+
+    def client(c):
+        for i in range(CATALOG_REQUESTS):
+            mid, word = plan[(c, i)]
+            try:
+                status, body, ms = timed_post(server.port, f"/m/{mid}/synonyms",
+                                              {"word": word, "num": 10})
+            except OSError as e:
+                errors.append(f"{mid} {word}: {e!r}")
+                continue
+            if status != 200:
+                errors.append(f"{mid} {word}: {status}")
+            else:
+                out[(mid, word)] = body
+
+    zero_counters(fs, rows_mod)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(CATALOG_CLIENTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+    finally:
+        cat._stage_in = orig
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counted = read_counters(fs, rows_mod)
+    launches = counted["gather_rows"]
+    served = sum(dispatches(server._entry_snapshot(cat.get(mid))) - before[mid]
+                 for mid in CATALOG_IDS)
+    snap = cat.snapshot()
+    n = CATALOG_CLIENTS * CATALOG_REQUESTS
+    expect(not errors, f"15 (a) failed requests: {errors[:5]}")
+    expect(len(out) == n, f"15 (a) {len(out)} answers of {n}")
+    swaps = check_top10(np, out, expected, "15 (b)")
+    delta = {k: snap[k] - snap0[k] for k in
+             ("evictions_total", "stage_ins_total", "cold_hits_total")}
+    expect(delta["evictions_total"] >= 2 and delta["stage_ins_total"] >= 2,
+           f"15 (c) too little churn: {delta}")
+    expect(delta["cold_hits_total"] >= delta["stage_ins_total"],
+           f"15 (c) fewer cold hits than stage-ins: {delta}")
+    expect(all(r <= 2 for _, _, r in stage_log),
+           f"15 (c) more than two models resident after a stage-in: {stage_log}")
+    expect(len(stage_log) == delta["stage_ins_total"], "15 (c) untimed stage-in")
+    expect(launches == served and served > 0,
+           f"15 (f) gather_rows launched {launches} times for {served} "
+           "coalesced dispatches")
+    log(f"15 (a)-(c): {n} requests from {CATALOG_CLIENTS} clients in "
+        f"{wall:.2f} s, all 200, every top 10 its own model's "
+        f"({swaps} tie swaps); churn {delta}; stage-ins "
+        + ", ".join(f"{m} {s:.3f} s ({r} resident after)" for m, s, r in stage_log))
+    log(f"15 (f) gather_rows launched {launches} times = {served} coalesced "
+        "dispatches")
+    return dict(launches=counted, peak=peak, stage_ins=stage_log, wall=wall)
+
+
+def hot_latency(torch, server, first: int, stage_entry=None) -> list:
+    """Request times of the default model over cache misses (words
+    ``first``, ``first - 1``, ...): HOT_REQUESTS back to back, or with
+    ``stage_entry`` as many as land while that model stages in (evicted
+    first) on a thread of its own."""
+    cat = server.catalog
+    window = threading.Event()
+    ms = []
+    if stage_entry is None:
+        for i in range(HOT_REQUESTS):
+            status, _, t = timed_post(server.port, "/synonyms",
+                                      {"word": f"w{first - i}", "num": 10})
+            expect(status == 200, f"hot request {status}")
+            ms.append(t)
+        return ms
+    expect(cat.evict(stage_entry) or not stage_entry.resident,
+           "15: the staging model was not evictable")
+    staged = []
+
+    def stage():
+        window.set()
+        t = time.perf_counter()
+        cat.ensure_resident(stage_entry)
+        staged.append(time.perf_counter() - t)
+
+    th = threading.Thread(target=stage)
+    i = 0
+    th.start()
+    window.wait()
+    while th.is_alive():
+        status, _, t = timed_post(server.port, "/synonyms",
+                                  {"word": f"w{first - i}", "num": 10})
+        expect(status == 200, f"hot request {status} during a stage-in")
+        ms.append(t)
+        i += 1
+    th.join()
+    log(f"15: stage-in of {stage_entry.model_id} beside the hot model: "
+        f"{staged[0]:.3f} s, {len(ms)} hot requests in it")
+    return ms
+
+
+def catalog_end_to_end(torch, np, fs, rows_mod) -> dict:
+    """Phase 15. Returns the drill's counts and what phase 16 reuses: the
+    temporary directory with the three saved models, the default model
+    (seed 300) still on the card, and model b's expected answers."""
+    from glint_word2vec_torch.obs.prometheus import lint_prometheus_text
+    from glint_word2vec_torch.parallel.engine import query_program_builds
+    from glint_word2vec_torch.serving import ModelServer
+
+    gc_free(torch)
+    tmp = tempfile.mkdtemp(prefix="glint_chip_catalog_")
+    keep = {"tmp": tmp}
+    server = None
+    try:
+        t0 = time.perf_counter()
+        words, _ = catalog_words()
+        dirs, expected, saves = {}, {}, []
+        # The three saves run side by side, each on a thread of its own.
+        with set_up_saves(), ThreadPoolExecutor(len(CATALOG_IDS)) as pool:
+            for mid, seed in zip(CATALOG_IDS, CATALOG_SEEDS):
+                model, _, _ = planted_model(torch, np, seed=seed)
+                dirs[mid] = os.path.join(tmp, f"seed{seed}")
+                ask = list(words[mid]) + (list(FLEET_B_WORDS) if seed == 302
+                                          else [])
+                expected[mid] = (ask, *expected_top10(torch, rows_mod,
+                                                      model.engine.syn0, ask))
+                saves.append((mid, model, pool.submit(model.save, dirs[mid])))
+            for mid, model, done in saves:
+                done.result()
+                if mid == "default":
+                    keep["model"] = model
+                else:
+                    model.stop()
+        del saves, model
+        gc_free(torch)
+        log(f"15: three planted {V_SERVE} x {D} models built, saved "
+            f"({sum(dir_bytes(d) for d in dirs.values()) / 2**30:.2f} GiB) and "
+            f"their answers computed in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        server = ModelServer(keep["model"], port=0, request_deadline=120.0)
+        server.catalog.default.source_dir = dirs["default"]
+        one = server.catalog.default.resident_bytes()
+        budget = int(CATALOG_BUDGET_MODELS * one)
+        server.catalog.budget_bytes = budget
+        server.start_background()
+        builds0 = query_program_builds()
+        for mid in CATALOG_IDS[1:]:
+            ta = time.perf_counter()
+            entry = server.add_model(mid, model_dir=dirs[mid])
+            log(f"15: added {mid} in {time.perf_counter() - ta:.2f} s (load, "
+                f"warmup of {entry.model.engine.query_compiles} shapes, "
+                f"{entry.model.engine.shared_program_hits} shared)")
+            expect(entry.model.engine.query_compiles > 0
+                   and entry.model.engine.shared_program_hits
+                   == entry.model.engine.query_compiles,
+                   f"15 (e) {mid}'s warmup was not all shared hits")
+        expect(query_program_builds() == builds0,
+               f"15 (e) query_program_builds moved {builds0} -> "
+               f"{query_program_builds()} as same-shape models loaded")
+        resident = [e.model_id for e in server.catalog.entries.values() if e.resident]
+        log(f"15: server up in {time.perf_counter() - t0:.1f} s; one model "
+            f"{one} bytes, budget {budget} bytes; resident {resident}; "
+            f"query_program_builds {builds0} before and after")
+        base = torch.cuda.memory_allocated()
+        drill = catalog_drill(torch, np, fs, rows_mod, server, expected)
+        expect(drill["peak"] < budget + 2**30,
+               f"15 (d) max_memory_allocated {drill['peak']} past the budget "
+               f"{budget} + 1 GiB")
+        log(f"15 (d) max_memory_allocated in the drill {gib(drill['peak'])} "
+            f"(budget {gib(budget)} + 1 GiB; {gib(base)} allocated before it)")
+        cat = server.catalog
+        victim = next(e for e in cat.entries.values()
+                      if e.resident and e.evictable and not e.pins)
+        torch.cuda.synchronize()
+        rb, m0 = victim.resident_bytes(), torch.cuda.memory_allocated()
+        expect(cat.evict(victim), "15 (d) eviction refused")
+        torch.cuda.synchronize()
+        freed = m0 - torch.cuda.memory_allocated()
+        expect(abs(freed - rb) <= 0.01 * rb,
+               f"15 (d) eviction of {victim.model_id} freed {freed} bytes, "
+               f"its resident_bytes {rb}")
+        log(f"15 (d) evicting {victim.model_id} lowered memory_allocated by "
+            f"{freed} bytes against resident_bytes {rb} "
+            f"({100 * (freed - rb) / rb:+.3f} %); memory_reserved "
+            f"{gib(torch.cuda.memory_reserved())}")
+        alone = hot_latency(torch, server, V_SERVE - 1)
+        staging = []
+        for k, e in enumerate([victim] + [x for x in cat.entries.values()
+                                          if x.evictable and not x.pins
+                                          and x is not victim]):
+            staging += hot_latency(torch, server, V_SERVE // 2 - k * V_SERVE // 10,
+                                   stage_entry=e)
+        log(f"15: default model /synonyms alone: {summary(alone)}; while "
+            f"another model stages in (side stream): {summary(staging)}")
+        doc = get_json(server.port, "/models")
+        log(f"15: /models {json.dumps(doc)}")
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{server.port}/metrics?format=prometheus",
+                timeout=60) as r:
+            text = r.read().decode()
+        lint_prometheus_text(text)
+        fams = sorted({line.split()[2] for line in text.splitlines()
+                       if line.startswith("# TYPE glint_model_")
+                       or line.startswith("# TYPE glint_catalog_")})
+        expect(any(f.startswith("glint_model_") for f in fams)
+               and any(f.startswith("glint_catalog_") for f in fams),
+               "15: no model or catalog families in the exposition")
+        log(f"15: Prometheus exposition lint-clean, {len(fams)} model and "
+            f"catalog families: {', '.join(fams)}")
+        keep.update(dirs=dirs, expected=expected, launches=drill["launches"],
+                    one=one)
+        return keep
+    except BaseException:
+        cleanup_catalog(torch, keep)
+        raise
+    finally:
+        if server is not None:
+            server.stop()
+            for e in list(server.catalog.entries.values()):
+                if e is not server.catalog.default:
+                    e.model.stop()
+
+
+@contextlib.contextmanager
+def set_up_saves():
+    """The block's saves skip their fsyncs (``GLINT_CKPT_NO_FSYNC=1``, as
+    the tests run): they write the phase's own input data, which it reads
+    back from the page cache; what a save makes durable is not what
+    phases 15 and 16 check."""
+    prev = os.environ.get("GLINT_CKPT_NO_FSYNC")
+    os.environ["GLINT_CKPT_NO_FSYNC"] = "1"
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("GLINT_CKPT_NO_FSYNC", None)
+        else:
+            os.environ["GLINT_CKPT_NO_FSYNC"] = prev
+
+
+def gc_free(torch) -> None:
+    """Drop this process's unreferenced tensors and return the cached
+    blocks, so a phase's device-memory figures start from what is live."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _, fs_ in os.walk(path) for f in fs_)
+
+
+def cleanup_catalog(torch, cat: dict) -> None:
+    """Free phase 15's kept model and remove its temporary directory."""
+    model = cat.pop("model", None)
+    if model is not None:
+        model.stop()
+    shutil.rmtree(cat["tmp"], ignore_errors=True)
+    gc_free(torch)
+
+
+# ----------------------------------------------------------------------
+# Phase 16: the self-healing fleet
+# ----------------------------------------------------------------------
+
+FLEET_REPLICAS = 2
+FLEET_CLIENTS = 4
+FLEET_MIRROR_SECONDS = 3
+FLEET_POLL = 0.5
+FLEET_TIMEOUT = 300.0
+
+
+def link_tree(src: str, dst: str) -> None:
+    """``dst`` as a tree of hard links to ``src``'s files (copies where the
+    filesystem refuses links)."""
+    for root, _, files in os.walk(src):
+        out = os.path.join(dst, os.path.relpath(root, src))
+        os.makedirs(out, exist_ok=True)
+        for f in files:
+            try:
+                os.link(os.path.join(root, f), os.path.join(out, f))
+            except OSError:
+                shutil.copy2(os.path.join(root, f), os.path.join(out, f))
+
+
+def publish_generation(pub: str, gen: str, src: str) -> None:
+    """Commit the model directory ``src`` as ``gen`` in ``pub`` the way the
+    publish protocol does: the directory renamed in whole, then
+    ``LATEST.json`` replaced."""
+    from glint_word2vec_torch.utils import atomic_write_json
+
+    os.replace(src, os.path.join(pub, gen))
+    atomic_write_json(os.path.join(pub, "LATEST.json"),
+                      {"generation": gen, "seq": int(gen.split("-")[1]),
+                       "published_unix": time.time()})
+
+
+def stage_generations(torch, cat: dict, staged: dict, errors: list) -> None:
+    """Phase 16's generations 2 and 3 built from the seed-300 model and
+    saved next to the publish directory (``staged[gen]`` their
+    directories, ``staged["seconds"]`` the time); a failure is appended to
+    ``errors``."""
+    from glint_word2vec_torch.convert import model_from_arrays
+
+    try:
+        t0 = time.perf_counter()
+        base = cat["model"]
+        shape = base.engine.syn0.shape
+        with set_up_saves():
+            for gen, seed, noisy in (("gen-000002", 303, True),
+                                     ("gen-000003", 304, False)):
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                syn0 = torch.randn(shape, generator=g, device="cuda")
+                if noisy:
+                    syn0 = base.engine.syn0 + 0.01 * syn0
+                m = model_from_arrays(base.vocab.words, syn0, base.engine.syn1,
+                                      base.vocab.counts, base.params,
+                                      device="cuda")
+                del syn0
+                staged[gen] = os.path.join(cat["tmp"], f"staged-{gen}")
+                m.save(staged[gen])
+                m.stop()
+        staged["seconds"] = time.perf_counter() - t0
+    except BaseException as e:  # reported by the phase
+        errors.append(repr(e))
+
+
+def replica_pid(tag: str) -> int:
+    """The pid of the replica process whose command line names the port
+    file ``replica-<tag>.port`` (``tag`` is ``<slot>.<launch>``)."""
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue
+        if any(a.endswith(f"replica-{tag}.port".encode()) for a in argv):
+            return int(pid)
+    raise AssertionError(f"no replica process replica-{tag}")
+
+
+class FleetClients:
+    """FLEET_CLIENTS closed-loop ``/synonyms`` clients through the
+    balancer, each asking words no earlier request asked (cache misses),
+    recording ``(sent, done, status)`` of every request; a connection
+    error is recorded as status -1."""
+
+    def __init__(self, port: int):
+        self.port, self.rows = port, []
+        self._stop = threading.Event()
+        self._mu = threading.Lock()
+        self._threads = [threading.Thread(target=self._run, args=(c,))
+                         for c in range(FLEET_CLIENTS)]
+
+    def _run(self, c: int) -> None:
+        i, span = 0, V_SERVE // 5
+        while not self._stop.is_set():
+            word = f"w{V_SERVE // 10 + c * span + i % span}"
+            t = time.time()
+            try:
+                status = timed_post(self.port, "/synonyms",
+                                    {"word": word, "num": 10})[0]
+            except OSError:
+                status = -1
+            with self._mu:
+                self.rows.append((t, time.time(), status))
+            i += 1
+
+    def __enter__(self):
+        for th in self._threads:
+            th.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        for th in self._threads:
+            th.join(timeout=120)
+
+    def window(self, t0: float, t1: float) -> list:
+        with self._mu:
+            return [r for r in self.rows if t0 <= r[0] <= t1]
+
+
+def rotation_watch(port: int, stop, seen: list) -> None:
+    """Sample the balancer's breakers every 0.1 s until ``stop``: the
+    replicas in rotation (closed and not held), and each breaker state."""
+    while not stop.is_set():
+        try:
+            doc = get_json(port, "/metrics")
+            states = [(r["breaker"]["state"], r["breaker"]["held"])
+                      for r in doc["replicas"]]
+            seen.append((time.time(), sum(1 for s, h in states
+                                          if s == "closed" and not h), states))
+        except (OSError, ValueError):
+            pass
+        stop.wait(0.1)
+
+
+def wait_until(pred, what: str, timeout: float = FLEET_TIMEOUT):
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout:
+        got = pred()
+        if got:
+            return time.perf_counter() - t0
+        time.sleep(0.1)
+    raise AssertionError(f"16: timed out after {timeout:.0f} s waiting for {what}")
+
+
+def fleet_replica_snaps(doc: dict) -> list:
+    """Each replica's own ``/metrics`` snapshot from a balancer document,
+    failing a replica that did not answer."""
+    expect(all(r.get("up") for r in doc["replicas"]),
+           f"16: a replica's /metrics did not answer: {doc['replicas']}")
+    return [r["snapshot"] for r in doc["replicas"]]
+
+
+def replica_gens(port: int) -> list:
+    return [s["hot_swap"]["generation"]
+            for s in fleet_replica_snaps(get_json(port, "/metrics"))]
+
+
+def fleet_end_to_end(torch, np, rows_mod, cat: dict) -> dict:
+    """Phase 16 on phase 15's saved models. Returns the replicas' launch
+    counts since their warmups."""
+    from glint_word2vec_torch.obs.prometheus import lint_prometheus_text
+
+    tmp, dirs = cat["tmp"], cat["dirs"]
+    pub = os.path.join(tmp, "pub")
+    os.makedirs(pub)
+    link_tree(dirs["default"], os.path.join(tmp, "staged-gen-000001"))
+    publish_generation(pub, "gen-000001",
+                       os.path.join(tmp, "staged-gen-000001"))
+    port_file = os.path.join(tmp, "fleet.json")
+    logs = os.path.join(tmp, "replica-logs")
+    fleet_log = open(os.path.join(tmp, "fleet.log"), "wb")
+    argv = [sys.executable, "-m", "glint_word2vec_torch.cli", "serve-fleet",
+            "--replicas", str(FLEET_REPLICAS), "--device", "cuda",
+            "--watch-checkpoint", pub, "--watch-poll", str(FLEET_POLL),
+            "--add-model", f"b={dirs['s302']}",
+            "--canary-mirror-seconds", str(FLEET_MIRROR_SECONDS),
+            "--port", "0", "--port-file", port_file,
+            "--replica-log-dir", logs]
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("GLINT_FAULTS", None)
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=fleet_log, stderr=subprocess.STDOUT,
+                            cwd=here, env=env, start_new_session=True)
+    stop_watch = threading.Event()
+    seen = []
+    # Generations 2 (generation 1 plus 1 % noise) and 3 (a fresh random
+    # table) are written while the fleet boots, and published later by a
+    # rename and a pointer flip.
+    staged, prep_error = {}, []
+    prep = threading.Thread(target=stage_generations,
+                            args=(torch, cat, staged, prep_error))
+    prep.start()
+    try:
+        wait_until(lambda: os.path.exists(port_file) or proc.poll() is not None,
+                   "the fleet's port file")
+        expect(proc.poll() is None, f"16: serve-fleet exited rc={proc.returncode}")
+        port = json.load(open(port_file))["port"]
+        boot = time.perf_counter() - t0
+        doc = get_json(port, "/metrics")
+        for r in doc["replicas"]:
+            host, rport = r["url"][len("http://"):].split(":")
+            h = get_json(int(rport), "/healthz")
+            expect(h["device"] == torch.cuda.get_device_name(0),
+                   f"16 (a) replica {r['url']} serves on {h['device']}")
+            expect(set(h["models"]) == {"default", "b"},
+                   f"16 (a) replica catalog {sorted(h['models'])}")
+        b_answers = {("s302", w): post(port, "/m/b/synonyms",
+                                       {"word": w, "num": 10})
+                     for w in FLEET_B_WORDS}
+        check_top10(np, b_answers, cat["expected"], "16 (a) /m/b/synonyms")
+        log(f"16 (a): {FLEET_REPLICAS} replicas on the card, each with models "
+            f"default and b, up in {boot:.1f} s (launch to the balancer's port "
+            f"file); /m/b/synonyms through the balancer answers model b's "
+            "own top 10")
+        watcher = threading.Thread(target=rotation_watch,
+                                   args=(port, stop_watch, seen))
+        watcher.start()
+        with FleetClients(port) as clients:
+            time.sleep(1.0)
+            # (b) replica 1 killed under traffic.
+            t_kill = time.time()
+            os.kill(replica_pid("1.0"), 9)
+
+            def relaunched():
+                d = get_json(port, "/metrics")
+                st = d["supervisor"]["replica_states"][1]
+                br = d["replicas"][1]["breaker"]
+                return (st["restarts"] == 1 and st["state"] == "up"
+                        and br["state"] == "closed" and br["opened_total"] >= 1
+                        and br["closed_total"] >= 1)
+
+            wait_until(relaunched, "replica 1 relaunched and readmitted")
+            t_back = time.time()
+            doc = get_json(port, "/metrics")
+            rec = doc["supervisor"]["replica_states"][1]["restart_records"][-1]
+            host, rport = doc["replicas"][1]["url"][len("http://"):].split(":")
+            fgen = get_json(int(rport), "/healthz")["fleet_generation"]
+            expect(fgen == "1.1", f"16 (b) relaunch under GLINT_FLEET_GEN {fgen}")
+            kill_ms = [(d - s) * 1e3 for s, d, _ in clients.window(t_kill, t_back)]
+            ejected = any(states[1][0] != "closed" for t, _, states in seen
+                          if t >= t_kill)
+            expect(ejected, "16 (b) the breaker never ejected replica 1")
+            log(f"16 (b): replica 1 SIGKILLed; relaunched as {fgen} and "
+                f"readmitted after {t_back - t_kill:.1f} s (detect to ready "
+                f"{rec['detect_to_ready_seconds']} s, reason {rec['reason']!r}); "
+                f"clients in the window: {percentile_line(kill_ms)}")
+            # (c) generation 2: generation 1 plus 1 % noise.
+            prep.join()
+            expect(not prep_error, f"16: staging generations failed: {prep_error}")
+            publish_generation(pub, "gen-000002", staged["gen-000002"])
+            t2 = wait_until(lambda: (get_json(port, "/metrics").get("rollout")
+                                     or {}).get("generation") == "gen-000002",
+                            "generation 2 rolled out")
+            ro = get_json(port, "/metrics")["rollout"]
+            expect(replica_gens(port) == ["gen-000002"] * FLEET_REPLICAS,
+                   f"16 (c) replicas on {replica_gens(port)}")
+            expect(ro["canary"]["last_verdict"] == "pass",
+                   f"16 (c) canary {ro['canary']}")
+            agree2 = ro["canary"]["last_agreement"]
+            log(f"16 (c): gen-000002 promoted {t2:.1f} s after its publish "
+                f"(written during the boot in {staged['seconds']:.1f} s); canary "
+                f"agreement {agree2} over {ro['canary']['last_scored']} "
+                f"responses; steps {ro['step_seconds']}")
+            # (d) generation 3: a fresh random table.
+            publish_generation(pub, "gen-000003", staged["gen-000003"])
+            t3 = wait_until(lambda: get_json(port, "/metrics")["rollout"]
+                            ["held_back_generation"] == "gen-000003",
+                            "generation 3 held back")
+            ro = get_json(port, "/metrics")["rollout"]
+            expect(replica_gens(port) == ["gen-000002"] * FLEET_REPLICAS,
+                   f"16 (d) replicas on {replica_gens(port)}")
+            agree3 = ro["canary"]["last_agreement"]
+            log(f"16 (d): gen-000003 held back {t3:.1f} s after its publish; "
+                f"canary agreement {agree3} (gate "
+                f"{ro['canary']['agreement_gate']}); steps {ro['step_seconds']}")
+            time.sleep(0.5)
+        stop_watch.set()
+        watcher.join(timeout=30)
+        bad = [r for r in clients.rows if r[2] != 200]
+        expect(not bad, f"16: {len(bad)} client requests failed, first "
+               f"{bad[:5]} (status -1: a connection error)")
+        low = min(n for _, n, _ in seen)
+        expect(low >= 1, "16 (c) the balancer's rotation fell to 0 replicas")
+        ms = [(d - s) * 1e3 for s, d, _ in clients.rows]
+        log(f"16: {len(clients.rows)} client requests, all 200 "
+            f"({summary(ms)}); replicas in rotation never below {low} "
+            f"({len(seen)} samples)")
+        # (e) the merged exposition and the replicas' launch counts.
+        doc = get_json(port, "/metrics")
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/metrics?format=prometheus",
+                timeout=60) as r:
+            text = r.read().decode()
+        lint_prometheus_text(text)
+        snaps = fleet_replica_snaps(doc)
+        launches = {}
+        for i, s in enumerate(snaps):
+            since = {k: s["kernel_launches"][k] - s["kernel_launches_warmup"][k]
+                     for k in s["kernel_launches"]}
+            served = sum(dispatches(m) for m in s["models"].values())
+            expect(since["gather_rows"] > 0 and since["gather_rows"] == served,
+                   f"16 (e) replica {i}: gather_rows {since['gather_rows']} "
+                   f"since its warmup, {served} coalesced dispatches")
+            for k, v in since.items():
+                launches[k] = launches.get(k, 0) + v
+        log(f"16 (e): merged /metrics lint-clean ({len(text.splitlines())} "
+            f"lines); gather_rows since warmup per replica "
+            + ", ".join(str(s["kernel_launches"]["gather_rows"]
+                            - s["kernel_launches_warmup"]["gather_rows"])
+                        for s in snaps)
+            + f" = their coalesced dispatches; launches {launches}")
+        expect(post_status(port, "/shutdown", {}) == 200, "16: shutdown refused")
+        proc.wait(timeout=120)
+        expect(proc.returncode == 0, f"16: serve-fleet exited {proc.returncode}")
+        return dict(launches=launches, agreement=(agree2, agree3))
+    except BaseException:
+        fleet_log.flush()
+        for path in [os.path.join(tmp, "fleet.log")] + sorted(
+                os.path.join(logs, f) for f in (os.listdir(logs)
+                                                if os.path.isdir(logs) else [])):
+            with open(path, "rb") as f:
+                tail = f.read()[-3000:].decode(errors="replace")
+            log(f"16: tail of {os.path.basename(path)}:\n{tail}")
+        raise
+    finally:
+        stop_watch.set()
+        prep.join()
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, 9)
+            except OSError:
+                pass
+            proc.wait(timeout=60)
+        # The replicas run in sessions of their own: a kill of the
+        # supervisor's group leaves them, so stop any left (their command
+        # lines name this phase's directory).
+        for pid in filter(str.isdigit, os.listdir("/proc")):
+            try:
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    argv_ = f.read()
+            except OSError:
+                continue
+            if tmp.encode() in argv_ and b"--port-file" in argv_:
+                try:
+                    os.kill(int(pid), 9)
+                except OSError:
+                    pass
+        fleet_log.close()
+
+
 def ptxas_report(text: str) -> list:
     """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
     (demangled where ``c++filt`` is found), registers and spills."""
@@ -5207,20 +5970,24 @@ def ptxas_report(text: str) -> list:
 
 
 def parse_only(argv) -> set | None:
-    """The phases ``--only`` names (3 to 14), or None to run them all."""
+    """The phases ``--only`` names (3 to 16; 16 brings 15, whose models it
+    serves), or None to run them all."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--only", metavar="N[,N...]",
-        help="run phases 1, 2 and these (3 to 14) only, print their lines, "
+        help="run phases 1, 2 and these (3 to 16; 16 runs 15 first) only, "
+             "print their lines, "
              f"and exit {PARTIAL_EXIT} without the kernels or result line")
     only = ap.parse_args(argv).only
     if only is None:
         return None
     phases = {int(p) for p in only.split(",") if p.strip()}
-    if not phases or not phases <= set(range(3, 15)):
-        ap.error(f"--only takes phases 3 to 14, got {only!r}")
+    if not phases or not phases <= set(range(3, 17)):
+        ap.error(f"--only takes phases 3 to 16, got {only!r}")
+    if 16 in phases:
+        phases.add(15)
     return phases
 
 
@@ -5267,13 +6034,18 @@ def main() -> int:
         12: lambda: ann_and_transform(torch, np, fs, rows_mod),
         13: lambda: stream_and_hot_swap(torch, np, fs, rows_mod),
         14: lambda: exchange_gang(torch, np, fs, rows_mod),
+        15: lambda: catalog_end_to_end(torch, np, fs, rows_mod),
+        16: lambda: fleet_end_to_end(torch, np, rows_mod, catalog),
     }
+    catalog = {}
 
     switch = sys.getswitchinterval()
 
     def run(p):
         t0 = time.perf_counter()
         out = phases[p]()
+        if p == 15:
+            catalog.update(out)
         if p == 9:
             out = (out, train_shared_end_to_end(torch, np, fs, rows_mod))
         # A server tightens the process-wide switch interval while it
@@ -5285,8 +6057,12 @@ def main() -> int:
         return out
 
     if only is not None:
-        for p in sorted(only):
-            run(p)
+        try:
+            for p in sorted(only):
+                run(p)
+        finally:
+            if catalog:
+                cleanup_catalog(torch, catalog)
         log(f"partial run: phases 1, 2 and {sorted(only)} passed in "
             f"{time.perf_counter() - t_start:.1f} s; no kernels line and no "
             f"result line (exit {PARTIAL_EXIT})")
@@ -5304,6 +6080,12 @@ def main() -> int:
     annt = run(12)
     streamed = run(13)
     gang = run(14)
+    try:
+        cat = run(15)
+        fleet = run(16)
+    finally:
+        if catalog:
+            cleanup_catalog(torch, catalog)
 
     main_case = gathered[("f32", V_SERVE, 10_000)]
     kernels = [{
@@ -5456,6 +6238,13 @@ def main() -> int:
         "bf16_ms": shared_timed["bf16"]["ms"],
         "bf16_bound_ms": shared_timed["bf16"]["bound_ms"],
     })
+    # Phases 15 and 16 serve only: each kernel's launches in the catalog
+    # drill and in the fleet's replicas since their warmups.
+    for k in kernels:
+        k["launches_catalog"] = cat["launches"][k["name"]]
+        k["launches_fleet"] = fleet["launches"].get(k["name"], 0)
+    expect(kernels[0]["launches_catalog"] > 0 and kernels[0]["launches_fleet"] > 0,
+           "gather_rows not launched in phase 15 or 16")
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,6 +5,8 @@
   python -m glint_word2vec_torch.cli fit-stream --corpus c.txt|- --publish-dir P/ [...]
   python -m glint_word2vec_torch.cli serve     --model m/ --port 8801 [--ann] [--max-inflight 256]
   python -m glint_word2vec_torch.cli serve     --watch-checkpoint P/ [--watch-poll 1]
+  python -m glint_word2vec_torch.cli serve     --model m/ --add-model b=m2/ --model-memory-budget 6gb
+  python -m glint_word2vec_torch.cli serve-fleet --replicas 2 --watch-checkpoint P/ [--add-model b=m2/]
   python -m glint_word2vec_torch.cli transform-file --model m/ --input s.txt --out shards/
   python -m glint_word2vec_torch.cli synonyms-dump  --model m/ --out n.jsonl [--ann]
   python -m glint_word2vec_torch.cli synonyms  --model m/ --word w [-n 10]
@@ -23,7 +25,11 @@ group between them), relaunching it from the last committed checkpoint
 after a crash or a hang; ``transform-file --workers N`` runs N transform
 ranks under the same supervisor. ``fit-stream`` trains on a sentence
 stream (a file, a followed file or stdin) and publishes generations that
-``serve --watch-checkpoint`` swaps in.
+``serve --watch-checkpoint`` swaps in. ``serve --add-model`` serves more
+models from one process (``/m/<id>/...``), under
+``--model-memory-budget``; ``serve-fleet`` runs supervised ``serve``
+replicas behind a breaker-aware balancer, with rolling rollout behind a
+shadow canary (``--device`` goes to every replica).
 """
 
 from __future__ import annotations
@@ -210,7 +216,7 @@ def _add_supervise(sub) -> None:
     p.add_argument("--join-serving", action="append", default=[],
                    metavar="URL",
                    help="not in the port yet: joining serving replicas into "
-                        "the gang view comes with the fleet slice")
+                        "the gang view waits for ROADMAP Queue A item 2 (b)")
     p.add_argument("--rank-env", action="append", default=[],
                    metavar="R:KEY=VAL",
                    help="environment for rank R's first launch only "
@@ -498,8 +504,9 @@ def _run_supervise(args) -> int:
         return 1
     if args.join_serving:
         print("error: --join-serving is not in the port yet: joining serving "
-              "replicas into the gang view comes with the fleet slice "
-              "(ROADMAP Queue A item 10)", file=sys.stderr)
+              "replicas into the gang view comes with the second fleet slice, "
+              "the demand-driven fleet (ROADMAP Queue A item 2 (b))",
+              file=sys.stderr)
         return 1
     rank_env, err = _parse_rank_env(args)
     if err:
@@ -915,7 +922,275 @@ def _parser() -> argparse.ArgumentParser:
                            "server answers from its cache alone and sheds "
                            "misses with 429, until the lock frees (0 "
                            "disables; default 5)")
+    mm = p.add_argument_group(
+        "model catalog",
+        "one server holding several models behind one port: a request names "
+        "its model with the /m/<id>/ path prefix or the X-Glint-Model header "
+        "(neither: the default model); a same-shape model adds no query "
+        "shapes to the process",
+    )
+    _add_catalog_flags(mm)
+    mm.add_argument("--watch-models", default=None, metavar="DIR",
+                    help="catalog root: each subdirectory with a LATEST.json "
+                         "is one model's publish directory (the subdirectory "
+                         "name is the model id), followed by a watcher of "
+                         "its own")
+    _add_serve_fleet(sub)
     return ap
+
+
+def _add_catalog_flags(g) -> None:
+    g.add_argument("--add-model", action="append", default=[],
+                   metavar="ID=DIR",
+                   help="serve another model (repeatable); DIR is a saved "
+                        "model directory or a committed generation")
+    g.add_argument("--model-memory-budget", default=None, metavar="BYTES",
+                   help="device-memory budget of the resident tables "
+                        "(suffixes kb, mb, gb): past it the least recently "
+                        "used unpinned model is staged out to its snapshot "
+                        "and staged back in on its next request")
+
+
+def _add_serve_fleet(sub) -> None:
+    p = sub.add_parser(
+        "serve-fleet",
+        help="run N supervised serve replicas of one model (or one publish "
+             "directory) behind a breaker-aware load balancer, with rolling "
+             "rollout behind a shadow canary and one merged /metrics",
+    )
+    p.add_argument("--model", default=None,
+                   help="saved model directory every replica loads")
+    p.add_argument("--watch-checkpoint", default=None, metavar="DIR",
+                   help="publish directory whose generations are rolled out "
+                        "to the replicas one at a time")
+    p.add_argument("--watch-poll", type=float, default=1.0)
+    p.add_argument("--replicas", type=int, default=2,
+                   help="serving processes (default 2)")
+    p.add_argument("--device", default="cuda",
+                   help="the device every replica serves on: cuda (default), "
+                        "cuda:N or cpu")
+    p.add_argument("--host", default="127.0.0.1", help="balancer address")
+    p.add_argument("--port", type=int, default=8800,
+                   help="balancer port (0: ephemeral; replicas always bind "
+                        "ephemeral ports)")
+    p.add_argument("--port-file", default=None, metavar="FILE",
+                   help="write the balancer's {host, port} here once the "
+                        "fleet is up")
+    p.add_argument("--replica-log-dir", default=None, metavar="DIR",
+                   help="one replica-N.log a process (default: replicas "
+                        "inherit stderr)")
+    p.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="not in the port yet: fleet tracing waits for ROADMAP "
+                        "Queue A item 2 (b)")
+    p.add_argument("--max-batch", type=int, default=64)
+    p.add_argument("--cache-size", type=int, default=65536)
+    p.add_argument("--max-inflight", type=int, default=256)
+    p.add_argument("--request-deadline", type=float, default=30.0)
+    p.add_argument("--degraded-after", type=float, default=5.0)
+    _add_ann_flags(p)
+    heal = p.add_argument_group(
+        "self-healing",
+        "replica supervision (waitpid, and /healthz probes with a launch "
+        "generation handshake), circuit breaking driven by the probes, and "
+        "with --watch-checkpoint rolling rollout behind a shadow canary",
+    )
+    heal.add_argument("--max-restarts", type=int, default=3,
+                      help="relaunches a replica before it is left down "
+                           "(default 3)")
+    heal.add_argument("--backoff-base", type=float, default=1.0,
+                      help="first relaunch delay in seconds (doubles each "
+                           "restart, capped at --backoff-cap)")
+    heal.add_argument("--backoff-cap", type=float, default=30.0)
+    heal.add_argument("--hang-kill-after", type=float, default=10.0,
+                      help="seconds of failing probes after which a live "
+                           "replica process is killed and relaunched")
+    heal.add_argument("--probe-interval", type=float, default=0.5,
+                      help="seconds between /healthz probes of a replica")
+    heal.add_argument("--probe-timeout", type=float, default=2.0)
+    heal.add_argument("--breaker-failures", type=int, default=3,
+                      help="consecutive probe or connect failures that eject "
+                           "a replica (the breaker opens)")
+    heal.add_argument("--breaker-successes", type=int, default=2,
+                      help="consecutive half-open successes that readmit it")
+    heal.add_argument("--breaker-open-seconds", type=float, default=2.0,
+                      help="open-breaker cooldown before half-open trials")
+    heal.add_argument("--replica0-env", action="append", default=[],
+                      metavar="KEY=VAL",
+                      help="environment of replica 0's first launch only "
+                           "(repeatable): arms a GLINT_FAULTS schedule "
+                           "without re-arming it on the relaunch")
+    heal.add_argument("--uncoordinated-watch", action="store_true",
+                      help="every replica follows --watch-checkpoint itself "
+                           "(the whole fleet swaps at once; no rolling "
+                           "rollout, no canary)")
+    can = p.add_argument_group(
+        "shadow-canary promotion gate",
+        "before a rolling rollout goes on, the candidate serves mirrored "
+        "traffic on one held replica and must agree with the live fleet "
+        "(top-k overlap); a regression is held back and counted, the "
+        "candidate left on disk",
+    )
+    can.add_argument("--no-canary", action="store_true",
+                     help="roll out without the canary gate")
+    can.add_argument("--canary-mirror-every", type=int, default=4,
+                     help="mirror every Nth live /synonyms or /analogy "
+                          "request to the canary (default 4)")
+    can.add_argument("--canary-min-scores", type=int, default=8,
+                     help="responses to score before deciding (default 8)")
+    can.add_argument("--canary-mirror-seconds", type=float, default=10.0,
+                     help="most seconds to collect mirrored responses "
+                          "(default 10)")
+    can.add_argument("--canary-agreement", type=float, default=0.6,
+                     help="mean top-k agreement the candidate must reach "
+                          "(default 0.6)")
+    can.add_argument("--canary-top-k", type=int, default=10)
+    can.add_argument("--canary-probes", default=None, metavar="FILE",
+                     help='JSON list of probe requests ([{"path": '
+                          '"/synonyms", "body": {...}}, ...]) sent to the '
+                          "live fleet and to the canary and scored for "
+                          "agreement")
+    fmm = p.add_argument_group(
+        "model catalog",
+        "every replica holds the same catalog behind the one balancer "
+        "port; each watched model gets a rolling rollout and canary of its "
+        "own",
+    )
+    _add_catalog_flags(fmm)
+    fmm.add_argument("--watch-model", action="append", default=[],
+                     metavar="ID=DIR",
+                     help="publish directory of model ID, rolled out on its "
+                          "own (repeatable; loads the model at its newest "
+                          "generation unless --add-model names a start)")
+    dp = p.add_argument_group(
+        "demand-driven fleet (not in the port yet)",
+        "balancer shard processes, warm spares and autoscaling, and QoS "
+        "admission wait for ROADMAP Queue A item 2 (b); setting one of "
+        "these flags is refused",
+    )
+    dp.add_argument("--balancer-procs", type=int, default=1)
+    dp.add_argument("--warm-spares", type=int, default=0)
+    dp.add_argument("--qos-tenant-rate", type=float, default=None)
+    dp.add_argument("--qos-tenant-burst", type=float, default=None)
+    dp.add_argument("--qos-bulk-max-inflight", type=int, default=None)
+
+
+def _parse_model_specs(pairs, flag: str):
+    """``ID=DIR`` pairs of a repeatable flag (``cli.py:1187`` of the JAX
+    package): a dict, or None after an error line (an id rides the
+    ``/m/<id>/`` prefix, so it must be non-empty and /-free)."""
+    out = {}
+    for kv in pairs:
+        mid, sep, d = kv.partition("=")
+        if not sep or not mid or not d or "/" in mid:
+            print(f"error: {flag} expects ID=DIR with a /-free id, got {kv!r}",
+                  file=sys.stderr)
+            return None
+        out[mid] = d
+    return out
+
+
+def _run_serve_fleet(args) -> int:
+    """``serve-fleet``: the JAX CLI's self-healing, canary and catalog
+    groups; the demand-driven group is refused."""
+    from glint_word2vec_torch.fleet import (
+        WAITS_FOR_2B,
+        CanaryConfig,
+        serve_fleet,
+    )
+
+    refused = [flag for flag, on in (
+        ("--trace-dir", args.trace_dir is not None),
+        ("--balancer-procs", args.balancer_procs > 1),
+        ("--warm-spares", args.warm_spares > 0),
+        ("--qos-tenant-rate", args.qos_tenant_rate is not None),
+        ("--qos-tenant-burst", args.qos_tenant_burst is not None),
+        ("--qos-bulk-max-inflight", args.qos_bulk_max_inflight is not None),
+    ) if on]
+    if refused:
+        print(f"error: {', '.join(refused)}: not in the port yet; waits for "
+              f"{WAITS_FOR_2B}", file=sys.stderr)
+        return 2
+    models = _parse_model_specs(args.add_model, "--add-model")
+    if models is None:
+        return 1
+    model_watch_dirs = _parse_model_specs(args.watch_model, "--watch-model")
+    if model_watch_dirs is None:
+        return 1
+    if args.model is None and args.watch_checkpoint is None:
+        print("error: serve-fleet needs --model or --watch-checkpoint",
+              file=sys.stderr)
+        return 1
+    flags = [
+        "--max-batch", str(args.max_batch),
+        "--cache-size", str(args.cache_size),
+        "--max-inflight", str(args.max_inflight),
+        "--request-deadline", str(args.request_deadline),
+        "--degraded-after", str(args.degraded_after),
+    ]
+    if args.ann:
+        flags += [
+            "--ann",
+            "--ann-clusters", str(args.ann_clusters),
+            "--ann-nprobe", str(args.ann_nprobe),
+            "--ann-iters", str(args.ann_iters),
+            "--ann-sample", str(args.ann_sample),
+            "--ann-recall-gate", str(args.ann_recall_gate),
+            "--ann-recall-sample", str(args.ann_recall_sample),
+        ]
+    replica0_env = {}
+    for kv in args.replica0_env:
+        if "=" not in kv:
+            print(f"error: --replica0-env expects KEY=VAL, got {kv!r}",
+                  file=sys.stderr)
+            return 1
+        k, v = kv.split("=", 1)
+        replica0_env[k] = v
+    canary = None
+    if ((args.watch_checkpoint is not None or model_watch_dirs)
+            and not args.no_canary and not args.uncoordinated_watch):
+        probes = None
+        if args.canary_probes:
+            with open(args.canary_probes) as f:
+                probes = json.load(f)
+            if not isinstance(probes, list):
+                print('error: --canary-probes must be a JSON list of {"path", '
+                      '"body"} objects', file=sys.stderr)
+                return 1
+        canary = CanaryConfig(
+            mirror_every=args.canary_mirror_every,
+            min_scores=args.canary_min_scores,
+            mirror_seconds=args.canary_mirror_seconds,
+            agreement_gate=args.canary_agreement,
+            top_k=args.canary_top_k,
+            probes=probes,
+        )
+    return serve_fleet(
+        args.model,
+        replicas=args.replicas,
+        host=args.host,
+        port=args.port,
+        watch_dir=args.watch_checkpoint,
+        watch_poll=args.watch_poll,
+        replica_flags=flags,
+        log_dir=args.replica_log_dir,
+        port_file=args.port_file,
+        max_restarts=args.max_restarts,
+        backoff_base_seconds=args.backoff_base,
+        backoff_cap_seconds=args.backoff_cap,
+        hang_kill_seconds=args.hang_kill_after,
+        probe_interval=args.probe_interval,
+        probe_timeout=args.probe_timeout,
+        breaker_failures=args.breaker_failures,
+        breaker_successes=args.breaker_successes,
+        breaker_open_seconds=args.breaker_open_seconds,
+        canary=canary,
+        coordinated=not args.uncoordinated_watch,
+        replica_env_first_launch=({0: replica0_env} if replica0_env else None),
+        models=models,
+        model_watch_dirs=model_watch_dirs,
+        model_memory_budget=args.model_memory_budget,
+        device=args.device,
+    )
 
 
 def main(argv=None) -> int:
@@ -925,6 +1200,9 @@ def main(argv=None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
     if args.cmd == "supervise":
         return _run_supervise(args)
+    if args.cmd == "serve-fleet":
+        # Device-free: only the replica processes load tables.
+        return _run_serve_fleet(args)
     if (args.cmd == "transform-file" and args.workers > 1
             and args.rank is None):
         return _run_transform_fleet(args)
@@ -945,6 +1223,9 @@ def main(argv=None) -> int:
             print("error: serve needs --model or --watch-checkpoint",
                   file=sys.stderr)
             return 1
+        models = _parse_model_specs(args.add_model, "--add-model")
+        if models is None:
+            return 1
         serve_model_dir(
             args.model, host=args.host, port=args.port,
             max_batch=args.max_batch, warmup=not args.no_warmup,
@@ -953,7 +1234,9 @@ def main(argv=None) -> int:
             watch_poll=args.watch_poll, trace_log=args.trace_log,
             flight_dir=args.flight_dir, max_inflight=args.max_inflight,
             request_deadline=args.request_deadline,
-            degraded_after=args.degraded_after, **_ann_kwargs(args),
+            degraded_after=args.degraded_after, models=models,
+            model_memory_budget=args.model_memory_budget,
+            watch_models=args.watch_models, **_ann_kwargs(args),
         )
         return 0
     if args.cmd == "synonyms-dump" and args.out is None and args.graph_out is None:

@@ -12,10 +12,15 @@ the parts the supervisor needs).
   whole gang, stamped with the launch generation so a scrape during a
   restart never mixes pre-restart ranks in.
 
-The serving merge (``merge_serving_snapshots``), the trace merge
-(``merge_trace_logs``) and the supervisor's ``--join-serving`` come with
-the port's fleet slice. Nothing here reads a device: it runs in the
-supervisor process, which leaves the cards to the workers.
+- :func:`merge_serving_snapshots` does the same for serving replicas:
+  latency histograms merge bucket for bucket and counters sum, per model
+  and for the catalog too, into one document of the shape of one
+  replica's ``/metrics``, so ``serving_to_prometheus`` renders a fleet.
+
+The trace merge (``merge_trace_logs``) and the supervisor's
+``--join-serving`` wait for the fleet's data plane (ROADMAP Queue A item
+2 (b)). Nothing here reads a device: it runs in the supervisor or
+balancer process, which leaves the cards to the workers.
 """
 
 from __future__ import annotations
@@ -25,9 +30,10 @@ import logging
 import statistics
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional
 from urllib.parse import parse_qs, urlparse
 
+from glint_word2vec_torch.obs.slo import merge_slo_snapshots
 from glint_word2vec_torch.utils.metrics import LEDGER_PHASES, LatencyHistogram
 
 logger = logging.getLogger(__name__)
@@ -201,6 +207,273 @@ def merge_training_snapshots(
     }
     if transform_ranks:
         out["transform"] = _merge_transform(transform_ranks)
+    return out
+
+
+def merge_serving_snapshots(snaps: Iterable[dict]) -> Optional[dict]:
+    """Merge serving-replica ``ServingMetrics.snapshot`` documents into
+    one with the identical shape, so ``serving_to_prometheus`` renders a
+    whole replica fleet with no second code path. Latency histograms
+    merge bucket-exactly when snapshots carry ``hist`` state (this
+    repo's do); a hist-less legacy snapshot degrades that endpoint's
+    quantiles to the max across replicas (conservative, flagged via
+    ``"approx": true``). The port's ``kernel_launches`` and
+    ``kernel_launches_warmup`` blocks (each replica's launch counts) sum by
+    kernel. Returns None for an empty
+    input."""
+    snaps = [s for s in snaps if s]
+    if not snaps:
+        return None
+    endpoints: Dict[str, dict] = {}
+    ep_hists: Dict[str, list] = {}
+    for s in snaps:
+        for path, ep in (s.get("endpoints") or {}).items():
+            agg = endpoints.setdefault(path, {
+                "count": 0, "errors": 0, "p50_ms": 0.0, "p95_ms": 0.0,
+                "p99_ms": 0.0, "mean_ms": 0.0, "max_ms": 0.0,
+                "_total_ms": 0.0,
+            })
+            agg["count"] += int(ep.get("count") or 0)
+            agg["errors"] += int(ep.get("errors") or 0)
+            agg["max_ms"] = max(agg["max_ms"], float(ep.get("max_ms") or 0.0))
+            agg["_total_ms"] += (
+                float(ep.get("mean_ms") or 0.0) * int(ep.get("count") or 0)
+            )
+            # Max-fold EVERY replica's quantiles (the approx fallback
+            # must cover the whole fleet, hist-carrying replicas
+            # included — dropping a slow replica's p99 because its peer
+            # is legacy would hide the straggler); the exact merge
+            # below overwrites when every replica carried hist state.
+            for q in ("p50_ms", "p95_ms", "p99_ms"):
+                agg[q] = max(agg[q], float(ep.get(q) or 0.0))
+            if ep.get("hist"):
+                ep_hists.setdefault(path, []).append(ep["hist"])
+            else:
+                agg["approx"] = True
+    for path, agg in endpoints.items():
+        hists = ep_hists.get(path)
+        if hists and not agg.get("approx"):
+            h = LatencyHistogram.merge(hists)
+            agg.update(
+                p50_ms=round(h.quantile(0.50) * 1e3, 3),
+                p95_ms=round(h.quantile(0.95) * 1e3, 3),
+                p99_ms=round(h.quantile(0.99) * 1e3, 3),
+                hist=h.state(),
+            )
+        agg["mean_ms"] = round(
+            agg.pop("_total_ms") / max(agg["count"], 1), 3
+        )
+
+    batches: Dict[str, int] = {}
+    cache = {"hits": 0, "misses": 0}
+    over = {
+        "shed_admission_total": 0, "shed_degraded_total": 0,
+        "deadline_504_total": 0, "degraded_entered_total": 0,
+        "inflight_peak": 0,
+    }
+    compiles = {"total": 0, "warmup": 0, "post_warmup": 0}
+    ck = {
+        "pending_async_saves": 0,
+        "last_checkpoint_age_seconds": None,
+        "checkpoint_write_seconds": None,
+    }
+    # Hot-swap block: counters sum; the swap age folds
+    # to the STALEST replica (the one a rolling rollout left behind is
+    # the actionable number); the generation is the fleet's only when
+    # every replica serves the same one — "mixed" is itself signal (a
+    # rollout in flight, or a halted one).
+    swap = {
+        "table_swaps_total": 0,
+        "swap_failures_total": 0,
+        "watch_errors_total": 0,
+        "last_swap_age_seconds": None,
+        "generation": None,
+    }
+    swap_gens = set()
+    # ANN index block: counters sum; the recall and its
+    # gate fold to the WORST replica (min recall, all-gates-pass) —
+    # the actionable fleet numbers; ages/staleness fold to the
+    # stalest.
+    index = {
+        "enabled": False,
+        "replicas_with_index": 0,
+        "clusters": None,
+        "member_slots": None,
+        "nprobe": None,
+        "build_seconds": None,
+        "last_refresh_age_seconds": None,
+        "refreshes_total": 0,
+        "recall_at10": None,
+        "recall_gate_ok": None,
+        "recall_gate_threshold": None,
+        "ann_queries_total": 0,
+        "probes_total": 0,
+        "probes_per_query": None,
+        "exact_fallbacks": {},
+        "table_versions_behind": None,
+    }
+    for s in snaps:
+        for size, n in (s.get("coalesced_batch_sizes") or {}).items():
+            batches[size] = batches.get(size, 0) + int(n)
+        c = s.get("synonym_cache") or {}
+        cache["hits"] += int(c.get("hits") or 0)
+        cache["misses"] += int(c.get("misses") or 0)
+        o = s.get("overload") or {}
+        for k in over:
+            v = int(o.get(k) or 0)
+            if k == "inflight_peak":
+                over[k] = max(over[k], v)
+            else:
+                over[k] += v
+        comp = s.get("compiles") or {}
+        for k in compiles:
+            compiles[k] += int(comp.get(k) or 0)
+        hs = s.get("hot_swap") or {}
+        for k in ("table_swaps_total", "swap_failures_total",
+                  "watch_errors_total"):
+            swap[k] += int(hs.get(k) or 0)
+        v = hs.get("last_swap_age_seconds")
+        if v is not None:
+            swap["last_swap_age_seconds"] = (
+                v if swap["last_swap_age_seconds"] is None
+                else max(swap["last_swap_age_seconds"], v)
+            )
+        swap_gens.add(hs.get("generation"))
+        sck = s.get("checkpoint") or {}
+        ck["pending_async_saves"] += int(sck.get("pending_async_saves") or 0)
+        for k in ("last_checkpoint_age_seconds",
+                  "checkpoint_write_seconds"):
+            v = sck.get(k)
+            if v is not None:
+                # Worst (largest) across replicas: the stalest
+                # checkpoint and the slowest write are the actionable
+                # fleet numbers.
+                ck[k] = v if ck[k] is None else max(ck[k], v)
+        si = s.get("index") or {}
+        if si.get("enabled"):
+            index["enabled"] = True
+            index["replicas_with_index"] += 1
+            for k in ("clusters", "member_slots", "nprobe",
+                      "recall_gate_threshold"):
+                if si.get(k) is not None:
+                    index[k] = si[k]
+            index["refreshes_total"] += int(si.get("refreshes_total") or 0)
+            index["ann_queries_total"] += int(
+                si.get("ann_queries_total") or 0
+            )
+            index["probes_total"] += int(si.get("probes_total") or 0)
+            for reason, n in (si.get("exact_fallbacks") or {}).items():
+                index["exact_fallbacks"][reason] = (
+                    index["exact_fallbacks"].get(reason, 0) + int(n)
+                )
+            r = si.get("recall_at10")
+            if r is not None:
+                index["recall_at10"] = (
+                    r if index["recall_at10"] is None
+                    else min(index["recall_at10"], r)
+                )
+            g = si.get("recall_gate_ok")
+            if g is not None:
+                index["recall_gate_ok"] = (
+                    bool(g) if index["recall_gate_ok"] is None
+                    else (index["recall_gate_ok"] and bool(g))
+                )
+            for k in ("build_seconds", "last_refresh_age_seconds",
+                      "table_versions_behind"):
+                v = si.get(k)
+                if v is not None:
+                    index[k] = (
+                        v if index[k] is None else max(index[k], v)
+                    )
+    if index["ann_queries_total"]:
+        index["probes_per_query"] = round(
+            index["probes_total"] / index["ann_queries_total"], 2
+        )
+    if len(swap_gens) == 1:
+        swap["generation"] = next(iter(swap_gens))
+    elif swap_gens:
+        swap["generation"] = "mixed"
+    # Per-model blocks: group each catalog model's
+    # snapshots by id across replicas and fold every group through
+    # THIS function (a per-model snapshot nests no further models, so
+    # the recursion is exactly one level deep). The residency extras
+    # fold additively — "resident_replicas" becomes the fleet-wide
+    # count of replicas holding that model's tables on device.
+    by_model: Dict[str, list] = {}
+    for s in snaps:
+        for mid, ms in (s.get("models") or {}).items():
+            by_model.setdefault(mid, []).append(ms)
+    models = {}
+    for mid in sorted(by_model):
+        group = by_model[mid]
+        m = merge_serving_snapshots(group)
+        m["model_id"] = mid
+        m["resident_replicas"] = sum(
+            int(g.get("resident_replicas") or 0) for g in group
+        )
+        m["resident"] = m["resident_replicas"] > 0
+        m["pinned"] = any(g.get("pinned") for g in group)
+        for k in ("resident_bytes", "stage_ins_total",
+                  "evictions_total"):
+            m[k] = sum(int(g.get(k) or 0) for g in group)
+        models[mid] = m
+    # Catalog block: LRU churn counters sum across replicas; the
+    # membership/budget numbers are per-replica configuration, folded
+    # to the max so a heterogeneous fleet surfaces its largest shape.
+    catalog = None
+    cat_snaps = [s.get("catalog") for s in snaps if s.get("catalog")]
+    if cat_snaps:
+        catalog = {
+            "replicas": len(cat_snaps),
+            "default_model": cat_snaps[0].get("default_model"),
+            "models": max(
+                int(c.get("models") or 0) for c in cat_snaps
+            ),
+            "resident_models": sum(
+                int(c.get("resident_models") or 0) for c in cat_snaps
+            ),
+            "budget_bytes": max(
+                (int(c["budget_bytes"]) for c in cat_snaps
+                 if c.get("budget_bytes") is not None),
+                default=None,
+            ),
+            "stage_in_seconds_total": round(sum(
+                float(c.get("stage_in_seconds_total") or 0.0)
+                for c in cat_snaps
+            ), 3),
+        }
+        for k in ("evictions_total", "stage_ins_total",
+                  "cold_hits_total", "resident_bytes",
+                  "query_program_builds", "shared_program_hits"):
+            catalog[k] = sum(int(c.get(k) or 0) for c in cat_snaps)
+    out = {
+        "replicas": len(snaps),
+        "endpoints": {p: endpoints[p] for p in sorted(endpoints)},
+        "coalesced_batch_sizes": {
+            k: batches[k] for k in sorted(batches, key=int)
+        },
+        "synonym_cache": cache,
+        "overload": over,
+        "compiles": compiles,
+        "hot_swap": swap,
+        "checkpoint": ck,
+        "index": index,
+        # Fleet SLO view: window counts sum exactly, burn
+        # rates re-derived from the sums — a replica restart never
+        # corrupts the merged error budget.
+        "slo": merge_slo_snapshots([s.get("slo") for s in snaps]),
+    }
+    if models:
+        out["models"] = models
+    if catalog is not None:
+        out["catalog"] = catalog
+    for block in ("kernel_launches", "kernel_launches_warmup"):
+        launches: Dict[str, int] = {}
+        for s in snaps:
+            for name, n in (s.get(block) or {}).items():
+                launches[name] = launches.get(name, 0) + int(n or 0)
+        if launches:
+            out[block] = {k: launches[k] for k in sorted(launches)}
     return out
 
 

@@ -1,6 +1,6 @@
 """Prometheus text exposition (format version 0.0.4) of the training
-heartbeat's and the server's snapshots (trimmed copy of
-``glint_word2vec_tpu/obs/prometheus.py:18-1090, 1417``).
+heartbeat's, the server's and the fleet balancer's snapshots (copy of
+``glint_word2vec_tpu/obs/prometheus.py``).
 
 Pure functions dict -> text, so the heartbeat and the server render
 ``/metrics?format=prometheus`` from the same snapshot their JSON endpoint
@@ -10,9 +10,10 @@ including the replica-exchange ones, which a one-device fit reports as
 gang view (``obs/aggregate.py``) and :func:`serving_to_prometheus` a
 ``ServingMetrics`` snapshot, with OpenMetrics exemplars naming kept
 request traces; its per-model and catalog blocks render only when the
-snapshot carries them. Also :func:`lint_prometheus_text`, the validator
-the tests run over every rendered exposition. The fleet renderer comes
-with the port's fleet slice.
+snapshot carries them. :func:`fleet_to_prometheus` renders a fleet
+balancer's document (replicas, breakers, supervisor, rollout and canary).
+Also :func:`lint_prometheus_text`, the validator the tests run over every
+rendered exposition.
 """
 
 from __future__ import annotations
@@ -860,6 +861,321 @@ def serving_to_prometheus(snap: dict) -> str:
                "compiled program.")
         p.sample("glint_catalog_shared_program_hits_total", None,
                  cat.get("shared_program_hits", 0))
+    return p.text()
+
+
+# ----------------------------------------------------------------------
+# Fleet balancer exposition (fleet.LoadBalancer.metrics_doc; the data-plane shard,
+# autoscaler and QoS families render only when those blocks are present)
+# ----------------------------------------------------------------------
+
+
+def fleet_to_prometheus(doc: dict) -> str:
+    """Render a fleet balancer document: replica liveness and proxy
+    accounting per replica, the balancer's retry/exhaustion counters,
+    and each replica's index recall gauges (fleet-prefixed and labeled
+    by replica — this text is concatenated with
+    ``serving_to_prometheus`` over the merged ``fleet`` member, and
+    families in one scrape must be disjoint). One scrape of the
+    balancer therefore carries the fleet totals AND the per-replica
+    recall-gate states."""
+    p = _Prom()
+    replicas = doc.get("replicas") or []
+    p.head("glint_fleet_replicas", "gauge",
+           "Serving replicas configured behind the balancer.")
+    p.sample("glint_fleet_replicas", None, len(replicas))
+    p.head("glint_fleet_replica_up", "gauge",
+           "Whether the replica answered the last metrics scrape.")
+    for r in replicas:
+        p.sample("glint_fleet_replica_up", {"replica": r.get("url", "")},
+                 1 if r.get("up") else 0)
+    p.head("glint_fleet_proxied_total", "counter",
+           "Requests the balancer forwarded, by replica.")
+    for r in replicas:
+        p.sample("glint_fleet_proxied_total",
+                 {"replica": r.get("url", "")},
+                 r.get("proxied_total", 0))
+    p.head("glint_fleet_proxy_errors_total", "counter",
+           "Forward attempts that failed at the connection level, by "
+           "replica.")
+    for r in replicas:
+        p.sample("glint_fleet_proxy_errors_total",
+                 {"replica": r.get("url", "")},
+                 r.get("proxy_errors_total", 0))
+    # Circuit breaker: per-replica state machine driven by
+    # the active health prober and the data plane's own connection
+    # verdicts — an ejected (open) replica costs zero client latency.
+    p.head("glint_fleet_breaker_state", "gauge",
+           "Per-replica circuit-breaker state: 1 on the row matching "
+           "the current state (closed replicas receive traffic, open "
+           "ones are ejected from rotation, half-open ones serve "
+           "prober trials only).")
+    for r in replicas:
+        br = r.get("breaker") or {}
+        for st in ("closed", "open", "half_open"):
+            p.sample("glint_fleet_breaker_state",
+                     {"replica": r.get("url", ""), "state": st},
+                     1 if br.get("state") == st else 0)
+    p.head("glint_fleet_breaker_held", "gauge",
+           "Whether the replica is administratively held out of "
+           "rotation (rollout drain / canary staging).")
+    for r in replicas:
+        br = r.get("breaker") or {}
+        p.sample("glint_fleet_breaker_held",
+                 {"replica": r.get("url", "")},
+                 1 if br.get("held") else 0)
+    for name, key, help_ in [
+        ("glint_fleet_breaker_opened_total", "opened_total",
+         "Closed -> open transitions (consecutive-failure ejections)."),
+        ("glint_fleet_breaker_reopened_total", "reopened_total",
+         "Half-open trial failures that re-opened the breaker."),
+        ("glint_fleet_breaker_closed_total", "closed_total",
+         "Half-open -> closed readmissions after the success "
+         "threshold."),
+        ("glint_fleet_probe_failures_total", "probe_failures_total",
+         "Active health probes that failed (connect error, non-200, "
+         "or a generation-handshake mismatch)."),
+        ("glint_fleet_probe_successes_total", "probe_successes_total",
+         "Active health probes answered healthy."),
+    ]:
+        p.head(name, "counter", help_)
+        for r in replicas:
+            br = r.get("breaker") or {}
+            p.sample(name, {"replica": r.get("url", "")},
+                     br.get(key, 0))
+    bal = doc.get("balancer") or {}
+    p.head("glint_fleet_shed_retries_total", "counter",
+           "Requests retried on another replica after a 429/503 shed "
+           "(the replicas' own backpressure steering the spread).")
+    p.sample("glint_fleet_shed_retries_total", None,
+             bal.get("shed_retries_total", 0))
+    p.head("glint_fleet_exhausted_total", "counter",
+           "Requests every replica shed or failed — the shed response "
+           "was relayed to the client.")
+    p.sample("glint_fleet_exhausted_total", None,
+             bal.get("exhausted_total", 0))
+    p.head("glint_fleet_breaker_skips_total", "counter",
+           "Replica attempts avoided because the breaker was open or "
+           "held — each one a timeout a client did not pay.")
+    p.sample("glint_fleet_breaker_skips_total", None,
+             bal.get("breaker_skips_total", 0))
+    p.head("glint_fleet_restart_retries_total", "counter",
+           "Connection-refused attempts retried with jittered backoff "
+           "inside a known replica-restart window.")
+    p.sample("glint_fleet_restart_retries_total", None,
+             bal.get("restart_retries_total", 0))
+    # Fleet supervisor: replica relaunch accounting.
+    sup = doc.get("supervisor") or {}
+    p.head("glint_fleet_restarts_total", "counter",
+           "Replica relaunches by the fleet supervisor (crash or "
+           "hung-probe kill), all replicas.")
+    p.sample("glint_fleet_restarts_total", None,
+             sup.get("restarts_total", 0))
+    p.head("glint_fleet_replicas_failed", "gauge",
+           "Replicas whose restart budget is exhausted (left down; "
+           "the fleet serves from the survivors).")
+    p.sample("glint_fleet_replicas_failed", None,
+             sup.get("replicas_failed", 0))
+    p.head("glint_fleet_replica_restarts_total", "counter",
+           "Relaunches per replica slot.")
+    for rs in sup.get("replica_states") or []:
+        p.sample("glint_fleet_replica_restarts_total",
+                 {"replica": str(rs.get("replica", ""))},
+                 rs.get("restarts", 0))
+    p.head("glint_fleet_replica_state_info", "gauge",
+           "Fleet-supervisor state per replica slot carried as a "
+           "label; value is always 1.")
+    for rs in sup.get("replica_states") or []:
+        p.sample("glint_fleet_replica_state_info",
+                 {"replica": str(rs.get("replica", "")),
+                  "state": rs.get("state", "")}, 1)
+    # Rolling rollout + shadow canary.
+    ro = doc.get("rollout") or {}
+    for name, key, help_ in [
+        ("glint_fleet_rollouts_started_total", "rollouts_started_total",
+         "Generation rollouts the coordinator started."),
+        ("glint_fleet_rollouts_completed_total",
+         "rollouts_completed_total",
+         "Rollouts that promoted the generation to every replica."),
+        ("glint_fleet_rollouts_halted_total", "rollouts_halted_total",
+         "Rollouts halted mid-way (replica unavailable — retried once "
+         "the fleet is whole again)."),
+        ("glint_fleet_rollout_steps_total", "rollout_steps_total",
+         "Per-replica swap steps performed across all rollouts."),
+        ("glint_fleet_generations_failed_total",
+         "generations_failed_total",
+         "Candidate generations whose staging failed on a replica "
+         "(not retried until the pointer moves)."),
+        ("glint_fleet_watch_errors_total", "watch_errors_total",
+         "Transient publish-pointer read errors the rollout "
+         "coordinator absorbed."),
+    ]:
+        p.head(name, "counter", help_)
+        p.sample(name, None, ro.get(key, 0))
+    p.head("glint_fleet_rollout_in_progress", "gauge",
+           "Whether a rolling generation rollout is currently "
+           "executing.")
+    p.sample("glint_fleet_rollout_in_progress", None,
+             1 if ro.get("in_progress") else 0)
+    p.head("glint_fleet_generation_info", "gauge",
+           "Fleet-promoted generation carried as a label; value is "
+           "always 1.")
+    p.sample("glint_fleet_generation_info",
+             {"generation": ro.get("generation") or ""}, 1)
+    can = ro.get("canary") or {}
+    p.head("glint_fleet_canary_evaluations_total", "counter",
+           "Shadow-canary evaluations run against candidate "
+           "generations.")
+    p.sample("glint_fleet_canary_evaluations_total", None,
+             can.get("evaluations_total", 0))
+    p.head("glint_fleet_canary_holdbacks_total", "counter",
+           "Candidate generations held back by the canary gate "
+           "(regression: the rollout never proceeded; the live "
+           "generation kept serving everywhere).")
+    p.sample("glint_fleet_canary_holdbacks_total", None,
+             can.get("holdbacks_total", 0))
+    p.head("glint_fleet_canary_last_agreement", "gauge",
+           "Mean top-k agreement of the last canary evaluation "
+           "against the live fleet (NaN before any evaluation).")
+    p.sample("glint_fleet_canary_last_agreement", None,
+             can.get("last_agreement"))
+    p.head("glint_fleet_canary_agreement_gate", "gauge",
+           "Agreement threshold a candidate must clear to promote.")
+    p.sample("glint_fleet_canary_agreement_gate", None,
+             can.get("agreement_gate"))
+    p.head("glint_fleet_canary_last_scored", "gauge",
+           "Mirrored + probe responses scored in the last canary "
+           "evaluation.")
+    p.sample("glint_fleet_canary_last_scored", None,
+             can.get("last_scored", 0))
+    # Per-replica index recall: the fleet view of the recall
+    # gate (fleet-prefixed names — this exposition is concatenated
+    # with serving_to_prometheus over the merged doc, and families in
+    # one scrape must be disjoint).
+    p.head("glint_fleet_index_recall_at10", "gauge",
+           "Per-replica measured recall@10 of the approximate path vs "
+           "the exact path (NaN before any measurement).")
+    p.head("glint_fleet_index_recall_gate_ok", "gauge",
+           "Per-replica recall-gate verdict (a failing gate holds "
+           "that replica's exact path live).")
+    for r in replicas:
+        index = (r.get("snapshot") or {}).get("index") or {}
+        if not index.get("enabled"):
+            continue
+        label = {"replica": r.get("url", "")}
+        p.sample("glint_fleet_index_recall_at10", label,
+                 index.get("recall_at10"))
+        p.sample("glint_fleet_index_recall_gate_ok", label,
+                 1 if index.get("recall_gate_ok") else 0)
+    # Multi-process data plane: per-shard balancer blocks
+    # (shard 0 = the supervisor's in-process balancer) + the retry
+    # and QoS admission counters summed across shards in "balancer".
+    p.head("glint_fleet_retry_after_honored_total", "counter",
+           "All-replicas-shed retries that backed off by the replicas' "
+           "own Retry-After hint before the next forward round.")
+    p.sample("glint_fleet_retry_after_honored_total", None,
+             bal.get("retry_after_honored_total", 0))
+    dplane = doc.get("data_plane") or {}
+    p.head("glint_fleet_balancer_procs", "gauge",
+           "Balancer processes sharing the fleet listen port "
+           "(SO_REUSEPORT or an inherited listener fd).")
+    p.sample("glint_fleet_balancer_procs", None,
+             dplane.get("balancer_procs", 1))
+    shards = doc.get("balancer_shards") or []
+    p.head("glint_fleet_shard_up", "gauge",
+           "Whether the balancer shard answered the last control-"
+           "channel snapshot.")
+    for s in shards:
+        p.sample("glint_fleet_shard_up",
+                 {"shard": str(s.get("shard", ""))},
+                 1 if s.get("up") else 0)
+    for name, key, help_ in [
+        ("glint_fleet_shard_proxied_total", "proxied_total",
+         "Requests this balancer shard forwarded."),
+        ("glint_fleet_shard_shed_retries_total", "shed_retries_total",
+         "Shed-driven replica retries on this balancer shard."),
+        ("glint_fleet_shard_exhausted_total", "exhausted_total",
+         "Requests this shard relayed as all-replicas-shed."),
+    ]:
+        p.head(name, "counter", help_)
+        for s in shards:
+            stats = s.get("stats") or {}
+            p.sample(name, {"shard": str(s.get("shard", ""))},
+                     stats.get(key, 0))
+    p.head("glint_fleet_shard_requests_total", "counter",
+           "Device-path requests observed by the shard's forward path, "
+           "by endpoint.")
+    p.head("glint_fleet_shard_request_p95_ms", "gauge",
+           "Forward-path p95 latency of the shard, by endpoint "
+           "(client-observed: queueing + replica round trip).")
+    for s in shards:
+        serving = s.get("serving") or {}
+        for ep, es in sorted((serving.get("endpoints") or {}).items()):
+            lbl = {"shard": str(s.get("shard", "")), "endpoint": ep}
+            p.sample("glint_fleet_shard_requests_total", lbl,
+                     es.get("count", 0))
+            p.sample("glint_fleet_shard_request_p95_ms", lbl,
+                     es.get("p95_ms"))
+    # Warm-spare autoscaler.
+    auto = doc.get("autoscale") or {}
+    if auto:
+        p.head("glint_fleet_autoscale_live", "gauge",
+               "Replicas currently live (serving traffic, no holds).")
+        p.sample("glint_fleet_autoscale_live", None, auto.get("live", 0))
+        p.head("glint_fleet_autoscale_spares", "gauge",
+               "Warm spares parked by the autoscaler (launched and "
+               "warmed, held out of rotation).")
+        p.sample("glint_fleet_autoscale_spares", None,
+                 auto.get("spares", 0))
+        for name, key, help_ in [
+            ("glint_fleet_autoscale_ups_total", "scale_ups_total",
+             "Scale-up transitions (warm-spare readmits)."),
+            ("glint_fleet_autoscale_downs_total", "scale_downs_total",
+             "Scale-down transitions (live replicas parked to spare)."),
+            ("glint_fleet_autoscale_pinned_skips_total",
+             "pinned_skips_total",
+             "Policy steps skipped because a rollout/canary pinned "
+             "the replica set."),
+            ("glint_fleet_autoscale_steps_total", "steps_total",
+             "Autoscaler policy evaluations."),
+        ]:
+            p.head(name, "counter", help_)
+            p.sample(name, None, auto.get(key, 0))
+        p.head("glint_fleet_autoscale_last_shed_rate", "gauge",
+               "Fleet shed rate (sheds/sec, QoS sheds included) at the "
+               "last policy step.")
+        p.sample("glint_fleet_autoscale_last_shed_rate", None,
+                 auto.get("last_shed_rate", 0))
+    # QoS admission: per-tenant quota + class shed
+    # accounting from the balancer's front door.
+    qos = bal.get("qos") or {}
+    if qos:
+        p.head("glint_fleet_qos_admitted_total", "counter",
+               "Requests admitted by the QoS gate, by priority class.")
+        for cls, n in sorted((qos.get("admitted_total") or {}).items()):
+            p.sample("glint_fleet_qos_admitted_total",
+                     {"class": cls}, n)
+        p.head("glint_fleet_qos_shed_total", "counter",
+               "Requests shed by the QoS gate, by reason (tenant "
+               "quota, bulk-class inflight cap, infeasible deadline).")
+        for reason, n in sorted((qos.get("shed_total") or {}).items()):
+            p.sample("glint_fleet_qos_shed_total",
+                     {"reason": reason}, n)
+        p.head("glint_fleet_qos_tenant_shed_total", "counter",
+               "Requests shed by the QoS gate, by tenant "
+               "(X-Glint-Tenant).")
+        for tenant, n in sorted(
+                (qos.get("per_tenant_shed_total") or {}).items()):
+            p.sample("glint_fleet_qos_tenant_shed_total",
+                     {"tenant": tenant}, n)
+        p.head("glint_fleet_qos_bulk_inflight", "gauge",
+               "Bulk-class requests currently in flight.")
+        p.sample("glint_fleet_qos_bulk_inflight", None,
+                 qos.get("bulk_inflight", 0))
+        p.head("glint_fleet_qos_bulk_inflight_peak", "gauge",
+               "Peak concurrent bulk-class requests since boot.")
+        p.sample("glint_fleet_qos_bulk_inflight_peak", None,
+                 qos.get("bulk_inflight_peak", 0))
     return p.text()
 
 

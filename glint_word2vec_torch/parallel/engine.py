@@ -75,6 +75,7 @@ every form the JAX package writes: ``single`` files, ``sharded`` row blocks
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -130,6 +131,10 @@ ANN_MAX_Q = 16
 #: the host besides the memory-mapped file.
 _IO_ROWS = 1 << 20
 
+#: Bytes a slice of a table file moves to the device at a time when the
+#: tables are staged: two host buffers of this size alternate.
+_UPLOAD_BYTES = 64 << 20
+
 #: Rows of a bf16 table upcast to fp32 at a time for the query products,
 #: so a query never materialises a whole fp32 copy of the table.
 _SCORE_ROWS = 1 << 20
@@ -150,6 +155,23 @@ _EXCHANGE_ZERO = {
     "exchange_capacity": None, "exchange_capacity_grows_total": 0,
     "exchange_capacity_shrinks_total": 0, "exchange_residual_abs": 0.0,
 }
+
+
+#: Every (geometry, op, shape) key a query of this process dispatched, and
+#: how many distinct ones there are (``engine.py:231-251`` of the JAX
+#: package). The JAX engines share one compiled program per key; here a
+#: key's first dispatch in the process is its "build", and a later engine
+#: of the same geometry dispatching it counts a shared hit instead
+#: (``shared_program_hits``). A second model of the same shape adds no
+#: builds.
+_QUERY_SHAPES_SEEN: set = set()
+_QUERY_PROGRAM_BUILDS = [0]
+
+
+def query_program_builds() -> int:
+    """Distinct query (geometry, op, shape) keys this process has
+    dispatched: flat while a same-shape engine warms the family again."""
+    return _QUERY_PROGRAM_BUILDS[0]
 
 
 def _dup_sum_f32(idx: torch.Tensor, upd: torch.Tensor):
@@ -346,6 +368,9 @@ class EmbeddingEngine:
         #: so that steady state adds none.
         self.query_compiles = 0
         self._query_shapes: set = set()
+        #: First dispatches of a query shape that a same-geometry engine of
+        #: this process had already dispatched (:func:`query_program_builds`).
+        self.shared_program_hits = 0
         #: The adopted ANN index (None keeps every query exact) and its
         #: geometry (:meth:`configure_ann`).
         self._ann = None
@@ -404,12 +429,23 @@ class EmbeddingEngine:
 
     def _count_query_shape(self, *key) -> None:
         """Record one query dispatch shape; a first-seen shape ticks
-        ``query_compiles`` and records the ``query_compile`` event."""
+        ``query_compiles``, then the process-level count: a build if no
+        engine of this geometry dispatched it before, else a shared hit.
+        Records the ``query_compile`` event."""
         if key not in self._query_shapes:
             self._query_shapes.add(key)
             self.query_compiles += 1
+            pkey = (self.padded_vocab, self.dim, str(self._dtype),
+                    self.device.type) + key
+            shared = pkey in _QUERY_SHAPES_SEEN
+            if shared:
+                self.shared_program_hits += 1
+            else:
+                _QUERY_SHAPES_SEEN.add(pkey)
+                _QUERY_PROGRAM_BUILDS[0] += 1
             obs_events.emit("query_compile", op=str(key[0]),
-                            shape=list(key[1:]), total=self.query_compiles)
+                            shape=list(key[1:]), total=self.query_compiles,
+                            shared=shared)
 
     def _k_bucket(self, k: int) -> int:
         return min(max(next_pow2(k), TOPK_MIN_K_BUCKET), self.padded_vocab)
@@ -1878,22 +1914,84 @@ class EmbeddingEngine:
             else:
                 arr = np.load(os.path.join(path, f"{name}.npy"), mmap_mode="r")
                 blocks = [((0, arr.shape[0]), (0, arr.shape[1]), arr)]
-            table = torch.zeros(
+            table = torch.empty(
                 (self.padded_vocab, self.dim), dtype=self._dtype,
                 device=self.device,
             )
-            for (r0, r1), (c0, c1), data in blocks:
-                r1, c1 = min(r1, self.num_rows), min(c1, self.dim)
-                for s in range(r0, r1, _IO_ROWS):
-                    e = min(s + _IO_ROWS, r1)
-                    part = np.array(data[s - r0 : e - r0, : c1 - c0], np.float32)
-                    # fp32 -> storage dtype on the device rounds to nearest
-                    # even, as the JAX package's astype does.
-                    table[s:e, c0:c1] = torch.from_numpy(part).to(
-                        self.device
-                    ).to(self._dtype)
+            with self._side_stream(table):
+                table.zero_()
+                for (r0, r1), (c0, c1), data in blocks:
+                    r1, c1 = min(r1, self.num_rows), min(c1, self.dim)
+                    if (isinstance(data, np.memmap) and data.dtype == "<f4"
+                            and data.flags.c_contiguous and c0 == 0
+                            and data.shape[1] == c1 == self.dim):
+                        self._upload_rows(table, data, r0, r1)
+                        continue
+                    for s in range(r0, r1, _IO_ROWS):
+                        e = min(s + _IO_ROWS, r1)
+                        part = np.array(data[s - r0 : e - r0, : c1 - c0],
+                                        np.float32)
+                        # fp32 -> storage dtype on the device rounds to
+                        # nearest even, as the JAX package's astype does.
+                        table[s:e, c0:c1] = torch.from_numpy(part).to(
+                            self.device
+                        ).to(self._dtype)
             staged[name] = table
         return staged
+
+    def _upload_rows(self, table: torch.Tensor, data: np.memmap,
+                     r0: int, r1: int) -> None:
+        """Copy rows ``[0, r1 - r0)`` of the fp32 ``.npy`` file behind
+        ``data`` into ``table[r0:r1]``: read straight from the file in
+        ``_UPLOAD_BYTES`` slices into two host buffers (pinned on the
+        card, so each slice's copy runs while the next is read), then a
+        device-side cast to the table's dtype, which rounds to nearest
+        even as the JAX package's astype does."""
+        cols = data.shape[1]
+        chunk = max(1, _UPLOAD_BYTES // (4 * cols))
+        pin = self.device.type == "cuda"
+        bufs = [torch.empty(chunk * cols, dtype=torch.float32, pin_memory=pin)
+                for _ in range(2)]
+        done = [None, None]
+        with open(data.filename, "rb") as f:
+            for k, s in enumerate(range(r0, r1, chunk)):
+                e = min(s + chunk, r1)
+                n = (e - s) * cols
+                if done[k % 2] is not None:
+                    done[k % 2].synchronize()  # the buffer's last copy ended
+                f.seek(data.offset + (s - r0) * 4 * cols)
+                host = bufs[k % 2][:n]
+                if f.readinto(memoryview(host.numpy()).cast("B")) != 4 * n:
+                    raise OSError(f"{data.filename}: short read at row {s - r0}")
+                src = host.view(e - s, cols)
+                if table.dtype != torch.float32:
+                    src = src.to(self.device, non_blocking=pin)
+                table[s:e].copy_(src, non_blocking=pin)
+                if pin:
+                    done[k % 2] = torch.cuda.Event()
+                    done[k % 2].record()
+        for ev in done:
+            if ev is not None:
+                ev.synchronize()
+
+    @contextlib.contextmanager
+    def _side_stream(self, table: torch.Tensor):
+        """Run the block's copies into ``table`` (allocated on the current
+        stream) on a stream of their own, so they do not queue behind, or
+        hold up, the queries other models of the process dispatch
+        meanwhile. The stream is drained before the block returns, and
+        ``record_stream`` tells the caching allocator the table was used
+        there. A no-op off the card."""
+        if self.device.type != "cuda":
+            yield
+            return
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(device=self.device)
+        side.wait_stream(cur)  # the allocation precedes the copies
+        with torch.cuda.stream(side):
+            yield
+        table.record_stream(side)
+        side.synchronize()
 
     def adopt_tables(self, staged: dict) -> None:
         """Make a :meth:`stage_tables` result the live tables: two
@@ -1920,10 +2018,35 @@ class EmbeddingEngine:
             setattr(self, name, t.to(self._dtype, copy=True).contiguous())
         self._tick_tables("set_tables")
 
+    def resident_bytes(self) -> int:
+        """Device bytes of the live tables and an adopted ANN index
+        (``centroids``, ``members``, ``member_invn``, ``member_rows``): the
+        cost a serving catalog's memory budget counts. 0 after
+        :meth:`release_tables`."""
+        n = 0
+        for t in (self.syn0, self.syn1):
+            if t is not None:
+                n += t.numel() * t.element_size()
+        idx = self._ann
+        if idx is not None:
+            for name in ("centroids", "members", "member_invn", "member_rows"):
+                t = getattr(idx, name, None)
+                if t is not None:
+                    n += t.numel() * t.element_size()
+        return n
+
+    @property
+    def tables_resident(self) -> bool:
+        """Whether the tables are in device memory (False between
+        :meth:`release_tables` and the next adopt)."""
+        return self.syn0 is not None
+
     def release_tables(self) -> None:
-        """Free the tables' and the ANN index's device memory;
-        :meth:`load_tables` (or :meth:`set_tables`) makes the engine answer
-        again."""
+        """Free the tables' and the ANN index's device memory, after any
+        pending asynchronous save has drained; :meth:`load_tables` (or
+        :meth:`stage_tables` and :meth:`adopt_tables`) makes the engine
+        answer again, on the query shapes it already dispatched."""
+        self.wait_pending_saves(reraise=False)
         self.syn0 = self.syn1 = self._ann = None
         self._tick_tables("release_tables")
 

@@ -21,6 +21,7 @@ under the device lock) is in :mod:`glint_word2vec_torch.serving`.
 from glint_word2vec_torch.streaming.publish import (
     LATEST_NAME,
     SnapshotPublisher,
+    discover_model_publish_dirs,
     generation_name,
     next_generation_seq,
     read_latest,
@@ -32,6 +33,7 @@ __all__ = [
     "LATEST_NAME",
     "SnapshotPublisher",
     "StreamTrainer",
+    "discover_model_publish_dirs",
     "generation_name",
     "next_generation_seq",
     "read_latest",

@@ -114,6 +114,24 @@ def resolve_latest(publish_dir: str) -> Optional[str]:
     return gen_dir
 
 
+def discover_model_publish_dirs(root: str) -> dict:
+    """Model id -> publish directory under a catalog root
+    (``publish.py:116`` of the JAX package): each immediate subdirectory
+    of ``root`` with a ``LATEST.json`` pointer is one model's publish
+    directory, named by its model id. A subdirectory without a pointer yet
+    (its trainer has not committed a first generation) is skipped."""
+    out: dict = {}
+    try:
+        names = sorted(os.listdir(root))
+    except OSError:
+        return out
+    for name in names:
+        d = os.path.join(root, name)
+        if os.path.isfile(os.path.join(d, LATEST_NAME)):
+            out[name] = d
+    return out
+
+
 def next_generation_seq(publish_dir: str) -> int:
     """1 + the highest committed generation number on disk (orphaned
     post-crash generations included, so a restarted trainer never

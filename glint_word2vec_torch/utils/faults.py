@@ -16,6 +16,10 @@ boundary exists:
                               device dispatch
   ``serving.reload``          at the start of a serving hot-swap reload,
                               before staging
+  ``fleet.replica_probe``     once per fleet health probe of one serving
+                              replica
+  ``fleet.rollout_step``      before each per-replica step of a rolling
+                              generation rollout
   ``transform.producer``      once per packed bulk-transform batch
                               (producer thread)
   ``transform.shard_commit``  after each vector shard + sidecar manifest
@@ -69,6 +73,10 @@ POINTS = {
         "once per coalesced/simple serving device dispatch",
     "serving.reload":
         "at the start of a serving hot-swap reload, before staging",
+    "fleet.replica_probe":
+        "once per fleet health probe of one serving replica",
+    "fleet.rollout_step":
+        "before each per-replica step of a rolling generation rollout",
     "transform.producer":
         "once per packed bulk-transform batch (producer thread)",
     "transform.shard_commit":

@@ -38,33 +38,51 @@ PAIRS = [
     ("parallel.supervisor", "Supervisor"),
     ("compat", "ServerSideGlintWord2Vec"),
     ("compat", "ServerSideGlintWord2VecModel"),
+    ("serving", "ModelCatalog"),
+    ("serving", "ServedModel"),
+    ("fleet", "LoadBalancer"),
+    ("fleet", "ReplicaBreaker"),
+    ("fleet", "RolloutCoordinator"),
+    ("fleet", "ReplicaHoldLedger"),
+    ("fleet", "FleetSupervisor"),
 ]
 
-ITEM3 = "Queue A item 3: the model catalog (multi-model serving, LRU residency)"
-ITEM5 = "Queue A item 5: the SPMD mesh (one program across several cards)"
+ITEM2B = ("Queue A item 2 (b): the demand-driven fleet (balancer shards, "
+          "warm spares and autoscaling, QoS, fleet tracing)")
+ITEM3 = "Queue A item 3: the SPMD mesh (one program across several cards)"
 TPU_ONLY = "TPU-only: the row width padded to a multiple of 128 lanes"
 
 #: Public JAX names the port does not have, with what they wait for.
 WAITING = {
     "EmbeddingEngine": {
-        "resident_bytes": ITEM3,
-        "tables_resident": ITEM3,
-        "shared_program_hits": ITEM3,
-        "mesh": ITEM5,
-        "num_data": ITEM5,
-        "num_model": ITEM5,
-        "rows_per_shard": ITEM5,
-        "cols_per_shard": ITEM5,
-        "layout": ITEM5,
+        "mesh": ITEM3,
+        "num_data": ITEM3,
+        "num_model": ITEM3,
+        "rows_per_shard": ITEM3,
+        "cols_per_shard": ITEM3,
+        "layout": ITEM3,
         "padded_dim": TPU_ONLY,
     },
-    "ModelServer": {
-        "add_model": ITEM3,
-        "catalog": ITEM3,
+    "Word2Vec": {"mesh": ITEM3},
+    "FastTextWord2Vec": {"mesh": ITEM3},
+    "LoadBalancer": {
+        "apply_control": ITEM2B,
+        "control_addr": ITEM2B,
+        "shard_snapshot": ITEM2B,
+        "shard_id": ITEM2B,
+        "proxy_control": ITEM2B,
+        "qos": ITEM2B,
     },
-    "SnapshotWatcher": {"model_id": ITEM3},
-    "Word2Vec": {"mesh": ITEM5},
-    "FastTextWord2Vec": {"mesh": ITEM5},
+    "FleetSupervisor": {
+        "base_replicas": ITEM2B,
+        "warm_spares": ITEM2B,
+        "trace_dir": ITEM2B,
+        "balancer_procs": ITEM2B,
+        "qos": ITEM2B,
+        "autoscale_config": ITEM2B,
+        "autoscaler": ITEM2B,
+        "shards": ITEM2B,
+    },
 }
 
 
@@ -135,20 +153,36 @@ def instances():
            "Word2VecModel": (jmodel, pmodel),
            "ModelServer": (jserver, pserver),
            "SnapshotWatcher": (JaxWatcher(jserver, "."),
-                               SnapshotWatcher(pserver, "."))}
+                               SnapshotWatcher(pserver, ".")),
+           "ModelCatalog": (jserver.catalog, pserver.catalog),
+           "ServedModel": (jserver.catalog.default, pserver.catalog.default)}
+    jfleet, pfleet = (importlib.import_module(f"{pkg}.fleet") for pkg in
+                      ("glint_word2vec_tpu", "glint_word2vec_torch"))
+    lbs = tuple(f.LoadBalancer(["http://127.0.0.1:9"], port=0)
+                for f in (jfleet, pfleet))
+    out["LoadBalancer"] = lbs
+    out["RolloutCoordinator"] = tuple(
+        f.RolloutCoordinator(lb, ".") for f, lb in zip((jfleet, pfleet), lbs))
+    out["ReplicaHoldLedger"] = tuple(
+        f.ReplicaHoldLedger(print, print) for f in (jfleet, pfleet))
+    out["FleetSupervisor"] = tuple(
+        f.FleetSupervisor("m") for f in (jfleet, pfleet))
     for module, name in (("utils.metrics", "TrainingMetrics"),
                          ("utils.metrics", "ServingMetrics"),
                          ("obs.heartbeat", "TrainingStatus"),
                          ("obs.events", "EventRecorder"),
                          ("models.word2vec", "Word2Vec"),
                          ("models.fasttext", "FastTextWord2Vec"),
-                         ("compat", "ServerSideGlintWord2Vec")):
+                         ("compat", "ServerSideGlintWord2Vec"),
+                         ("fleet", "ReplicaBreaker")):
         j, p = _classes(module, name)
         out[name] = (j(), p())
     yield out
     # Never started: close the sockets without a serve loop to stop.
     jserver._httpd.server_close()
     pserver._httpd.server_close()
+    for lb in lbs:
+        lb.stop()
     jmodel.stop()
     pmodel.stop()
 
@@ -156,7 +190,10 @@ def instances():
 INSTANCE_NAMES = ["EmbeddingEngine", "Word2VecModel", "ModelServer",
                   "SnapshotWatcher", "TrainingMetrics", "ServingMetrics",
                   "TrainingStatus", "EventRecorder", "Word2Vec",
-                  "FastTextWord2Vec", "ServerSideGlintWord2Vec"]
+                  "FastTextWord2Vec", "ServerSideGlintWord2Vec",
+                  "ModelCatalog", "ServedModel", "LoadBalancer",
+                  "ReplicaBreaker", "RolloutCoordinator", "ReplicaHoldLedger",
+                  "FleetSupervisor"]
 
 
 @pytest.mark.parametrize("name", INSTANCE_NAMES)
