@@ -231,9 +231,10 @@ nothing of JAX. Phases, each of which fails the run on any error:
    then every word): words/s and the share of top-10 neighbours they
    agree on.
 13. Streaming training and the serving hot swap, at phase 6's width on
-   its corpus: (a) a ``fit_stream`` trainer thread (bootstrap 5,000,000
+   the first 5,000,000 tokens of its corpus (a prefix for the script's
+   time limit): (a) a ``fit_stream`` trainer thread (bootstrap 3,500,000
    tokens, min_count 1, 65,536 spare rows, a 65,536-word buffer, a
-   publish every 2,500,000 words, 2 generations kept), every counter
+   publish every 1,250,000 words, 2 generations kept), every counter
    zeroed just before, and in the same process a ``ModelServer`` booted
    from gen-000001 with ``ann=True`` that watches the publish directory
    (poll 0.5 s) and rebuilds and gates the index on every swap, under 4
@@ -329,11 +330,42 @@ nothing of JAX. Phases, each of which fails the run on any error:
    seconds, the kill window's client p95, each rollout step's seconds and
    the canary's agreement for generations 2 and 3. ``--only 16`` runs 15
    first.
+17. The demand-driven fleet: ``cli serve-fleet --replicas 1 --warm-spares 1
+   --balancer-procs 2 --model <phase 15's seed-300 model> --max-inflight 4
+   --qos-tenant-rate 20 --qos-tenant-burst 10 --qos-bulk-max-inflight 2
+   --autoscale-interval 0.25 --autoscale-up-shed-rate 1
+   --autoscale-up-window 0.5 --autoscale-down-window 4
+   --autoscale-cooldown 1 --trace-dir T`` on the card, every request on a
+   new connection: (a) one live replica and one spare parked by the owner
+   ``autoscale``, a ``fleet-shard`` process up, 200 cache-miss
+   ``/synonyms`` all 200 and proxied by both balancer processes
+   (``glint_fleet_shard_proxied_total``), and only the replicas hold
+   ``/dev/nvidia*`` files (no shard, no supervisor; ``nvidia-smi``'s compute
+   pids printed beside them); (b) 32 closed-loop clients past the
+   replica's ``--max-inflight``: the shed rate readmits the spare
+   (``scale_ups_total`` 1), whose ``gather_rows`` launches rise; then one
+   slow client, and the spare is parked again (``scale_downs_total`` 1)
+   and launches nothing more; the seconds from the surge to the
+   readmission and from the calm to the parking; (c) 60 requests of one
+   tenant at once: ``tenant_quota`` sheds, the admitted no more than 2 x
+   (10 + 20 x the seconds); 8 ``X-Glint-Priority: bulk`` at once:
+   ``bulk_inflight`` sheds; ``X-Glint-Deadline-Ms: 1``: ``deadline`` sheds
+   with the replicas' dispatches unmoved (their p50 printed); (d) shard 1
+   SIGKILLed under 4 clients, relaunched, and proxying fresh connections
+   again (the kill window's connection errors and the seconds printed);
+   (e) the merged ``/metrics`` lint-clean with the ``glint_fleet_shard_*``,
+   ``glint_fleet_qos_*`` and ``glint_fleet_autoscale_*`` families, and
+   each replica's ``gather_rows`` launches since its warmup equal to its
+   dispatches; (f) ``POST /shutdown`` leaves no process of the fleet, then
+   ``trace-merge T`` has a lane per balancer process and per replica and
+   a trace stitched across a balancer and a replica lane. Every shed is a
+   429 with ``Retry-After``, no answer is a 5xx, and no connection fails
+   outside the kill window. ``--only 17`` runs 15 first.
 
 After each phase it prints ``phase N: S s``, and before the kernels line
 the whole script's seconds. It prints one JSON ``kernels`` line (each
-kernel with ``launches_catalog`` and ``launches_fleet``, its launches in
-phases 15 and 16), the
+kernel with ``launches_catalog``, ``launches_fleet`` and
+``launches_demand``, its launches in phases 15, 16 and 17), the
 ``nvidia-smi`` line, and as its last line ``{"ok": true, "device":
 {...}}``. Without a CUDA device it
 exits non-zero before printing any result.
@@ -4144,17 +4176,21 @@ def ann_and_transform(torch, np, fs, rows_mod) -> dict:
 # Phase 13: streaming training and the serving hot swap
 # ----------------------------------------------------------------------
 
-#: Phase 13 (a)'s trainer: the tokens it bootstraps its vocabulary from
-#: (half the corpus), its spare rows and buffer (the JAX defaults for the
-#: buffer), and its publish cadence; the server's poll and clients.
-STREAM_BOOTSTRAP = 5_000_000
+#: Phase 13 (a)'s trainer: the corpus's first STREAM_TOKENS tokens (a
+#: prefix, for the script's time limit), the tokens it bootstraps its
+#: vocabulary from (seven tenths of them, so a generation that serves the
+#: late word comes before the last), its spare rows and buffer (the JAX
+#: defaults for the buffer), and its publish cadence (four generations);
+#: the server's poll and clients.
+STREAM_TOKENS = 5_000_000
+STREAM_BOOTSTRAP = 3_500_000
 STREAM_EXTRA_ROWS = 65_536
 STREAM_BUFFER = 65_536
-STREAM_PUBLISH_WORDS = 2_500_000
+STREAM_PUBLISH_WORDS = 1_250_000
 STREAM_POLL = 0.5
 STREAM_CLIENTS = 4
-#: Least promotions phase 13 (a) must make (about 30,000 words of the
-#: corpus are first seen past the bootstrap).
+#: Least promotions phase 13 (a) must make (tens of thousands of words of
+#: the prefix are first seen past the bootstrap; the log prints how many).
 STREAM_MIN_PROMOTED = 10_000
 #: Seconds the stream may be held while the server catches up, and the
 #: clients may wait for the final generation's swap.
@@ -4199,12 +4235,13 @@ def stream_words(np) -> tuple:
     """Phase 13 (a)'s query words: the late word, absent from the corpus's
     first STREAM_BOOTSTRAP tokens (so outside the bootstrap vocabulary and
     promoted after gen-1), the one that first appears earliest after them,
-    with its first position and the count of such words; and the base
-    words, every word of the bootstrap among the 400,000 most frequent."""
+    with its first position and the count of such words in the stream's
+    prefix; and the base words, every word of the bootstrap among the
+    400,000 most frequent."""
     toks = synthetic_tokens(np)
     # ids[i] is the word whose first position is first[i].
     ids, first = np.unique(toks, return_index=True)
-    late = np.flatnonzero(first >= STREAM_BOOTSTRAP)
+    late = np.flatnonzero((first >= STREAM_BOOTSTRAP) & (first < STREAM_TOKENS))
     i = int(late[np.argmin(first[late])])
     base = ids[(ids < 400_000) & (first < STREAM_BOOTSTRAP)]
     return f"w{ids[i]}", int(first[i]), int(late.size), [f"w{k}" for k in base]
@@ -4290,11 +4327,11 @@ def stream_and_swap(torch, np, fs, rows_mod, tmp: str) -> dict:
     from glint_word2vec_torch.streaming.publish import read_latest
 
     path = os.path.join(tmp, "corpus.txt")
-    n_tok = write_synthetic_corpus(np, path)
+    n_tok = write_synthetic_corpus(np, path, tokens=STREAM_TOKENS)
     late, late_pos, n_late, base_words = stream_words(np)
-    log(f"stream corpus: {n_tok} tokens; {n_late} words first seen past the "
-        f"{STREAM_BOOTSTRAP}-token bootstrap; late word {late} first at "
-        f"token {late_pos}")
+    log(f"stream corpus: the corpus's first {n_tok} tokens; {n_late} words "
+        f"first seen past the {STREAM_BOOTSTRAP}-token bootstrap; late word "
+        f"{late} first at token {late_pos}")
     pub = os.path.join(tmp, "publish")
 
     # B1 and B3 launches of the index builds: the index module's own
@@ -5674,31 +5711,38 @@ def replica_pid(tag: str) -> int:
 
 
 class FleetClients:
-    """FLEET_CLIENTS closed-loop ``/synonyms`` clients through the
-    balancer, each asking words no earlier request asked (cache misses),
-    recording ``(sent, done, status)`` of every request; a connection
-    error is recorded as status -1."""
+    """Closed-loop cache-miss ``/synonyms`` clients through a balancer,
+    each request on a new connection (``SO_REUSEPORT`` spreads
+    connections, not requests) and for a word no earlier request asked
+    (client ``c`` walks ``span`` words from ``first_word + c * span``),
+    with ``headers(c)`` as client ``c``'s headers and ``pause`` seconds
+    between its requests. Records ``(sent, done, status)`` of every
+    request; a connection error is recorded as its exception's class
+    name."""
 
-    def __init__(self, port: int):
+    def __init__(self, port: int, clients: int = FLEET_CLIENTS,
+                 first_word: int = V_SERVE // 10, span: int = V_SERVE // 5,
+                 headers=None, pause: float = 0.0):
         self.port, self.rows = port, []
+        self.first_word, self.span = first_word, span
+        self.headers, self.pause = headers or (lambda c: None), pause
         self._stop = threading.Event()
         self._mu = threading.Lock()
         self._threads = [threading.Thread(target=self._run, args=(c,))
-                         for c in range(FLEET_CLIENTS)]
+                         for c in range(clients)]
 
     def _run(self, c: int) -> None:
-        i, span = 0, V_SERVE // 5
+        i = 0
         while not self._stop.is_set():
-            word = f"w{V_SERVE // 10 + c * span + i % span}"
+            word = f"w{self.first_word + c * self.span + i % self.span}"
             t = time.time()
-            try:
-                status = timed_post(self.port, "/synonyms",
-                                    {"word": word, "num": 10})[0]
-            except OSError:
-                status = -1
+            status = fresh_post(self.port, "/synonyms", {"word": word, "num": 10},
+                                self.headers(c))[0]
             with self._mu:
                 self.rows.append((t, time.time(), status))
             i += 1
+            if self.pause:
+                self._stop.wait(self.pause)
 
     def __enter__(self):
         for th in self._threads:
@@ -5878,7 +5922,7 @@ def fleet_end_to_end(torch, np, rows_mod, cat: dict) -> dict:
         watcher.join(timeout=30)
         bad = [r for r in clients.rows if r[2] != 200]
         expect(not bad, f"16: {len(bad)} client requests failed, first "
-               f"{bad[:5]} (status -1: a connection error)")
+               f"{bad[:5]} (a class name: a connection error)")
         low = min(n for _, n, _ in seen)
         expect(low >= 1, "16 (c) the balancer's rotation fell to 0 replicas")
         ms = [(d - s) * 1e3 for s, d, _ in clients.rows]
@@ -5948,6 +5992,479 @@ def fleet_end_to_end(torch, np, rows_mod, cat: dict) -> dict:
         fleet_log.close()
 
 
+# ----------------------------------------------------------------------
+# Phase 17: the demand-driven fleet
+# ----------------------------------------------------------------------
+
+DEMAND_INFLIGHT = 4
+DEMAND_SURGE_CLIENTS = 32
+#: Tenants the surge's clients take turns with (two clients a tenant).
+DEMAND_SURGE_TENANTS = 16
+DEMAND_TENANT_RATE, DEMAND_TENANT_BURST, DEMAND_BULK_INFLIGHT = 20, 10, 2
+DEMAND_PROCS = 2
+DEMAND_ROUTE_REQUESTS = 200
+DEMAND_FLOOD, DEMAND_BULK, DEMAND_DEADLINE = 60, 8, 20
+DEMAND_TIMEOUT = 120.0
+
+
+def fresh_post(port: int, path: str, payload, headers=None) -> tuple:
+    """``(status, Retry-After, body or None, ms)`` of one POST on a new
+    connection; a connection error gives the error's class name as the
+    status."""
+    import http.client
+
+    t = time.perf_counter()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request("POST", path, json.dumps(payload),
+                         {"Content-Type": "application/json", **(headers or {})})
+            r = conn.getresponse()
+            status, retry, data = r.status, r.getheader("Retry-After"), r.read()
+        finally:
+            conn.close()
+        try:
+            body = json.loads(data)
+        except ValueError:
+            body = None
+    except OSError as e:
+        status, retry, body = type(e).__name__, None, None
+    return status, retry, body, (time.perf_counter() - t) * 1e3
+
+
+def fleet_processes(tag: str) -> dict:
+    """pid -> command line of the processes whose command line names
+    ``tag`` (phase 17's directory)."""
+    out = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read().decode(errors="replace").split("\0")
+        except OSError:
+            continue
+        if any(tag in a for a in argv):
+            out[int(pid)] = argv
+    return out
+
+
+def holds_device_files(pid: int) -> bool:
+    """Whether the process has a ``/dev/nvidia*`` file open: a process
+    that made a CUDA context has."""
+    try:
+        fds = os.listdir(f"/proc/{pid}/fd")
+    except OSError:
+        return False
+    for fd in fds:
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}").startswith("/dev/nvidia"):
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def maps_torch(pid: int) -> bool:
+    """Whether the process has torch's library or ``libcuda``
+    mapped."""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return any("libtorch" in ln or "libcuda" in ln for ln in f)
+    except OSError:
+        return False
+
+
+def compute_app_pids() -> set:
+    """The pids ``nvidia-smi`` lists as holding a context on the card."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    return {int(x) for x in out.stdout.split() if x.strip().isdigit()}
+
+
+def since_warmup(snap: dict) -> int:
+    """``gather_rows`` launches a replica made since its warmup."""
+    return (snap["kernel_launches"]["gather_rows"]
+            - snap["kernel_launches_warmup"]["gather_rows"])
+
+
+def replica_dispatches(snap: dict) -> int:
+    return sum(dispatches(m) for m in snap["models"].values())
+
+
+def released_together(port: int, n: int, headers, first_word: int) -> tuple:
+    """``n`` requests released by one barrier, each on a new connection.
+    Returns their ``fresh_post`` results and the seconds from the release
+    to the last answer."""
+    gate = threading.Barrier(n + 1)
+    out = [None] * n
+
+    def one(i):
+        gate.wait()
+        out[i] = fresh_post(port, "/synonyms",
+                            {"word": f"w{first_word + i}", "num": 10}, headers)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for th in threads:
+        th.start()
+    gate.wait()
+    t = time.perf_counter()
+    for th in threads:
+        th.join(timeout=120)
+    return out, time.perf_counter() - t
+
+
+def prom_samples(text: str, family: str) -> dict:
+    """Label set (the text between braces) -> value of a family's
+    samples."""
+    out = {}
+    for line in text.splitlines():
+        if line.startswith(family + "{") or line.startswith(family + " "):
+            key, _, value = line.rpartition(" ")
+            out[key[len(family):]] = float(value)
+    return out
+
+
+def demand_fleet_end_to_end(torch, np, cat: dict) -> dict:
+    """Phase 17 on phase 15's seed-300 model. Returns the replicas'
+    ``gather_rows`` launches since their warmups."""
+    from glint_word2vec_torch.obs.prometheus import lint_prometheus_text
+
+    tmp = tempfile.mkdtemp(prefix="demand_", dir=cat["tmp"])
+    trace_dir = os.path.join(tmp, "trace")
+    port_file = os.path.join(tmp, "fleet.json")
+    logs = os.path.join(tmp, "replica-logs")
+    fleet_log = open(os.path.join(tmp, "fleet.log"), "wb")
+    argv = [sys.executable, "-m", "glint_word2vec_torch.cli", "serve-fleet",
+            "--model", cat["dirs"]["default"], "--device", "cuda",
+            "--replicas", "1", "--warm-spares", "1",
+            "--balancer-procs", str(DEMAND_PROCS),
+            "--max-inflight", str(DEMAND_INFLIGHT),
+            "--qos-tenant-rate", str(DEMAND_TENANT_RATE),
+            "--qos-tenant-burst", str(DEMAND_TENANT_BURST),
+            "--qos-bulk-max-inflight", str(DEMAND_BULK_INFLIGHT),
+            "--autoscale-interval", "0.25", "--autoscale-up-shed-rate", "1",
+            "--autoscale-up-window", "0.5", "--autoscale-down-window", "4",
+            "--autoscale-cooldown", "1", "--trace-dir", trace_dir,
+            "--port", "0", "--port-file", port_file, "--replica-log-dir", logs]
+    argv[argv.index("cuda")] = DEV
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    # The fleet's own temporary files (the shards' configurations) under
+    # this phase's directory, so every process of the fleet names it.
+    env["TMPDIR"] = tmp
+    env.pop("GLINT_FAULTS", None)
+    statuses = []  # every answer of the phase, to hold against 5xx
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=fleet_log, stderr=subprocess.STDOUT,
+                            cwd=here, env=env, start_new_session=True)
+
+    def doc():
+        # A new connection each time: one the kernel queued on a shard
+        # killed in (d) is reset, and asked again.
+        for attempt in range(20):
+            try:
+                return get_json(port, "/metrics")
+            except (ConnectionError, urllib.error.URLError):
+                if attempt == 19:
+                    raise
+                time.sleep(0.1)
+
+    def wait_for(pred, what, timeout=DEMAND_TIMEOUT):
+        t = time.perf_counter()
+        while time.perf_counter() - t < timeout:
+            if pred():
+                return time.perf_counter() - t
+            expect(proc.poll() is None, f"17: serve-fleet exited "
+                   f"rc={proc.returncode} waiting for {what}")
+            time.sleep(0.05)
+        raise AssertionError(f"17: timed out after {timeout:.0f} s waiting "
+                             f"for {what}")
+
+    try:
+        wait_for(lambda: os.path.exists(port_file), "the fleet's port file",
+                 timeout=300)
+        port = json.load(open(port_file))["port"]
+        boot = time.perf_counter() - t0
+        # (a) Boot and routing.
+        d = doc()
+        expect(d["holds"] == {"held": {"1": ["autoscale"]}},
+               f"17 (a) holds {d['holds']}")
+        auto = d["autoscale"]
+        expect((auto["live"], auto["spares"]) == (1, 1), f"17 (a) {auto}")
+        expect([s.get("up") for s in d["balancer_shards"]] == [True] * DEMAND_PROCS,
+               f"17 (a) shards {d['balancer_shards']}")
+        procs = fleet_processes(tmp)
+        shards = {p for p, a in procs.items() if "fleet-shard" in a}
+        replicas = {p for p, a in procs.items() if "serve" in a}
+        expect(len(shards) == DEMAND_PROCS - 1 and len(replicas) == 2,
+               f"17 (a) processes {procs}")
+        t = time.perf_counter()
+        for i in range(DEMAND_ROUTE_REQUESTS):
+            st = fresh_post(port, "/synonyms",
+                            {"word": f"w{V_SERVE // 10 + i}", "num": 10},
+                            {"X-Glint-Tenant": f"t{i % 8}"})
+            statuses.append(st[0])
+            expect(st[0] == 200, f"17 (a) request {i}: {st[:3]}")
+        route_s = time.perf_counter() - t
+        text = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/metrics?format=prometheus",
+            timeout=60).read().decode()
+        proxied = prom_samples(text, "glint_fleet_shard_proxied_total")
+        expect(all(proxied.get(f'{{shard="{k}"}}', 0) > 0
+                   for k in range(DEMAND_PROCS)),
+               f"17 (a) proxied by shard {proxied}")
+        on_card = compute_app_pids()
+        with_files = {p for p in procs if holds_device_files(p)}
+        expect(replicas <= with_files,
+               f"17 (a) replica pids {replicas}, device files in {with_files}")
+        expect(not (shards | {proc.pid}) & with_files,
+               f"17 (a) a balancer process opened the card: {with_files}")
+        with_torch = {p for p in shards | {proc.pid} if maps_torch(p)}
+        expect(not with_torch, f"17 (a) torch loaded in {with_torch}")
+        same_ns = bool(replicas & on_card)
+        if same_ns:
+            expect(not (shards | {proc.pid}) & on_card,
+                   f"17 (a) nvidia-smi lists a balancer pid: {on_card}")
+        log(f"17 (a): 1 live replica and 1 parked spare (held by autoscale), "
+            f"{DEMAND_PROCS} balancer processes, up {boot:.1f} s after launch; "
+            f"{DEMAND_ROUTE_REQUESTS} fresh-connection cache misses in "
+            f"{route_s:.2f} s, all 200, proxied by shard {proxied}; "
+            f"nvidia-smi compute pids {sorted(on_card)} "
+            f"({'the same pid namespace' if same_ns else 'another pid namespace'}"
+            f"), replicas {sorted(replicas)}, shard {sorted(shards)}, supervisor "
+            f"{proc.pid}: only the replicas hold /dev/nvidia files, and the "
+            f"shard and the supervisor have no torch or CUDA library mapped")
+        # (b) Scale up under a surge, then down in the calm.
+        spare0 = since_warmup(fleet_replica_snaps(doc())[1])
+        t_surge = time.time()
+        with FleetClients(port, DEMAND_SURGE_CLIENTS, V_SERVE // 5,
+                          V_SERVE // 100,
+                          lambda c: {"X-Glint-Tenant":
+                                     f"t{c % DEMAND_SURGE_TENANTS}"}) as surge:
+            up_s = wait_for(lambda: doc()["autoscale"]["scale_ups_total"] >= 1,
+                            "the spare's readmission")
+            wait_for(lambda: since_warmup(fleet_replica_snaps(doc())[1]) > spare0,
+                     "the spare's first gather_rows")
+            time.sleep(0.5)
+        d = doc()
+        rows = surge.rows
+        statuses += [r[2] for r in rows]
+        surge_codes = {c: sum(1 for r in rows if r[2] == c)
+                       for c in sorted({r[2] for r in rows}, key=str)}
+        expect(set(surge_codes) <= {200, 429}, f"17 (b) surge answers {surge_codes}")
+        spare_served = since_warmup(fleet_replica_snaps(d)[1]) - spare0
+        expect(spare_served > 0, "17 (b) the readmitted spare launched nothing")
+        sheds = d["balancer"]
+        ok_ms = [(r[1] - r[0]) * 1e3 for r in rows if r[2] == 200]
+        log(f"17 (b): {DEMAND_SURGE_CLIENTS} closed-loop clients: the spare "
+            f"readmitted {up_s:.2f} s after the surge began; "
+            f"{len(rows)} requests in {time.time() - t_surge:.1f} s {surge_codes}, "
+            f"admitted {summary(ok_ms)}; balancer sheds: exhausted "
+            f"{sheds['exhausted_total']}, QoS {sheds.get('qos', {}).get('shed_total')}; "
+            f"the spare's gather_rows since warmup {spare_served}; replica "
+            f"admission sheds {[s['overload']['shed_admission_total'] for s in fleet_replica_snaps(d)]}")
+        t_calm = time.time()
+        with FleetClients(port, 1, V_SERVE * 6 // 10, V_SERVE // 100,
+                          lambda c: {"X-Glint-Tenant": "t16"},
+                          pause=0.25) as calm:
+            down_s = wait_for(lambda: doc()["autoscale"]["scale_downs_total"] >= 1,
+                              "the spare parked again")
+            time.sleep(0.5)
+            parked0 = since_warmup(fleet_replica_snaps(doc())[1])
+            time.sleep(1.0)
+            d = doc()
+            parked1 = since_warmup(fleet_replica_snaps(d)[1])
+        statuses += [r[2] for r in calm.rows]
+        expect(d["holds"] == {"held": {"1": ["autoscale"]}},
+               f"17 (b) holds after the calm {d['holds']}")
+        expect(parked1 == parked0, f"17 (b) the parked spare launched "
+               f"{parked1 - parked0} gather_rows")
+        auto = d["autoscale"]
+        expect((auto["scale_ups_total"], auto["scale_downs_total"]) == (1, 1),
+               f"17 (b) autoscale {auto}")
+        log(f"17 (b): the spare parked {down_s:.2f} s after the calm began "
+            f"(down window 4 s); its gather_rows {parked0} and {parked1} since "
+            f"warmup across 1.0 s parked; transitions {auto['transitions']}; "
+            f"{len(calm.rows)} calm requests {sorted(set(r[2] for r in calm.rows), key=str)}")
+        # (c) QoS: a tenant's flood, the bulk class, infeasible deadlines.
+        out, el = released_together(port, DEMAND_FLOOD,
+                                    {"X-Glint-Tenant": "flood"},
+                                    V_SERVE * 7 // 10)
+        statuses += [o[0] for o in out]
+        admitted = sum(1 for o in out if o[0] == 200)
+        quota = [o for o in out if o[0] == 429 and o[2]
+                 and o[2].get("error") == "tenant quota exceeded"]
+        bound = DEMAND_PROCS * (DEMAND_TENANT_BURST + DEMAND_TENANT_RATE * el)
+        expect(quota, "17 (c) no tenant_quota shed in the flood")
+        expect(admitted <= bound, f"17 (c) {admitted} admitted > {bound:.1f}")
+        bulk_sheds, rounds = [], 0
+        while not bulk_sheds and rounds < 5:
+            rounds += 1
+            out_b, _ = released_together(
+                port, DEMAND_BULK, {"X-Glint-Priority": "bulk",
+                                    "X-Glint-Tenant": "bulk"},
+                V_SERVE * 7 // 10 + 100 * rounds)
+            statuses += [o[0] for o in out_b]
+            bulk_sheds = [o for o in out_b if o[0] == 429 and o[2]
+                          and o[2].get("error") == "bulk class at capacity"]
+        expect(bulk_sheds, f"17 (c) no bulk_inflight shed in {rounds} rounds")
+        before = [replica_dispatches(s) for s in fleet_replica_snaps(doc())]
+        dl = [fresh_post(port, "/synonyms",
+                         {"word": f"w{V_SERVE * 3 // 4 + i}", "num": 10},
+                         {"X-Glint-Deadline-Ms": "1"})
+              for i in range(DEMAND_DEADLINE)]
+        statuses += [o[0] for o in dl]
+        d = doc()
+        after = [replica_dispatches(s) for s in fleet_replica_snaps(d)]
+        expect(all(o[0] == 429 and o[2]["error"] == "deadline infeasible"
+                   and o[1] for o in dl), f"17 (c) deadline answers {dl[:3]}")
+        expect(after == before, f"17 (c) dispatches moved {before} -> {after}")
+        for o in out + [x for x in out_b] + dl:
+            if o[0] == 429:
+                expect(o[1], f"17 (c) a 429 without Retry-After: {o}")
+        qos = d["balancer"]["qos"]
+        dl_ms = sorted(o[3] for o in dl)
+        log(f"17 (c): a flood of {DEMAND_FLOOD} from one tenant: {admitted} "
+            f"admitted in {el:.2f} s (bound {bound:.1f}), {len(quota)} "
+            f"tenant_quota sheds; {DEMAND_BULK} bulk requests together: "
+            f"{len(bulk_sheds)} bulk_inflight sheds (round {rounds}); "
+            f"{DEMAND_DEADLINE} with X-Glint-Deadline-Ms 1 shed, p50 "
+            f"{dl_ms[len(dl_ms) // 2]:.3f} ms, replica dispatches unmoved "
+            f"{after}; QoS {qos}")
+        # (d) A shard process killed and relaunched.
+        (pid1,) = [p for p, a in fleet_processes(tmp).items()
+                   if "fleet-shard" in a and any("shard-1." in x for x in a)]
+        with FleetClients(port, 4, V_SERVE * 8 // 10, V_SERVE // 100,
+                          lambda c: {"X-Glint-Tenant": f"t{c}"}) as kw:
+            time.sleep(0.5)
+            t_kill = time.time()
+            os.kill(pid1, 9)
+            relaunch_s = wait_for(
+                lambda: len(doc()["data_plane"].get("shard_relaunches", [])) >= 1
+                and doc()["balancer_shards"][1].get("up"), "shard 1's relaunch")
+            t_back = time.time()
+            time.sleep(0.5)
+        statuses += [r[2] for r in kw.rows]
+        # The kill window: requests in flight at the kill or sent before the
+        # relaunch.
+        window = [r for r in kw.rows if r[0] <= t_back and r[1] >= t_kill]
+        errors = [r for r in window if not isinstance(r[2], int)]
+        for i in range(100):
+            st = fresh_post(port, "/synonyms",
+                            {"word": f"w{V_SERVE * 9 // 10 + i}", "num": 10},
+                            {"X-Glint-Tenant": f"t{i % 8}"})
+            statuses.append(st[0])
+        for i in range(8):  # unknown words: 404, kept in every hop's trace
+            st = fresh_post(port, "/synonyms", {"word": f"zz{i}", "num": 10},
+                            {"X-Glint-Tenant": f"t{i}"})
+            statuses.append(st[0])
+        d = doc()
+        rec = d["data_plane"]["shard_relaunches"][0]
+        new1 = [p for p, a in fleet_processes(tmp).items()
+                if "fleet-shard" in a]
+        expect(new1 and pid1 not in new1, f"17 (d) shard processes {new1}")
+        expect(d["balancer_shards"][1]["stats"]["proxied_total"] > 0,
+               f"17 (d) the relaunched shard proxied nothing: "
+               f"{d['balancer_shards'][1]}")
+        log(f"17 (d): shard 1 (pid {pid1}) SIGKILLed; relaunched as pid "
+            f"{new1[0]} {t_back - t_kill:.2f} s later (detect to ready "
+            f"{rec['detect_to_ready_seconds']} s, {rec['reason']}); "
+            f"{len(window)} requests in the kill window, {len(errors)} "
+            f"connection errors {[r[2] for r in errors][:5]}; fresh connections "
+            f"proxied by the new shard {d['balancer_shards'][1]['stats']['proxied_total']}")
+        # (e) The merged exposition and each replica's launches.
+        text = urllib.request.urlopen(
+            f"http://127.0.0.1:{port}/metrics?format=prometheus",
+            timeout=60).read().decode()
+        lint_prometheus_text(text)
+        for fam in ("glint_fleet_shard_", "glint_fleet_qos_",
+                    "glint_fleet_autoscale_"):
+            expect(fam in text, f"17 (e) no {fam}* family")
+        launches = {}
+        for i, snap in enumerate(fleet_replica_snaps(d)):
+            since, served = since_warmup(snap), replica_dispatches(snap)
+            expect(since > 0 and since == served,
+                   f"17 (e) replica {i}: gather_rows {since} since its warmup, "
+                   f"{served} coalesced dispatches")
+            for k in snap["kernel_launches"]:
+                launches[k] = launches.get(k, 0) + (
+                    snap["kernel_launches"][k] - snap["kernel_launches_warmup"][k])
+        log(f"17 (e): merged /metrics lint-clean ({len(text.splitlines())} "
+            f"lines) with the shard, QoS and autoscale families; gather_rows "
+            f"since warmup per replica "
+            + ", ".join(str(since_warmup(s)) for s in fleet_replica_snaps(d))
+            + f" = their coalesced dispatches; launches {launches}")
+        # (f) Teardown, then the traces the processes flushed at exit.
+        expect(post_status(port, "/shutdown", {}) == 200, "17: shutdown refused")
+        proc.wait(timeout=120)
+        expect(proc.returncode == 0, f"17: serve-fleet exited {proc.returncode}")
+        t = time.perf_counter()
+        while fleet_processes(tmp) and time.perf_counter() - t < 60:
+            time.sleep(0.1)
+        expect(not fleet_processes(tmp),
+               f"17 (f) processes left: {fleet_processes(tmp)}")
+        http5 = [c for c in statuses if isinstance(c, int) and c >= 500]
+        expect(not http5, f"17: {len(http5)} answers 5xx: {http5[:10]}")
+        lost = [c for c in statuses if not isinstance(c, int)]
+        expect(len(lost) == len(errors),
+               f"17: connection errors outside the kill window: {lost[:10]}")
+        merged = os.path.join(tmp, "merged.json")
+        r = subprocess.run([sys.executable, "-m", "glint_word2vec_torch.cli",
+                            "trace-merge", trace_dir, "--out", merged],
+                           cwd=here, env=env, capture_output=True, text=True,
+                           timeout=300)
+        expect(r.returncode == 0, f"17 (e) trace-merge rc {r.returncode}: "
+               f"{r.stderr[-2000:]}")
+        mdoc = json.load(open(merged))
+        lanes = {e["args"]["name"] for e in mdoc["traceEvents"]
+                 if e.get("name") == "process_name"}
+        want = {"balancer"} | {f"balancer-shard-{k}" for k in range(1, DEMAND_PROCS)} \
+            | {"replica-0", "replica-1"}
+        expect(want <= lanes, f"17 (e) trace lanes {sorted(lanes)}")
+        pid_lane = {e["pid"]: e["args"]["name"] for e in mdoc["traceEvents"]
+                    if e.get("name") == "process_name"}
+        by_trace = {}
+        for e in mdoc["traceEvents"]:
+            tid = (e.get("args") or {}).get("trace")
+            if tid and e.get("pid") in pid_lane:
+                by_trace.setdefault(tid, set()).add(pid_lane[e["pid"]])
+        across = [t for t, ls in by_trace.items()
+                  if any(x.startswith("balancer") for x in ls)
+                  and any(x.startswith("replica") for x in ls)]
+        expect(across, "17 (e) no trace stitched across a balancer and a replica")
+        log(f"17 (f): POST /shutdown; serve-fleet exited 0 and no shard or "
+            f"replica process is left; trace-merge: lanes {sorted(lanes)}, "
+            f"{mdoc['otherData']['trace_ids']} trace ids, "
+            f"{mdoc['otherData']['stitched_traces']} stitched ({len(across)} "
+            f"across a balancer and a replica lane); answers of the phase "
+            f"{ {c: statuses.count(c) for c in sorted(set(statuses), key=str)} }")
+        return dict(launches=launches)
+    except BaseException:
+        fleet_log.flush()
+        for path in [os.path.join(tmp, "fleet.log")] + sorted(
+                os.path.join(logs, f) for f in (os.listdir(logs)
+                                                if os.path.isdir(logs) else [])):
+            with open(path, "rb") as f:
+                tail = f.read()[-3000:].decode(errors="replace")
+            log(f"17: tail of {os.path.basename(path)}:\n{tail}")
+        raise
+    finally:
+        if proc.poll() is None:
+            try:
+                os.killpg(proc.pid, 9)
+            except OSError:
+                pass
+            proc.wait(timeout=60)
+        # Replicas and shards run in sessions of their own: stop any left.
+        for pid in fleet_processes(tmp):
+            try:
+                os.kill(pid, 9)
+            except OSError:
+                pass
+        fleet_log.close()
+
+
 def ptxas_report(text: str) -> list:
     """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
     (demangled where ``c++filt`` is found), registers and spills."""
@@ -5970,23 +6487,24 @@ def ptxas_report(text: str) -> list:
 
 
 def parse_only(argv) -> set | None:
-    """The phases ``--only`` names (3 to 16; 16 brings 15, whose models it
-    serves), or None to run them all."""
+    """The phases ``--only`` names (3 to 17; 16 and 17 bring 15, whose
+    models they serve), or None to run them all."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--only", metavar="N[,N...]",
-        help="run phases 1, 2 and these (3 to 16; 16 runs 15 first) only, "
+        help="run phases 1, 2 and these (3 to 17; 16 and 17 run 15 first) "
+             "only, "
              "print their lines, "
              f"and exit {PARTIAL_EXIT} without the kernels or result line")
     only = ap.parse_args(argv).only
     if only is None:
         return None
     phases = {int(p) for p in only.split(",") if p.strip()}
-    if not phases or not phases <= set(range(3, 17)):
-        ap.error(f"--only takes phases 3 to 16, got {only!r}")
-    if 16 in phases:
+    if not phases or not phases <= set(range(3, 18)):
+        ap.error(f"--only takes phases 3 to 17, got {only!r}")
+    if phases & {16, 17}:
         phases.add(15)
     return phases
 
@@ -6036,6 +6554,7 @@ def main() -> int:
         14: lambda: exchange_gang(torch, np, fs, rows_mod),
         15: lambda: catalog_end_to_end(torch, np, fs, rows_mod),
         16: lambda: fleet_end_to_end(torch, np, rows_mod, catalog),
+        17: lambda: demand_fleet_end_to_end(torch, np, catalog),
     }
     catalog = {}
 
@@ -6083,6 +6602,7 @@ def main() -> int:
     try:
         cat = run(15)
         fleet = run(16)
+        demand = run(17)
     finally:
         if catalog:
             cleanup_catalog(torch, catalog)
@@ -6238,13 +6758,15 @@ def main() -> int:
         "bf16_ms": shared_timed["bf16"]["ms"],
         "bf16_bound_ms": shared_timed["bf16"]["bound_ms"],
     })
-    # Phases 15 and 16 serve only: each kernel's launches in the catalog
-    # drill and in the fleet's replicas since their warmups.
+    # Phases 15 to 17 serve only: each kernel's launches in the catalog
+    # drill and in the fleets' replicas since their warmups.
     for k in kernels:
         k["launches_catalog"] = cat["launches"][k["name"]]
         k["launches_fleet"] = fleet["launches"].get(k["name"], 0)
-    expect(kernels[0]["launches_catalog"] > 0 and kernels[0]["launches_fleet"] > 0,
-           "gather_rows not launched in phase 15 or 16")
+        k["launches_demand"] = demand["launches"].get(k["name"], 0)
+    expect(kernels[0]["launches_catalog"] > 0 and kernels[0]["launches_fleet"] > 0
+           and kernels[0]["launches_demand"] > 0,
+           "gather_rows not launched in phase 15, 16 or 17")
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

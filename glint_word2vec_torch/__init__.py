@@ -14,34 +14,36 @@ and ``ServerSideGlintWord2VecModel`` (``compat.py``) give the reference's
 PySpark surface over the same estimator.
 """
 
-from glint_word2vec_torch.models import load_model
-from glint_word2vec_torch.models.fasttext import (
-    FastTextModel,
-    FastTextParams,
-    FastTextWord2Vec,
-)
-from glint_word2vec_torch.models.word2vec import Word2Vec, Word2VecModel
-from glint_word2vec_torch.parallel.engine import EmbeddingEngine
-from glint_word2vec_torch.serving import ModelServer
+#: Public name -> the module that defines it. Each is imported on first use
+#: (PEP 562), so a process that serves no model and trains none (the
+#: fleet's supervisor and balancer shards, ``trace-merge``, ``supervise``)
+#: imports no torch and can never make a CUDA context.
+_EXPORTS = {
+    "EmbeddingEngine": "glint_word2vec_torch.parallel.engine",
+    "FastTextModel": "glint_word2vec_torch.models.fasttext",
+    "FastTextParams": "glint_word2vec_torch.models.fasttext",
+    "FastTextWord2Vec": "glint_word2vec_torch.models.fasttext",
+    "ModelServer": "glint_word2vec_torch.serving",
+    "ServerSideGlintWord2Vec": "glint_word2vec_torch.compat",
+    "ServerSideGlintWord2VecModel": "glint_word2vec_torch.compat",
+    "Word2Vec": "glint_word2vec_torch.models.word2vec",
+    "Word2VecModel": "glint_word2vec_torch.models.word2vec",
+    "load_model": "glint_word2vec_torch.models",
+}
 
-__all__ = [
-    "EmbeddingEngine",
-    "FastTextModel",
-    "FastTextParams",
-    "FastTextWord2Vec",
-    "ModelServer",
-    "ServerSideGlintWord2Vec",
-    "ServerSideGlintWord2VecModel",
-    "Word2Vec",
-    "Word2VecModel",
-    "load_model",
-]
+__all__ = sorted(_EXPORTS)
 
 
 def __getattr__(name):
-    # The reference's PySpark surface (compat.py), imported on first use.
-    if name in ("ServerSideGlintWord2Vec", "ServerSideGlintWord2VecModel"):
-        from glint_word2vec_torch import compat
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
 
-        return getattr(compat, name)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(module), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_EXPORTS))

@@ -7,6 +7,8 @@
   python -m glint_word2vec_torch.cli serve     --watch-checkpoint P/ [--watch-poll 1]
   python -m glint_word2vec_torch.cli serve     --model m/ --add-model b=m2/ --model-memory-budget 6gb
   python -m glint_word2vec_torch.cli serve-fleet --replicas 2 --watch-checkpoint P/ [--add-model b=m2/]
+  python -m glint_word2vec_torch.cli serve-fleet --model m/ --balancer-procs 2 --warm-spares 1 --qos-tenant-rate 50 --trace-dir T/
+  python -m glint_word2vec_torch.cli trace-merge T/ --out trace.json
   python -m glint_word2vec_torch.cli transform-file --model m/ --input s.txt --out shards/
   python -m glint_word2vec_torch.cli synonyms-dump  --model m/ --out n.jsonl [--ann]
   python -m glint_word2vec_torch.cli synonyms  --model m/ --word w [-n 10]
@@ -29,7 +31,12 @@ stream (a file, a followed file or stdin) and publishes generations that
 models from one process (``/m/<id>/...``), under
 ``--model-memory-budget``; ``serve-fleet`` runs supervised ``serve``
 replicas behind a breaker-aware balancer, with rolling rollout behind a
-shadow canary (``--device`` goes to every replica).
+shadow canary (``--device`` goes to every replica), balancer shard
+processes on the one port (``--balancer-procs``; each is a ``fleet-shard``
+process, which touches no device), warm spares an autoscaler readmits
+under load, QoS admission, and one trace directory that ``trace-merge``
+stitches into a Chrome-trace timeline. ``supervise --join-serving`` adds
+serving replicas to the gang's merged ``/metrics``.
 """
 
 from __future__ import annotations
@@ -215,8 +222,10 @@ def _add_supervise(sub) -> None:
     p.add_argument("--metrics-host", default="127.0.0.1")
     p.add_argument("--join-serving", action="append", default=[],
                    metavar="URL",
-                   help="not in the port yet: joining serving replicas into "
-                        "the gang view waits for ROADMAP Queue A item 2 (b)")
+                   help="a serving replica's JSON /metrics URL joined into "
+                        "the merged exposition (repeatable; scraped on each "
+                        "request, a replica that does not answer reported, "
+                        "never fatal)")
     p.add_argument("--rank-env", action="append", default=[],
                    metavar="R:KEY=VAL",
                    help="environment for rank R's first launch only "
@@ -502,12 +511,6 @@ def _run_supervise(args) -> int:
               "arguments (recovery relaunches resume from it)",
               file=sys.stderr)
         return 1
-    if args.join_serving:
-        print("error: --join-serving is not in the port yet: joining serving "
-              "replicas into the gang view comes with the second fleet slice, "
-              "the demand-driven fleet (ROADMAP Queue A item 2 (b))",
-              file=sys.stderr)
-        return 1
     rank_env, err = _parse_rank_env(args)
     if err:
         print(f"error: {err}", file=sys.stderr)
@@ -531,6 +534,7 @@ def _run_supervise(args) -> int:
         backoff_cap_seconds=args.backoff_cap,
         metrics_port=args.metrics_port,
         metrics_host=args.metrics_host,
+        serving_urls=args.join_serving,
     ).run()
     return _report(report, args.report_out)
 
@@ -980,8 +984,12 @@ def _add_serve_fleet(sub) -> None:
                    help="one replica-N.log a process (default: replicas "
                         "inherit stderr)")
     p.add_argument("--trace-dir", default=None, metavar="DIR",
-                   help="not in the port yet: fleet tracing waits for ROADMAP "
-                        "Queue A item 2 (b)")
+                   help="request tracing across the fleet: the balancer "
+                        "records to balancer.jsonl, each shard process to "
+                        "balancer-shard-K.jsonl, each replica to "
+                        "replica-N.jsonl, flight bundles go under flight/ "
+                        "(a replica's under flight/replica-N/); "
+                        "stitch with `trace-merge DIR --out trace.json`")
     p.add_argument("--max-batch", type=int, default=64)
     p.add_argument("--cache-size", type=int, default=65536)
     p.add_argument("--max-inflight", type=int, default=256)
@@ -1062,16 +1070,67 @@ def _add_serve_fleet(sub) -> None:
                           "own (repeatable; loads the model at its newest "
                           "generation unless --add-model names a start)")
     dp = p.add_argument_group(
-        "demand-driven fleet (not in the port yet)",
-        "balancer shard processes, warm spares and autoscaling, and QoS "
-        "admission wait for ROADMAP Queue A item 2 (b); setting one of "
-        "these flags is refused",
+        "demand-driven fleet",
+        "balancer processes sharing the listen port, warm spares an "
+        "autoscaler readmits on the shed rate, the p95 and the burn "
+        "signals, and per-tenant QoS admission at the fleet's edge",
     )
-    dp.add_argument("--balancer-procs", type=int, default=1)
-    dp.add_argument("--warm-spares", type=int, default=0)
-    dp.add_argument("--qos-tenant-rate", type=float, default=None)
-    dp.add_argument("--qos-tenant-burst", type=float, default=None)
-    dp.add_argument("--qos-bulk-max-inflight", type=int, default=None)
+    dp.add_argument("--balancer-procs", type=int, default=1,
+                    help="balancer processes sharing the listen port "
+                         "(SO_REUSEPORT, else an inherited listener fd); 1: "
+                         "the balancer in the supervisor alone (default)")
+    dp.add_argument("--warm-spares", type=int, default=0,
+                    help="replicas more, launched and warmed at boot and "
+                         "then held out of rotation; the autoscaler "
+                         "readmits them under load (never a cold boot)")
+    dp.add_argument("--autoscale-interval", type=float, default=0.5,
+                    help="seconds between autoscaler evaluations "
+                         "(default 0.5)")
+    dp.add_argument("--autoscale-up-shed-rate", type=float, default=1.0,
+                    help="fleet sheds a second (QoS sheds included) that "
+                         "count as pressure (default 1)")
+    dp.add_argument("--autoscale-up-p95-ms", type=float, default=None,
+                    help="forward-path p95 in ms that counts as pressure "
+                         "(default: GLINT_SLO_LATENCY_MS, else 250)")
+    dp.add_argument("--autoscale-up-window", type=float, default=1.0,
+                    help="seconds of pressure before a spare is readmitted "
+                         "(default 1)")
+    dp.add_argument("--autoscale-down-window", type=float, default=10.0,
+                    help="seconds of calm before a live replica is parked "
+                         "again (default 10)")
+    dp.add_argument("--autoscale-cooldown", type=float, default=5.0,
+                    help="least seconds between two autoscale transitions "
+                         "(default 5)")
+    dp.add_argument("--qos-tenant-rate", type=float, default=None,
+                    help="per-tenant token bucket rate (requests a second "
+                         "per balancer process; tenant from X-Glint-Tenant, "
+                         "else 'default'); unset: no tenant quotas")
+    dp.add_argument("--qos-tenant-burst", type=float, default=None,
+                    help="per-tenant bucket depth (default twice the rate)")
+    dp.add_argument("--qos-bulk-max-inflight", type=int, default=None,
+                    help="in-flight cap of the bulk class (X-Glint-Priority: "
+                         "bulk) per balancer process; unset: no cap")
+    p = sub.add_parser(
+        "fleet-shard",
+        help="internal: one balancer process of `serve-fleet "
+             "--balancer-procs N`, accepting on the shared fleet port and "
+             "driven by the supervisor over a private control channel",
+    )
+    p.add_argument("--config", required=True, metavar="FILE",
+                   help="the shard's configuration, written by the "
+                        "supervisor")
+    p = sub.add_parser(
+        "trace-merge",
+        help="stitch request-trace JSONL files (a serve-fleet --trace-dir, "
+             "or any --trace-log and --event-log files) into one "
+             "clock-anchored Chrome-trace / Perfetto timeline",
+    )
+    p.add_argument("inputs", nargs="+",
+                   help="trace JSONL files, or directories (their *.jsonl "
+                        "and rotated *.jsonl.1 files)")
+    p.add_argument("--out", required=True,
+                   help="the merged Chrome-trace JSON (ui.perfetto.dev or "
+                        "chrome://tracing open it)")
 
 
 def _parse_model_specs(pairs, flag: str):
@@ -1090,26 +1149,16 @@ def _parse_model_specs(pairs, flag: str):
 
 
 def _run_serve_fleet(args) -> int:
-    """``serve-fleet``: the JAX CLI's self-healing, canary and catalog
-    groups; the demand-driven group is refused."""
+    """``serve-fleet``: the JAX CLI's self-healing, canary, catalog and
+    demand-driven groups. The process touches no device: the replicas
+    load the tables."""
     from glint_word2vec_torch.fleet import (
-        WAITS_FOR_2B,
+        AutoscaleConfig,
         CanaryConfig,
+        QosConfig,
         serve_fleet,
     )
 
-    refused = [flag for flag, on in (
-        ("--trace-dir", args.trace_dir is not None),
-        ("--balancer-procs", args.balancer_procs > 1),
-        ("--warm-spares", args.warm_spares > 0),
-        ("--qos-tenant-rate", args.qos_tenant_rate is not None),
-        ("--qos-tenant-burst", args.qos_tenant_burst is not None),
-        ("--qos-bulk-max-inflight", args.qos_bulk_max_inflight is not None),
-    ) if on]
-    if refused:
-        print(f"error: {', '.join(refused)}: not in the port yet; waits for "
-              f"{WAITS_FOR_2B}", file=sys.stderr)
-        return 2
     models = _parse_model_specs(args.add_model, "--add-model")
     if models is None:
         return 1
@@ -1164,6 +1213,26 @@ def _run_serve_fleet(args) -> int:
             top_k=args.canary_top_k,
             probes=probes,
         )
+    qos = None
+    if (args.qos_tenant_rate is not None
+            or args.qos_bulk_max_inflight is not None):
+        qos = QosConfig(
+            tenant_rate=args.qos_tenant_rate,
+            tenant_burst=args.qos_tenant_burst,
+            bulk_max_inflight=args.qos_bulk_max_inflight,
+        )
+    autoscale = None
+    if args.warm_spares > 0:
+        autoscale = AutoscaleConfig(
+            min_live=args.replicas,
+            max_live=args.replicas + args.warm_spares,
+            interval=args.autoscale_interval,
+            up_shed_per_sec=args.autoscale_up_shed_rate,
+            up_p95_ms=args.autoscale_up_p95_ms,
+            up_window_seconds=args.autoscale_up_window,
+            down_window_seconds=args.autoscale_down_window,
+            cooldown_seconds=args.autoscale_cooldown,
+        )
     return serve_fleet(
         args.model,
         replicas=args.replicas,
@@ -1173,6 +1242,7 @@ def _run_serve_fleet(args) -> int:
         watch_poll=args.watch_poll,
         replica_flags=flags,
         log_dir=args.replica_log_dir,
+        trace_dir=args.trace_dir,
         port_file=args.port_file,
         max_restarts=args.max_restarts,
         backoff_base_seconds=args.backoff_base,
@@ -1190,7 +1260,52 @@ def _run_serve_fleet(args) -> int:
         model_watch_dirs=model_watch_dirs,
         model_memory_budget=args.model_memory_budget,
         device=args.device,
+        warm_spares=args.warm_spares,
+        autoscale=autoscale,
+        balancer_procs=args.balancer_procs,
+        qos=qos,
     )
+
+
+def _run_fleet_shard(args) -> int:
+    """``fleet-shard``: one balancer process of a multi-process data
+    plane. It proxies bytes and touches no device."""
+    from glint_word2vec_torch.fleet import run_balancer_shard
+
+    return run_balancer_shard(args.config)
+
+
+def _run_trace_merge(args) -> int:
+    """``trace-merge``: directories expand to their (rotated included)
+    ``.jsonl`` files, the merged document is written atomically, and the
+    summary line says how many trace ids stitched across processes."""
+    import glob
+    import os
+
+    from glint_word2vec_torch.obs.aggregate import merge_trace_logs
+    from glint_word2vec_torch.utils import atomic_write_json
+
+    paths = []
+    for inp in args.inputs:
+        if os.path.isdir(inp):
+            paths += sorted(glob.glob(os.path.join(inp, "*.jsonl"))
+                            + glob.glob(os.path.join(inp, "*.jsonl.1")))
+        else:
+            paths.append(inp)
+    if not paths:
+        print("error: no trace JSONL inputs found", file=sys.stderr)
+        return 1
+    doc = merge_trace_logs(paths)
+    atomic_write_json(args.out, doc)
+    other = doc["otherData"]
+    print(json.dumps({
+        "out": args.out,
+        "events": len(doc["traceEvents"]),
+        "trace_ids": other["trace_ids"],
+        "stitched_traces": other["stitched_traces"],
+        "sources": other["sources"],
+    }))
+    return 0
 
 
 def main(argv=None) -> int:
@@ -1203,6 +1318,12 @@ def main(argv=None) -> int:
     if args.cmd == "serve-fleet":
         # Device-free: only the replica processes load tables.
         return _run_serve_fleet(args)
+    if args.cmd == "fleet-shard":
+        # One balancer process: device-free like its parent.
+        return _run_fleet_shard(args)
+    if args.cmd == "trace-merge":
+        # File stitching: no device, no model.
+        return _run_trace_merge(args)
     if (args.cmd == "transform-file" and args.workers > 1
             and args.rank is None):
         return _run_transform_fleet(args)

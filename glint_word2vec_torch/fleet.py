@@ -27,14 +27,34 @@ shadow-canary promotion gate.
   to it, and scores its top-k agreement with the live fleet; a regression
   is held back, with the canary restored to the live generation first.
 
-The fault points ``fleet.replica_probe`` and ``fleet.rollout_step`` (and
+The demand-driven half:
+
+* Balancer shard processes (:func:`run_balancer_shard`,
+  :class:`BalancerShardManager`): ``balancer_procs`` data planes share the
+  fleet's listen port (``SO_REUSEPORT``, else the parent's listener
+  inherited by fd), each with its own breakers, prober and threads; the
+  supervisor drives them over a private control listener, and every hold,
+  release, adoption, down and fail is broadcast to every shard.
+* Warm spares and the :class:`Autoscaler`: spares boot and warm with the
+  fleet, then are parked (held by the owner ``autoscale`` in the
+  :class:`ReplicaHoldLedger`); the shed rate, the windowed forward-path
+  p95, open breakers and fast burns readmit one, and a sustained calm
+  parks the highest live one again. A rollout in progress pins the set.
+* QoS admission (:class:`QosConfig`, :class:`QosGate`): an infeasible
+  ``X-Glint-Deadline-Ms`` is shed before a tenant token is spent, then the
+  per-tenant token bucket (per shard), then the ``bulk`` class's in-flight
+  cap; a shed is a 429 with ``Retry-After``.
+* Fleet tracing (``trace_dir``): the balancer and each shard record their
+  spans beside each replica's ``--trace-log``, and the balancer's flight
+  recorder writes its bundles under ``flight/``; ``cli trace-merge``
+  stitches the files into one timeline.
+
+The fault points ``fleet.replica_probe``, ``fleet.rollout_step``,
+``fleet.shard_accept`` and ``fleet.autoscale_step`` (and
 ``serving.reload`` on the replicas) drill those windows. Nothing here
 touches a device: the replicas hold the tables, so a balancer crash leaves
-N servers that answer on their own.
-
-The demand-driven half of the JAX module (balancer shard processes, warm
-spares and the autoscaler, QoS admission, fleet tracing) waits for ROADMAP
-Queue A item 2 (b): :class:`FleetSupervisor` refuses its knobs.
+N servers that answer on their own, and a shard process holds no CUDA
+context.
 """
 
 from __future__ import annotations
@@ -65,13 +85,9 @@ from glint_word2vec_torch.utils.metrics import LatencyHistogram
 
 logger = logging.getLogger(__name__)
 
-#: What a refused knob of the demand-driven fleet waits for.
-WAITS_FOR_2B = ("the demand-driven fleet (ROADMAP Queue A item 2 (b): "
-                "balancer shards, warm spares and autoscaling, QoS, fleet "
-                "tracing)")
-
 #: Device paths the balancer keeps latency and SLO state for on its own
-#: forward path (``serving._DEVICE_PATHS``).
+#: forward path (``serving._DEVICE_PATHS``). QoS admission applies to
+#: these paths only; control routes are never shed.
 _BALANCER_PATHS = (
     "/synonyms", "/synonyms_vector", "/analogy", "/vector", "/transform",
 )
@@ -79,17 +95,17 @@ _BALANCER_PATHS = (
 
 def _strip_model_prefix(path: str) -> str:
     """The endpoint path without a ``/m/<id>`` model prefix
-    (``serving.split_model_path``'s path half): the balancer's histograms
-    count ``/m/a/synonyms`` as ``/synonyms``, while the whole path is what
-    goes to the replica."""
+    (``serving.split_model_path``'s path half): QoS admission and the
+    balancer's histograms count ``/m/a/synonyms`` as ``/synonyms``, while
+    the whole path is what goes to the replica."""
     if path.startswith("/m/"):
         sep = path.find("/", 3)
         return path[sep:] if sep >= 0 else "/"
     return path
 
-#: Client headers the balancer forwards to the replica as they came: the
-#: tenant and priority class, and the remaining deadline (milliseconds)
-#: the replica tightens its own with.
+#: Client headers the balancer reads (QoS admission) and forwards to the
+#: replica as they came: the tenant and priority class, and the remaining
+#: deadline (milliseconds) the replica tightens its own with.
 _QOS_WIRE_HEADERS = (
     ("X-Glint-Tenant", "x-glint-tenant"),
     ("X-Glint-Priority", "x-glint-priority"),
@@ -562,6 +578,179 @@ def _parse_deadline_ms(headers: dict) -> Optional[float]:
         return None
 
 
+@dataclass
+class QosConfig:
+    """QoS admission knobs for the balancer's device paths. Everything
+    defaults to off: a fleet without QoS flags admits every request
+    (deadline headers still go on to the replicas).
+
+    ``tenant_rate``/``tenant_burst``: per-tenant token bucket (req/s,
+    burst tokens) keyed on ``X-Glint-Tenant`` (the ``default`` bucket
+    otherwise); ``bulk_max_inflight`` caps concurrently-forwarded
+    requests in the ``bulk`` priority class (``X-Glint-Priority:
+    bulk``; anything else is ``interactive``). Deadline-aware shedding
+    is armed by the REQUEST (``X-Glint-Deadline-Ms``): a budget that
+    cannot cover the balancer's current p95 for the path is shed
+    immediately with Retry-After instead of occupying a replica slot
+    to time out."""
+
+    tenant_rate: Optional[float] = None
+    tenant_burst: Optional[float] = None
+    bulk_max_inflight: Optional[int] = None
+    #: Distinct tenant buckets tracked; overflow tenants share the
+    #: ``other`` bucket (bounded cardinality on /metrics too).
+    max_tenants: int = 32
+
+
+class _TokenBucket:
+    __slots__ = ("rate", "burst", "tokens", "t")
+
+    def __init__(self, rate: float, burst: float, now: float):
+        self.rate = float(rate)
+        self.burst = max(1.0, float(burst))
+        self.tokens = self.burst
+        self.t = now
+
+    def take(self, now: float) -> bool:
+        self.tokens = min(
+            self.burst, self.tokens + (now - self.t) * self.rate
+        )
+        self.t = now
+        if self.tokens >= 1.0:
+            self.tokens -= 1.0
+            return True
+        return False
+
+
+class _QosDecision:
+    """One admission verdict: ``shed`` is None on admit, else
+    (status, body-obj, retry-after string); an admitted bulk request
+    holds a bulk-inflight slot until :meth:`QosGate.release`."""
+
+    __slots__ = ("shed", "cls", "tenant", "bulk_slot")
+
+    def __init__(self, shed, cls, tenant, bulk_slot=False):
+        self.shed = shed
+        self.cls = cls
+        self.tenant = tenant
+        self.bulk_slot = bulk_slot
+
+
+class QosGate:
+    """Admission control at the fleet edge: deadline feasibility, then
+    per-tenant token buckets, then the bulk-class inflight cap. Sheds
+    are 429 + Retry-After — honest backpressure in the same shape the
+    replicas' bounded admission emits, so clients need one retry
+    policy."""
+
+    def __init__(self, config: QosConfig,
+                 p95_ms: Callable[[str], Optional[float]],
+                 now_fn: Callable[[], float] = time.monotonic):
+        self.config = config
+        self._p95 = p95_ms
+        self._now = now_fn
+        self._mu = threading.Lock()
+        self._buckets: Dict[str, _TokenBucket] = {}
+        self._admitted = {"interactive": 0, "bulk": 0}
+        self._shed = {"tenant_quota": 0, "bulk_inflight": 0, "deadline": 0}
+        self._tenant_shed: Dict[str, int] = {}
+        self._bulk_inflight = 0
+        self._bulk_inflight_peak = 0
+
+    def _tenant_key(self, tenant: str) -> str:
+        if tenant in self._buckets or tenant in self._tenant_shed:
+            return tenant
+        tracked = set(self._buckets) | set(self._tenant_shed)
+        if len(tracked) >= self.config.max_tenants:
+            return "other"
+        return tenant
+
+    def _count_shed(self, reason: str, tenant: str) -> None:
+        self._shed[reason] += 1
+        self._tenant_shed[tenant] = self._tenant_shed.get(tenant, 0) + 1
+
+    def admit(self, path: str, headers: dict) -> _QosDecision:
+        cfg = self.config
+        tenant = headers.get("x-glint-tenant") or "default"
+        cls = (
+            "bulk"
+            if headers.get("x-glint-priority", "").lower() == "bulk"
+            else "interactive"
+        )
+        now = self._now()
+        with self._mu:
+            tenant = self._tenant_key(tenant)
+            # Deadline feasibility first: an expired-or-infeasible
+            # budget is shed before it spends a quota token — the
+            # client pays nothing for a request that could only 504.
+            budget_ms = _parse_deadline_ms(headers)
+            if budget_ms is not None:
+                p95 = self._p95(path)
+                if budget_ms <= 0.0 or (
+                        p95 is not None and budget_ms < p95):
+                    self._count_shed("deadline", tenant)
+                    return _QosDecision((
+                        429,
+                        {
+                            "error": "deadline infeasible",
+                            "deadline_ms": budget_ms,
+                            "p95_ms": p95,
+                        },
+                        "1",
+                    ), cls, tenant)
+            if cfg.tenant_rate:
+                b = self._buckets.get(tenant)
+                if b is None:
+                    burst = (
+                        cfg.tenant_burst
+                        if cfg.tenant_burst is not None
+                        else 2.0 * cfg.tenant_rate
+                    )
+                    b = self._buckets[tenant] = _TokenBucket(
+                        cfg.tenant_rate, burst, now
+                    )
+                if not b.take(now):
+                    self._count_shed("tenant_quota", tenant)
+                    retry = max(1.0 / cfg.tenant_rate, 0.05)
+                    return _QosDecision((
+                        429,
+                        {"error": "tenant quota exceeded",
+                         "tenant": tenant},
+                        f"{retry:g}",
+                    ), cls, tenant)
+            if cls == "bulk" and cfg.bulk_max_inflight:
+                if self._bulk_inflight >= cfg.bulk_max_inflight:
+                    self._count_shed("bulk_inflight", tenant)
+                    return _QosDecision((
+                        429,
+                        {"error": "bulk class at capacity",
+                         "max_inflight": cfg.bulk_max_inflight},
+                        "0.1",
+                    ), cls, tenant)
+                self._bulk_inflight += 1
+                if self._bulk_inflight > self._bulk_inflight_peak:
+                    self._bulk_inflight_peak = self._bulk_inflight
+                self._admitted[cls] += 1
+                return _QosDecision(None, cls, tenant, bulk_slot=True)
+            self._admitted[cls] += 1
+            return _QosDecision(None, cls, tenant)
+
+    def release(self, decision: _QosDecision) -> None:
+        if decision.bulk_slot:
+            with self._mu:
+                self._bulk_inflight = max(0, self._bulk_inflight - 1)
+
+    def snapshot(self) -> dict:
+        with self._mu:
+            return {
+                "admitted_total": dict(self._admitted),
+                "shed_total": dict(self._shed),
+                "per_tenant_shed_total": dict(self._tenant_shed),
+                "bulk_inflight": self._bulk_inflight,
+                "bulk_inflight_peak": self._bulk_inflight_peak,
+            }
+
+
 class LoadBalancer:
     """Round-robin HTTP proxy over serving replicas with per-replica
     circuit breakers, overload-aware retry, and a merged fleet
@@ -599,7 +788,13 @@ class LoadBalancer:
                  breaker_successes: int = 2,
                  breaker_open_seconds: float = 2.0,
                  probe_interval: float = 0.5,
-                 probe_timeout: float = 2.0):
+                 probe_timeout: float = 2.0,
+                 reuse_port: bool = False,
+                 listen_fd: Optional[int] = None,
+                 control: bool = False,
+                 shard_id: int = 0,
+                 proxy_control: Optional[Tuple[str, int]] = None,
+                 qos: Optional[QosConfig] = None):
         self.replicas = [self._parse(u) for u in replica_urls]
         if not self.replicas:
             raise ValueError("at least one replica url required")
@@ -607,6 +802,15 @@ class LoadBalancer:
         self.proxy_timeout = float(proxy_timeout)
         self.probe_interval = max(0.02, float(probe_interval))
         self.probe_timeout = float(probe_timeout)
+        #: Which data-plane process this balancer is (0: the one in the
+        #: supervisor; 1 and up: a ``fleet-shard`` process sharing the
+        #: listen port).
+        self.shard_id = int(shard_id)
+        #: (host, port) of the supervisor balancer's control listener: a
+        #: shard process relays ``/metrics`` and ``/shutdown`` there, since
+        #: the shared data port cannot address one process and only the
+        #: supervisor renders the fleet's document or tears it down.
+        self.proxy_control = proxy_control
         self._mu = threading.Lock()
         self._rr = 0
         self._proxied = [0] * len(self.replicas)
@@ -616,8 +820,13 @@ class LoadBalancer:
         self._breaker_skips = 0
         self._restart_retries = 0
         self._retry_after_honored = 0
-        #: Forward-path latency and SLO state (a serving-shaped snapshot).
+        #: Forward-path latency and SLO state of this shard (a
+        #: serving-shaped snapshot; shards fold through
+        #: ``merge_serving_snapshots``).
         self.metrics = _BalancerMetrics()
+        self.qos = (
+            QosGate(qos, self.metrics.p95_ms) if qos is not None else None
+        )
         self._addr_version = [0] * len(self.replicas)
         self._expected_gen: List[Optional[str]] = [None] * len(self.replicas)
         self._restarting = [False] * len(self.replicas)
@@ -650,15 +859,61 @@ class LoadBalancer:
         # header parsing and date formatting cost more interpreter time
         # a request than the proxy hop itself; the balancer must stay the
         # cheapest stage of the chain.
-        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        self._listener.bind((host, port))
-        self._listener.listen(128)
+        self._reuse_port = bool(reuse_port) and hasattr(
+            socket, "SO_REUSEPORT"
+        )
+        if listen_fd is not None:
+            # Without SO_REUSEPORT: adopt the listening socket the parent
+            # bound and passed down (pass_fds), so every shard accepts
+            # from one shared queue.
+            self._listener = socket.socket(fileno=listen_fd)
+        else:
+            self._listener = socket.socket(
+                socket.AF_INET, socket.SOCK_STREAM
+            )
+            self._listener.setsockopt(
+                socket.SOL_SOCKET, socket.SO_REUSEADDR, 1
+            )
+            if self._reuse_port:
+                self._listener.setsockopt(
+                    socket.SOL_SOCKET, socket.SO_REUSEPORT, 1
+                )
+            self._listener.bind((host, port))
+            self._listener.listen(128)
         self.host, self.port = self._listener.getsockname()[:2]
+        self._inherited_listener = listen_fd is not None
+        self._shared_listener = self._reuse_port or self._inherited_listener
+        if self._shared_listener:
+            # stop() cannot wake accept() with a self-connect here: on a
+            # shared port the kernel may hand that connection to a
+            # sibling shard. A bounded accept timeout makes the loop
+            # re-check _stop on its own clock instead.
+            self._listener.settimeout(1.0)
+        #: This process's private control listener (127.0.0.1, ephemeral):
+        #: the supervisor addresses one shard through it
+        #: (``/_shard/snapshot``, ``/_shard/control``, ``/_shard/stop``),
+        #: which the shared data port cannot do.
+        self._control_listener = None
+        if control:
+            self._control_listener = socket.socket(
+                socket.AF_INET, socket.SOCK_STREAM
+            )
+            self._control_listener.setsockopt(
+                socket.SOL_SOCKET, socket.SO_REUSEADDR, 1
+            )
+            self._control_listener.bind(("127.0.0.1", 0))
+            self._control_listener.listen(16)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._control_thread: Optional[threading.Thread] = None
         self._prober: Optional[threading.Thread] = None
         self._prev_switch: Optional[float] = None
+
+    @property
+    def control_addr(self) -> Optional[Tuple[str, int]]:
+        if self._control_listener is None:
+            return None
+        return self._control_listener.getsockname()[:2]
 
     # -- data plane ----------------------------------------------------
 
@@ -696,9 +951,17 @@ class LoadBalancer:
         )
 
     def _accept_loop(self) -> None:
+        self._accept_on(self._listener)
+
+    def _control_accept_loop(self) -> None:
+        self._accept_on(self._control_listener)
+
+    def _accept_on(self, listener) -> None:
         while not self._stop.is_set():
             try:
-                conn, _ = self._listener.accept()
+                conn, _ = listener.accept()
+            except socket.timeout:
+                continue  # a shared-port shard re-checks _stop
             except OSError:
                 return  # listener closed by stop()
             threading.Thread(
@@ -710,6 +973,11 @@ class LoadBalancer:
         """One client connection: parse requests with the minimal
         framed reader, route control paths locally, proxy the rest.
         Keep-alive by default (HTTP/1.1); 'Connection: close' honored."""
+        try:
+            faults.fire("fleet.shard_accept")
+        except Exception:
+            sock.close()
+            return
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         buf = bytearray()
         try:
@@ -734,6 +1002,14 @@ class LoadBalancer:
     def _route(self, sock, method: str, path: str, headers: dict,
                body: bytes) -> None:
         url = urlparse(path)
+        if url.path.startswith("/_shard/"):
+            return self._route_shard(sock, method, url.path, body)
+        if self.proxy_control is not None and (
+                (method == "GET" and url.path == "/metrics")
+                or (method == "POST" and url.path == "/shutdown")):
+            # A shard process: the fleet's merged document and the fleet's
+            # teardown live with the supervisor's balancer; relay.
+            return self._proxy_to_control(sock, method, path, body)
         if method == "GET" and url.path == "/healthz":
             up, total, states = self.health()
             return self._respond_json(sock, 200 if up else 503, {
@@ -771,19 +1047,37 @@ class LoadBalancer:
             })
             threading.Thread(target=self.stop, daemon=True).start()
             return
+        # QoS admission (device paths only): deadline feasibility, the
+        # tenant's quota, the bulk class's cap. A shed answers here,
+        # before a replica slot or a proxy exchange is taken.
         t0 = time.monotonic()
+        decision = None
         ep = _strip_model_prefix(url.path)
+        if self.qos is not None and ep in _BALANCER_PATHS:
+            decision = self.qos.admit(ep, headers)
+            if decision.shed is not None:
+                status, obj, retry_after = decision.shed
+                self.metrics.observe(
+                    ep, time.monotonic() - t0, status
+                )
+                return self._respond_json(
+                    sock, status, obj, retry_after=retry_after
+                )
         # Adopt the client's trace id or mint one at the fleet edge: the
         # balancer hop's span wraps the proxy exchange, and the id rides
         # the wire header to the replica.
         tr = obs_events.request_trace(
             headers.get(obs_events.TRACE_HEADER.lower())
         )
-        with tr.phase("req.accept", path=url.path, hop="balancer"):
-            status, rbody, rheaders = self.forward(
-                method, path, body, trace=tr,
-                extra_headers=_passthrough_headers(headers),
-            )
+        try:
+            with tr.phase("req.accept", path=url.path, hop="balancer"):
+                status, rbody, rheaders = self.forward(
+                    method, path, body, trace=tr,
+                    extra_headers=_passthrough_headers(headers),
+                )
+        finally:
+            if decision is not None:
+                self.qos.release(decision)
         tr.finish(status)
         self.metrics.observe(ep, time.monotonic() - t0, status)
         self._respond(
@@ -791,6 +1085,100 @@ class LoadBalancer:
             rheaders.get("content-type") or "application/json",
             rheaders.get("retry-after"),
         )
+
+    # -- shard control channel (multi-process data plane) ------------
+
+    def _route_shard(self, sock, method: str, path: str,
+                     body: bytes) -> None:
+        """The per-shard control surface the supervisor drives over
+        each shard's private control listener: snapshot (local
+        counters only — never scrapes replicas), breaker/address
+        mirror ops, and stop."""
+        if method == "GET" and path == "/_shard/snapshot":
+            return self._respond_json(sock, 200, self.shard_snapshot())
+        if method == "POST" and path == "/_shard/control":
+            try:
+                op = json.loads(body.decode() or "{}")
+                out = self.apply_control(op)
+            except (ValueError, KeyError, IndexError, TypeError) as e:
+                return self._respond_json(
+                    sock, 400, {"ok": False, "error": str(e)}
+                )
+            return self._respond_json(sock, 200, out)
+        if method == "POST" and path == "/_shard/stop":
+            self._respond_json(sock, 200, {"ok": True, "stopping": True})
+            threading.Thread(target=self.stop, daemon=True).start()
+            return
+        return self._respond_json(sock, 404, {"error": "not found"})
+
+    def shard_snapshot(self) -> dict:
+        """This shard's own data-plane state: balancer counters,
+        breaker views, and the serving-shaped forward-path block the
+        supervisor folds through ``merge_serving_snapshots``."""
+        return {
+            "shard": self.shard_id,
+            "up": True,
+            "stats": self.balancer_stats(),
+            "breakers": [b.snapshot() for b in self.breakers],
+            "serving": self.metrics.snapshot(),
+        }
+
+    def apply_control(self, op: dict) -> dict:
+        """Apply one supervisor mirror op. The supervisor owns the
+        single control plane; shards replicate its address-table and
+        breaker decisions so every data plane routes consistently
+        while breaker STATE (probe verdicts, trip counts) stays
+        per-shard and lock-free."""
+        kind = str(op.get("op") or "")
+        i = int(op.get("i", -1))
+        if not 0 <= i < len(self.replicas):
+            raise IndexError(f"replica index {i} out of range")
+        b = self.breakers[i]
+        if kind == "set_address":
+            self.set_replica_address(
+                i, str(op["host"]), int(op["port"]),
+                generation=op.get("generation"),
+            )
+        elif kind == "set_restarting":
+            self.set_restarting(i, bool(op.get("flag")))
+        elif kind == "hold":
+            b.hold()
+        elif kind == "release":
+            b.release()
+        elif kind == "clear_holds":
+            b.clear_holds()
+        elif kind == "trial":
+            b.trial()
+        elif kind == "force_open":
+            b.force_open()
+        else:
+            raise ValueError(f"unknown control op {kind!r}")
+        return {"ok": True, "op": kind, "i": i}
+
+    def _proxy_to_control(self, sock, method: str, path: str,
+                          body: bytes) -> None:
+        host, port = self.proxy_control
+        try:
+            conn = http.client.HTTPConnection(host, port, timeout=30.0)
+            try:
+                conn.request(
+                    method, path, body=body or None,
+                    headers={"Content-Type": "application/json"},
+                )
+                resp = conn.getresponse()
+                data = resp.read()
+                ctype = resp.getheader(
+                    "Content-Type", "application/json"
+                )
+                status = resp.status
+            finally:
+                conn.close()
+        except OSError as e:
+            return self._respond_json(
+                sock, 503, {"error": f"control plane unreachable: {e}"},
+                retry_after="1",
+            )
+        self._respond(sock, status, data, ctype)
 
     @staticmethod
     def _parse(url: str):
@@ -1137,6 +1525,8 @@ class LoadBalancer:
                 "restart_retries_total": self._restart_retries,
                 "retry_after_honored_total": self._retry_after_honored,
             }
+        if self.qos is not None:
+            out["qos"] = self.qos.snapshot()
         return out
 
     def metrics_doc(self) -> dict:
@@ -1295,16 +1685,28 @@ class LoadBalancer:
             self._prev_switch = sys.getswitchinterval()
             sys.setswitchinterval(0.001)
 
+    def _start_control(self) -> None:
+        if self._control_listener is None or \
+                self._control_thread is not None:
+            return
+        self._control_thread = threading.Thread(
+            target=self._control_accept_loop, daemon=True,
+            name="glint-fleet-control",
+        )
+        self._control_thread.start()
+
     def serve_forever(self) -> None:
         logger.info(
             "fleet balancer on %s:%d over %d replica(s)",
             self.host, self.port, len(self.replicas),
         )
         self._tighten_gil_switch()
+        self._start_control()
         self._accept_loop()
 
     def start_background(self) -> None:
         self._tighten_gil_switch()
+        self._start_control()
         self._thread = threading.Thread(
             target=self._accept_loop, daemon=True,
             name="glint-fleet-lb",
@@ -1315,19 +1717,45 @@ class LoadBalancer:
         self._stop.set()
         # Closing a listening socket from another thread does not wake an
         # accept() blocked on it (Linux): shutdown() does, and a
-        # self-connect covers the platforms where it does not.
-        try:
-            self._listener.shutdown(socket.SHUT_RDWR)
-        except OSError:
-            pass
-        try:
-            socket.create_connection((self.host, self.port), timeout=1).close()
-        except OSError:
-            pass
+        # self-connect covers the platforms where it does not. Not on a
+        # shared port: there the kernel may hand the self-connect to a
+        # sibling shard, and a shard's accept loop re-checks _stop every
+        # second instead. A listener inherited by fd is one socket with
+        # the parent's and the siblings', so a shard only closes its fd
+        # (a shutdown() would stop the whole fleet's accept queue).
+        if not self._inherited_listener:
+            try:
+                self._listener.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        if not self._shared_listener:
+            try:
+                socket.create_connection((self.host, self.port),
+                                         timeout=1).close()
+            except OSError:
+                pass
         try:
             self._listener.close()
         except OSError:
             pass
+        if self._control_listener is not None:
+            ctrl_addr = None
+            try:
+                ctrl_addr = self._control_listener.getsockname()[:2]
+                self._control_listener.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            if ctrl_addr is not None:
+                # The control listener is private, so the self-connect
+                # reaches this process.
+                try:
+                    socket.create_connection(ctrl_addr, timeout=1).close()
+                except OSError:
+                    pass
+            try:
+                self._control_listener.close()
+            except OSError:
+                pass
         if self._prev_switch is not None:
             sys.setswitchinterval(self._prev_switch)
             self._prev_switch = None
@@ -1404,13 +1832,13 @@ class CanaryConfig:
 
 
 class ReplicaHoldLedger:
-    """The replica-hold ownership protocol the rollout coordinators share
-    (and the warm-spare autoscaler of the demand-driven fleet, ROADMAP
-    Queue A item 2 (b)): every administrative hold on a replica is owned
+    """The replica-hold ownership protocol the rollout coordinators and
+    the autoscaler share: every administrative hold on a replica is owned
     by a NAMED owner — ``"rollout"`` (drain during a swap, or a canary
     serving a candidate) or ``"autoscale"`` (a warm spare parked out of
     rotation) — and applied through one pair of callbacks (ref-counted
-    breaker holds, through the data-plane facade).
+    breaker holds, through the data-plane facade to every balancer
+    shard).
 
     The protocol:
       * one hold per (owner, replica) — double-acquire is a no-op;
@@ -2126,44 +2554,733 @@ class RolloutCoordinator:
 
 
 
-class _FleetDataPlane:
-    """The supervisor's one write path to the balancer's replica table
-    and breakers (``fleet.py:2874`` of the JAX package, without the
-    balancer shard processes, ROADMAP Queue A item 2 (b))."""
+# ----------------------------------------------------------------------
+# Multi-process data plane: balancer shard processes
+# ----------------------------------------------------------------------
 
-    def __init__(self, lb: LoadBalancer):
+
+def run_balancer_shard(config_path: str) -> int:
+    """Entry point of one ``fleet-shard`` subprocess: a full
+    :class:`LoadBalancer` data plane (own thread pool, per-thread
+    keep-alive replica connections, breakers + prober, EventRecorder
+    sink) accepting from the SHARED fleet port, plus a private control
+    listener the supervisor drives. Exits when stopped over the
+    control channel or when the parent dies (orphan watchdog)."""
+    from glint_word2vec_torch.utils import atomic_write_json
+
+    with open(config_path) as f:
+        cfg = json.load(f)
+    if cfg.get("trace_log"):
+        obs_events.set_recorder(obs_events.EventRecorder(
+            jsonl_path=cfg["trace_log"],
+        ))
+    replicas = cfg["replicas"]
+    qos_cfg = cfg.get("qos")
+    lb = LoadBalancer(
+        [f"http://{r['host']}:{r['port']}" for r in replicas],
+        host=cfg.get("host", "127.0.0.1"),
+        port=int(cfg.get("port", 0)),
+        reuse_port=bool(cfg.get("reuse_port")),
+        listen_fd=cfg.get("listen_fd"),
+        control=True,
+        shard_id=int(cfg.get("shard", 1)),
+        proxy_control=(
+            tuple(cfg["parent_control"])
+            if cfg.get("parent_control") else None
+        ),
+        qos=QosConfig(**qos_cfg) if qos_cfg else None,
+        proxy_timeout=float(cfg.get("proxy_timeout", 60.0)),
+        scrape_timeout=float(cfg.get("scrape_timeout", 2.0)),
+        breaker_failures=int(cfg.get("breaker_failures", 3)),
+        breaker_successes=int(cfg.get("breaker_successes", 2)),
+        breaker_open_seconds=float(cfg.get("breaker_open_seconds", 2.0)),
+        probe_interval=float(cfg.get("probe_interval", 0.5)),
+        probe_timeout=float(cfg.get("probe_timeout", 2.0)),
+    )
+    for i, r in enumerate(replicas):
+        if r.get("generation") is not None:
+            lb.set_replica_address(
+                i, r["host"], int(r["port"]),
+                generation=r["generation"],
+            )
+        for _ in range(int(r.get("held") or 0)):
+            lb.breakers[i].hold()
+        if r.get("restarting"):
+            lb.set_restarting(i, True)
+            lb.breakers[i].force_open()
+    atomic_write_json(cfg["port_file"], {
+        "shard": lb.shard_id,
+        "pid": os.getpid(),
+        "host": lb.host,
+        "port": lb.port,
+        "control_host": lb.control_addr[0],
+        "control_port": lb.control_addr[1],
+    })
+    lb.start_background()
+    lb.start_prober()
+    ppid = os.getppid()
+    try:
+        while not lb.stopped():
+            if os.getppid() != ppid:
+                # Parent supervisor died without tearing us down: a
+                # balancer shard must NEVER outlive its fleet.
+                logger.error(
+                    "fleet shard %d: parent died — exiting",
+                    lb.shard_id,
+                )
+                break
+            time.sleep(0.25)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        lb.stop()
+    return 0
+
+
+class _ShardHandle:
+    """The supervisor's view of one shard subprocess: its process and
+    its private control address."""
+
+    def __init__(self, shard_id: int, proc, host: str, port: int,
+                 timeout: float = 5.0):
+        self.shard_id = shard_id
+        self.proc = proc
+        self.host, self.port = host, int(port)
+        self.timeout = float(timeout)
+
+    def _request(self, method: str, path: str, payload=None):
+        conn = http.client.HTTPConnection(
+            self.host, self.port, timeout=self.timeout
+        )
+        try:
+            body = (
+                json.dumps(payload).encode()
+                if payload is not None else None
+            )
+            conn.request(
+                method, path, body=body,
+                headers={"Content-Type": "application/json"},
+            )
+            resp = conn.getresponse()
+            data = resp.read()
+            return resp.status, json.loads(data.decode() or "null")
+        finally:
+            conn.close()
+
+    def control(self, op: dict) -> bool:
+        try:
+            status, _ = self._request("POST", "/_shard/control", op)
+            return status == 200
+        except Exception as e:
+            logger.warning(
+                "fleet shard %d control op %s failed: %s",
+                self.shard_id, op.get("op"), e,
+            )
+            return False
+
+    def snapshot(self) -> dict:
+        try:
+            status, doc = self._request("GET", "/_shard/snapshot")
+            if status == 200 and isinstance(doc, dict):
+                return doc
+            return {
+                "shard": self.shard_id, "up": False,
+                "error": f"http {status}",
+            }
+        except Exception as e:
+            return {
+                "shard": self.shard_id, "up": False, "error": str(e),
+            }
+
+    def request_stop(self) -> bool:
+        try:
+            status, _ = self._request("POST", "/_shard/stop", {})
+            return status == 200
+        except Exception:
+            return False
+
+
+class BalancerShardManager:
+    """Launches and owns the extra balancer shard processes of a
+    multi-process data plane (``balancer_procs`` N: the supervisor's
+    balancer and N-1 of these). Each shard shares the fleet's listen port
+    (``SO_REUSEPORT`` where the platform has it, else the parent's
+    listener inherited by fd) and runs its own breakers, prober and
+    threads; this manager is control plane only: the configuration
+    handoff, the mirrored ops, the snapshots, the relaunch of a shard that
+    died (:meth:`poll`) and the teardown."""
+
+    def __init__(self, lb: LoadBalancer, count: int, *,
+                 replica_specs: List[dict],
+                 qos: Optional[dict] = None,
+                 trace_dir: Optional[str] = None,
+                 log_dir: Optional[str] = None,
+                 start_timeout: float = 60.0,
+                 kill_grace_seconds: float = 5.0):
         self.lb = lb
+        self.count = max(0, int(count))
+        self.replica_specs = list(replica_specs)
+        self.qos = qos
+        self.trace_dir = trace_dir
+        self.log_dir = log_dir
+        self.start_timeout = float(start_timeout)
+        self.kill_grace_seconds = float(kill_grace_seconds)
+        self.handles: List[_ShardHandle] = []
+        self._procs: List = []
+        self._logs: List = []
+        self._tmp: Optional[str] = None
+        self._pass_fds: Tuple[int, ...] = ()
+        self._listen_fd: Optional[int] = None
+        self._stopping = False
+        #: Shard id -> a relaunch in flight: its process, port file,
+        #: detection time, reason, the ops broadcast meanwhile, and how many
+        #: launches of it died before binding.
+        self._pending: Dict[int, dict] = {}
+        #: One record a relaunch: shard, reason, seconds from detection to
+        #: the new process's port file.
+        self.relaunches: List[dict] = []
+        self._launches = 0
+
+    def _spawn(self, shard_id: int, replica_specs: List[dict],
+               launch: int):
+        """Write shard ``shard_id``'s configuration and start its
+        process; returns (process, port file)."""
+        port_file = os.path.join(
+            self._tmp, f"shard-{shard_id}.{launch}.port"
+        )
+        cfg = {
+            "shard": shard_id,
+            "host": self.lb.host,
+            "port": self.lb.port,
+            "reuse_port": self.lb._reuse_port,
+            "listen_fd": self._listen_fd,
+            "port_file": port_file,
+            "parent_control": list(self.lb.control_addr),
+            "replicas": replica_specs,
+            "qos": self.qos,
+            "proxy_timeout": self.lb.proxy_timeout,
+            "scrape_timeout": self.lb.scrape_timeout,
+            "probe_interval": self.lb.probe_interval,
+            "probe_timeout": self.lb.probe_timeout,
+            "breaker_failures": self.lb.breakers[0].fail_threshold,
+            "breaker_successes": self.lb.breakers[0].success_threshold,
+            "breaker_open_seconds": self.lb.breakers[0].open_seconds,
+            "trace_log": (
+                os.path.join(self.trace_dir,
+                             f"balancer-shard-{shard_id}.jsonl")
+                if self.trace_dir else None
+            ),
+        }
+        cfg_path = os.path.join(self._tmp, f"shard-{shard_id}.{launch}.json")
+        # A one-shot handoff file the child reads once.
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        log = None
+        if self.log_dir:
+            os.makedirs(self.log_dir, exist_ok=True)
+            log = open(os.path.join(self.log_dir,
+                                    f"balancer-shard-{shard_id}.log"), "ab")
+            self._logs.append(log)
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "glint_word2vec_torch.cli",
+             "fleet-shard", "--config", cfg_path],
+            pass_fds=self._pass_fds,
+            stdout=log, stderr=log and subprocess.STDOUT,
+            start_new_session=True,
+        )
+        self._procs.append(proc)
+        return proc, port_file
+
+    def start(self) -> None:
+        import tempfile
+
+        if self.count <= 0:
+            return
+        self._tmp = tempfile.mkdtemp(prefix="glint_fleet_shards_")
+        if self.lb.control_addr is None:
+            raise RuntimeError(
+                "shard fan-out needs the parent balancer built with "
+                "control=True"
+            )
+        if not self.lb._reuse_port:
+            # The shared listener without SO_REUSEPORT: children adopt the
+            # parent's bound socket by fd (one shared accept queue).
+            self._listen_fd = self.lb._listener.fileno()
+            self._pass_fds = (self._listen_fd,)
+        launched = []
+        for k in range(self.count):
+            proc, port_file = self._spawn(k + 1, self.replica_specs, 0)
+            launched.append((k + 1, proc, port_file))
+        deadline = time.monotonic() + self.start_timeout
+        for shard_id, proc, port_file in launched:
+            info = None
+            while time.monotonic() < deadline:
+                info = self._read_port_file(port_file)
+                if info is not None:
+                    break
+                if proc.poll() is not None:
+                    self.stop_all()
+                    raise RuntimeError(
+                        f"balancer shard {shard_id} exited "
+                        f"rc={proc.returncode} before binding"
+                    )
+                time.sleep(0.05)
+            if info is None:
+                self.stop_all()
+                raise TimeoutError(
+                    f"balancer shard {shard_id} not ready in "
+                    f"{self.start_timeout:.0f}s"
+                )
+            self.handles.append(_ShardHandle(
+                shard_id, proc, info["control_host"], info["control_port"],
+            ))
+        logger.info(
+            "fleet data plane: %d shard process(es) sharing %s:%d (%s)",
+            self.count, self.lb.host, self.lb.port,
+            "SO_REUSEPORT" if self.lb._reuse_port
+            else "inherited listener fd",
+        )
+
+    @staticmethod
+    def _read_port_file(path: str) -> Optional[dict]:
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    #: Launches of one relaunch that may die before binding before the
+    #: fleet gives up (``serve-fleet`` never runs on with fewer shards).
+    RELAUNCH_ATTEMPTS = 3
+
+    def broadcast(self, op: dict) -> None:
+        for h in self.handles:
+            pending = self._pending.get(h.shard_id)
+            if pending is not None:
+                pending["ops"].append(op)  # replayed once the shard is up
+            else:
+                h.control(op)
+
+    def poll(self, replica_specs: Callable[[], List[dict]]) -> None:
+        """Relaunch the shards whose process died, from the balancer's
+        current replica table (``replica_specs()``), and adopt a relaunch
+        whose port file has appeared, replaying the ops broadcast while it
+        started. Never waits: the supervisor's sweep calls it. A launch
+        that dies before binding is launched again, from a new snapshot of
+        the table (which holds the ops sent meanwhile), up to
+        :attr:`RELAUNCH_ATTEMPTS` times; then this raises."""
+        if self._stopping:
+            return
+        now = time.monotonic()
+        for h in self.handles:
+            pending = self._pending.get(h.shard_id)
+            if pending is None:
+                rc = h.proc.poll()
+                if rc is None:
+                    continue
+                reason = (f"exited rc={rc}" if rc >= 0
+                          else f"killed by signal {-rc}")
+                logger.error("fleet: balancer shard %d DOWN (%s); "
+                             "relaunching", h.shard_id, reason)
+                self._pending[h.shard_id] = {"detect_t": now,
+                                             "reason": reason, "failed": 0}
+                self._relaunch(h, replica_specs)
+                continue
+            info = self._read_port_file(pending["port_file"])
+            if info is None:
+                rc = pending["proc"].poll()
+                if rc is not None:
+                    pending["failed"] += 1
+                    if pending["failed"] >= self.RELAUNCH_ATTEMPTS:
+                        raise RuntimeError(
+                            f"balancer shard {h.shard_id} died before "
+                            f"binding {pending['failed']} times (rc={rc})")
+                    self._relaunch(h, replica_specs)
+                continue
+            h.proc = pending["proc"]
+            h.host, h.port = info["control_host"], int(info["control_port"])
+            del self._pending[h.shard_id]
+            for op in pending["ops"]:
+                h.control(op)
+            rec = {"shard": h.shard_id, "reason": pending["reason"],
+                   "detect_to_ready_seconds": round(
+                       now - pending["detect_t"], 3)}
+            self.relaunches.append(rec)
+            logger.info("fleet: balancer shard %d relaunched (pid %d) in "
+                        "%.2fs", h.shard_id, h.proc.pid,
+                        rec["detect_to_ready_seconds"])
+
+    def _relaunch(self, h: _ShardHandle,
+                  replica_specs: Callable[[], List[dict]]) -> None:
+        """Start shard ``h`` again from the table as it stands now; the
+        ops queued for an earlier launch are in that table already."""
+        self._launches += 1
+        pending = self._pending[h.shard_id]
+        pending["proc"], pending["port_file"] = self._spawn(
+            h.shard_id, replica_specs(), self._launches)
+        pending["ops"] = []
+
+    def snapshots(self) -> List[dict]:
+        return [h.snapshot() for h in self.handles]
+
+    def stop_all(self) -> None:
+        """Teardown: ask every shard to stop over its control channel,
+        then terminate or kill what is left, relaunches in flight too;
+        ``serve-fleet`` never leaves a balancer process behind."""
+        self._stopping = True
+        for h in self.handles:
+            h.request_stop()
+        deadline = time.monotonic() + self.kill_grace_seconds
+        for proc in self._procs:
+            while proc.poll() is None and time.monotonic() < deadline:
+                time.sleep(0.05)
+            if proc.poll() is None:
+                terminate_process(
+                    proc, grace_seconds=self.kill_grace_seconds
+                )
+        for f in self._logs:
+            try:
+                f.close()
+            except OSError:
+                pass
+        self._logs = []
+        if self._tmp:
+            import shutil
+
+            shutil.rmtree(self._tmp, ignore_errors=True)
+            self._tmp = None
+
+
+class _FleetDataPlane:
+    """The supervisor's one write path to every balancer shard: an op is
+    applied to the in-process balancer first and mirrored to each shard
+    process over its control channel. ``down`` and ``fail``, asserted
+    again on every sweep, are sent once a transition, so the steady state
+    costs no control traffic; each shard's own prober keeps its breakers
+    honest in between. Ops and a shard relaunch's snapshot of the replica
+    table are serialised, so a relaunched shard misses no op and gets
+    none twice."""
+
+    def __init__(self, lb: LoadBalancer,
+                 shards: Optional[BalancerShardManager] = None):
+        self.lb = lb
+        self.shards = shards
+        self._sent_state: Dict[int, str] = {}
+        self._mu = threading.RLock()
+
+    def _bcast(self, op: dict) -> None:
+        if self.shards is not None:
+            self.shards.broadcast(op)
 
     def adopt(self, i: int, host: str, port: int,
               generation: Optional[str]) -> None:
         """A (re)launched replica: its address, out of the restart
         window, holds of its earlier incarnation cleared, and half-open
-        so the prober readmits it."""
-        self.lb.set_replica_address(i, host, port, generation=generation)
-        self.lb.set_restarting(i, False)
-        self.lb.breakers[i].clear_holds()
-        self.lb.breakers[i].trial()
+        so each shard's prober readmits it."""
+        with self._mu:
+            self.lb.set_replica_address(i, host, port,
+                                        generation=generation)
+            self.lb.set_restarting(i, False)
+            self.lb.breakers[i].clear_holds()
+            self.lb.breakers[i].trial()
+            self._sent_state[i] = "up"
+            self._bcast({
+                "op": "set_address", "i": i, "host": host, "port": port,
+                "generation": generation,
+            })
+            self._bcast({"op": "set_restarting", "i": i, "flag": False})
+            self._bcast({"op": "clear_holds", "i": i})
+            self._bcast({"op": "trial", "i": i})
 
     def down(self, i: int) -> None:
         """Replica inside a restart window: retry-on-refused and firmly
-        open."""
-        self.lb.set_restarting(i, True)
-        self.lb.breakers[i].force_open()
+        open everywhere."""
+        with self._mu:
+            self.lb.set_restarting(i, True)
+            self.lb.breakers[i].force_open()
+            if self._sent_state.get(i) != "down":
+                self._sent_state[i] = "down"
+                self._bcast({"op": "set_restarting", "i": i, "flag": True})
+                self._bcast({"op": "force_open", "i": i})
 
     def fail(self, i: int) -> None:
         """Replica written off (restart budget spent): no restart window,
-        breaker firmly open."""
-        self.lb.set_restarting(i, False)
-        self.lb.breakers[i].force_open()
+        breaker firmly open everywhere."""
+        with self._mu:
+            self.lb.set_restarting(i, False)
+            self.lb.breakers[i].force_open()
+            if self._sent_state.get(i) != "failed":
+                self._sent_state[i] = "failed"
+                self._bcast({"op": "set_restarting", "i": i,
+                             "flag": False})
+                self._bcast({"op": "force_open", "i": i})
 
     def hold(self, i: int) -> None:
-        self.lb.breakers[i].hold()
+        with self._mu:
+            self.lb.breakers[i].hold()
+            self._bcast({"op": "hold", "i": i})
 
     def release(self, i: int) -> None:
-        self.lb.breakers[i].release()
+        with self._mu:
+            self.lb.breakers[i].release()
+            self._bcast({"op": "release", "i": i})
 
     def clear_holds(self, i: int) -> None:
-        self.lb.breakers[i].clear_holds()
+        with self._mu:
+            self.lb.breakers[i].clear_holds()
+            self._bcast({"op": "clear_holds", "i": i})
+
+    def replica_specs(self) -> List[dict]:
+        """The replica table a shard process starts from: each replica's
+        address and launch generation, its hold count, and whether it is
+        inside a restart window."""
+        lb = self.lb
+        with lb._mu:
+            addrs = list(lb.replicas)
+            gens = list(lb._expected_gen)
+            restarting = list(lb._restarting)
+        return [{"host": h, "port": p, "generation": g,
+                 "held": b._held, "restarting": r}
+                for (h, p), g, b, r in zip(addrs, gens, lb.breakers,
+                                           restarting)]
+
+    def poll_shards(self) -> None:
+        """Relaunch a dead shard process (see
+        :meth:`BalancerShardManager.poll`)."""
+        if self.shards is None:
+            return
+        with self._mu:
+            self.shards.poll(self.replica_specs)
+
+
+# ----------------------------------------------------------------------
+# Warm-spare autoscaler
+# ----------------------------------------------------------------------
+
+
+@dataclass
+class AutoscaleConfig:
+    """Demand-driven capacity policy. Scale-up = RELEASE a warm
+    spare's park hold (the replica is already launched and warmed —
+    readmit, never a cold boot); scale-down = park the highest-index
+    live replica back to spare. Hysteresis windows + cooldown keep the
+    loop from flapping; ``min_live``/``max_live`` bound it."""
+
+    min_live: int
+    max_live: int
+    #: Policy evaluation period (seconds).
+    interval: float = 0.5
+    #: Scale-up pressure: fleet shed rate (sheds/sec across shards,
+    #: QoS sheds included) at or above this...
+    up_shed_per_sec: float = 1.0
+    #: ...or forward-path p95 (ms, max across shards) at or above
+    #: this. None = resolve to the SLO latency threshold
+    #: (GLINT_SLO_LATENCY_MS, 250ms default).
+    up_p95_ms: Optional[float] = None
+    #: Pressure must be SUSTAINED this long before a scale-up...
+    up_window_seconds: float = 1.0
+    #: ...and idle this long before a scale-down (asymmetric on
+    #: purpose: readmitting is cheap and urgent, parking is neither).
+    down_window_seconds: float = 10.0
+    #: Minimum seconds between ANY two transitions.
+    cooldown_seconds: float = 5.0
+
+
+class Autoscaler:
+    """The FleetSupervisor's demand policy loop: reads the signals the
+    fleet already emits (shed rate, forward-path p95 vs the SLO
+    latency target, breaker-open count, fast-burn transitions) and
+    moves replicas between live and parked through the shared
+    :class:`ReplicaHoldLedger` — the same protocol the rollout
+    coordinator holds through, so the two can never fight over a
+    replica. A rollout in progress PINS the replica set (steps are
+    counted, not applied); a replica held by any owner besides the
+    autoscaler — a held canary above all — is never spare capacity.
+
+    Dependency-injected callables keep it unit-testable without a
+    fleet: ``signals()`` returns the current signal doc, ``parked()``
+    the readmittable spares, ``live()`` the parkable live replicas,
+    ``pinned()`` the rollout-pinning flag."""
+
+    def __init__(self, *, holds: ReplicaHoldLedger,
+                 config: AutoscaleConfig,
+                 signals: Callable[[], dict],
+                 parked: Callable[[], List[int]],
+                 live: Callable[[], List[int]],
+                 pinned: Optional[Callable[[], bool]] = None,
+                 now_fn: Callable[[], float] = time.monotonic):
+        cfg = config
+        if cfg.up_p95_ms is None:
+            cfg.up_p95_ms = float(
+                os.environ.get("GLINT_SLO_LATENCY_MS") or 250.0
+            )
+        self.config = cfg
+        self.holds = holds
+        self._signals = signals
+        self._parked = parked
+        self._live = live
+        self._pinned = pinned or (lambda: False)
+        self._now = now_fn
+        self._mu = threading.Lock()
+        self._last_shed_total: Optional[float] = None
+        self._last_step_t: Optional[float] = None
+        self._pressure_since: Optional[float] = None
+        self._idle_since: Optional[float] = None
+        self._last_transition_t: Optional[float] = None
+        self._steps = 0
+        self._step_faults = 0
+        self._scale_ups = 0
+        self._scale_downs = 0
+        self._pinned_skips = 0
+        self._last_shed_rate = 0.0
+        self._last_p95_ms: Optional[float] = None
+        self._transitions: deque = deque(maxlen=16)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def step(self) -> Optional[str]:
+        """One policy evaluation; returns "up"/"down" when a
+        transition happened, else None."""
+        with self._mu:
+            self._steps += 1
+        try:
+            faults.fire("fleet.autoscale_step")
+        except Exception:
+            with self._mu:
+                self._step_faults += 1
+            return None
+        now = self._now()
+        sig = self._signals() or {}
+        shed_total = float(sig.get("shed_total") or 0.0)
+        p95 = sig.get("p95_ms")
+        with self._mu:
+            if self._last_shed_total is None or self._last_step_t is None:
+                rate = 0.0
+            else:
+                dt = max(now - self._last_step_t, 1e-6)
+                rate = max(0.0, shed_total - self._last_shed_total) / dt
+            self._last_shed_total = shed_total
+            self._last_step_t = now
+            self._last_shed_rate = rate
+            self._last_p95_ms = p95
+        cfg = self.config
+        pressure = (
+            rate >= cfg.up_shed_per_sec
+            or (p95 is not None and p95 >= cfg.up_p95_ms)
+            or int(sig.get("breakers_open") or 0) > 0
+            or bool(sig.get("fast_burn"))
+        )
+        with self._mu:
+            if pressure:
+                self._idle_since = None
+                if self._pressure_since is None:
+                    self._pressure_since = now
+                pressure_for = now - self._pressure_since
+                idle_for = 0.0
+            else:
+                self._pressure_since = None
+                if self._idle_since is None:
+                    self._idle_since = now
+                idle_for = now - self._idle_since
+                pressure_for = 0.0
+            last_t = self._last_transition_t
+        if self._pinned():
+            # Rollout/canary in flight: the replica set is pinned.
+            # Hysteresis clocks keep running — a surge during a
+            # rollout scales up the moment the swap completes.
+            with self._mu:
+                self._pinned_skips += 1
+            return None
+        if last_t is not None and now - last_t < cfg.cooldown_seconds:
+            return None
+        if pressure and pressure_for >= cfg.up_window_seconds:
+            live = self._live()
+            if len(live) >= cfg.max_live:
+                return None
+            spares = [
+                i for i in self.holds.parked("autoscale")
+                if i in set(self._parked())
+            ]
+            if not spares:
+                return None
+            i = spares[0]
+            self.holds.release("autoscale", i)
+            with self._mu:
+                self._scale_ups += 1
+                self._last_transition_t = now
+                self._transitions.append({
+                    "dir": "up", "replica": i,
+                    "shed_rate": round(rate, 3),
+                    "p95_ms": p95,
+                    "t": round(now, 3),
+                })
+            logger.info(
+                "autoscale UP: readmitted warm spare %d "
+                "(shed %.2f/s, p95 %s ms)", i, rate, p95,
+            )
+            return "up"
+        if not pressure and idle_for >= cfg.down_window_seconds:
+            live = self._live()
+            if len(live) <= cfg.min_live:
+                return None
+            candidates = [
+                i for i in live if not self.holds.owners(i)
+            ]
+            if not candidates:
+                return None
+            i = max(candidates)
+            self.holds.acquire("autoscale", i)
+            with self._mu:
+                self._scale_downs += 1
+                self._last_transition_t = now
+                self._idle_since = now
+                self._transitions.append({
+                    "dir": "down", "replica": i,
+                    "shed_rate": round(rate, 3),
+                    "p95_ms": p95,
+                    "t": round(now, 3),
+                })
+            logger.info(
+                "autoscale DOWN: parked replica %d as warm spare "
+                "(idle %.1fs)", i, idle_for,
+            )
+            return "down"
+        return None
+
+    def stats(self) -> dict:
+        cfg = self.config
+        with self._mu:
+            return {
+                "enabled": True,
+                "live": len(self._live()),
+                "spares": len(self.holds.parked("autoscale")),
+                "min_live": cfg.min_live,
+                "max_live": cfg.max_live,
+                "scale_ups_total": self._scale_ups,
+                "scale_downs_total": self._scale_downs,
+                "pinned_skips_total": self._pinned_skips,
+                "steps_total": self._steps,
+                "step_faults_total": self._step_faults,
+                "last_shed_rate": round(self._last_shed_rate, 3),
+                "last_p95_ms": self._last_p95_ms,
+                "transitions": list(self._transitions),
+            }
+
+    def start(self) -> None:
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name="glint-fleet-autoscale",
+        )
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.config.interval):
+            try:
+                self.step()
+            except Exception:  # pragma: no cover - defensive
+                logger.exception("autoscale step failed")
+
+    def stop(self) -> None:
+        self._stop.set()
 
 
 def _hist_window_delta(prev: Optional[dict],
@@ -2291,8 +3408,15 @@ class FleetSupervisor:
     boots from the promoted generations, so a restart mid-rollout
     converges with the coordinator instead of racing it.
 
-    ``warm_spares``, ``autoscale``, ``balancer_procs > 1``, ``qos`` and
-    ``trace_dir`` belong to the demand-driven fleet and are refused.
+    Demand-driven: ``warm_spares`` replicas more boot and warm with the
+    fleet and are parked until the :class:`Autoscaler` (``autoscale``, or
+    its defaults) readmits them; ``balancer_procs`` data-plane processes
+    share the listen port (:class:`BalancerShardManager`), a dead one
+    relaunched by the sweep; ``qos`` arms the :class:`QosGate` in every
+    shard; ``trace_dir`` gets ``balancer.jsonl``, one
+    ``balancer-shard-<k>.jsonl`` a shard process, one
+    ``replica-<i>.jsonl`` a replica, the balancer's flight bundles under
+    ``flight/`` and each replica's under ``flight/replica-<i>/``.
     """
 
     def __init__(
@@ -2330,23 +3454,20 @@ class FleetSupervisor:
         device: str = "cuda",
         trace_dir: Optional[str] = None,
         warm_spares: int = 0,
-        autoscale=None,
+        autoscale: Optional[AutoscaleConfig] = None,
         balancer_procs: int = 1,
-        qos=None,
+        qos: Optional[QosConfig] = None,
     ):
-        refused = [name for name, on in (
-            ("trace_dir", trace_dir), ("warm_spares", int(warm_spares) > 0),
-            ("autoscale", autoscale is not None),
-            ("balancer_procs", int(balancer_procs) > 1),
-            ("qos", qos is not None)) if on]
-        if refused:
-            raise ValueError(f"{', '.join(refused)}: not in the port yet; "
-                             f"waits for {WAITS_FOR_2B}")
         if model_dir is None and watch_dir is None \
                 and build_replica_argv is None:
             raise ValueError("model_dir or watch_dir required")
         self.model_dir = model_dir
-        self.num_replicas = max(1, int(replicas))
+        #: ``replicas`` live and ``warm_spares`` launched and parked: a
+        #: spare boots and warms, then stays held out of rotation until the
+        #: autoscaler readmits it (a scale-up is never a cold boot).
+        self.base_replicas = max(1, int(replicas))
+        self.warm_spares = max(0, int(warm_spares))
+        self.num_replicas = self.base_replicas + self.warm_spares
         self.host, self.port = host, int(port)
         self.watch_dir = watch_dir
         self.watch_poll = float(watch_poll)
@@ -2370,6 +3491,15 @@ class FleetSupervisor:
         self.coordinated = bool(coordinated)
         self._build_replica_argv = build_replica_argv
         self.replica_env_first_launch = dict(replica_env_first_launch or {})
+        #: The tracing directory: the balancer's spans go to
+        #: ``balancer.jsonl``, each replica's ``--trace-log`` and
+        #: ``--flight-dir`` point into it, and the balancer's flight
+        #: recorder writes under ``flight/``; ``cli trace-merge`` stitches
+        #: the files into one timeline.
+        self.trace_dir = trace_dir
+        self.balancer_procs = max(1, int(balancer_procs))
+        self.qos = qos
+        self.autoscale_config = autoscale
         #: The device every replica serves on (``serve --device``).
         self.device = str(device)
         #: Extra model id -> model directory every replica serves besides
@@ -2399,6 +3529,12 @@ class FleetSupervisor:
         self.model_coordinators: List[RolloutCoordinator] = []
         self.dp: Optional[_FleetDataPlane] = None
         self.holds: Optional[ReplicaHoldLedger] = None
+        self.autoscaler: Optional[Autoscaler] = None
+        self.shards: Optional[BalancerShardManager] = None
+        #: The previous forward-path histogram state by (shard, endpoint),
+        #: which ``_autoscale_signals`` differences into a windowed p95.
+        #: Only the autoscaler's thread touches it.
+        self._autoscale_prev_hists: Dict[Tuple, dict] = {}
 
     # -- replica launch ------------------------------------------------
 
@@ -2422,6 +3558,15 @@ class FleetSupervisor:
                 argv += ["--model", model]
             argv += ["--watch-checkpoint", self.watch_dir,
                      "--watch-poll", str(self.watch_poll)]
+        if self.trace_dir:
+            # A flight directory a replica: each numbers its bundles from
+            # 001, so two replicas sharing one would write into one bundle.
+            argv += [
+                "--trace-log",
+                os.path.join(self.trace_dir, f"replica-{index}.jsonl"),
+                "--flight-dir",
+                os.path.join(self.trace_dir, "flight", f"replica-{index}"),
+            ]
         # Every replica holds the same catalog; a watched model launches
         # from its promoted generation, so a relaunch converges with the
         # per-model rollouts.
@@ -2521,9 +3666,10 @@ class FleetSupervisor:
 
     def _adopt(self, slot: _ReplicaSlot, info: dict) -> None:
         """A (re)launched replica published its generation-checked port
-        file: point the balancer at it and half-open its breaker, so the
-        prober readmits it after M successes. Ledger holds survive the
-        relaunch."""
+        file: point every balancer shard at it and half-open its breaker,
+        so each shard's prober readmits it after M successes. Ledger holds
+        survive the relaunch: a parked spare that crashes comes back
+        parked."""
         slot.host = info.get("host", "127.0.0.1")
         slot.port = int(info["port"])
         self.dp.adopt(slot.index, slot.host, slot.port, slot.gen_tag())
@@ -2616,8 +3762,35 @@ class FleetSupervisor:
         if self.model_coordinators:
             doc["model_rollouts"] = {c.model_id: c.stats()
                                      for c in self.model_coordinators}
+        if self.autoscaler is not None:
+            doc["autoscale"] = self.autoscaler.stats()
         if self.holds is not None:
             doc["holds"] = self.holds.snapshot()
+        if self.lb is not None:
+            doc["data_plane"] = {
+                "balancer_procs": self.balancer_procs,
+                "reuse_port": self.lb._reuse_port,
+            }
+        if self.shards is not None and self.shards.handles \
+                and self.lb is not None:
+            from glint_word2vec_torch.obs.aggregate import (
+                merge_serving_snapshots,
+            )
+
+            # Shard 0 is the supervisor's balancer, the others the shard
+            # processes. Their serving snapshots fold like replicas' (the
+            # histograms bucket for bucket, the SLO counts summed), and
+            # their balancer counters sum into the fleet's.
+            shard_snaps = [self.lb.shard_snapshot()] + self.shards.snapshots()
+            doc["balancer_shards"] = shard_snaps
+            doc["balancer_fleet"] = merge_serving_snapshots([
+                s["serving"] for s in shard_snaps if s.get("serving")
+            ])
+            doc["balancer"] = _sum_balancer_stats([
+                s.get("stats") for s in shard_snaps if s.get("up")
+            ])
+            doc["data_plane"]["shard_relaunches"] = list(
+                self.shards.relaunches)
         return doc
 
     def report(self) -> dict:
@@ -2749,6 +3922,7 @@ class FleetSupervisor:
 
         from glint_word2vec_torch.utils import atomic_write_json
 
+        recorder = None
         with tempfile.TemporaryDirectory(prefix="glint_fleet_") as tmp:
             self._tmp = tmp
             try:
@@ -2760,12 +3934,21 @@ class FleetSupervisor:
                 model_boots = self._resolve_model_boots()
                 if self._stop.is_set():
                     return 0
+                if self.trace_dir:
+                    # Before the first launch: the replicas' --trace-log
+                    # files open inside this directory.
+                    os.makedirs(self.trace_dir, exist_ok=True)
+                    recorder = obs_events.EventRecorder(
+                        jsonl_path=os.path.join(self.trace_dir,
+                                                "balancer.jsonl"))
+                    obs_events.set_recorder(recorder)
                 for slot in self._slots:
                     self._launch(slot)
                 self._wait_initial_ready()
                 if self._stop.is_set():
                     return 0
                 urls = [f"http://{s.host}:{s.port}" for s in self._slots]
+                multi = self.balancer_procs > 1
                 self.lb = LoadBalancer(
                     urls, host=self.host, port=self.port,
                     breaker_failures=self.breaker_failures,
@@ -2773,6 +3956,8 @@ class FleetSupervisor:
                     breaker_open_seconds=self.breaker_open_seconds,
                     probe_interval=self.probe_interval,
                     probe_timeout=self.probe_timeout,
+                    reuse_port=multi, control=multi, shard_id=0,
+                    qos=self.qos,
                 )
                 for slot in self._slots:
                     self.lb.set_replica_address(slot.index, slot.host,
@@ -2781,26 +3966,40 @@ class FleetSupervisor:
                 self.dp = _FleetDataPlane(self.lb)
                 self.holds = ReplicaHoldLedger(
                     self.dp.hold, self.dp.release, self.dp.clear_holds)
+                # Park the warm spares before any traffic flows: launched
+                # and warmed, held out of rotation until readmitted.
+                for slot in self._slots[self.base_replicas:]:
+                    self.holds.acquire("autoscale", slot.index)
                 self.lb.doc_extra = self._doc_extra
                 self.lb.on_shutdown = self._stop.set
+                if self.trace_dir:
+                    self.lb.enable_flight_recorder(
+                        os.path.join(self.trace_dir, "flight"))
                 self.lb.start_background()
                 self.lb.start_prober()
+                if multi:
+                    self._start_shards()
                 self._start_coordinators(boot_gen, model_boots)
+                self._start_autoscaler()
                 # The port file is the readiness signal: written once the
-                # whole control plane is up, so the first /metrics a
-                # reader sends carries every block.
+                # whole control plane (shards, coordinators, autoscaler)
+                # is up, so the first /metrics a reader sends carries
+                # every block.
                 if self.port_file:
                     atomic_write_json(self.port_file,
                                       {"host": self.lb.host,
                                        "port": self.lb.port})
-                logger.info("fleet up: %d replicas (%s) behind %s:%d%s",
+                logger.info("fleet up: %d replicas (%s, %d warm spare(s)) "
+                            "behind %s:%d x%d balancer process(es)%s",
                             self.num_replicas, ", ".join(urls),
-                            self.lb.host, self.lb.port,
+                            self.warm_spares, self.lb.host, self.lb.port,
+                            self.balancer_procs,
                             f", serving {boot_gen}" if boot_gen else "")
                 self.ready.set()
                 try:
                     while not self._stop.is_set() and not self.lb.stopped():
                         self._sweep()
+                        self.dp.poll_shards()
                         time.sleep(self.poll_interval)
                 except KeyboardInterrupt:
                     pass
@@ -2808,10 +4007,14 @@ class FleetSupervisor:
             finally:
                 self._stop.set()
                 self.ready.set()
+                if self.autoscaler is not None:
+                    self.autoscaler.stop()
                 if self.coordinator is not None:
                     self.coordinator.stop()
                 for mc in self.model_coordinators:
                     mc.stop()
+                if self.shards is not None:
+                    self.shards.stop_all()
                 if self.lb is not None:
                     self.lb.stop()
                 for slot in self._slots:
@@ -2825,10 +4028,149 @@ class FleetSupervisor:
                         pass
                 self._logs = []
                 self._tmp = None
+                if recorder is not None:
+                    if obs_events.get_recorder() is recorder:
+                        obs_events.set_recorder(None)
+                    recorder.close()
+
+    def _start_shards(self) -> None:
+        """The ``balancer_procs - 1`` shard processes, started from the
+        balancer's replica table (spares already held), each with the QoS
+        settings and its own trace file."""
+        qos = None
+        if self.qos is not None:
+            qos = {
+                "tenant_rate": self.qos.tenant_rate,
+                "tenant_burst": self.qos.tenant_burst,
+                "bulk_max_inflight": self.qos.bulk_max_inflight,
+                "max_tenants": self.qos.max_tenants,
+            }
+        self.shards = BalancerShardManager(
+            self.lb, self.balancer_procs - 1,
+            replica_specs=self.dp.replica_specs(), qos=qos,
+            trace_dir=self.trace_dir, log_dir=self.log_dir,
+            kill_grace_seconds=self.kill_grace_seconds,
+        )
+        self.shards.start()
+        self.dp.shards = self.shards
+
+    def _start_autoscaler(self) -> None:
+        """The autoscaler, when the fleet has warm spares or an
+        ``autoscale`` policy; pinned while any rollout is in progress."""
+        if self.warm_spares <= 0 and self.autoscale_config is None:
+            return
+        cfg = self.autoscale_config or AutoscaleConfig(
+            min_live=self.base_replicas, max_live=self.num_replicas)
+        coords = [c for c in [self.coordinator, *self.model_coordinators]
+                  if c is not None]
+        pinned = ((lambda: any(c.in_progress() for c in coords))
+                  if coords else None)
+        self.autoscaler = Autoscaler(
+            holds=self.holds, config=cfg,
+            signals=self._autoscale_signals,
+            parked=self._autoscale_parked,
+            live=self._autoscale_live,
+            pinned=pinned,
+        )
+        self.autoscaler.start()
 
     def _replica_ok(self, i: int) -> bool:
         with self._mu:
             return self._slots[i].state not in ("failed", "stopped")
+
+    # -- autoscaler plumbing -------------------------------------------
+
+    def _autoscale_signals(self) -> dict:
+        """The demand signals the fleet already emits, folded across
+        every balancer shard: cumulative shed count (retry-path sheds +
+        exhaustions + QoS sheds), WINDOWED forward-path p95 (over the
+        traffic since the previous policy step — a cumulative p95
+        would never decay after one surge, so idle could never be
+        detected and scale-down would never fire), breaker-open count,
+        and any SLO fast-burn alert."""
+        lb = self.lb
+        if lb is None:
+            return {}
+        blocks = [lb.balancer_stats()]
+        snaps = [lb.shard_snapshot()]
+        if self.shards is not None:
+            for s in self.shards.snapshots():
+                snaps.append(s)
+                if s.get("up") and s.get("stats"):
+                    blocks.append(s["stats"])
+        shed = 0.0
+        for b in blocks:
+            shed += int(b.get("shed_retries_total") or 0)
+            shed += int(b.get("exhausted_total") or 0)
+            q = b.get("qos")
+            if q:
+                shed += sum((q.get("shed_total") or {}).values())
+        fast_burn = False
+        deltas = []
+        cur: Dict[Tuple, dict] = {}
+        for s in snaps:
+            serving = s.get("serving") or {}
+            for path, ep in (serving.get("endpoints") or {}).items():
+                hs = ep.get("hist")
+                if not hs:
+                    continue
+                key = (s.get("shard"), path)
+                cur[key] = hs
+                d = _hist_window_delta(
+                    self._autoscale_prev_hists.get(key), hs
+                )
+                if d is not None:
+                    deltas.append(d)
+            slo = serving.get("slo") or {}
+            for ep in (slo.get("endpoints") or {}).values():
+                if (ep.get("alerts") or {}).get("fast_burn"):
+                    fast_burn = True
+        self._autoscale_prev_hists = cur
+        p95 = None
+        if deltas:
+            h = LatencyHistogram.merge(deltas)
+            if h.n > 0:
+                p95 = round(h.quantile(0.95) * 1e3, 3)
+        breakers_open = sum(
+            1 for b in lb.breakers
+            if b.state() == ReplicaBreaker.OPEN
+        )
+        return {
+            "shed_total": shed,
+            "p95_ms": p95,
+            "breakers_open": breakers_open,
+            "fast_burn": fast_burn,
+        }
+
+    def _autoscale_live(self) -> List[int]:
+        """Replicas currently serving traffic: up, and held by no
+        owner (a parked spare or a mid-rollout replica is not live)."""
+        out = []
+        for s in self._slots:
+            with self._mu:
+                up = s.state == "up"
+            if up and not self.holds.owners(s.index):
+                out.append(s.index)
+        return out
+
+    def _autoscale_parked(self) -> List[int]:
+        """Warm spares the autoscaler may readmit: up, breaker CLOSED
+        (the prober vouches for them), and held by the autoscaler
+        ALONE — a canary or rollout hold disqualifies a replica from
+        being spare capacity."""
+        out = []
+        for s in self._slots:
+            with self._mu:
+                up = s.state == "up"
+            if not up:
+                continue
+            if self.holds.owners(s.index) != frozenset(("autoscale",)):
+                continue
+            if self.lb.breakers[s.index].state() \
+                    != ReplicaBreaker.CLOSED:
+                continue
+            out.append(s.index)
+        return out
 
     def _on_generation(self, gen: str, gen_dir: str) -> None:
         """The coordinator promoted ``gen`` fleet-wide: relaunches boot

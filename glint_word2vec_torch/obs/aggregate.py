@@ -17,18 +17,25 @@ the parts the supervisor needs).
   and for the catalog too, into one document of the shape of one
   replica's ``/metrics``, so ``serving_to_prometheus`` renders a fleet.
 
-The trace merge (``merge_trace_logs``) and the supervisor's
-``--join-serving`` wait for the fleet's data plane (ROADMAP Queue A item
-2 (b)). Nothing here reads a device: it runs in the supervisor or
-balancer process, which leaves the cards to the workers.
+- :func:`merge_trace_logs` stitches per-process request-trace files (a
+  fleet's ``--trace-dir``, or any set of ``--trace-log`` and
+  ``--event-log`` files) into one Chrome-trace / Perfetto timeline.
+- :class:`GangStatusServer` joins serving replicas into the gang view by
+  URL (``supervise --join-serving``): their JSON snapshots are scraped on
+  each request and merged, a replica that does not answer reported.
+
+Nothing here reads a device: it runs in the supervisor or balancer
+process, which leaves the cards to the workers.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import statistics
 import threading
+import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, Iterable, List, Optional
 from urllib.parse import parse_qs, urlparse
@@ -477,23 +484,125 @@ def merge_serving_snapshots(snaps: Iterable[dict]) -> Optional[dict]:
     return out
 
 
+def merge_trace_logs(paths: Iterable[str]) -> dict:
+    """Stitch per-process ``EventRecorder`` JSONL rings into ONE
+    clock-anchored Chrome-trace / Perfetto document.
+
+    Each sink's events carry ``ts`` microseconds on that process's OWN
+    monotonic clock; its leading ``clock_anchor`` metadata line records
+    the ``(mono_t0, wall_t0)`` pair mapping ts=0 back to the epoch.
+    The merge rebases every file onto the earliest ``wall_t0`` across
+    inputs, so spans from the balancer, every replica, and a training
+    gang land on one shared timeline — a stitched request reads
+    balancer ``req.accept`` -> replica ``req.accept`` ->
+    ``req.dispatch`` left to right in Perfetto.
+
+    Per-process lanes are named after the source file
+    (``process_name`` metadata); a missing file or a torn trailing
+    line (a crash mid-write) is skipped and reported in
+    ``otherData.sources``, never fatal. ``otherData.stitched_traces``
+    counts trace ids seen in more than one process (nonzero for a
+    traced fleet that served a request).
+    """
+    events: List[dict] = []
+    sources: Dict[str, str] = {}
+    anchors: Dict[str, dict] = {}
+    per_file: List[tuple] = []
+    base_wall = None
+    for path in paths:
+        name = os.path.basename(path)
+        if name.endswith(".jsonl"):
+            name = name[: -len(".jsonl")]
+        try:
+            with open(path) as f:
+                lines = f.readlines()
+        except OSError as e:
+            sources[str(path)] = f"error: {e}"
+            continue
+        anchor = None
+        evs = []
+        bad = 0
+        for line in lines:
+            line = line.strip()
+            if not line:
+                continue
+            try:
+                ev = json.loads(line)
+            except ValueError:
+                bad += 1  # torn trailing line from a crashed writer
+                continue
+            if ev.get("name") == "clock_anchor" and ev.get("ph") == "M":
+                if anchor is None:
+                    anchor = ev.get("args") or {}
+                continue
+            evs.append(ev)
+        if anchor is None or anchor.get("wall_t0") is None:
+            sources[str(path)] = "error: no clock_anchor line"
+            continue
+        sources[str(path)] = (
+            "ok" if not bad else f"ok ({bad} torn line(s) skipped)"
+        )
+        anchors[name] = anchor
+        wall = float(anchor["wall_t0"])
+        base_wall = wall if base_wall is None else min(base_wall, wall)
+        per_file.append((name, wall, evs))
+    trace_pids: Dict[str, set] = {}
+    for name, wall, evs in per_file:
+        offset_us = (wall - base_wall) * 1e6
+        pid = evs[0].get("pid") if evs else None
+        for ev in evs:
+            ev = dict(ev)
+            ev["ts"] = round(float(ev.get("ts") or 0.0) + offset_us, 1)
+            events.append(ev)
+            tid = (ev.get("args") or {}).get("trace")
+            if tid:
+                trace_pids.setdefault(tid, set()).add(name)
+        if pid is not None:
+            events.append({
+                "name": "process_name", "ph": "M", "ts": 0,
+                "pid": pid, "args": {"name": name},
+            })
+    events.sort(key=lambda e: (e.get("ts") or 0.0))
+    stitched = sum(1 for pids in trace_pids.values() if len(pids) > 1)
+    return {
+        "traceEvents": events,
+        "displayTimeUnit": "ms",
+        "otherData": {
+            "wall_t0": base_wall,
+            "sources": sources,
+            "anchors": anchors,
+            "trace_ids": len(trace_pids),
+            "stitched_traces": stitched,
+        },
+    }
+
+
 class GangStatusServer:
     """Merged gang ``/metrics`` and ``/healthz`` for the supervisor.
 
     The supervisor feeds it each liveness sweep through :meth:`update`;
-    a request serves the merge of the latest sweep.
+    a request serves the merge of the latest sweep. ``serving_urls`` are
+    scraped on each request (2 s each; a failure is reported in
+    ``serving_sources``, never fails the scrape) and merged into one
+    ``serving`` section.
 
       GET /healthz                   -> gang state (200, or 503 when a
                                         rank is diverged/failed/unhealthy)
-      GET /metrics                   -> merged gang JSON
-      GET /metrics?format=prometheus -> the gang exposition
+      GET /metrics                   -> merged gang JSON (and "serving")
+      GET /metrics?format=prometheus -> the gang exposition, and the
+                                        serving fleet's when joined
     """
 
     def __init__(self, host: str = "127.0.0.1", port: int = 0,
-                 num_workers: int = 1):
-        from glint_word2vec_torch.obs.prometheus import gang_to_prometheus
+                 num_workers: int = 1,
+                 serving_urls: Optional[List[str]] = None):
+        from glint_word2vec_torch.obs.prometheus import (
+            gang_to_prometheus,
+            serving_to_prometheus,
+        )
 
         self.num_workers = int(num_workers)
+        self.serving_urls = list(serving_urls or [])
         self._mu = threading.Lock()
         self._generation = 0
         self._snaps: Dict[int, Optional[dict]] = {}
@@ -515,7 +624,7 @@ class GangStatusServer:
             def do_GET(self):
                 url = urlparse(self.path)
                 if url.path == "/healthz":
-                    merged = server.merged()
+                    merged = server.merged(include_serving=False)
                     ok = merged["state"] not in _BAD_STATES
                     body = json.dumps({
                         "status": "ok" if ok else merged["state"],
@@ -531,7 +640,10 @@ class GangStatusServer:
                     merged = server.merged()
                     fmt = parse_qs(url.query).get("format", ["json"])[0]
                     if fmt == "prometheus":
-                        self._send(200, gang_to_prometheus(merged).encode(),
+                        text = gang_to_prometheus(merged)
+                        if merged.get("serving"):
+                            text += serving_to_prometheus(merged["serving"])
+                        self._send(200, text.encode(),
                                    "text/plain; version=0.0.4; charset=utf-8")
                     else:
                         self._send(200, json.dumps(merged).encode(),
@@ -552,11 +664,37 @@ class GangStatusServer:
             self._generation = int(generation)
             self._snaps = dict(snaps)
 
-    def merged(self) -> dict:
+    def merged(self, include_serving: bool = True) -> dict:
         with self._mu:
             gen, snaps = self._generation, dict(self._snaps)
-        return merge_training_snapshots(snaps, generation=gen,
-                                        num_workers=self.num_workers)
+        merged = merge_training_snapshots(snaps, generation=gen,
+                                          num_workers=self.num_workers)
+        if include_serving and self.serving_urls:
+            serving, sources = self._scrape_serving()
+            merged["serving"] = serving
+            merged["serving_sources"] = sources
+            # The replicas' merged SLO view beside the gang's, so the gang
+            # exposition renders one glint_gang_slo_* family set.
+            slo = merge_slo_snapshots([
+                merged.get("slo"), (serving or {}).get("slo"),
+            ])
+            if slo is not None:
+                merged["slo"] = slo
+        return merged
+
+    def _scrape_serving(self):
+        """Each joined serving replica's JSON ``/metrics`` snapshot. A
+        replica that does not answer is reported, never fatal: the gang
+        view stays up while a replica restarts."""
+        snaps, sources = [], {}
+        for url in self.serving_urls:
+            try:
+                with urllib.request.urlopen(url, timeout=2.0) as r:
+                    snaps.append(json.loads(r.read().decode()))
+                sources[url] = "ok"
+            except Exception as e:  # URLError, timeout, bad JSON
+                sources[url] = f"error: {e}"
+        return merge_serving_snapshots(snaps), sources
 
     def start(self) -> None:
         self._thread = threading.Thread(

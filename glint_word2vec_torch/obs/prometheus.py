@@ -458,6 +458,111 @@ def gang_to_prometheus(snap: dict) -> str:
                      info.get("span_seconds", info.get("seconds")))
             p.sample("glint_gang_steptime_span_seconds_count",
                      {"phase": phase}, info.get("count", 0))
+    slo = snap.get("slo") or {}
+    if slo:
+        # SLO burn-rate families over the fleet-merged SLO
+        # snapshot the gang aggregator lifted from its serving scrape
+        # (gang-prefixed: this exposition is concatenated with the
+        # serving one, and families in one scrape must be disjoint).
+        slo_eps = slo.get("endpoints") or {}
+        p.head("glint_gang_slo_availability_target", "gauge",
+               "Availability objective (success-ratio target) per "
+               "tracked endpoint, fleet-merged view.")
+        for ep, doc in slo_eps.items():
+            p.sample("glint_gang_slo_availability_target",
+                     {"endpoint": ep}, doc.get("availability_target"))
+        p.head("glint_gang_slo_latency_target", "gauge",
+               "Latency objective (fraction of good requests under the "
+               "threshold) per tracked endpoint, fleet-merged view.")
+        for ep, doc in slo_eps.items():
+            p.sample("glint_gang_slo_latency_target",
+                     {"endpoint": ep}, doc.get("latency_target"))
+        p.head("glint_gang_slo_latency_threshold_ms", "gauge",
+               "Latency SLI threshold in milliseconds per endpoint.")
+        for ep, doc in slo_eps.items():
+            p.sample("glint_gang_slo_latency_threshold_ms",
+                     {"endpoint": ep}, doc.get("latency_threshold_ms"))
+        p.head("glint_gang_slo_window_requests", "gauge",
+               "Requests observed in each rolling SLO window, summed "
+               "over replicas.")
+        for ep, doc in slo_eps.items():
+            for win, w in (doc.get("windows") or {}).items():
+                p.sample("glint_gang_slo_window_requests",
+                         {"endpoint": ep, "window": win},
+                         w.get("total", 0))
+        p.head("glint_gang_slo_window_bad", "gauge",
+               "SLI-violating requests in each rolling window, by SLI, "
+               "summed over replicas.")
+        for ep, doc in slo_eps.items():
+            for win, w in (doc.get("windows") or {}).items():
+                p.sample("glint_gang_slo_window_bad",
+                         {"endpoint": ep, "sli": "availability",
+                          "window": win}, w.get("bad_availability", 0))
+                p.sample("glint_gang_slo_window_bad",
+                         {"endpoint": ep, "sli": "latency",
+                          "window": win}, w.get("bad_latency", 0))
+        p.head("glint_gang_slo_burn_rate", "gauge",
+               "Error-budget burn rate per SLI and window over the "
+               "merged fleet traffic (1.0 = burning exactly the "
+               "budget).")
+        for ep, doc in slo_eps.items():
+            burns = doc.get("burn_rates") or {}
+            for win, rate in (burns.get("availability") or {}).items():
+                p.sample("glint_gang_slo_burn_rate",
+                         {"endpoint": ep, "sli": "availability",
+                          "window": win}, rate)
+            for win, rate in (burns.get("latency") or {}).items():
+                p.sample("glint_gang_slo_burn_rate",
+                         {"endpoint": ep, "sli": "latency",
+                          "window": win}, rate)
+        p.head("glint_gang_slo_fast_burn", "gauge",
+               "Fleet-level multi-window fast-burn alert (5m AND 1h "
+               "over 14.4x).")
+        for ep, doc in slo_eps.items():
+            alerts = doc.get("alerts") or {}
+            p.sample("glint_gang_slo_fast_burn", {"endpoint": ep},
+                     1 if alerts.get("fast_burn") else 0)
+        p.head("glint_gang_slo_slow_burn", "gauge",
+               "Fleet-level multi-window slow-burn alert (30m AND 6h "
+               "over 6x).")
+        for ep, doc in slo_eps.items():
+            alerts = doc.get("alerts") or {}
+            p.sample("glint_gang_slo_slow_burn", {"endpoint": ep},
+                     1 if alerts.get("slow_burn") else 0)
+    # Per-model fleet rollup, lifted from the scraped
+    # serving replicas' merged catalog view (gang-prefixed: this
+    # exposition is concatenated with the full serving one, which
+    # carries the detailed glint_model_* families).
+    gmodels = (snap.get("serving") or {}).get("models") or {}
+    if gmodels:
+        p.head("glint_gang_model_requests_total", "counter",
+               "Requests per catalog model summed over endpoints and "
+               "serving replicas.")
+        for mid, m in sorted(gmodels.items()):
+            p.sample("glint_gang_model_requests_total", {"model": mid},
+                     sum(int(ep.get("count") or 0)
+                         for ep in (m.get("endpoints") or {}).values()))
+        p.head("glint_gang_model_resident_replicas", "gauge",
+               "Serving replicas holding this model's tables on "
+               "device.")
+        for mid, m in sorted(gmodels.items()):
+            p.sample("glint_gang_model_resident_replicas",
+                     {"model": mid}, m.get("resident_replicas", 0))
+        p.head("glint_gang_model_table_swaps_total", "counter",
+               "Per-model hot-swaps summed over serving replicas.")
+        for mid, m in sorted(gmodels.items()):
+            hs = m.get("hot_swap") or {}
+            p.sample("glint_gang_model_table_swaps_total",
+                     {"model": mid}, hs.get("table_swaps_total", 0))
+        p.head("glint_gang_model_generation_info", "gauge",
+               "Served generation per catalog model across the fleet "
+               "('mixed' while a per-model rollout is in flight); "
+               "value is always 1.")
+        for mid, m in sorted(gmodels.items()):
+            hs = m.get("hot_swap") or {}
+            p.sample("glint_gang_model_generation_info",
+                     {"model": mid,
+                      "generation": hs.get("generation") or ""}, 1)
     return p.text()
 
 

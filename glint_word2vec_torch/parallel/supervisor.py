@@ -256,6 +256,10 @@ class Supervisor:
         ``/metrics`` (JSON + Prometheus) + ``/healthz`` for the whole
         gang, fed from the per-rank status files each liveness sweep,
         generation-stamped. None (default) disables.
+    serving_urls:
+        Serving replicas' JSON ``/metrics`` URLs joined into the merged
+        exposition (scraped on each request; a replica that does not
+        answer is reported, never fatal).
     """
 
     def __init__(
@@ -276,6 +280,7 @@ class Supervisor:
         kill_grace_seconds: float = 5.0,
         metrics_port: Optional[int] = None,
         metrics_host: str = "127.0.0.1",
+        serving_urls: Optional[List[str]] = None,
     ):
         if num_workers < 1:
             raise ValueError("num_workers must be >= 1")
@@ -307,7 +312,7 @@ class Supervisor:
 
             self.gang_server = GangStatusServer(
                 host=metrics_host, port=metrics_port,
-                num_workers=self.num_workers,
+                num_workers=self.num_workers, serving_urls=serving_urls,
             )
             self.gang_server.start()
             self.metrics_port = self.gang_server.port

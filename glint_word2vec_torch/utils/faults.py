@@ -24,6 +24,10 @@ boundary exists:
                               (producer thread)
   ``transform.shard_commit``  after each vector shard + sidecar manifest
                               commit
+  ``fleet.shard_accept``      once per accepted connection on a balancer
+                              data-plane shard
+  ``fleet.autoscale_step``    before each warm-spare autoscaler policy
+                              evaluation
 
 Arming is via the ``GLINT_FAULTS`` environment variable (parsed once at
 import) or :func:`arm` (tests). The spec grammar, ``;`` or ``,``
@@ -82,6 +86,10 @@ POINTS = {
     "transform.shard_commit":
         "after each bulk-transform vector shard + sidecar manifest "
         "commit",
+    "fleet.shard_accept":
+        "once per accepted connection on a balancer data-plane shard",
+    "fleet.autoscale_step":
+        "before each warm-spare autoscaler policy evaluation",
 }
 
 _ACTIONS = ("exc", "kill", "hang", "delay")

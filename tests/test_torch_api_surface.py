@@ -45,10 +45,12 @@ PAIRS = [
     ("fleet", "RolloutCoordinator"),
     ("fleet", "ReplicaHoldLedger"),
     ("fleet", "FleetSupervisor"),
+    ("fleet", "QosGate"),
+    ("fleet", "Autoscaler"),
+    ("fleet", "BalancerShardManager"),
+    ("obs.aggregate", "GangStatusServer"),
 ]
 
-ITEM2B = ("Queue A item 2 (b): the demand-driven fleet (balancer shards, "
-          "warm spares and autoscaling, QoS, fleet tracing)")
 ITEM3 = "Queue A item 3: the SPMD mesh (one program across several cards)"
 TPU_ONLY = "TPU-only: the row width padded to a multiple of 128 lanes"
 
@@ -65,24 +67,6 @@ WAITING = {
     },
     "Word2Vec": {"mesh": ITEM3},
     "FastTextWord2Vec": {"mesh": ITEM3},
-    "LoadBalancer": {
-        "apply_control": ITEM2B,
-        "control_addr": ITEM2B,
-        "shard_snapshot": ITEM2B,
-        "shard_id": ITEM2B,
-        "proxy_control": ITEM2B,
-        "qos": ITEM2B,
-    },
-    "FleetSupervisor": {
-        "base_replicas": ITEM2B,
-        "warm_spares": ITEM2B,
-        "trace_dir": ITEM2B,
-        "balancer_procs": ITEM2B,
-        "qos": ITEM2B,
-        "autoscale_config": ITEM2B,
-        "autoscaler": ITEM2B,
-        "shards": ITEM2B,
-    },
 }
 
 

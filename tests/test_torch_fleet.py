@@ -533,12 +533,26 @@ def test_fleet_supervisor_matches(scenario, stub_script):
 
 
 def test_fleet_supervisor_refuses_the_demand_driven_knobs():
-    from glint_word2vec_torch.fleet import FleetSupervisor
+    """The demand-driven knobs, once refused, are taken as the JAX
+    supervisor takes them: the same public fields on both sides."""
+    def run(pkg):
+        fleet = _mod(pkg, "fleet")
+        out = []
+        for kw in ({"warm_spares": 1}, {"balancer_procs": 2},
+                   {"qos": fleet.QosConfig(tenant_rate=5.0)},
+                   {"autoscale": fleet.AutoscaleConfig(min_live=2,
+                                                       max_live=3)},
+                   {"trace_dir": "t"}):
+            sup = fleet.FleetSupervisor("m", **kw)
+            out.append((sup.base_replicas, sup.warm_spares, sup.num_replicas,
+                        sup.balancer_procs, sup.trace_dir,
+                        sup.qos == kw.get("qos"),
+                        sup.autoscale_config == kw.get("autoscale"),
+                        sup.autoscaler, sup.shards))
+        return out
 
-    for kw in ({"warm_spares": 1}, {"balancer_procs": 2}, {"qos": object()},
-               {"autoscale": object()}, {"trace_dir": "t"}):
-        with pytest.raises(ValueError, match=r"item 2 \(b\)"):
-            FleetSupervisor("m", **kw)
+    got = _both(run)
+    assert got[0][:3] == (2, 1, 3) and got[1][3] == 2 and got[4][4] == "t"
 
 
 # ----------------------------------------------------------------------

@@ -7,6 +7,7 @@ import os
 import pkgutil
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -87,7 +88,90 @@ def test_every_module_imports_with_jax_poisoned():
         "glint_word2vec_torch.corpus.stream_vocab",
         "glint_word2vec_torch.streaming", "glint_word2vec_torch.streaming.publish",
         "glint_word2vec_torch.streaming.trainer",
+        "glint_word2vec_torch.fleet", "glint_word2vec_torch.obs.aggregate",
     } <= set(modules)
+
+
+def test_fleet_shard_runs_with_jax_poisoned_and_no_cuda(tmp_path):
+    """The ``fleet-shard`` entry, as ``serve-fleet --balancer-procs`` starts
+    it, with JAX and the JAX package poisoned: it binds, writes its port
+    file and stops on its control route without importing torch, so it
+    can make no CUDA context (the package exports load on first use)."""
+    import socket
+
+    from glint_word2vec_torch.fleet import _ShardHandle
+
+    probe = socket.socket()
+    probe.bind(("127.0.0.1", 0))
+    cfg = {"shard": 1, "host": "127.0.0.1", "port": probe.getsockname()[1],
+           "reuse_port": True, "port_file": str(tmp_path / "shard.port"),
+           "replicas": [{"host": "127.0.0.1", "port": 9}],
+           "trace_log": str(tmp_path / "shard.jsonl")}
+    probe.close()
+    (tmp_path / "shard.json").write_text(json.dumps(cfg))
+    code = (
+        "import sys, runpy\n"
+        "for name in ('jax', 'jaxlib', 'glint_word2vec_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"sys.argv = ['cli', 'fleet-shard', '--config', "
+        f"{str(tmp_path / 'shard.json')!r}]\n"
+        "try:\n"
+        "    runpy.run_module('glint_word2vec_torch.cli', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "assert 'torch' not in sys.modules\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=str(tmp_path),
+                            env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    try:
+        port_file = tmp_path / "shard.port"
+        for _ in range(1200):
+            if port_file.exists() or proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        info = json.loads(port_file.read_text())
+        assert (info["shard"], info["pid"]) == (1, proc.pid)
+        h = _ShardHandle(1, proc, info["control_host"], info["control_port"])
+        assert h.snapshot()["shard"] == 1
+        assert h.request_stop()
+        out, err = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, err
+    assert out.strip().endswith("clean")
+    lines = (tmp_path / "shard.jsonl").read_text().splitlines()
+    assert json.loads(lines[0])["name"] == "clock_anchor"
+
+
+def test_device_free_entry_points_import_no_torch():
+    """The CLI, the fleet, the gang supervisor and the aggregation import
+    no torch; the package's exports still resolve, and every module that
+    imports torch keeps the port's matrix-product settings."""
+    code = (
+        "import sys\n"
+        "import glint_word2vec_torch.cli, glint_word2vec_torch.fleet\n"
+        "import glint_word2vec_torch.parallel.supervisor\n"
+        "import glint_word2vec_torch.obs.aggregate\n"
+        "assert 'torch' not in sys.modules, 'torch imported'\n"
+        "from glint_word2vec_torch import Word2Vec, ServerSideGlintWord2Vec\n"
+        "import glint_word2vec_torch as g\n"
+        "assert g.load_model.__module__ == 'glint_word2vec_torch.models'\n"
+        "assert set(g.__all__) <= set(dir(g))\n"
+        "import glint_word2vec_torch.ops.ann, torch\n"
+        "assert not torch.backends.cuda.matmul.allow_tf32\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    with pytest.raises(AttributeError):
+        glint_word2vec_torch.NoSuchName
 
 
 def test_no_cuda_raises_unless_cpu_is_asked(monkeypatch, tmp_path):

@@ -204,17 +204,32 @@ def test_stale_pre_restart_status_file_not_trusted(tmp_path):
 
 
 
-def test_cli_supervise_validates_arguments(capsys):
+def test_cli_supervise_validates_arguments(capsys, monkeypatch):
     # The supervise branch returns before any worker or device set-up.
     from glint_word2vec_torch import cli
+    from glint_word2vec_torch.parallel import supervisor
 
     assert cli.main(["supervise", "--workers", "1"]) == 1
     assert "expects the train command" in capsys.readouterr().err
     assert cli.main(["supervise", "train", "--corpus", "x"]) == 1
     assert "--checkpoint-dir" in capsys.readouterr().err
+    # --join-serving goes to the supervisor's gang server.
+    seen = {}
+
+    class Sup:
+        def __init__(self, build_argv, workers, **kw):
+            seen.update(kw, workers=workers)
+
+        def run(self):
+            return supervisor.SupervisorReport(completed=True)
+
+    monkeypatch.setattr(supervisor, "Supervisor", Sup)
     assert cli.main(["supervise", "--join-serving", "http://127.0.0.1:1/m",
-                     "train", "--corpus", "x", "--checkpoint-dir", "c"]) == 1
-    assert "fleet slice" in capsys.readouterr().err
+                     "--join-serving", "http://127.0.0.1:2/m",
+                     "train", "--corpus", "x", "--checkpoint-dir", "c"]) == 0
+    assert seen["serving_urls"] == ["http://127.0.0.1:1/m",
+                                    "http://127.0.0.1:2/m"]
+    assert json.loads(capsys.readouterr().out)["completed"] is True
     assert cli.main(["supervise", "--rank-env", "x", "train", "--corpus", "x",
                      "--checkpoint-dir", "c"]) == 1
     assert "R:KEY=VAL" in capsys.readouterr().err

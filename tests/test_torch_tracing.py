@@ -23,6 +23,7 @@ Tolerances: text, dicts, decisions and names compare exactly.
 import itertools
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -539,3 +540,312 @@ def test_cli_serve_passes_the_overload_and_trace_flags(monkeypatch):
     assert (seen["max_inflight"], seen["request_deadline"],
             seen["degraded_after"], seen["trace_log"], seen["flight_dir"]) == (
         256, 30.0, 5.0, None, None)
+
+
+# ----------------------------------------------------------------------
+# The fleet's traces: merge_trace_logs, a traced CPU fleet, the gang join
+# ----------------------------------------------------------------------
+
+
+def _write_lane(path, wall_t0, events, trace=None):
+    anchor = {"name": "clock_anchor", "ph": "M", "ts": 0, "pid": 1234,
+              "args": {"wall_t0": wall_t0, "mono_t0": 55.5}}
+    if trace:
+        anchor["args"]["trace"] = trace
+    with open(path, "w") as f:
+        f.write(json.dumps(anchor) + "\n")
+        for ev in events:
+            f.write(json.dumps(ev) + "\n")
+
+
+def _merged_both(paths):
+    from glint_word2vec_tpu.obs.aggregate import merge_trace_logs as jmerge
+
+    from glint_word2vec_torch.obs.aggregate import merge_trace_logs
+
+    doc = merge_trace_logs(paths)
+    assert doc == jmerge(paths)
+    return doc
+
+
+def test_merge_trace_logs_rebases_and_stitches_as_the_jax_one(tmp_path):
+    t0 = 1700000000.0
+    bal = str(tmp_path / "balancer.jsonl")
+    rep = str(tmp_path / "replica-0.jsonl")
+    _write_lane(bal, t0, [
+        {"name": "req.accept", "ph": "X", "ts": 100.0, "dur": 5000.0,
+         "pid": 10, "tid": 1, "args": {"trace": "t1"}},
+    ])
+    # The replica's clock started 1 s later: its ts lands inside the
+    # balancer's accept span once rebased.
+    _write_lane(rep, t0 + 1.0, [
+        {"name": "req.query", "ph": "X", "ts": 50.0, "dur": 200.0,
+         "pid": 20, "tid": 2, "args": {"trace": "t1"}},
+        {"name": "req.query", "ph": "X", "ts": 300.0, "dur": 200.0,
+         "pid": 20, "tid": 2, "args": {"trace": "only-here"}},
+    ])
+    doc = _merged_both([bal, rep])
+    other = doc["otherData"]
+    assert doc["displayTimeUnit"] == "ms" and other["wall_t0"] == t0
+    assert (other["trace_ids"], other["stitched_traces"]) == (2, 1)
+    lanes = {e["args"]["name"] for e in doc["traceEvents"]
+             if e["name"] == "process_name"}
+    assert lanes == {"balancer", "replica-0"}
+    q = next(e for e in doc["traceEvents"] if e["name"] == "req.query")
+    assert q["ts"] == pytest.approx(1e6 + 50.0)
+    ts = [e["ts"] for e in doc["traceEvents"] if e["ph"] != "M"]
+    assert ts == sorted(ts)
+    json.loads(json.dumps(doc))
+
+
+def test_merge_trace_logs_skips_unanchored_and_torn_lines_as_the_jax_one(
+        tmp_path):
+    good = str(tmp_path / "good.jsonl")
+    _write_lane(good, 1.0, [
+        {"name": "req.accept", "ph": "X", "ts": 1.0, "dur": 2.0,
+         "pid": 1, "tid": 1},
+    ])
+    with open(good, "a") as f:
+        f.write('{"torn')
+    bad = str(tmp_path / "bad.jsonl")
+    with open(bad, "w") as f:
+        f.write('{"name": "no_anchor", "ph": "i", "ts": 1.0}\n')
+        f.write('{"torn line')
+    doc = _merged_both([good, bad, str(tmp_path / "missing.jsonl")])
+    names = [e["name"] for e in doc["traceEvents"] if e["ph"] != "M"]
+    assert names == ["req.accept"]
+    src = doc["otherData"]["sources"]
+    assert "no clock_anchor" in src[bad]
+    assert src[good] == "ok (1 torn line(s) skipped)"
+    assert src[str(tmp_path / "missing.jsonl")].startswith("error")
+
+
+def _fleet_pids(tag: bytes) -> dict:
+    """Processes whose command line names ``tag``: fleet shards and
+    replicas by pid."""
+    out = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read()
+        except OSError:
+            continue
+        if tag in argv and (b"fleet-shard" in argv or b"serve\0" in argv):
+            out[int(pid)] = argv
+    return out
+
+
+def _bundles(path):
+    return [b for b in os.listdir(path) if b.startswith("flightrec-")]
+
+
+def test_traced_cpu_fleet_stitches_lanes_and_writes_a_flight_bundle(tmp_path):
+    """One CPU fleet through ``serve-fleet``: a live replica, a warm spare,
+    two balancer processes, QoS and a trace directory. The parked spare,
+    killed, writes the balancer's flight bundle and comes back parked; a
+    tenant's flood is shed and readmits it; ``trace-merge`` of the
+    directory after the shutdown has a lane per balancer process and per
+    replica and traces stitched across them; nothing is left running."""
+    from glint_word2vec_torch import cli
+    from glint_word2vec_torch.convert import model_from_arrays
+    from glint_word2vec_torch.utils.params import Word2VecParams
+
+    rng = np.random.default_rng(3)
+    V, d = len(WORDS), 8
+    model = model_from_arrays(
+        WORDS, rng.normal(size=(V, d)).astype(np.float32),
+        np.zeros((V, d), np.float32), np.arange(V, 0, -1),
+        Word2VecParams(vector_size=d, min_count=1), device="cpu")
+    model.save(str(tmp_path / "m"))
+    model.stop()
+    trace_dir, port_file = tmp_path / "trace", tmp_path / "lb.json"
+    # The fleet's temporary files (the shards' configurations among them)
+    # under tmp_path, so its processes' command lines name it.
+    (tmp_path / "tmp").mkdir()
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO,
+           "TMPDIR": str(tmp_path / "tmp")}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "glint_word2vec_torch.cli", "serve-fleet",
+         "--model", str(tmp_path / "m"), "--device", "cpu", "--replicas", "1",
+         "--warm-spares", "1", "--balancer-procs", "2",
+         "--qos-tenant-rate", "2", "--qos-tenant-burst", "2",
+         "--autoscale-interval", "0.1", "--autoscale-up-window", "0.2",
+         "--autoscale-cooldown", "0.5", "--autoscale-down-window", "600",
+         "--trace-dir", str(trace_dir), "--port", "0",
+         "--port-file", str(port_file), "--max-batch", "8",
+         "--probe-interval", "0.1", "--breaker-open-seconds", "0.3",
+         "--backoff-base", "0.2", "--replica-log-dir", str(tmp_path / "logs")],
+        cwd=str(tmp_path), env=env, start_new_session=True)
+
+    def doc():
+        return _get(Lb, "/metrics")
+
+    def wait(pred, what, timeout=120):
+        for _ in range(int(timeout / 0.05)):
+            if pred():
+                return
+            assert proc.poll() is None, f"serve-fleet exited {proc.returncode}"
+            time.sleep(0.05)
+        raise AssertionError(f"timed out waiting for {what}")
+
+    try:
+        wait(port_file.exists, "the fleet's port file")
+        info = json.load(open(port_file))
+
+        class Lb:
+            host, port = info["host"], info["port"]
+
+        d0 = doc()
+        assert d0["holds"] == {"held": {"1": ["autoscale"]}}
+        assert d0["autoscale"]["spares"] == 1 and d0["autoscale"]["live"] == 1
+        assert d0["data_plane"]["balancer_procs"] == 2
+        assert [s["up"] for s in d0["balancer_shards"]] == [True, True]
+        pids = _fleet_pids(str(tmp_path).encode())
+        assert sum(b"fleet-shard" in a for a in pids.values()) == 1
+        # The parked spare killed: its breaker opens (a flight bundle), and
+        # it is relaunched still parked.
+        spare = next(p for p, a in pids.items() if b"replica-1.0.port" in a)
+        os.kill(spare, signal.SIGKILL)
+        wait(lambda: (trace_dir / "flight").is_dir()
+             and _bundles(trace_dir / "flight"), "a flight bundle")
+        wait(lambda: doc()["supervisor"]["replica_states"][1]["state"] == "up"
+             and doc()["supervisor"]["restarts_total"] == 1, "the relaunch")
+        d1 = doc()
+        assert d1["holds"] == {"held": {"1": ["autoscale"]}}
+        assert d1["replicas"][1]["breaker"]["held"]
+        # One tenant's flood, shed at the edge for as long as it lasts:
+        # the sheds readmit the spare.
+        codes = []
+        for _ in range(2000):
+            codes.append(_post(Lb, "/synonyms", {"word": "austria", "num": 2},
+                               {"X-Glint-Tenant": "flood"})[0])
+            if len(codes) % 20 == 0 and doc()["autoscale"]["scale_ups_total"]:
+                break
+        assert 429 in codes and set(codes) <= {200, 429}
+        assert doc()["autoscale"]["scale_ups_total"] == 1
+        wait(lambda: doc()["replicas"][1]["breaker"]["state"] == "closed"
+             and not doc()["replicas"][1]["breaker"]["held"], "readmission")
+        # Unknown words answer 404 on fresh connections: kept at every hop
+        # (a tenant each, inside its quota).
+        for i in range(24):
+            assert _post(Lb, "/synonyms", {"word": f"zz{i}"},
+                         {"X-Glint-Tenant": f"t{i}"})[0] == 404
+        d2 = doc()
+        qos = d2["balancer"]["qos"]
+        assert qos["shed_total"]["tenant_quota"] >= 1
+        assert set(qos["per_tenant_shed_total"]) == {"flood"}
+        assert all(s["stats"]["proxied_total"] > 0
+                   for s in d2["balancer_shards"])
+        text = _get(Lb, "/metrics?format=prometheus", raw=True)
+        pprom.lint_prometheus_text(text)
+        for fam in ("glint_fleet_shard_up", "glint_fleet_qos_shed_total",
+                    "glint_fleet_autoscale_ups_total"):
+            assert fam in text
+        assert _post(Lb, "/shutdown", {})[0] == 200
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+        for _ in range(200):
+            if not _fleet_pids(str(tmp_path).encode()):
+                break
+            time.sleep(0.05)
+        left = _fleet_pids(str(tmp_path).encode())
+        # Replicas and shards run in sessions of their own: a failed run
+        # must not leave them behind.
+        for pid in left:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+    assert not left, "a fleet process was left"
+    (bundle,) = _bundles(trace_dir / "flight")
+    assert bundle.startswith("flightrec-001-breaker_open")
+    meta = json.load(open(trace_dir / "flight" / bundle / "meta.json"))
+    assert meta["context"] == {"replica": 1}
+    assert set(meta["sources"]) == {"balancer", "replica_spans",
+                                    "replica_metrics"}
+    out = tmp_path / "merged.json"
+    assert cli.main(["trace-merge", str(trace_dir), "--out", str(out)]) == 0
+    merged = json.load(open(out))
+    lanes = {e["args"]["name"] for e in merged["traceEvents"]
+             if e["name"] == "process_name"}
+    assert lanes == {"balancer", "balancer-shard-1", "replica-0", "replica-1"}
+    assert merged["otherData"]["stitched_traces"] >= 1
+    assert all(v.startswith("ok") for v in merged["otherData"]["sources"].values())
+
+
+def test_gang_status_server_joins_serving_replicas_lazily():
+    """Both packages' gang servers scrape the same replica snapshot and a
+    dead URL on each request: the live one merged, the dead one reported,
+    never fatal; the exposition carries the serving families."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    from glint_word2vec_tpu.obs.aggregate import GangStatusServer as JaxGang
+
+    from glint_word2vec_torch.obs.aggregate import GangStatusServer
+
+    m = pmetrics.ServingMetrics()
+    m.slo = pslo.SloEngine.default_serving(DEVICE_PATHS)
+    for lat in (0.001, 0.002):
+        m.observe("/synonyms", lat, status=200)
+    snap = m.snapshot(1)
+
+    class Replica(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_GET(self):
+            body = json.dumps(snap).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    rep = ThreadingHTTPServer(("127.0.0.1", 0), Replica)
+    threading.Thread(target=rep.serve_forever, daemon=True).start()
+    live = f"http://127.0.0.1:{rep.server_address[1]}/metrics"
+    dead = "http://127.0.0.1:1/metrics"
+    rank = {"state": "running", "supervisor_generation": 0, "step": 10,
+            "words_done": 100, "words_per_sec_rolling": 5.0,
+            "step_time": 1.0, "epoch": 1}
+    got = []
+    try:
+        for cls in (JaxGang, GangStatusServer):
+            srv = cls(port=0, num_workers=1, serving_urls=[live, dead])
+            srv.start()
+            try:
+                srv.update(0, {0: dict(rank)})
+
+                class S:
+                    host, port = "127.0.0.1", srv.port
+
+                merged = _get(S, "/metrics")
+                health = _get(S, "/healthz")
+                text = _get(S, "/metrics?format=prometheus", raw=True)
+                pprom.lint_prometheus_text(text)
+                got.append((merged["serving"], merged["serving_sources"],
+                            merged["slo"], health["status"],
+                            sorted({ln.split("{")[0].split(" ")[0]
+                                    for ln in text.splitlines()
+                                    if ln.startswith(("glint_serving",
+                                                      "glint_gang_slo"))})))
+            finally:
+                srv.stop()
+    finally:
+        rep.shutdown()
+        rep.server_close()
+    jax_side, port_side = got
+    for g in got:
+        for ep in g[0]["endpoints"].values():
+            ep.pop("exemplar", None)
+    assert jax_side[:4] == port_side[:4]
+    serving, sources, slo, status, families = port_side
+    assert serving["replicas"] == 1
+    assert serving["endpoints"]["/synonyms"]["count"] == 2
+    assert sources[live] == "ok" and sources[dead].startswith("error")
+    assert status == "ok" and "/synonyms" in slo["endpoints"]
+    assert "glint_serving_requests_total" in families
+    assert "glint_gang_slo_burn_rate" in families
+    assert set(jax_side[4]) <= set(families) | {"glint_serving_compiles_total"}
