@@ -4,9 +4,18 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --only 7      # phases 1, 2 and 7 (or "5,10", ...)
 
-With ``--only`` it runs phases 1, 2 and the phases named, prints their
-lines, and exits with code 4 without the kernels line or the result line,
-so a partial run never passes for a whole one.
+With ``--only`` it runs phases 1, 2 and the phases named, one after
+another, prints their lines, and exits with code 4 without the kernels
+line or the result line, so a partial run never passes for a whole one.
+
+A whole run takes phases 1 and 2, then 3, 4, 5, 7 and 9 (a) one after
+another on an otherwise idle card (the kernels line's times, the single
+server's latencies), then two lanes at once: 9 (b) to (d) (printed as
+``phase 9 (b)``), 6, 8, 10, 11, 12 and 18 in this process, and 13 to 17 in a child process of its own (this
+script with ``--lane-out``), whose lines are printed after lane A's.
+Each process counts its own launches, so each phase's counts are its
+own; the lanes' times, rates and latencies are taken beside the other
+lane. A SIGTERM ends both lanes through their ``finally`` blocks.
 
 Needs one CUDA card, ``nvcc`` and the repository's sources; imports
 nothing of JAX. Phases, each of which fails the run on any error:
@@ -81,8 +90,9 @@ nothing of JAX. Phases, each of which fails the run on any error:
    fp32, one epoch, with every launch counter zeroed just before; it must
    take the native host pass (its ingestion and alias build, by the
    counters of ``native.calls``); words/s, and the card's busy share and
-   top kernels in a profiled window of 48 steps; the ingestion and the
-   alias build at 1,000,000 words, native and Python, equal outputs; (b) the ``tiny_corpus`` quality gates of
+   top kernels in a profiled window of 48 steps; the ingestion of the
+   corpus's first 2,000,000 tokens and the alias build at 1,000,000
+   words, native and Python, equal outputs; (b) the ``tiny_corpus`` quality gates of
    ``tests/test_model_e2e.py`` on the card, with fp32 and with bf16
    tables; (c) two epochs straight equal,
    bitwise, one epoch plus a resume from its checkpoint plus one epoch;
@@ -172,15 +182,15 @@ nothing of JAX. Phases, each of which fails the run on any error:
    ``scatter_add_rows`` once a step, ``pair_forward`` never; words/s, and
    steps/s, busy share and device time a step of 48 grid steps; (b) the
    ``tiny_corpus`` gates under grid packing; (c) the mid-epoch drill at
-   d = 300 over the corpus's first 2,000,000 tokens, every word kept
+   d = 300 over the corpus's first 1,000,000 tokens, every word kept
    (``GLINT_PACKED_STOP_AFTER_GROUPS=3``, then a resume from the
    checkpoint's position) equal to the uninterrupted epoch bitwise; (d)
    ``Word2Vec().fit_file`` at d = 2,200, n = 25 and d = 20,000, n = 5
    over the first 100,000 tokens of phase 6's corpus (every word kept),
    one epoch, every ``pair_forward`` launch in the tiled form.
 11. The stall-free loop and its hooks: a checkpointed two-epoch
-   ``Word2Vec(subsample_ratio=1e-3).fit_file`` on the first 2,500,000
-   tokens of phase 6's corpus, every word kept (824,820 x 300), twice, with every counter zeroed just before each: (a) the
+   ``Word2Vec(subsample_ratio=1e-3).fit_file`` on the first 1,250,000
+   tokens of phase 6's corpus, every word kept (569,250 x 300), twice, with every counter zeroed just before each: (a) the
    defaults (deferred readbacks, asynchronous checkpoints, the next
    epoch's compaction prefetched) with the event log, status file,
    heartbeat (polled for ``/healthz`` and the Prometheus ``/metrics``
@@ -361,11 +371,31 @@ nothing of JAX. Phases, each of which fails the run on any error:
    a trace stitched across a balancer and a replica lane. Every shed is a
    429 with ``Retry-After``, no answer is a 5xx, and no connection fails
    outside the kill window. ``--only 17`` runs 15 first.
+18. The SPMD mesh on one card, every shard on it: (a) one group of steps
+   on a (1, 2) ``rows`` and a (2, 2) ``dims`` mesh (grid batches: B1, B2,
+   B3 shard by shard) and on a (2, 1) ``rows`` mesh (packed: B4, B7, B6,
+   then B5 with a pool of 4,096), each from a 1 x 1 engine's tables at
+   1,000,000 x 300 fp32 with the same draws and held against that
+   engine's steps (rtol 1e-5, atol 1e-6), the counters zeroed just before
+   each, every launch credited to the model shard whose table it ran on,
+   and every shard launching every kernel of its path; each kernel against its
+   plain version at the shards' shapes (column slices 150, 38 and 2
+   wide); (b) ``Word2Vec(num_partitions=2, num_shards=2, layout="dims")
+   .fit_file`` on the corpus's first 1,000,000 tokens, its column-block
+   save reloaded onto 1 x 1 and onto (1, 2) ``rows`` with equal tables,
+   and its synonyms and batched top-k against the 1 x 1 load's; (c) a
+   supervised two-process mesh gang (``train --exchange none
+   --num-partitions 2 --num-shards 2``, gloo) over the first 100,000
+   tokens, rank 1 killed in its second epoch, resumed from ``ckpt-1``,
+   the ranks' tables equal; the gang runs in processes of its own beside
+   (a) and (b).
 
-After each phase it prints ``phase N: S s``, and before the kernels line
-the whole script's seconds. It prints one JSON ``kernels`` line (each
+After each phase it prints ``phase N: S s``, after lane B's lines its
+seconds, and before the kernels line the whole script's seconds. It prints one JSON ``kernels`` line (each
 kernel with ``launches_catalog``, ``launches_fleet`` and
-``launches_demand``, its launches in phases 15, 16 and 17), the
+``launches_demand``, its launches in phases 15, 16 and 17, and its
+launches in phase 18's meshes, fit and gang, those of the meshes and the
+fit also by model shard), the
 ``nvidia-smi`` line, and as its last line ``{"ok": true, "device":
 {...}}``. Without a CUDA device it
 exits non-zero before printing any result.
@@ -378,7 +408,9 @@ import json
 import math
 import multiprocessing
 import os
+import pickle
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -422,16 +454,27 @@ S_POOL = 4096
 #: Tokens of phase 10's fits at d = 2,200 and 20,000 (a prefix of phase 6's
 #: corpus).
 WIDE_TOKENS = 100_000
-#: Tokens of phase 8's fit through the Python host pass and of phase 10's
+#: Tokens of phase 6's and phase 8's Python host passes and of phase 10's
 #: mid-epoch drill (prefixes of phase 6's corpus).
 PY_PASS_TOKENS = 2_000_000
-DRILL_TOKENS = 2_000_000
+DRILL_TOKENS = 1_000_000
 #: Tokens of phase 10 (a)'s grid fit: a prefix of phase 6's corpus.
 GRID_TOKENS = 5_000_000
 #: Phase 9 (b)'s shared-pool fit and phase 11's fits: the corpus's first
 #: tokens.
 SHARED_TOKENS = 2_500_000
-STALL_TOKENS = 2_500_000
+STALL_TOKENS = 1_250_000
+#: The whole run: after phases 1 and 2, SERIAL_PHASES one after another on
+#: an otherwise idle card and host (the kernels line's own times, and the
+#: single server's latencies), then two lanes at once, each a process of
+#: its own with its own launch counters: LANE_A (after phase 9's fit) in
+#: this process, LANE_B in a child (``--lane-out``), whose lines follow
+#: lane A's. Every number of the lanes is taken beside the other lane.
+SERIAL_PHASES = (3, 4, 5, 7, 9)
+LANE_A = (6, 8, 10, 11, 12, 18)
+LANE_B = (13, 14, 15, 16, 17)
+#: Seconds from the script's start after which lane B is given up.
+LANE_DEADLINE = 1150.0
 #: The card the script runs on; the port's entry points default to it.
 DEV = "cuda"
 
@@ -1932,8 +1975,9 @@ def check_compaction_memory(torch, model, n_words: int) -> None:
 
 
 def host_pass_numbers(np, path: str, counts) -> None:
-    """``fit_file``'s ingestion of the corpus at ``path``
-    (``scan_and_encode_file``) and the alias build over ``counts``, each
+    """``fit_file``'s ingestion of the corpus at ``path`` (phase 6's first
+    PY_PASS_TOKENS tokens; ``scan_and_encode_file``) and the alias build
+    over ``counts`` (its 1,000,000 words), each
     through the native pass and then through the Python pass, host clock;
     the two give the same vocabulary, ids, offsets and table."""
     from glint_word2vec_torch import native
@@ -1961,7 +2005,7 @@ def host_pass_numbers(np, path: str, counts) -> None:
     expect(np.array_equal(a[3].prob.view(np.uint32), b[3].prob.view(np.uint32))
            and np.array_equal(a[3].alias, b[3].alias),
            "native and Python alias tables differ")
-    log(f"host pass, {a[1].size} tokens, {len(counts)} words: ingestion "
+    log(f"host pass, {a[1].size} tokens, alias of {len(counts)} words: ingestion "
         f"(scan_and_encode_file) native {a[4]:.3f} s, Python {b[4]:.3f} s; "
         f"alias build native {a[5]:.4f} s, Python {b[5]:.3f} s; outputs equal")
 
@@ -2084,7 +2128,9 @@ def train_end_to_end(torch, np, fs, rows_mod) -> dict:
             expect(bool(torch.isfinite(t).all()), "non-finite table entries")
         profile_training(torch, model.engine, PROFILE_GROUPS)
         check_compaction_memory(torch, model, n_tok)
-        host_pass_numbers(np, path, model.vocab.counts)
+        prefix = os.path.join(tmp, "prefix.txt")
+        write_prefix(path, prefix, PY_PASS_TOKENS)
+        host_pass_numbers(np, prefix, model.vocab.counts)
 
         # (d) Queries on the trained model run the gather.
         rows_mod.gather_rows.launches = 0
@@ -3480,8 +3526,8 @@ def canary_abort_drill(torch, np, tmp: str) -> None:
     from glint_word2vec_torch.obs import ObsConfig, TrainingDiverged
 
     class Poisoned(Word2Vec):
-        def _make_engine(self, vocab):
-            eng = super()._make_engine(vocab)
+        def _make_engine(self, vocab, mesh=None):
+            eng = super()._make_engine(vocab, mesh)
             eng.syn0.fill_(float("nan"))
             return eng
 
@@ -5075,11 +5121,12 @@ def apply_on_card_and_cpu(torch, np, engs, xw, train, vocab) -> dict:
     return dict(ms=ms, library_ms=lib, bound_ms=bound, zero_run=zero_run, n=ids.numel())
 
 
-def gang_cli(argv, timeout: float = GANG_TIMEOUT) -> None:
+def gang_cli(argv, timeout: float = GANG_TIMEOUT, **env_extra) -> None:
     """``python -m glint_word2vec_torch.cli`` in a child process (the
-    supervisor, whose workers own the card), from this checkout; fails the
-    phase unless it exits 0."""
-    env = dict(os.environ)
+    supervisor, whose workers own the card), from this checkout, with
+    ``env_extra`` added to its environment; fails the phase unless it
+    exits 0."""
+    env = dict(os.environ, **env_extra)
     here = os.path.dirname(os.path.abspath(__file__))
     env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
     env.pop("GLINT_FAULTS", None)
@@ -6465,6 +6512,508 @@ def demand_fleet_end_to_end(torch, np, cat: dict) -> dict:
         fleet_log.close()
 
 
+#: Phase 18: tokens of (b)'s dims fit and of (c)'s gang (prefixes of
+#: phase 6's corpus), and (a)'s grid batches and corpus slice.
+MESH_FIT_TOKENS = 1_000_000
+MESH_GANG_TOKENS = 100_000
+MESH_STEPS, MESH_CORPUS_TOKENS = 2, 200_000
+#: The CPU tests' tolerance of a mesh against the 1 x 1 engine.
+MESH_RTOL, MESH_ATOL = 1e-5, 1e-6
+
+
+def close_err(torch, got, want, what: str, rtol=MESH_RTOL, atol=MESH_ATOL) -> float:
+    """Max abs error of ``got`` against ``want``; fails unless every value
+    is within ``atol + rtol * |want|``."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    ok = bool((diff <= atol + rtol * want.abs()).all())
+    err = float(diff.max()) if diff.numel() else 0.0
+    expect(ok, f"{what}: max abs error {err:.3g} past rtol {rtol} atol {atol}")
+    return err
+
+
+def mesh_kernels_at_shard_shapes(torch, np, fs, rows_mod, gen) -> float:
+    """Each kernel of the mesh paths held against its plain version on the
+    card at a shard's shape: B1, B2 and B3 on a (1, 2) rows shard
+    (500,000 x 300) and on ``dims`` column slices 150, 38 and 2 wide (300
+    over 2, 304 over 8, 12 over 8), contiguous; B4, B5, B6 and B7 at a
+    (2, 1) data rank's ``P / 2`` pairs. Gathers and scatters bitwise; B4
+    and B5 within phase 5's and 9's tolerances. Returns the largest error."""
+    worst = 0.0
+    for rows, width in ((V_TRAIN // 2, D), (V_TRAIN, D // 2), (100_000, 38),
+                        (100_000, 2)):
+        table = torch.rand((rows, width), generator=gen, device=DEV) - 0.5
+        ids = zipf_ids(torch, gen, (20_000,), rows)
+        expect(torch.equal(rows_mod.gather_rows(table, ids),
+                           rows_mod.gather_rows_reference(table, ids)),
+               f"B1 at a {rows} x {width} shard")
+        upd = torch.rand((ids.shape[0], width), generator=gen, device=DEV) - 0.5
+        h = torch.rand((1024, width), generator=gen, device=DEV) - 0.5
+        coef = torch.rand(ids.shape, generator=gen, device=DEV) - 0.5
+        hidx = torch.randint(0, 1024, ids.shape, generator=gen, device=DEV,
+                             dtype=torch.int32)
+        uniq = torch.unique(ids.long())
+        for name, kernel, args, plain in (
+            ("B3", rows_mod.scatter_add_rows, (upd,),
+             lambda t, local: rows_mod.scatter_add_rows_reference(
+                 t, local, upd.cpu())),
+            ("B2", rows_mod.scatter_add_rank1, (coef, h, hidx),
+             lambda t, local: rows_mod.scatter_add_rank1_reference(
+                 t, local, coef.cpu(), h.cpu(), hidx.cpu())),
+        ):
+            before = table[uniq].cpu()
+            kernel(table, ids, *args)
+            touched_rows_check(torch, table, before, ids, plain,
+                               f"{name} at a {rows} x {width} shard")
+        del table
+    syn0 = (torch.rand((V_TRAIN, D), generator=gen, device=DEV) - 0.5) * 0.3
+    syn1 = (torch.rand((V_TRAIN, D), generator=gen, device=DEV) - 0.5) * 0.3
+    from glint_word2vec_torch.corpus.batching import packed_pair_batch
+
+    Pl = packed_pair_batch(B_TRAIN, W_TRAIN, 2) // 2
+    c = zipf_ids(torch, gen, (Pl,), V_TRAIN)
+    x = zipf_ids(torch, gen, (Pl,), V_TRAIN)
+    m = (torch.rand((Pl,), generator=gen, device=DEV) < 0.9).float()
+    negs = zipf_ids(torch, gen, (Pl, N_NEG), V_TRAIN)
+    nm = (negs != x[:, None]).float() * m[:, None]
+    alpha = torch.full((), 0.025, device=DEV)
+    fw = fs.pair_forward(syn0, syn1, c, x, m, negs, nm, alpha)
+    ref = fs.pair_forward_reference(syn0, syn1, c, x, m, negs, nm, alpha)
+    for f in ("c_pos", "c_neg", "h", "d_center"):
+        worst = max(worst, close_err(torch, getattr(fw, f), getattr(ref, f),
+                                     f"B4 {f} at P/2 = {Pl}", 1e-5, 1e-6))
+    pool = zipf_ids(torch, gen, (S_POOL,), V_TRAIN)
+    fw = fs.pair_forward_shared(syn0, syn1, c, x, m, pool, alpha, N_NEG)
+    ref = fs.pair_forward_shared_reference(syn0, syn1, c, x, m, pool, alpha, N_NEG)
+    for f in ("c_pos", "d_center", "d_pool"):
+        w = getattr(ref, f)
+        worst = max(worst, close_err(torch, getattr(fw, f), w,
+                                     f"B5 {f} at P/2 = {Pl}", 1e-4,
+                                     1e-6 * float(w.abs().max())))
+    h = ref.h.contiguous()
+    coef = torch.rand((Pl,), generator=gen, device=DEV) - 0.5
+    rows = torch.arange(Pl, dtype=torch.int32, device=DEV)
+    for name, kernel, ids, args in (
+        ("B7", fs.scatter_add_rank1_hbm, x, (coef, h, rows)),
+        ("B6", fs.scatter_add_rows_f32, c, (ref.d_center.contiguous(),)),
+    ):
+        plain = (fs.scatter_add_rank1_hbm_reference if name == "B7"
+                 else fs.scatter_add_rows_f32_reference)
+        before = syn1[torch.unique(ids.long())].cpu()
+        kernel(syn1, ids, *args)
+        touched_rows_check(
+            torch, syn1, before, ids,
+            lambda t, local: plain(t, local, *(a.cpu() for a in args)),
+            f"{name} at P/2 = {Pl}")
+    return worst
+
+
+#: The kernel wrappers the mesh paths call, by the module whose global
+#: name the call goes through: the engine's row kernels, and the fused
+#: kernels that ``_mesh_pair_step`` reaches as ``fs.<name>``.
+MESH_KERNEL_SITES = (
+    ("glint_word2vec_torch.parallel.engine",
+     ("gather_rows", "scatter_add_rank1", "scatter_add_rows")),
+    ("glint_word2vec_torch.ops.fused_sgns",
+     ("pair_forward", "pair_forward_shared", "scatter_add_rank1_hbm",
+      "scatter_add_rows_f32")),
+)
+
+
+@contextlib.contextmanager
+def launches_by_table():
+    """Each kernel's launches by the table tensor it ran on, while the
+    block runs: every wrapper of :data:`MESH_KERNEL_SITES` is replaced by
+    a shim that reads the wrapper's launch count around each call and
+    credits the difference to the call's first argument (the table, or
+    a model shard of it) by its storage address. Yields ``{kernel:
+    {address: launches}}``; the wrappers and their counts are whole again
+    after the block. A wrapper that counts through its own global name
+    (the fused ones) counts on the shim meanwhile, and that count is
+    folded back into the wrapper's."""
+    import importlib
+
+    tally, patched = {}, []
+
+    def shim_for(name, orig):
+        def shim(table, *args, **kw):
+            before = orig.launches + shim.launches
+            try:
+                return orig(table, *args, **kw)
+            finally:
+                n = orig.launches + shim.launches - before
+                if n:
+                    by = tally.setdefault(name, {})
+                    by[table.data_ptr()] = by.get(table.data_ptr(), 0) + n
+
+        shim.launches = shim.tiled_launches = 0
+        return shim
+
+    try:
+        for module, names in MESH_KERNEL_SITES:
+            mod = importlib.import_module(module)
+            for name in names:
+                orig = getattr(mod, name)
+                shim = shim_for(name, orig)
+                setattr(mod, name, shim)
+                patched.append((mod, name, orig, shim))
+        yield tally
+    finally:
+        for mod, name, orig, shim in patched:
+            setattr(mod, name, orig)
+            orig.launches += shim.launches
+            if hasattr(orig, "tiled_launches"):
+                orig.tiled_launches += shim.tiled_launches
+
+
+def shard_launches(tally: dict, eng, names, launches: dict, what: str) -> dict:
+    """``{kernel: [launches on model shard 0, 1, ...]}`` from a
+    :func:`launches_by_table` tally, the shards being ``eng``'s (syn0's
+    and syn1's shard ``m`` both count for ``m``). Fails unless every
+    launch the counters saw is on a shard of ``eng`` and every shard
+    launched each kernel of ``names``."""
+    shard_of = {t.data_ptr(): m for i in (0, 1)
+                for m, t in enumerate(eng.shard_tables(i))}
+    per = {}
+    for name, by in tally.items():
+        row = [0] * eng.num_model
+        for ptr, n in by.items():
+            expect(ptr in shard_of, f"{what}: {name} launched on a tensor that "
+                   f"is no shard of the engine's tables ({by})")
+            row[shard_of[ptr]] += n
+        expect(sum(row) == launches[name],
+               f"{what}: {name} launched {launches[name]} times, {sum(row)} "
+               "on the shards")
+        per[name] = row
+    for name in names:
+        expect(name in per and all(n > 0 for n in per[name]),
+               f"{what}: a shard never launched {name}: {per}")
+    return per
+
+
+def mesh_engines(torch, np, fs, rows_mod) -> dict:
+    """Phase 18 (a): one group of steps on each mesh, every shard on the
+    card, from the tables of a 1 x 1 engine and the same draws, held
+    against the 1 x 1 engine's steps within the CPU tests' tolerance:
+    (1, 2) ``rows`` and (2, 2) ``dims`` grid steps (B1, B2, B3, shard by
+    shard), and (2, 1) ``rows`` packed steps (the fused B4, B7, B6, then B5
+    with a pool of S_POOL). Each mesh's launches, and each kernel's
+    launches on each model shard (:func:`launches_by_table`): every shard
+    must have launched every kernel of its path."""
+    from glint_word2vec_torch.corpus.batching import context_width, packed_pair_batch
+    from glint_word2vec_torch.parallel.engine import EmbeddingEngine, TrainingDraws
+    from glint_word2vec_torch.parallel.mesh import make_mesh
+
+    gen = torch.Generator(device=DEV).manual_seed(18)
+    counts = np.maximum(1, (1e7 / np.arange(1, V_TRAIN + 1))).astype(np.int64)
+    s0 = (torch.rand((V_TRAIN, D), generator=gen, device=DEV) - 0.5) / D
+    s1 = (torch.rand((V_TRAIN, D), generator=gen, device=DEV) - 0.5) / D
+
+    def engine(mesh=None, layout="rows", S=0):
+        e = EmbeddingEngine(V_TRAIN, D, counts, num_negatives=N_NEG, seed=18,
+                            shared_negatives=S, layout=layout,
+                            device=None if mesh else DEV,
+                            mesh=make_mesh(*mesh, devices=[DEV] * (mesh[0] * mesh[1]))
+                            if mesh else None)
+        e.set_tables(s0, s1)
+        return e
+
+    out, errs = {"launches": {}, "by_shard": {}}, []
+    C = context_width(W_TRAIN)
+    K, B = MESH_STEPS, B_TRAIN
+    centers = zipf_ids(torch, gen, (K, B), V_TRAIN)
+    contexts = zipf_ids(torch, gen, (K, B, C), V_TRAIN)
+    mask = (torch.rand((K, B, C), generator=gen, device=DEV) < 0.8).float()
+    alphas = np.array([0.025, 0.024], np.float32)
+    ref = engine()
+    draws = TrainingDraws(7, *ref.noise_tables(), W_TRAIN, B, N_NEG)
+    negs = torch.stack([draws.window_negatives(i, B, C) for i in range(K)])
+    want_l = ref.train_steps(centers, contexts, mask, 7, alphas, 0, negs=negs)
+    want = (ref.syn0, ref.syn1)
+    for shape, layout in (((1, 2), "rows"), ((2, 2), "dims")):
+        e = engine(shape, layout)
+        torch.cuda.synchronize()
+        zero_counters(fs, rows_mod)
+        with launches_by_table() as tally:
+            got_l = e.train_steps(centers, contexts, mask, 7, alphas, 0, negs=negs)
+            torch.cuda.synchronize()
+        launches = read_counters(fs, rows_mod)
+        names = ("gather_rows", "scatter_add_rank1", "scatter_add_rows")
+        expect_launched(launches, names, f"mesh {shape} {layout}")
+        per = shard_launches(tally, e, names, launches, f"mesh {shape} {layout}")
+        errs.append(close_err(torch, got_l, want_l, f"{shape} {layout} losses"))
+        for i, name in enumerate(("syn0", "syn1")):
+            errs.append(close_err(torch, e.logical_table(i)[:V_TRAIN, :D],
+                                  want[i], f"{shape} {layout} {name}"))
+        key = f"{shape} {layout}"
+        out["launches"][key], out["by_shard"][key] = launches, per
+        log(f"mesh (a) {shape} {layout}, {K} grid steps of {B} x {C} at "
+            f"{V_TRAIN} x {D} fp32 on {e.num_model} shard(s) of "
+            f"{e.rows_per_shard} x {e.cols_per_shard}: held against 1 x 1 "
+            f"(max abs err {max(errs[-3:]):.3g}); launches by shard {per}")
+        del e
+    ids = zipf_ids(torch, gen, (MESH_CORPUS_TOKENS,), V_TRAIN).cpu().numpy()
+    offsets = np.arange(0, MESH_CORPUS_TOKENS + 1, SENTENCE_LEN, dtype=np.int64)
+    P = packed_pair_batch(B_TRAIN, W_TRAIN, 2)
+    for S in (0, S_POOL):
+        r1 = engine(S=S)
+        r1.upload_corpus(ids, offsets)
+        w = r1.train_steps_corpus_packed(0, P, W_TRAIN, B, 9, 4, step_size=0.025,
+                                         total_words=10 ** 7)
+        e = engine((2, 1), S=S)
+        e.upload_corpus(ids, offsets)
+        torch.cuda.synchronize()
+        zero_counters(fs, rows_mod)
+        with launches_by_table() as tally:
+            g = e.train_steps_corpus_packed(0, P, W_TRAIN, B, 9, 4,
+                                            step_size=0.025, total_words=10 ** 7)
+            torch.cuda.synchronize()
+        launches = read_counters(fs, rows_mod)
+        names = (("pair_forward_shared",) if S else ("pair_forward",)) + (
+            "scatter_add_rank1_hbm", "scatter_add_rows_f32")
+        expect_launched(launches, names, f"mesh (2, 1) S={S}")
+        per = shard_launches(tally, e, names, launches, f"mesh (2, 1) S={S}")
+        expect(all(np.array_equal(a, b) for a, b in zip(g[1:3], w[1:3])),
+               "packed (2, 1): pairs or positions differ from 1 x 1")
+        errs.append(close_err(torch, torch.from_numpy(g[0]),
+                              torch.from_numpy(w[0]), f"(2, 1) S={S} losses"))
+        for name, gt, wt in zip(("syn0", "syn1"), (e.syn0, e.syn1),
+                                (r1.syn0, r1.syn1)):
+            errs.append(close_err(torch, gt, wt, f"(2, 1) S={S} {name}"))
+        key = f"(2, 1) rows S={S}"
+        out["launches"][key], out["by_shard"][key] = launches, per
+        log(f"mesh (a) (2, 1) rows packed, 4 steps of P = {P} ({P // 2} a data "
+            f"rank), S = {S}: held against 1 x 1 (max abs err "
+            f"{max(errs[-3:]):.3g}); launches on its one model shard {per}")
+        del e, r1
+    out["kernels_err"] = mesh_kernels_at_shard_shapes(torch, np, fs, rows_mod, gen)
+    out["max_abs_err"] = max(errs)
+    log(f"mesh (a) kernels at the shards' shapes against their plain versions: "
+        f"B1, B2, B3 bitwise at {V_TRAIN // 2} x {D} and widths {D // 2}, 38, 2; B6, B7 "
+        f"bitwise and B4, B5 within tolerance at P/2 (max abs err "
+        f"{out['kernels_err']:.3g})")
+    return out
+
+
+def mesh_fit(torch, np, fs, rows_mod, tmp: str) -> dict:
+    """Phase 18 (b): ``Word2Vec(num_partitions=2, num_shards=2,
+    layout="dims").fit_file`` on a MESH_FIT_TOKENS prefix, its ``sharded``
+    save (column blocks), reloaded onto 1 x 1 and onto (1, 2) ``rows``
+    with equal tables, and synonym queries through the mesh that agree
+    with the 1 x 1 load's."""
+    from glint_word2vec_torch.models.word2vec import Word2Vec, Word2VecModel
+    from glint_word2vec_torch.parallel.engine import EmbeddingEngine
+    from glint_word2vec_torch.parallel.mesh import make_mesh
+
+    path = os.path.join(tmp, "mesh.txt")
+    n_tok = write_synthetic_corpus(np, path, tokens=MESH_FIT_TOKENS)
+    torch.cuda.synchronize()
+    zero_counters(fs, rows_mod)
+    t0 = time.perf_counter()
+    with launches_by_table() as tally:
+        m = Word2Vec(device=DEV, vector_size=D, window=W_TRAIN,
+                     batch_size=B_TRAIN, num_negatives=N_NEG, min_count=1,
+                     num_iterations=1, seed=1, num_partitions=2, num_shards=2,
+                     layout="dims").fit_file(path)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters(fs, rows_mod)
+    names = ("gather_rows", "scatter_add_rank1", "scatter_add_rows")
+    expect_launched(launches, names, "the (2, 2) dims fit")
+    eng = m.engine
+    per = shard_launches(tally, eng, names, launches, "the (2, 2) dims fit")
+    expect(eng.mesh.shape == {"data": 2, "model": 2} and eng.layout == "dims",
+           f"fit mesh {eng.mesh.shape} {eng.layout}")
+    V = m.vocab.size
+    model_dir = os.path.join(tmp, "mesh_model")
+    m.save(model_dir)
+    blocks = sorted(f for f in os.listdir(os.path.join(model_dir, "matrix"))
+                    if f.endswith(".npy") and f != "counts.npy")
+    expect(blocks == [f"{t}.c{c:012d}.npy" for t in ("syn0", "syn1")
+                      for c in (0, D // 2)], f"sharded save blocks {blocks}")
+    want0, want1 = (eng.logical_table(i)[:V, :D] for i in (0, 1))
+    one = EmbeddingEngine.load(os.path.join(model_dir, "matrix"), device=DEV,
+                               layout="rows")
+    rows12 = EmbeddingEngine.load(os.path.join(model_dir, "matrix"),
+                                  mesh=make_mesh(1, 2, devices=[DEV] * 2),
+                                  layout="rows")
+    for e, what in ((one, "1 x 1"), (rows12, "(1, 2) rows")):
+        expect(torch.equal(e.logical_table(0)[:V], want0)
+               and torch.equal(e.logical_table(1)[:V], want1),
+               f"the {what} load's tables differ from the fit's")
+    expect(not one._meshed, "the 1 x 1 load runs the mesh code")
+    loaded = Word2VecModel.load(model_dir, device=DEV)
+    expect((loaded.engine.num_data, loaded.engine.num_model) == (1, 1),
+           "one card did not load onto 1 x 1")
+    single = Word2VecModel(m.vocab, one, m.params)
+    words = [f"w{i}" for i in range(0, 2000, 50)]
+    agree, err = 0, 0.0
+    for w in words:
+        a, b = m.find_synonyms(w, 10), single.find_synonyms(w, 10)
+        agree += [x for x, _ in a] == [x for x, _ in b]
+        err = max(err, max(abs(x - y) for (_, x), (_, y) in zip(a, b)))
+    expect(agree >= len(words) - 1 and err <= 1e-5,
+           f"mesh synonyms agree with 1 x 1 on {agree}/{len(words)} words "
+           f"(max sim diff {err:.3g})")
+    q = eng.pull(np.arange(64, dtype=np.int32)).cpu().numpy()
+    a = eng.top_k_cosine_batch(q, 10)
+    b = rows12.top_k_cosine_batch(q, 10)
+    c = one.top_k_cosine_batch(q, 10)
+    same = sum(np.array_equal(x, y) for x, y in zip(a[1], c[1]))
+    same_rows = sum(np.array_equal(x, y) for x, y in zip(b[1], c[1]))
+    expect(same >= 63 and same_rows >= 63,
+           f"batched top-k: (2, 2) dims {same}/64, (1, 2) rows {same_rows}/64 "
+           "rows equal to 1 x 1")
+    wps = m.training_metrics["words_per_sec"]
+    log(f"mesh (b) (2, 2) dims fit_file, {V} x {D} fp32, {n_tok} tokens, all "
+        f"four shards on {torch.cuda.get_device_name(0)}, beside (c)'s gang: "
+        f"{wall:.1f} s, {wps} words/s (a correctness figure, not a speed-up); "
+        f"loss {m.training_metrics['final_loss']:.4f}; launches {launches}, "
+        f"by model shard {per}; save "
+        f"{blocks}; reloaded onto 1 x 1 and (1, 2) rows bitwise; synonyms of "
+        f"{len(words)} words agree on {agree} (max sim diff {err:.3g}); "
+        f"batched top-k rows equal: dims {same}/64, rows {same_rows}/64")
+    for x in (m, loaded):
+        x.stop()
+    one.destroy()
+    rows12.destroy()
+    return {"launches": launches, "by_shard": per, "wps": wps}
+
+
+def mesh_gang_start(np, tmp: str) -> dict:
+    """Phase 18 (c), started: ``cli supervise --workers 2 train --exchange
+    none --num-partitions 2 --num-shards 2`` on a MESH_GANG_TOKENS prefix,
+    in a session of its own (its output in a log file): one mesh across
+    two processes on the card (each rank a data row and both model
+    shards, the data axis through gloo), two checkpointed epochs, rank 1
+    killed early in the second. :func:`mesh_gang_finish` waits for it."""
+    d = os.path.join(tmp, "mesh_gang")
+    os.makedirs(d)
+    path = os.path.join(d, "c.txt")
+    n_tok = write_synthetic_corpus(np, path, tokens=MESH_GANG_TOKENS)
+    sents = n_tok // SENTENCE_LEN
+    steps = -(-(sents // 2) * SENTENCE_LEN // (B_TRAIN // 2))
+    kill = -(-steps // 16) + 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1")  # two ranks share the cores
+    env["PYTHONPATH"] = here + os.pathsep + env.get("PYTHONPATH", "")
+    env.pop("GLINT_FAULTS", None)
+    argv = ["supervise", "--workers", "2", "--report-out",
+            os.path.join(d, "report.json"), "--backoff-base", "1",
+            "--heartbeat-stale", "300",
+            "--rank-env", f"1:GLINT_FAULTS=worker.step:kill@{kill}",
+            "train", "--device", DEV, "--corpus", path, "--output",
+            os.path.join(d, "model"), "--checkpoint-dir", os.path.join(d, "ck"),
+            "--metrics-out", os.path.join(d, "metrics.json"),
+            "--exchange", "none", "--num-partitions", "2", "--num-shards", "2",
+            "--iterations", "2", "--vector-size", str(D),
+            "--window", str(W_TRAIN), "--batch-size", str(B_TRAIN),
+            "--negatives", str(N_NEG), "--min-count", "1", "--seed", "1"]
+    out = open(os.path.join(d, "supervise.log"), "wb")
+    proc = subprocess.Popen([sys.executable, "-m", "glint_word2vec_torch.cli",
+                             *argv], env=env, cwd=here, stdout=out,
+                            stderr=subprocess.STDOUT, start_new_session=True)
+    return dict(dir=d, proc=proc, out=out, n_tok=n_tok, kill=kill,
+                t0=time.perf_counter())
+
+
+def mesh_gang_stop(gang: dict) -> None:
+    """Ends (c)'s supervisor if it still runs, and any rank it left (the
+    ranks run in sessions of their own; their command lines name the
+    gang's directory)."""
+    proc = gang["proc"]
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, 9)
+        except OSError:
+            pass
+        proc.wait(timeout=60)
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                argv = f.read()
+        except OSError:
+            continue
+        if gang["dir"].encode() in argv:
+            try:
+                os.kill(int(pid), 9)
+            except OSError:
+                pass
+    gang["out"].close()
+
+
+def mesh_gang_finish(torch, gang: dict) -> dict:
+    """Phase 18 (c), ended: the supervisor exits 0 within GANG_TIMEOUT of
+    its start, after one restart resumed from ``ckpt-1``; the ranks' tables
+    are equal, each rank launched each kernel of the grid path (its
+    metrics file), and the model loads with finite tables."""
+    from glint_word2vec_torch.models import load_model
+
+    d, proc = gang["dir"], gang["proc"]
+    try:
+        rc = proc.wait(timeout=max(1.0, GANG_TIMEOUT - (time.perf_counter()
+                                                        - gang["t0"])))
+    except subprocess.TimeoutExpired:
+        rc = None
+    wall = time.perf_counter() - gang["t0"]
+    if rc != 0:
+        gang["out"].flush()
+        with open(os.path.join(d, "supervise.log"), "rb") as f:
+            tail = f.read()[-3000:].decode(errors="replace")
+        raise AssertionError(f"mesh gang supervisor exited {rc} after "
+                             f"{wall:.1f} s:\n{tail}")
+    report = json.load(open(os.path.join(d, "report.json")))
+    expect(report["completed"] and report["restarts"] == 1, f"report {report}")
+    rec = report["restart_records"][0]
+    expect(rec["resumed_from"] == "ckpt-1", f"restart {rec}")
+    ranks = [json.load(open(os.path.join(d, f"metrics-rank{r}.json"))) for r in (0, 1)]
+    expect(ranks[0]["tables_sha256"] == ranks[1]["tables_sha256"],
+           "the mesh gang's ranks end with different tables")
+    launches = {}
+    for r, m in enumerate(ranks):
+        for k, v in m["kernel_launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        expect_launched(m["kernel_launches"], (
+            "gather_rows", "scatter_add_rank1", "scatter_add_rows"),
+            f"mesh gang rank {r}")
+    model = load_model(os.path.join(d, "model"), device=DEV)
+    for t in (model.engine.syn0, model.engine.syn1):
+        expect(bool(torch.isfinite(t).all()), "non-finite mesh gang tables")
+    vsize = model.vocab.size
+    model.stop()
+    by_rank = [{k: v for k, v in m["kernel_launches"].items() if v} for m in ranks]
+    log(f"mesh (c) gang of 2 processes, mesh (2, 2) rows ({vsize} x {D}), 2 "
+        f"epochs over {gang['n_tok']} tokens, both on "
+        f"{torch.cuda.get_device_name(0)}, beside (a) and (b): {wall:.1f} s "
+        f"(supervisor); rank 1 killed at group {gang['kill']}: "
+        f"{rec['reason']!r}, resumed from {rec['resumed_from']}; tables equal "
+        f"({ranks[0]['tables_sha256'][:16]}); words/s rank 0 "
+        f"{ranks[0]['words_per_sec']}, rank 1 {ranks[1]['words_per_sec']}; "
+        f"launches by rank {by_rank}")
+    return {"launches": launches}
+
+
+def mesh_on_one_card(torch, np, fs, rows_mod) -> dict:
+    """Phase 18: the SPMD mesh on one card, every shard on it. (c)'s gang
+    runs in processes of its own while this one runs (a) and (b): its
+    start-ups are mostly host time, and its ranks count their own
+    launches."""
+    tmp = tempfile.mkdtemp(prefix="glint_mesh_")
+    gang = None
+    try:
+        gang = mesh_gang_start(np, tmp)
+        out = {"engines": mesh_engines(torch, np, fs, rows_mod)}
+        gc_free(torch)
+        out["fit"] = mesh_fit(torch, np, fs, rows_mod, tmp)
+        gc_free(torch)
+        out["gang"] = mesh_gang_finish(torch, gang)
+        return out
+    finally:
+        if gang is not None:
+            mesh_gang_stop(gang)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def ptxas_report(text: str) -> list:
     """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
     (demangled where ``c++filt`` is found), registers and spills."""
@@ -6486,32 +7035,137 @@ def ptxas_report(text: str) -> list:
     return out
 
 
-def parse_only(argv) -> set | None:
-    """The phases ``--only`` names (3 to 17; 16 and 17 bring 15, whose
-    models they serve), or None to run them all."""
+def parse_args(argv) -> tuple:
+    """``(only, lane_out)``: the phases ``--only`` names (3 to 18; 16 and
+    17 bring 15, whose models they serve), or None to run them all; and
+    the file a lane-B child writes its results to, or None."""
     import argparse
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--only", metavar="N[,N...]",
-        help="run phases 1, 2 and these (3 to 17; 16 and 17 run 15 first) "
-             "only, "
+        help="run phases 1, 2 and these (3 to 18; 16 and 17 run 15 first) "
+             "only, one after another, "
              "print their lines, "
              f"and exit {PARTIAL_EXIT} without the kernels or result line")
-    only = ap.parse_args(argv).only
-    if only is None:
-        return None
-    phases = {int(p) for p in only.split(",") if p.strip()}
-    if not phases or not phases <= set(range(3, 18)):
-        ap.error(f"--only takes phases 3 to 17, got {only!r}")
+    # The child of a whole run: phases 1, 2 and LANE_B, results to FILE.
+    ap.add_argument("--lane-out", metavar="FILE", help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.only is None:
+        return None, args.lane_out
+    phases = {int(p) for p in args.only.split(",") if p.strip()}
+    if not phases or not phases <= set(range(3, 19)):
+        ap.error(f"--only takes phases 3 to 18, got {args.only!r}")
     if phases & {16, 17}:
         phases.add(15)
-    return phases
+    return phases, args.lane_out
+
+
+def plain_data(x):
+    """``x`` with what pickles across processes: dicts, lists, tuples,
+    strings and numbers (numpy's as Python's); anything else as None."""
+    if isinstance(x, dict):
+        return {k: plain_data(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(plain_data(v) for v in x)
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    if hasattr(x, "item") and getattr(x, "ndim", None) == 0:
+        return x.item()
+    return None
+
+
+def exit_on_sigterm() -> None:
+    """SIGTERM raises SystemExit, so every ``finally`` (servers, fleets,
+    gangs, the lane) runs before the process ends."""
+    def handler(signum, frame):
+        raise SystemExit(128 + signum)
+    signal.signal(signal.SIGTERM, handler)
+
+
+def watch_parent(parent: int) -> None:
+    """A lane-B child ends itself (SIGTERM) if the process that started it
+    is gone."""
+    def loop():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os.kill(os.getpid(), signal.SIGTERM)
+    threading.Thread(target=loop, name="lane_watch", daemon=True).start()
+
+
+def start_lane() -> dict:
+    """Starts lane B: this script with ``--lane-out``, in a session of its
+    own, its output in a log file."""
+    tmp = tempfile.mkdtemp(prefix="glint_chip_lane_")
+    here = os.path.dirname(os.path.abspath(__file__))
+    log_path = os.path.join(tmp, "lane.log")
+    out = open(log_path, "wb")
+    proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--lane-out",
+         os.path.join(tmp, "lane.pkl")],
+        cwd=here, stdout=out, stderr=subprocess.STDOUT, start_new_session=True)
+    return dict(tmp=tmp, proc=proc, out=out, log=log_path, shown=False,
+                t0=time.perf_counter())
+
+
+def show_lane(lane: dict) -> None:
+    """Prints lane B's lines (once)."""
+    if lane["shown"]:
+        return
+    lane["shown"] = True
+    lane["out"].close()
+    log(f"lane B (phases {', '.join(map(str, LANE_B))} in a process of its "
+        f"own beside lane A), its lines:")
+    with open(lane["log"], errors="replace") as f:
+        for line in f:
+            print(line, end="", flush=True)
+
+
+def finish_lane(lane: dict, deadline: float) -> dict:
+    """Waits for lane B until ``deadline`` (perf_counter), prints its
+    lines, and returns its phases' results; fails if it failed or did not
+    end in time."""
+    proc = lane["proc"]
+    try:
+        rc = proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(
+            f"lane B still running {time.perf_counter() - lane['t0']:.1f} s "
+            "after it started") from None
+    show_lane(lane)
+    expect(rc == 0, f"lane B exited {rc}")
+    with open(os.path.join(lane["tmp"], "lane.pkl"), "rb") as f:
+        results = pickle.load(f)
+    log(f"lane B: {time.perf_counter() - lane['t0']:.1f} s, its waits "
+        "included")
+    return results
+
+
+def stop_lane(lane: dict) -> None:
+    """Ends lane B if it still runs (SIGTERM, so its phases stop what they
+    started; then SIGKILL to its group), prints its lines if nothing has,
+    and removes its files."""
+    proc = lane["proc"]
+    try:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        show_lane(lane)
+    finally:
+        shutil.rmtree(lane["tmp"], ignore_errors=True)
 
 
 def main() -> int:
     t_start = time.perf_counter()
-    only = parse_only(sys.argv[1:])
+    only, lane_out = parse_args(sys.argv[1:])
+    exit_on_sigterm()
+    if lane_out is not None:
+        watch_parent(os.getppid())
     import torch
 
     if not torch.cuda.is_available():
@@ -6555,6 +7209,9 @@ def main() -> int:
         15: lambda: catalog_end_to_end(torch, np, fs, rows_mod),
         16: lambda: fleet_end_to_end(torch, np, rows_mod, catalog),
         17: lambda: demand_fleet_end_to_end(torch, np, catalog),
+        18: lambda: mesh_on_one_card(torch, np, fs, rows_mod),
+        # Phase 9 (b) on: the shared-pool fit, its gates and resume.
+        "9 (b)": lambda: train_shared_end_to_end(torch, np, fs, rows_mod),
     }
     catalog = {}
 
@@ -6565,8 +7222,6 @@ def main() -> int:
         out = phases[p]()
         if p == 15:
             catalog.update(out)
-        if p == 9:
-            out = (out, train_shared_end_to_end(torch, np, fs, rows_mod))
         # A server tightens the process-wide switch interval while it
         # serves; a phase must not leave it tightened for the next.
         expect(sys.getswitchinterval() == switch,
@@ -6575,37 +7230,40 @@ def main() -> int:
         log(f"phase {p}: {time.perf_counter() - t0:.1f} s")
         return out
 
-    if only is not None:
+    def serving_phases(ps) -> dict:
+        """Runs ``ps`` in order; phase 15's catalog is cleaned up after
+        16 and 17 have served it."""
         try:
-            for p in sorted(only):
-                run(p)
+            return {p: run(p) for p in ps}
         finally:
             if catalog:
                 cleanup_catalog(torch, catalog)
+
+    if only is not None:
+        serving_phases([q for p in sorted(only)
+                        for q in ((p, "9 (b)") if p == 9 else (p,))])
         log(f"partial run: phases 1, 2 and {sorted(only)} passed in "
             f"{time.perf_counter() - t_start:.1f} s; no kernels line and no "
             f"result line (exit {PARTIAL_EXIT})")
         return PARTIAL_EXIT
 
-    gathered = run(3)
-    served = run(4)
-    timed = run(5)
-    trained = run(6)
-    composed = run(7)
-    ft = run(8)
-    shared_timed, shared = run(9)
-    grid = run(10)
-    stall = run(11)
-    annt = run(12)
-    streamed = run(13)
-    gang = run(14)
+    if lane_out is not None:
+        out = serving_phases(LANE_B)
+        out[15] = {"launches": out[15]["launches"]}
+        with open(lane_out, "wb") as f:
+            pickle.dump(plain_data(out), f)
+        return 0
+
+    gathered, served, timed, composed, shared_timed = (
+        run(p) for p in SERIAL_PHASES)
+    lane = start_lane()
     try:
-        cat = run(15)
-        fleet = run(16)
-        demand = run(17)
+        shared = run("9 (b)")
+        trained, ft, grid, stall, annt, mesh = (run(p) for p in LANE_A)
+        b = finish_lane(lane, t_start + LANE_DEADLINE)
+        streamed, gang, cat, fleet, demand = (b[p] for p in LANE_B)
     finally:
-        if catalog:
-            cleanup_catalog(torch, catalog)
+        stop_lane(lane)
 
     main_case = gathered[("f32", V_SERVE, 10_000)]
     kernels = [{
@@ -6767,6 +7425,20 @@ def main() -> int:
     expect(kernels[0]["launches_catalog"] > 0 and kernels[0]["launches_fleet"] > 0
            and kernels[0]["launches_demand"] > 0,
            "gather_rows not launched in phase 15, 16 or 17")
+    # Phase 18: each kernel's launches on the meshes of (a), in the fit of
+    # (b) and in the gang of (c).
+    for k in kernels:
+        k["launches_mesh_engines"] = {
+            shape: n[k["name"]] for shape, n in mesh["engines"]["launches"].items()}
+        k["launches_mesh_by_shard"] = {
+            shape: per[k["name"]]
+            for shape, per in mesh["engines"]["by_shard"].items()
+            if k["name"] in per}
+        k["launches_mesh_fit"] = mesh["fit"]["launches"][k["name"]]
+        k["launches_mesh_fit_by_shard"] = mesh["fit"]["by_shard"].get(k["name"])
+        k["launches_mesh_gang"] = mesh["gang"]["launches"].get(k["name"], 0)
+        k["mesh_max_abs_err"] = max(mesh["engines"]["max_abs_err"],
+                                    mesh["engines"]["kernels_err"])
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -63,6 +63,17 @@ def _add_train(sub) -> None:
     p.add_argument("--iterations", type=int, default=1)
     p.add_argument("--max-sentence-length", type=int, default=1000)
     p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--num-partitions", type=int, default=1,
+                   help="data axis of the mesh (the reference's "
+                        "numPartitions): every batch split over this many "
+                        "ranks")
+    p.add_argument("--num-shards", type=int, default=1,
+                   help="model axis of the mesh (the reference's "
+                        "numParameterServers): both tables split this many "
+                        "ways")
+    p.add_argument("--layout", choices=["rows", "dims"], default="rows",
+                   help="how the model axis splits the tables: by vocabulary "
+                        "rows or by embedding columns")
     p.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     p.add_argument("--compute-dtype", choices=["float32", "bfloat16"],
                    default=None,
@@ -611,6 +622,9 @@ def _train(args) -> int:
         num_iterations=args.iterations,
         max_sentence_length=args.max_sentence_length,
         seed=args.seed,
+        num_partitions=args.num_partitions,
+        num_shards=args.num_shards,
+        layout=args.layout,
         dtype=args.dtype,
         compute_dtype=args.compute_dtype,
         steps_per_call=args.steps_per_call,
@@ -637,9 +651,12 @@ def _train(args) -> int:
         checkpoint_every_epochs=args.checkpoint_every,
     )
     try:
-        # In a gang every rank writes its row block of the shared output,
-        # and the barrier holds each rank until the directory is whole.
-        model.save(args.output)
+        # In a replica-exchange gang every rank writes its row block of the
+        # shared output; a mesh gang's ranks hold the same tables, and rank
+        # 0 writes them. The barrier holds each rank until the directory
+        # is whole.
+        if args.exchange != "none" or dist.process_index() == 0:
+            model.save(args.output)
         dist.barrier("model_save")
         metrics = dict(model.training_metrics)
         metrics["kernel_launches"] = launch_counts()
@@ -1308,6 +1325,23 @@ def _run_trace_merge(args) -> int:
     return 0
 
 
+def _exit_on_sigterm() -> None:
+    """Turn the SIGTERM a supervisor stops a replica with into an orderly
+    exit: ``SystemExit`` in the main thread unwinds ``serve_model_dir``,
+    whose ``finally`` closes the trace log's sink, so the spans it kept are
+    on disk (the default action ends the process with the sink's buffer
+    unwritten and skips ``atexit``). A second SIGTERM is ignored while the
+    first unwinds; the supervisor's SIGKILL after its grace still ends a
+    process that hangs there."""
+    import signal
+
+    def handler(signum, frame):
+        signal.signal(signal.SIGTERM, signal.SIG_IGN)
+        raise SystemExit(128 + signum)
+
+    signal.signal(signal.SIGTERM, handler)
+
+
 def main(argv=None) -> int:
     from glint_word2vec_torch.obs.canary import TrainingDiverged
 
@@ -1347,6 +1381,7 @@ def main(argv=None) -> int:
         models = _parse_model_specs(args.add_model, "--add-model")
         if models is None:
             return 1
+        _exit_on_sigterm()
         serve_model_dir(
             args.model, host=args.host, port=args.port,
             max_batch=args.max_batch, warmup=not args.no_warmup,

@@ -53,22 +53,25 @@ from glint_word2vec_torch.utils.params import Word2VecParams
 
 
 def _clamp_topology(numPartitions: int, numParameterServers: int,
-                    device: DeviceLike = None) -> None:
-    """The port trains on one device, so any requested (workers, servers)
-    topology runs as 1 x 1; warn, with the JAX layer's text, when the
-    request was larger. The device count in the text is the CUDA cards'
-    (one on the CPU)."""
+                    device: DeviceLike = None) -> Tuple[int, int]:
+    """The mesh ``(num_data, num_model)`` a requested (workers, servers)
+    topology maps onto, clamped to the devices present as the JAX layer's
+    ``_mesh_axes`` does (``compat.py:50-66``), with its warning when the
+    request was larger. The devices are the CUDA cards (one on the CPU),
+    so one card trains 1 x 1."""
     import torch
 
-    if (numPartitions, numParameterServers) == (1, 1):
-        return
     on_cpu = device is not None and torch.device(device).type == "cpu"
     n_dev = 1 if on_cpu else max(1, torch.cuda.device_count())
-    warnings.warn(
-        f"requested topology {numPartitions}x{numParameterServers} "
-        f"(partitions x parameter servers) clamped to mesh 1x1 for "
-        f"{n_dev} device(s)"
-    )
+    num_model = max(1, min(numParameterServers, n_dev))
+    num_data = max(1, min(numPartitions, n_dev // num_model))
+    if (numParameterServers, numPartitions) != (num_model, num_data):
+        warnings.warn(
+            f"requested topology {numPartitions}x{numParameterServers} "
+            f"(partitions x parameter servers) clamped to mesh "
+            f"{num_data}x{num_model} for {n_dev} device(s)"
+        )
+    return num_data, num_model
 
 
 class ServerSideGlintWord2Vec:
@@ -248,14 +251,25 @@ class ServerSideGlintWord2Vec:
                 "parameter-server cluster to connect to (the device mesh "
                 "lives in this process); leave it empty"
             )
-        _clamp_topology(
+        num_data, num_model = _clamp_topology(
             kw["numPartitions"], kw["numParameterServers"], self.device
         )
+        # The global batch must split over the data axis: round up, as the
+        # JAX layer does, rather than fail a valid reference setting.
+        batch_size = kw["batchSize"]
+        if batch_size % num_data:
+            rounded = -(-batch_size // num_data) * num_data
+            warnings.warn(
+                f"batchSize={batch_size} is not divisible by the data-axis "
+                f"size {num_data}; rounding up to {rounded}",
+                stacklevel=2,
+            )
+            batch_size = rounded
         params = Word2VecParams(
             vector_size=kw["vectorSize"],
             window=kw["windowSize"],
             step_size=kw["stepSize"],
-            batch_size=kw["batchSize"],
+            batch_size=batch_size,
             num_negatives=kw["n"],
             subsample_ratio=kw["subsampleRatio"],
             min_count=kw["minCount"],
@@ -267,8 +281,8 @@ class ServerSideGlintWord2Vec:
                 if kw["seed"] is not None
                 else int(np.random.default_rng().integers(2**31 - 1))
             ),
-            num_partitions=1,
-            num_shards=1,
+            num_partitions=num_data,
+            num_shards=num_model,
             unigram_table_size=kw["unigramTableSize"],
         )
         model = Word2Vec(params, device=self.device).fit(list(sentences))

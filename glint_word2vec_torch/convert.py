@@ -24,17 +24,19 @@ from glint_word2vec_torch.utils.params import Word2VecParams
 
 def engine_from_arrays(
     syn0: np.ndarray, syn1: np.ndarray, counts: np.ndarray,
-    *, device: DeviceLike = None, **meta,
+    *, device: DeviceLike = None, mesh=None, layout: str = "rows", **meta,
 ) -> EmbeddingEngine:
     """An engine holding ``syn0``/``syn1`` (``(num_rows, dim)`` host arrays
-    or tensors, rounded to the storage dtype). ``counts`` has one entry
-    per vocabulary word; rows past it are extra rows. ``meta`` takes the
-    engine's keyword arguments (``dtype``, ``num_negatives``, …)."""
+    or tensors, rounded to the storage dtype), on one device or split over
+    ``mesh`` in ``layout``. ``counts`` has one entry per vocabulary word;
+    rows past it are extra rows. ``meta`` takes the engine's keyword
+    arguments (``dtype``, ``num_negatives``, …)."""
     vocab_size = int(np.asarray(counts).shape[0])
     num_rows, dim = syn0.shape
     eng = EmbeddingEngine(
         vocab_size, dim, counts,
-        extra_rows=num_rows - vocab_size, device=device, **meta,
+        extra_rows=num_rows - vocab_size, device=device, mesh=mesh,
+        layout=layout, **meta,
     )
     eng.set_tables(syn0, syn1)
     return eng
@@ -43,13 +45,14 @@ def engine_from_arrays(
 def model_from_arrays(
     words: Sequence[str], syn0: np.ndarray, syn1: np.ndarray,
     counts: np.ndarray, params: Word2VecParams,
-    *, device: DeviceLike = None,
+    *, device: DeviceLike = None, mesh=None, layout: str = "rows",
 ) -> Word2VecModel:
     """A :class:`Word2VecModel` over the given words (most frequent first)
-    and tables, with the storage dtype and noise geometry of ``params``."""
+    and tables, with the storage dtype and noise geometry of ``params``,
+    on one device or over ``mesh`` in ``layout``."""
     vocab = Vocabulary.from_sorted(list(words), counts)
     eng = engine_from_arrays(
-        syn0, syn1, vocab.counts, device=device,
+        syn0, syn1, vocab.counts, device=device, mesh=mesh, layout=layout,
         dtype=params.dtype,
         num_negatives=params.num_negatives,
         unigram_power=params.unigram_power,

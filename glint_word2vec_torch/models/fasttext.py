@@ -56,9 +56,9 @@ class FastTextWord2Vec(Word2Vec):
     host."""
 
     def __init__(self, params: Optional[FastTextParams] = None,
-                 device: DeviceLike = None, obs=None, **overrides):
+                 device: DeviceLike = None, obs=None, mesh=None, **overrides):
         super().__init__(params or FastTextParams(), device=device, obs=obs,
-                         **overrides)
+                         mesh=mesh, **overrides)
         if not isinstance(self.params, FastTextParams):
             raise TypeError("FastTextWord2Vec requires FastTextParams")
         self._sub_ids: Optional[np.ndarray] = None
@@ -83,7 +83,7 @@ class FastTextWord2Vec(Word2Vec):
         # _train_batches; the packed path assembles word centers only.
         return False
 
-    def _make_engine(self, vocab: Vocabulary):
+    def _make_engine(self, vocab: Vocabulary, mesh=None):
         from glint_word2vec_torch.parallel.engine import EmbeddingEngine
 
         p = self.params
@@ -100,7 +100,9 @@ class FastTextWord2Vec(Word2Vec):
             extra_rows=p.bucket,
             shared_negatives=p.shared_negatives,
             compute_dtype=p.compute_dtype,
-            device=self.device,
+            device=None if mesh is not None else self.device,
+            mesh=mesh,
+            layout=p.layout,
         )
 
     def _train_batches(self, engine, group: BatchGroup, base_key: int,
@@ -250,7 +252,7 @@ class FastTextModel(Word2VecModel):
                 qeng = EmbeddingEngine(
                     self.vocab.size, self.vector_size, self.vocab.counts,
                     num_negatives=self.engine.num_negatives, seed=0,
-                    device=self.engine.device,
+                    mesh=self.engine.mesh,
                 )
                 B = self.COMPOSE_BLOCK
                 for s in range(0, self.vocab.size, B):

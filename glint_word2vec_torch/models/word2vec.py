@@ -35,10 +35,18 @@ With ``exchange="sparse"|"dense"`` in a gang of processes
 on its shard of the corpus through the resident route, and the replicas
 reconcile the rows they touched after every dispatch group
 (``parallel/exchange.py``, :meth:`Word2Vec._fit_replica_exchange`); one
-process runs the same protocol with the wire short-circuited. What the
-JAX package trains on an SPMD mesh (``num_partitions``/``num_shards``
-above 1, the ``dims`` layout, a gang with ``exchange="none"``) raises
-``ValueError``: that is the port's mesh slice, still to come.
+process runs the same protocol with the wire short-circuited.
+
+``num_partitions``/``num_shards`` above 1 or ``layout="dims"`` train on a
+mesh (``parallel/mesh.py``): ``num_partitions`` data ranks split every
+batch, ``num_shards`` model shards split both tables by rows or by
+columns. The default mesh puts every shard on the estimator's device
+(``mesh=`` takes any grid); the 1 x 1 ``rows`` mesh runs the single-device
+code. A gang with ``exchange="none"`` is one mesh across the processes
+(``distributed.make_global_mesh``): each process trains its round-robin
+shard through the host batcher, every process dispatches the same number
+of steps (zero-mask groups pad a short shard), and the data axis crosses
+processes through gloo.
 
 :class:`Word2VecModel` is the query surface over an
 :class:`~glint_word2vec_torch.parallel.engine.EmbeddingEngine`, and
@@ -88,6 +96,7 @@ from glint_word2vec_torch.utils import (
     atomic_write_json,
     atomic_write_npy,
     atomic_write_text,
+    faults,
     next_pow2,
 )
 from glint_word2vec_torch.utils.integrity import resolve_train_state
@@ -245,9 +254,12 @@ class Word2Vec:
     """
 
     def __init__(self, params: Optional[Word2VecParams] = None,
-                 device: DeviceLike = None, obs=None, **overrides):
+                 device: DeviceLike = None, obs=None, mesh=None, **overrides):
         self.params = (params or Word2VecParams()).replace(**overrides)
         self.device = device
+        #: An explicit ``parallel.mesh.Mesh`` to train on (None builds one
+        #: from ``num_partitions`` x ``num_shards``, :meth:`_make_mesh`).
+        self.mesh = mesh
         #: Optional ``obs.ObsConfig``: the run's event log, heartbeat,
         #: status file, canary and step-time file. Run config, never part
         #: of the params or the saved model.
@@ -289,11 +301,11 @@ class Word2Vec:
         return self._set(seed=v)
 
     def set_num_partitions(self, v: int) -> "Word2Vec":
-        """Data-parallel axis size (only 1 trains in the port so far)."""
+        """Data-axis size of the mesh: every batch split over ``v`` ranks."""
         return self._set(num_partitions=v)
 
     def set_num_shards(self, v: int) -> "Word2Vec":
-        """Model-parallel axis size (only 1 trains in the port so far)."""
+        """Model-axis size of the mesh: both tables split ``v`` ways."""
         return self._set(num_shards=v)
 
     def set_dtype(self, v: str) -> "Word2Vec":
@@ -323,7 +335,7 @@ class Word2Vec:
 
     def set_exchange(self, v: str) -> "Word2Vec":
         """Cross-replica reconciliation of a gang of processes: "none"
-        (one process, or the SPMD mesh, not ported yet), "sparse" (each
+        (one process, or one mesh across a gang), "sparse" (each
         round exchanges the touched rows' deltas) or "dense" (the full
         deltas on the same cadence, the parity baseline)."""
         return self._set(exchange=v)
@@ -365,26 +377,55 @@ class Word2Vec:
 
     # ------------------------------------------------------------------
 
-    def _check_supported(self) -> None:
-        """Raise ``ValueError`` for settings the port does not train yet,
-        naming the later slice that brings them: everything of the SPMD
-        mesh (one program across several cards)."""
+    def _make_mesh(self, local: bool = False):
+        """The mesh of a fit (``models/word2vec.py:365-381`` of the JAX
+        package): ``mesh=`` as given, else ``num_partitions`` x
+        ``num_shards`` with every shard on the estimator's device (one
+        card holds a mesh of any shape), or in a gang with
+        ``exchange="none"`` the mesh across the processes
+        (``distributed.make_global_mesh``). ``local`` (a replica-exchange
+        rank) keeps the mesh inside the process. None for the 1 x 1 mesh,
+        which runs the single-device engine."""
+        from glint_word2vec_torch.parallel.mesh import make_mesh
+
+        if self.mesh is not None:
+            return self.mesh
         p = self.params
-        later = []
-        if p.num_partitions > 1 or p.num_shards > 1:
-            later.append("num_partitions/num_shards > 1 (multi-device "
-                         "training: the SPMD mesh slice)")
-        if p.layout != "rows":
-            later.append(f"layout={p.layout!r} (the dims layout, with the "
-                         "SPMD mesh slice)")
-        if p.exchange == "none" and dist.process_count() > 1:
-            later.append("a gang of processes with exchange='none' (the "
-                         "mesh gang, with the SPMD mesh slice; train a "
-                         "gang with exchange='sparse' or 'dense')")
-        if later:
+        pc = dist.process_count()
+        if not local and pc > 1:
+            dev = dist.rank_device(self.device, dist.process_index())
+            n_local = max(1, p.num_partitions // pc) * p.num_shards
+            return dist.make_global_mesh(p.num_partitions, p.num_shards,
+                                         devices=[dev] * n_local)
+        n = p.num_partitions * p.num_shards
+        if n == 1:
+            return None
+        dev = resolve_device(self.device)
+        if local:
+            dev = dist.rank_device(self.device, dist.process_index())
+        elif (dev.type == "cuda" and self.device in (None, "cuda")
+              and torch.cuda.device_count() >= n):
+            return make_mesh(p.num_partitions, p.num_shards)
+        return make_mesh(p.num_partitions, p.num_shards, devices=[dev] * n)
+
+    def _check_batch_split(self, mesh) -> None:
+        """The batch must split evenly over the data axis
+        (``models/word2vec.py:667-673, 1321-1331`` of the JAX package)."""
+        if mesh is None:
+            return
+        p = self.params
+        nd = mesh.shape["data"]
+        if p.batch_size % nd:
             raise ValueError(
-                "not ported yet, a later slice of the PyTorch port: "
-                + "; ".join(later)
+                f"batch_size ({p.batch_size}) must be divisible by the "
+                f"data-axis size ({nd})"
+            )
+        pc = dist.process_count()
+        if pc > 1 and nd % pc:
+            raise ValueError(
+                f"data-axis size ({nd}) must be a multiple of the process "
+                f"count ({pc}) so each process's devices form whole data rows "
+                "(set num_partitions accordingly)"
             )
 
     def fit(
@@ -407,7 +448,6 @@ class Word2Vec:
         one; ``stop_after_epochs`` ends this invocation early (the learning
         rate follows global progress, so it is unaffected)."""
         p = self.params
-        self._check_supported()
         if isinstance(sentences, list):
             vocab = build_vocab(sentences, min_count=p.min_count)
             encoded = chunk_sentences(
@@ -442,7 +482,6 @@ class Word2Vec:
         and a flat int32 encode pass over the file, never a list of
         Python sentences."""
         p = self.params
-        self._check_supported()
         vocab, ids, offsets = scan_and_encode_file(
             path, min_count=p.min_count,
             max_sentence_length=p.max_sentence_length, lowercase=lowercase,
@@ -478,10 +517,31 @@ class Word2Vec:
         ``DEVICE_MEMORY_FRACTION`` of the free memory), else the host
         batcher. In a gang with an exchange, :meth:`_fit_replica_exchange`."""
         p = self.params
-        if p.exchange != "none" and dist.process_count() > 1:
+        pc = dist.process_count()
+        if p.exchange != "none" and pc > 1:
             return self._fit_replica_exchange(
                 vocab, ids, offsets, checkpoint_dir,
                 checkpoint_every_epochs, stop_after_epochs,
+            )
+        if pc > 1:
+            # The mesh gang: every process its round-robin shard through
+            # the host batcher, all dispatching the agreed step count.
+            if p.batch_size % pc:
+                raise ValueError(
+                    f"batch_size ({p.batch_size}) must be divisible by the "
+                    f"process count ({pc}) for multi-process training"
+                )
+            local_batch = p.batch_size // pc
+            counts = dist.per_process_word_counts(np.diff(offsets), pc)
+            steps_per_epoch = max(1, int(-(-int(counts.max()) // local_batch)))
+            ids, offsets = dist.shard_flat_for_process(ids, offsets)
+            batcher = SkipGramBatcher.from_flat(
+                ids, offsets, vocab, batch_size=local_batch, window=p.window,
+                subsample_ratio=p.subsample_ratio, seed=p.seed,
+            )
+            return self._fit_with_batcher(
+                vocab, batcher, checkpoint_dir, checkpoint_every_epochs,
+                stop_after_epochs, steps_per_epoch=steps_per_epoch,
             )
         if self._device_corpus_eligible() and int(ids.size) < 2**31:
             need = self._device_bytes_needed(
@@ -599,7 +659,7 @@ class Word2Vec:
             tables += vocab_size * per_row
         return tables + step + corpus
 
-    def _make_engine(self, vocab: Vocabulary):
+    def _make_engine(self, vocab: Vocabulary, mesh=None):
         from glint_word2vec_torch.parallel.engine import EmbeddingEngine
 
         p = self.params
@@ -612,7 +672,9 @@ class Word2Vec:
             dtype=p.dtype,
             shared_negatives=p.shared_negatives,
             compute_dtype=p.compute_dtype,
-            device=self.device,
+            device=None if mesh is not None else self.device,
+            mesh=mesh,
+            layout=p.layout,
         )
 
     def _train_batches(self, engine, group: BatchGroup, base_key: int,
@@ -635,9 +697,17 @@ class Word2Vec:
         checkpoint_dir: Optional[str],
         checkpoint_every_epochs: int,
         stop_after_epochs: Optional[int],
+        steps_per_epoch: Optional[int] = None,
     ) -> "Word2VecModel":
-        """The host-batcher training loop, one device (the JAX package's
+        """The host-batcher training loop (the JAX package's
         ``_fit_with_batcher``, ``models/word2vec.py:1291-1613``, trimmed).
+
+        In a gang (``steps_per_epoch`` set) every process dispatches
+        ``ceil(steps_per_epoch / steps_per_call)`` groups an epoch, zero-mask
+        groups once its shard runs out (a collective would wait forever
+        for a process that stopped early), with the pro-rata learning-rate
+        schedule every process computes alike; a checkpoint is process
+        0's save, between two barriers.
 
         Per epoch a producer thread windows the corpus and stacks groups
         of ``steps_per_call`` grid batches (``group_batches`` under
@@ -661,7 +731,9 @@ class Word2Vec:
             )
         logger.info("vocab: %d words, %d train words", vocab.size,
                     vocab.train_words_count)
-        engine = self._make_engine(vocab)
+        mesh = self._make_mesh()
+        self._check_batch_split(mesh)
+        engine = self._make_engine(vocab, mesh)
         twc = vocab.train_words_count
         obs_run = start_run(
             self.obs, pipeline="host", total_epochs=p.num_iterations,
@@ -686,6 +758,17 @@ class Word2Vec:
                 logger.info("resuming after epoch %d (step %d)", start_epoch, step)
             metrics = TrainingMetrics(base_words=batcher.words_done)
             obs_run.attach_metrics(metrics)
+            forced_groups = (None if steps_per_epoch is None
+                             else max(1, -(-steps_per_epoch // spc)))
+
+            def zero_group() -> BatchGroup:
+                B, C = batcher.batch_size, context_width(batcher.window)
+                return BatchGroup(
+                    centers=np.zeros((spc, B), np.int32),
+                    contexts=np.zeros((spc, B, C), np.int32),
+                    mask=np.zeros((spc, B, C), np.float32),
+                    words_done=[batcher.words_done] * spc, n_real=0,
+                )
 
             for epoch in range(start_epoch, p.num_iterations):
                 obs_run.update(epoch=epoch)
@@ -693,13 +776,29 @@ class Word2Vec:
                 pending = None
                 g = 0
                 while True:
+                    if forced_groups is not None and g >= forced_groups:
+                        if next(it, None) is not None:
+                            raise RuntimeError(
+                                "internal error: the local shard produced more "
+                                "batches than the agreed per-epoch step count")
+                        break
+                    faults.fire("worker.step")
                     # The wait for the producer is a stall of the loop.
                     with metrics.timing("host"), metrics.stall_timing(), \
                             obs_run.span("host_batch", epoch=epoch, group=g):
                         grp = next(it, None)
                     if grp is None:
-                        break
-                    wds = list(grp.words_done)
+                        if forced_groups is None:
+                            break
+                        grp = zero_group()
+                    if steps_per_epoch is None:
+                        wds = list(grp.words_done)
+                    else:
+                        # Every process the same schedule: the epoch's
+                        # words pro rata over its agreed step count.
+                        wds = [epoch * twc + min((g * spc + j + 1)
+                                                 / steps_per_epoch, 1.0) * twc
+                               for j in range(spc)]
                     alphas = [
                         max(p.step_size * (1 - wd / total_words),
                             p.step_size * 1e-4)
@@ -727,15 +826,29 @@ class Word2Vec:
                     stopping or (epoch + 1) % max(checkpoint_every_epochs, 1) == 0
                 ):
                     ck_name = f"ckpt-{epoch + 1}"
-                    _checkpoint_tables(
-                        engine, obs_run, metrics,
-                        os.path.join(checkpoint_dir, ck_name), ck_name,
-                        functools.partial(
-                            _flip_checkpoint_state, checkpoint_dir,
-                            state_path, ck_name, epochs_completed=epoch + 1,
-                            step=step, words_done=batcher.words_done,
-                        ),
+                    flip = functools.partial(
+                        _flip_checkpoint_state, checkpoint_dir,
+                        state_path, ck_name, epochs_completed=epoch + 1,
+                        step=step, words_done=(
+                            batcher.words_done if steps_per_epoch is None
+                            else (epoch + 1) * twc),
                     )
+                    if steps_per_epoch is None:
+                        _checkpoint_tables(
+                            engine, obs_run, metrics,
+                            os.path.join(checkpoint_dir, ck_name), ck_name,
+                            flip,
+                        )
+                    else:
+                        # Every process holds the same tables: process 0
+                        # writes them, and flips the state once all agree.
+                        with obs_run.span("checkpoint_save", ckpt=ck_name):
+                            if dist.process_index() == 0:
+                                engine.save(os.path.join(checkpoint_dir, ck_name))
+                            _multiprocess_barrier(ck_name)
+                            if dist.process_index() == 0:
+                                flip()
+                            _multiprocess_barrier(ck_name + "-done")
                 if stopping:
                     logger.info("stopping early after epoch %d", epoch + 1)
                     break
@@ -820,7 +933,9 @@ class Word2Vec:
             "packing%s)", vocab.size, vocab.train_words_count,
             p.batch_packing, ", on-device subsampling" if subsampling else "",
         )
-        engine = self._make_engine(vocab)
+        mesh = self._make_mesh(local=p.exchange != "none")
+        self._check_batch_split(mesh)
+        engine = self._make_engine(vocab, mesh)
         twc = vocab.train_words_count
         obs_run = start_run(
             self.obs, pipeline="device_corpus", total_epochs=p.num_iterations,
@@ -836,7 +951,7 @@ class Word2Vec:
             B, spc = p.batch_size, p.steps_per_call
             total_words = p.num_iterations * twc + 1
             base_key = rnd.seed_key(p.seed)
-            pair_batch = packed_pair_batch(B, p.window)
+            pair_batch = packed_pair_batch(B, p.window, engine.num_data)
             step = gstep = start_epoch = resume_position = 0
             packed_groups = packed_pairs = packed_slots = 0
             stop_after_groups = os.environ.get("GLINT_PACKED_STOP_AFTER_GROUPS")
@@ -1380,10 +1495,15 @@ class Word2VecModel:
     _PARAMS_CLS = Word2VecParams
 
     @classmethod
-    def load(cls, path: str, device: DeviceLike = None) -> "Word2VecModel":
-        """Rebuild from a model directory saved by either package; the
-        family's own tail is :meth:`_from_loaded`."""
+    def load(cls, path: str, device: DeviceLike = None,
+             mesh=None) -> "Word2VecModel":
+        """Rebuild from a model directory saved by either package onto any
+        mesh (``models/word2vec.py:1906-1933`` of the JAX package); the
+        family's own tail is :meth:`_from_loaded`. With no ``mesh`` the
+        saved topology is clamped to the cards from ``device`` on: one
+        card (or the CPU) loads onto 1 x 1."""
         from glint_word2vec_torch.parallel.engine import EmbeddingEngine
+        from glint_word2vec_torch.parallel.mesh import make_mesh
 
         with open(os.path.join(path, "params.json")) as f:
             try:
@@ -1393,7 +1513,20 @@ class Word2VecModel:
                     f"params.json at {path} does not describe a "
                     f"{cls._PARAMS_CLS.__name__} model: {e}"
                 )
-        engine = EmbeddingEngine.load(os.path.join(path, "matrix"), device)
+        if mesh is None:
+            # The cards from the asked-for one on: a mesh's first device
+            # is the engine's.
+            dev = resolve_device(device)
+            cards = ([torch.device("cuda", i) for i in
+                      range(dev.index, torch.cuda.device_count())]
+                     if dev.type == "cuda" else [dev])
+            num_model = max(1, min(params.num_shards, len(cards)))
+            num_data = max(1, min(params.num_partitions,
+                                  len(cards) // num_model))
+            if num_data * num_model > 1:
+                mesh = make_mesh(num_data, num_model, devices=cards)
+        engine = EmbeddingEngine.load(os.path.join(path, "matrix"), device,
+                                      mesh=mesh)
         vocab = saved_model_vocabulary(
             path, engine._counts,
             engine.vocab_size + engine.extra_rows_assigned,

@@ -19,9 +19,12 @@ exactly: :func:`shard_sentences_for_process` and
 :func:`per_process_word_counts`, and :func:`shard_span` (contiguous, every
 item once: the bulk transform's split).
 
-The JAX module's SPMD mesh helpers, ``make_global_mesh``,
-``process_batch_slice`` and ``make_global_batch``, belong to the mesh
-slice of the port (one program across several cards), and are not here.
+The mesh of a gang (``exchange="none"``): :func:`make_global_mesh` gives
+each process a mesh whose model axis is its own and whose data axis
+crosses the processes (each process runs ``num_data / process_count``
+data ranks; the engine joins their rows through :func:`allgather_host`),
+:func:`process_batch_slice` this process's share of a global batch, and
+:func:`make_global_batch` its rows as tensors.
 """
 
 from __future__ import annotations
@@ -185,6 +188,72 @@ def allgather_host(arr, out=None):
     for work in works:
         work.wait()
     return out.numpy() if as_numpy else out
+
+
+def make_global_mesh(num_data: Optional[int] = None,
+                     num_model: Optional[int] = None, devices=None):
+    """The ("data", "model") mesh of a gang (``distributed.py:121`` of the
+    JAX package): the model axis stays inside each process, and only the
+    data axis crosses processes, ``num_data / process_count`` data ranks a
+    process. ``devices`` are this process's (its card, :func:`rank_device`,
+    repeated by default: ranks sharing a card each hold their own
+    replica). One process gives ``make_mesh(num_data, num_model,
+    devices)``."""
+    from glint_word2vec_torch.parallel.mesh import Mesh, make_mesh
+
+    pc, pi = process_count(), process_index()
+    if pc == 1:
+        return make_mesh(num_data, num_model, devices)
+    num_model = int(num_model or 1)
+    num_data = int(num_data or pc)
+    if num_data % pc:
+        raise ValueError(
+            f"data-axis size ({num_data}) must be a multiple of the process "
+            f"count ({pc}) so each process holds whole data rows"
+        )
+    local = num_data // pc
+    if devices is None:
+        devices = [rank_device(None, pi)] * (local * num_model)
+    devs = list(devices)
+    if len(devs) < local * num_model:
+        raise ValueError(
+            f"mesh {local}x{num_model} of this process needs more than the "
+            f"{len(devs)} devices given"
+        )
+    return Mesh([devs[r * num_model:(r + 1) * num_model] for r in range(local)],
+                process_index=pi, process_count=pc)
+
+
+def process_batch_slice(mesh, process_index: Optional[int] = None,
+                        process_count: Optional[int] = None) -> Tuple[float, float]:
+    """This process's fraction ``[lo, hi)`` of the global batch's rows
+    (``distributed.py:140`` of the JAX package)."""
+    pi = _pi() if process_index is None else int(process_index)
+    pc = _pc() if process_count is None else int(process_count)
+    return pi / pc, (pi + 1) / pc
+
+
+def make_global_batch(mesh, *host_arrays, data_axis: int = 0):
+    """This process's rows of a global batch as tensors on the mesh's
+    first device (``distributed.py:156`` of the JAX package): each
+    process passes its own ``global_rows / process_count`` rows along
+    ``data_axis`` (``data_axis=1`` for the stacked ``(K, B, ...)`` groups
+    of ``train_steps``), and a gang engine treats them as the data ranks
+    of this process. In one process they are the whole batch."""
+    import torch
+
+    dev = mesh.devices[0][0]
+    out = []
+    for a in host_arrays:
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(a))
+        if t.shape[data_axis] % len(mesh.devices):
+            raise ValueError(
+                f"batch axis {data_axis} ({t.shape[data_axis]}) must split "
+                f"over this process's {len(mesh.devices)} data ranks"
+            )
+        out.append(t.to(dev))
+    return tuple(out)
 
 
 def shard_sentences_for_process(

@@ -1,5 +1,5 @@
 """The embedding engine of the port (counterpart of
-``glint_word2vec_tpu/parallel/engine.py``), single device, ``rows`` layout.
+``glint_word2vec_tpu/parallel/engine.py``).
 
 It owns the two tables, ``syn0`` and ``syn1``, as ``[padded_vocab, dim]``
 tensors on one device in fp32 or bf16 storage, and answers the query
@@ -62,6 +62,17 @@ round counters the heartbeat reads, :meth:`EmbeddingEngine.tables_digest`
 hashes both tables, and :meth:`EmbeddingEngine.set_save_split` makes a
 gang rank write only its own row block of a sharded save.
 
+On a mesh (``parallel/mesh.py``; ``mesh=`` and ``layout=``) each table is
+one tensor per model shard: a block of ``rows_per_shard`` rows (``rows``)
+or a contiguous slice of ``cols_per_shard`` columns (``dims``). The data
+ranks run their batch slices' forward passes in turn, the data-axis
+gathers join what they ship, and every shard applies the batch's updates
+it holds, each kernel launched shard by shard (``_mesh_step``,
+``_mesh_pair_step``, ``engine.py:557-885`` of the JAX package); the queries
+and the saves go by shard too. The 1 x 1 ``rows`` mesh, the default, runs
+the single-device code above. In a gang with ``exchange="none"`` the
+data axis also crosses processes (:meth:`EmbeddingEngine._gang_exchange`).
+
 Checkpoints use the JAX package's on-disk layout (``engine.json``,
 ``counts.npy``, ``.npy`` table blocks, ``manifest.json`` and the per-shard
 sidecars), so either package loads what the other saved. A save is a
@@ -105,12 +116,19 @@ from glint_word2vec_torch.ops.sampling import (
     sample_negatives_per_row,
 )
 from glint_word2vec_torch.ops.sgns import (
+    _operand,
     init_tables,
     negative_mask,
     pool_collision_mask,
+    sgns_coefs,
+    sgns_d_center,
     sgns_grads,
+    shared_sgns_coefs,
     shared_sgns_grads,
+    shared_sgns_updates,
 )
+from glint_word2vec_torch.parallel import mesh as mesh_mod
+from glint_word2vec_torch.utils import faults
 from glint_word2vec_torch.utils import integrity, next_pow2
 
 #: Floor of the top-k k-bucket family (``engine.py:259`` of the JAX
@@ -140,6 +158,11 @@ _UPLOAD_BYTES = 64 << 20
 _SCORE_ROWS = 1 << 20
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+#: Score budget of one Q chunk of a ``dims`` mesh's batched top-k: the
+#: ``(Q, V)`` psum'd scores stay under 256 MB (``engine.py:2353-2360`` of
+#: the JAX package).
+_DIMS_SCORE_BYTES = 256 << 20
 
 
 #: The replica exchange's counters (:meth:`EmbeddingEngine.exchange_stats`)
@@ -327,6 +350,8 @@ class EmbeddingEngine:
         shared_negatives: int = 0,
         compute_dtype: Optional[str] = None,
         device: DeviceLike = None,
+        mesh: Optional[mesh_mod.Mesh] = None,
+        layout: str = "rows",
     ):
         if vocab_size <= 0 or dim <= 0:
             raise ValueError("vocab_size and dim must be > 0")
@@ -339,8 +364,27 @@ class EmbeddingEngine:
             raise ValueError("dtype must be float32|bfloat16")
         if compute_dtype not in (None, "float32", "bfloat16"):
             raise ValueError("compute_dtype must be float32|bfloat16")
+        if layout not in ("rows", "dims"):
+            raise ValueError("layout must be 'rows' or 'dims'")
         self.compute_dtype = compute_dtype or "float32"
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            mesh = mesh_mod.Mesh([[self.device]])
+        else:
+            for dev in {d for row in mesh.devices for d in row}:
+                resolve_device(dev)
+            self.device = resolve_device(mesh.devices[0][0])
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(
+                    f"device {device!r} is not the mesh's first device "
+                    f"{self.device}"
+                )
+        #: The ("data", "model") device grid (``parallel/mesh.py``); a
+        #: 1 x 1 grid of ``device`` by default.
+        self.mesh = mesh
+        self.num_data = mesh.shape[mesh_mod.DATA_AXIS]
+        self.num_model = mesh.shape[mesh_mod.MODEL_AXIS]
+        self.layout = layout
         self.vocab_size = int(vocab_size)
         self.num_rows = int(vocab_size) + int(extra_rows)
         self.dim = int(dim)
@@ -353,8 +397,24 @@ class EmbeddingEngine:
         self._seed = int(seed)
         self.dtype = dtype
         self._dtype = _DTYPES[dtype]
-        # One device holds every row: no model-axis padding.
-        self.padded_vocab = self.num_rows
+        # The model-axis geometry (``engine.py:462-472`` of the JAX
+        # package): rows padded to a multiple of the shards (``rows``), or
+        # columns (``dims``; ``padded_dim`` is that column padding).
+        if layout == "rows":
+            self.padded_vocab = mesh_mod.pad_to_multiple(
+                self.num_rows, self.num_model)
+            self.rows_per_shard = self.padded_vocab // self.num_model
+            self.padded_dim = self.cols_per_shard = self.dim
+        else:
+            self.padded_vocab = self.rows_per_shard = self.num_rows
+            self.padded_dim = mesh_mod.pad_to_multiple(self.dim, self.num_model)
+            self.cols_per_shard = self.padded_dim // self.num_model
+        #: False for the 1 x 1 ``rows`` engine, which runs the single-device
+        #: code; True on any other mesh or layout.
+        self._meshed = layout == "dims" or mesh.size > 1
+        #: Data ranks this process runs; in a gang the data axis also
+        #: crosses processes (:meth:`_gang_exchange`).
+        self._local_data = len(mesh.devices)
         self._counts = counts.astype(np.int64).copy()
         #: Extra rows assigned to words (streaming growth); they are
         #: queryable, the rest of the extra rows are not.
@@ -375,6 +435,10 @@ class EmbeddingEngine:
         #: geometry (:meth:`configure_ann`).
         self._ann = None
         self._ann_conf: Optional[dict] = None
+        # One tensor per model shard and table (None once released). The
+        # initial tables are drawn whole, then padded and split, so they
+        # are the same for every mesh shape and layout.
+        self._shards: list = [None, None]
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self.syn0, self.syn1 = init_tables(
             gen, self.num_rows, self.dim, self._dtype, self.device
@@ -402,6 +466,15 @@ class EmbeddingEngine:
         #: Replica save split ``(rank, world)`` (:meth:`set_save_split`).
         self._save_split: Optional[Tuple[int, int]] = None
         self._exchange_stats = dict(_EXCHANGE_ZERO)
+        # Skip-clean in-place saves (``engine.py:1923-1966`` of the JAX
+        # package): the shard files the last committed save to
+        # ``_shard_clean_path`` holds current bytes for (None: all dirty).
+        self._shard_dirty: Optional[dict] = None
+        self._shard_clean_path: Optional[str] = None
+        self._ckpt_shards_skipped = 0
+        self._ckpt_peak_block_bytes = 0
+        self._ckpt_shard_verify_s: Optional[float] = None
+        self._stage_peak_block_bytes = 0
 
     # ------------------------------------------------------------------
     # Bookkeeping
@@ -411,6 +484,89 @@ class EmbeddingEngine:
     def cols(self) -> int:
         """Column count == vector size."""
         return self.dim
+
+    @property
+    def syn0(self) -> Optional[torch.Tensor]:
+        """The input table's live tensor, on a mesh whose model axis is 1;
+        raises on a table split over model shards, which has no one live
+        tensor (:meth:`logical_table` copies it whole, :meth:`shard_tables`
+        gives the shards). Assigning a table of ``num_rows`` rows or more
+        pads and splits it."""
+        return self._live(0)
+
+    @syn0.setter
+    def syn0(self, table: Optional[torch.Tensor]) -> None:
+        self._shards[0] = self._split(table)
+
+    @property
+    def syn1(self) -> Optional[torch.Tensor]:
+        """The output table, as :attr:`syn0`."""
+        return self._live(1)
+
+    @syn1.setter
+    def syn1(self, table: Optional[torch.Tensor]) -> None:
+        self._shards[1] = self._split(table)
+
+    def _live(self, i: int) -> Optional[torch.Tensor]:
+        sh = self._shards[i]
+        if sh is None:
+            return None
+        if len(sh) > 1:
+            name = ("syn0", "syn1")[i]
+            raise RuntimeError(
+                f"{name} is split over {len(sh)} model shards: read it with "
+                f"logical_table({i}) (a copy) or shard_tables({i})")
+        return sh[0]
+
+    def logical_table(self, i: int) -> Optional[torch.Tensor]:
+        """Table ``i`` (0: syn0, 1: syn1) whole, ``(padded_vocab,
+        padded_dim)`` on the engine's device: the live tensor on one model
+        shard, else a new tensor assembled from the shards (writes to it
+        reach no shard)."""
+        sh = self._shards[i]
+        if sh is None:
+            return None
+        if len(sh) == 1:
+            return sh[0]
+        return mesh_mod.all_gather(
+            sh, dim=0 if self.layout == "rows" else 1, device=self.device)
+
+    def shard_tables(self, i: int) -> list:
+        """The live tensors of table ``i``, one per model shard in shard
+        order: row blocks (``rows``) or column slices (``dims``)."""
+        return list(self._shards[i] or [])
+
+    def _split(self, table: Optional[torch.Tensor]) -> Optional[list]:
+        """The per-shard tensors of a logical table: row blocks of
+        ``rows_per_shard`` (``rows``) or contiguous column slices of
+        ``cols_per_shard`` (``dims``), each on its shard's device, the
+        padding zero."""
+        if table is None:
+            return None
+        if self.num_model == 1 and table.shape[0] >= self.padded_vocab:
+            return [table]
+        pr = self.padded_vocab - table.shape[0]
+        pc = self.padded_dim - table.shape[1]
+        if pr > 0 or pc > 0:
+            table = torch.nn.functional.pad(table, (0, max(pc, 0), 0, max(pr, 0)))
+        out = []
+        for m, dev in enumerate(self.mesh.model_devices):
+            if self.layout == "rows":
+                part = table[m * self.rows_per_shard:(m + 1) * self.rows_per_shard]
+            else:
+                c = self.cols_per_shard
+                part = table[:self.padded_vocab, m * c:(m + 1) * c]
+            out.append(part.to(dev).contiguous())
+        return out
+
+    def _shard_range(self, m: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+        """``((row0, row1), (col0, col1))`` of shard ``m`` in the logical
+        table, padding included."""
+        if self.layout == "rows":
+            r0 = m * self.rows_per_shard
+            return (r0, r0 + self.rows_per_shard), (0, self.dim)
+        c0 = m * self.cols_per_shard
+        return (0, self.num_rows), (c0, c0 + self.cols_per_shard)
 
     @property
     def queryable_rows(self) -> int:
@@ -424,6 +580,10 @@ class EmbeddingEngine:
         global read when no recorder is installed)."""
         self._norms_cache = None
         self.table_version += 1
+        if reason != "exchange_adopt":
+            # A mutation whose touched rows are unknown dirties every
+            # shard file of the skip-clean save.
+            self._shard_dirty = None
         obs_events.emit("table_mutation", reason=reason,
                         version=self.table_version)
 
@@ -436,7 +596,8 @@ class EmbeddingEngine:
             self._query_shapes.add(key)
             self.query_compiles += 1
             pkey = (self.padded_vocab, self.dim, str(self._dtype),
-                    self.device.type) + key
+                    self.device.type, self.num_data, self.num_model,
+                    self.layout) + key
             shared = pkey in _QUERY_SHAPES_SEEN
             if shared:
                 self.shared_program_hits += 1
@@ -468,11 +629,35 @@ class EmbeddingEngine:
         the engine's device: ids outside the table are clipped for the
         gather and their rows zeroed, as ``_pull_rows`` of the JAX engine
         does around its kernel."""
+        if self._meshed and table is None:
+            return self._mesh_pull(0, idx)
         table = self.syn0 if table is None else table
         own = (idx >= 0) & (idx < self.padded_vocab)
         clipped = idx.clamp(0, self.padded_vocab - 1).contiguous()
         rows = gather_rows(table, clipped)
         return torch.where(own[:, None], rows, 0.0)
+
+    def _mesh_pull(self, i: int, idx: torch.Tensor) -> torch.Tensor:
+        """fp32 rows of table ``i`` (0: syn0, 1: syn1) for int32 ``idx``
+        on a mesh. ``rows``: each shard gathers every id clipped to its
+        block (``gather_rows``), zeroes the rows it does not own, and the
+        model axis sums the partials (``_pull_rows``, ``engine.py:95-115``
+        of the JAX package). ``dims``: each shard gathers its column
+        slice of every row, and the slices are joined."""
+        shards = self._shards[i]
+        if self.layout == "dims":
+            parts = [gather_rows(t, idx.to(t.device).contiguous())
+                     for t in shards]
+            return mesh_mod.all_gather(parts, dim=1, device=self.device)[
+                :, : self.dim]
+        Vs = self.rows_per_shard
+        parts = []
+        for m, t in enumerate(shards):
+            loc = idx.to(t.device) - m * Vs
+            own = (loc >= 0) & (loc < Vs)
+            rows = gather_rows(t, loc.clamp(0, Vs - 1).contiguous())
+            parts.append(torch.where(own[:, None], rows, 0.0))
+        return mesh_mod.psum(parts, self.device)
 
     def pull(self, indices) -> torch.Tensor:
         """syn0 rows by global index, ``(N, dim)`` fp32 on the device."""
@@ -504,9 +689,21 @@ class EmbeddingEngine:
 
     def norms(self) -> torch.Tensor:
         """Euclidean norm of every syn0 row, ``(padded_vocab,)`` fp32,
-        cached until the next table mutation."""
+        cached until the next table mutation. On a mesh each shard sums
+        its own squares: ``rows`` joins the shards' norms, ``dims`` sums
+        the column partials over the model axis first."""
         if self._norms_cache is None:
-            self._norms_cache = self._norms(self.syn0)
+            if not self._meshed:
+                self._norms_cache = self._norms(self.syn0)
+            elif self.layout == "rows":
+                self._norms_cache = mesh_mod.all_gather(
+                    [self._norms(t) for t in self._shards[0]],
+                    device=self.device)
+            else:
+                self._norms_cache = mesh_mod.psum([
+                    torch.cat([t[s:s + _SCORE_ROWS].float().square().sum(dim=1)
+                               for s in range(0, t.shape[0], _SCORE_ROWS)])
+                    for t in self._shards[0]], self.device).sqrt()
         return self._norms_cache
 
     def _scores(self, q: torch.Tensor,
@@ -514,6 +711,8 @@ class EmbeddingEngine:
         """``syn0 @ q.T`` in fp32 for a ``(Q, d)`` fp32 query block,
         ``(padded_vocab, Q)``; the live table unless ``syn0`` is given. A
         bf16 table is upcast one row slice at a time."""
+        if syn0 is None and self._meshed:
+            return self._mesh_scores(q)
         syn0 = self.syn0 if syn0 is None else syn0
         if syn0.dtype == torch.float32:
             return syn0 @ q.T
@@ -521,6 +720,55 @@ class EmbeddingEngine:
             syn0[s : s + _SCORE_ROWS].float() @ q.T
             for s in range(0, syn0.shape[0], _SCORE_ROWS)
         ])
+
+    def _mesh_scores(self, q: torch.Tensor) -> torch.Tensor:
+        """``syn0 @ q.T`` on a mesh, ``(padded_vocab, Q)`` fp32: the
+        shards' row blocks joined (``rows``), or the psum of each column
+        slice's partial products (``dims``)."""
+        if self.layout == "rows":
+            return mesh_mod.all_gather(
+                [self._scores(q.to(t.device), t) for t in self._shards[0]],
+                device=self.device)
+        c = self.cols_per_shard
+        qp = torch.nn.functional.pad(q, (0, self.padded_dim - self.dim))
+        return mesh_mod.psum(
+            [self._scores(qp[:, m * c:(m + 1) * c].contiguous().to(t.device), t)
+             for m, t in enumerate(self._shards[0])], self.device)
+
+    def _mesh_topk(self, q: torch.Tensor, k_b: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The masked cosine top-``k_b`` of unit ``(Q, d)`` queries on a
+        mesh (``engine.py:1210-1270`` of the JAX package). ``rows``: each
+        shard ranks its own block (its masks offset by the block's first
+        row), the model axis gathers the ``num_model * k`` candidates and
+        they are ranked again, so a padded row never surfaces. ``dims``:
+        the psum'd scores of Q chunks sized to ``_DIMS_SCORE_BYTES``,
+        ranked whole."""
+        inv, neg = self._mask_terms()
+        if self.layout == "dims":
+            Qc = max(1, _DIMS_SCORE_BYTES // (4 * self.padded_vocab))
+            vals, idxs = [], []
+            for s in range(0, q.shape[0], Qc):
+                sc = self._mesh_scores(q[s:s + Qc]).T
+                v, i = torch.topk(sc * inv[None, :] + neg[None, :],
+                                  min(k_b, sc.shape[1]))
+                vals.append(v)
+                idxs.append(i)
+            return torch.cat(vals), torch.cat(idxs)
+        Vs = self.rows_per_shard
+        kk = min(k_b, Vs)
+        cand_v, cand_i = [], []
+        for m, t in enumerate(self._shards[0]):
+            sc = self._scores(q.to(t.device), t).T
+            sl = slice(m * Vs, (m + 1) * Vs)
+            v, i = torch.topk(sc * inv[sl].to(t.device)[None, :]
+                              + neg[sl].to(t.device)[None, :], kk)
+            cand_v.append(v)
+            cand_i.append(i + m * Vs)
+        cv = mesh_mod.all_gather(cand_v, dim=1, device=self.device)
+        ci = mesh_mod.all_gather(cand_i, dim=1, device=self.device)
+        mv, pos = torch.topk(cv, min(k_b, cv.shape[1]))
+        return mv, torch.gather(ci, 1, pos)
 
     def multiply(self, vec) -> torch.Tensor:
         """``syn0 @ vec``, ``(padded_vocab,)`` fp32."""
@@ -557,6 +805,10 @@ class EmbeddingEngine:
             v = v / nrm
         k_b = self._k_bucket(k)
         self._count_query_shape("topk", k_b)
+        if self._meshed:
+            val, idx = self._mesh_topk(
+                torch.from_numpy(v).to(self.device)[None, :], k_b)
+            return val[0, :k].cpu().numpy(), idx[0, :k].cpu().numpy()
         scores = self._scores(torch.from_numpy(v).to(self.device)[None, :])[:, 0]
         inv, neg = self._mask_terms()
         val, idx = torch.topk(scores * inv + neg, k_b)
@@ -592,6 +844,8 @@ class EmbeddingEngine:
         live table, or over ``syn0``/``norms``/``queryable`` (a staged
         generation's): one matrix product and one ``topk``, on the
         device."""
+        if syn0 is None and self._meshed:
+            return self._mesh_topk(q, k_b)
         scores = self._scores(q, syn0).T
         inv, neg = self._mask_terms(norms, queryable)
         return torch.topk(scores * inv[None, :] + neg[None, :], k_b)
@@ -671,7 +925,8 @@ class EmbeddingEngine:
         if conf is None:
             raise RuntimeError("call configure_ann() before ann_build()")
         if syn0 is None:
-            syn0, norms, queryable = self.syn0, self.norms(), self.queryable_rows
+            syn0, norms, queryable = (self.logical_table(0), self.norms(),
+                                      self.queryable_rows)
         elif norms is None:
             norms = self._norms(syn0)
         if queryable is None:
@@ -772,7 +1027,7 @@ class EmbeddingEngine:
                         self.ann_top_k_batch(
                             np.zeros((q, self.dim), np.float32),
                             min(k, p * idx.slots), p)
-            _ann.centroid_scores(self.syn0, self.norms(),
+            _ann.centroid_scores(self.logical_table(0), self.norms(),
                                  np.zeros(_ann.INCREMENTAL_BLOCK, np.int32),
                                  idx.centroids)
             if self.device.type == "cuda":
@@ -794,7 +1049,8 @@ class EmbeddingEngine:
         if idx is None:
             raise RuntimeError("no ANN index adopted")
         if syn0 is None:
-            syn0, norms, queryable = self.syn0, self.norms(), self.queryable_rows
+            syn0, norms, queryable = (self.logical_table(0), self.norms(),
+                                      self.queryable_rows)
         elif norms is None:
             norms = self._norms(syn0)
         if queryable is None:
@@ -1058,6 +1314,7 @@ class EmbeddingEngine:
             raise ValueError(f"pair_batch ({P}) must be >= context lanes ({C})")
         S = dbat.packed_span(P, C)
         K = int(n_steps)
+        self._check_data_split(P, "pair_batch")
         ids, soffs, n_valid = self._active_corpus()
         if draws is None:
             draws = TrainingDraws(
@@ -1088,7 +1345,10 @@ class EmbeddingEngine:
             done = dbat.device_words_done(offsets, soffs, pos, n_valid)
             wd = base_words + done.to(torch.float32)
             alpha = torch.maximum(step_size_t * (1.0 - wd * inv_total), floor)
-            if self.shared_negatives:
+            if self._meshed:
+                out[0, i] = self._mesh_pair_step(
+                    pc, px, pm, alpha, draws, step0 + i)
+            elif self.shared_negatives:
                 pool = draws.pool(step0 + i, self.shared_negatives)
                 loss_sum = fused_pair_step_shared(
                     self.syn0, self.syn1, pc, px, pm, pool, alpha,
@@ -1100,7 +1360,8 @@ class EmbeddingEngine:
                 loss_sum = fused_pair_step(
                     self.syn0, self.syn1, pc, px, pm, negs, nmask, alpha
                 )
-            out[0, i] = loss_sum / pm.sum().clamp(min=1.0)
+            if not self._meshed:
+                out[0, i] = loss_sum / pm.sum().clamp(min=1.0)
             out[1, i] = n_pairs
             out[2, i] = pos
             out[3, i] = alpha
@@ -1151,6 +1412,7 @@ class EmbeddingEngine:
         ids, soffs, n_valid = self._active_corpus()
         B, W = int(batch_size), int(window)
         C = context_width(W)
+        self._check_data_split(B, "batch_size")
         alphas_t = self._on_device(np.asarray(alphas, np.float32), torch.float32)
         K = alphas_t.shape[0]
         if draws is None:
@@ -1168,6 +1430,13 @@ class EmbeddingEngine:
                 ids, soffs, positions, draws.step_shrink(step, B), W,
                 n_valid=n_valid,
             )
+            if self._meshed:
+                losses[i] = self._mesh_step(
+                    centers[:, None], ones, contexts, mask, alphas_t[i],
+                    lambda r0, n: (draws.pool(step, self.shared_negatives)
+                                   if self.shared_negatives
+                                   else draws.window_negatives(step, n, C, r0)))
+                continue
             noise = (draws.pool(step, self.shared_negatives)
                      if self.shared_negatives
                      else draws.window_negatives(step, B, C))
@@ -1238,6 +1507,302 @@ class EmbeddingEngine:
         if upd1 is not None:
             _scatter_rows(self.syn1, ids1, upd1)
         return g.loss
+
+    # ------------------------------------------------------------------
+    # The step on a mesh
+    # ------------------------------------------------------------------
+
+    def _check_data_split(self, rows: int, what: str) -> None:
+        """``rows`` (this process's rows of a batch) must split evenly
+        over the data ranks this process runs."""
+        if rows % self._local_data:
+            raise ValueError(
+                f"{what} ({rows}) must be divisible by the data-axis size "
+                f"({self._local_data} in this process)"
+            )
+
+    def _gang_exchange(self, gathered: list, summed: list):
+        """The data axis across the processes of a gang: every tensor of
+        ``gathered`` (this process's rows first on axis 0) joined in
+        process order, every tensor of ``summed`` added over the processes
+        in process order. Two host allgathers (gloo) carry them, fp32 and
+        int32 (``distributed.allgather_host``); no-op in one process."""
+        if self.mesh.process_count == 1:
+            return gathered, summed
+        from glint_word2vec_torch.parallel import distributed as dist
+
+        pc = self.mesh.process_count
+        fl = [t for t in gathered + summed if t.is_floating_point()]
+        it = [t for t in gathered if not t.is_floating_point()]
+        out = {}
+        for group, dtype in ((fl, torch.float32), (it, torch.int32)):
+            if not group:
+                continue
+            flat = torch.cat([t.reshape(-1).to("cpu", dtype) for t in group])
+            allp = dist.allgather_host(flat)
+            off = 0
+            for t in group:
+                n = t.numel()
+                parts = allp[:, off:off + n].reshape(pc, *t.shape)
+                off += n
+                out[id(t)] = parts.to(t.device)
+        g = [out[id(t)].reshape(-1, *t.shape[1:]) for t in gathered]
+        s = [mesh_mod.psum(list(out[id(t)])) for t in summed]
+        return g, s
+
+    def _noise_fn(self, key: int, given, i: int, C: int, base: int = 0):
+        """``noise(row0, n)``: the pool of the step (every rank the same),
+        or the ``(n, C, negatives)`` draws of global rows ``row0`` on,
+        keyed by their global row (``engine.py:35-41`` of the JAX
+        package), or those rows of step ``i`` of ``given``, which holds
+        this process's rows from global row ``base`` on."""
+        Ps = self.shared_negatives
+
+        def noise(row0: int, n: int):
+            if given is not None:
+                return given[i] if Ps else given[i][row0 - base:row0 - base + n]
+            prob, alias = self.noise_tables()
+            if Ps:
+                return sample_negatives(key, prob, alias, (Ps,))
+            rows = torch.arange(row0, row0 + n, dtype=torch.int64,
+                                device=self.device)
+            return sample_negatives_per_row(
+                key, prob, alias, rows, (C, self.num_negatives))
+
+        return noise
+
+    def _owned(self, ids: torch.Tensor, m: int):
+        """``(local ids, positions)`` of the ids model shard ``m`` owns, in
+        input order; positions is None when every id is the shard's. The
+        owned updates are compacted before a scatter instead of zeroed
+        onto a clipped row as the JAX engine does (``engine.py:167-171``),
+        which would make one run as long as the disowned updates. The
+        count is read back (one host sync a shard and table)."""
+        if self.layout == "dims" or self.num_model == 1:
+            return ids, None
+        Vs = self.rows_per_shard
+        loc = ids - m * Vs
+        sel = torch.nonzero((loc >= 0) & (loc < Vs)).squeeze(1)
+        return loc[sel].to(torch.int32).contiguous(), sel
+
+    def _mesh_forward_rows(self, centers, cmask, contexts, mask, alpha, noise):
+        """One data rank's forward pass, ``rows`` layout: every pull is
+        :meth:`_mesh_pull` (masked shard gathers and the model-axis psum),
+        then the gradients of ``ops/sgns.py``. Returns ``(g, h, pool)``
+        with ``h`` ``(Bl, d)`` and ``d_center`` per center row."""
+        Bl, S = centers.shape
+        C = contexts.shape[1]
+        d = self.dim
+        h_rows = self._mesh_pull(0, centers.reshape(-1)).reshape(Bl, S, d)
+        cnt = cmask.sum(dim=1, keepdim=True).clamp(min=1.0)
+        h = (h_rows * cmask[..., None]).sum(dim=1) / cnt
+        u_pos = self._mesh_pull(1, contexts.reshape(-1)).reshape(Bl, C, d)
+        if self.shared_negatives:
+            u_pool = self._mesh_pull(1, noise)
+            collide = pool_collision_mask(noise, contexts, mask)
+            g = shared_sgns_grads(h, u_pos, u_pool, mask, collide, alpha,
+                                  self.num_negatives, self.compute_dtype)
+            return g, [h], [g.d_center / cnt], [g.d_pool]
+        n = noise.shape[2]
+        u_neg = self._mesh_pull(1, noise.reshape(-1)).reshape(Bl, C, n, d)
+        nmask = negative_mask(noise, contexts, mask)
+        g = sgns_grads(h, u_pos, u_neg, mask, nmask, alpha, self.compute_dtype)
+        return g, [h], [g.d_center / cnt], None
+
+    def _mesh_forward_dims(self, centers, cmask, contexts, mask, alpha, noise):
+        """One data rank's forward pass, ``dims`` layout
+        (``step_body_dims``, ``engine.py:760-885`` of the JAX package):
+        every gather and the center means are shard-local column slices;
+        the model axis sums only the scalar logit partials (``f_pos``,
+        ``f_neg``, ``f_pool``). Returns ``(coefs, [h_m], [d_center_m],
+        [d_pool_m])`` per shard."""
+        Bl, S = centers.shape
+        C = contexts.shape[1]
+        cd = self.compute_dtype
+        cnt = cmask.sum(dim=1, keepdim=True).clamp(min=1.0)
+        hs, ups, uns = [], [], []
+        for t in self._shards[0]:
+            rows = gather_rows(t, centers.reshape(-1).contiguous())
+            hs.append((rows.reshape(Bl, S, -1) * cmask[..., None]).sum(dim=1) / cnt)
+        for t in self._shards[1]:
+            ups.append(gather_rows(t, contexts.reshape(-1).contiguous())
+                       .reshape(Bl, C, -1))
+            if self.shared_negatives:
+                uns.append(gather_rows(t, noise))
+            else:
+                n = noise.shape[2]
+                uns.append(gather_rows(t, noise.reshape(-1).contiguous())
+                           .reshape(Bl, C, n, -1))
+
+        def op(x):
+            return _operand(x, cd)
+
+        f_pos = mesh_mod.psum([
+            torch.einsum("bd,bcd->bc", op(h), op(u))
+            for h, u in zip(hs, ups)])
+        if self.shared_negatives:
+            collide = pool_collision_mask(noise, contexts, mask)
+            f_pool = mesh_mod.psum([op(h) @ op(u).T for h, u in zip(hs, uns)])
+            co = shared_sgns_coefs(f_pos, f_pool, mask, collide, alpha,
+                                   self.num_negatives)
+            upd = [shared_sgns_updates(co.c_pos, co.c_pool, h, u, up, cd)
+                   for h, u, up in zip(hs, ups, uns)]
+            return (co, hs, [dc / cnt for dc, _ in upd],
+                    [dp for _, dp in upd])
+        nmask = negative_mask(noise, contexts, mask)
+        f_neg = mesh_mod.psum([
+            torch.einsum("bd,bcnd->bcn", op(h), op(u))
+            for h, u in zip(hs, uns)])
+        co = sgns_coefs(f_pos, f_neg, mask, nmask, alpha)
+        dcs = [sgns_d_center(co.c_pos, co.c_neg, u, un, cd) / cnt
+               for u, un in zip(ups, uns)]
+        return co, hs, dcs, None
+
+    def _mesh_step(self, centers: torch.Tensor, cmask: torch.Tensor,
+                   contexts: torch.Tensor, mask: torch.Tensor,
+                   alpha: torch.Tensor, noise) -> torch.Tensor:
+        """One composed step on a mesh (``step_body_rows`` and
+        ``step_body_dims``, ``engine.py:643-885`` of the JAX package), the
+        shards updated in place; returns the masked-mean loss of the
+        global batch.
+
+        Each data rank runs the forward pass of its ``B / num_data`` rows
+        (``noise(row0, n)`` gives its negatives, keyed by global row, or
+        the step's pool). The data axis then gathers, in rank order, only
+        ``h``, the scalar coefficients, the center gradients and int32
+        ids (the shared pool's ``d_pool`` is summed over the ranks), and
+        every model shard applies the whole batch's updates it owns:
+        ``scatter_add_rank1`` for syn1 on fp32 tables (the dense payload
+        through ``scatter_add_rows`` under bf16 or a shared pool), and
+        ``scatter_add_rows`` for syn0, with the fp32 pre-sum under bf16."""
+        B, S = centers.shape
+        C = contexts.shape[1]
+        R = self._local_data
+        Bl = B // R
+        n = self.num_negatives
+        base = self.mesh.process_index * B
+        fwd = (self._mesh_forward_rows if self.layout == "rows"
+               else self._mesh_forward_dims)
+        outs, nz, loss_sums, denoms = [], [], [], []
+        for r in range(R):
+            sl = slice(r * Bl, (r + 1) * Bl)
+            z = noise(base + r * Bl, Bl)
+            o = fwd(centers[sl], cmask[sl], contexts[sl], mask[sl], alpha, z)
+            outs.append(o)
+            nz.append(z)
+            denom = mask[sl].sum()
+            loss_sums.append(o[0].loss * denom.clamp(min=1.0))
+            denoms.append(denom)
+        gather = mesh_mod.all_gather
+        n_sh = len(outs[0][1])
+        shared = bool(self.shared_negatives)
+        local = [gather([o[0].c_pos for o in outs]), cmask,
+                 centers.reshape(-1), contexts.reshape(-1)]
+        local += [gather([o[1][j] for o in outs]) for j in range(n_sh)]
+        local += [gather([o[2][j] for o in outs]) for j in range(n_sh)]
+        if not shared:
+            local += [gather([o[0].c_neg for o in outs]),
+                      gather([z.reshape(-1) for z in nz])]
+        sums = [mesh_mod.psum(loss_sums), mesh_mod.psum(denoms)]
+        if shared:
+            sums += [mesh_mod.psum([o[3][j] for o in outs])
+                     for j in range(n_sh)]
+        glob, sums = self._gang_exchange(local, sums)
+        cpos_g, cmask_g, ids0_g, ctx_g = glob[:4]
+        hs_g, dcens_g = glob[4:4 + n_sh], glob[4 + n_sh:4 + 2 * n_sh]
+        for m in range(self.num_model):
+            t0, t1 = self._shards[0][m], self._shards[1][m]
+            j = m if n_sh > 1 else 0
+            h_g, dcen_g = hs_g[j], dcens_g[j]
+            w = h_g.shape[1]
+            if shared:
+                pool = nz[0]
+                ids1 = torch.cat([ctx_g, pool])
+                d_upos = cpos_g[..., None] * h_g[:, None, :]
+                upd1 = torch.cat([d_upos.reshape(-1, w), sums[2 + j]])
+                loc, sel = self._owned(ids1, m)
+                _scatter_rows(t1, loc, upd1 if sel is None else upd1[sel])
+            else:
+                cneg_g, negs_g = glob[4 + 2 * n_sh:]
+                ids1 = torch.cat([ctx_g, negs_g])
+                loc, sel = self._owned(ids1, m)
+                if t1.dtype == torch.float32:
+                    coefs, hidx = _rank1_payload(cpos_g, cneg_g, C, n)
+                    if sel is not None:
+                        coefs, hidx = coefs[sel].contiguous(), hidx[sel].contiguous()
+                    scatter_add_rank1(t1, loc, coefs, h_g.contiguous(), hidx)
+                else:
+                    upd1 = _rank1_dense_payload(cpos_g, cneg_g, h_g)
+                    _scatter_rows(t1, loc, upd1 if sel is None else upd1[sel])
+            upd0 = (dcen_g[:, None, :] * cmask_g[..., None]).reshape(-1, w)
+            loc, sel = self._owned(ids0_g, m)
+            _scatter_rows(t0, loc, upd0 if sel is None else upd0[sel])
+        return sums[0] / sums[1].clamp(min=1.0)
+
+    def _mesh_pair_step(self, pc: torch.Tensor, px: torch.Tensor,
+                        pm: torch.Tensor, alpha: torch.Tensor, draws,
+                        step: int) -> torch.Tensor:
+        """One packed pair step on a mesh; returns its masked-mean loss.
+        Each data rank takes its ``P / num_data`` pair rows and draws
+        their negatives by global pair row (``Pl = P // num_data``,
+        ``engine.py:1023-1090`` of the JAX package). On a ``rows`` mesh
+        whose model axis is 1 every row is local, and the step is the
+        fused one (``fused_pair_body``, ``engine.py:557-641``): each rank's
+        forward kernel (``pair_forward``, or ``pair_forward_shared`` with
+        a pool, whose ``d_pool`` the ranks sum), the data-axis gathers,
+        then ``scatter_add_rank1_hbm`` and ``scatter_add_rows_f32`` over
+        the whole batch. Elsewhere it is :meth:`_mesh_step` with one
+        context lane."""
+        P = pc.shape[0]
+        R = self._local_data
+        Pl = P // R
+        S = self.shared_negatives
+        if self.mesh.process_count > 1:
+            raise ValueError(
+                "the packed corpus path runs in one process; a gang of "
+                "processes trains through the host batcher")
+        if not (self.layout == "rows" and self.num_model == 1):
+            ones = torch.ones((P, 1), dtype=torch.float32, device=pc.device)
+            return self._mesh_step(
+                pc[:, None], ones, px[:, None], pm[:, None], alpha,
+                lambda r0, n: (draws.pool(step, S) if S
+                               else draws.negatives(step, n, r0)[:, None, :]))
+        from glint_word2vec_torch.ops import fused_sgns as fs
+
+        t0, t1 = self._shards[0][0], self._shards[1][0]
+        pool = draws.pool(step, S) if S else None
+        fws, negs = [], []
+        for r in range(R):
+            sl = slice(r * Pl, (r + 1) * Pl)
+            if S:
+                fws.append(fs.pair_forward_shared(
+                    t0, t1, pc[sl], px[sl], pm[sl], pool, alpha,
+                    self.num_negatives))
+            else:
+                ng = draws.negatives(step, Pl, r * Pl)
+                fws.append(fs.pair_forward(
+                    t0, t1, pc[sl], px[sl], pm[sl], ng,
+                    negative_mask(ng, px[sl], pm[sl]), alpha))
+                negs.append(ng)
+        gather = mesh_mod.all_gather
+        cpos = gather([f.c_pos for f in fws])
+        h = gather([f.h for f in fws]).contiguous()
+        rows = torch.arange(P, dtype=torch.int32, device=pc.device)
+        if S:
+            fs.scatter_add_rank1_hbm(t1, px, cpos, h, rows)
+            fs.scatter_add_rows_f32(
+                t1, pool, mesh_mod.psum([f.d_pool for f in fws]).contiguous())
+        else:
+            n = self.num_negatives
+            cneg = gather([f.c_neg for f in fws])
+            fs.scatter_add_rank1_hbm(
+                t1, torch.cat([px, gather(negs).reshape(-1)]),
+                torch.cat([cpos, cneg.reshape(-1)]), h,
+                torch.cat([rows, rows.repeat_interleave(n)]))
+        fs.scatter_add_rows_f32(t0, pc, gather([f.d_center for f in fws])
+                                .contiguous())
+        return (mesh_mod.psum([f.loss_sum for f in fws])
+                / pm.sum().clamp(min=1.0))
 
     def train_step(self, centers, contexts, mask, key: int, alpha, *,
                    negs=None, pools=None) -> float:
@@ -1321,6 +1886,7 @@ class EmbeddingEngine:
         alphas_t = self._on_device(np.asarray(alphas, np.float32), torch.float32)
         if alphas_t.shape != (K,):
             raise ValueError(f"alphas must have shape ({K},)")
+        self._check_data_split(B, "batch")
         # Step i's negatives (K, B, C, n) or pools (K, P): handed in, or
         # drawn in the loop.
         Ps = self.shared_negatives
@@ -1336,6 +1902,13 @@ class EmbeddingEngine:
             rows = torch.arange(B, dtype=torch.int64, device=self.device)
         losses = torch.empty(K, dtype=torch.float32, device=self.device)
         for i in range(K):
+            if self._meshed:
+                key = rnd.fold_in(int(base_key), (int(step0) + i) & 0xFFFFFFFF)
+                losses[i] = self._mesh_step(
+                    cg[i], gm[i], cx[i], mk[i], alphas_t[i],
+                    self._noise_fn(key, given, i, C,
+                                   self.mesh.process_index * B))
+                continue
             if given is not None:
                 ng = given[i]
             else:
@@ -1363,9 +1936,23 @@ class EmbeddingEngine:
                 f"rows [{start_row}, {start_row + m}) outside the table's "
                 f"{self.num_rows} rows"
             )
-        self.syn0[start_row : start_row + m] = rows.to(self.device, self._dtype)
+        self._set_rows(0, start_row, rows)
         self._tick_tables("write_rows")
         self._ann_touch_rows(range(start_row, start_row + m))
+
+    def _set_rows(self, i: int, start: int, vals: torch.Tensor) -> None:
+        """Overwrite rows ``[start, start + m)`` of table ``i`` (0: syn0,
+        1: syn1) with the fp32 ``(m, dim)`` ``vals``, rounded to the
+        storage dtype, in whichever shards hold them."""
+        m = vals.shape[0]
+        for k, t in enumerate(self._shards[i]):
+            (r0, r1), (c0, c1) = self._shard_range(k)
+            lo, hi = max(start, r0), min(start + m, r1)
+            c1 = min(c1, self.dim)
+            if lo >= hi or c0 >= c1:
+                continue
+            t[lo - r0:hi - r0, :c1 - c0] = vals[lo - start:hi - start, c0:c1].to(
+                t.device, self._dtype)
 
     # ------------------------------------------------------------------
     # Vocabulary growth (the streaming trainer's spare extra rows)
@@ -1415,8 +2002,8 @@ class EmbeddingEngine:
                 "headroom"
             )
         start = self.vocab_size + self.extra_rows_assigned
-        self.syn0[start : start + n] = self._extra_row_init(start, n).to(self._dtype)
-        self.syn1[start : start + n] = 0
+        self._set_rows(0, start, self._extra_row_init(start, n))
+        self._set_rows(1, start, torch.zeros((n, self.dim)))
         self.extra_rows_assigned += n
         self._tick_tables("assign_extra_row")
         self._ann_touch_rows(range(start, start + n))
@@ -1444,14 +2031,16 @@ class EmbeddingEngine:
         if n == 0:
             return 0
         start = self.vocab_size + self.extra_rows_assigned - n
-        self.syn0[start : start + n] = 0
-        self.syn1[start : start + n] = 0
+        zeros = torch.zeros((n, self.dim))
+        self._set_rows(0, start, zeros)
+        self._set_rows(1, start, zeros)
         self.extra_rows_assigned -= n
         self._tick_tables("free_extra_rows")
         if self._ann is not None:
             from glint_word2vec_torch.ops import ann as _ann_mod
 
-            _ann_mod.remove_rows(self._ann, self.syn0, range(start, start + n))
+            _ann_mod.remove_rows(self._ann, self.logical_table(0),
+                                 range(start, start + n))
             self._ann.table_version = self.table_version
         obs_events.emit("extra_rows_freed", freed=n,
                         assigned=self.extra_rows_assigned)
@@ -1465,7 +2054,7 @@ class EmbeddingEngine:
             return
         from glint_word2vec_torch.ops import ann as _ann_mod
 
-        _ann_mod.update_rows(self._ann, self.syn0, self.norms(), rows)
+        _ann_mod.update_rows(self._ann, self.logical_table(0), self.norms(), rows)
         self._ann.table_version = self.table_version
 
     # ------------------------------------------------------------------
@@ -1476,13 +2065,56 @@ class EmbeddingEngine:
     # Replica exchange (parallel/exchange.py)
     # ------------------------------------------------------------------
 
-    def exchange_adopt(self, syn0: torch.Tensor, syn1: torch.Tensor) -> None:
+    def exchange_adopt(self, syn0: torch.Tensor, syn1: torch.Tensor, *,
+                       touched_ids=None) -> None:
         """Install the tables a replica-exchange round rebuilt (``base``
         plus every rank's deltas): two attribute flips and one
-        ``table_version`` tick, like :meth:`adopt_tables`."""
+        ``table_version`` tick, like :meth:`adopt_tables`.
+        ``touched_ids`` (a host array of the rows the round changed)
+        narrows the skip-clean save's dirty shards to the row blocks
+        holding them; None dirties every shard."""
         self.syn0 = syn0
         self.syn1 = syn1
+        self._mark_shards_dirty(touched_ids)
         self._tick_tables("exchange_adopt")
+
+    def _mark_shards_dirty(self, touched_ids=None) -> None:
+        """Fold one mutation's touched rows into the dirty shard files:
+        merged, never narrowed (``engine.py:1923-1947`` of the JAX
+        package). Column blocks span every row, so ``dims`` always goes
+        all dirty."""
+        if touched_ids is None or self.layout != "rows":
+            self._shard_dirty = None
+            return
+        if self._shard_dirty is None:
+            return
+        per = self._block_rows()
+        for start in np.unique(np.asarray(touched_ids, np.int64) // per) * per:
+            if 0 <= start < self.num_rows:
+                for name in ("syn0", "syn1"):
+                    self._shard_dirty[f"{name}.r{start:012d}.npy"] = True
+
+    def _shard_is_dirty(self, fname: str, path: str) -> bool:
+        """Whether an in-place save to ``path`` must write ``fname``: True
+        unless the last committed save to this path wrote it and nothing
+        has dirtied it since."""
+        if self._shard_clean_path != path or self._shard_dirty is None:
+            return True
+        return bool(self._shard_dirty.get(fname, True))
+
+    def _mark_shards_clean(self, path: str, fnames) -> None:
+        if self._shard_clean_path != path or self._shard_dirty is None:
+            self._shard_dirty = {}
+            self._shard_clean_path = path
+        for f in fnames:
+            self._shard_dirty[f] = False
+
+    def _block_rows(self) -> int:
+        """Rows a ``rows`` shard file holds: the save split's block, or
+        the mesh's rows per shard."""
+        if self._save_split is not None:
+            return max(1, -(-self.num_rows // self._save_split[1]))
+        return self.rows_per_shard
 
     def _note_exchange(self, *, bytes_sent: int, rows: int, overflow: bool,
                        dense: bool, seconds: float, wire: str = "fp32",
@@ -1537,11 +2169,11 @@ class EmbeddingEngine:
         import hashlib
 
         h = hashlib.sha256()
-        for table in (self.syn0, self.syn1):
+        for table in (self.logical_table(0), self.logical_table(1)):
             for s in range(0, self.num_rows, _IO_ROWS):
-                part = table[s:min(s + _IO_ROWS, self.num_rows)]
+                part = table[s:min(s + _IO_ROWS, self.num_rows), : self.dim]
                 if part.dtype == torch.bfloat16:
-                    part = part.view(torch.int16)
+                    part = part.contiguous().view(torch.int16)
                 h.update(part.cpu().numpy().tobytes())
         return h.hexdigest()
 
@@ -1556,9 +2188,12 @@ class EmbeddingEngine:
         if world <= 1:
             self._save_split = None
             return
+        if self.layout != "rows":
+            raise ValueError("save split requires the rows layout")
         if not 0 <= rank < world:
             raise ValueError(f"rank {rank} not in [0, {world})")
         self._save_split = (int(rank), int(world))
+        self._shard_dirty = None
 
     def _split_blocks(self):
         """``(rank, [(name, table, file name, start, stop)])``: every row
@@ -1567,7 +2202,8 @@ class EmbeddingEngine:
         rank, world = self._save_split
         per = max(1, -(-self.num_rows // world))
         blocks = []
-        for name, table in (("syn0", self.syn0), ("syn1", self.syn1)):
+        for name, table in (("syn0", self.logical_table(0)),
+                            ("syn1", self.logical_table(1))):
             for k in range(world):
                 start, stop = k * per, min((k + 1) * per, self.num_rows)
                 if start < stop:
@@ -1622,7 +2258,7 @@ class EmbeddingEngine:
     def _save_meta(self, mode: str) -> dict:
         return {
             "format": mode,
-            "layout": "rows",
+            "layout": self.layout,
             "vocab_size": self.vocab_size,
             "dim": self.dim,
             "num_negatives": self.num_negatives,
@@ -1648,7 +2284,8 @@ class EmbeddingEngine:
         out = np.empty((stop - start, self.dim), np.float32)
         for s in range(start, stop, _IO_ROWS):
             e = min(s + _IO_ROWS, stop)
-            torch.from_numpy(out[s - start:e - start]).copy_(table[s:e].float())
+            torch.from_numpy(out[s - start:e - start]).copy_(
+                table[s:e, : self.dim].float())
         return out
 
     def _snapshot_host(self, mode: str, *, lazy: bool = False):
@@ -1662,6 +2299,11 @@ class EmbeddingEngine:
         if mode not in ("sharded", "single"):
             raise ValueError("mode must be 'sharded' or 'single'")
         meta = self._save_meta(mode)
+        if mode == "sharded" and self._meshed:
+            meta["shards"], blocks = self._mesh_blocks()
+            files = [(f, p if lazy else p()) for f, p in blocks]
+            files.append(("counts.npy", np.asarray(self._counts, np.int64).copy()))
+            return files, meta
         if mode == "sharded":
             meta["shards"] = {}
             for name in ("syn0", "syn1"):
@@ -1673,11 +2315,46 @@ class EmbeddingEngine:
         else:
             names = ["syn0.npy", "syn1.npy"]
         files = []
-        for fname, table in zip(names, (self.syn0, self.syn1)):
+        for fname, table in zip(names, (self.logical_table(0),
+                                        self.logical_table(1))):
             files.append((fname, (lambda t=table: self._host_table(t))
                           if lazy else self._host_table(table)))
         files.append(("counts.npy", np.asarray(self._counts, np.int64).copy()))
         return files, meta
+
+    def _mesh_blocks(self):
+        """``(manifest, [(file name, producer)])`` of a mesh's sharded
+        save: one block per model shard and table, never one per data
+        rank: ``{name}.r…`` row blocks (``rows``) or ``{name}.c…``
+        column blocks (``dims``), padding cut off and pure-padding blocks
+        skipped. Each producer copies its shard to a host fp32 array."""
+        manifest = {"syn0": [], "syn1": []}
+        blocks = []
+        axis = "rows" if self.layout == "rows" else "cols"
+        for i, name in enumerate(("syn0", "syn1")):
+            for m, t in enumerate(self._shards[i]):
+                (r0, r1), (c0, c1) = self._shard_range(m)
+                if axis == "rows":
+                    start, stop = r0, min(r1, self.num_rows)
+                else:
+                    start, stop = c0, min(c1, self.dim)
+                if start >= stop:
+                    continue
+                fname = f"{name}.{axis[0]}{start:012d}.npy"
+                manifest[name].append({"file": fname, "start": start,
+                                       "stop": stop, "axis": axis})
+                rows = stop - start if axis == "rows" else self.num_rows
+                cols = self.dim if axis == "rows" else stop - start
+
+                def produce(t=t, rows=rows, cols=cols):
+                    out = np.empty((rows, cols), np.float32)
+                    for s in range(0, rows, _IO_ROWS):
+                        e = min(s + _IO_ROWS, rows)
+                        torch.from_numpy(out[s:e]).copy_(t[s:e, :cols].float())
+                    return out
+
+                blocks.append((fname, produce))
+        return manifest, blocks
 
     @staticmethod
     def _commit_snapshot_dir(tmp: str, path: str) -> None:
@@ -1719,9 +2396,21 @@ class EmbeddingEngine:
         if fresh:
             shutil.rmtree(target, ignore_errors=True)
             os.makedirs(target)
+        eager = sum(a.nbytes for _, a in files if not callable(a))
+        peak = eager
         for fname, arr in files:
+            # Skip-clean: an in-place save leaves a shard file the last
+            # committed save to this path wrote, if nothing changed it.
+            if (not fresh and fname in shard_set
+                    and not self._shard_is_dirty(fname, path)
+                    and os.path.exists(os.path.join(path, fname))
+                    and os.path.exists(os.path.join(
+                        path, fname + integrity.SHARD_MANIFEST_SUFFIX))):
+                self._ckpt_shards_skipped += 1
+                continue
             if callable(arr):
                 arr = arr()
+                peak = max(peak, eager + arr.nbytes)
             ts = time.time()
             put(target, fname, lambda f, a=arr: np.save(f, a))
             del arr
@@ -1731,6 +2420,7 @@ class EmbeddingEngine:
                     integrity.build_shard_manifest(target, fname, table_version),
                     fsync=fsync,
                 )
+                faults.fire("ckpt.shard_commit")
                 t_shards += time.time() - ts
         put(target, "engine.json", lambda f: f.write(json.dumps(meta).encode()))
         manifest = integrity.build_manifest(
@@ -1751,6 +2441,7 @@ class EmbeddingEngine:
         self._ckpt_last_write_s = time.time() - t0
         self._ckpt_last_commit = time.time()
         self._ckpt_shard_write_s = round(t_shards, 6)
+        self._ckpt_peak_block_bytes = int(peak)
 
     def save(self, path: str, mode: str = "sharded") -> None:
         """Write both tables, ``counts.npy``, ``engine.json`` and the
@@ -1766,6 +2457,9 @@ class EmbeddingEngine:
             return
         files, meta = self._snapshot_host(mode, lazy=True)
         self._write_snapshot(path, files, meta, self.table_version)
+        if mode == "sharded":
+            self._mark_shards_clean(path, [
+                b["file"] for t in meta["shards"].values() for b in t])
 
     def async_saves_enabled(self) -> bool:
         """Whether :meth:`save_async` writes in the background: unless
@@ -1844,12 +2538,19 @@ class EmbeddingEngine:
                 round(time.time() - last_commit, 2) if last_commit else None),
             "forced_sync_saves": self._ckpt_forced_sync,
             "checkpoint_shard_write_seconds": self._ckpt_shard_write_s,
+            "checkpoint_shard_verify_seconds": self._ckpt_shard_verify_s,
+            "checkpoint_shards_skipped": int(self._ckpt_shards_skipped),
+            "checkpoint_peak_block_bytes": int(self._ckpt_peak_block_bytes),
         }
 
     @classmethod
-    def load(cls, path: str, device: DeviceLike = None) -> "EmbeddingEngine":
-        """Rebuild an engine from a saved directory of either package,
-        any format or layout, onto one device."""
+    def load(cls, path: str, device: DeviceLike = None,
+             mesh: Optional[mesh_mod.Mesh] = None,
+             layout: Optional[str] = None) -> "EmbeddingEngine":
+        """Rebuild an engine from a saved directory of either package, any
+        format or layout, onto one device or onto ``mesh`` of any shape,
+        in ``layout`` (the saved one by default): the blocks are re-sliced
+        to the shards the new mesh holds."""
         with open(os.path.join(path, "engine.json")) as f:
             meta = json.load(f)
         counts = np.load(os.path.join(path, "counts.npy"))
@@ -1863,7 +2564,9 @@ class EmbeddingEngine:
             dtype=meta["dtype"],
             extra_rows=meta.get("extra_rows", 0),
             shared_negatives=meta.get("shared_negatives", 0),
-            device=device,
+            device=None if mesh is not None else device,
+            mesh=mesh,
+            layout=layout or meta.get("layout", "rows"),
         )
         eng.load_tables(path)
         return eng
@@ -1881,7 +2584,9 @@ class EmbeddingEngine:
         (a directory with no manifest loads unverified). Raises
         ``ValueError`` when the saved geometry differs from this
         engine's."""
+        tv0 = time.time()
         integrity.verify_snapshot_dir(path)
+        self._ckpt_shard_verify_s = round(time.time() - tv0, 6)
         with open(os.path.join(path, "engine.json")) as f:
             meta = json.load(f)
         if (meta["vocab_size"], meta.get("extra_rows", 0), meta["dim"]) != (
@@ -1914,6 +2619,10 @@ class EmbeddingEngine:
             else:
                 arr = np.load(os.path.join(path, f"{name}.npy"), mmap_mode="r")
                 blocks = [((0, arr.shape[0]), (0, arr.shape[1]), arr)]
+            if self._meshed:
+                staged[name] = [self._stage_shard(m, blocks)
+                                for m in range(self.num_model)]
+                continue
             table = torch.empty(
                 (self.padded_vocab, self.dim), dtype=self._dtype,
                 device=self.device,
@@ -1938,6 +2647,24 @@ class EmbeddingEngine:
                         ).to(self._dtype)
             staged[name] = table
         return staged
+
+    def _stage_shard(self, m: int, blocks) -> torch.Tensor:
+        """Shard ``m`` of a table on a mesh, assembled from the source
+        blocks' overlap with its row and column ranges into one
+        shard-sized host buffer, then copied to its device in storage
+        dtype: a restore holds one shard in host memory at a time."""
+        (r0, r1), (c0, c1) = self._shard_range(m)
+        out = np.zeros((r1 - r0, c1 - c0), np.float32)
+        for (br0, br1), (bc0, bc1), data in blocks:
+            rlo, rhi = max(r0, br0), min(r1, br1, self.num_rows)
+            clo, chi = max(c0, bc0), min(c1, bc1, self.dim)
+            if rlo < rhi and clo < chi:
+                out[rlo - r0:rhi - r0, clo - c0:chi - c0] = data[
+                    rlo - br0:rhi - br0, clo - bc0:chi - bc0]
+        self._stage_peak_block_bytes = max(self._stage_peak_block_bytes,
+                                           out.nbytes)
+        dev = self.mesh.model_devices[m]
+        return torch.from_numpy(out).to(dev).to(self._dtype)
 
     def _upload_rows(self, table: torch.Tensor, data: np.memmap,
                      r0: int, r1: int) -> None:
@@ -1996,8 +2723,12 @@ class EmbeddingEngine:
     def adopt_tables(self, staged: dict) -> None:
         """Make a :meth:`stage_tables` result the live tables: two
         attribute flips and one ``table_version`` tick."""
-        self.syn0 = staged["syn0"]
-        self.syn1 = staged["syn1"]
+        for i, name in enumerate(("syn0", "syn1")):
+            t = staged[name]
+            if isinstance(t, list):
+                self._shards[i] = t
+            else:
+                setattr(self, name, t)
         self.extra_rows_assigned = int(
             staged["meta"].get("extra_rows_assigned", 0)
         )
@@ -2024,8 +2755,8 @@ class EmbeddingEngine:
         cost a serving catalog's memory budget counts. 0 after
         :meth:`release_tables`."""
         n = 0
-        for t in (self.syn0, self.syn1):
-            if t is not None:
+        for sh in self._shards:
+            for t in sh or ():
                 n += t.numel() * t.element_size()
         idx = self._ann
         if idx is not None:
@@ -2039,7 +2770,7 @@ class EmbeddingEngine:
     def tables_resident(self) -> bool:
         """Whether the tables are in device memory (False between
         :meth:`release_tables` and the next adopt)."""
-        return self.syn0 is not None
+        return self._shards[0] is not None
 
     def release_tables(self) -> None:
         """Free the tables' and the ANN index's device memory, after any
@@ -2085,8 +2816,11 @@ class TrainingDraws:
             self.base_key, positions, self.grid_batch, grid_step0, self.window
         )
 
-    def negatives(self, step: int, n_rows: int) -> torch.Tensor:
-        rows = torch.arange(n_rows, dtype=torch.int64, device=self.prob.device)
+    def negatives(self, step: int, n_rows: int, row0: int = 0) -> torch.Tensor:
+        """Step ``step``'s ``(n_rows, n)`` negatives of pair rows ``row0``
+        on: a data rank of a mesh draws its own rows alone."""
+        rows = torch.arange(row0, row0 + n_rows, dtype=torch.int64,
+                            device=self.prob.device)
         key = rnd.fold_in(self.base_key, int(step) & 0xFFFFFFFF)
         return sample_negatives_per_row(
             key, self.prob, self.alias, rows, (self.num_negatives,)
@@ -2101,11 +2835,13 @@ class TrainingDraws:
             self.base_key, rows, n_rows, step, self.window
         )
 
-    def window_negatives(self, step: int, n_rows: int,
-                         lanes: int) -> torch.Tensor:
-        """Grid step ``step``'s ``(n_rows, lanes, n)`` negatives, the draws
-        of :meth:`EmbeddingEngine.train_steps_grouped`."""
-        rows = torch.arange(n_rows, dtype=torch.int64, device=self.prob.device)
+    def window_negatives(self, step: int, n_rows: int, lanes: int,
+                         row0: int = 0) -> torch.Tensor:
+        """Grid step ``step``'s ``(n_rows, lanes, n)`` negatives of rows
+        ``row0`` on, the draws of :meth:`EmbeddingEngine.
+        train_steps_grouped`."""
+        rows = torch.arange(row0, row0 + n_rows, dtype=torch.int64,
+                            device=self.prob.device)
         key = rnd.fold_in(self.base_key, int(step) & 0xFFFFFFFF)
         return sample_negatives_per_row(
             key, self.prob, self.alias, rows, (int(lanes), self.num_negatives)

@@ -482,7 +482,8 @@ class ReplicaExchanger:
     def begin(self) -> None:
         """Snapshot the reconciliation base (a copy of both tables)."""
         fn = self._fn("snapshot", _build_snapshot_fn)
-        self._base = fn(self.engine.syn0, self.engine.syn1)
+        eng = self.engine
+        self._base = fn(eng.logical_table(0), eng.logical_table(1))
 
     def _carry_pair(self):
         """The error-feedback residual state, created on first use: one
@@ -591,8 +592,8 @@ class ReplicaExchanger:
         self._fold_stages()
         self.clock.mark("start")
         diff = self._fn("diff", _build_diff_fn)
-        d0 = diff(self.engine.syn0, self._base[0])
-        d1 = diff(self.engine.syn1, self._base[1])
+        d0 = diff(self.engine.logical_table(0), self._base[0])
+        d1 = diff(self.engine.logical_table(1), self._base[1])
         self.clock.mark("diff")
         local_wire = self.wire
         if self.topology == "twolevel" and not flush:
@@ -624,12 +625,12 @@ class ReplicaExchanger:
         if with_carry:
             fn = self._fn("dense_carry", _build_dense_carry_fn)
             c0, c1 = self._carry_pair()
-            d = (fn(self.engine.syn0, self._base[0], c0),
-                 fn(self.engine.syn1, self._base[1], c1))
+            d = (fn(self.engine.logical_table(0), self._base[0], c0),
+                 fn(self.engine.logical_table(1), self._base[1], c1))
         else:
             fn = self._fn("dense", _build_dense_fn)
-            d = (fn(self.engine.syn0, self._base[0]),
-                 fn(self.engine.syn1, self._base[1]))
+            d = (fn(self.engine.logical_table(0), self._base[0]),
+                 fn(self.engine.logical_table(1), self._base[1]))
         return tuple(t.cpu() for t in d)
 
     def _empty_sparse(self, wire: Optional[str] = None):
@@ -767,6 +768,7 @@ class ReplicaExchanger:
         sent = headers.nbytes // max(tr.world, 1)
         intra = 0
         wire_round = "fp32" if (dense_round or flush) else self.wire
+        touched_ids = None
         cap = self.capacity
         max_n = int(max(headers[:, 2].max(), headers[:, 4].max()))
         if dense_round:
@@ -790,6 +792,7 @@ class ReplicaExchanger:
             intra = hop["intra"]
             wire_round = hop["wire"]
             dense_round = hop["dense"]
+            touched_ids = hop["touched_ids"]
             max_n = max(max_n, hop["max_n"])
         else:
             if payload is None:
@@ -810,6 +813,7 @@ class ReplicaExchanger:
             fn = self._fn("apply_sparse", _build_apply_sparse_fn, cap,
                           tr.world, wire_round)
             syn0, syn1 = fn(*self._base, ids0, ps0, sc0, ids1, ps1, sc1)
+            touched_ids = _touched_ids(ids0, ids1)
             if flush:
                 self._carry = None
             elif self.wire == "int8" and live:
@@ -818,7 +822,7 @@ class ReplicaExchanger:
         if eng.device.type == "cuda":
             self._applied = torch.cuda.Event()
             self._applied.record()
-        eng.exchange_adopt(syn0, syn1)
+        eng.exchange_adopt(syn0, syn1, touched_ids=touched_ids)
         self.begin()
         cap_event = self._adapt_capacity(
             max_n, bool((headers[:, 3] | headers[:, 5]).any()))
@@ -879,7 +883,8 @@ class ReplicaExchanger:
             fn = self._fn("apply_dense", _build_apply_dense_fn, tr.world)
             syn0, syn1 = fn(*self._base, deltas0, deltas1)
             return syn0, syn1, {"intra": int(intra), "inter": int(inter),
-                                "wire": "fp32", "dense": True, "max_n": max_n}
+                                "wire": "fp32", "dense": True, "max_n": max_n,
+                                "touched_ids": None}
         if leader:
             out = tuple(t.cpu() for t in (ni0, np0, ns0, ni1, np1, ns1))
         else:
@@ -902,7 +907,8 @@ class ReplicaExchanger:
             self._carry = (nc0, nc1)
             self._resid_abs = float(torch.maximum(nr0, nr1))
         return syn0, syn1, {"intra": int(intra), "inter": int(inter),
-                            "wire": self.wire, "dense": False, "max_n": max_n}
+                            "wire": self.wire, "dense": False, "max_n": max_n,
+                            "touched_ids": _touched_ids(ids0, ids1)}
 
 
 def decide_dense(mode: str, headers: np.ndarray) -> bool:
@@ -912,6 +918,15 @@ def decide_dense(mode: str, headers: np.ndarray) -> bool:
     if os.environ.get("GLINT_DENSE_EXCHANGE", "0") == "1":
         return True
     return mode == "dense" or bool((headers[:, 3] | headers[:, 5]).any())
+
+
+def _touched_ids(ids0, ids1) -> np.ndarray:
+    """The rows a sparse round changed, as a host int64 array: every id
+    of both tables' gathered payloads (a padding slot's id is row 0, so
+    the set may hold row 0 spuriously, which only dirties more)."""
+    ids = torch.cat([torch.as_tensor(t).reshape(-1).cpu().long()
+                     for t in (ids0, ids1)])
+    return torch.unique(ids).numpy().astype(np.int64)
 
 
 def _stack(parts):
@@ -952,6 +967,7 @@ def sync_group(exchangers: Sequence[ReplicaExchanger], *,
     hdr_bytes = headers[0].nbytes
     intra_by_rank = [0] * world
     inter_by_rank = [0] * world
+    touched_ids = None
     if dense_round:
         deltas = [
             ex._dense_delta(with_carry=flush) if (live[r] or flush)
@@ -1030,6 +1046,7 @@ def sync_group(exchangers: Sequence[ReplicaExchanger], *,
                     inter_by_rank[r] = hdr_bytes
                 outs.append(out)
             gathered = tuple(_stack(o[k] for o in outs) for k in range(6))
+            touched_ids = _touched_ids(gathered[0], gathered[3])
             apply_args = ("apply_sparse",
                           (_build_apply_sparse_fn, cap, world, wire), gathered)
             for r, ex in enumerate(exchangers):
@@ -1049,6 +1066,7 @@ def sync_group(exchangers: Sequence[ReplicaExchanger], *,
             per += _nbytes(sc0[0]) + _nbytes(sc1[0])
         for r in range(world):
             inter_by_rank[r] = hdr_bytes + per
+        touched_ids = _touched_ids(ids0, ids1)
         apply_args = ("apply_sparse",
                       (_build_apply_sparse_fn, cap, world, wire_round), gathered)
         for r, ex in enumerate(exchangers):
@@ -1070,7 +1088,7 @@ def sync_group(exchangers: Sequence[ReplicaExchanger], *,
         fn = ex._fn(kind, *builder_args)
         syn0, syn1 = fn(*ex._base, *args)
         ex.clock.mark("apply")
-        ex.engine.exchange_adopt(syn0, syn1)
+        ex.engine.exchange_adopt(syn0, syn1, touched_ids=touched_ids)
         ex.begin()
         cap_event = ex._adapt_capacity(max_n, overflowed)
         ex.engine._note_exchange(

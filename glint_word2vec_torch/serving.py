@@ -1186,6 +1186,10 @@ class ModelServer:
             # writes of a response.
             protocol_version = "HTTP/1.1"
             disable_nagle_algorithm = True
+            # Buffered writes: a response's last bytes leave when its
+            # handler returns, after the request is counted, so a client
+            # that reads an answer and then asks /metrics finds it there.
+            wbufsize = -1
 
             def log_message(self, fmt, *args):
                 logger.debug("serve: " + fmt, *args)
@@ -1312,8 +1316,16 @@ class ModelServer:
                     finally:
                         server._release_slot()
                 if path == "/shutdown":
+                    # The spans kept so far reach the trace log's file before
+                    # the answer: whoever asked may end this process next.
+                    rec = obs_events.get_recorder()
+                    if rec is not None:
+                        rec.flush()
                     with server._lock:  # let in-flight device work finish
                         self._send(200, {"status": "shutting down"})
+                    # Out before the stop begins: the process may end once
+                    # the server has stopped.
+                    self.wfile.flush()
                     threading.Thread(target=server.stop, daemon=True).start()
                     return
                 if path == "/reload":

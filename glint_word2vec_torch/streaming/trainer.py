@@ -160,7 +160,7 @@ class StreamTrainer:
             raise ValueError("empty stream: nothing to bootstrap from")
         return window
 
-    def _make_engine(self):
+    def _make_engine(self, mesh=None):
         from glint_word2vec_torch.parallel.engine import EmbeddingEngine
 
         p = self.w2v.params
@@ -176,7 +176,9 @@ class StreamTrainer:
             extra_rows=self.extra_rows,
             shared_negatives=p.shared_negatives,
             compute_dtype=p.compute_dtype,
-            device=self.w2v.device,
+            device=None if mesh is not None else self.w2v.device,
+            mesh=mesh,
+            layout=p.layout,
         )
 
     # -- the loop -------------------------------------------------------
@@ -191,7 +193,6 @@ class StreamTrainer:
         )
         from glint_word2vec_torch.ops import random as rnd
 
-        self.w2v._check_supported()
         p = self.w2v.params
         if self.buffer_words < p.max_sentence_length:
             # A piece that can never fit the buffer would spin the carry.
@@ -208,7 +209,11 @@ class StreamTrainer:
             sketch_capacity=self.sketch_capacity, max_size=None,
         )
         sv = self.vocab
-        engine = self.engine = self._make_engine()
+        # The mesh's data axis splits every pair batch
+        # (``streaming/trainer.py:228-261`` of the JAX package).
+        mesh = self.w2v._make_mesh()
+        self.w2v._check_batch_split(mesh)
+        engine = self.engine = self._make_engine(mesh)
         logger.info("stream bootstrap: %d words vocab, %d spare rows, "
                     "buffer %d words", sv.base_size, self.extra_rows,
                     self.buffer_words)
@@ -227,7 +232,7 @@ class StreamTrainer:
         total_words = (self.anneal_words + 1 if self.anneal_words
                        else _NO_ANNEAL_WORDS)
         B, W, spc = p.batch_size, p.window, p.steps_per_call
-        pair_batch = packed_pair_batch(B, W)
+        pair_batch = packed_pair_batch(B, W, engine.num_data)
         base_key = rnd.seed_key(p.seed)
         keep = sv.keep_probabilities(p.subsample_ratio)
         rng = np.random.default_rng(p.seed)

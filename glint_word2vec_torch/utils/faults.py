@@ -90,6 +90,9 @@ POINTS = {
         "once per accepted connection on a balancer data-plane shard",
     "fleet.autoscale_step":
         "before each warm-spare autoscaler policy evaluation",
+    "ckpt.shard_commit":
+        "after each checkpoint table shard block and its sidecar manifest "
+        "are written",
 }
 
 _ACTIONS = ("exc", "kill", "hang", "delay")

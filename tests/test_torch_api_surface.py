@@ -51,23 +51,8 @@ PAIRS = [
     ("obs.aggregate", "GangStatusServer"),
 ]
 
-ITEM3 = "Queue A item 3: the SPMD mesh (one program across several cards)"
-TPU_ONLY = "TPU-only: the row width padded to a multiple of 128 lanes"
-
 #: Public JAX names the port does not have, with what they wait for.
-WAITING = {
-    "EmbeddingEngine": {
-        "mesh": ITEM3,
-        "num_data": ITEM3,
-        "num_model": ITEM3,
-        "rows_per_shard": ITEM3,
-        "cols_per_shard": ITEM3,
-        "layout": ITEM3,
-        "padded_dim": TPU_ONLY,
-    },
-    "Word2Vec": {"mesh": ITEM3},
-    "FastTextWord2Vec": {"mesh": ITEM3},
-}
+WAITING: dict = {}
 
 
 def _classes(module, name):

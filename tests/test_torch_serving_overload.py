@@ -375,3 +375,32 @@ def test_port_dispatch_fault_answers_500_and_counts_it(packages):
         assert slo["windows"]["5m"]["bad_availability"] == 1
     finally:
         server.stop()
+
+
+@pytest.mark.parametrize("fault", [None, "serving.dispatch:exc@1"])
+def test_port_counts_a_request_before_its_answer_arrives(packages, fault):
+    # A request is counted before the last bytes of its answer leave: a
+    # client that reads the answer and then asks /metrics finds it
+    # counted, however late the server's thread gets to its bookkeeping.
+    cls, faults, model = packages["torch"]
+    server = cls(model, port=0, warmup=False)
+    observe = server._observe_request
+
+    def late(*args, **kw):
+        time.sleep(0.3)
+        return observe(*args, **kw)
+
+    server._observe_request = late
+    server.start_background()
+    try:
+        if fault:
+            faults.arm(fault)
+        try:
+            code = _status(server, "/synonyms", {"word": "austria", "num": 5})[0]
+        finally:
+            faults.disarm()
+        assert code == (500 if fault else 200)
+        ep = _get(server, "/metrics")["endpoints"]["/synonyms"]
+        assert (ep["count"], ep["errors"]) == (1, 1 if fault else 0)
+    finally:
+        server.stop()

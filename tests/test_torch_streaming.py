@@ -593,8 +593,11 @@ def test_fit_stream_bounded_run(tiny_corpus):
 def test_fit_stream_empty_stream_and_unported_settings_raise(tiny_corpus):
     with pytest.raises(ValueError, match="empty stream"):
         _small_w2v().fit_stream(iter([]))
-    with pytest.raises(ValueError, match="not ported yet"):
-        _small_w2v(num_partitions=2).fit_stream(iter(tiny_corpus[:10]))
+    # A mesh trains the stream since the SPMD mesh was ported; its batch
+    # must split over the data axis (tests/test_streaming.py's guard).
+    with pytest.raises(ValueError, match="data-axis size"):
+        _small_w2v(num_partitions=3).fit_stream(iter(tiny_corpus[:400]),
+                                                bootstrap_words=500)
     with pytest.raises(ValueError, match="max_sentence_length"):
         _small_w2v().fit_stream(iter(tiny_corpus), buffer_words=512)
 

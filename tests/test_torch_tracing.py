@@ -776,6 +776,65 @@ def test_traced_cpu_fleet_stitches_lanes_and_writes_a_flight_bundle(tmp_path):
     assert all(v.startswith("ok") for v in merged["otherData"]["sources"].values())
 
 
+@pytest.mark.parametrize("stop", ["sigterm", "shutdown_then_sigterm"])
+def test_a_stopped_replica_keeps_every_kept_span_in_its_trace_log(
+        tmp_path, stop):
+    """A ``cli serve`` replica stopped the way the fleet supervisor stops
+    one (``terminate_process``: SIGTERM to its group, at once; or after
+    the balancer's ``POST /shutdown`` answered) leaves every span it kept
+    in its trace log: the 404s' root spans, each with its trace id."""
+    from glint_word2vec_torch.convert import model_from_arrays
+    from glint_word2vec_torch.parallel.supervisor import terminate_process
+    from glint_word2vec_torch.utils.params import Word2VecParams
+
+    rng = np.random.default_rng(5)
+    V, d = len(WORDS), 8
+    model = model_from_arrays(
+        WORDS, rng.normal(size=(V, d)).astype(np.float32),
+        np.zeros((V, d), np.float32), np.arange(V, 0, -1),
+        Word2VecParams(vector_size=d, min_count=1), device="cpu")
+    model.save(str(tmp_path / "m"))
+    model.stop()
+    port_file, log = tmp_path / "p.json", tmp_path / "replica.jsonl"
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": REPO}
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "glint_word2vec_torch.cli", "serve",
+         "--model", str(tmp_path / "m"), "--device", "cpu", "--port", "0",
+         "--port-file", str(port_file), "--trace-log", str(log),
+         "--no-warmup"],
+        cwd=str(tmp_path), env=env, start_new_session=True)
+    tids = [f"{i:016x}" for i in range(1, 6)]
+    try:
+        for _ in range(1200):
+            if port_file.exists():
+                break
+            assert proc.poll() is None, f"serve exited {proc.returncode}"
+            time.sleep(0.05)
+        info = json.load(open(port_file))
+
+        class Srv:
+            host, port = info["host"], info["port"]
+
+        for tid in tids:
+            assert _post(Srv, "/synonyms", {"word": "nope"},
+                         {"X-Glint-Trace": tid})[0] == 404
+        if stop == "shutdown_then_sigterm":
+            assert _post(Srv, "/shutdown", {})[0] == 200
+        terminate_process(proc, grace_seconds=10.0)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    roots = {}
+    for line in open(log):
+        ev = json.loads(line)
+        args = ev.get("args", {})
+        if ev["name"] == "req.accept" and "trace" in args:
+            roots[args["trace"]] = args["status"]
+    # (The /shutdown request may be a kept trace of its own.)
+    assert {t: roots.get(t) for t in tids} == {tid: 404 for tid in tids}
+
+
 def test_gang_status_server_joins_serving_replicas_lazily():
     """Both packages' gang servers scrape the same replica snapshot and a
     dead URL on each request: the live one merged, the dead one reported,

@@ -273,23 +273,31 @@ def test_cli_train_on_cpu(tmp_path, capsys):
     assert m.vector_size == 8 and "fox" in m.vocab
 
 
-# The ids the cases had while grid packing (kw0) was among them. Since the
-# replica exchange trains, kw3 is the mesh gang: several processes with
-# exchange="none" (the process count faked), which waits for the SPMD mesh.
+# The ids the cases had while grid packing (kw0) was among them. These
+# settings raised until the SPMD mesh was ported; now each trains on its
+# mesh, and kw3, the mesh gang (several processes with exchange="none",
+# the process count faked), takes the gang route, whose batch guard is the
+# JAX package's (a batch that does not split over the processes raises).
 @pytest.mark.parametrize("kw,what,world", [
-    pytest.param({"num_shards": 2}, "multi-device", 1, id="kw1-multi-device"),
-    pytest.param({"num_partitions": 2}, "multi-device", 1,
-                 id="kw2-multi-device"),
-    pytest.param({"exchange": "none"}, "mesh slice", 2,
+    pytest.param({"num_shards": 2}, (1, 2), 1, id="kw1-multi-device"),
+    pytest.param({"num_partitions": 2}, (2, 1), 1, id="kw2-multi-device"),
+    pytest.param({"exchange": "none", "batch_size": 33}, "process count", 2,
                  id="kw3-replica exchange"),
-    pytest.param({"layout": "dims"}, "dims layout", 1, id="kw4-dims layout"),
+    pytest.param({"layout": "dims"}, (1, 1), 1, id="kw4-dims layout"),
 ])
 def test_unported_settings_raise(kw, what, world, monkeypatch):
     from glint_word2vec_torch.parallel import distributed as dist
 
     monkeypatch.setattr(dist, "process_count", lambda: world)
-    with pytest.raises(ValueError, match=what):
-        _small(**kw).fit(SMALL)
+    if world > 1:
+        with pytest.raises(ValueError, match=what):
+            _small(**kw).fit(SMALL)
+        return
+    m = _small(**kw).fit(SMALL)
+    eng = m.engine
+    assert (eng.num_data, eng.num_model) == what
+    assert eng.layout == kw.get("layout", "rows")
+    assert np.isfinite(m.training_metrics["final_loss"])
 
 
 def test_single_process_exchange_fit_trains():
