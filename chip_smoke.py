@@ -132,7 +132,14 @@ nothing of JAX. Phases, each of which fails the run on any error:
    (groups of 4) on copies of one 1,000,000 x 300 fp32 table pair: loss
    and tables bitwise ``train_steps_grouped`` with K = 1 on the same batch
    and draws, and ``gather_rows``, ``scatter_add_rank1`` and
-   ``scatter_add_rows`` launched.
+   ``scatter_add_rows`` launched. (h) ``ops/sgns.py``'s step functions:
+   ``train_step_pairs_fused`` on one full-width packed pair batch (fp32
+   1,000,000 x 300 tables) against the port's composed
+   ``train_step_pairs`` on the same draws (rtol 2e-5, atol 1e-6; loss
+   rel 1e-5), launching ``pair_forward``, ``scatter_add_rank1_hbm`` and
+   ``scatter_add_rows_f32``; ``train_step`` and ``sgns_loss`` on a
+   (B, C) window batch on the card against their CPU runs on the same
+   tables and draws (same tolerances).
 8. fastText and the host batcher: (a) ``FastTextWord2Vec().fit_file`` on
    phase 6's corpus at that width, fp32, one epoch, with every launch
    counter zeroed just before (``scatter_add_rows`` and
@@ -2535,7 +2542,82 @@ def check_composed_kernels(torch, np, rows_mod, fs) -> dict:
     t_added = time.perf_counter()
     out["train_step_launches"] = check_train_step(torch, np, rows_mod, gen, C)
     log(f"phase 7 addition: (g) {time.perf_counter() - t_added:.1f} s")
+    t_added = time.perf_counter()
+    out["ops_sgns_launches"] = check_ops_sgns(torch, np, fs, gen, C)
+    log(f"phase 7 addition: (h) {time.perf_counter() - t_added:.1f} s")
     return out
+
+
+#: Tolerances of phase 7 (h): fp32 sums in another order (the composed
+#: step's index_add_ on the card adds duplicates in any order).
+SGNS_RTOL, SGNS_ATOL, SGNS_LOSS_RTOL = 2e-5, 1e-6, 1e-5
+
+
+def check_ops_sgns(torch, np, fs, gen, C: int) -> dict:
+    """Phase 7 (h): the step functions of ``ops/sgns.py``.
+    ``train_step_pairs_fused`` on the card against ``train_step_pairs``
+    on the same packed batch and draws, with B4, B6 and B7 each launched
+    in it; ``train_step`` and ``sgns_loss`` on the card against their CPU
+    runs. Returns the fused step's launches."""
+    from glint_word2vec_torch.ops import sgns
+
+    def close(a, b, what):
+        err = float((a.float() - b.float()).abs().max())
+        expect(torch.allclose(a, b, rtol=SGNS_RTOL, atol=SGNS_ATOL),
+               f"{what}: max abs err {err}")
+        return err
+
+    def loss_close(a, b, what):
+        a, b = float(a), float(b)
+        expect(math.isfinite(a) and abs(a - b) <= SGNS_LOSS_RTOL * abs(b),
+               f"{what}: loss {a} against {b}")
+
+    (pc, px, pm, negs, _), _ = step_inputs(torch, np, gen)
+    s0 = 0.3 * torch.randn((V_TRAIN, D), generator=gen, device=DEV)
+    s1 = 0.3 * torch.randn((V_TRAIN, D), generator=gen, device=DEV)
+    kernels = (fs.pair_forward, fs.scatter_add_rows_f32, fs.scatter_add_rank1_hbm)
+    before = {k.__name__: k.launches for k in kernels}
+    f0, f1, fl = sgns.train_step_pairs_fused(s0, s1, pc, px, pm, negs, 0.025)
+    torch.cuda.synchronize()
+    launched = {k.__name__: k.launches - before[k.__name__] for k in kernels}
+    c0, c1, cl = sgns.train_step_pairs(s0, s1, pc, px, pm, negs, 0.025)
+    errs = [close(f0, c0, "train_step_pairs_fused syn0"),
+            close(f1, c1, "train_step_pairs_fused syn1")]
+    loss_close(fl, cl, "train_step_pairs_fused")
+    for name, k in launched.items():
+        expect(k > 0, f"train_step_pairs_fused never launched {name}: {launched}")
+    del f0, f1, c0, c1
+    log(f"(h) train_step_pairs_fused at {V_TRAIN} x {D}, P={pc.numel()}, "
+        f"n={N_NEG}: loss {float(fl):.6f}, tables within rtol {SGNS_RTOL} / "
+        f"atol {SGNS_ATOL} of train_step_pairs (max abs err {max(errs):.3g}); "
+        f"launched {launched}")
+    # The window step on a 100,000-row slice of the tables, so that the
+    # CPU run stays short.
+    V = 100_000
+    w0, w1 = s0[:V].contiguous(), s1[:V].contiguous()
+    del s0, s1
+    centers = zipf_ids(torch, gen, (B_TRAIN,), V)
+    ctx = zipf_ids(torch, gen, (B_TRAIN, C), V)
+    mask = (torch.rand((B_TRAIN, C), generator=gen, device=DEV) < 0.7).float()
+    ctx = torch.where(mask > 0, ctx, 0)
+    wnegs = zipf_ids(torch, gen, (B_TRAIN, C, N_NEG), V)
+    args = (centers, ctx, mask, wnegs)
+    g0, g1, gl = sgns.train_step(w0, w1, *args, 0.025)
+    gloss = sgns.sgns_loss(w0, w1, *args)
+    cpu = [t.cpu() for t in (w0, w1) + args]
+    h0, h1, hl = sgns.train_step(*cpu[:2], *cpu[2:], 0.025)
+    hloss = sgns.sgns_loss(*cpu[:2], *cpu[2:])
+    errs = [close(g0.cpu(), h0, "train_step syn0"),
+            close(g1.cpu(), h1, "train_step syn1")]
+    loss_close(gl, hl, "train_step")
+    loss_close(gloss, hloss, "sgns_loss")
+    log(f"(h) train_step and sgns_loss at {V} x {D}, B={B_TRAIN}, C={C}, "
+        f"n={N_NEG}: losses {float(gl):.6f} and {float(gloss):.6f}, tables "
+        f"within rtol {SGNS_RTOL} / atol {SGNS_ATOL} of the CPU run (max abs "
+        f"err {max(errs):.3g})")
+    del w0, w1, g0, g1
+    torch.cuda.empty_cache()
+    return launched
 
 
 def check_train_step(torch, np, rows_mod, gen, C: int) -> dict:

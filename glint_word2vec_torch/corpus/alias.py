@@ -30,6 +30,13 @@ class AliasTable:
     def size(self) -> int:
         return int(self.prob.shape[0])
 
+    def sample(self, rng: np.random.Generator, shape) -> np.ndarray:
+        """Host-side draws of ``shape`` from ``rng``, as the JAX package's
+        ``AliasTable.sample``: the same generator gives the same ids."""
+        k = rng.integers(0, self.size, size=shape, dtype=np.int64)
+        u = rng.random(size=shape)
+        return np.where(u < self.prob[k], k, self.alias[k]).astype(np.int32)
+
 
 def build_alias(weights: np.ndarray) -> AliasTable:
     """Alias table for a nonnegative weight vector: the native builder

@@ -213,35 +213,47 @@ def group_batches(
     :class:`BatchGroup`; the epoch's last group is padded with zero-mask
     batches that carry the last live ``words_done``. A generator, so that
     ``utils.prefetch`` can run the windowing and stacking on its producer
-    thread."""
+    thread. Each group fires the fault point ``producer.batch`` and is
+    recorded as a ``batch_prefetch`` span (on the producer thread's tid)
+    when observability is on, as in the JAX package."""
+    from glint_word2vec_torch.obs import events as obs_events
+    from glint_word2vec_torch.utils import faults
+
     K = int(group_size)
     if K <= 0:
         raise ValueError("group_size must be > 0")
+    g = 0
     while True:
-        group: List[Batch] = []
-        for batch in batches:
-            group.append(batch)
-            if len(group) == K:
-                break
-        if not group:
-            return
-        n_real = len(group)
-        if n_real < K:
-            proto = group[0]
-            pad = Batch(
-                centers=np.zeros_like(proto.centers),
-                contexts=np.zeros_like(proto.contexts),
-                mask=np.zeros_like(proto.mask),
-                words_done=group[-1].words_done,
+        # On the producer thread: an injected exception reaches the fit
+        # through the prefetch pipeline, a hang through its stall.
+        faults.fire("producer.batch")
+        with obs_events.span("batch_prefetch", group=g):
+            group: List[Batch] = []
+            for batch in batches:
+                group.append(batch)
+                if len(group) == K:
+                    break
+            if not group:
+                return
+            n_real = len(group)
+            if n_real < K:
+                proto = group[0]
+                pad = Batch(
+                    centers=np.zeros_like(proto.centers),
+                    contexts=np.zeros_like(proto.contexts),
+                    mask=np.zeros_like(proto.mask),
+                    words_done=group[-1].words_done,
+                )
+                group.extend([pad] * (K - n_real))
+            out = BatchGroup(
+                centers=np.stack([b.centers for b in group]),
+                contexts=np.stack([b.contexts for b in group]),
+                mask=np.stack([b.mask for b in group]),
+                words_done=[b.words_done for b in group],
+                n_real=n_real,
             )
-            group.extend([pad] * (K - n_real))
-        yield BatchGroup(
-            centers=np.stack([b.centers for b in group]),
-            contexts=np.stack([b.contexts for b in group]),
-            mask=np.stack([b.mask for b in group]),
-            words_done=[b.words_done for b in group],
-            n_real=n_real,
-        )
+        yield out
+        g += 1
 
 
 class SkipGramBatcher:

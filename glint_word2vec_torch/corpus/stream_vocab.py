@@ -117,6 +117,13 @@ class SpaceSavingSketch:
         ``items_seen / capacity``)."""
         return self._counts[item], self._errors[item]
 
+    def guaranteed(self, item: str) -> int:
+        """Lower bound on the item's true count (0 when untracked)."""
+        c = self._counts.get(item)
+        if c is None:
+            return 0
+        return c - self._errors[item]
+
     def pop(self, item: str) -> Tuple[int, int]:
         """Remove a tracked item (promotion took it), returning its
         final (estimate, error)."""
@@ -135,6 +142,13 @@ class SpaceSavingSketch:
         ]
         out.sort(key=lambda t: (-t[1], t[0]))
         return out
+
+    @property
+    def max_untracked_count(self) -> float:
+        """Upper bound on the true count of any untracked item."""
+        if len(self._counts) < self.capacity:
+            return 0.0
+        return self.items_seen / self.capacity
 
 
 class StreamVocab:

@@ -58,6 +58,12 @@ class Vocabulary:
     def __contains__(self, word: str) -> bool:
         return word in self.word_index
 
+    def __getitem__(self, word: str) -> int:
+        return self.word_index[word]
+
+    def get(self, word: str, default=None):
+        return self.word_index.get(word, default)
+
     def keep_probabilities(self, subsample_ratio: float) -> np.ndarray:
         """Per-word keep probability for frequency subsampling: with
         ``f = count / train_words_count`` and ratio ``s``,

@@ -2773,6 +2773,7 @@ class BalancerShardManager:
         }
         cfg_path = os.path.join(self._tmp, f"shard-{shard_id}.{launch}.json")
         # A one-shot handoff file the child reads once.
+        # graftlint: ignore[atomic-persist] one-shot handoff file read once by the child
         with open(cfg_path, "w") as f:
             json.dump(cfg, f)
         log = None
@@ -3418,6 +3419,16 @@ class FleetSupervisor:
     ``replica-<i>.jsonl`` a replica, the balancer's flight bundles under
     ``flight/`` and each replica's under ``flight/replica-<i>/``.
     """
+
+    #: ``lb``/``coordinator``/``dp``/``holds``/``autoscaler``/``shards``
+    #: are written exactly once (in run(), before the supervision loop
+    #: and any metrics request can touch them) and read-only
+    #: afterwards; lock-free reads see either None (ignored) or the
+    #: final object.
+    _ATOMIC_ATTRS = frozenset({
+        "lb", "coordinator", "model_coordinators", "dp", "holds",
+        "autoscaler", "shards",
+    })
 
     def __init__(
         self,

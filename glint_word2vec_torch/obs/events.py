@@ -270,6 +270,7 @@ class EventRecorder:
         self._sink_bytes = 0
         self.wall_t0 = time.time()
         self._t0 = time.perf_counter()
+        # graftlint: ignore[atomic-persist] streaming JSONL sink, not an artifact: a crash leaves a valid line prefix that trace-merge accepts
         self._sink = open(jsonl_path, "w") if jsonl_path else None
         if self._sink is not None:
             self._write_anchor_locked()

@@ -3,8 +3,11 @@
 ``negative_mask`` (:149), ``sgns_coefs`` (:47), ``sgns_grads`` (:82),
 ``sgns_d_center`` (:120), the shared-pool estimator
 ``shared_sgns_grads``, ``shared_sgns_coefs``, ``shared_sgns_updates`` and
-``pool_collision_mask`` (:161-302), and the composed pair step
-``train_step_pairs`` (:349) as plain PyTorch.
+``pool_collision_mask`` (:161-302), the window step ``train_step``
+(:305), the composed pair step ``train_step_pairs`` (:349) and the
+forward-only ``sgns_loss`` (:422) as plain PyTorch, and
+``train_step_pairs_fused``, the counterpart of ``train_step_pairs_pallas``
+(:379), on the fused step of ``ops/fused_sgns.py``.
 
 ``sgns_grads`` is the forward and backward of the composed step of the
 engine (``EmbeddingEngine.train_steps_grouped``) on gathered rows of the
@@ -18,8 +21,9 @@ products never run in TF32 (``device.py`` keeps it off).
 The composed pair step is the reference the fused step of
 ``ops/fused_sgns.py`` is held against: gather, dot, sigmoid, rank-1
 outer products, scatter-add, every value consumed being the pre-step
-one. It takes its negatives as an argument; the training path draws them
-with ``ops/sampling.py``.
+one. The steps take their negatives as an argument (the JAX functions
+draw them from a key); the training path draws them with
+``ops/sampling.py``.
 
 Padding convention: padded pair slots carry index 0 and mask 0.0, and
 every coefficient is multiplied by its mask, so they add exact zeros.
@@ -244,3 +248,69 @@ def train_step_pairs(
         (co.c_neg.reshape(-1)[:, None] * h.repeat_interleave(n, dim=0)).to(syn1.dtype),
     )
     return syn0, syn1, co.loss
+
+
+def train_step(
+    syn0: torch.Tensor, syn1: torch.Tensor,
+    centers: torch.Tensor, contexts: torch.Tensor, mask: torch.Tensor,
+    negs: torch.Tensor, alpha,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One composed SGNS update of a window batch: ``centers`` (B,),
+    ``contexts`` and ``mask`` (B, C), ``negs`` (B, C, n). Returns new
+    ``(syn0, syn1, loss)``; the inputs are not modified. As the JAX
+    step: ``d_center`` onto syn0, then the contexts' and the negatives'
+    rank-1 updates onto syn1, duplicate rows summed, each update cast to
+    the table's dtype first."""
+    B, C = contexts.shape
+    n = negs.shape[-1]
+    c = centers.long()
+    x = contexts.long()
+    ng = negs.long()
+    h = syn0[c].float()
+    u_pos = syn1[x].float()
+    u_neg = syn1[ng].float()
+    nmask = negative_mask(negs, contexts, mask)
+    g = sgns_grads(h, u_pos, u_neg, mask, nmask, alpha)
+    d_upos = g.c_pos[..., None] * h[:, None, :]
+    d_uneg = g.c_neg[..., None] * h[:, None, None, :]
+    syn0 = syn0.clone().index_add_(0, c, g.d_center.to(syn0.dtype))
+    syn1 = syn1.clone().index_add_(
+        0, x.reshape(-1), d_upos.reshape(B * C, -1).to(syn1.dtype))
+    syn1.index_add_(
+        0, ng.reshape(-1), d_uneg.reshape(B * C * n, -1).to(syn1.dtype))
+    return syn0, syn1, g.loss
+
+
+def sgns_loss(
+    syn0: torch.Tensor, syn1: torch.Tensor,
+    centers: torch.Tensor, contexts: torch.Tensor, mask: torch.Tensor,
+    negs: torch.Tensor,
+) -> torch.Tensor:
+    """Forward-only masked-mean SGNS loss of a window batch (shapes as
+    :func:`train_step`)."""
+    h = syn0[centers.long()].float()
+    u_pos = syn1[contexts.long()].float()
+    u_neg = syn1[negs.long()].float()
+    nmask = negative_mask(negs, contexts, mask)
+    return sgns_grads(h, u_pos, u_neg, mask, nmask, 1.0).loss
+
+
+def train_step_pairs_fused(
+    syn0: torch.Tensor, syn1: torch.Tensor,
+    centers: torch.Tensor, contexts: torch.Tensor, pair_mask: torch.Tensor,
+    negs: torch.Tensor, alpha,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`train_step_pairs` on the fused step
+    (``ops/fused_sgns.fused_pair_step``: ``pair_forward``, then
+    ``scatter_add_rank1_hbm`` onto syn1 and ``scatter_add_rows_f32`` onto
+    syn0). Same arguments and result; the inputs are not modified. On a
+    CUDA tensor it launches the kernels or raises; on the CPU it runs
+    their plain versions."""
+    from glint_word2vec_torch.ops.fused_sgns import fused_pair_step
+
+    syn0, syn1 = syn0.clone(), syn1.clone()
+    nmask = negative_mask(negs, contexts, pair_mask)
+    alpha_t = torch.as_tensor(alpha, dtype=torch.float32, device=syn0.device)
+    loss_sum = fused_pair_step(syn0, syn1, centers, contexts, pair_mask, negs,
+                               nmask, alpha_t)
+    return syn0, syn1, loss_sum / pair_mask.sum().clamp(min=1.0)

@@ -2375,7 +2375,15 @@ class EmbeddingEngine:
         ``os.replace``, ``engine.json`` and ``manifest.json`` last. Every
         file and the directories are fsync'd unless
         ``GLINT_CKPT_NO_FSYNC=1``. Runs on the writer thread for an
-        asynchronous save: it touches host arrays only."""
+        asynchronous save: it touches host arrays only.
+
+        The fresh directory's rename is the commit that fires the fault
+        points ``ckpt.pre_rename`` (before it) and ``ckpt.post_rename``
+        (after it), as the JAX package's single-writer commit does. Each
+        shard block fires ``ckpt.shard_commit`` once written. An in-place
+        update fires neither rename point, nor does a gang's per-block
+        save (:meth:`_save_split_blocks`), whose commit is its caller's
+        barrier."""
         t0 = time.time()
         fsync = os.environ.get("GLINT_CKPT_NO_FSYNC", "0") != "1"
         shard_set = {b["file"] for t in (meta.get("shards") or {}).values()
@@ -2435,7 +2443,9 @@ class EmbeddingEngine:
         if fsync:
             _fsync_dir(target)
         if fresh:
+            faults.fire("ckpt.pre_rename")
             self._commit_snapshot_dir(target, path)
+            faults.fire("ckpt.post_rename")
             if fsync:
                 _fsync_dir(os.path.dirname(os.path.abspath(path)))
         self._ckpt_last_write_s = time.time() - t0

@@ -796,6 +796,14 @@ class ModelCatalog:
     answered from the new tables, never with a 5xx. An eviction waits for
     the requests already past their residency check."""
 
+    #: Read-mostly references guarded by insertion discipline rather
+    #: than the catalog lock: ``entries`` is only ever grown (install
+    #: holds ``_mu``; dict reads are atomic under the GIL and a racing
+    #: reader sees the catalog before or after the install, equally
+    #: correct), ``default_id`` is written at install time after its
+    #: entry, and ``budget_bytes`` is a boot-time scalar.
+    _ATOMIC_ATTRS = frozenset({"entries", "default_id", "budget_bytes"})
+
     def __init__(self, server: "ModelServer",
                  budget_bytes: Optional[int] = None):
         self._server = server
@@ -1090,6 +1098,12 @@ class ModelServer:
     recall@10 against the exact path on ``ann_recall_sample`` rows must
     reach ``ann_recall_gate``, or the exact path keeps serving.
     """
+
+    #: Lock-free by design: ``_ann_live`` is a single bool flag, written
+    #: at boot (no request threads yet) and under the device lock on a
+    #: hot swap, read by request threads where a stale read only routes
+    #: one request to the other (equally correct) path.
+    _ATOMIC_ATTRS = frozenset({"_ann_live"})
 
     def __init__(
         self,

@@ -1,11 +1,15 @@
 """Deterministic fault injection (own copy of
-``glint_word2vec_tpu/utils/faults.py``, trimmed to the points the port
-fires).
+``glint_word2vec_tpu/utils/faults.py``, with the same points).
 
 Injection points are plain string names fired where a fault domain
 boundary exists:
 
+  ``ckpt.pre_rename``         just before a snapshot directory's atomic
+                              commit rename
+  ``ckpt.post_rename``        just after the snapshot commit rename
   ``worker.step``             once per dispatched streaming training group
+  ``producer.batch``          once per assembled batch group (producer
+                              thread)
   ``exchange.pre_send``       before each replica-exchange round's header
                               allgather
   ``publish.pre_commit``      just before a published generation
@@ -43,6 +47,8 @@ separated::
                 The point keeps counting afterwards but fires only once.
 
     GLINT_FAULTS="transform.shard_commit:exc@3"   fail the third commit
+    GLINT_FAULTS="ckpt.pre_rename:kill@2"         SIGKILL the second
+                                                  snapshot before its rename
     GLINT_FAULTS="publish.pre_pointer:kill@2"     SIGKILL the second publish
                                                   between rename and pointer
 
@@ -64,8 +70,14 @@ logger = logging.getLogger(__name__)
 #: :func:`parse_spec` validates specs against it and :func:`fire` rejects
 #: undeclared names, so a typo fails loudly instead of never firing.
 POINTS = {
+    "ckpt.pre_rename":
+        "just before a snapshot directory's atomic commit rename",
+    "ckpt.post_rename":
+        "just after the snapshot commit rename",
     "worker.step":
         "once per dispatched training group (all fit loops)",
+    "producer.batch":
+        "once per assembled batch group (producer thread)",
     "exchange.pre_send":
         "before each replica-exchange round's header allgather "
         "(a peer lost here leaves the others waiting in the collective)",

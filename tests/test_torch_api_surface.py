@@ -1,17 +1,22 @@
 """The port's public API surface against the JAX package's.
 
 For each ported class pair the public names (those not starting with
-``_``) of the JAX class, and of one small instance where one is cheap to
-build, must all exist on the port's side, or stand in :data:`WAITING`
-with the item of the port's queue that brings them (ROADMAP.md, Queue A)
-or the reason they have no counterpart. The word2vec estimator's fluent
-setters build the JAX package's ``Word2VecParams`` field by field and
-refuse what JAX refuses.
+``_``, and the dunder methods such as ``__getitem__``) of the JAX class,
+and of one small instance where one is cheap to build, must all exist on
+the port's side. For every module of the JAX package, each public
+function and class it defines must exist in the port's module of the
+same name (:data:`MODULE_RENAMES` and :data:`NAME_RENAMES` map the names
+that differ). A name the port lacks stands in :data:`WAITING` with the
+reason it has no counterpart. The word2vec estimator's fluent setters
+build the JAX package's ``Word2VecParams`` field by field and refuse what
+JAX refuses.
 
 Tolerances: names and parameter values compare exactly.
 """
 
+import ast
 import importlib
+import os
 
 import numpy as np
 import pytest
@@ -49,10 +54,33 @@ PAIRS = [
     ("fleet", "Autoscaler"),
     ("fleet", "BalancerShardManager"),
     ("obs.aggregate", "GangStatusServer"),
+    ("corpus.vocab", "Vocabulary"),
+    ("corpus.alias", "AliasTable"),
+    ("corpus.stream_vocab", "SpaceSavingSketch"),
 ]
 
-#: Public JAX names the port does not have, with what they wait for.
-WAITING: dict = {}
+#: Public JAX names the port does not have, by class or module, each
+#: with the reason it has no counterpart.
+WAITING: dict = {
+    "ops.pallas_sgns": {
+        "shared_pool_vmem_ok": "a TPU VMEM budget: the CUDA kernel of the "
+                               "shared pool stages by shared memory and "
+                               "takes every shape",
+    },
+    "utils.platform": {
+        "force_platform": "forces JAX's platform; the port's device.py "
+                          "resolves the torch device of every entry point",
+    },
+}
+
+#: JAX module -> the port's module of the same job.
+MODULE_RENAMES = {"ops.pallas_rows": "ops.rows",
+                  "ops.pallas_sgns": "ops.fused_sgns"}
+
+#: JAX name -> the port's name of the same function.
+NAME_RENAMES = {"train_step_pairs_pallas": "train_step_pairs_fused"}
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def _classes(module, name):
@@ -65,6 +93,10 @@ def _public(obj) -> set:
     names = {n for n in dir(obj) if not n.startswith("_")}
     if not isinstance(obj, type):
         names |= {n for n in vars(obj) if not n.startswith("_")}
+    else:
+        names |= {n for k in obj.__mro__[:-1] for n, v in vars(k).items()
+                  if n.startswith("__") and n.endswith("__") and callable(v)
+                  and n != "__init__"}
     return names
 
 
@@ -85,6 +117,74 @@ def test_waiting_names_are_still_missing():
         j, p = _classes(module, name)
         for attr in WAITING.get(name, {}):
             assert not hasattr(p, attr), (name, attr)
+    for module, names in WAITING.items():
+        if module not in JAX_MODULES:
+            continue
+        port = _port_module(module)
+        for attr, reason in names.items():
+            assert reason.strip(), (module, attr)
+            assert attr in _module_names(module), (module, attr)
+            assert port is None or not hasattr(port, NAME_RENAMES.get(attr, attr))
+
+
+def _jax_modules() -> list:
+    out = []
+    base = os.path.join(REPO, "glint_word2vec_tpu")
+    for root, dirs, files in os.walk(base):
+        dirs[:] = sorted(d for d in dirs if d != "__pycache__")
+        for f in sorted(files):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), base)[:-3]
+                parts = rel.split(os.sep)
+                if parts[-1] == "__init__":
+                    parts = parts[:-1]
+                if parts:
+                    out.append(".".join(parts))
+    return out
+
+
+JAX_MODULES = _jax_modules()
+
+
+def _module_names(module) -> set:
+    """Public functions and classes a JAX module defines (by its source,
+    so that names it imports from elsewhere are not counted twice)."""
+    path = os.path.join(REPO, "glint_word2vec_tpu", *module.split("."))
+    path = path + ".py" if os.path.isfile(path + ".py") else os.path.join(
+        path, "__init__.py")
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    return {n.name for n in tree.body
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                              ast.ClassDef)) and not n.name.startswith("_")}
+
+
+def _port_module(module):
+    name = MODULE_RENAMES.get(module, module)
+    rel = os.path.join(REPO, "glint_word2vec_torch", *name.split("."))
+    if not (os.path.isfile(rel + ".py")
+            or os.path.isfile(os.path.join(rel, "__init__.py"))):
+        return None
+    return importlib.import_module(f"glint_word2vec_torch.{name}")
+
+
+def test_every_jax_module_is_covered():
+    assert len(JAX_MODULES) >= 60
+    assert {"ops.sgns", "corpus.vocab", "analysis.core",
+            "analysis.checkers.sync_point"} <= set(JAX_MODULES)
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_module_names_exist_in_the_port(module):
+    port = _port_module(module)
+    allowed = set(WAITING.get(module, {}))
+    names = _module_names(module) - allowed
+    if port is None:
+        assert names == set(), f"no port module for {module}"
+        return
+    missing = sorted(n for n in names
+                     if not hasattr(port, NAME_RENAMES.get(n, n)))
+    assert missing == []
 
 
 V, D = 40, 8
