@@ -11,7 +11,7 @@ line or the result line, so a partial run never passes for a whole one.
 A whole run takes phases 1 and 2, then 3, 4, 5, 7 and 9 (a) one after
 another on an otherwise idle card (the kernels line's times, the single
 server's latencies), then two lanes at once: 9 (b) to (d) (printed as
-``phase 9 (b)``), 6, 8, 10, 11, 12 and 18 in this process, and 13 to 17 in a child process of its own (this
+``phase 9 (b)``), 6, 8, 10, 11, 12, 18 and 19 in this process, and 13 to 17 in a child process of its own (this
 script with ``--lane-out``), whose lines are printed after lane A's.
 Each process counts its own launches, so each phase's counts are its
 own; the lanes' times, rates and latencies are taken beside the other
@@ -300,7 +300,12 @@ nothing of JAX. Phases, each of which fails the run on any error:
    one restart from ``ckpt-1``, the ranks' table hashes equal, the model
    loads; words/s a rank, exchange bytes and ``exchange_sync`` seconds a
    round, the capacity's adaptation, ``device_stall_seconds``, and each
-   rank's launches (B4, B6, B7 and B3 must launch); (c) a two-rank
+   rank's launches (B4, B6, B7 and B3 must launch), and phase 19 (f) on
+   its files: each rank's event log of each generation opens with a clock
+   anchor carrying that generation's gang trace id, and the gang scrape
+   rebuilt from the ranks' status files has
+   ``glint_gang_checkpoint_shard_verify_seconds`` and the id as its
+   step-time exemplar; (c) a two-rank
    ``--exchange sparse`` gang on ``tiny_corpus`` held to the vienna and
    berlin gates; (d) ``transform-file --workers 2`` over phase 12's
    100,000 lines under the supervisor, bitwise ``--workers 1``. Each of
@@ -396,13 +401,34 @@ nothing of JAX. Phases, each of which fails the run on any error:
    tokens, rank 1 killed in its second epoch, resumed from ``ckpt-1``,
    the ranks' tables equal; the gang runs in processes of its own beside
    (a) and (b).
+19. The route knobs and the last keywords, at ``configs[1]``'s width on
+   the corpus's first 1,250,000 tokens (569,250 x 300, fp32), in lane A:
+   (a) ``GLINT_HOST_BATCHER=1`` fits it through the host batcher (B1, B2,
+   B3) with a checkpoint, ``GLINT_DEVICE_CORPUS_MAX_BYTES=1`` sends the
+   tiny corpus to the host, and with neither it takes the resident packed
+   path (B4, B6, B7), words/s of both routes printed; the first call of
+   each kernel held against its plain version on its own inputs; (b) the
+   checkpoint loaded three times, timed: with the deep check, under
+   ``GLINT_CKPT_NO_VERIFY=1`` and with ``verify=False``; a copy with a
+   byte flipped in a table file refused by the deep check alone, then
+   truncated and refused by every check; (c) ``EmbeddingEngine.load(...,
+   shared_negatives=4096)`` of it runs two packed groups (B5, B6, B7),
+   and again with ``span=`` the default span, bitwise; (d) the tiny
+   corpus's second epoch resumed from the legacy layout (``ckpt/syn0.npy``,
+   ``ckpt/syn1.npy``, no ``"ckpt"`` in ``train_state.json``), bitwise the
+   resume from the snapshot directory; (e) ``ModelServer(warm_ks=(16, 32,
+   64))`` answers ``num=50`` with no new shape (B1), and
+   ``serve_model_dir(..., ann=True, ann_nprobe=8)`` starts through its
+   named keywords and builds the index; (f) is on phase 14 (b)'s gang.
+   The counters are zeroed before each path and every kernel must launch.
 
 After each phase it prints ``phase N: S s``, after lane B's lines its
 seconds, and before the kernels line the whole script's seconds. It prints one JSON ``kernels`` line (each
 kernel with ``launches_catalog``, ``launches_fleet`` and
 ``launches_demand``, its launches in phases 15, 16 and 17, and its
 launches in phase 18's meshes, fit and gang, those of the meshes and the
-fit also by model shard), the
+fit also by model shard, and its launches in phase 19 with the error of
+its held first call there), the
 ``nvidia-smi`` line, and as its last line ``{"ok": true, "device":
 {...}}``. Without a CUDA device it
 exits non-zero before printing any result.
@@ -478,7 +504,7 @@ STALL_TOKENS = 1_250_000
 #: this process, LANE_B in a child (``--lane-out``), whose lines follow
 #: lane A's. Every number of the lanes is taken beside the other lane.
 SERIAL_PHASES = (3, 4, 5, 7, 9)
-LANE_A = (6, 8, 10, 11, 12, 18)
+LANE_A = (6, 8, 10, 11, 12, 18, 19)
 LANE_B = (13, 14, 15, 16, 17)
 #: Seconds from the script's start after which lane B is given up.
 LANE_DEADLINE = 1150.0
@@ -2793,7 +2819,6 @@ def train_fasttext_end_to_end(torch, np, rows_mod) -> dict:
     """Phase 8. Returns the composed step's launch counts from (a)."""
     from glint_word2vec_torch import FastTextWord2Vec, Word2Vec
     from glint_word2vec_torch.models import load_model
-    from glint_word2vec_torch.models import word2vec as w2v_mod
 
     tmp = tempfile.mkdtemp(prefix="glint_chip_fasttext_")
     try:
@@ -2897,10 +2922,9 @@ def train_fasttext_end_to_end(torch, np, rows_mod) -> dict:
                 serve_fasttext(torch, np, rows_mod, m, tmp)
             m.stop()
 
-        # (c) Word2vec through the host batcher: a card with no free
-        # memory sends every corpus there.
-        real_free = w2v_mod._free_device_bytes
-        w2v_mod._free_device_bytes = lambda device: 0
+        # (c) Word2vec through the host batcher: GLINT_HOST_BATCHER=1
+        # sends every corpus there.
+        os.environ["GLINT_HOST_BATCHER"] = "1"
         try:
             for dtype in ("float32", "bfloat16"):
                 m = tiny_w2v(Word2Vec, dtype=dtype).fit(corpus)
@@ -2930,7 +2954,7 @@ def train_fasttext_end_to_end(torch, np, rows_mod) -> dict:
             resumed.stop()
             full.stop()
         finally:
-            w2v_mod._free_device_bytes = real_free
+            del os.environ["GLINT_HOST_BATCHER"]
         return {"launches": launches}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3169,7 +3193,6 @@ def check_shared_kernel(torch, fs) -> dict:
 def train_shared_end_to_end(torch, np, fs, rows_mod) -> dict:
     """Phase 9 (b) to (d). Returns B5's launch count from (b)."""
     from glint_word2vec_torch import FastTextWord2Vec, Word2Vec
-    from glint_word2vec_torch.models import word2vec as w2v_mod
 
     tmp = tempfile.mkdtemp(prefix="glint_chip_shared_")
     try:
@@ -3220,11 +3243,10 @@ def train_shared_end_to_end(torch, np, fs, rows_mod) -> dict:
         # a pool of 256: the resident route and the host batcher, fp32 and
         # bf16, then fastText.
         corpus = make_tiny_corpus(np)
-        real_free = w2v_mod._free_device_bytes
         try:
             for route in ("device_corpus", "host"):
                 if route == "host":
-                    w2v_mod._free_device_bytes = lambda device: 0
+                    os.environ["GLINT_HOST_BATCHER"] = "1"
                 for dtype in ("float32", "bfloat16"):
                     before = (rows_mod.gather_rows.launches,
                               rows_mod.scatter_add_rows.launches,
@@ -3251,7 +3273,7 @@ def train_shared_end_to_end(torch, np, fs, rows_mod) -> dict:
                         expect(grew[2] == 0, f"scatter_add_rank1 launched {grew}")
                     m.stop()
         finally:
-            w2v_mod._free_device_bytes = real_free
+            os.environ.pop("GLINT_HOST_BATCHER", None)
         m = tiny_fasttext(FastTextWord2Vec, shared_negatives=256).fit(corpus)
         v, v_oov = m.transform("austria"), m.transform("austriaa")
         cos = cosine(np, v, v_oov)
@@ -5224,6 +5246,59 @@ def _mean_ms(xs) -> str:
     return f"{1e3 * sum(xs) / len(xs):.1f}" if xs else "none"
 
 
+def anchor_trace(path: str):
+    """The gang trace id on the clock anchor (first line) of an event log."""
+    with open(path) as f:
+        anchor = json.loads(f.readline())
+    expect(anchor.get("name") == "clock_anchor", f"{path}: {anchor}")
+    return anchor["args"].get("trace")
+
+
+def gang_trace_and_scrape(sup: str) -> str:
+    """Phase 19 (f), on phase 14 (b)'s gang: every rank's event log, of
+    each generation (the killed one's in its postmortem bundles), opens
+    with a clock anchor carrying its generation's ``GLINT_TRACE_ID``, one
+    id a generation, a new one after the restart; and the gang scrape
+    (``gang_to_prometheus`` of the ranks' final status files merged, as
+    the supervisor's ``/metrics`` serves it) has
+    ``glint_gang_checkpoint_shard_verify_seconds`` (the resumed ranks'
+    verify) and the final id as its step-time exemplar. Returns that id."""
+    from glint_word2vec_torch.obs.aggregate import merge_training_snapshots
+    from glint_word2vec_torch.obs.prometheus import gang_to_prometheus
+
+    final = {anchor_trace(os.path.join(sup, f"events-{r}.jsonl")) for r in (0, 1)}
+    expect(len(final) == 1 and None not in final,
+           f"19 (f) the ranks' anchors carry {final}")
+    (trace_id,) = final
+    killed = set()
+    for r in (0, 1):
+        bundle = os.path.join(sup, f"postmortem-0-{r}")
+        with open(os.path.join(bundle, "meta.json")) as f:
+            meta = json.load(f)
+        expect(anchor_trace(os.path.join(bundle, "events.jsonl")) == meta["trace"],
+               f"19 (f) rank {r}'s first generation: anchor against {meta}")
+        killed.add(meta["trace"])
+    expect(len(killed) == 1 and trace_id not in killed,
+           f"19 (f) generation ids {killed} then {trace_id}")
+    snaps = {}
+    for r in (0, 1):
+        with open(os.path.join(sup, f"status-{r}.json")) as f:
+            snaps[r] = json.load(f)
+    merged = merge_training_snapshots(snaps, num_workers=2)
+    text = gang_to_prometheus(merged)
+    verify = [ln for ln in text.splitlines()
+              if ln.startswith("glint_gang_checkpoint_shard_verify_seconds ")]
+    expect(len(verify) == 1 and float(verify[0].split()[1]) > 0,
+           f"19 (f) gang scrape: {verify}")
+    expect(merged["steptime_trace_id"] == trace_id
+           and f'trace_id="{trace_id}"' in text,
+           f"19 (f) step-time exemplar {merged['steptime_trace_id']}")
+    log(f"19 (f) gang (b): both ranks' clock anchors carry the gang trace id "
+        f"of their generation ({sorted(killed)[0]}, then {trace_id}); the gang "
+        f"scrape has {verify[0]} and the id as its step-time exemplar")
+    return trace_id
+
+
 def supervised_gang(torch, np, path: str, n_tok: int, tmp: str) -> dict:
     """Phase 14 (b): ``cli supervise --workers 2 train --exchange sparse
     --exchange-wire int8 --exchange-every 4`` over the corpus at ``path``,
@@ -5272,6 +5347,7 @@ def supervised_gang(torch, np, path: str, n_tok: int, tmp: str) -> dict:
     vsize = model.vocab.size
     model.stop()
     sup = os.path.join(d, "ck", "supervisor")
+    trace_id = gang_trace_and_scrape(sup)
     syncs = [span_seconds(os.path.join(sup, f"events-{r}.jsonl"), "exchange_sync")
              for r in (0, 1)]
     ex = [m["exchange"] for m in ranks]
@@ -5306,7 +5382,7 @@ def supervised_gang(torch, np, path: str, n_tok: int, tmp: str) -> dict:
             f"{gib(mem.get('pinned_bytes'))}, kept by the exchange "
             f"{gib(mem['exchange_kept_bytes'])}")
     return dict(launches=launches, model_dir=model_dir, wps=wps, ex=ex,
-                report=report)
+                report=report, trace_id=trace_id)
 
 
 def gang_quality(torch, np, tmp: str) -> None:
@@ -6703,19 +6779,43 @@ MESH_KERNEL_SITES = (
 
 
 @contextlib.contextmanager
-def launches_by_table():
-    """Each kernel's launches by the table tensor it ran on, while the
-    block runs: every wrapper of :data:`MESH_KERNEL_SITES` is replaced by
-    a shim that reads the wrapper's launch count around each call and
-    credits the difference to the call's first argument (the table, or
-    a model shard of it) by its storage address. Yields ``{kernel:
-    {address: launches}}``; the wrappers and their counts are whole again
-    after the block. A wrapper that counts through its own global name
-    (the fused ones) counts on the shim meanwhile, and that count is
-    folded back into the wrapper's."""
+def shimmed_kernels(shim_for):
+    """While the block runs, every wrapper of :data:`MESH_KERNEL_SITES` is
+    replaced by ``shim_for(name, wrapper)``. A wrapper that counts through
+    its own global name (the fused ones) counts on its shim meanwhile: each
+    shim gets ``launches`` and ``tiled_launches`` of 0, and after the block
+    those counts are folded back into the wrapper's, so the wrappers and
+    their counts are whole again."""
     import importlib
 
-    tally, patched = {}, []
+    patched = []
+    try:
+        for module, names in MESH_KERNEL_SITES:
+            mod = importlib.import_module(module)
+            for name in names:
+                orig = getattr(mod, name)
+                shim = shim_for(name, orig)
+                shim.launches = shim.tiled_launches = 0
+                setattr(mod, name, shim)
+                patched.append((mod, name, orig, shim))
+        yield
+    finally:
+        for mod, name, orig, shim in patched:
+            setattr(mod, name, orig)
+            orig.launches += shim.launches
+            if hasattr(orig, "tiled_launches"):
+                orig.tiled_launches += shim.tiled_launches
+
+
+@contextlib.contextmanager
+def launches_by_table():
+    """Each kernel's launches by the table tensor it ran on, while the
+    block runs: every wrapper of :data:`MESH_KERNEL_SITES` is shimmed
+    (:func:`shimmed_kernels`) to read the wrapper's launch count around
+    each call and credit the difference to the call's first argument (the
+    table, or a model shard of it) by its storage address. Yields
+    ``{kernel: {address: launches}}``."""
+    tally = {}
 
     def shim_for(name, orig):
         def shim(table, *args, **kw):
@@ -6728,24 +6828,10 @@ def launches_by_table():
                     by = tally.setdefault(name, {})
                     by[table.data_ptr()] = by.get(table.data_ptr(), 0) + n
 
-        shim.launches = shim.tiled_launches = 0
         return shim
 
-    try:
-        for module, names in MESH_KERNEL_SITES:
-            mod = importlib.import_module(module)
-            for name in names:
-                orig = getattr(mod, name)
-                shim = shim_for(name, orig)
-                setattr(mod, name, shim)
-                patched.append((mod, name, orig, shim))
+    with shimmed_kernels(shim_for):
         yield tally
-    finally:
-        for mod, name, orig, shim in patched:
-            setattr(mod, name, orig)
-            orig.launches += shim.launches
-            if hasattr(orig, "tiled_launches"):
-                orig.tiled_launches += shim.tiled_launches
 
 
 def shard_launches(tally: dict, eng, names, launches: dict, what: str) -> dict:
@@ -7096,6 +7182,428 @@ def mesh_on_one_card(torch, np, fs, rows_mod) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ----------------------------------------------------------------------
+# Phase 19: the route knobs, the load and verify keywords, the legacy
+# resume and the server's keywords at full width
+# ----------------------------------------------------------------------
+
+#: Phase 19's corpus: the first STALL_TOKENS tokens (phases 11 and 14 (b)'s
+#: prefix, 569,250 x 300), at ``configs[1]``'s width.
+KNOB_TOKENS = STALL_TOKENS
+#: Packed groups of phase 19 (c), each of steps_per_call = 16 steps.
+KNOB_GROUPS = 2
+
+
+@contextlib.contextmanager
+def hold_first_calls(torch, fs, rows_mod, what: str):
+    """Within the block, the first call of each kernel wrapper of
+    :data:`MESH_KERNEL_SITES` is held against its plain version on that
+    call's own inputs, at the shapes the main path gives it: ``gather_rows``
+    bitwise; ``pair_forward`` within rtol 1e-5 and atol 1e-6 x max and
+    ``pair_forward_shared`` within rtol 1e-4 and atol 1e-6 x max (phases 5
+    and 9), both against their plain versions on the card; each scatter
+    bitwise against its plain version on a CPU copy of the rows it touches
+    (:func:`touched_rows_check`). The held call is the path's own call,
+    once, and the plain versions launch nothing, so the block's launches
+    are the path's; read the counters after the block
+    (:func:`shimmed_kernels`). Yields ``{kernel: max abs error}`` of the
+    calls held."""
+    held = {}
+    fields = {"pair_forward": ("c_pos", "c_neg", "h", "d_center"),
+              "pair_forward_shared": ("c_pos", "h", "d_center", "d_pool")}
+    rtol = {"pair_forward": 1e-5, "pair_forward_shared": 1e-4}
+    plain_scatter = {
+        "scatter_add_rank1": rows_mod.scatter_add_rank1_reference,
+        "scatter_add_rows": rows_mod.scatter_add_rows_reference,
+        "scatter_add_rank1_hbm": fs.scatter_add_rank1_hbm_reference,
+        "scatter_add_rows_f32": fs.scatter_add_rows_f32_reference,
+    }
+
+    def hold(name, orig, args):
+        if name == "gather_rows":
+            out = orig(*args)
+            expect(torch.equal(out, rows_mod.gather_rows_reference(*args)),
+                   f"gather_rows {what} differs from its plain version")
+            held[name] = 0.0
+            return out
+        if name in fields:
+            out = orig(*args)
+            plain = getattr(fs, f"{name}_reference")(*args)
+            err = 0.0
+            for f in fields[name]:
+                want = getattr(plain, f)
+                err = max(err, close_err(
+                    torch, getattr(out, f), want, f"{name} {f} {what}",
+                    rtol[name], 1e-6 * float(want.abs().max())))
+            held[name] = err
+            return out
+        table, ids, *rest = args
+        before = table[torch.unique(ids.long())].cpu()
+        out = orig(*args)
+        torch.cuda.synchronize()
+        touched_rows_check(
+            torch, table, before, ids,
+            lambda t, local: plain_scatter[name](t, local,
+                                                 *(a.cpu() for a in rest)),
+            f"{name} {what}")
+        held[name] = 0.0
+        return out
+
+    def shim_for(name, orig):
+        def shim(*args, **kw):
+            if name in held or kw:
+                return orig(*args, **kw)
+            return hold(name, orig, args)
+
+        return shim
+
+    with shimmed_kernels(shim_for):
+        yield held
+
+
+def words_per_sec_line(tm: dict) -> str:
+    return (f"{tm['words_per_sec']} words/s ({tm['steps']} steps; "
+            f"{nvidia_smi_line()})")
+
+
+def knob_routes(torch, np, fs, rows_mod, path: str, n_tok: int, tmp: str) -> dict:
+    """Phase 19 (a): the prefix fitted under ``GLINT_HOST_BATCHER=1`` (the
+    host batcher and the composed step: B1, B2, B3) with a checkpoint, the
+    tiny corpus under ``GLINT_DEVICE_CORPUS_MAX_BYTES=1`` (the host), and
+    the prefix with neither knob (the resident packed path: B4, B6, B7);
+    every kernel each fit launches held once against its plain version."""
+    from glint_word2vec_torch import Word2Vec
+
+    width = dict(vector_size=D, window=W_TRAIN, batch_size=B_TRAIN,
+                 num_negatives=N_NEG, min_count=1, num_iterations=1,
+                 step_size=0.025, seed=1, subsample_ratio=1e-3)
+    out = {"held": {}}
+    ck = os.path.join(tmp, "ck-host")
+    os.environ["GLINT_HOST_BATCHER"] = "1"
+    try:
+        zero_counters(fs, rows_mod)
+        with hold_first_calls(torch, fs, rows_mod, "on the host route") as held:
+            host = Word2Vec(**width).fit_file(path, checkpoint_dir=ck)
+            torch.cuda.synchronize()
+        launches = read_counters(fs, rows_mod)
+    finally:
+        del os.environ["GLINT_HOST_BATCHER"]
+    tm = host.training_metrics
+    expect(tm["pipeline"] == "host" and tm["words_done"] == n_tok
+           and math.isfinite(tm["final_loss"]), tm)
+    expect_launched(launches, ("gather_rows", "scatter_add_rank1",
+                               "scatter_add_rows"), "19 (a) host route")
+    expect(set(held) == {"gather_rows", "scatter_add_rank1", "scatter_add_rows"},
+           f"19 (a) host route held {sorted(held)}")
+    out["held"].update(held)
+    out["host"] = {"launches": launches, "wps": tm["words_per_sec"]}
+    log(f"19 (a) GLINT_HOST_BATCHER=1: {host.vocab.size} x {D}, {n_tok} tokens, "
+        f"pipeline {tm['pipeline']}, {words_per_sec_line(tm)}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; first calls held: "
+        f"gather_rows, scatter_add_rank1, scatter_add_rows bitwise")
+
+    os.environ["GLINT_DEVICE_CORPUS_MAX_BYTES"] = "1"
+    try:
+        tiny = tiny_w2v(Word2Vec).set_num_iterations(1).fit(make_tiny_corpus(np))
+    finally:
+        del os.environ["GLINT_DEVICE_CORPUS_MAX_BYTES"]
+    expect(tiny.training_metrics["pipeline"] == "host", tiny.training_metrics)
+    tiny.stop()
+    log("19 (a) GLINT_DEVICE_CORPUS_MAX_BYTES=1: the tiny corpus took the host "
+        "batcher")
+
+    zero_counters(fs, rows_mod)
+    with hold_first_calls(torch, fs, rows_mod, "on the resident route") as held:
+        res = Word2Vec(**width).fit_file(path)
+        torch.cuda.synchronize()
+    launches = read_counters(fs, rows_mod)
+    tm = res.training_metrics
+    expect(tm["pipeline"] == "device_corpus" and tm["words_done"] == n_tok
+           and math.isfinite(tm["final_loss"]), tm)
+    three = ("pair_forward", "scatter_add_rank1_hbm", "scatter_add_rows_f32")
+    expect_launched(launches, three, "19 (a) resident route")
+    expect(set(three) <= set(held), f"19 (a) resident route held {sorted(held)}")
+    out["held"].update({k: max(v, out["held"].get(k, 0.0)) for k, v in held.items()})
+    out["resident"] = {"launches": launches, "wps": tm["words_per_sec"]}
+    log(f"19 (a) no knob: pipeline {tm['pipeline']}, "
+        f"{words_per_sec_line(tm)}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; first calls held: "
+        f"pair_forward (max |diff| {held['pair_forward']:.3g}), "
+        f"scatter_add_rank1_hbm and scatter_add_rows_f32 bitwise")
+    res.stop()
+    del res
+    gc_free(torch)
+    return dict(out, model=host, ck=ck)
+
+
+def verify_loads(torch, np, model, ck: str, tmp: str) -> dict:
+    """Phase 19 (b): three loads of the host route's checkpoint into its
+    model's engine, each timed (host clock, synchronized): with the deep
+    check, under ``GLINT_CKPT_NO_VERIFY=1`` (sizes only) and with
+    ``verify=False``; then a copy with one byte flipped in a table file
+    (only the deep check refuses it) and the same copy truncated (every
+    check refuses it; ``verify=False`` checks nothing)."""
+    from glint_word2vec_torch.utils import integrity
+
+    rec, snap = integrity.resolve_train_state(ck)
+    expect(snap is not None and rec["epochs_completed"] == 1, rec)
+    eng = model.engine
+    want = [eng.syn0.clone(), eng.syn1.clone()]
+    secs = {}
+    for mode in ("deep", "size only", "none"):
+        if mode == "size only":
+            os.environ["GLINT_CKPT_NO_VERIFY"] = "1"
+        eng._ckpt_shard_verify_s = None
+        try:
+            t0 = time.perf_counter()
+            eng.load_tables(snap, verify=mode != "none")
+            torch.cuda.synchronize()
+            secs[mode] = time.perf_counter() - t0
+        finally:
+            os.environ.pop("GLINT_CKPT_NO_VERIFY", None)
+        verify_s = eng.checkpoint_stats()["checkpoint_shard_verify_seconds"]
+        expect((verify_s is None) == (mode == "none"),
+               f"{mode}: checkpoint_shard_verify_seconds {verify_s}")
+        secs[f"{mode} verify"] = verify_s
+        expect(torch.equal(eng.syn0, want[0]) and torch.equal(eng.syn1, want[1]),
+               f"19 (b) load ({mode}) changed the tables")
+    log(f"19 (b) loads of the {eng.vocab_size} x {eng.dim} checkpoint "
+        f"({dir_bytes(snap) / 2**30:.2f} GiB, warm page cache): deep "
+        f"{secs['deep']:.3f} s (verify {secs['deep verify']} s), size only "
+        f"{secs['size only']:.3f} s (verify {secs['size only verify']} s), none "
+        f"{secs['none']:.3f} s; {nvidia_smi_line()}")
+
+    bad = os.path.join(tmp, "damaged")
+    shutil.copytree(snap, bad)
+    with open(os.path.join(bad, "engine.json")) as f:
+        meta = json.load(f)
+    table = os.path.join(bad, meta["shards"]["syn0"][0]["file"]
+                         if meta.get("format") == "sharded" else "syn0.npy")
+    size = os.path.getsize(table)
+
+    def refused(**kw) -> bool:
+        try:
+            integrity.verify_snapshot_dir(bad, **kw)
+        except integrity.CheckpointCorruptError:
+            return True
+        return False
+
+    def refused_under_no_verify() -> bool:
+        os.environ["GLINT_CKPT_NO_VERIFY"] = "1"
+        try:
+            return refused()
+        finally:
+            del os.environ["GLINT_CKPT_NO_VERIFY"]
+
+    with open(table, "r+b") as f:
+        f.seek(size // 2)
+        b = f.read(1)
+        f.seek(size // 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+    flipped = (refused(), refused(deep=False), refused_under_no_verify())
+    expect(flipped == (True, False, False), f"flipped byte: {flipped}")
+    eng.load_tables(bad, verify=False)
+    expect(not torch.equal(eng.syn0, want[0]), "the flipped byte did not load")
+    with open(table, "r+b") as f:
+        f.truncate(size - 4096)
+    truncated = (refused(), refused(deep=False), refused_under_no_verify())
+    expect(truncated == (True, True, True), f"truncated: {truncated}")
+    eng.load_tables(snap, verify=False)
+    shutil.rmtree(bad)
+    log("19 (b) a byte flipped in syn0: refused by the deep check, passed by "
+        "the size check and GLINT_CKPT_NO_VERIFY=1, loaded by verify=False; "
+        "the file truncated: refused by all three checks")
+    return dict(secs=secs, snap=snap)
+
+
+def engine_overrides(torch, np, fs, rows_mod, path: str, snap: str) -> dict:
+    """Phase 19 (c): ``EmbeddingEngine.load(snap, "cuda",
+    shared_negatives=S_POOL)`` over the prefix's corpus, KNOB_GROUPS packed
+    groups (B5, B6, B7, held once each), then the same groups from the same
+    tables with ``span=`` the default span: bitwise the same tables, losses
+    and positions."""
+    from glint_word2vec_torch.corpus.batching import context_width, packed_pair_batch
+    from glint_word2vec_torch.corpus.vocab import scan_and_encode_file
+    from glint_word2vec_torch.ops.device_batching import packed_span
+    from glint_word2vec_torch.parallel.engine import EmbeddingEngine
+
+    _, ids, offsets = scan_and_encode_file(path, min_count=1)
+    eng = EmbeddingEngine.load(snap, DEV, shared_negatives=S_POOL)
+    expect(eng.shared_negatives == S_POOL, "the override was not taken")
+    eng.upload_corpus(ids, offsets)
+    P = packed_pair_batch(B_TRAIN, W_TRAIN)
+
+    def groups(span=None):
+        pos, outs = 0, []
+        for g in range(KNOB_GROUPS):
+            out = eng.train_steps_corpus_packed(
+                pos, P, W_TRAIN, B_TRAIN, 7, 16, 16 * g, 16 * g,
+                total_words=int(ids.size) + 1, span=span)
+            outs.append(out)
+            pos = int(out[2][-1])
+        torch.cuda.synchronize()
+        return outs, eng.syn0.clone(), eng.syn1.clone()
+
+    zero_counters(fs, rows_mod)
+    with hold_first_calls(torch, fs, rows_mod, "on the shared-pool engine") as held:
+        first, s0, s1 = groups()
+    launches = read_counters(fs, rows_mod)
+    expect_launched(launches, ("pair_forward_shared", "scatter_add_rank1_hbm",
+                               "scatter_add_rows_f32"), "19 (c)")
+    expect(launches["pair_forward"] == 0, launches)
+    expect({"pair_forward_shared", "scatter_add_rank1_hbm",
+            "scatter_add_rows_f32"} <= set(held), f"19 (c) held {sorted(held)}")
+    span = packed_span(P, context_width(W_TRAIN))
+    eng.load_tables(snap, verify=False)
+    again, t0, t1 = groups(span=span)
+    same = (torch.equal(s0, t0) and torch.equal(s1, t1)
+            and all(np.array_equal(a, b) for x, y in zip(first, again)
+                    for a, b in zip(x, y)))
+    expect(same, f"19 (c) span={span} differs from the default span")
+    log(f"19 (c) EmbeddingEngine.load(..., shared_negatives={S_POOL}): "
+        f"{KNOB_GROUPS} groups of 16 steps, P={P}, launches "
+        f"{ {k: v for k, v in launches.items() if v} }; first calls held: "
+        f"pair_forward_shared (max |diff| {held['pair_forward_shared']:.3g}), "
+        f"the scatters bitwise; span={span} bitwise the default span")
+    eng.release_tables()
+    del eng, s0, s1, t0, t1
+    gc_free(torch)
+    return {"launches": launches, "held": held}
+
+
+def legacy_resume(torch, np, fs, rows_mod, tmp: str) -> dict:
+    """Phase 19 (d): one epoch of the tiny corpus on the resident route
+    with a checkpoint, its tables rewritten as the legacy layout
+    (``ckpt/syn0.npy``, ``ckpt/syn1.npy``, a ``train_state.json`` with no
+    ``"ckpt"``); the second epoch resumed from each layout, bitwise
+    equal."""
+    from glint_word2vec_torch import Word2Vec
+    from glint_word2vec_torch.parallel.engine import EmbeddingEngine
+    from glint_word2vec_torch.utils import atomic_write_json, atomic_write_npy, integrity
+
+    corpus = make_tiny_corpus(np)
+    modern, legacy = os.path.join(tmp, "ck-modern"), os.path.join(tmp, "ck-legacy")
+    tiny_w2v(Word2Vec).set_num_iterations(2).fit(
+        corpus, checkpoint_dir=modern, stop_after_epochs=1).stop()
+    rec, snap = integrity.resolve_train_state(modern)
+    one = EmbeddingEngine.load(snap, DEV)
+    os.makedirs(os.path.join(legacy, "ckpt"))
+    for name in ("syn0", "syn1"):
+        atomic_write_npy(os.path.join(legacy, "ckpt", f"{name}.npy"),
+                         getattr(one, name).float().cpu().numpy())
+    atomic_write_json(os.path.join(legacy, "train_state.json"),
+                      {k: v for k, v in rec.items() if k != "ckpt"})
+    one.release_tables()
+    expect(integrity.resolve_train_state(legacy)[1] is None, "not a legacy record")
+    zero_counters(fs, rows_mod)
+    a = tiny_w2v(Word2Vec).set_num_iterations(2).fit(corpus, checkpoint_dir=modern)
+    b = tiny_w2v(Word2Vec).set_num_iterations(2).fit(corpus, checkpoint_dir=legacy)
+    launches = read_counters(fs, rows_mod)
+    expect_launched(launches, ("pair_forward", "scatter_add_rank1_hbm",
+                               "scatter_add_rows_f32"), "19 (d)")
+    expect(b.training_metrics["pipeline"] == "device_corpus", b.training_metrics)
+    expect(torch.equal(a.engine.syn0, b.engine.syn0)
+           and torch.equal(a.engine.syn1, b.engine.syn1),
+           "19 (d) the legacy resume differs from the modern resume")
+    log(f"19 (d) tiny corpus, epoch 2 resumed from ckpt/syn0.npy and "
+        f"ckpt/syn1.npy bitwise the resume from {rec['ckpt']}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    a.stop()
+    b.stop()
+    return {"launches": launches}
+
+
+def server_keywords(torch, np, fs, rows_mod, model, tmp: str) -> dict:
+    """Phase 19 (e): ``ModelServer(model, warm_ks=(16, 32, 64))`` answers a
+    ``/synonyms`` of ``num=50`` with no shape past its warmup and launches
+    B1 for it; ``serve_model_dir(..., ann=True, ann_nprobe=8)`` starts
+    through the named keywords and builds the index (its recall gate
+    decides whether the index or the exact path answers)."""
+    from glint_word2vec_torch.serving import ModelServer, serve_model_dir
+
+    server = ModelServer(model, port=0, max_batch=8, warm_ks=(16, 32, 64))
+    server.start_background()
+    try:
+        zero_counters(fs, rows_mod)
+        hits = post(server.port, "/synonyms", {"word": "w3", "num": 50})
+        launches = read_counters(fs, rows_mod)
+        health = get_json(server.port, "/healthz")
+    finally:
+        server.stop()
+    expect(len(hits) == 50, f"19 (e) {len(hits)} synonyms")
+    expect(health["post_warmup_compiles"] == 0, health)
+    expect_launched(launches, ("gather_rows",), "19 (e) /synonyms")
+    mdir, port_file = os.path.join(tmp, "model"), os.path.join(tmp, "port.json")
+    model.save(mdir)
+    box = {}
+
+    def serve():
+        try:
+            serve_model_dir(mdir, port=0, port_file=port_file, device=DEV,
+                            max_batch=8, ann=True, ann_nprobe=8)
+        except BaseException as e:  # reported by the phase below
+            box["error"] = e
+
+    t = threading.Thread(target=serve, name="serve_model_dir", daemon=True)
+    t.start()
+    deadline = time.monotonic() + 300
+    while not os.path.exists(port_file):
+        expect(t.is_alive() and time.monotonic() < deadline,
+               f"19 (e) serve_model_dir did not start: {box.get('error')!r}")
+        time.sleep(0.1)
+    with open(port_file) as f:
+        port = json.load(f)["port"]
+    try:
+        index = get_json(port, "/healthz")["index"]
+        ann = post(port, "/synonyms", {"word": "w3", "num": 10})
+    finally:
+        post(port, "/shutdown", {})
+        t.join(timeout=120)
+    expect(not t.is_alive() and "error" not in box, f"19 (e) {box}")
+    expect(index["enabled"] and index["nprobe"] == 8, index)
+    expect(len(ann) == 10, ann)
+    log(f"19 (e) ModelServer(warm_ks=(16, 32, 64)): /synonyms num=50 with no new "
+        f"shape, gather_rows launched {launches['gather_rows']} times; "
+        f"serve_model_dir(ann=True, ann_nprobe=8): index of {index['clusters']} "
+        f"clusters, nprobe {index['nprobe']}, recall@10 {index['recall_at10']}")
+    return {"launches": launches}
+
+
+def route_knobs_and_surface(torch, np, fs, rows_mod) -> dict:
+    """Phase 19: (a) to (e) at ``configs[1]``'s width on the corpus's first
+    KNOB_TOKENS tokens; (f) is phase 14 (b)'s."""
+    tmp = tempfile.mkdtemp(prefix="glint_chip_knobs_")
+    model = None
+    try:
+        path = os.path.join(tmp, "prefix.txt")
+        n_tok = write_synthetic_corpus(np, path, tokens=KNOB_TOKENS)
+        out = knob_routes(torch, np, fs, rows_mod, path, n_tok, tmp)
+        model = out.pop("model")
+        out["verify"] = verify_loads(torch, np, model, out["ck"], tmp)
+        out["overrides"] = engine_overrides(torch, np, fs, rows_mod, path,
+                                            out["verify"]["snap"])
+        out["legacy"] = legacy_resume(torch, np, fs, rows_mod, tmp)
+        out["serving"] = server_keywords(torch, np, fs, rows_mod, model, tmp)
+        launches = {}
+        for part in (out["host"], out["resident"], out["overrides"],
+                     out["legacy"], out["serving"]):
+            for k, v in part["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        out["launches"] = launches
+        out["held"].update({k: max(v, out["held"].get(k, 0.0))
+                            for k, v in out["overrides"]["held"].items()})
+        expect_launched(launches, [c.__name__ for c in kernel_counters(fs, rows_mod)],
+                        "phase 19")
+        expect(set(out["held"]) == {c.__name__ for c in kernel_counters(fs, rows_mod)},
+               f"phase 19 held {sorted(out['held'])}")
+        return out
+    finally:
+        if model is not None:
+            model.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc_free(torch)
+
+
 def ptxas_report(text: str) -> list:
     """One line per kernel of an ``nvcc -Xptxas -v`` log: its name
     (demangled where ``c++filt`` is found), registers and spills."""
@@ -7118,7 +7626,7 @@ def ptxas_report(text: str) -> list:
 
 
 def parse_args(argv) -> tuple:
-    """``(only, lane_out)``: the phases ``--only`` names (3 to 18; 16 and
+    """``(only, lane_out)``: the phases ``--only`` names (3 to 19; 16 and
     17 bring 15, whose models they serve), or None to run them all; and
     the file a lane-B child writes its results to, or None."""
     import argparse
@@ -7126,7 +7634,7 @@ def parse_args(argv) -> tuple:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument(
         "--only", metavar="N[,N...]",
-        help="run phases 1, 2 and these (3 to 18; 16 and 17 run 15 first) "
+        help="run phases 1, 2 and these (3 to 19; 16 and 17 run 15 first) "
              "only, one after another, "
              "print their lines, "
              f"and exit {PARTIAL_EXIT} without the kernels or result line")
@@ -7136,8 +7644,8 @@ def parse_args(argv) -> tuple:
     if args.only is None:
         return None, args.lane_out
     phases = {int(p) for p in args.only.split(",") if p.strip()}
-    if not phases or not phases <= set(range(3, 19)):
-        ap.error(f"--only takes phases 3 to 18, got {args.only!r}")
+    if not phases or not phases <= set(range(3, 20)):
+        ap.error(f"--only takes phases 3 to 19, got {args.only!r}")
     if phases & {16, 17}:
         phases.add(15)
     return phases, args.lane_out
@@ -7292,6 +7800,7 @@ def main() -> int:
         16: lambda: fleet_end_to_end(torch, np, rows_mod, catalog),
         17: lambda: demand_fleet_end_to_end(torch, np, catalog),
         18: lambda: mesh_on_one_card(torch, np, fs, rows_mod),
+        19: lambda: route_knobs_and_surface(torch, np, fs, rows_mod),
         # Phase 9 (b) on: the shared-pool fit, its gates and resume.
         "9 (b)": lambda: train_shared_end_to_end(torch, np, fs, rows_mod),
     }
@@ -7341,7 +7850,8 @@ def main() -> int:
     lane = start_lane()
     try:
         shared = run("9 (b)")
-        trained, ft, grid, stall, annt, mesh = (run(p) for p in LANE_A)
+        trained, ft, grid, stall, annt, mesh, knobs = (run(p) for p in LANE_A)
+        log(f"lane A: {time.perf_counter() - lane['t0']:.1f} s")
         b = finish_lane(lane, t_start + LANE_DEADLINE)
         streamed, gang, cat, fleet, demand = (b[p] for p in LANE_B)
     finally:
@@ -7521,6 +8031,10 @@ def main() -> int:
         k["launches_mesh_gang"] = mesh["gang"]["launches"].get(k["name"], 0)
         k["mesh_max_abs_err"] = max(mesh["engines"]["max_abs_err"],
                                     mesh["engines"]["kernels_err"])
+        # Phase 19: its launches over (a) to (e), and the error of its
+        # first call held against the plain version.
+        k["launches_phase19"] = knobs["launches"][k["name"]]
+        k["phase19_max_abs_err"] = knobs["held"][k["name"]]
     log(f"whole script: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,6 +14,8 @@ and ``ServerSideGlintWord2VecModel`` (``compat.py``) give the reference's
 PySpark surface over the same estimator.
 """
 
+from glint_word2vec_torch.version import __version__
+
 #: Public name -> the module that defines it. Each is imported on first use
 #: (PEP 562), so a process that serves no model and trains none (the
 #: fleet's supervisor and balancer shards, ``trace-merge``, ``supervise``)
@@ -23,15 +25,19 @@ _EXPORTS = {
     "FastTextModel": "glint_word2vec_torch.models.fasttext",
     "FastTextParams": "glint_word2vec_torch.models.fasttext",
     "FastTextWord2Vec": "glint_word2vec_torch.models.fasttext",
+    "LocalWord2VecModel": "glint_word2vec_torch.models.word2vec",
     "ModelServer": "glint_word2vec_torch.serving",
+    "ObsConfig": "glint_word2vec_torch.obs",
     "ServerSideGlintWord2Vec": "glint_word2vec_torch.compat",
     "ServerSideGlintWord2VecModel": "glint_word2vec_torch.compat",
+    "TrainingDiverged": "glint_word2vec_torch.obs.canary",
     "Word2Vec": "glint_word2vec_torch.models.word2vec",
     "Word2VecModel": "glint_word2vec_torch.models.word2vec",
+    "Word2VecParams": "glint_word2vec_torch.utils.params",
     "load_model": "glint_word2vec_torch.models",
 }
 
-__all__ = sorted(_EXPORTS)
+__all__ = ["__version__", *sorted(_EXPORTS)]
 
 
 def __getattr__(name):

@@ -264,7 +264,9 @@ class SkipGramBatcher:
     :class:`Batch` es of exactly ``batch_size`` center positions; the
     last one is zero-padded with mask-0 rows. ``words_done`` counts
     pre-subsampling words: the LR anneal divides by ``num_iterations *
-    train_words_count``, so counting kept words would stall it."""
+    train_words_count``, so counting kept words would stall it. With
+    ``shuffle`` each epoch visits the sentences in an order drawn from
+    that same generator first, on the numpy pass."""
 
     def __init__(
         self,
@@ -274,6 +276,7 @@ class SkipGramBatcher:
         window: int,
         subsample_ratio: float = 0.0,
         seed: int = 1,
+        shuffle: bool = False,
     ):
         if batch_size <= 0:
             raise ValueError("batch_size must be > 0")
@@ -284,6 +287,7 @@ class SkipGramBatcher:
         self.batch_size = int(batch_size)
         self.window = int(window)
         self.seed = int(seed)
+        self.shuffle = bool(shuffle)
         self.keep_prob = vocab.keep_probabilities(subsample_ratio)
         self.words_done = 0
         self._flat: Optional[tuple] = None
@@ -299,12 +303,13 @@ class SkipGramBatcher:
         window: int,
         subsample_ratio: float = 0.0,
         seed: int = 1,
+        shuffle: bool = False,
     ) -> "SkipGramBatcher":
         """Over the flat ``(ids, offsets)`` corpus: no per-sentence Python
         objects, about 4 bytes of host memory a word."""
         b = cls(
             None, vocab, batch_size=batch_size, window=window,
-            subsample_ratio=subsample_ratio, seed=seed,
+            subsample_ratio=subsample_ratio, seed=seed, shuffle=shuffle,
         )
         b._flat = (
             np.ascontiguousarray(ids, dtype=np.int32),
@@ -325,10 +330,11 @@ class SkipGramBatcher:
 
     def epoch(self, epoch_index: int) -> Iterator[Batch]:
         """Yield every minibatch of one pass over the corpus: the native
-        pass (:meth:`_epoch_native`) when the library is available, else
-        the numpy pass (:meth:`_epoch_python`). Each is deterministic per
-        seed and epoch; the two draw different streams."""
-        native = self._epoch_native(epoch_index)
+        pass (:meth:`_epoch_native`) when the library is available and the
+        order is not shuffled, else the numpy pass (:meth:`_epoch_python`).
+        Each is deterministic per seed and epoch; the two draw different
+        streams."""
+        native = None if self.shuffle else self._epoch_native(epoch_index)
         if native is not None:
             return native
         return self._epoch_python(epoch_index)
@@ -419,16 +425,21 @@ class SkipGramBatcher:
         built at once, which keeps the producer thread's hold on the
         interpreter short. A batch's ``words_done`` is the count after the
         sentence of its last row (after the epoch, for the padded last
-        batch)."""
+        batch). With ``shuffle`` the sentence order is a permutation drawn
+        from the epoch's generator before any other draw, as the JAX
+        package's pass draws it."""
         B, W = self.batch_size, self.window
         rng = np.random.default_rng((self.seed, epoch_index))
+        order = np.arange(self._n_sentences())
+        if self.shuffle:
+            rng.shuffle(order)
         pend = (*_window_rows([], [], W), np.zeros(0, np.int64))
         kept: List[np.ndarray] = []
         shrink: List[np.ndarray] = []
         words: List[int] = []
         n_rows = 0
-        last = self._n_sentences() - 1
-        for si in range(last + 1):
+        last = order.size - 1
+        for i, si in enumerate(order):
             sent = self._sentence(si)
             self.words_done += int(sent.size)
             ids = subsample_sentence(sent, self.keep_prob, rng)
@@ -437,7 +448,7 @@ class SkipGramBatcher:
                 shrink.append(rng.integers(0, W, size=ids.size))
                 words.append(self.words_done)
                 n_rows += ids.size
-            if n_rows < _BLOCK_ROWS and si < last:
+            if n_rows < _BLOCK_ROWS and i < last:
                 continue
             wd = np.repeat(np.asarray(words, np.int64), [k.size for k in kept])
             rows = (*_window_rows(kept, shrink, W), wd)

@@ -7,11 +7,12 @@ import os
 from glint_word2vec_torch.device import DeviceLike
 
 
-def load_model(path: str, device: DeviceLike = None):
+def load_model(path: str, mesh=None, device: DeviceLike = None):
     """Load a saved model directory (written by either package),
     dispatching on its ``params.json``: a fastText model (its params carry
     ``bucket``) loads as a ``FastTextModel``, any other as a
-    ``Word2VecModel``."""
+    ``Word2VecModel``. ``mesh`` (``parallel/mesh.make_mesh``) re-homes the
+    tables onto that mesh; without one they load onto ``device``."""
     params_path = os.path.join(path, "params.json")
     try:
         with open(params_path) as f:
@@ -25,7 +26,7 @@ def load_model(path: str, device: DeviceLike = None):
     if "bucket" in meta:
         from glint_word2vec_torch.models.fasttext import FastTextModel
 
-        return FastTextModel.load(path, device=device)
+        return FastTextModel.load(path, device=device, mesh=mesh)
     from glint_word2vec_torch.models.word2vec import Word2VecModel
 
-    return Word2VecModel.load(path, device=device)
+    return Word2VecModel.load(path, device=device, mesh=mesh)

@@ -78,7 +78,7 @@ class FastTextWord2Vec(Word2Vec):
 
     # Family hooks -----------------------------------------------------
 
-    def _device_corpus_eligible(self) -> bool:
+    def _device_corpus_eligible(self, corpus_words: int = 0) -> bool:
         # Subword centers need the host-side group expansion of
         # _train_batches; the packed path assembles word centers only.
         return False

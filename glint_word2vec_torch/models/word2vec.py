@@ -183,6 +183,40 @@ def _flip_checkpoint_state(
             shutil.rmtree(os.path.join(checkpoint_dir, entry), ignore_errors=True)
 
 
+def _resume(engine, obs_run, checkpoint_dir: str,
+            packing: Optional[str] = None) -> Optional[dict]:
+    """Restore the newest committed checkpoint of ``checkpoint_dir`` into
+    ``engine`` and return its state record (None for a fresh run). The
+    snapshot must verify (``utils/integrity.resolve_train_state``, which
+    falls back to the previous committed one); a legacy record with no
+    ``"ckpt"`` loads ``ckpt/syn0.npy`` and ``ckpt/syn1.npy`` (JAX
+    ``models/word2vec.py:1353-1372``). With ``packing`` (the resident
+    loop) a mid-epoch state resumes only under the packing that wrote
+    it: the other would misread its position and train the epoch's
+    consumed prefix again."""
+    resolved = resolve_train_state(checkpoint_dir)
+    if resolved is None:
+        return None
+    state, snapshot = resolved
+    state_packing = state.get("batch_packing", "grid")
+    if (packing is not None and int(state.get("position", 0)) > 0
+            and state_packing != packing):
+        raise ValueError(
+            f"mid-epoch checkpoint at {checkpoint_dir} was written "
+            f"with batch_packing={state_packing!r} (position "
+            f"{state['position']}); resume with the same packing "
+            "mode, or restart from an epoch-boundary checkpoint"
+        )
+    with obs_run.span("checkpoint_restore", ckpt=state.get("ckpt", "ckpt")):
+        if snapshot is not None:
+            engine.load_tables(snapshot)
+        else:
+            legacy = os.path.join(checkpoint_dir, "ckpt")
+            engine.set_tables(np.load(os.path.join(legacy, "syn0.npy")),
+                              np.load(os.path.join(legacy, "syn1.npy")))
+    return state
+
+
 def _ckpt_wait_timeout() -> Optional[float]:
     """Seconds fit exit waits for a checkpoint write in flight before it
     fails the run naming the write (``GLINT_CKPT_WAIT_TIMEOUT``, default
@@ -515,7 +549,10 @@ class Word2Vec:
         when the family allows it and the corpus fits on the device (the
         tables, a step's working set and the corpus within
         ``DEVICE_MEMORY_FRACTION`` of the free memory), else the host
-        batcher. In a gang with an exchange, :meth:`_fit_replica_exchange`."""
+        batcher. ``GLINT_HOST_BATCHER`` and ``GLINT_DEVICE_CORPUS_MAX_BYTES``
+        (:meth:`_device_corpus_eligible`) send a corpus to the host batcher
+        before the free-memory check. In a gang with an exchange,
+        :meth:`_fit_replica_exchange`."""
         p = self.params
         pc = dist.process_count()
         if p.exchange != "none" and pc > 1:
@@ -543,7 +580,7 @@ class Word2Vec:
                 vocab, batcher, checkpoint_dir, checkpoint_every_epochs,
                 stop_after_epochs, steps_per_epoch=steps_per_epoch,
             )
-        if self._device_corpus_eligible() and int(ids.size) < 2**31:
+        if self._device_corpus_eligible(int(ids.size)):
             need = self._device_bytes_needed(
                 vocab.size, int(ids.size), offsets.size
             )
@@ -588,25 +625,44 @@ class Word2Vec:
         device = resolve_device(self.device)
         need = self._device_bytes_needed(vocab.size, int(ids.size), offsets.size)
         free = _free_device_bytes(device)
-        if (not self._device_corpus_eligible() or int(ids.size) >= 2**31
+        if (not self._device_corpus_eligible(int(ids.size))
                 or need > DEVICE_MEMORY_FRACTION * free):
             raise ValueError(
                 "replica-exchange training needs the device-resident corpus "
                 f"path: this process's shard of {int(ids.size)} words needs "
                 f"about {need} bytes of device memory with the tables and the "
-                f"exchange's buffers, {free} are free on {device}, or the "
-                "model family builds its centers on the host"
+                f"exchange's buffers, {free} are free on {device}, the shard "
+                "exceeds the device corpus budget "
+                "(GLINT_DEVICE_CORPUS_MAX_BYTES), GLINT_HOST_BATCHER=1 is "
+                "set, or the model family builds its centers on the host"
             )
         return self._fit_corpus_resident(
             vocab, ids, offsets, checkpoint_dir, checkpoint_every_epochs,
             stop_after_epochs,
         )
 
-    def _device_corpus_eligible(self) -> bool:
-        """Whether the family's centers are words, which the packed path
-        assembles on the device (the fastText family says no: its centers
-        are subword groups built on the host)."""
-        return True
+    def _device_corpus_eligible(self, corpus_words: int = 0) -> bool:
+        """Whether the resident route may take a corpus of
+        ``corpus_words`` (``models/word2vec.py:598-625`` of the JAX
+        package): the family's centers are words, which the packed path
+        assembles on the device (the fastText family says no); the corpus
+        fits the budget ``GLINT_DEVICE_CORPUS_MAX_BYTES`` (2 GiB by
+        default) at 12 bytes a word with subsampling and 4 without; it
+        has under 2**31 words (the flat corpus is indexed in int32); and
+        ``GLINT_HOST_BATCHER=1`` is not set. The free-memory check of
+        :meth:`_fit_flat` comes on top."""
+        raw_budget = os.environ.get("GLINT_DEVICE_CORPUS_MAX_BYTES")
+        try:
+            budget = int(raw_budget) if raw_budget is not None else 2 << 30
+        except ValueError:
+            logger.warning(
+                "GLINT_DEVICE_CORPUS_MAX_BYTES=%r is not an integer; "
+                "using the 2 GiB default", raw_budget)
+            budget = 2 << 30
+        bytes_per_word = 12 if self.params.subsample_ratio > 0 else 4
+        return (bytes_per_word * corpus_words <= budget
+                and corpus_words < 2**31
+                and os.environ.get("GLINT_HOST_BATCHER", "0") != "1")
 
     def _device_bytes_needed(self, vocab_size: int, n_words: int,
                              n_offsets: int) -> int:
@@ -748,10 +804,8 @@ class Word2Vec:
                 os.path.join(checkpoint_dir, "train_state.json")
                 if checkpoint_dir else None
             )
-            state = resolve_train_state(checkpoint_dir) if state_path else None
+            state = _resume(engine, obs_run, checkpoint_dir) if state_path else None
             if state is not None:
-                with obs_run.span("checkpoint_restore", ckpt=state["ckpt"]):
-                    engine.load_tables(os.path.join(checkpoint_dir, state["ckpt"]))
                 start_epoch = int(state["epochs_completed"])
                 step = int(state["step"])
                 batcher.words_done = int(state["words_done"])
@@ -966,22 +1020,9 @@ class Word2Vec:
                 if checkpoint_dir else None
             )
             resume_words = None
-            state = resolve_train_state(checkpoint_dir) if state_path else None
+            state = _resume(engine, obs_run, checkpoint_dir,
+                            packing=p.batch_packing) if state_path else None
             if state is not None:
-                # A mid-epoch state resumes only under the packing that
-                # wrote it: the other would misread its position and train
-                # the epoch's consumed prefix again.
-                state_packing = state.get("batch_packing", "grid")
-                if (int(state.get("position", 0)) > 0
-                        and state_packing != p.batch_packing):
-                    raise ValueError(
-                        f"mid-epoch checkpoint at {checkpoint_dir} was written "
-                        f"with batch_packing={state_packing!r} (position "
-                        f"{state['position']}); resume with the same packing "
-                        "mode, or restart from an epoch-boundary checkpoint"
-                    )
-                with obs_run.span("checkpoint_restore", ckpt=state["ckpt"]):
-                    engine.load_tables(os.path.join(checkpoint_dir, state["ckpt"]))
                 start_epoch = int(state["epochs_completed"])
                 step = int(state["step"])
                 resume_position = int(state.get("position", 0))

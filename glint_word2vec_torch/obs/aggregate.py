@@ -118,8 +118,12 @@ def merge_training_snapshots(
     counters = {out: 0 for out, _ in _SUM_COUNTERS}
     counters.update(canary_trips_total=0, events_recorded_total=0,
                     events_dropped_total=0)
+    # Shard-checkpoint seconds fold to the slowest rank.
     shard_write_max = None
+    shard_verify_max = None
     transform_ranks: List[dict] = []
+    slo_snaps: List[dict] = []
+    steptime_trace_id = None
     per_rank: Dict[str, dict] = {}
     wps_total = 0.0
     step_means: List[float] = []
@@ -139,8 +143,17 @@ def merge_training_snapshots(
         v = snap.get("checkpoint_shard_write_seconds")
         if v is not None:
             shard_write_max = max(shard_write_max or 0.0, v)
+        v = snap.get("checkpoint_shard_verify_seconds")
+        if v is not None:
+            shard_verify_max = max(shard_verify_max or 0.0, v)
         if snap.get("transform"):
             transform_ranks.append(snap["transform"])
+        if snap.get("slo"):
+            slo_snaps.append(snap["slo"])
+        if steptime_trace_id is None:
+            # The supervisor mints one id a launch generation, so the
+            # first rank's that carries one is the gang's.
+            steptime_trace_id = (snap.get("steptime") or {}).get("trace_id")
         wps = float(snap.get("words_per_sec_rolling") or 0.0)
         wps_total += wps
         ms = _mean_step_seconds(snap)
@@ -209,11 +222,16 @@ def merge_training_snapshots(
         "words_per_sec_total": round(wps_total, 1),
         "rank_skew": rank_skew,
         "checkpoint_shard_write_seconds_max": shard_write_max,
+        "checkpoint_shard_verify_seconds_max": shard_verify_max,
         "per_rank": per_rank,
         "steptime": steptime,
+        "steptime_trace_id": steptime_trace_id,
     }
     if transform_ranks:
         out["transform"] = _merge_transform(transform_ranks)
+    slo = merge_slo_snapshots(slo_snaps)
+    if slo is not None:
+        out["slo"] = slo
     return out
 
 

@@ -285,6 +285,16 @@ class EventRecorder:
         """Monotonic half of the clock-anchor pair (``ts`` zero)."""
         return self._t0
 
+    def _anchor_args(self) -> dict:
+        args = {"wall_t0": self.wall_t0, "mono_t0": self._t0}
+        # The supervisor mints one gang trace id a launch generation
+        # (``GLINT_TRACE_ID``): it stitches this process's timeline to
+        # its gang's in trace-merge.
+        gang = os.environ.get("GLINT_TRACE_ID")
+        if gang:
+            args["trace"] = gang
+        return args
+
     def _write_anchor_locked(self) -> None:
         """The clock-anchor metadata line: the (monotonic, wall) pair of
         this recorder's ``ts = 0``."""
@@ -292,7 +302,7 @@ class EventRecorder:
             line = json.dumps({
                 "name": "clock_anchor", "ph": "M", "ts": 0,
                 "pid": os.getpid(),
-                "args": {"wall_t0": self.wall_t0, "mono_t0": self._t0},
+                "args": self._anchor_args(),
             }) + "\n"
             self._sink.write(line)
             self._sink_bytes += len(line)

@@ -101,9 +101,13 @@ class TrainingStatus:
 
     def __init__(self, *, pipeline: str = "", total_epochs: int = 0,
                  total_words: int = 0, metrics=None, engine=None,
-                 recorder=None, ledger=None):
+                 recorder=None, ledger=None, slo=None):
         self._mu = threading.Lock()
         self._ledger = ledger
+        #: An ``obs/slo.SloEngine`` whose snapshot every heartbeat carries
+        #: under ``slo`` (rendered as ``glint_training_slo_*``); None
+        #: leaves the snapshot without the block.
+        self._slo = slo
         self.pipeline = pipeline
         self.total_epochs = int(total_epochs)
         self.total_words = int(total_words)
@@ -138,7 +142,7 @@ class TrainingStatus:
         self._transform: Optional[dict] = None
 
     def attach(self, *, metrics=None, engine=None, recorder=None,
-               ledger=None) -> None:
+               ledger=None, slo=None) -> None:
         with self._mu:
             if metrics is not None:
                 self._metrics = metrics
@@ -148,6 +152,8 @@ class TrainingStatus:
                 self._recorder = recorder
             if ledger is not None:
                 self._ledger = ledger
+            if slo is not None:
+                self._slo = slo
 
     def update(self, *, epoch=None, step=None, words_done=None, alpha=None,
                state=None) -> None:
@@ -237,8 +243,9 @@ class TrainingStatus:
 
     def snapshot(self, include_devices: bool = True) -> dict:
         with self._mu:
-            m, eng, rec, ledger = (self._metrics, self._engine,
-                                   self._recorder, self._ledger)
+            m, eng, rec, ledger, slo = (self._metrics, self._engine,
+                                        self._recorder, self._ledger,
+                                        self._slo)
             snap = {
                 "state": self.state,
                 "pipeline": self.pipeline,
@@ -312,6 +319,8 @@ class TrainingStatus:
             snap["events"] = rec.counts()
         if ledger is not None:
             snap["steptime"] = ledger.snapshot()
+        if slo is not None:
+            snap["slo"] = slo.snapshot()
         if include_devices:
             snap["device_memory"] = device_memory_stats(
                 getattr(eng, "device", None) if eng is not None else None)

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import math
 import re
+from typing import Optional
 
 
 def _esc(v) -> str:
@@ -73,6 +74,103 @@ class _Prom:
 
     def text(self) -> str:
         return "\n".join(self.lines) + "\n"
+
+
+#: Each renderer's help text for its eight SLO families, in the order
+#: :func:`_slo_families` writes them (the JAX package's words, so the
+#: expositions match it byte for byte).
+_SLO_HELP = {
+    "glint_training_slo": (
+        "Availability objective (success-ratio target) per tracked "
+        "endpoint.",
+        "Latency objective (fraction of good requests under the "
+        "threshold) per tracked endpoint.",
+        "Latency SLI threshold in milliseconds per endpoint.",
+        "Requests observed in each rolling SLO window.",
+        "SLI-violating requests in each rolling window, by SLI "
+        "(availability = 5xx; latency = slower than threshold).",
+        "Error-budget burn rate per SLI and window (1.0 = burning exactly "
+        "the budget).",
+        "Multi-window fast-burn alert (5m AND 1h over 14.4x): "
+        "page-severity budget burn.",
+        "Multi-window slow-burn alert (30m AND 6h over 6x): "
+        "ticket-severity budget burn.",
+    ),
+    "glint_gang_slo": (
+        "Availability objective (success-ratio target) per tracked "
+        "endpoint, fleet-merged view.",
+        "Latency objective (fraction of good requests under the "
+        "threshold) per tracked endpoint, fleet-merged view.",
+        "Latency SLI threshold in milliseconds per endpoint.",
+        "Requests observed in each rolling SLO window, summed over "
+        "replicas.",
+        "SLI-violating requests in each rolling window, by SLI, summed "
+        "over replicas.",
+        "Error-budget burn rate per SLI and window over the merged fleet "
+        "traffic (1.0 = burning exactly the budget).",
+        "Fleet-level multi-window fast-burn alert (5m AND 1h over 14.4x).",
+        "Fleet-level multi-window slow-burn alert (30m AND 6h over 6x).",
+    ),
+    "glint_slo": (
+        "Availability objective (success-ratio target) per tracked "
+        "endpoint.",
+        "Latency objective (fraction of good requests under the "
+        "threshold) per tracked endpoint.",
+        "Latency SLI threshold in milliseconds per endpoint.",
+        "Requests observed in each rolling SLO window.",
+        "SLI-violating requests in each rolling window, by SLI "
+        "(availability = 5xx; latency = slower than threshold).",
+        "Error-budget burn rate per SLI and window (1.0 = burning exactly "
+        "the budget; 14.4 = the fast-burn page threshold).",
+        "Multi-window fast-burn alert (5m AND 1h windows both over "
+        "14.4x): page-severity budget burn.",
+        "Multi-window slow-burn alert (30m AND 6h windows both over 6x): "
+        "ticket-severity budget burn.",
+    ),
+}
+
+
+def _slo_families(p: _Prom, prefix: str, slo: Optional[dict]) -> None:
+    """The eight SLO burn-rate families of one ``obs/slo.SloEngine``
+    snapshot (objectives, rolling-window counts, burn rates and alerts),
+    named ``<prefix>_*`` so that concatenated scrapes stay family
+    disjoint. Nothing is written without a snapshot."""
+    if not slo:
+        return
+    eps = slo.get("endpoints") or {}
+    (h_avail, h_lat, h_thr, h_req, h_bad, h_burn, h_fast,
+     h_slow) = _SLO_HELP[prefix]
+    for suffix, key, help_ in (
+            ("availability_target", "availability_target", h_avail),
+            ("latency_target", "latency_target", h_lat),
+            ("latency_threshold_ms", "latency_threshold_ms", h_thr)):
+        p.head(f"{prefix}_{suffix}", "gauge", help_)
+        for ep, doc in eps.items():
+            p.sample(f"{prefix}_{suffix}", {"endpoint": ep}, doc.get(key))
+    p.head(f"{prefix}_window_requests", "gauge", h_req)
+    for ep, doc in eps.items():
+        for win, w in (doc.get("windows") or {}).items():
+            p.sample(f"{prefix}_window_requests",
+                     {"endpoint": ep, "window": win}, w.get("total", 0))
+    p.head(f"{prefix}_window_bad", "gauge", h_bad)
+    for ep, doc in eps.items():
+        for win, w in (doc.get("windows") or {}).items():
+            for sli in ("availability", "latency"):
+                p.sample(f"{prefix}_window_bad",
+                         {"endpoint": ep, "sli": sli, "window": win},
+                         w.get(f"bad_{sli}", 0))
+    p.head(f"{prefix}_burn_rate", "gauge", h_burn)
+    for ep, doc in eps.items():
+        burns = doc.get("burn_rates") or {}
+        for sli in ("availability", "latency"):
+            for win, rate in (burns.get(sli) or {}).items():
+                p.sample(f"{prefix}_burn_rate",
+                         {"endpoint": ep, "sli": sli, "window": win}, rate)
+    for alert, help_ in (("fast_burn", h_fast), ("slow_burn", h_slow)):
+        p.head(f"{prefix}_{alert}", "gauge", help_)
+        for ep, doc in eps.items():
+            p.sample(f"{prefix}_{alert}", {"endpoint": ep},
+                     1 if (doc.get("alerts") or {}).get(alert) else 0)
 
 
 # ----------------------------------------------------------------------
@@ -234,9 +332,15 @@ def training_to_prometheus(snap: dict) -> str:
                      {"phase": phase}, info.get("seconds"))
         p.head("glint_training_steptime_ops_total", "counter",
                "Accounted spans per ledger phase.")
+        # Exemplar: the gang trace id of this launch generation
+        # (GLINT_TRACE_ID), which links a sample to the merged gang trace.
+        trace_id = (snap.get("steptime") or {}).get("trace_id")
         for phase, info in steptime.items():
             p.sample("glint_training_steptime_ops_total",
-                     {"phase": phase}, info.get("count", 0))
+                     {"phase": phase}, info.get("count", 0),
+                     exemplar=({"trace_id": trace_id,
+                                "value": info.get("seconds")}
+                               if trace_id else None))
     stream = snap.get("streaming") or {}
     if stream:
         # The streaming trainer's gauges: present only on fit_stream runs.
@@ -312,6 +416,7 @@ def training_to_prometheus(snap: dict) -> str:
         ]:
             p.head(name, "gauge", help_)
             p.sample(name, None, transform.get(key))
+    _slo_families(p, "glint_training_slo", snap.get("slo"))
     mem = snap.get("device_memory") or {}
     if mem:
         p.head("glint_device_memory_bytes", "gauge",
@@ -353,6 +458,10 @@ def gang_to_prometheus(snap: dict) -> str:
          "checkpoint_shard_write_seconds_max",
          "Slowest rank's shard-block write seconds in the most recent "
          "checkpoint save (NaN before any)."),
+        ("glint_gang_checkpoint_shard_verify_seconds",
+         "checkpoint_shard_verify_seconds_max",
+         "Slowest rank's per-shard manifest verify seconds in the most "
+         "recent restore/stage (NaN before any)."),
     ]:
         p.head(name, "gauge", help_)
         p.sample(name, None, snap.get(key))
@@ -456,79 +565,13 @@ def gang_to_prometheus(snap: dict) -> str:
                          {"phase": phase, "quantile": q}, info[key] / 1e3)
             p.sample("glint_gang_steptime_span_seconds_sum", {"phase": phase},
                      info.get("span_seconds", info.get("seconds")))
+            trace_id = snap.get("steptime_trace_id")
             p.sample("glint_gang_steptime_span_seconds_count",
-                     {"phase": phase}, info.get("count", 0))
-    slo = snap.get("slo") or {}
-    if slo:
-        # SLO burn-rate families over the fleet-merged SLO
-        # snapshot the gang aggregator lifted from its serving scrape
-        # (gang-prefixed: this exposition is concatenated with the
-        # serving one, and families in one scrape must be disjoint).
-        slo_eps = slo.get("endpoints") or {}
-        p.head("glint_gang_slo_availability_target", "gauge",
-               "Availability objective (success-ratio target) per "
-               "tracked endpoint, fleet-merged view.")
-        for ep, doc in slo_eps.items():
-            p.sample("glint_gang_slo_availability_target",
-                     {"endpoint": ep}, doc.get("availability_target"))
-        p.head("glint_gang_slo_latency_target", "gauge",
-               "Latency objective (fraction of good requests under the "
-               "threshold) per tracked endpoint, fleet-merged view.")
-        for ep, doc in slo_eps.items():
-            p.sample("glint_gang_slo_latency_target",
-                     {"endpoint": ep}, doc.get("latency_target"))
-        p.head("glint_gang_slo_latency_threshold_ms", "gauge",
-               "Latency SLI threshold in milliseconds per endpoint.")
-        for ep, doc in slo_eps.items():
-            p.sample("glint_gang_slo_latency_threshold_ms",
-                     {"endpoint": ep}, doc.get("latency_threshold_ms"))
-        p.head("glint_gang_slo_window_requests", "gauge",
-               "Requests observed in each rolling SLO window, summed "
-               "over replicas.")
-        for ep, doc in slo_eps.items():
-            for win, w in (doc.get("windows") or {}).items():
-                p.sample("glint_gang_slo_window_requests",
-                         {"endpoint": ep, "window": win},
-                         w.get("total", 0))
-        p.head("glint_gang_slo_window_bad", "gauge",
-               "SLI-violating requests in each rolling window, by SLI, "
-               "summed over replicas.")
-        for ep, doc in slo_eps.items():
-            for win, w in (doc.get("windows") or {}).items():
-                p.sample("glint_gang_slo_window_bad",
-                         {"endpoint": ep, "sli": "availability",
-                          "window": win}, w.get("bad_availability", 0))
-                p.sample("glint_gang_slo_window_bad",
-                         {"endpoint": ep, "sli": "latency",
-                          "window": win}, w.get("bad_latency", 0))
-        p.head("glint_gang_slo_burn_rate", "gauge",
-               "Error-budget burn rate per SLI and window over the "
-               "merged fleet traffic (1.0 = burning exactly the "
-               "budget).")
-        for ep, doc in slo_eps.items():
-            burns = doc.get("burn_rates") or {}
-            for win, rate in (burns.get("availability") or {}).items():
-                p.sample("glint_gang_slo_burn_rate",
-                         {"endpoint": ep, "sli": "availability",
-                          "window": win}, rate)
-            for win, rate in (burns.get("latency") or {}).items():
-                p.sample("glint_gang_slo_burn_rate",
-                         {"endpoint": ep, "sli": "latency",
-                          "window": win}, rate)
-        p.head("glint_gang_slo_fast_burn", "gauge",
-               "Fleet-level multi-window fast-burn alert (5m AND 1h "
-               "over 14.4x).")
-        for ep, doc in slo_eps.items():
-            alerts = doc.get("alerts") or {}
-            p.sample("glint_gang_slo_fast_burn", {"endpoint": ep},
-                     1 if alerts.get("fast_burn") else 0)
-        p.head("glint_gang_slo_slow_burn", "gauge",
-               "Fleet-level multi-window slow-burn alert (30m AND 6h "
-               "over 6x).")
-        for ep, doc in slo_eps.items():
-            alerts = doc.get("alerts") or {}
-            p.sample("glint_gang_slo_slow_burn", {"endpoint": ep},
-                     1 if alerts.get("slow_burn") else 0)
+                     {"phase": phase}, info.get("count", 0),
+                     exemplar=({"trace_id": trace_id,
+                                "value": info.get("span_seconds")}
+                               if trace_id else None))
+    _slo_families(p, "glint_gang_slo", snap.get("slo"))
     # Per-model fleet rollup, lifted from the scraped
     # serving replicas' merged catalog view (gang-prefixed: this
     # exposition is concatenated with the full serving one, which
@@ -754,77 +797,7 @@ def serving_to_prometheus(snap: dict) -> str:
            "live tables (staleness; NaN without an index).")
     p.sample("glint_index_table_versions_behind", None,
              index.get("table_versions_behind"))
-    slo = snap.get("slo") or {}
-    if slo:
-        # SLO burn-rate families: per-endpoint objectives,
-        # rolling-window good/bad counts, and the multi-window burn
-        # rates + alerts from obs/slo.SloEngine. Rendered only when a
-        # SLO engine is attached, so bare ServingMetrics snapshots keep
-        # their exposition unchanged.
-        slo_eps = slo.get("endpoints") or {}
-        p.head("glint_slo_availability_target", "gauge",
-               "Availability objective (success-ratio target) per "
-               "tracked endpoint.")
-        for ep, doc in slo_eps.items():
-            p.sample("glint_slo_availability_target",
-                     {"endpoint": ep}, doc.get("availability_target"))
-        p.head("glint_slo_latency_target", "gauge",
-               "Latency objective (fraction of good requests under the "
-               "threshold) per tracked endpoint.")
-        for ep, doc in slo_eps.items():
-            p.sample("glint_slo_latency_target",
-                     {"endpoint": ep}, doc.get("latency_target"))
-        p.head("glint_slo_latency_threshold_ms", "gauge",
-               "Latency SLI threshold in milliseconds per endpoint.")
-        for ep, doc in slo_eps.items():
-            p.sample("glint_slo_latency_threshold_ms",
-                     {"endpoint": ep}, doc.get("latency_threshold_ms"))
-        p.head("glint_slo_window_requests", "gauge",
-               "Requests observed in each rolling SLO window.")
-        for ep, doc in slo_eps.items():
-            for win, w in (doc.get("windows") or {}).items():
-                p.sample("glint_slo_window_requests",
-                         {"endpoint": ep, "window": win},
-                         w.get("total", 0))
-        p.head("glint_slo_window_bad", "gauge",
-               "SLI-violating requests in each rolling window, by SLI "
-               "(availability = 5xx; latency = slower than threshold).")
-        for ep, doc in slo_eps.items():
-            for win, w in (doc.get("windows") or {}).items():
-                p.sample("glint_slo_window_bad",
-                         {"endpoint": ep, "sli": "availability",
-                          "window": win}, w.get("bad_availability", 0))
-                p.sample("glint_slo_window_bad",
-                         {"endpoint": ep, "sli": "latency",
-                          "window": win}, w.get("bad_latency", 0))
-        p.head("glint_slo_burn_rate", "gauge",
-               "Error-budget burn rate per SLI and window (1.0 = "
-               "burning exactly the budget; 14.4 = the fast-burn page "
-               "threshold).")
-        for ep, doc in slo_eps.items():
-            burns = doc.get("burn_rates") or {}
-            for win, rate in (burns.get("availability") or {}).items():
-                p.sample("glint_slo_burn_rate",
-                         {"endpoint": ep, "sli": "availability",
-                          "window": win}, rate)
-            for win, rate in (burns.get("latency") or {}).items():
-                p.sample("glint_slo_burn_rate",
-                         {"endpoint": ep, "sli": "latency",
-                          "window": win}, rate)
-        p.head("glint_slo_fast_burn", "gauge",
-               "Multi-window fast-burn alert (5m AND 1h windows both "
-               "over 14.4x): page-severity budget burn.")
-        for ep, doc in slo_eps.items():
-            alerts = doc.get("alerts") or {}
-            p.sample("glint_slo_fast_burn", {"endpoint": ep},
-                     1 if alerts.get("fast_burn") else 0)
-        p.head("glint_slo_slow_burn", "gauge",
-               "Multi-window slow-burn alert (30m AND 6h windows both "
-               "over 6x): ticket-severity budget burn.")
-        for ep, doc in slo_eps.items():
-            alerts = doc.get("alerts") or {}
-            p.sample("glint_slo_slow_burn", {"endpoint": ep},
-                     1 if alerts.get("slow_burn") else 0)
+    _slo_families(p, "glint_slo", snap.get("slo"))
     # Per-model catalog families: the same snapshot shape
     # as the top level, one block per catalog model, labeled {model}.
     # Rendered only for multi-model servers/fleets, so single-model

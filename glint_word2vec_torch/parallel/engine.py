@@ -1267,17 +1267,17 @@ class EmbeddingEngine:
         self, start_position, pair_batch: int, window: int,
         grid_batch: int, base_key: int, n_steps: int, step0: int = 0,
         grid_step0: int = 0, *, step_size: float = 0.025,
-        total_words: int = 1, words_base: int = 0, draws=None,
-        readback: bool = True,
+        total_words: int = 1, words_base: int = 0,
+        span: Optional[int] = None, draws=None, readback: bool = True,
     ):
         """K = ``n_steps`` packed SGNS steps over the active corpus view
         (the epoch's compacted buffers after :meth:`compact_corpus`, else
         the uploaded corpus).
 
         Step ``i`` packs the next valid pairs of the position stream into
-        ``pair_batch`` slots (``pack_window_pairs`` over ``packed_span``
-        candidate positions), draws ``num_negatives`` per pair row, masks
-        them, and applies
+        ``pair_batch`` slots (``pack_window_pairs`` over ``span``
+        candidate positions, ``packed_span`` by default), draws
+        ``num_negatives`` per pair row, masks them, and applies
         :func:`~glint_word2vec_torch.ops.fused_sgns.fused_pair_step`
         to the tables in place. The learning rate follows the consumed
         position on the device: ``max(step_size * (1 - wd / total_words),
@@ -1312,7 +1312,7 @@ class EmbeddingEngine:
         C = context_width(W)
         if P < C:
             raise ValueError(f"pair_batch ({P}) must be >= context lanes ({C})")
-        S = dbat.packed_span(P, C)
+        S = dbat.packed_span(P, C) if span is None else int(span)
         K = int(n_steps)
         self._check_data_split(P, "pair_batch")
         ids, soffs, n_valid = self._active_corpus()
@@ -2553,14 +2553,26 @@ class EmbeddingEngine:
             "checkpoint_peak_block_bytes": int(self._ckpt_peak_block_bytes),
         }
 
+    #: The settings :meth:`load` may take from its caller instead of the
+    #: saved ``engine.json``.
+    _LOAD_OVERRIDES = ("layout", "num_negatives", "unigram_power",
+                      "unigram_table_size", "dtype", "shared_negatives")
+
     @classmethod
     def load(cls, path: str, device: DeviceLike = None,
              mesh: Optional[mesh_mod.Mesh] = None,
-             layout: Optional[str] = None) -> "EmbeddingEngine":
+             **overrides) -> "EmbeddingEngine":
         """Rebuild an engine from a saved directory of either package, any
-        format or layout, onto one device or onto ``mesh`` of any shape,
-        in ``layout`` (the saved one by default): the blocks are re-sliced
-        to the shards the new mesh holds."""
+        format or layout, onto one device or onto ``mesh`` of any shape:
+        the blocks are re-sliced to the shards the new mesh holds.
+        ``overrides`` replace the saved ``layout``, ``num_negatives``,
+        ``unigram_power``, ``unigram_table_size``, ``dtype`` and
+        ``shared_negatives``; any other key raises ``TypeError``."""
+        unknown = sorted(set(overrides) - set(cls._LOAD_OVERRIDES))
+        if unknown:
+            raise TypeError(
+                f"EmbeddingEngine.load() got unexpected keyword argument(s) "
+                f"{', '.join(unknown)}; it takes {', '.join(cls._LOAD_OVERRIDES)}")
         with open(os.path.join(path, "engine.json")) as f:
             meta = json.load(f)
         counts = np.load(os.path.join(path, "counts.npy"))
@@ -2568,35 +2580,41 @@ class EmbeddingEngine:
             meta["vocab_size"],
             meta["dim"],
             counts,
-            num_negatives=meta["num_negatives"],
-            unigram_power=meta.get("unigram_power", 0.75),
-            unigram_table_size=meta.get("unigram_table_size"),
-            dtype=meta["dtype"],
+            num_negatives=overrides.get("num_negatives", meta["num_negatives"]),
+            unigram_power=overrides.get(
+                "unigram_power", meta.get("unigram_power", 0.75)),
+            unigram_table_size=overrides.get(
+                "unigram_table_size", meta.get("unigram_table_size")),
+            dtype=overrides.get("dtype", meta["dtype"]),
             extra_rows=meta.get("extra_rows", 0),
-            shared_negatives=meta.get("shared_negatives", 0),
+            shared_negatives=overrides.get(
+                "shared_negatives", meta.get("shared_negatives", 0)),
             device=None if mesh is not None else device,
             mesh=mesh,
-            layout=layout or meta.get("layout", "rows"),
+            layout=overrides.get("layout") or meta.get("layout", "rows"),
         )
         eng.load_tables(path)
         return eng
 
-    def load_tables(self, path: str) -> None:
+    def load_tables(self, path: str, *, verify: bool = True) -> None:
         """Install the tables of a saved directory: :meth:`stage_tables`
         then :meth:`adopt_tables`."""
-        self.adopt_tables(self.stage_tables(path))
+        self.adopt_tables(self.stage_tables(path, verify=verify))
 
-    def stage_tables(self, path: str) -> dict:
+    def stage_tables(self, path: str, *, verify: bool = True) -> dict:
         """Read a saved directory into new device tensors without touching
-        the live tables. ``manifest.json`` and the shard sidecars are
-        checked first: any mismatch or a partial directory raises
+        the live tables. With ``verify`` (the default) ``manifest.json``
+        and the shard sidecars are checked first (sizes and sha256, sizes
+        alone under ``GLINT_CKPT_NO_VERIFY=1``): any mismatch or a partial
+        directory raises
         :class:`~glint_word2vec_torch.utils.integrity.CheckpointCorruptError`
         (a directory with no manifest loads unverified). Raises
         ``ValueError`` when the saved geometry differs from this
         engine's."""
-        tv0 = time.time()
-        integrity.verify_snapshot_dir(path)
-        self._ckpt_shard_verify_s = round(time.time() - tv0, 6)
+        if verify:
+            tv0 = time.time()
+            integrity.verify_snapshot_dir(path)
+            self._ckpt_shard_verify_s = round(time.time() - tv0, 6)
         with open(os.path.join(path, "engine.json")) as f:
             meta = json.load(f)
         if (meta["vocab_size"], meta.get("extra_rows", 0), meta["dim"]) != (

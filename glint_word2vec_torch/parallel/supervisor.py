@@ -556,9 +556,10 @@ class Supervisor:
             return None
         from glint_word2vec_torch.utils.integrity import resolve_train_state
 
-        state = resolve_train_state(self.checkpoint_dir)
-        if state is None:
+        resolved = resolve_train_state(self.checkpoint_dir)
+        if resolved is None:
             return None
+        state, _ = resolved
         return state.get("ckpt")  # legacy records carry no dir name
 
     # -- main loop ------------------------------------------------------

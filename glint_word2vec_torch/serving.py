@@ -174,13 +174,6 @@ def parse_memory_budget(value) -> Optional[int]:
     n = int(float(s) * mult)
     return n if n > 0 else None
 
-#: The warmed serving shapes: k buckets 16 and 32 (num < 16 rounds into
-#: 16; num in [16, 31], fetching num+1, into 32) and the transform grid of
-#: sentence rows x lengths, all powers of two as the model pads them.
-WARM_KS = (16, 32)
-WARM_SENTENCE_LENS = (1, 2, 4, 8, 16, 32, 64)
-WARM_SENTENCE_ROWS = (1, 2, 4, 8, 16)
-
 #: Seconds a coalescing leader waits for more requests of a burst before
 #: it dispatches (only when it already drained two or more).
 _BATCH_GRACE_S = 0.002
@@ -1079,10 +1072,11 @@ class ModelServer:
 
     ``max_batch`` caps the coalesced dispatch (rounded up to a power of
     two). ``warmup=True`` runs every query shape of the serving family
-    (Q buckets up to ``max_batch``, the ``WARM_KS`` k buckets, the
-    ``WARM_SENTENCE_ROWS`` x ``WARM_SENTENCE_LENS`` transform grid) before
+    (Q buckets up to ``max_batch``, the ``warm_ks`` top-k buckets, the
+    ``warm_sentence_rows`` x ``warm_sentence_lens`` transform grid) before
     the port binds, so the first request pays no kernel build or library
-    set-up. ``port=0`` binds an ephemeral port; ``self.port`` says which.
+    set-up; ``add_model`` warms every catalog model with the same
+    shapes. ``port=0`` binds an ephemeral port; ``self.port`` says which.
 
     Overload protection of the device endpoints: past ``max_inflight``
     admitted requests a request answers 429 with ``Retry-After: 1``; one
@@ -1113,6 +1107,12 @@ class ModelServer:
         *,
         max_batch: int = 64,
         warmup: bool = True,
+        # k buckets 16 and 32: num < 16 rounds into the 16 bucket and num
+        # in [16, 31] (fetching num+1) into the 32 bucket; each larger
+        # power of two is dispatched for the first time on demand.
+        warm_ks=(16, 32),
+        warm_sentence_lens=(1, 2, 4, 8, 16, 32, 64),
+        warm_sentence_rows=(1, 2, 4, 8, 16),
         cache_size: int = 65536,
         max_inflight: int = 256,
         request_deadline: Optional[float] = 30.0,
@@ -1158,6 +1158,8 @@ class ModelServer:
         self.max_batch = self._coalescer.max_batch
         self.cache_size = self._coalescer.cache_size
         self._do_warmup = bool(warmup)
+        self._warm_params = (tuple(warm_ks), tuple(warm_sentence_lens),
+                             tuple(warm_sentence_rows))
         self.catalog = ModelCatalog(self)
         default_entry = ServedModel(DEFAULT_MODEL_ID, model, self._coalescer,
                                     self.metrics)
@@ -1518,18 +1520,18 @@ class ModelServer:
         ``ann`` the approximate shapes."""
         t0 = time.time()
         q_buckets = [1 << i for i in range(self.max_batch.bit_length())]
+        warm_ks, warm_lens, warm_rows = self._warm_params
         n = model.engine.warmup(
-            q_buckets, WARM_KS,
-            sentence_lens=WARM_SENTENCE_LENS,
-            sentence_rows=WARM_SENTENCE_ROWS,
+            q_buckets, warm_ks,
+            sentence_lens=warm_lens, sentence_rows=warm_rows,
         )
         qeng = model._query_engine()
         if qeng is not model.engine:
             # A family that queries composed vectors builds them now, not
             # on the first request.
-            n += qeng.warmup((), WARM_KS)
+            n += qeng.warmup((), warm_ks)
         if ann:
-            n += model.engine.warmup_ann(q_buckets=q_buckets, k_buckets=WARM_KS)
+            n += model.engine.warmup_ann(q_buckets=q_buckets, k_buckets=warm_ks)
         logger.info("serving warmup: %d dispatches in %.1fs",
                     n, time.time() - t0)
         return n
@@ -2092,20 +2094,26 @@ def serve_model_dir(
     device: DeviceLike = None,
     watch_dir: Optional[str] = None,
     watch_poll: float = 1.0,
+    ann: bool = False,
+    ann_clusters: int = -1,
+    ann_nprobe: int = 8,
+    ann_iters: int = 6,
+    ann_sample: int = 65536,
+    ann_recall_gate: float = 0.95,
+    ann_recall_sample: int = 64,
     trace_log: Optional[str] = None,
     flight_dir: Optional[str] = None,
     models: Optional[dict] = None,
     model_memory_budget=None,
     watch_models: Optional[str] = None,
-    **ann_kw,
 ) -> None:
     """Load a saved model directory onto ``device`` and serve it until
     ``/shutdown`` or an interrupt, then free its tables. ``port_file``
     receives ``{"host", "port", "fleet_generation"}`` (atomically) once
     the server is warmed and listening: the readiness signal for
     ``port=0``. ``max_inflight``, ``request_deadline`` and
-    ``degraded_after`` are the overload bounds, and ``ann_kw`` the
-    ``ann*`` arguments, of :class:`ModelServer`.
+    ``degraded_after`` are the overload bounds, and ``ann`` to
+    ``ann_recall_sample`` the index's settings, of :class:`ModelServer`.
 
     ``watch_dir`` follows a streaming trainer's publish directory, polled
     every ``watch_poll`` seconds: with ``model_dir=None`` the server boots
@@ -2140,7 +2148,10 @@ def serve_model_dir(
                 model, host=host, port=port, max_batch=max_batch,
                 warmup=warmup, cache_size=cache_size, max_inflight=max_inflight,
                 request_deadline=request_deadline, degraded_after=degraded_after,
-                **ann_kw,
+                ann=ann, ann_clusters=ann_clusters, ann_nprobe=ann_nprobe,
+                ann_iters=ann_iters, ann_sample=ann_sample,
+                ann_recall_gate=ann_recall_gate,
+                ann_recall_sample=ann_recall_sample,
             )
             if flight_dir:
                 server.enable_flight_recorder(flight_dir)

@@ -15,7 +15,7 @@ import json
 import logging
 import os
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 MANIFEST_NAME = "manifest.json"
 SHARD_MANIFEST_SUFFIX = ".manifest.json"
@@ -135,14 +135,16 @@ def verify_shard(path: str, fname: str, *, deep: bool = True) -> None:
     _verify_shard(path, fname, deep=deep)
 
 
-def verify_snapshot_dir(path: str) -> bool:
+def verify_snapshot_dir(path: str, *, deep: bool = True) -> bool:
     """Verify a snapshot directory against its manifest.
 
-    Checks the size and sha256 of every file the manifest and the shard
-    sidecars name. True when the manifest exists and every entry
-    matches; False for a legacy directory with no manifest (loadable,
-    unverifiable). Raises :class:`CheckpointCorruptError` on any
-    mismatch or a partial directory."""
+    Checks the size of every file the manifest and the shard sidecars
+    name, and with ``deep`` its sha256 too. True when the manifest exists
+    and every entry matches; False for a legacy directory with no
+    manifest (loadable, unverifiable). Raises
+    :class:`CheckpointCorruptError` on any mismatch or a partial
+    directory. ``GLINT_CKPT_NO_VERIFY=1`` turns every check into the
+    size check (giant tables on slow disks)."""
     if not os.path.isdir(path):
         raise CheckpointCorruptError(f"{path}: not a directory")
     if not os.path.exists(os.path.join(path, "engine.json")):
@@ -156,9 +158,11 @@ def verify_snapshot_dir(path: str) -> bool:
         entries = manifest["files"]
     except (ValueError, KeyError, OSError) as e:
         raise CheckpointCorruptError(f"{path}: unreadable manifest ({e})")
-    checks = ([lambda f=f: _verify_shard(path, f)
+    if os.environ.get("GLINT_CKPT_NO_VERIFY", "0") == "1":
+        deep = False
+    checks = ([lambda f=f: _verify_shard(path, f, deep=deep)
                for f in manifest.get("shard_files", ())]
-              + [lambda f=f, e=e: _check_entry(path, f, e, "file")
+              + [lambda f=f, e=e: _check_entry(path, f, e, "file", deep)
                  for f, e in entries.items()])
     # One thread a file: sha256 releases the interpreter lock, so a
     # table's files hash side by side. The first failing file (in this
@@ -169,35 +173,43 @@ def verify_snapshot_dir(path: str) -> bool:
     return True
 
 
-def resolve_train_state(checkpoint_dir: str) -> Optional[dict]:
+def resolve_train_state(
+    checkpoint_dir: str, *, deep: bool = True
+) -> Optional[Tuple[dict, Optional[str]]]:
     """The newest committed training state whose snapshot verifies.
 
     Reads ``train_state.json`` and tries the current record, then the
     previous committed one it carries under ``"prev"`` (keep-last-2
-    retention). Returns the first record (without ``"prev"``) whose
-    snapshot directory passes :func:`verify_snapshot_dir`, logging one
-    line per rejected candidate; ``None`` when there is no state file.
-    Raises :class:`CheckpointCorruptError` when a state file exists but
-    no candidate verifies: a silent restart from scratch would train
-    over committed progress."""
+    retention). Returns ``(record, snapshot_path)`` (the record without
+    ``"prev"``) for the first record whose snapshot directory passes
+    :func:`verify_snapshot_dir` (with ``deep``), logging one line per
+    rejected candidate; ``None`` when there is no state file. A legacy
+    record with no ``"ckpt"`` (tables at ``ckpt/syn0.npy`` and
+    ``ckpt/syn1.npy``, no snapshot directory) comes back as ``(record,
+    None)``. Raises :class:`CheckpointCorruptError` when a snapshot
+    record exists but no candidate verifies: a silent restart from
+    scratch would train over committed progress."""
     state_path = os.path.join(checkpoint_dir, "train_state.json")
     if not os.path.exists(state_path):
         return None
     with open(state_path) as f:
         state = json.load(f)
+    if "ckpt" not in state:
+        return {k: v for k, v in state.items() if k != "prev"}, None
     candidates = [state]
     prev = state.get("prev")
     if prev and prev.get("ckpt"):
         candidates.append(prev)
     reasons = []
     for i, rec in enumerate(candidates):
+        ck_path = os.path.join(checkpoint_dir, rec["ckpt"])
         try:
-            verify_snapshot_dir(os.path.join(checkpoint_dir, rec["ckpt"]))
-        except (CheckpointCorruptError, KeyError) as e:
+            verify_snapshot_dir(ck_path, deep=deep)
+        except CheckpointCorruptError as e:
             reasons.append(str(e))
             logger.error(
                 "checkpoint %s failed integrity verification (%s)%s",
-                rec.get("ckpt"), e,
+                rec["ckpt"], e,
                 "; falling back to the previous committed snapshot"
                 if i + 1 < len(candidates) else "",
             )
@@ -208,7 +220,7 @@ def resolve_train_state(checkpoint_dir: str) -> Optional[dict]:
                 "newest committed snapshot did not verify",
                 rec["ckpt"], rec.get("epochs_completed"),
             )
-        return {k: v for k, v in rec.items() if k != "prev"}
+        return {k: v for k, v in rec.items() if k != "prev"}, ck_path
     raise CheckpointCorruptError(
         f"no verifiable committed checkpoint in {checkpoint_dir}: "
         + " | ".join(reasons)

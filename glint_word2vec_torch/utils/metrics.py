@@ -243,6 +243,10 @@ class StepTimeLedger:
         self._seconds = {p: 0.0 for p in LEDGER_PHASES}
         self._counts = {p: 0 for p in LEDGER_PHASES}
         self._hists = {p: LatencyHistogram() for p in LEDGER_PHASES}
+        #: The gang trace id (one a launch generation, minted by the
+        #: supervisor): the snapshot carries it, so the training and gang
+        #: step-time families link to the merged gang trace by exemplar.
+        self.trace_id: Optional[str] = os.environ.get("GLINT_TRACE_ID")
 
     def account(self, phase: str, seconds: float) -> None:
         with self._mu:
@@ -284,12 +288,15 @@ class StepTimeLedger:
                 if include_hists:
                     info["hist"] = self._hists[p].state()
                 phases[p] = info
-            return {
+            out = {
                 "wall_seconds": round(wall, 4),
                 "accounted_seconds": round(accounted, 4),
                 "unattributed_seconds": round(gap, 4),
                 "phases": phases,
             }
+            if self.trace_id:
+                out["trace_id"] = self.trace_id
+            return out
 
     def dump(self, path: str) -> None:
         """Write the per-run STEPTIME.json (atomic): the phase breakdown

@@ -7,9 +7,14 @@ the port's side. For every module of the JAX package, each public
 function and class it defines must exist in the port's module of the
 same name (:data:`MODULE_RENAMES` and :data:`NAME_RENAMES` map the names
 that differ). A name the port lacks stands in :data:`WAITING` with the
-reason it has no counterpart. The word2vec estimator's fluent setters
-build the JAX package's ``Word2VecParams`` field by field and refuse what
-JAX refuses.
+reason it has no counterpart. Every parameter name of each such JAX
+function, class and public method must be a parameter name of its port
+counterpart (``inspect.signature``), but those :data:`KEYWORDS_WAITING`
+lists with a reason; an allowlisted name the port gains must leave the
+list. The root's ``__all__`` (``__version__`` included) is the JAX
+root's or more, and importing the root imports no torch. The word2vec
+estimator's fluent setters build the JAX package's ``Word2VecParams``
+field by field and refuse what JAX refuses.
 
 Tolerances: names and parameter values compare exactly.
 """
@@ -166,6 +171,165 @@ def _port_module(module):
             or os.path.isfile(os.path.join(rel, "__init__.py"))):
         return None
     return importlib.import_module(f"glint_word2vec_torch.{name}")
+
+
+#: Keyword names of a JAX callable that its port counterpart does not
+#: take, by ``module:qualified name``, each with the reason.
+_TPU_KNOBS = "a Pallas/TPU setting: the CUDA kernel takes every shape and block"
+_THREEFRY = ("a threefry key or table of the JAX draws: the port's draws are "
+             "its counter hash (ops/random.py), and tests inject draws")
+KEYWORDS_WAITING: dict = {
+    **{f"ops.pallas_rows:{f}": {"interpret": _TPU_KNOBS,
+                                "block_rows": _TPU_KNOBS}
+       for f in ("gather_rows", "scatter_add_rank1", "scatter_add_rows")},
+    **{f"ops.pallas_sgns:{f}": {"interpret": _TPU_KNOBS,
+                                "block_rows": _TPU_KNOBS}
+       for f in ("pair_forward", "pair_forward_shared",
+                 "scatter_add_rows_f32", "scatter_add_rank1_hbm",
+                 "fused_pair_step", "fused_pair_step_shared")},
+    "parallel.engine:EmbeddingEngine": {
+        "use_pallas": "the TPU's opt-in to the Pallas kernels: on the card "
+                      "the hand kernels are the only path"},
+    "parallel.engine:EmbeddingEngine.__init__": {
+        "use_pallas": "the TPU's opt-in to the Pallas kernels: on the card "
+                      "the hand kernels are the only path"},
+    "ops.ann:AnnIndex": {"_sharding": "a JAX sharding of the index's "
+                                      "arrays: the port keeps them on one "
+                                      "torch device"},
+    "ops.ann:AnnIndex.__init__": {"_sharding": "a JAX sharding of the "
+                                               "index's arrays: the port "
+                                               "keeps them on one torch "
+                                               "device"},
+    "ops.ann:build": {
+        "sharding": "a JAX sharding of the index's arrays: the port keeps "
+                    "them on one torch device",
+        "nprobe_hint": "the JAX body never reads it"},
+    "parallel.distributed:initialize": {
+        "local_device_ids": "selects a process's TPU chips; a torch process "
+                            "names its card by device"},
+    "ops.device_batching:device_window_batch": {"rows": _THREEFRY,
+                                                "key": _THREEFRY},
+    "ops.device_batching:subsample_compact": {"keep_prob": _THREEFRY,
+                                              "epoch_key": _THREEFRY},
+    "ops.device_batching:pack_window_pairs": {
+        "base_key": _THREEFRY, "grid_step0": _THREEFRY,
+        "grid_batch": _THREEFRY,
+        "span": "the candidate positions, which the injected shrink draws "
+                "imply: len(shrink)"},
+    "ops.sgns:init_tables": {"key": _THREEFRY},
+    **{f"ops.sgns:{f}": {
+        "prob": _THREEFRY, "alias": _THREEFRY, "key": _THREEFRY,
+        "num_negatives": "the negatives per row, which the injected draws "
+                         "imply: negs.shape[-1]"}
+       for f in ("train_step", "train_step_pairs", "sgns_loss")},
+    "ops.sgns:train_step_pairs_pallas": {
+        "prob": _THREEFRY, "alias": _THREEFRY, "key": _THREEFRY,
+        "num_negatives": "the negatives per row, which the injected draws "
+                         "imply: negs.shape[-1]",
+        "interpret": _TPU_KNOBS, "block_rows": _TPU_KNOBS},
+    "utils.metrics:TrainingMetrics": {
+        "_last_loss_lazy": "a private field of the JAX dataclass (a device "
+                           "value read late); the port reads its loss back "
+                           "in the fit loop"},
+    "utils.metrics:TrainingMetrics.__init__": {
+        "_last_loss_lazy": "a private field of the JAX dataclass (a device "
+                           "value read late); the port reads its loss back "
+                           "in the fit loop"},
+    "models.fasttext:FastTextWord2Vec": {
+        "kw": "the parameter overrides, which the port names **overrides "
+              "as both packages' Word2Vec does"},
+    "models.fasttext:FastTextWord2Vec.__init__": {
+        "kw": "the parameter overrides, which the port names **overrides "
+              "as both packages' Word2Vec does"},
+}
+
+
+def _param_names(obj):
+    """Parameter names of a callable (``*args`` aside), or None where
+    ``inspect`` cannot read a signature."""
+    import inspect
+
+    try:
+        sig = inspect.signature(obj)
+    except (TypeError, ValueError):
+        return None
+    return [n for n, p in sig.parameters.items()
+            if p.kind is not p.VAR_POSITIONAL]
+
+
+def _callables(module):
+    """(qualified name, JAX object, port object) of each public function
+    and class a JAX module defines, and of each public method (and
+    ``__init__``) those classes define, with its port counterpart."""
+    port = _port_module(module)
+    jmod = importlib.import_module(f"glint_word2vec_tpu.{module}")
+    out = []
+    for name in sorted(_module_names(module)):
+        pname = NAME_RENAMES.get(name, name)
+        if port is None or not hasattr(port, pname):
+            continue  # test_module_names_exist_in_the_port reports it
+        j, p = getattr(jmod, name), getattr(port, pname)
+        out.append((name, j, p))
+        if isinstance(j, type):
+            for attr, v in vars(j).items():
+                if attr.startswith("_") and attr != "__init__":
+                    continue
+                if isinstance(v, property) or not (
+                        callable(v) or isinstance(v, (staticmethod,
+                                                      classmethod))):
+                    continue
+                if hasattr(p, attr):
+                    out.append((f"{name}.{attr}", getattr(j, attr),
+                                getattr(p, attr)))
+    return out
+
+
+@pytest.mark.parametrize("module", JAX_MODULES)
+def test_keyword_names_exist_in_the_port(module):
+    missing = []
+    for qual, j, p in _callables(module):
+        jn, pn = _param_names(j), _param_names(p)
+        if jn is None or pn is None:
+            continue
+        allowed = KEYWORDS_WAITING.get(f"{module}:{qual}", {})
+        missing += [f"{qual}({n})" for n in jn
+                    if n not in pn and n not in allowed]
+    assert missing == []
+
+
+def test_waiting_keywords_are_still_missing():
+    # An allowlisted keyword the port has gained must leave the list.
+    by_key = {f"{m}:{q}": (j, p) for m in
+              sorted({k.split(":")[0] for k in KEYWORDS_WAITING})
+              for q, j, p in _callables(m)}
+    for key, names in KEYWORDS_WAITING.items():
+        assert key in by_key, key
+        j, p = by_key[key]
+        for name, reason in names.items():
+            assert reason.strip(), (key, name)
+            assert name in _param_names(j), (key, name)
+            assert name not in _param_names(p), (key, name)
+
+
+def test_root_exports_every_jax_name():
+    import subprocess
+    import sys
+
+    import glint_word2vec_tpu
+
+    import glint_word2vec_torch
+
+    assert set(glint_word2vec_tpu.__all__) <= set(glint_word2vec_torch.__all__)
+    assert glint_word2vec_torch.__version__ == glint_word2vec_tpu.__version__
+    for name in glint_word2vec_torch.__all__:
+        assert getattr(glint_word2vec_torch, name) is not None, name
+    # The root stays torch-free: the supervisor and the balancer shards
+    # import it and must never make a CUDA context.
+    code = ("import sys, glint_word2vec_torch as g; g.__version__; "
+            "print('torch' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.stdout.strip() == "False", out.stderr
 
 
 def test_every_jax_module_is_covered():

@@ -935,13 +935,11 @@ def test_engine_save_split_writes_only_its_block(tmp_path):
 
 
 def test_gang_rank_has_no_fallback(monkeypatch):
-    """A gang rank whose shard does not fit the device raises (there is
-    no host-batcher gang), and a rank that finds no card raises unless
+    """A gang rank whose shard is sent to the host batcher raises (there
+    is no host-batcher gang), and a rank that finds no card raises unless
     the CPU was asked for."""
-    from glint_word2vec_torch.models import word2vec as w2v
-
     monkeypatch.setattr(pdist, "process_count", lambda: 2)
-    monkeypatch.setattr(w2v, "_free_device_bytes", lambda device: 0)
+    monkeypatch.setenv("GLINT_HOST_BATCHER", "1")
     with pytest.raises(ValueError, match="device-resident corpus"):
         Word2Vec(device="cpu", **_COMMON, exchange="sparse").fit(
             _sents(15, 30, 6, 100))

@@ -120,12 +120,14 @@ def test_corrupt_shard_falls_back_to_previous_snapshot(tmp_path):
                       "ckpt": "ckpt-1"}}
     with open(tmp_path / "train_state.json", "w") as f:
         json.dump(state, f)
-    assert integrity.resolve_train_state(str(tmp_path))["ckpt"] == "ckpt-2"
+    rec, path = integrity.resolve_train_state(str(tmp_path))
+    assert (rec["ckpt"], path) == ("ckpt-2", ck2)
     shard = json.load(open(os.path.join(ck2, "manifest.json")))["shard_files"][0]
     with open(os.path.join(ck2, shard), "r+b") as f:
         f.seek(128)
         f.write(b"\x00" * 8 + b"\xff" * 8)
-    assert integrity.resolve_train_state(str(tmp_path))["ckpt"] == "ckpt-1"
+    rec, path = integrity.resolve_train_state(str(tmp_path))
+    assert (rec["ckpt"], path) == ("ckpt-1", ck1)
     eng.destroy()
 
 
