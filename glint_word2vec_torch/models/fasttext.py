@@ -248,18 +248,17 @@ class FastTextModel(Word2VecModel):
         if self._qeng is None:
             from glint_word2vec_torch.parallel.engine import EmbeddingEngine
 
-            with obs_events.span("compose_query_engine", vocab=self.vocab.size):
-                qeng = EmbeddingEngine(
-                    self.vocab.size, self.vector_size, self.vocab.counts,
-                    num_negatives=self.engine.num_negatives, seed=0,
-                    mesh=self.engine.mesh,
-                )
-                B = self.COMPOSE_BLOCK
-                for s in range(0, self.vocab.size, B):
-                    e = min(s + B, self.vocab.size)
-                    qeng.write_rows(s, self.engine.pull_average(
-                        self._sub_ids[s:e], self._sub_mask[s:e]
-                    ))
+            qeng = EmbeddingEngine(
+                self.vocab.size, self.vector_size, self.vocab.counts,
+                num_negatives=self.engine.num_negatives, seed=0,
+                mesh=self.engine.mesh,
+            )
+            B = self.COMPOSE_BLOCK
+            for s in range(0, self.vocab.size, B):
+                e = min(s + B, self.vocab.size)
+                qeng.write_rows(s, self.engine.pull_average(
+                    self._sub_ids[s:e], self._sub_mask[s:e]
+                ))
             self._qeng = qeng
         return self._qeng
 

@@ -85,6 +85,7 @@ from glint_word2vec_torch.corpus.vocab import (
 )
 from glint_word2vec_torch.device import DeviceLike, resolve_device
 from glint_word2vec_torch.obs import TrainingDiverged, start_run
+from glint_word2vec_torch.obs import events as obs_events
 from glint_word2vec_torch.parallel import distributed as dist
 from glint_word2vec_torch.parallel.engine import DeferredReadback, deferred_readback
 from glint_word2vec_torch.ops import random as rnd
@@ -1264,8 +1265,7 @@ class Word2Vec:
                         # Drain the int8 error-feedback carry through one
                         # exact round (the same decision on every rank), so
                         # a resume from this checkpoint replays bitwise.
-                        with obs_run.span("exchange_flush"):
-                            exchanger.flush()
+                        exchanger.flush()
                     checkpoint(f"ckpt-{epoch + 1}", epochs_completed=epoch + 1,
                                step=step, words_done=(epoch + 1) * twc,
                                extra={
@@ -1470,7 +1470,8 @@ class Word2VecModel:
             approximate = num <= cap
         search = eng.ann_top_k_batch if approximate else eng.top_k_cosine_batch
         sims, idx = search(np.asarray(vectors, np.float32), num)
-        return [self._decode_hits(s, i) for s, i in zip(sims, idx)]
+        with obs_events.stage("decode_hits"):
+            return [self._decode_hits(s, i) for s, i in zip(sims, idx)]
 
     def analogy(
         self, positive: Sequence[str], negative: Sequence[str], num: int

@@ -143,7 +143,7 @@ class _NullRun:
     ledger = None
 
     def span(self, name: str, **args):
-        return events.NULL_SPAN
+        return events.mirror(name)
 
     def event(self, name: str, **args) -> None:
         pass
@@ -233,7 +233,7 @@ class ObsRun:
 
     def span(self, name: str, **args):
         inner = (self.recorder.span(name, **args)
-                 if self.recorder is not None else events.NULL_SPAN)
+                 if self.recorder is not None else events.mirror(name))
         phase = _LEDGER_PHASE_OF.get(name)
         if phase is None:
             return inner

@@ -6,20 +6,38 @@ warmup) record spans and instant events into a thread-safe bounded ring
 with an optional JSONL sink, and the ring exports as a Chrome-trace
 (``chrome://tracing`` / Perfetto) JSON.
 
-Two layers:
+Its parts:
 
 - :class:`EventRecorder`, the recorder a run owns (``obs.ObsRun`` wires
   one per instrumented fit);
 - the module-level :func:`emit` and :func:`span`, which instrumentation
-  sites call unconditionally. With no recorder installed they cost one
-  global read, and :func:`span` returns the shared no-op
-  :data:`NULL_SPAN`;
+  sites call unconditionally. With tracing off (no recorder installed,
+  the torch profiler not running) they cost two global reads, and
+  :func:`span` returns the shared no-op :data:`NULL_SPAN`;
+- :func:`stage`, the program's stage spans (:data:`STAGE_SPANS`) inside
+  the packed training step and the exact query. With tracing off only
+  what a per-layer metric reads on any device is taken, into a
+  process-wide stage table (:func:`stage_table`): the host duration of
+  the :data:`HOST_STAGES`, and the device interval of a
+  :data:`DEVICE_STAGES` stage on a device other than CUDA, which is its
+  host duration there; every other stage is :data:`NULL_SPAN`. While
+  tracing is on a stage also records into the ring and, while the torch
+  profiler runs, a :data:`DEVICE_STAGES` stage on a CUDA device takes
+  its device interval with a CUDA event at each edge, resolved at the
+  program's next host sync;
 - :class:`RequestTrace`, the server's per-request phase-span buffer: a
   request adopts the trace id a client or balancer sends in
   ``X-Glint-Trace`` (or mints one, :func:`mint_trace_id`), buffers its
   phases, and flushes them into the ring only when the tail sampler keeps
   it (always: errors, sheds, slow requests; 1 in ``GLINT_TRACE_SAMPLE``
   otherwise). Phase names come from :data:`REQUEST_SPANS`.
+
+While the torch profiler runs, every span opened here also opens a
+``torch.profiler.record_function`` range of the same name, so the
+program's spans land in the profiler's trace beside the kernels they
+launch, on its clock. The module never imports torch: it reads the
+profiler's state only where torch is loaded already (the balancer's
+processes never load it).
 """
 
 from __future__ import annotations
@@ -29,6 +47,7 @@ import itertools
 import json
 import logging
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -51,6 +70,51 @@ REQUEST_SPANS = {
     "req.readback": "device result harvest / host materialization",
     "req.serialize": "response serialization + socket write",
 }
+
+#: The program's stage spans: every :func:`stage` site names its stage
+#: with a key of this dict (an unknown name raises), and the
+#: benchmark's per-layer metrics read them from :func:`stage_table`.
+STAGE_SPANS = {
+    "pack_pairs": "packed training step: the shrink draws, "
+                  "pack_window_pairs, the words done and alpha",
+    "draw_negatives": "packed training step: the shared pool, or the "
+                      "per-pair negatives and their mask",
+    "sgns_forward": "fused pair step: pair_forward_shared's launches "
+                    "and the loss sum, or pair_forward",
+    "sgns_scatter": "fused pair step: the syn1 and syn0 scatters "
+                    "(scatter_add_rank1_hbm, scatter_add_rows_f32) with "
+                    "their id sorts",
+    "readback_wait": "packed group readback: the host's wait for the "
+                     "group's copy",
+    "topk_scores": "exact top-k: the cosine product of the query block "
+                   "with the table",
+    "topk_select": "exact top-k: the mask terms, the masked scores and "
+                   "topk",
+    "topk_readback": "exact top-k batch: the host's wait for the values "
+                     "and ids",
+    "decode_hits": "synonyms batch: the host decode of a whole block's "
+                   "hits into (word, score) pairs",
+}
+
+#: Stages whose device interval the stage table keeps: on a CUDA device
+#: a CUDA timing event at each edge, taken while the torch profiler runs;
+#: on any other device, which runs the work as the host launches it, the
+#: stage's host duration, taken always.
+DEVICE_STAGES = frozenset({
+    "pack_pairs", "draw_negatives", "sgns_forward", "sgns_scatter",
+    "topk_scores", "topk_select",
+})
+
+#: Stages whose host duration the stage table takes in every call,
+#: tracing on or off.
+HOST_STAGES = frozenset({"decode_hits"})
+
+#: Device intervals a stage keeps, the first it timed, in order.
+_DEVICE_KEEP = 4096
+
+#: Stages that end in a host sync, where pending device intervals are
+#: resolved without waiting.
+_SYNC_STAGES = frozenset({"readback_wait", "topk_readback"})
 
 #: Wire header carrying the trace id across the balancer -> replica hop.
 TRACE_HEADER = "X-Glint-Trace"
@@ -95,9 +159,62 @@ class _NullSpan:
 
 NULL_SPAN = _NullSpan()
 
+#: ``torch.autograd.profiler`` once torch is loaded.
+_autograd_profiler = None
+
+
+def _profiling() -> bool:
+    """Whether the torch profiler is running in this process, read
+    without importing torch."""
+    global _autograd_profiler
+    prof = _autograd_profiler
+    if prof is None:
+        prof = sys.modules.get("torch.autograd.profiler")
+        if prof is None:
+            return False
+        _autograd_profiler = prof
+    return prof._is_profiler_enabled
+
+
+def _open_range(name: str):
+    """An entered ``record_function`` range while the profiler runs,
+    else None."""
+    if not _profiling():
+        return None
+    rf = _autograd_profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+class _Range:
+    """A span with no recorder installed: the profiler's range alone."""
+
+    __slots__ = ("_name", "_rf")
+
+    def __init__(self, name: str):
+        self._name = name
+
+    def __enter__(self):
+        self._rf = _open_range(self._name)
+        return self
+
+    def __exit__(self, *exc):
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        return False
+
+    def update(self, **args) -> None:
+        """No-op twin of :meth:`_Span.update`."""
+
+
+def mirror(name: str):
+    """The profiler's range named ``name`` while it runs, else
+    :data:`NULL_SPAN`: a span site with no recorder to record into."""
+    return _Range(name) if _profiling() else NULL_SPAN
+
 
 class _Span:
-    __slots__ = ("_rec", "_name", "_args", "_t0")
+    __slots__ = ("_rec", "_name", "_args", "_t0", "_rf")
 
     def __init__(self, rec: "EventRecorder", name: str, args: dict):
         self._rec = rec
@@ -105,11 +222,14 @@ class _Span:
         self._args = args
 
     def __enter__(self):
+        self._rf = _open_range(self._name)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         self._rec._record(self._name, "X", self._t0, t1 - self._t0, self._args)
         return False
 
@@ -124,7 +244,7 @@ class _Phase:
     :class:`RequestTrace` (not the ring — the tail sampler decides at
     ``finish`` whether the buffered spans are flushed at all)."""
 
-    __slots__ = ("_tr", "_name", "_args", "_t0")
+    __slots__ = ("_tr", "_name", "_args", "_t0", "_rf")
 
     def __init__(self, tr: "RequestTrace", name: str, args: dict):
         self._tr = tr
@@ -132,11 +252,14 @@ class _Phase:
         self._args = args
 
     def __enter__(self):
+        self._rf = _open_range(self._name)
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
         self._tr._spans.append(
             (self._name, self._t0, t1 - self._t0, self._args)
         )
@@ -158,7 +281,7 @@ class NullRequestTrace:
         self.kept = False
 
     def phase(self, name: str, **args):
-        return NULL_SPAN
+        return mirror(name)
 
     def add_phase(self, name: str, t0: float, dur: float, **args) -> None:
         pass
@@ -458,10 +581,11 @@ def emit(name: str, **args) -> None:
 
 
 def span(name: str, **args):
-    """Span on the current recorder; :data:`NULL_SPAN` when off."""
+    """Span on the current recorder; the profiler's range alone with no
+    recorder; :data:`NULL_SPAN` when tracing is off."""
     rec = _current
     if rec is None:
-        return NULL_SPAN
+        return mirror(name)
     return rec.span(name, **args)
 
 
@@ -472,5 +596,144 @@ def phase_span(name: str, **args):
     :data:`REQUEST_SPANS` key."""
     rec = _current
     if rec is None:
-        return NULL_SPAN
+        return mirror(name)
     return rec.span(name, **args)
+
+
+# ----------------------------------------------------------------------
+# Stage spans
+# ----------------------------------------------------------------------
+
+
+class _StageStat:
+    """One stage's totals: its host durations, and the number of its
+    device intervals with the first :data:`_DEVICE_KEEP` of them."""
+
+    __slots__ = ("host_n", "host_s", "device_n", "device")
+
+    def __init__(self):
+        self.host_n = 0
+        self.host_s = 0.0
+        self.device_n = 0
+        self.device = []
+
+    def add_host(self, seconds: float) -> None:
+        with _stage_mu:
+            self.host_n += 1
+            self.host_s += seconds
+
+    def add_device(self, seconds: float) -> None:
+        with _stage_mu:
+            self.device_n += 1
+            if len(self.device) < _DEVICE_KEEP:
+                self.device.append(seconds)
+
+
+_stages = {name: _StageStat() for name in STAGE_SPANS}
+_stage_mu = threading.Lock()
+#: (stat, start event, end event) of device intervals not yet resolved,
+#: oldest first; one resolver at a time takes them off.
+_pending: deque = deque()
+_resolve_mu = threading.Lock()
+
+
+def _cuda_mark(device):
+    """A timing event recorded on ``device``'s current stream."""
+    cuda = sys.modules["torch"].cuda
+    ev = cuda.Event(enable_timing=True)
+    ev.record(cuda.current_stream(device))
+    return ev
+
+
+class _Stage:
+    """One stage span: the profiler's range, the ring's span, and what
+    the stage table takes of it (``take``: a host duration; ``cuda``:
+    the device of its two events)."""
+
+    __slots__ = ("_name", "_stat", "_rec", "_take", "_cuda", "_t0", "_rf",
+                 "_ev0")
+
+    def __init__(self, name, stat, rec, take, cuda):
+        self._name = name
+        self._stat = stat
+        self._rec = rec
+        self._take = take
+        self._cuda = cuda
+
+    def __enter__(self):
+        self._rf = _open_range(self._name)
+        self._ev0 = _cuda_mark(self._cuda) if self._cuda is not None else None
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        if self._ev0 is not None:
+            _pending.append((self._stat, self._ev0, _cuda_mark(self._cuda)))
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        if self._take is not None:
+            self._take(t1 - self._t0)
+        if self._rec is not None:
+            self._rec._record(self._name, "X", self._t0, t1 - self._t0, {})
+        if self._name in _SYNC_STAGES and _pending:
+            _resolve(wait=False)
+        return False
+
+
+def stage(name: str, device=None):
+    """Context manager around one stage of the program, ``name`` a
+    :data:`STAGE_SPANS` key and ``device`` the one its work runs on.
+
+    Into the stage table go, always, the host duration of a
+    :data:`HOST_STAGES` stage and, on a device other than CUDA, the
+    host duration of a :data:`DEVICE_STAGES` stage as its device
+    interval. A recorder installed adds the ring's span. The torch
+    profiler running adds the profiler's range and, for a
+    :data:`DEVICE_STAGES` stage on a CUDA device, a timing event on the
+    current stream at each edge. With none of these,
+    :data:`NULL_SPAN`."""
+    stat = _stages[name]
+    rec = _current
+    prof = _profiling()
+    take = cuda = None
+    if name in HOST_STAGES:
+        take = stat.add_host
+    elif device is not None and name in DEVICE_STAGES:
+        if device.type != "cuda":
+            take = stat.add_device
+        elif prof:
+            cuda = device
+    if rec is None and not prof and take is None:
+        return NULL_SPAN
+    return _Stage(name, stat, rec, take, cuda)
+
+
+def _resolve(wait: bool) -> None:
+    """Add the pending device intervals to their stages, oldest first:
+    up to the first whose end has not run yet, or, with ``wait``, all of
+    them."""
+    with _resolve_mu:
+        while _pending:
+            stat, ev0, ev1 = _pending[0]
+            if not ev1.query():
+                if not wait:
+                    return
+                ev1.synchronize()
+            _pending.popleft()
+            stat.add_device(ev0.elapsed_time(ev1) / 1e3)
+
+
+def stage_table() -> dict:
+    """The process's stage table, every pending device interval resolved
+    first (a wait on the device): ``{name: {"host_count", "host_s",
+    "device_count", "device_s"}}``, ``device_s`` the first
+    :data:`_DEVICE_KEEP` device intervals in seconds, in the order they
+    were timed."""
+    _resolve(wait=True)
+    with _stage_mu:
+        return {
+            name: {"host_count": st.host_n, "host_s": st.host_s,
+                   "device_count": st.device_n, "device_s": list(st.device)}
+            for name, st in _stages.items()
+        }

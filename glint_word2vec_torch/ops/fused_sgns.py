@@ -43,6 +43,8 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from glint_word2vec_torch.obs import events as obs_events
+
 _DTYPE_TAGS = {torch.float32: 0, torch.bfloat16: 1}
 _libs: dict = {}
 _P = ctypes.c_void_p
@@ -586,13 +588,17 @@ def fused_pair_step(syn0: torch.Tensor, syn1: torch.Tensor,
     Neither scatter reads a table the other has changed, so every value
     the update consumes is the pre-step one."""
     P, n = negs.shape
-    fw = pair_forward(syn0, syn1, centers, contexts, pair_mask, negs, nmask, alpha)
-    rows = torch.arange(P, dtype=torch.int32, device=centers.device)
-    ids1 = torch.cat([contexts, negs.reshape(-1)])
-    coefs = torch.cat([fw.c_pos, fw.c_neg.reshape(-1)])
-    hidx = torch.cat([rows, rows.repeat_interleave(n)])
-    scatter_add_rank1_hbm(syn1, ids1, coefs, fw.h, hidx)
-    scatter_add_rows_f32(syn0, centers, fw.d_center)
+    dev = syn0.device
+    with obs_events.stage("sgns_forward", device=dev):
+        fw = pair_forward(syn0, syn1, centers, contexts, pair_mask, negs,
+                          nmask, alpha)
+    with obs_events.stage("sgns_scatter", device=dev):
+        rows = torch.arange(P, dtype=torch.int32, device=centers.device)
+        ids1 = torch.cat([contexts, negs.reshape(-1)])
+        coefs = torch.cat([fw.c_pos, fw.c_neg.reshape(-1)])
+        hidx = torch.cat([rows, rows.repeat_interleave(n)])
+        scatter_add_rank1_hbm(syn1, ids1, coefs, fw.h, hidx)
+        scatter_add_rows_f32(syn0, centers, fw.d_center)
     return fw.loss_sum
 
 
@@ -608,11 +614,15 @@ def fused_pair_step_shared(syn0: torch.Tensor, syn1: torch.Tensor,
     ``d_center`` onto syn0. Under bf16 a row that is both a context and a
     pool word is rounded once by each of the two syn1 scatters."""
     P = centers.shape[0]
-    fw = pair_forward_shared(
-        syn0, syn1, centers, contexts, pair_mask, pool, alpha, num_negatives
-    )
-    rows = torch.arange(P, dtype=torch.int32, device=centers.device)
-    scatter_add_rank1_hbm(syn1, contexts, fw.c_pos, fw.h, rows)
-    scatter_add_rows_f32(syn1, pool, fw.d_pool)
-    scatter_add_rows_f32(syn0, centers, fw.d_center)
+    dev = syn0.device
+    with obs_events.stage("sgns_forward", device=dev):
+        fw = pair_forward_shared(
+            syn0, syn1, centers, contexts, pair_mask, pool, alpha,
+            num_negatives,
+        )
+    with obs_events.stage("sgns_scatter", device=dev):
+        rows = torch.arange(P, dtype=torch.int32, device=centers.device)
+        scatter_add_rank1_hbm(syn1, contexts, fw.c_pos, fw.h, rows)
+        scatter_add_rows_f32(syn1, pool, fw.d_pool)
+        scatter_add_rows_f32(syn0, centers, fw.d_center)
     return fw.loss_sum

@@ -836,7 +836,8 @@ class EmbeddingEngine:
         k_b = self._k_bucket(k)
         self._count_query_shape("topk_batch", q_b, k_b)
         val, idx = self._exact_topk(torch.from_numpy(q).to(self.device), k_b)
-        return val[:n, :k].cpu().numpy(), idx[:n, :k].cpu().numpy()
+        with obs_events.stage("topk_readback"):
+            return val[:n, :k].cpu().numpy(), idx[:n, :k].cpu().numpy()
 
     def _exact_topk(self, q: torch.Tensor, k_b: int, syn0=None, norms=None,
                     queryable=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -846,9 +847,11 @@ class EmbeddingEngine:
         device."""
         if syn0 is None and self._meshed:
             return self._mesh_topk(q, k_b)
-        scores = self._scores(q, syn0).T
-        inv, neg = self._mask_terms(norms, queryable)
-        return torch.topk(scores * inv[None, :] + neg[None, :], k_b)
+        with obs_events.stage("topk_scores", device=self.device):
+            scores = self._scores(q, syn0).T
+        with obs_events.stage("topk_select", device=self.device):
+            inv, neg = self._mask_terms(norms, queryable)
+            return torch.topk(scores * inv[None, :] + neg[None, :], k_b)
 
     def warmup(
         self,
@@ -1019,22 +1022,19 @@ class EmbeddingEngine:
         before = self.query_compiles
         nps = sorted({max(1, min(int(p), idx.clusters))
                       for p in (*nprobes, self._ann_conf["nprobe"])})
-        with obs_events.span("engine_warmup_ann"):
-            for p in nps:
-                for q in sorted({min(self._q_bucket(int(q)), ANN_MAX_Q)
-                                 for q in q_buckets}):
-                    for k in sorted({self._k_bucket(int(k)) for k in k_buckets}):
-                        self.ann_top_k_batch(
-                            np.zeros((q, self.dim), np.float32),
-                            min(k, p * idx.slots), p)
-            _ann.centroid_scores(self.logical_table(0), self.norms(),
-                                 np.zeros(_ann.INCREMENTAL_BLOCK, np.int32),
-                                 idx.centroids)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-        n = self.query_compiles - before
-        obs_events.emit("warmup_ann_done", shapes_compiled=n)
-        return n
+        for p in nps:
+            for q in sorted({min(self._q_bucket(int(q)), ANN_MAX_Q)
+                             for q in q_buckets}):
+                for k in sorted({self._k_bucket(int(k)) for k in k_buckets}):
+                    self.ann_top_k_batch(
+                        np.zeros((q, self.dim), np.float32),
+                        min(k, p * idx.slots), p)
+        _ann.centroid_scores(self.logical_table(0), self.norms(),
+                             np.zeros(_ann.INCREMENTAL_BLOCK, np.int32),
+                             idx.centroids)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return self.query_compiles - before
 
     def ann_recall_at_k(self, k: int = 10, sample: int = 64,
                         nprobe: Optional[int] = None, *, index=None,
@@ -1138,7 +1138,6 @@ class EmbeddingEngine:
             torch.from_numpy(t.prob).to(self.device),
             torch.from_numpy(t.alias).to(self.device),
         )
-        obs_events.emit("noise_counts_updated", train_words=int(c.sum()))
 
     def upload_corpus(self, ids: np.ndarray, offsets: np.ndarray,
                       n_valid: Optional[int] = None) -> None:
@@ -1336,27 +1335,31 @@ class EmbeddingEngine:
                              device=dev)
         out = torch.empty((4, K), dtype=torch.float64, device=dev)
         for i in range(K):
-            shrink = draws.shrink(pos + arange_s, grid_step0)
-            pc, px, pm, n_cons, n_pairs = dbat.pack_window_pairs(
-                ids, soffs, pos, shrink, window=W, pair_batch=P,
-                n_valid=n_valid,
-            )
-            pos = pos + n_cons
-            done = dbat.device_words_done(offsets, soffs, pos, n_valid)
-            wd = base_words + done.to(torch.float32)
-            alpha = torch.maximum(step_size_t * (1.0 - wd * inv_total), floor)
+            with obs_events.stage("pack_pairs", device=dev):
+                shrink = draws.shrink(pos + arange_s, grid_step0)
+                pc, px, pm, n_cons, n_pairs = dbat.pack_window_pairs(
+                    ids, soffs, pos, shrink, window=W, pair_batch=P,
+                    n_valid=n_valid,
+                )
+                pos = pos + n_cons
+                done = dbat.device_words_done(offsets, soffs, pos, n_valid)
+                wd = base_words + done.to(torch.float32)
+                alpha = torch.maximum(step_size_t * (1.0 - wd * inv_total),
+                                      floor)
             if self._meshed:
                 out[0, i] = self._mesh_pair_step(
                     pc, px, pm, alpha, draws, step0 + i)
             elif self.shared_negatives:
-                pool = draws.pool(step0 + i, self.shared_negatives)
+                with obs_events.stage("draw_negatives", device=dev):
+                    pool = draws.pool(step0 + i, self.shared_negatives)
                 loss_sum = fused_pair_step_shared(
                     self.syn0, self.syn1, pc, px, pm, pool, alpha,
                     self.num_negatives,
                 )
             else:
-                negs = draws.negatives(step0 + i, P)
-                nmask = negative_mask(negs, px, pm)
+                with obs_events.stage("draw_negatives", device=dev):
+                    negs = draws.negatives(step0 + i, P)
+                    nmask = negative_mask(negs, px, pm)
                 loss_sum = fused_pair_step(
                     self.syn0, self.syn1, pc, px, pm, negs, nmask, alpha
                 )
@@ -1374,7 +1377,8 @@ class EmbeddingEngine:
         """One packed group's results as host arrays ``(losses,
         pair_counts, pos_ends, alphas)``, once its copy has landed: the
         wait covers this group and not the groups queued after it."""
-        host = group.wait()
+        with obs_events.stage("readback_wait"):
+            host = group.wait()
         return (
             host[0].astype(np.float32), host[1].astype(np.int64),
             host[2].astype(np.int64), host[3].astype(np.float32),
@@ -2007,8 +2011,6 @@ class EmbeddingEngine:
         self.extra_rows_assigned += n
         self._tick_tables("assign_extra_row")
         self._ann_touch_rows(range(start, start + n))
-        obs_events.emit("extra_rows_assigned", start=start, n=n,
-                        assigned=self.extra_rows_assigned, words=words[:8])
         return list(range(start, start + n))
 
     def assign_extra_row(self, word: Optional[str] = None) -> int:
@@ -2042,8 +2044,6 @@ class EmbeddingEngine:
             _ann_mod.remove_rows(self._ann, self.logical_table(0),
                                  range(start, start + n))
             self._ann.table_version = self.table_version
-        obs_events.emit("extra_rows_freed", freed=n,
-                        assigned=self.extra_rows_assigned)
         return n
 
     def _ann_touch_rows(self, rows) -> None:
